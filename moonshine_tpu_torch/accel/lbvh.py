@@ -1,12 +1,19 @@
-"""Karras LBVH construction on the host (port of the numpy build path of
-moonshine_tpu/accel/lbvh.py: `build(..., as_numpy=True)`).
+"""Binary BVH construction on the host (port of the numpy build paths of
+moonshine_tpu/accel/lbvh.py: `build(..., as_numpy=True)` and
+`build_sah(..., as_numpy=True)`).
 
-A radix tree over Morton-sorted triangle centroids (Karras 2012), built
-with vectorised numpy and flattened into (left, count, escape) arrays.
-The port only collapses it into the wide BVH (wide.py); the binary tree
-never goes to the device. 64-bit keys (30-bit Morton << 32 | index) are
-strictly increasing, so every pass loop below converges within 70
-iterations even for coincident geometry.
+`build` is a radix tree over Morton-sorted triangle centroids (Karras
+2012); `build_sah` splits top-down by the binned surface-area heuristic.
+Both are vectorised numpy flattened into (left, count, escape) arrays.
+The port only collapses them into the wide BVH (wide.py); the binary tree
+never goes to the device. Karras' 64-bit keys (30-bit Morton << 32 |
+index) are strictly increasing, so its pass loops converge within 70
+iterations even for coincident geometry; the SAH build bounds its depth
+with median splits past 48 levels.
+
+Not ported: `presplit_refs` (spatial-split references, off by default in
+the reference) and the reference's power-of-two node padding (padding
+nodes are unreachable, so the wide rows are the same without it).
 """
 
 from __future__ import annotations
@@ -295,3 +302,196 @@ def _single_leaf_bvh(tri_verts, order, count):
                    sorted_verts.max(axis=(0, 1))[None],
                    np.zeros(1), np.full(1, count), np.full(1, SENTINEL),
                    order, 1, len(tri_verts), np.full(1, -1))
+
+
+def _ranges_to_members(lo: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Concatenate [lo[i], lo[i]+lens[i]) index ranges without Python loops."""
+    total = int(lens.sum())
+    out = np.ones(total, np.int64)
+    out[0] = lo[0]
+    cl = np.cumsum(lens)[:-1]
+    out[cl] = lo[1:] - (lo[:-1] + lens[:-1]) + 1
+    return np.cumsum(out)
+
+
+def _half_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Half surface area of boxes [..., 3]; 0 for empty (inverted) boxes."""
+    e = hi - lo
+    a = e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
+    return np.where((e >= 0).all(axis=-1), a, 0.0)
+
+
+def build_sah(tri_verts: np.ndarray, leaf_size: int = 4,
+              n_bins: int = 16) -> BVH:
+    """Top-down binned-SAH BVH over [T, 3, 3] triangles, in the same
+    flattened layout as `build`. Each level bins every frontier node's
+    triangles along its dominant centroid axis, sweeps the bins for the
+    least-SAH partition and partitions the triangle order in place, all
+    as segment operations over the whole frontier."""
+    tri_verts = np.asarray(tri_verts, np.float32)
+    T = len(tri_verts)
+    if T == 0:
+        raise ValueError("cannot build a BVH over zero triangles")
+    if T <= leaf_size:
+        return _single_leaf_bvh(tri_verts, np.arange(T, dtype=np.int64), T)
+    cent = tri_verts.mean(axis=1).astype(np.float64)
+    tmin = tri_verts.min(axis=1).astype(np.float64)
+    tmax = tri_verts.max(axis=1).astype(np.float64)
+
+    order = np.arange(T, dtype=np.int64)
+    # emitted nodes (root = 0): ranges + children; leaves resolved at the end
+    node_lo = [np.asarray([0], np.int64)]
+    node_len = [np.asarray([T], np.int64)]
+    link_parent, link_left, link_right = [], [], []
+    n_nodes = 1
+    # frontier: output node ids + their [lo, len) ranges over `order`
+    f_node = np.asarray([0], np.int64)
+    f_lo = np.asarray([0], np.int64)
+    f_len = np.asarray([T], np.int64)
+    n_levels = 0
+
+    while len(f_node):
+        n_levels += 1
+        F = len(f_node)
+        starts = np.concatenate([[0], np.cumsum(f_len)[:-1]])
+        member = _ranges_to_members(f_lo, f_len)  # positions in `order`
+        tri = order[member]
+        seg = np.repeat(np.arange(F, dtype=np.int64), f_len)
+        c = cent[tri]
+
+        cb_min = np.minimum.reduceat(c, starts, axis=0)
+        cb_max = np.maximum.reduceat(c, starts, axis=0)
+        ext = cb_max - cb_min
+        axis = ext.argmax(axis=1)  # [F]
+
+        ax_c = c[np.arange(len(c)), axis[seg]]
+        ax_lo = cb_min[seg, axis[seg]]
+        ax_ext = np.maximum(ext[seg, axis[seg]], 1e-30)
+        b = np.minimum(((ax_c - ax_lo) / ax_ext * n_bins).astype(np.int64),
+                       n_bins - 1)
+
+        # per-(seg, bin) triangle counts and AABB unions
+        key = seg * n_bins + b
+        cnt = np.bincount(key, minlength=F * n_bins).reshape(F, n_bins)
+        ord2 = np.argsort(key, kind="stable")
+        ks = key[ord2]
+        gstart = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+        gkey = ks[gstart]
+        bmin = np.full((F * n_bins, 3), np.inf)
+        bmax = np.full((F * n_bins, 3), -np.inf)
+        bmin[gkey] = np.minimum.reduceat(tmin[tri][ord2], gstart, axis=0)
+        bmax[gkey] = np.maximum.reduceat(tmax[tri][ord2], gstart, axis=0)
+        bmin = bmin.reshape(F, n_bins, 3)
+        bmax = bmax.reshape(F, n_bins, 3)
+
+        # SAH sweep: split after bin k (left = bins <= k)
+        lmin = np.minimum.accumulate(bmin, axis=1)
+        lmax = np.maximum.accumulate(bmax, axis=1)
+        rmin = np.minimum.accumulate(bmin[:, ::-1], axis=1)[:, ::-1]
+        rmax = np.maximum.accumulate(bmax[:, ::-1], axis=1)[:, ::-1]
+        lcnt = np.cumsum(cnt, axis=1)
+        rcnt = f_len[:, None] - lcnt  # count of bins > k at column k
+        cost = (_half_area(lmin, lmax)[:, :-1] * lcnt[:, :-1]
+                + _half_area(rmin, rmax)[:, 1:] * rcnt[:, :-1])
+        cost = np.where((lcnt[:, :-1] == 0) | (rcnt[:, :-1] == 0), np.inf,
+                        cost)
+        best = cost.argmin(axis=1)  # [F] split-after bin
+        degenerate = ~np.isfinite(cost[np.arange(F), best])
+        if n_levels > 48:
+            # depth guard: median splits from here on keep the depth
+            # within the bottom-up passes' bounds
+            degenerate[:] = True
+
+        # left flag per member; degenerate segments split at the median
+        go_left = b <= best[seg]
+        local = np.arange(len(member)) - starts[seg]
+        go_left = np.where(degenerate[seg], local < (f_len[seg] + 1) // 2,
+                           go_left)
+
+        # stable partition of each segment: left block then right block
+        part = np.argsort(seg * 2 + (~go_left).astype(np.int64),
+                          kind="stable")
+        order[member] = tri[part]
+
+        n_left = np.bincount(seg, weights=go_left.astype(np.float64),
+                             minlength=F).astype(np.int64)
+        l_lo, l_len = f_lo, n_left
+        r_lo, r_len = f_lo + n_left, f_len - n_left
+
+        # emit children; those still above leaf_size join the next frontier
+        ids_l = n_nodes + np.arange(F, dtype=np.int64)
+        ids_r = n_nodes + F + np.arange(F, dtype=np.int64)
+        n_nodes += 2 * F
+        node_lo.extend([l_lo, r_lo])
+        node_len.extend([l_len, r_len])
+        link_parent.append(f_node)
+        link_left.append(ids_l)
+        link_right.append(ids_r)
+
+        split_l = l_len > leaf_size
+        split_r = r_len > leaf_size
+        f_node = np.concatenate([ids_l[split_l], ids_r[split_r]])
+        f_lo = np.concatenate([l_lo[split_l], r_lo[split_r]])
+        f_len = np.concatenate([l_len[split_l], r_len[split_r]])
+        if len(f_node):
+            srt = np.argsort(f_lo, kind="stable")  # keep ranges sorted
+            f_node, f_lo, f_len = f_node[srt], f_lo[srt], f_len[srt]
+
+    node_lo = np.concatenate(node_lo)
+    node_len = np.concatenate(node_len)
+    child_left = np.full(n_nodes, -1, np.int64)
+    child_right = np.full(n_nodes, -1, np.int64)
+    child_left[np.concatenate(link_parent)] = np.concatenate(link_left)
+    child_right[np.concatenate(link_parent)] = np.concatenate(link_right)
+    return _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
+                             child_right, 2 * n_levels + 6)
+
+
+def _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
+                      child_right, depth_bound) -> BVH:
+    """Escape links, parent links and AABBs for a top-down tree over
+    contiguous ranges of `order` (node ids in emit order)."""
+    M = len(node_lo)
+    is_leaf = child_left < 0
+
+    parent = np.full(M, -1, np.int64)
+    valid = child_left >= 0
+    parent[child_left[valid]] = np.flatnonzero(valid)
+    parent[child_right[valid]] = np.flatnonzero(valid)
+
+    # escape(left child) = right sibling; escape(right child) =
+    # escape(parent); escape(root) = SENTINEL
+    escape = np.full(M, -2, np.int64)
+    escape[0] = -1
+    for _ in range(depth_bound):
+        unresolved = escape == -2
+        if not unresolved.any():
+            break
+        p = np.clip(parent, 0, M - 1)
+        is_left = child_left[p] == np.arange(M)
+        cand = np.where(is_left, child_right[p], escape[p])
+        ready = (parent >= 0) & (is_left | (cand != -2))
+        escape = np.where(unresolved & ready, cand, escape)
+    if (escape == -2).any():
+        raise RuntimeError("escape link propagation did not converge")
+
+    # AABBs straight from ranges (every node covers order[lo:lo+len)),
+    # chunked so the member scratch stays bounded
+    sorted_verts = tri_verts[order]
+    tri_min = sorted_verts.min(axis=1)
+    tri_max = sorted_verts.max(axis=1)
+    aabb_min = np.empty((M, 3), np.float32)
+    aabb_max = np.empty((M, 3), np.float32)
+    for i_grp in range(0, M, 1 << 16):
+        sl = slice(i_grp, min(i_grp + (1 << 16), M))
+        lens = node_len[sl]
+        mem = _ranges_to_members(node_lo[sl], lens)
+        st = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        aabb_min[sl] = np.minimum.reduceat(tri_min[mem], st, axis=0)
+        aabb_max[sl] = np.maximum.reduceat(tri_max[mem], st, axis=0)
+
+    node_left = np.where(is_leaf, node_lo, child_left)
+    node_count = np.where(is_leaf, node_len, 0)
+    escape = np.where(escape == -1, SENTINEL, escape)
+    return _to_bvh(aabb_min, aabb_max, node_left, node_count, escape, order,
+                   M, len(order), parent)

@@ -1,10 +1,12 @@
-"""Build and load the CUDA traversal library (csrc/traverse.cu).
+"""Build and load the CUDA traversal libraries (csrc/traverse.cu and
+csrc/treelet.cu, which share csrc/visit.cuh).
 
-nvcc compiles the source into a shared library with a plain C interface,
-loaded with ctypes. It is built at first use into `build/` at the root
-of the checkout (listed in .gitignore) and rebuilt whenever the source or
-the flags change: the library's name carries their hash. Nothing here
-runs at import time.
+nvcc compiles each source into a shared library with a plain C
+interface, loaded with ctypes. A library is built at first use into
+`build/` at the root of the checkout (listed in .gitignore) and rebuilt
+whenever its source, the shared header or the flags change: its name
+carries their hash. `build_all` starts one nvcc per source at once and
+waits for all. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import subprocess
 import time
 
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = _ROOT / "moonshine_tpu_torch" / "csrc" / "traverse.cu"
+CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
+SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu"}
+HEADERS = [CSRC / "visit.cuh"]
 BUILD_DIR = _ROOT / "build"
 # -fmad=false keeps every multiply and add separately rounded, as in the
 # plain torch version; IEEE division is nvcc's default without fast math
@@ -31,29 +35,45 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-class TraverseLib:
-    """The loaded library plus what its build reported."""
+class NativeLib:
+    """A loaded library plus what its build reported."""
 
     def __init__(self, path: pathlib.Path, build_seconds: float, log: str):
         self.path = path
         self.build_seconds = build_seconds
         self.log = log
-        lib = ctypes.CDLL(str(path))
-        lib.msn_stack_capacity.argtypes = []
-        lib.msn_stack_capacity.restype = _I
-        lib.msn_closest_hit.argtypes = (
-            [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P])
-        lib.msn_closest_hit.restype = _I
-        lib.msn_any_hit.argtypes = (
-            [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P])
-        lib.msn_any_hit.restype = _I
-        self.closest_hit = lib.msn_closest_hit
-        self.any_hit = lib.msn_any_hit
-        self.stack_capacity = int(lib.msn_stack_capacity())
-        self._lib = lib
+        self._lib = ctypes.CDLL(str(path))
+
+    def _fn(self, name: str, argtypes: list):
+        fn = getattr(self._lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+        return fn
 
 
-_LOADED: TraverseLib | None = None
+class TraverseLib(NativeLib):
+    def __init__(self, *args):
+        super().__init__(*args)
+        rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I]
+        self.closest_hit = self._fn("msn_closest_hit",
+                                    rays + [_P, _P, _P, _P, _P])
+        self.any_hit = self._fn("msn_any_hit", rays + [_P, _P])
+        self.stack_capacity = int(self._fn("msn_stack_capacity", [])())
+
+
+class TreeletLib(NativeLib):
+    def __init__(self, *args):
+        super().__init__(*args)
+        rays = [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I]
+        self.closest_hit = self._fn("msn_treelet_closest_hit",
+                                    rays + [_P, _P, _P, _P, _P])
+        self.any_hit = self._fn("msn_treelet_any_hit", rays + [_P, _P])
+        self.stack_capacity = int(
+            self._fn("msn_treelet_stack_capacity", [])())
+
+
+_CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib}
+_LOADED: dict[str, NativeLib] = {}
 
 
 def _nvcc() -> str:
@@ -67,25 +87,51 @@ def _nvcc() -> str:
                        "CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
-def traverse_lib() -> TraverseLib:
-    """Build (if needed) and load the library; cached per process."""
-    global _LOADED
-    if _LOADED is not None:
-        return _LOADED
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libmsn_traverse_{digest}.so"
+def _target(name: str) -> pathlib.Path:
+    blob = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in HEADERS) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(blob).hexdigest()[:16]
+    return BUILD_DIR / f"libmsn_{name}_{digest}.so"
+
+
+def build_all(names=tuple(SOURCES)) -> dict[str, NativeLib]:
+    """Build (one nvcc per missing library, all started together) and load
+    the named libraries; cached per process."""
     t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
+    started = {}
+    for name in names:
+        out = _target(name)
+        if name in _LOADED or out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
+        started[name] = (out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {}
+    failed = []
+    for name, (out, tmp, proc) in started.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see a part
-    _LOADED = TraverseLib(out, time.perf_counter() - t0, log)
-    return _LOADED
+            failed.append(f"nvcc failed for {SOURCES[name].name} "
+                          f"({proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never see a part
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    seconds = time.perf_counter() - t0
+    for name in names:
+        if name not in _LOADED:
+            _LOADED[name] = _CLASSES[name](_target(name), seconds,
+                                           logs.get(name, ""))
+    return {name: _LOADED[name] for name in names}
+
+
+def traverse_lib() -> TraverseLib:
+    """The packet traversal library (csrc/traverse.cu)."""
+    return build_all(("traverse",))["traverse"]
+
+
+def treelet_lib() -> TreeletLib:
+    """The treelet traversal library (csrc/treelet.cu)."""
+    return build_all(("treelet",))["treelet"]

@@ -5,8 +5,12 @@ surface of moonshine_tpu/accel/packet.py).
 kernels of csrc/traverse.cu for CUDA tensors, and run the plain torch
 versions beside them (`closest_hit_plain`, `any_hit_plain`) for CPU
 tensors; any other device raises. There is no fallback between the two:
-a kernel that does not build or launch raises. The `_hbm` names are the
-same functions: on the card one kernel serves every scene size.
+a kernel that does not build or launch raises. On the card one kernel
+serves every scene size; the `_hbm` names differ only in sorting the
+rays by coherence first (`sort=True`, their default) and restoring lane
+order after, as the reference's do. `fits_vmem` and `stack_ok` keep the
+reference's residency rule and its two stack limits, so that dispatch
+(integrator/path.py) picks what the reference would pick.
 
 Contract (the JAX wrappers'): `active_in=False` lanes are dead (tmax
 becomes -1e30 inside) and so are lanes with tmax <= 0. Closest hit
@@ -16,6 +20,8 @@ lane; any hit returns a bool, True for an occluder in (0, t_max).
 The plain versions are the kernels' reference: one stack per lane
 ([N, S] tensor), children pushed far-to-near by the lane's own direction
 sign on the node's sort axis, the same expressions in the same order.
+With count_visits=True they also return what the traversal touched
+(`Visits`), from which a kernel's least time is bounded.
 """
 
 from __future__ import annotations
@@ -29,6 +35,17 @@ from .wide import WideBVH
 
 _NEG = -1.0e30
 _TINY = 1e-12
+
+# The reference's stack limits: 512 entries for scenes whose rows fit its
+# VMEM budget, 256 for scenes streamed from HBM. The CUDA kernel holds
+# 512 (csrc/visit.cuh); integrator/path.py applies the 256 limit to
+# HBM-class scenes as the reference does.
+STACK_DEPTH = 512
+HBM_STACK_DEPTH = 256
+# Scene rows up to this size are "VMEM-class" in the reference. On the
+# card it decides only which dispatch and resort default the reference
+# would pick; it is not a memory limit.
+VMEM_SCENE_BUDGET_BYTES = 10 * 1024 * 1024
 
 # Kernel launches per kernel, for showing that a run went through them.
 # A wrapper adds one exactly where it launches; callers reset to 0.
@@ -51,23 +68,23 @@ class Hit(NamedTuple):
         return self.tri >= 0
 
 
-def stack_ok(wbvh: WideBVH, capacity: int) -> bool:
-    """True when the tree's worst-case stack occupancy fits `capacity`."""
-    return wbvh.max_stack <= capacity
+def row_bytes(wbvh: WideBVH) -> int:
+    """Bytes of the node and leaf rows."""
+    return sum(x.numel() * x.element_size()
+               for x in (wbvh.nodes, wbvh.leaves))
+
+
+def fits_vmem(wbvh: WideBVH) -> bool:
+    return row_bytes(wbvh) <= VMEM_SCENE_BUDGET_BYTES
+
+
+def stack_ok(wbvh: WideBVH, hbm: bool) -> bool:
+    """True when the tree's worst-case stack occupancy fits the
+    reference's stack for its residency."""
+    return wbvh.max_stack <= (HBM_STACK_DEPTH if hbm else STACK_DEPTH)
 
 
 # --- plain torch versions ---
-
-def _rays(ray_o, ray_d):
-    o = [ray_o[:, c] for c in range(3)]
-    d = [ray_d[:, c] for c in range(3)]
-    inv = []
-    for c in d:
-        sign_tiny = torch.where(c >= 0.0, _TINY, -_TINY)
-        inv.append(1.0 / torch.where(torch.abs(c) < _TINY, sign_tiny, c))
-    oinv = [o[c] * inv[c] for c in range(3)]
-    return o, d, inv, oinv
-
 
 def _tri_closest(v0, e1, e2, o, d, t_best):
     """Moller-Trumbore with exact division; components as [n] tensors."""
@@ -112,26 +129,50 @@ def _tri_any(v0, e1, e2, o, d, t_max):
             & (u_n + v_n <= det_a) & (t_n > 0.0) & (t_n < t_max * det_a))
 
 
-def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
-                    any_hit: bool):
-    N = ray_o.shape[0]
-    dev = ray_o.device
-    tmax = (t_caller if active_in is None
-            else torch.where(active_in, t_caller, _NEG))
-    o, d, inv, oinv = _rays(ray_o, ray_d)
+class Visits(NamedTuple):
+    """What one plain traversal touched, for the kernels' bound: visits,
+    occupied child slots tested at internal visits, occupied triangle
+    slots tested at leaf visits, and distinct rows read."""
+
+    nodes: int
+    leaves: int
+    node_slots: int
+    leaf_tris: int
+    node_rows: int
+    leaf_rows: int
+
+
+# fp32 operations per occupied slot, counted off the plain expressions
+# (mul, add/sub, div, min/max, abs and compares; selects not counted): a
+# child box test (both hit forms), a closest-hit Moller-Trumbore, and the
+# division-free any-hit test
+FLOPS_PER_NODE_SLOT = 25
+FLOPS_PER_TRI_CLOSEST = 55
+FLOPS_PER_TRI_ANY = 54
+
+
+def _walk(wbvh: WideBVH, r, st: dict, lanes, roots, any_hit: bool,
+          treelet_form: bool, stack, counts: dict | None):
+    """Traverse each lane of `lanes` from its root in `roots` until its
+    stack empties (or, for any hit, it is occluded), updating the lane
+    state `st` (t_best, tri, u, v, occ) in place.
+
+    treelet_form selects the treelet kernel's child test,
+    `(b - o) * inv` slabs and `tnear <= tfar & tfar >= 0 & tnear <=
+    prune`; otherwise the packet kernel's `b * inv - oinv` slabs and
+    `max(tnear, 0) <= min(tfar, prune)`. The two agree for live lanes up
+    to rounding."""
+    o, d, inv, oinv, ray_d = r
+    dev = inv[0].device
     w, S = wbvh.width, wbvh.leaf_slots
     nodes = wbvh.nodes.reshape(wbvh.nodes.shape[0], -1)
     leaves = wbvh.leaves.reshape(wbvh.leaves.shape[0], -1)
+    tmax, t_best, tri = st["tmax"], st["t_best"], st["tri"]
+    best_u, best_v, occ = st["u"], st["v"], st["occ"]
+    top = torch.zeros(tmax.shape[0], dtype=torch.int64, device=dev)
+    stack[lanes, 0] = roots
+    top[lanes] = 1
 
-    stack = torch.zeros((N, wbvh.max_stack), dtype=torch.int64, device=dev)
-    top = (tmax > 0.0).to(torch.int64)  # the root (node 0) is pre-pushed
-    t_best = tmax.clone()
-    tri = torch.full((N,), -1, dtype=torch.int64, device=dev)
-    best_u = torch.zeros(N, dtype=torch.float32, device=dev)
-    best_v = torch.zeros(N, dtype=torch.float32, device=dev)
-    occ = torch.zeros(N, dtype=torch.bool, device=dev)
-
-    lanes = torch.nonzero(top > 0).squeeze(1)
     while lanes.numel():
         top[lanes] -= 1
         node = stack[lanes, top[lanes]]
@@ -139,13 +180,22 @@ def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
 
         li = lanes[internal]
         if li.numel():
-            rows = nodes[node[internal]]
+            ids = node[internal]
+            rows = nodes[ids]
             n = len(li)
             ptr = rows[:, 6 * w:7 * w]
-            t0 = [rows[:, c * w:(c + 1) * w] * inv[c][li, None]
-                  - oinv[c][li, None] for c in range(3)]
-            t1 = [rows[:, (3 + c) * w:(4 + c) * w] * inv[c][li, None]
-                  - oinv[c][li, None] for c in range(3)]
+            lo = [rows[:, c * w:(c + 1) * w] for c in range(3)]
+            hi = [rows[:, (3 + c) * w:(4 + c) * w] for c in range(3)]
+            if treelet_form:
+                t0 = [(lo[c] - o[c][li, None]) * inv[c][li, None]
+                      for c in range(3)]
+                t1 = [(hi[c] - o[c][li, None]) * inv[c][li, None]
+                      for c in range(3)]
+            else:
+                t0 = [lo[c] * inv[c][li, None] - oinv[c][li, None]
+                      for c in range(3)]
+                t1 = [hi[c] * inv[c][li, None] - oinv[c][li, None]
+                      for c in range(3)]
             tnear = torch.maximum(
                 torch.maximum(torch.minimum(t0[0], t1[0]),
                               torch.minimum(t0[1], t1[1])),
@@ -155,8 +205,13 @@ def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
                               torch.maximum(t0[1], t1[1])),
                 torch.maximum(t0[2], t1[2]))
             prune = (tmax if any_hit else t_best)[li, None]
-            hit = ((torch.clamp_min(tnear, 0.0) <= torch.minimum(tfar, prune))
-                   & (ptr != -1.0))
+            if treelet_form:
+                hit = (tnear <= tfar) & (tfar >= 0.0) & (tnear <= prune)
+            else:
+                hit = (torch.clamp_min(tnear, 0.0)
+                       <= torch.minimum(tfar, prune))
+            used = ptr != -1.0
+            hit &= used
             axis = rows[:, 7 * w]
             ax = torch.where(axis < 0.5, 0, torch.where(axis < 1.5, 1, 2))
             fwd = (ray_d[li].gather(1, ax[:, None])[:, 0] >= 0.0)[:, None]
@@ -167,17 +222,22 @@ def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
             lane_idx = li[:, None].expand(n, w)
             stack[lane_idx[hit], pos[hit]] = ptr[hit]
             top[li] += hit.sum(1)
+            if counts is not None:
+                counts["nodes"] += n
+                counts["node_slots"] += int(used.sum())
+                counts["node_seen"][ids] = True
 
         ll = lanes[~internal]
         if ll.numel():
-            rows = leaves[-2 - node[~internal]]
+            ids = -2 - node[~internal]
+            rows = leaves[ids]
             tid = rows[:, 9 * S:10 * S]
             ol = [c[ll] for c in o]
             dl = [c[ll] for c in d]
             comp = lambda k, j: rows[:, k * S + j]
             if any_hit:
                 tm = tmax[ll]
-                occ_l = torch.zeros(len(ll), dtype=torch.bool, device=dev)
+                occ_l = occ[ll]
                 for j in range(S):
                     v0, e1, e2 = ([comp(k, j) for k in range(b, b + 3)]
                                   for b in (0, 3, 6))
@@ -198,16 +258,75 @@ def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
                     bv = torch.where(valid, v, bv)
                 t_best[ll], tri[ll] = tb, tr
                 best_u[ll], best_v[ll] = bu, bv
+            if counts is not None:
+                counts["leaves"] += len(ll)
+                counts["leaf_tris"] += int((tid >= 0.0).sum())
+                counts["leaf_seen"][ids] = True
 
         keep = top[lanes] > 0
         if any_hit:
             keep &= ~occ[lanes]
         lanes = lanes[keep]
 
+
+def _plain_state(wbvh: WideBVH, ray_o, ray_d, t_eff, count_visits: bool):
+    """(ray terms, lane state, stack, visit counters) for a plain walk
+    over lanes whose effective t_max is `t_eff` (dead lanes <= 0)."""
+    N = ray_o.shape[0]
+    dev = ray_o.device
+    o = list(ray_o.unbind(1))
+    d = list(ray_d.unbind(1))
+    inv = []
+    for c in d:
+        sign_tiny = torch.where(c >= 0.0, _TINY, -_TINY)
+        inv.append(1.0 / torch.where(torch.abs(c) < _TINY, sign_tiny, c))
+    oinv = [o[c] * inv[c] for c in range(3)]
+    st = dict(
+        tmax=t_eff, t_best=t_eff.clone(),
+        tri=torch.full((N,), -1, dtype=torch.int64, device=dev),
+        u=torch.zeros(N, dtype=torch.float32, device=dev),
+        v=torch.zeros(N, dtype=torch.float32, device=dev),
+        occ=torch.zeros(N, dtype=torch.bool, device=dev),
+    )
+    stack = torch.zeros((N, wbvh.max_stack), dtype=torch.int64, device=dev)
+    counts = None
+    if count_visits:
+        counts = dict(
+            nodes=0, leaves=0, node_slots=0, leaf_tris=0,
+            node_seen=torch.zeros(wbvh.nodes.shape[0], dtype=torch.bool,
+                                  device=dev),
+            leaf_seen=torch.zeros(wbvh.leaves.shape[0], dtype=torch.bool,
+                                  device=dev))
+    return (o, d, inv, oinv, ray_d), st, stack, counts
+
+
+def _visits(counts: dict) -> Visits:
+    return Visits(nodes=counts["nodes"], leaves=counts["leaves"],
+                  node_slots=counts["node_slots"],
+                  leaf_tris=counts["leaf_tris"],
+                  node_rows=int(counts["node_seen"].sum()),
+                  leaf_rows=int(counts["leaf_seen"].sum()))
+
+
+def _plain_result(st: dict, t_caller, any_hit: bool):
     if any_hit:
-        return occ
-    t = torch.where(tri >= 0, t_best, t_caller)
-    return Hit(t=t, tri=tri.to(torch.int32), u=best_u, v=best_v)
+        return st["occ"]
+    tri = st["tri"]
+    t = torch.where(tri >= 0, st["t_best"], t_caller)
+    return Hit(t=t, tri=tri.to(torch.int32), u=st["u"], v=st["v"])
+
+
+def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
+                    any_hit: bool, count_visits: bool = False):
+    tmax = (t_caller if active_in is None
+            else torch.where(active_in, t_caller, _NEG))
+    r, st, stack, counts = _plain_state(wbvh, ray_o, ray_d, tmax,
+                                        count_visits)
+    lanes = torch.nonzero(tmax > 0.0).squeeze(1)
+    roots = torch.zeros_like(lanes)  # node 0 is the root
+    _walk(wbvh, r, st, lanes, roots, any_hit, False, stack, counts)
+    out = _plain_result(st, t_caller, any_hit)
+    return (out, _visits(counts)) if count_visits else out
 
 
 def _t_max_lanes(t_max, n, device) -> torch.Tensor:
@@ -236,34 +355,58 @@ def _check_rays(wbvh: WideBVH, ray_o, ray_d, active_in):
 
 
 def closest_hit_plain(wbvh: WideBVH, ray_o, ray_d, t_max,
-                      active_in=None) -> Hit:
-    """Plain torch closest hit (the CUDA kernel's reference)."""
+                      active_in=None, count_visits: bool = False):
+    """Plain torch closest hit (the CUDA kernel's reference). Returns a
+    Hit, or (Hit, Visits) with count_visits."""
     _check_rays(wbvh, ray_o, ray_d, active_in)
     t_caller = _t_max_lanes(t_max, ray_o.shape[0], ray_o.device)
-    return _traverse_plain(wbvh, ray_o, ray_d, t_caller, active_in, False)
+    return _traverse_plain(wbvh, ray_o, ray_d, t_caller, active_in, False,
+                           count_visits)
 
 
 def any_hit_plain(wbvh: WideBVH, ray_o, ray_d, t_max,
-                  active_in=None) -> torch.Tensor:
-    """Plain torch any hit (the CUDA kernel's reference)."""
+                  active_in=None, count_visits: bool = False):
+    """Plain torch any hit (the CUDA kernel's reference). Returns bool
+    [N], or (bool [N], Visits) with count_visits."""
     _check_rays(wbvh, ray_o, ray_d, active_in)
     t_caller = _t_max_lanes(t_max, ray_o.shape[0], ray_o.device)
-    return _traverse_plain(wbvh, ray_o, ray_d, t_caller, active_in, True)
+    return _traverse_plain(wbvh, ray_o, ray_d, t_caller, active_in, True,
+                           count_visits)
+
+
+def sort_key(wbvh: WideBVH, ray_o, ray_d, active=None):
+    """Coherence key (the reference's _sort_key): 4^3 origin cells x 8
+    direction octants, dead lanes keyed 1 << 20 so they sort last."""
+    lo = wbvh.bounds[0]
+    inv_ext = 1.0 / torch.clamp_min(wbvh.bounds[1] - lo, 1e-20)
+    cell = torch.clamp(((ray_o - lo) * inv_ext * 4.0).to(torch.int32), 0, 3)
+    octant = ((ray_d[:, 0] > 0).to(torch.int32) * 4
+              + (ray_d[:, 1] > 0).to(torch.int32) * 2
+              + (ray_d[:, 2] > 0).to(torch.int32))
+    key = ((cell[:, 0] * 4 + cell[:, 1]) * 4 + cell[:, 2]) * 8 + octant
+    if active is not None:
+        key = torch.where(active, key, 1 << 20)
+    return key
 
 
 # --- CUDA wrappers ---
 
-def _launch_args(lib, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):
-    if not stack_ok(wbvh, lib.stack_capacity):
+def _check_launch(lib, wbvh: WideBVH, n: int):
+    """Raise unless a kernel of `lib` can take this tree and n rays."""
+    if wbvh.max_stack > lib.stack_capacity:
         raise ValueError(
             f"tree needs a {wbvh.max_stack}-entry traversal stack; the "
             f"kernel holds {lib.stack_capacity}")
     for name, x in (("nodes", wbvh.nodes), ("leaves", wbvh.leaves)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-    n = ray_o.shape[0]
     if n >= 2**31:
         raise ValueError("too many rays for one launch")
+
+
+def _launch_args(lib, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):
+    n = ray_o.shape[0]
+    _check_launch(lib, wbvh, n)
     ray_o = ray_o.contiguous()
     ray_d = ray_d.contiguous()
     t_lanes = _t_max_lanes(t_max, n, ray_o.device)
@@ -335,6 +478,36 @@ def any_hit_packet(wbvh: WideBVH, ray_o, ray_d, t_max,
     return occ
 
 
-# the reference's HBM-streaming variants: on the card the same kernel
-closest_hit_packet_hbm = closest_hit_packet
-any_hit_packet_hbm = any_hit_packet
+def _sorted(fn, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):
+    """fn on coherence-sorted rays (stable sort), results back in lane
+    order. Each lane's result does not depend on its neighbours, so the
+    sort changes speed only."""
+    n = ray_o.shape[0]
+    perm = torch.argsort(sort_key(wbvh, ray_o, ray_d, active_in),
+                         stable=True)
+    t_lanes = _t_max_lanes(t_max, n, ray_o.device)
+    out = fn(wbvh, ray_o[perm], ray_d[perm], t_lanes[perm],
+             None if active_in is None else active_in[perm])
+    unsort = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
+    if isinstance(out, Hit):
+        return Hit(*(unsort(x) for x in out))
+    return unsort(out)
+
+
+def closest_hit_packet_hbm(wbvh: WideBVH, ray_o, ray_d, t_max,
+                           active_in=None, sort: bool = True) -> Hit:
+    """The reference's HBM-streaming variant: the same kernel, on rays
+    coherence-sorted first unless the caller keeps its batch sorted
+    (sort=False: the integrator's per-bounce state resort)."""
+    if not sort:
+        return closest_hit_packet(wbvh, ray_o, ray_d, t_max, active_in)
+    _check_rays(wbvh, ray_o, ray_d, active_in)
+    return _sorted(closest_hit_packet, wbvh, ray_o, ray_d, t_max, active_in)
+
+
+def any_hit_packet_hbm(wbvh: WideBVH, ray_o, ray_d, t_max,
+                       active_in=None, sort: bool = True) -> torch.Tensor:
+    if not sort:
+        return any_hit_packet(wbvh, ray_o, ray_d, t_max, active_in)
+    _check_rays(wbvh, ray_o, ray_d, active_in)
+    return _sorted(any_hit_packet, wbvh, ray_o, ray_d, t_max, active_in)

@@ -1,11 +1,14 @@
 """Wide BVH for packet traversal (port of the build path of
-moonshine_tpu/accel/wide.py: `build_wide` and `assemble_rows`).
+moonshine_tpu/accel/wide.py: `build_wide`, `assemble_rows`,
+`plan_treelets` and `_treelet_boxes`).
 
-Collapses the binary Karras tree into `width`-ary nodes (each wide node
-repeatedly splits its largest-count child), bin-packs each node's leaf
-children into fat leaves of up to `leaf_cap` fully unpacked triangles,
-and sorts child slots along the node's dominant centroid axis. The host
-build is numpy; `build_wide` puts the rows on the requested device.
+Collapses the binary Karras or SAH tree into `width`-ary nodes (each wide
+node repeatedly splits its largest-count child), bin-packs each node's
+leaf children into fat leaves of up to `leaf_cap` fully unpacked
+triangles, and sorts child slots along the node's dominant centroid axis.
+It also partitions the tree into treelets (subtrees with their boxes),
+the schedule of accel/treelet.py. The host build is numpy; `build_wide`
+puts the rows on the requested device.
 
 Row layout (w = width, S = leaf slots), as the reference documents it at
 moonshine_tpu/accel/wide.py:283-297:
@@ -56,9 +59,24 @@ class WideTopology(NamedTuple):
     width: int
 
 
+class WideRows(NamedTuple):
+    """Host result of `build_wide_rows` (numpy)."""
+
+    nodes: np.ndarray  # [M, 128] or [M, 2, 128] f32
+    leaves: np.ndarray  # [L, 128] or [L, 2, 128] f32
+    bounds: np.ndarray  # [2, 3] f32
+    n_levels: int
+    t_roots: np.ndarray  # [K] i64 ptr-encoded treelet roots
+    t_lo: np.ndarray  # [K, 3] f32
+    t_hi: np.ndarray  # [K, 3] f32
+
+
 class WideBVH(NamedTuple):
     """Device rows plus the tree's static facts as plain ints (the
-    reference encodes depth, width and leaf slots in array shapes)."""
+    reference encodes depth, width and leaf slots in array shapes), and
+    the treelet schedule: ptr-encoded subtree roots that tile the tree
+    (>= 0 wide node, <= -2 leaf) with their boxes. The schedule is
+    metadata only: traversal reads the same global rows."""
 
     nodes: torch.Tensor  # [M, 128] or [M, 2, 128] f32
     leaves: torch.Tensor  # [L, 128] or [L, 2, 128] f32
@@ -69,6 +87,9 @@ class WideBVH(NamedTuple):
     num_nodes: int
     num_leaves: int
     num_tris: int
+    t_roots: torch.Tensor | None = None  # [K] i32
+    t_lo: torch.Tensor | None = None  # [K, 3] f32
+    t_hi: torch.Tensor | None = None  # [K, 3] f32
 
     @property
     def max_stack(self) -> int:
@@ -127,9 +148,84 @@ def assemble_rows(topo: WideTopology, b_min: np.ndarray, b_max: np.ndarray,
     return nodes, leaves
 
 
+def plan_treelets(ptr: np.ndarray, max_rows: int | None = None) -> np.ndarray:
+    """Partition the wide tree into subtree treelets: walk down from the
+    root, cutting a treelet wherever a subtree's row count (its node rows
+    plus leaf rows) drops to `max_rows`. Leaf children hanging above a cut
+    become singleton leaf treelets. Returns ptr-encoded roots covering
+    every node and leaf exactly once; max_rows defaults to ~1/128 of the
+    tree (at least 384)."""
+    W = len(ptr)
+    is_leaf_slot = ptr <= -2
+    is_int_slot = ptr >= 0
+    cost = 1 + is_leaf_slot.sum(axis=1).astype(np.int64)
+    # children have larger wide ids than their parent (BFS layout), so one
+    # reverse sweep accumulates subtree costs bottom-up
+    child = np.clip(ptr, 0, W - 1)
+    for r in range(W - 1, -1, -1):
+        js = np.nonzero(is_int_slot[r])[0]
+        if len(js):
+            cost[r] += cost[child[r, js]].sum()
+    total = int(cost[0])
+    if max_rows is None:
+        max_rows = max(384, total // 128)
+    roots: list[int] = []
+    stack = [0]
+    while stack:
+        r = stack.pop()
+        if r <= -2 or cost[r] <= max_rows:
+            roots.append(r)
+            continue
+        for j in range(ptr.shape[1]):
+            c = int(ptr[r, j])
+            if c != -1:
+                stack.append(c)
+    return np.asarray(roots, np.int64)
+
+
+def _treelet_boxes(roots: np.ndarray, nodes: np.ndarray, leaves: np.ndarray,
+                   w: int = WIDTH, cap: int = LEAF_CAP
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """AABB per treelet root from the assembled rows: a node treelet's box
+    is the union of its row's occupied child boxes, a leaf treelet's box
+    bounds its triangles; an empty one is inverted (never hit)."""
+    nodes = nodes.reshape(len(nodes), -1)
+    leaves = leaves.reshape(len(leaves), -1)
+    K = len(roots)
+    lo = np.zeros((K, 3), np.float32)
+    hi = np.full((K, 3), -1.0, np.float32)
+    is_node = roots >= 0
+    if is_node.any():
+        rows = nodes[roots[is_node].astype(np.int64)]
+        slot_lo = rows[:, 0:3 * w].reshape(-1, 3, w)
+        slot_hi = rows[:, 3 * w:6 * w].reshape(-1, 3, w)
+        used = (rows[:, 6 * w:7 * w] != -1.0)[:, None, :]
+        nlo = np.where(used, slot_lo, np.inf).min(axis=2)
+        nhi = np.where(used, slot_hi, -np.inf).max(axis=2)
+        ok = np.isfinite(nlo).all(axis=1, keepdims=True)
+        lo[is_node] = np.where(ok, nlo, 0.0)
+        hi[is_node] = np.where(ok, nhi, -1.0)
+    is_leaf = ~is_node
+    if is_leaf.any():
+        lrows = leaves[(-2 - roots[is_leaf]).astype(np.int64)]
+        data = lrows[:, 0:9 * cap].reshape(-1, 9, cap)
+        v0 = data[:, 0:3]
+        pts = np.stack([v0, v0 + data[:, 3:6], v0 + data[:, 6:9]], axis=0)
+        occ = (lrows[:, 9 * cap:10 * cap] >= 0.0)[None, :, None, :]
+        occ = np.broadcast_to(occ, pts.shape)
+        llo = np.where(occ, pts, np.inf).min(axis=(0, 3))
+        lhi = np.where(occ, pts, -np.inf).max(axis=(0, 3))
+        ok = np.isfinite(llo).all(axis=1, keepdims=True)
+        lo[is_leaf] = np.where(ok, llo, 0.0)
+        hi[is_leaf] = np.where(ok, lhi, -1.0)
+    return lo, hi
+
+
 def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
-                    leaf_cap: int = LEAF_CAP, width: int = WIDTH):
-    """Host build. Returns (nodes, leaves, bounds, n_levels) as numpy."""
+                    leaf_cap: int = LEAF_CAP, width: int = WIDTH,
+                    max_rows: int | None = None) -> WideRows:
+    """Host build of the rows and the treelet plan (`max_rows` as in
+    plan_treelets)."""
     if not 1 <= leaf_cap <= 24:
         raise ValueError(f"leaf_cap {leaf_cap} outside 1..24")
     if width not in (8, 16, 24, 32):
@@ -294,26 +390,31 @@ def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
     nodes, leaves = assemble_rows(topo, b_min, b_max, tri_verts)
     bounds = np.stack([tri_verts.min(axis=(0, 1)),
                        tri_verts.max(axis=(0, 1))]).astype(np.float32)
-    return nodes, leaves, bounds, topo.n_levels
+    roots = plan_treelets(topo.ptr, max_rows)
+    t_lo, t_hi = _treelet_boxes(roots, nodes, leaves, width, leaf_cap)
+    return WideRows(nodes, leaves, bounds, topo.n_levels, roots, t_lo, t_hi)
 
 
 def wide_from_rows(nodes, leaves, bounds, max_depth: int, width: int,
-                   leaf_slots: int, num_tris: int, device) -> WideBVH:
+                   leaf_slots: int, num_tris: int, device, t_roots=None,
+                   t_lo=None, t_hi=None) -> WideBVH:
     """WideBVH with its rows on `device` (rows from either package)."""
-    put = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    put = lambda a, dt=np.float32: (
+        None if a is None else torch.tensor(np.asarray(a, dt), device=device))
     return WideBVH(
         nodes=put(nodes), leaves=put(leaves), bounds=put(bounds),
         max_depth=int(max_depth), width=int(width),
         leaf_slots=int(leaf_slots), num_nodes=len(nodes),
         num_leaves=len(leaves), num_tris=int(num_tris),
+        t_roots=put(t_roots, np.int32), t_lo=put(t_lo), t_hi=put(t_hi),
     )
 
 
 def build_wide(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
                leaf_cap: int = LEAF_CAP, width: int = WIDTH,
-               device="cpu") -> WideBVH:
+               device="cuda", max_rows: int | None = None) -> WideBVH:
     """tri_verts: [T, 3, 3] world space -> WideBVH on `device`."""
-    nodes, leaves, bounds, depth = build_wide_rows(tri_verts, binary,
-                                                   leaf_cap, width)
-    return wide_from_rows(nodes, leaves, bounds, depth, width, leaf_cap,
-                          len(tri_verts), device)
+    r = build_wide_rows(tri_verts, binary, leaf_cap, width, max_rows)
+    return wide_from_rows(r.nodes, r.leaves, r.bounds, r.n_levels, width,
+                          leaf_cap, len(tri_verts), device, r.t_roots,
+                          r.t_lo, r.t_hi)

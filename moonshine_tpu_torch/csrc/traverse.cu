@@ -22,79 +22,21 @@
 // nothing about either beyond __ldg reads; packet or wavefront scheduling,
 // ray sorting, wider loads and FMA are later work.
 //
-// Numerics: built with -fmad=false and IEEE division, so every expression
-// rounds like the plain torch version beside the wrapper
-// (moonshine_tpu_torch/accel/packet.py); both evaluate the same
-// expressions in the same order. Closest hit keeps the reference's strict
-// `t < t_best` rule within a leaf; any hit uses the division-free,
-// sign-folded test. Equal-t ties may pick a different triangle than the
-// TPU's traversal order does.
+// Numerics: see visit.cuh (shared with treelet.cu). Closest hit keeps the
+// reference's strict `t < t_best` rule within a leaf; any hit uses the
+// division-free, sign-folded test. Equal-t ties may pick a different
+// triangle than the TPU's traversal order does.
 //
 // Contract (as the JAX wrappers have it): a lane with active == 0 has its
 // tmax replaced by -1e30 and is never traversed; tmax <= 0 marks a dead
 // lane. Closest hit writes t = the caller's tmax, tri = -1, u = v = 0 on a
 // miss or dead lane. Any hit writes 1 for occluded in (0, tmax), else 0.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "visit.cuh"
 
 namespace {
 
-// Traversal pushes at most (width-1)*depth+1 entries; the wrapper refuses
-// trees whose bound exceeds this capacity (see msn_stack_capacity).
-constexpr int kStackCap = 256;
-constexpr int kBlock = 128;
-constexpr float kTiny = 1e-12f;
-constexpr float kDead = -1.0e30f;
-
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-
-// Moller-Trumbore with exact division (closest hit).
-__device__ __forceinline__ bool tri_closest(
-    const float v0[3], const float e1[3], const float e2[3],
-    const float o[3], const float d[3], float t_best,
-    float& t, float& u, float& v) {
-  const float px = d[1] * e2[2] - d[2] * e2[1];
-  const float py = d[2] * e2[0] - d[0] * e2[2];
-  const float pz = d[0] * e2[1] - d[1] * e2[0];
-  const float det = e1[0] * px + e1[1] * py + e1[2] * pz;
-  const float det_c = fabsf(det) < kTiny ? kTiny : det;
-  const float inv_det = 1.0f / det_c;
-  const float tx = o[0] - v0[0];
-  const float ty = o[1] - v0[1];
-  const float tz = o[2] - v0[2];
-  u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1[2] - tz * e1[1];
-  const float qy = tz * e1[0] - tx * e1[2];
-  const float qz = tx * e1[1] - ty * e1[0];
-  v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv_det;
-  t = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv_det;
-  return (fabsf(det) > kTiny) && (u >= 0.0f) && (v >= 0.0f) &&
-         (u + v <= 1.0f) && (t > 0.0f) && (t < t_best);
-}
-
-// Division-free occlusion test: the numerators scaled by |det|.
-__device__ __forceinline__ bool tri_any(
-    const float v0[3], const float e1[3], const float e2[3],
-    const float o[3], const float d[3], float t_max) {
-  const float px = d[1] * e2[2] - d[2] * e2[1];
-  const float py = d[2] * e2[0] - d[0] * e2[2];
-  const float pz = d[0] * e2[1] - d[1] * e2[0];
-  const float det = e1[0] * px + e1[1] * py + e1[2] * pz;
-  const float s = det >= 0.0f ? 1.0f : -1.0f;
-  const float tx = o[0] - v0[0];
-  const float ty = o[1] - v0[1];
-  const float tz = o[2] - v0[2];
-  const float u_n = (tx * px + ty * py + tz * pz) * s;
-  const float qx = ty * e1[2] - tz * e1[1];
-  const float qy = tz * e1[0] - tx * e1[2];
-  const float qz = tx * e1[1] - ty * e1[0];
-  const float v_n = (d[0] * qx + d[1] * qy + d[2] * qz) * s;
-  const float t_n = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * s;
-  const float det_a = det * s;
-  return (det_a > kTiny) && (u_n >= 0.0f) && (v_n >= 0.0f) &&
-         (u_n + v_n <= det_a) && (t_n > 0.0f) && (t_n < t_max * det_a);
-}
+using namespace msn;
 
 template <bool AnyHit>
 __global__ void __launch_bounds__(kBlock) traverse_kernel(
@@ -112,9 +54,7 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(
   for (int c = 0; c < 3; ++c) {
     o[c] = ray_o[3 * i + c];
     d[c] = ray_d[3 * i + c];
-    const float den =
-        fabsf(d[c]) < kTiny ? (d[c] >= 0.0f ? kTiny : -kTiny) : d[c];
-    inv[c] = 1.0f / den;
+    inv[c] = safe_inv(d[c]);
     oinv[c] = o[c] * inv[c];
   }
   const float t_caller = t_max[i];
@@ -157,31 +97,11 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(
       }
     } else {
       const float* row = leaves + (size_t)(-2 - node) * leaf_stride;
-      for (int j = 0; j < slots; ++j) {
-        const float tid = ld(row + 9 * slots + j);
-        if (tid < 0.0f) continue;  // empty slot
-        float v0[3], e1[3], e2[3];
-        for (int c = 0; c < 3; ++c) {
-          v0[c] = ld(row + c * slots + j);
-          e1[c] = ld(row + (3 + c) * slots + j);
-          e2[c] = ld(row + (6 + c) * slots + j);
-        }
-        if (AnyHit) {
-          if (tri_any(v0, e1, e2, o, d, tmax)) {
-            occluded = true;
-            break;
-          }
-        } else {
-          float t, u, v;
-          if (tri_closest(v0, e1, e2, o, d, t_best, t, u, v)) {
-            t_best = t;
-            best_tri = (int)tid;
-            best_u = u;
-            best_v = v;
-          }
-        }
+      if (visit_leaf<AnyHit>(row, slots, o, d, tmax, t_best, best_tri,
+                             best_u, best_v)) {
+        occluded = true;
+        break;
       }
-      if (AnyHit && occluded) break;
     }
   }
 

@@ -9,19 +9,26 @@ heuristic, and scatters. Emissive, termination, NEE and miss handling
 follow the reference in order; per-lane RNG consumption is identical in
 the unrolled and the looped form, so both give the same image.
 
-Traversal always goes to the packet wrappers (accel/packet.py), which
-launch the CUDA kernels for CUDA tensors. Not ported yet: the per-bounce
-coherence resort and live-prefix shrinking (image-invisible speed
-features) and the staged per-bounce dispatch API.
+Traversal dispatch follows the reference (`_hbm_mode`): the packet
+kernel for scenes whose rows fit the reference's VMEM budget, the
+treelet-scheduled kernel beyond it when `MSN_TREELETS=1` and the tree is
+8-wide with 8-slot leaves, else the packet kernel on coherence-sorted
+rays. Each wrapper launches its CUDA kernel for CUDA tensors. The
+per-bounce coherence resort (`_resort_state`) reorders the whole lane
+state, and `_bounce_shrunk` then runs a bounce over the live prefix only;
+both move lanes, never change a lane's result, and radiance returns to
+pixel order at the end. `trace_paths_staged` is the reference's staged
+API for very large frames (renderer.MAX_LANES).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
 
-from ..accel import packet
+from ..accel import packet, treelet
 from ..bsdf import materials as B
 from ..core import rng as R
 from ..core.frame import Frame, cos_theta
@@ -55,9 +62,10 @@ class PathConfig:
     mesh_samples_per_bounce: int = 1
     # None = auto: the unrolled form when max_bounces + 2 <= 10
     unroll: bool | None = None
-    # accepted and ignored: the reference's per-bounce coherence resort
-    # reorders lanes for traversal speed and leaves the image unchanged;
-    # the port has no resort yet
+    # re-sort the whole lane state by ray coherence once per bounce (and
+    # run deep bounces over the live prefix); the image is unchanged.
+    # None = auto (_resolve_resort): on for HBM-class scenes up to 600k
+    # lanes, on for VMEM-class scenes that hold a mirror or glass
     resort_bounces: bool | None = None
 
 
@@ -192,11 +200,82 @@ def _masked(mask, value):
     return torch.where(mask[..., None], value, torch.zeros_like(value))
 
 
+# Opt-in treelet-scheduled traversal for HBM-class scenes (the reference's
+# MSN_TREELETS=1, read at each dispatch here).
+def _use_treelets() -> bool:
+    return os.environ.get("MSN_TREELETS", "0") == "1"
+
+
+# Re-sort the NEE shadow batch on delta-carrying scenes even when the state
+# is resorted (the reference's opt-in MSN_SHADOW_COMPACT=1, read at each
+# bounce here); the image is unchanged.
+def _shadow_compact() -> bool:
+    return os.environ.get("MSN_SHADOW_COMPACT", "0") == "1"
+
+
+def _hbm_mode(wide) -> str:
+    """'vmem' | 'treelet' | 'hbm', as the reference picks them. Where the
+    reference falls back to its per-lane jnp traversal (a stack bound over
+    its limit), the port raises."""
+    if packet.fits_vmem(wide) and packet.stack_ok(wide, hbm=False):
+        return "vmem"
+    if not packet.stack_ok(wide, hbm=True):
+        raise ValueError(
+            f"tree needs a {wide.max_stack}-entry traversal stack; scenes "
+            f"beyond the VMEM budget hold {packet.HBM_STACK_DEPTH} (the "
+            f"reference's per-lane fallback traversal is not ported)")
+    if _use_treelets() and treelet.available(wide):
+        return "treelet"
+    return "hbm"
+
+
+def _closest(scene, o, d, t_max, active, presorted: bool = False):
+    """Closest-hit dispatch; presorted=True (the per-bounce state resort)
+    skips the HBM wrapper's own sort."""
+    wide = scene.wide
+    mode = _hbm_mode(wide)
+    if mode == "vmem":
+        return packet.closest_hit_packet(wide, o, d, t_max, active_in=active)
+    if mode == "treelet":
+        return treelet.closest_hit_treelet(wide, o, d, t_max,
+                                           active_in=active)
+    return packet.closest_hit_packet_hbm(wide, o, d, t_max, active_in=active,
+                                         sort=not presorted)
+
+
+def _any_hit(scene, o, d, t_max, active, presorted: bool = False):
+    wide = scene.wide
+    mode = _hbm_mode(wide)
+    if mode == "vmem":
+        return packet.any_hit_packet(wide, o, d, t_max, active_in=active)
+    if mode == "treelet":
+        return treelet.any_hit_treelet(wide, o, d, t_max, active_in=active)
+    return packet.any_hit_packet_hbm(wide, o, d, t_max, active_in=active,
+                                     sort=not presorted)
+
+
+def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
+                    ) -> bool:
+    """The reference's resort choice: as configured, else on for
+    HBM-class scenes (trace_paths: up to 600k lanes, which render_sample
+    and render exceed for frames above that; n_lanes=None, the staged
+    path: at any lane count) and for VMEM-class ones holding a mirror or
+    glass; treelet scenes sort inside each dispatch instead."""
+    if cfg.resort_bounces is not None:
+        return cfg.resort_bounces
+    mode = _hbm_mode(scene.wide)
+    if mode == "hbm":
+        return n_lanes is None or n_lanes <= 600_000
+    return mode == "vmem" and scene.has_delta
+
+
 def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
-                 last: bool = False) -> dict:
+                 last: bool = False, resort: bool = False) -> dict:
     """One bounce over the whole lane batch. last=True marks the final
     segment of the unrolled form, where every lane dies after the
-    emissive/miss accumulation, so NEE, roulette and scatter are skipped."""
+    emissive/miss accumulation, so NEE, roulette and scatter are skipped.
+    resort=True: the state is coherence-sorted, so traversal skips its
+    own sort."""
     active = st["active"]
     o, d = st["o"], st["d"]
     throughput = st["throughput"]
@@ -206,7 +285,7 @@ def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
     rng = st["rng"]
     rays = st["rays"] + active.sum()
 
-    hit = packet.closest_hit_packet(scene.wide, o, d, INF_T, active_in=active)
+    hit = _closest(scene, o, d, INF_T, active, presorted=resort)
     is_hit = active & hit.is_hit
     miss = active & ~hit.is_hit
 
@@ -317,12 +396,15 @@ def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
                        "mesh", l_dir, l_rad, l_pdf))
 
     if shadow:
-        occ_all = packet.any_hit_packet(
-            scene.wide,
+        # shadow rays inherit the (possibly resorted) lane order
+        occ_all = _any_hit(
+            scene,
             torch.cat([b[0] for b in shadow]),
             torch.cat([b[1] for b in shadow]),
             torch.cat([b[2] for b in shadow]),
-            active_in=torch.cat([b[3] for b in shadow]),
+            torch.cat([b[3] for b in shadow]),
+            presorted=resort and not (_shadow_compact()
+                                        and scene.has_delta),
         )
         n = position.shape[0]
         for i, (_, _, _, lane, kind, l_dir, l_rad, l_pdf) in enumerate(shadow):
@@ -364,6 +446,57 @@ def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
     )
 
 
+def _resort_state(scene, st: dict) -> dict:
+    """Reorder every lane array of the state by ray coherence: 8^3 origin
+    cells x direction octant, dead lanes keyed 1 << 20 so they form the
+    tail (a stable sort). Lanes keep their RNG streams and pixel ids."""
+    o, d, active = st["o"], st["d"], st["active"]
+    lo = scene.wide.bounds[0]
+    inv_ext = 1.0 / torch.clamp_min(scene.wide.bounds[1] - lo, 1e-20)
+    cell = torch.clamp(((o - lo) * inv_ext * 8.0).to(torch.int32), 0, 7)
+    octant = ((d[:, 0] > 0).to(torch.int32) * 4
+              + (d[:, 1] > 0).to(torch.int32) * 2
+              + (d[:, 2] > 0).to(torch.int32))
+    key = ((cell[:, 0] * 8 + cell[:, 1]) * 8 + cell[:, 2]) * 8 + octant
+    key = torch.where(active, key, 1 << 20)
+    perm = torch.argsort(key, stable=True)
+    n = o.shape[0]
+    return {k: (v[perm] if _is_lane(v, n) else v) for k, v in st.items()}
+
+
+def _is_lane(v, n: int) -> bool:
+    return torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == n
+
+
+def _bounce_shrunk(scene, cfg: PathConfig, bounce: int, st: dict,
+                   last: bool) -> dict:
+    """A bounce over the live prefix only, on a resorted state (live lanes
+    first): a quarter or a half of the lanes when the live count fits,
+    else all. Dead lanes' state is final, so the image is unchanged; their
+    RNG stops advancing, which nothing observes. One host read of the
+    live count per bounce."""
+    n = st["o"].shape[0]
+    if n < 4 * 1024:  # not worth it
+        return _bounce_body(scene, cfg, bounce, st, last=last, resort=True)
+    live = int(st["active"].sum())
+    m = n // 4 if live <= n // 4 else (n // 2 if live <= n // 2 else n)
+    if m == n:
+        return _bounce_body(scene, cfg, bounce, st, last=last, resort=True)
+    head = {k: (v[:m] if _is_lane(v, n) else v) for k, v in st.items()}
+    out = _bounce_body(scene, cfg, bounce, head, last=last, resort=True)
+    return {k: (torch.cat([out[k], v[m:]]) if _is_lane(v, n) else out[k])
+            for k, v in st.items()}
+
+
+def _finish(st: dict, resort: bool):
+    """(radiance in pixel order, rng, rays)."""
+    radiance = st["radiance"]
+    if resort:  # lanes moved: scatter back to pixel order
+        radiance = torch.empty_like(radiance).index_copy_(0, st["pix"],
+                                                          radiance)
+    return radiance, st["rng"], st["rays"]
+
+
 def _init_state(ray_o, ray_d, rng_state) -> dict:
     N = ray_o.shape[0]
     dev = ray_o.device
@@ -378,7 +511,33 @@ def _init_state(ray_o, ray_d, rng_state) -> dict:
         last_delta=torch.zeros(N, dtype=torch.bool, device=dev),
         rng=rng_state,
         rays=torch.zeros((), dtype=torch.int64, device=dev),
+        pix=torch.arange(N, dtype=torch.int64, device=dev),
     )
+
+
+def _trace(scene, cfg: PathConfig, st: dict, resort: bool, unroll: bool,
+           sort_first: bool):
+    """The segment loop of trace_paths and trace_paths_staged. Returns
+    (radiance in pixel order, rng, rays, segments run). The unrolled form
+    runs all max_bounces + 2 segments, the last one thin; the looped form
+    stops as soon as no lane is live (one host sync per segment). With
+    `resort` every segment after the first runs on a resorted state over
+    its live prefix; the first traces the camera rays in their own order
+    unless `sort_first`, which sorts them inside traversal."""
+    n_segments = cfg.max_bounces + 2
+    segments = 0
+    for bounce in range(n_segments):
+        if not unroll and not bool(st["active"].any()):
+            break
+        last = unroll and bounce == n_segments - 1
+        if resort and bounce > 0:
+            st = _resort_state(scene, st)
+            st = _bounce_shrunk(scene, cfg, bounce, st, last=last)
+        else:
+            st = _bounce_body(scene, cfg, bounce, st, last=last,
+                              resort=resort and not sort_first)
+        segments += 1
+    return (*_finish(st, resort), segments)
 
 
 def trace_paths(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
@@ -388,24 +547,21 @@ def trace_paths(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
     where rays_traced counts the closest-hit and shadow rays issued for
     live lanes (the Mrays/s numerator, path.py:400,580 of the reference)
     and segments is the number of bounce segments run (one closest-hit
-    dispatch each).
+    dispatch each). The unrolled form (auto for max_bounces + 2 <= 10)
+    runs every segment; the looped one stops when no lane is live. The
+    resort follows `_resolve_resort` for this lane count."""
+    unroll = (cfg.unroll if cfg.unroll is not None
+              else cfg.max_bounces + 2 <= 10)
+    return _trace(scene, cfg, _init_state(ray_o, ray_d, rng_state),
+                  _resolve_resort(scene, cfg, ray_o.shape[0]), unroll,
+                  sort_first=False)
 
-    The unrolled form runs all max_bounces + 2 segments, the last one
-    thin; the looped form (deep bounce budgets) stops as soon as no lane
-    is live, which costs one host sync per segment."""
-    st = _init_state(ray_o, ray_d, rng_state)
-    n_segments = cfg.max_bounces + 2
-    unroll = cfg.unroll if cfg.unroll is not None else n_segments <= 10
-    segments = 0
-    if unroll:
-        for bounce in range(n_segments):
-            st = _bounce_body(scene, cfg, bounce, st,
-                              last=bounce == n_segments - 1)
-            segments += 1
-    else:
-        bounce = 0
-        while bounce < n_segments and bool(st["active"].any()):
-            st = _bounce_body(scene, cfg, bounce, st)
-            bounce += 1
-            segments += 1
-    return st["radiance"], st["rng"], st["rays"], segments
+
+def trace_paths_staged(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
+    """trace_paths for very large lane counts (the reference's staged
+    path): every segment runs, the resort stays on at any lane count
+    (`_resolve_resort`), and the first segment sorts inside traversal.
+    Same per-lane RNG consumption as trace_paths, so the image matches it;
+    returns what trace_paths returns."""
+    return _trace(scene, cfg, _init_state(ray_o, ray_d, rng_state),
+                  _resolve_resort(scene, cfg), unroll=True, sort_first=True)

@@ -24,7 +24,7 @@ class LensArrays(NamedTuple):
     focus_distance: torch.Tensor  # scalar
 
     @staticmethod
-    def from_lens(lens: Lens, device="cpu") -> "LensArrays":
+    def from_lens(lens: Lens, device="cuda") -> "LensArrays":
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
         return LensArrays(
             origin=f32(lens.origin), forward=f32(lens.forward),

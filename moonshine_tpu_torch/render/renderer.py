@@ -1,10 +1,12 @@
 """Render orchestration: pixels -> rays -> radiance -> sensor (port of
 moonshine_tpu/render/renderer.py).
 
-`render_sample` traces one sample for every pixel; `render_spp` loops over
-samples and sums them on the device; `render` folds samples into a
-Sensor. RNG streams are keyed by (sample, x, y), so any lane order or
-chunking gives the same image.
+`render_sample` traces one sample for every pixel (or a band of rows);
+`render_spp` loops over samples and sums them on the device, switching
+frames above MAX_LANES pixels to the staged per-bounce path
+(`_render_spp_staged`); `render` folds samples into a Sensor. RNG streams
+are keyed by (sample, x, y), so any lane order, banding or batching gives
+the same image.
 """
 
 from __future__ import annotations
@@ -12,7 +14,12 @@ from __future__ import annotations
 import torch
 
 from ..core import rng as R
-from ..integrator.path import PathConfig, trace_paths
+from ..integrator.path import (
+    PathConfig,
+    _resolve_resort,
+    trace_paths,
+    trace_paths_staged,
+)
 from .camera import LensArrays, generate_rays, pixel_uv
 from .sensor import Sensor, accumulate
 
@@ -20,6 +27,12 @@ from .sensor import Sensor, accumulate
 # multiple of the tile, scanline otherwise (the reference's order; it
 # keeps each traversal batch's rays spatially compact).
 TILE_H, TILE_W = 64, 128
+
+# Frames above this many pixels run through the staged path (the
+# reference's switch, renderer.py:77 there), samples batched onto the lane
+# axis up to STAGE_TARGET_LANES per dispatch.
+MAX_LANES = 512 * 1024
+STAGE_TARGET_LANES = 2 * 1024 * 1024
 
 
 def _pixel_coords(height: int, width: int, device):
@@ -45,10 +58,14 @@ def _pixel_coords(height: int, width: int, device):
 
 
 def _sample_rays(lens: LensArrays, height: int, width: int,
-                 sample_index: int, flip_image: bool, device):
-    """Camera rays and per-lane RNG for one sample (the raygen stage), in
-    the lane order of _pixel_coords. Returns (o, d, rng, unpack)."""
-    py, px, unpack = _pixel_coords(height, width, device)
+                 sample_index: int, flip_image: bool, device, y0: int = 0,
+                 band_h: int | None = None):
+    """Camera rays and per-lane RNG for one sample (the raygen stage) of
+    rows [y0, y0 + band_h), in the lane order of _pixel_coords. Returns
+    (o, d, rng, unpack)."""
+    bh = height if band_h is None else band_h
+    py, px, unpack = _pixel_coords(bh, width, device)
+    py = py + y0  # absolute pixel rows
     rng = R.seed(sample_index, px, py)
     rng, jitter = R.next_float2(rng)
     uv = pixel_uv(px, py, width, height, jitter, flip_image)
@@ -58,29 +75,87 @@ def _sample_rays(lens: LensArrays, height: int, width: int,
 
 
 def _render_sample(scene, lens: LensArrays, height: int, width: int,
-                   sample_index: int, cfg: PathConfig, flip_image: bool):
+                   sample_index: int, cfg: PathConfig, flip_image: bool,
+                   y0: int = 0, band_h: int | None = None):
     o, d, rng, unpack = _sample_rays(lens, height, width, sample_index,
-                                     flip_image, scene.device)
+                                     flip_image, scene.device, y0, band_h)
     radiance, _rng, rays, segments = trace_paths(scene, o, d, rng, cfg)
     return unpack(radiance), rays, segments
 
 
 def render_sample(scene, lens: LensArrays, height: int, width: int,
                   sample_index: int, cfg: PathConfig,
-                  flip_image: bool = True):
-    """Trace one sample for every pixel. Returns (radiance [H, W, 3],
+                  flip_image: bool = True, y0: int = 0,
+                  band_h: int | None = None):
+    """Trace one sample for every pixel of rows [y0, y0 + band_h) (band_h
+    defaults to the full height). Returns (radiance [band_h, W, 3],
     rays_traced int64 scalar tensor)."""
     img, rays, _ = _render_sample(scene, lens, height, width, sample_index,
-                                  cfg, flip_image)
+                                  cfg, flip_image, y0, band_h)
     return img, rays
+
+
+def _sample_rays_batched(lens: LensArrays, height: int, width: int,
+                         start_index: int, nbatch: int, flip_image: bool,
+                         device):
+    """Rays and RNG of `nbatch` consecutive samples, concatenated on the
+    lane axis (sample-major); the streams are the unbatched ones."""
+    rays = [_sample_rays(lens, height, width, start_index + s, flip_image,
+                         device)[:3] for s in range(nbatch)]
+    return tuple(torch.cat(parts) for parts in zip(*rays))
+
+
+def _staged_accum(acc, rays_acc, radiance_flat, rays, height: int,
+                  width: int):
+    """acc + the batch's radiance summed over its samples, in pixel order."""
+    _, _, unpack = _pixel_coords(height, width, acc.device)
+    n = height * width
+    if radiance_flat.shape[0] != n:  # sample-batched
+        radiance_flat = radiance_flat.reshape(-1, n, 3).sum(dim=0)
+    return acc + unpack(radiance_flat), rays_acc + rays
+
+
+def _render_spp_staged(scene, lens: LensArrays, height: int, width: int,
+                       start_index: int, spp: int, cfg: PathConfig,
+                       flip_image: bool = True, batch: int | None = None,
+                       stats: dict | None = None):
+    """The large-frame path: trace_paths_staged over batches of samples
+    packed onto the lane axis, up to STAGE_TARGET_LANES lanes each."""
+    lanes = height * width
+    if batch is None:
+        batch = max(1, min(spp, STAGE_TARGET_LANES // lanes))
+    acc = torch.zeros((height, width, 3), dtype=torch.float32,
+                      device=scene.device)
+    rays_acc = torch.zeros((), dtype=torch.int64, device=scene.device)
+    segments = 0
+    s = 0
+    while s < spp:
+        b = min(batch, spp - s)
+        o, d, rng = _sample_rays_batched(lens, height, width,
+                                         start_index + s, b, flip_image,
+                                         scene.device)
+        radiance, _, rays, seg = trace_paths_staged(scene, o, d, rng, cfg)
+        acc, rays_acc = _staged_accum(acc, rays_acc, radiance, rays, height,
+                                      width)
+        segments += seg
+        s += b
+    if stats is not None:
+        stats.update(path="staged", resort=_resolve_resort(scene, cfg),
+                     segments=segments)
+    return acc, rays_acc
 
 
 def render_spp(scene, lens: LensArrays, height: int, width: int,
                start_index: int, spp: int, cfg: PathConfig,
                flip_image: bool = True, stats: dict | None = None):
-    """Trace spp samples, summing radiance on the device. Returns
-    (radiance_sum [H, W, 3], rays int64 scalar tensor). When `stats` is
-    given, stats["segments"] receives the bounce segments run in all."""
+    """Trace spp samples, summing radiance on the device. Frames up to
+    MAX_LANES pixels trace one sample per bounce loop; larger ones take
+    the staged path. Returns (radiance_sum [H, W, 3], rays int64 scalar
+    tensor). When `stats` is given it receives "path" ("fused" or
+    "staged"), "resort" and "segments", the bounce segments run in all."""
+    if height * width > MAX_LANES:
+        return _render_spp_staged(scene, lens, height, width, start_index,
+                                  spp, cfg, flip_image, stats=stats)
     acc = torch.zeros((height, width, 3), dtype=torch.float32,
                       device=scene.device)
     rays = torch.zeros((), dtype=torch.int64, device=scene.device)
@@ -92,7 +167,9 @@ def render_spp(scene, lens: LensArrays, height: int, width: int,
         rays += r
         segments += seg
     if stats is not None:
-        stats["segments"] = segments
+        stats.update(path="fused",
+                     resort=_resolve_resort(scene, cfg, height * width),
+                     segments=segments)
     return acc, rays
 
 

@@ -14,7 +14,7 @@ class Sensor(NamedTuple):
     sample_count: int
 
     @staticmethod
-    def create(height: int, width: int, device="cpu") -> "Sensor":
+    def create(height: int, width: int, device="cuda") -> "Sensor":
         return Sensor(image=torch.zeros((height, width, 3),
                                         dtype=torch.float32, device=device),
                       sample_count=0)

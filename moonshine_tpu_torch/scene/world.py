@@ -11,14 +11,17 @@ puts on the device. The JAX package's built scene, flattened into the
 same two dicts, goes through the same function, so both packages can
 traverse byte-identical rows.
 
-Not ported yet: refits and material/background edits (every build() is a
-full build), the SAH builder (Karras at every size; tree quality changes
-speed, not hits), and two-level instancing (a scene that would need it
-raises).
+The binary tree is Karras below 50k triangles and binned SAH above (the
+reference's rule); `MSN_WIDE` and `MSN_LEAF_CAP` override the wide layout
+as in the reference. Not ported yet: refits and material/background
+edits (every build() is a full build), spatial-split presplitting
+(`MSN_PRESPLIT`, off by default in the reference), and two-level
+instancing (a scene that would need it raises).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +43,8 @@ TYPE_GLASS, TYPE_LAMBERT, TYPE_MIRROR, TYPE_PBR = 0, 1, 2, 3
 # past this many flattened triangles the reference switches to two-level
 # instancing, which the port does not have yet
 MAX_FLAT_TRIS = 16_000_000
+# builder="auto" picks binned SAH above this many triangles, Karras below
+SAH_MIN_TRIS = 50_000
 
 
 class MaterialTable(NamedTuple):
@@ -88,7 +93,7 @@ class DeviceScene(NamedTuple):
 def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
     """DeviceScene on `device` from host arrays and static facts.
 
-    arrays (numpy): wide.nodes, wide.leaves, wide.bounds, tri_shade,
+    arrays (numpy): wide.{nodes,leaves,bounds,t_roots,t_lo,t_hi}, tri_shade,
     materials.packed, mat_atlas.{bsdf,emissive}.data (float32 values of
     the bf16 planes), env.{rgbl,select,alias}, emitters.{select,alias,
     tri,rows}. statics: wide.{max_depth,width,leaf_slots},
@@ -102,7 +107,8 @@ def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
     wide = wide_bvh.wide_from_rows(
         a["wide.nodes"], a["wide.leaves"], a["wide.bounds"],
         s["wide.max_depth"], s["wide.width"], s["wide.leaf_slots"],
-        len(tri_shade), device)
+        len(tri_shade), device, a["wide.t_roots"], a["wide.t_lo"],
+        a["wide.t_hi"])
     planes = {
         k: plane_from_rows(a[f"mat_atlas.{k}.data"], s[f"mat_atlas.{k}.width"],
                            s[f"mat_atlas.{k}.chunks"], device)
@@ -171,12 +177,15 @@ class World:
         """Register and select in one call."""
         self.use_background(self.add_background(equirect_rgb, size))
 
-    def build(self, device="cpu") -> DeviceScene:
-        """Full build onto `device`."""
-        return scene_from_arrays(*self.build_arrays(), device)
+    def build(self, device="cuda", builder: str = "auto") -> DeviceScene:
+        """Full build onto `device`. builder: "karras", "sah", or "auto"
+        (SAH above SAH_MIN_TRIS triangles, Karras below)."""
+        return scene_from_arrays(*self.build_arrays(builder), device)
 
-    def build_arrays(self) -> tuple[dict, dict]:
+    def build_arrays(self, builder: str = "auto") -> tuple[dict, dict]:
         """Host half of build(): (arrays, statics) for scene_from_arrays."""
+        if builder not in ("auto", "karras", "sah"):
+            raise ValueError(f"unknown builder {builder!r}")
         flat_tris = sum(len(self.meshes[g.mesh].indices)
                         for inst in self.instances for g in inst.geometries)
         if flat_tris > MAX_FLAT_TRIS:
@@ -184,8 +193,8 @@ class World:
                 f"scene flattens to {flat_tris:,} triangles (cap "
                 f"{MAX_FLAT_TRIS:,}); two-level instancing is not ported")
 
-        builder = MaterialBlockBuilder()
-        packed, planes = _build_materials(self.materials, builder)
+        packed, planes = _build_materials(self.materials,
+                                          MaterialBlockBuilder())
 
         flat = _flatten(self.meshes, self.instances)
         if flat is None:
@@ -201,13 +210,12 @@ class World:
                         prim_ids=np.zeros(1, np.int32))
         verts = flat["verts"]
         T = len(verts)
-        # two-row 24-wide/24-slot records above 100k triangles, 16-wide
-        # nodes with 12-slot leaves below (the reference's choice)
-        width, leaf_cap = (24, 24) if T > 100_000 else (
-            wide_bvh.WIDTH_WIDE, 12)
-        bvh = lbvh.build(verts)
-        nodes, leaves, bounds, depth = wide_bvh.build_wide_rows(
-            verts, binary=bvh, leaf_cap=leaf_cap, width=width)
+        if builder == "auto":
+            builder = "sah" if T > SAH_MIN_TRIS else "karras"
+        bvh = lbvh.build_sah(verts) if builder == "sah" else lbvh.build(verts)
+        width, leaf_cap = _wide_layout(T)
+        rows = wide_bvh.build_wide_rows(verts, binary=bvh, leaf_cap=leaf_cap,
+                                        width=width)
 
         emitter_tris = np.nonzero(flat["sampled"])[0]
         em = _build_emitters(verts, emitter_tris, flat["uvs"],
@@ -216,7 +224,9 @@ class World:
         tri_shade = _pack_tri_shade(flat, packed)
 
         arrays = {
-            "wide.nodes": nodes, "wide.leaves": leaves, "wide.bounds": bounds,
+            "wide.nodes": rows.nodes, "wide.leaves": rows.leaves,
+            "wide.bounds": rows.bounds, "wide.t_roots": rows.t_roots,
+            "wide.t_lo": rows.t_lo, "wide.t_hi": rows.t_hi,
             "tri_shade": tri_shade, "materials.packed": packed,
             "mat_atlas.bsdf.data": planes["bsdf"][0],
             "mat_atlas.emissive.data": planes["emissive"][0],
@@ -226,7 +236,7 @@ class World:
             "emitters.tri": em["tri"], "emitters.rows": em["rows"],
         }
         statics = {
-            "wide.max_depth": depth, "wide.width": width,
+            "wide.max_depth": rows.n_levels, "wide.width": width,
             "wide.leaf_slots": leaf_cap,
             "mat_atlas.bsdf.width": planes["bsdf"][1],
             "mat_atlas.bsdf.chunks": planes["bsdf"][2],
@@ -249,6 +259,21 @@ class World:
         if equirect is None:
             return constant_envmap((1.0, 1.0, 1.0))
         return build_envmap(equirect, size)
+
+
+def _wide_layout(n_tris: int) -> tuple[int, int]:
+    """(width, leaf_cap): two-row 24-wide/24-slot records above 100k
+    triangles, 16-wide nodes with 12-slot leaves below (the reference's
+    choice); MSN_WIDE=8|16|24|32 and MSN_LEAF_CAP=1..24 override them."""
+    width, leaf_cap = (24, 24) if n_tris > 100_000 else (
+        wide_bvh.WIDTH_WIDE, 12)
+    env_w = os.environ.get("MSN_WIDE")
+    if env_w in ("8", "16", "24", "32"):
+        width = int(env_w)
+    env_c = os.environ.get("MSN_LEAF_CAP")
+    if env_c and env_c.isdigit() and 1 <= int(env_c) <= 24:
+        leaf_cap = int(env_c)
+    return width, leaf_cap
 
 
 def _pack_tri_shade(flat: dict, mat_packed: np.ndarray) -> np.ndarray:

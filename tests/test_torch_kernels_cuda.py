@@ -1,7 +1,8 @@
-"""The CUDA traversal kernels against their plain torch versions, on a
-GPU only (marked `cuda`; each test skips when torch sees no CUDA device).
+"""The CUDA traversal kernels (packet and treelet) against their plain
+torch versions, on a GPU only (marked `cuda`; each test skips when torch
+sees no CUDA device).
 
-    python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 chip_smoke.py makes the same comparison at the render's real shapes."""
 
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from moonshine_tpu_torch.accel import packet
+from moonshine_tpu_torch.accel import native, packet, treelet
 from moonshine_tpu_torch.accel.wide import build_wide
 
 pytestmark = pytest.mark.cuda
@@ -22,11 +23,13 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _scene(device, n_tris=700, cap=12, width=16, n_rays=5000, seed=3):
+def _scene(device, n_tris=700, cap=12, width=16, n_rays=5000, seed=3,
+           max_rows=None):
     rs = np.random.RandomState(seed)
     tris = (rs.randn(n_tris, 1, 3) * 4 + rs.randn(n_tris, 3, 3) * 0.5
             ).astype(np.float32)
-    wbvh = build_wide(tris, leaf_cap=cap, width=width, device=device)
+    wbvh = build_wide(tris, leaf_cap=cap, width=width, device=device,
+                      max_rows=max_rows)
     o = torch.from_numpy((rs.randn(n_rays, 3) * 6).astype(np.float32))
     d = torch.from_numpy(rs.randn(n_rays, 3).astype(np.float32))
     d = d / torch.linalg.norm(d, dim=1, keepdim=True)
@@ -66,3 +69,44 @@ def test_launch_counters(cuda):
     packet.any_hit_packet(w, o, d, t_max)
     packet.closest_hit_plain(w, o, d, 1e12)  # the plain version never counts
     assert packet.LAUNCHES == {"closest_hit": 1, "any_hit": 2}
+
+
+def test_stack_capacity(cuda):
+    """Both kernels hold the reference's VMEM-class stack of 512."""
+    libs = native.build_all()
+    assert libs["traverse"].stack_capacity == packet.STACK_DEPTH == 512
+    assert libs["treelet"].stack_capacity == 512
+
+
+@pytest.mark.parametrize("max_rows", [48, 6])
+def test_treelet_kernels_match_plain(cuda, max_rows):
+    """The treelet kernel against its plain version on 8-wide / 8-slot
+    trees of many treelets (max_rows=6 gives K > 32): the same hits, t, u,
+    v bit for bit (same expressions, same per-lane visit order), and the
+    same occlusion."""
+    w, o, d, active, t_max = _scene(cuda, n_tris=1500, cap=8, width=8,
+                                    max_rows=max_rows)
+    assert treelet.available(w)
+    got = treelet.closest_hit_treelet(w, o, d, 1e12, active_in=active)
+    want = treelet.closest_hit_treelet_plain(w, o, d, 1e12, active_in=active)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    occ = treelet.any_hit_treelet(w, o, d, t_max, active_in=active)
+    assert torch.equal(occ, treelet.any_hit_treelet_plain(
+        w, o, d, t_max, active_in=active))
+    assert torch.equal(occ, packet.any_hit_plain(w, o, d, t_max,
+                                                 active_in=active))
+    pk = packet.closest_hit_packet(w, o, d, 1e12, active_in=active)
+    assert torch.equal(got.t, pk.t)
+
+
+def test_treelet_launch_counters(cuda):
+    w, o, d, active, t_max = _scene(cuda, n_tris=1500, cap=8, width=8,
+                                    max_rows=48)
+    treelet.reset_launch_counts()
+    treelet.closest_hit_treelet(w, o, d, 1e12, active_in=active)
+    treelet.any_hit_treelet(w, o, d, t_max, active_in=active)
+    treelet.closest_hit_treelet_plain(w, o, d, 1e12)  # never counts
+    assert treelet.LAUNCHES == {"treelet_closest_hit": 1,
+                                "treelet_any_hit": 1}

@@ -34,8 +34,8 @@ def assert_image_close(img, ref):
 def _port_render(make, h, w, spp, cfg):
     world, lens = make()
     scene = world.build("cpu")
-    img, rays = render_spp(scene, LensArrays.from_lens(lens), h, w, 0, spp,
-                           cfg)
+    img, rays = render_spp(scene, LensArrays.from_lens(lens, "cpu"), h, w, 0,
+                           spp, cfg)
     return img.numpy() / spp, int(rays)
 
 
@@ -82,7 +82,7 @@ def test_unrolled_and_looped_forms_agree():
     samples into the sensor's running mean."""
     world, lens = procedural.flagship_scene()
     scene = world.build("cpu")
-    la = LensArrays.from_lens(lens)
+    la = LensArrays.from_lens(lens, "cpu")
     base = dict(FLAGSHIP_CFG)
     a, ra = render_spp(scene, la, 16, 16, 3, 2, PathConfig(**base,
                                                           unroll=True))

@@ -2,18 +2,25 @@
 state bridge (scene_from_arrays) from a JAX DeviceScene.
 
 Both packages build these scenes with the Karras path (below 50k
-triangles), so wide rows, shading rows, material rows, atlas planes and
-emitter rows are exactly equal. The env map's equal-area resample runs
-each framework's sin/cos/atan2, so its texels agree to 1e-6 relative."""
+triangles) unless a test asks for SAH, so wide rows, treelet plans,
+shading rows, material rows, atlas planes and emitter rows are exactly
+equal. The env map's equal-area resample runs each framework's
+sin/cos/atan2, so its texels agree to 1e-6 relative. The SAH builder's
+binary arrays equal the reference's exactly."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from moonshine_tpu.accel import lbvh as JL
 from moonshine_tpu.scene import procedural as JP
+from moonshine_tpu_torch.accel import lbvh as PL
 from moonshine_tpu_torch.scene import procedural as PP
+from moonshine_tpu_torch.scene import world as PWorld
 from moonshine_tpu_torch.scene.world import scene_from_arrays
+
+from test_bvh import random_tris
 
 ENV_TOL = dict(rtol=1e-6, atol=1e-7)
 ENV_KEYS = ("env.rgbl", "env.select")
@@ -24,7 +31,9 @@ def jax_scene_arrays(js):
     f = lambda x: np.asarray(x)
     arrays = {
         "wide.nodes": f(js.wide.nodes), "wide.leaves": f(js.wide.leaves),
-        "wide.bounds": f(js.wide.bounds), "tri_shade": f(js.tri_shade),
+        "wide.bounds": f(js.wide.bounds), "wide.t_roots": f(js.wide.t_roots),
+        "wide.t_lo": f(js.wide.t_lo), "wide.t_hi": f(js.wide.t_hi),
+        "tri_shade": f(js.tri_shade),
         "materials.packed": f(js.materials.packed),
         "mat_atlas.bsdf.data": f(js.mat_atlas.bsdf.data.astype(jnp.float32)),
         "mat_atlas.emissive.data": f(
@@ -70,7 +79,9 @@ def _scene_tensors(sc):
     """Every device tensor of a port DeviceScene, keyed like the arrays."""
     return {
         "wide.nodes": sc.wide.nodes, "wide.leaves": sc.wide.leaves,
-        "wide.bounds": sc.wide.bounds, "tri_shade": sc.tri_shade,
+        "wide.bounds": sc.wide.bounds, "wide.t_roots": sc.wide.t_roots,
+        "wide.t_lo": sc.wide.t_lo, "wide.t_hi": sc.wide.t_hi,
+        "tri_shade": sc.tri_shade,
         "materials.packed": sc.materials.packed,
         "mat_atlas.bsdf.data": sc.mat_atlas.bsdf.data,
         "mat_atlas.emissive.data": sc.mat_atlas.emissive.data,
@@ -118,11 +129,97 @@ def test_state_bridge(name):
         np.testing.assert_array_equal(
             t.numpy(), arrays[key].astype(t.numpy().dtype), err_msg=key)
     native = pw.build("cpu")
-    assert bridged.wide._replace(nodes=None, leaves=None, bounds=None) == \
-        native.wide._replace(nodes=None, leaves=None, bounds=None)
+    tensors = dict(nodes=None, leaves=None, bounds=None, t_roots=None,
+                   t_lo=None, t_hi=None)
+    assert bridged.wide._replace(**tensors) == native.wide._replace(**tensors)
     assert bridged.mat_atlas.bsdf_constant == native.mat_atlas.bsdf_constant
     assert bridged.mat_atlas.normals_flat == native.mat_atlas.normals_flat
     assert bridged.emitters.count == native.emitters.count
     assert bridged.has_delta == native.has_delta is True
     assert bridged.env.size == native.env.size
     assert bridged.wide.max_stack == js.wide.max_stack
+
+
+@pytest.mark.parametrize("n_tris,seed", [(3, 0), (37, 1), (700, 2),
+                                         (2000, 3)])
+def test_build_sah_matches_reference(n_tris, seed):
+    """Every array of the binned-SAH binary tree equals the reference's
+    (built without its power-of-two padding, which the port drops)."""
+    tris = random_tris(n_tris, seed=seed)
+    want = JL.build_sah(tris, as_numpy=True, pad_nodes_to_pow2=False)
+    got = PL.build_sah(tris)
+    for field in want._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got, field)),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+
+
+def _room_rows(arrays):
+    return {k: v for k, v in arrays.items() if k.startswith("wide.")}
+
+
+def test_world_sah_rows_match_reference():
+    """World.build_arrays(builder="sah") rows equal the JAX
+    World.build(builder="sah") rows on the small room."""
+    jw, _ = JP.room_scene(grid=2, subdivisions=2)
+    pw, _ = PP.room_scene(grid=2, subdivisions=2)
+    want, want_s = jax_scene_arrays(jw.build(builder="sah"))
+    got, got_s = pw.build_arrays(builder="sah")
+    for key, w in _room_rows(want).items():
+        np.testing.assert_array_equal(got[key], w.astype(got[key].dtype),
+                                      err_msg=key)
+    for key in ("wide.max_depth", "wide.width", "wide.leaf_slots"):
+        assert got_s[key] == want_s[key], key
+
+
+def test_auto_builder_switches_to_sah(monkeypatch):
+    """builder="auto" builds SAH above SAH_MIN_TRIS triangles (50k, the
+    reference's rule) and Karras at or below it."""
+    pw, _ = PP.room_scene(grid=2, subdivisions=1)
+    built = []
+    for name in ("build", "build_sah"):
+        fn = getattr(PWorld.lbvh, name)
+        monkeypatch.setattr(
+            PWorld.lbvh, name,
+            lambda *a, _fn=fn, _name=name, **k: built.append(_name)
+            or _fn(*a, **k))
+    arrays, _ = pw.build_arrays()
+    n_tris = len(arrays["tri_shade"])
+    monkeypatch.setattr(PWorld, "SAH_MIN_TRIS", n_tris)
+    pw.build_arrays()
+    monkeypatch.setattr(PWorld, "SAH_MIN_TRIS", n_tris - 1)
+    pw.build_arrays()
+    assert PWorld.SAH_MIN_TRIS == n_tris - 1
+    assert built == ["build", "build", "build_sah"]
+    with pytest.raises(ValueError, match="unknown builder"):
+        pw.build_arrays(builder="median")
+
+
+def test_wide_layout_overrides_match_reference(monkeypatch):
+    """MSN_WIDE=8 MSN_LEAF_CAP=8 give the 8-wide / 8-slot tree in both
+    packages, with the same rows and treelet plan."""
+    monkeypatch.setenv("MSN_WIDE", "8")
+    monkeypatch.setenv("MSN_LEAF_CAP", "8")
+    jw, _ = JP.room_scene(grid=2, subdivisions=2)
+    pw, _ = PP.room_scene(grid=2, subdivisions=2)
+    want, want_s = jax_scene_arrays(jw.build(builder="sah"))
+    got, got_s = pw.build_arrays(builder="sah")
+    assert (got_s["wide.width"], got_s["wide.leaf_slots"]) == (8, 8)
+    assert (want_s["wide.width"], want_s["wide.leaf_slots"]) == (8, 8)
+    for key, w in _room_rows(want).items():
+        np.testing.assert_array_equal(got[key], w.astype(got[key].dtype),
+                                      err_msg=key)
+
+
+def test_build_defaults_to_the_card():
+    """World.build, build_wide, LensArrays.from_lens and Sensor.create put
+    their tensors on "cuda" unless asked for another device."""
+    import inspect
+
+    from moonshine_tpu_torch.accel.wide import build_wide
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.sensor import Sensor
+
+    for fn in (PWorld.World.build, build_wide, LensArrays.from_lens,
+               Sensor.create):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

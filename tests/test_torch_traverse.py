@@ -26,7 +26,7 @@ CASES = [(37, 4, 12, 16), (700, 5, 12, 16), (37, 4, 24, 24),
 def _case(n_tris, seed, cap, width):
     tris = random_tris(n_tris, seed=seed)
     jw = JW.build_wide(tris, leaf_cap=cap, width=width)
-    pw = PW.build_wide(tris, leaf_cap=cap, width=width)
+    pw = PW.build_wide(tris, leaf_cap=cap, width=width, device="cpu")
     o, d = random_rays(N_RAYS, seed=seed + 10)
     rs = np.random.RandomState(seed)
     active = rs.rand(N_RAYS) > 0.25
