@@ -7,8 +7,9 @@ phase prints lines tagged with its name; a failing phase raises and the
 script exits non-zero without the result line. Phases:
 
   device          the card's name and power limit (nvidia-smi)
-  build           nvcc builds csrc/traverse.cu and csrc/treelet.cu into
-                  build/, one process each, started together
+  build           nvcc builds csrc/traverse.cu, csrc/treelet.cu,
+                  csrc/vpacket.cu and csrc/vpu.cu into build/, one process
+                  each, started together
   scenes          flagship, room_184k (SAH, 24-wide / 24-slot) and
                   room_184k as the treelet build (MSN_WIDE=8
                   MSN_LEAF_CAP=8): builder, layout, row bytes against the
@@ -32,6 +33,19 @@ script exits non-zero without the result line. Phases:
                   kernel held against its plain version there and timed
                   beside it, its bound from the plain version's visit
                   counts, and the treelet dispatch's phase 1 alone
+  vpacket         format-V tiles of both room_184k trees: the V kernels
+                  against their plain versions and the packet kernel on
+                  the test batch and at the 1080p launches (bit for bit),
+                  timed beside the packet kernel with bounds; then the
+                  row-versus-V entry point (scripts/profile_vpacket.py)
+  fallback        the dispatch forced into the per-lane walk of the binary
+                  BVH (accel/traverse.py): the flagship 256x256 x 1 spp
+                  against the default path, and the walk on 262,144
+                  camera rays against the packet kernel, timed
+  vpu             the slab and ALU microbenchmark kernels against their
+                  plain versions (20 visits, the reference's inputs and
+                  seeded ones), then the entry point
+                  (scripts/profile_vpu.py) at 2000 visits
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -51,8 +65,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 INF_T = 1.0e12
 HD = (1080, 1920)
 # the card's published peaks (H100 SXM, NVIDIA's data sheet): fp32 outside
-# the tensor cores, and HBM bandwidth
+# the tensor cores, bf16 (the data sheet's rate, a tensor-core one), and HBM
+# bandwidth
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "closest_hit": ("moonshine_tpu_torch/csrc/traverse.cu",
@@ -63,6 +79,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                             "moonshine_tpu/accel/treelet.py:510"),
     "treelet_any_hit": ("moonshine_tpu_torch/csrc/treelet.cu",
                         "moonshine_tpu/accel/treelet.py:510"),
+    "v_closest_hit": ("moonshine_tpu_torch/csrc/vpacket.cu",
+                      "moonshine_tpu/accel/vpacket.py:546"),
+    "v_any_hit": ("moonshine_tpu_torch/csrc/vpacket.cu",
+                  "moonshine_tpu/accel/vpacket.py:580"),
+    "vpu_slab": ("moonshine_tpu_torch/csrc/vpu.cu",
+                 "scripts/profile_vpu.py:101"),
+    "vpu_alu": ("moonshine_tpu_torch/csrc/vpu.cu",
+                "scripts/profile_vpu.py:137"),
 }
 TREELET_ENV = {"MSN_WIDE": "8", "MSN_LEAF_CAP": "8"}
 
@@ -99,18 +123,20 @@ def say(name, msg):
 
 def cuda_ms(fn, reps):
     """Mean device time of fn over `reps` calls after one warm-up call."""
+    from moonshine_tpu_torch.scripts import cuda_ms as timer
+
+    return timer(fn, reps)
+
+
+def host_ms(fn):
+    """Host-clock time of one synchronised call of fn, in ms."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return (time.perf_counter() - t0) * 1e3
 
 
 def grazing(hit, lanes):
@@ -145,7 +171,7 @@ def test_batch(scene, lens):
     return o, d, active, t_fin
 
 
-def check_closest(name, hk, hp, active, n):
+def check_closest(name, hk, hp, active, n, tag="kernels"):
     """Raises unless a kernel's hits agree with the plain ones within the
     bar: is_hit flips only on edge grazes (at most 1e-5 of the rays), t
     within 1e-5 relative, tri differing only on equal t. Returns max|dt|
@@ -174,7 +200,7 @@ def check_closest(name, hk, hp, active, n):
           and (rel_t[both] <= 1e-5).all() and np.array_equal(
               hk.t[~hit_k & ~hit_p], hp.t[~hit_k & ~hit_p])
           and (rel_t[tri_dif] <= 1e-5).all() and uv_err <= 1e-4)
-    say("kernels", f"{name}: {n} rays, {int(hit_p.sum())} hits, is_hit "
+    say(tag, f"{name}: {n} rays, {int(hit_p.sum())} hits, is_hit "
         f"mismatches {len(miss_dif)} (grazing {int(graze_ok.sum())}), tri "
         f"ties {len(tri_dif)}, max|dt| {t_err:.3g}, max|duv| {uv_err:.3g}")
     if not ok:
@@ -304,17 +330,20 @@ def render_1080p(name, scene, lens, cfg, resort, spp=2):
     return img, stats, launches
 
 
-def bound(name, n, visits, wbvh, k32=0):
+def bound(name, n, visits, wbvh, k32=0, record_bytes=None):
     """(bound_ms, bound_by, detail) for one kernel call on n rays that
-    touched `visits` (the plain version's count on the same rays)."""
+    touched `visits` (the plain version's count on the same rays); each
+    distinct record read counts `record_bytes` (node, leaf), by default
+    the whole row."""
     from moonshine_tpu_torch.accel import packet
 
     closest = "closest" in name
     ray_in = 12 + 12 + 4 + (4 + 4 * k32 if k32 else 1)  # o, d, t_max, mask
     ray_out = 16 if closest else 1
     row = lambda x: x[0].numel() * x.element_size()
-    nbytes = (n * (ray_in + ray_out) + visits.node_rows * row(wbvh.nodes)
-              + visits.leaf_rows * row(wbvh.leaves))
+    node_b, leaf_b = record_bytes or (row(wbvh.nodes), row(wbvh.leaves))
+    nbytes = (n * (ray_in + ray_out) + visits.node_rows * node_b
+              + visits.leaf_rows * leaf_b)
     flops = (visits.node_slots * packet.FLOPS_PER_NODE_SLOT
              + visits.leaf_tris * (packet.FLOPS_PER_TRI_CLOSEST if closest
                                    else packet.FLOPS_PER_TRI_ANY))
@@ -445,11 +474,7 @@ def time_kernels(scenes, timings, errs):
             ms = cuda_ms(kern, 5)
             out_k = kern()
             out_p, visits = plain(True)  # also the plain version's warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            plain()
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain_ms = host_ms(plain)
             if any_hit:
                 err = check_any(f"{kname} (timed batch)", out_k, out_p, wb,
                                 *lanes)
@@ -470,6 +495,254 @@ def time_kernels(scenes, timings, errs):
                 f"{ms:.4f} ms, plain torch {plain_ms:.2f} ms, bound "
                 f"{b_ms:.4f} ms by {b_by} ({detail}); no single PyTorch "
                 f"call traverses a BVH, so no library time")
+
+
+def assert_same(name, got, *wants):
+    """Raises unless `got` (a Hit or a bool tensor) equals each of `wants`
+    bit for bit; returns max|t| or max|occlusion| difference (0.0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    as_tuple = lambda x: tuple(x) if isinstance(x, tuple) else (x,)
+    for want in wants:
+        for g, w in zip(as_tuple(got), as_tuple(want)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: {int((g != w).sum())} lanes "
+                                     f"differ")
+    return 0.0
+
+
+def vpacket_phase(scenes, timings, errs, launches):
+    """Format V on both room_184k trees: the kernels against their plain
+    versions and the packet kernel (the test batch, then the 1080p main
+    path's largest launches, timed alternately with the packet kernel),
+    then the row-versus-V entry point, whose launches are counted."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet, vpacket
+    from moonshine_tpu_torch.render.renderer import _sample_rays
+    from moonshine_tpu_torch.scripts import profile_vpacket
+
+    h, w = HD
+    for tree in ("default", "treelet"):
+        scene, lens = scenes[f"room_184k/{tree}"]
+        wb = scene.wide
+        t0 = time.perf_counter()
+        v = vpacket.v_from_wide(wb)
+        torch.cuda.synchronize()
+        tb, rb = vpacket.tile_bytes(v), packet.row_bytes(wb)
+        say("vpacket", f"room_184k/{tree} ({wb.width}/{wb.leaf_slots}): "
+            f"{wb.num_nodes} + {wb.num_leaves} tiles = {tb} B, "
+            f"{tb / rb:.2f}x the rows' {rb} B; tiled in "
+            f"{time.perf_counter() - t0:.2f} s")
+        o, d, active, t_fin = test_batch(scene, lens)
+        args = (o, d, INF_T, active)
+        assert_same(f"{tree} test batch closest hit",
+                    vpacket.closest_hit_vpacket(v, *args),
+                    vpacket.closest_hit_plain(v, *args),
+                    packet.closest_hit_packet(wb, *args))
+        args = (o, d, t_fin, active)
+        assert_same(f"{tree} test batch any hit",
+                    vpacket.any_hit_vpacket(v, *args),
+                    vpacket.any_hit_plain(v, *args),
+                    packet.any_hit_packet(wb, *args))
+        say("vpacket", f"room_184k/{tree} test batch ({o.shape[0]} rays): "
+            f"V kernels = V plain = packet kernel, closest and any hit, "
+            f"bit for bit")
+        o, d, _, _ = _sample_rays(lens, h, w, 0, True, scene.device)
+        n = o.shape[0]
+        batches = {
+            "v_closest_hit": (o, d, torch.full((n,), INF_T, device=o.device),
+                              torch.ones(n, dtype=torch.bool,
+                                         device=o.device)),
+            "v_any_hit": shadow_batch(o, d, packet.closest_hit_packet(
+                wb, o, d, INF_T)),
+        }
+        node_f, leaf_f = vpacket.used_floats(v)
+        for kname, lanes in batches.items():
+            m = lanes[0].shape[0]
+            if kname == "v_any_hit":
+                kern = lambda a=lanes: vpacket.any_hit_vpacket(v, *a)
+                pk = lambda a=lanes: packet.any_hit_packet(wb, *a)
+                plain = lambda c=False, a=lanes: vpacket.any_hit_plain(
+                    v, *a, count_visits=c)
+            else:
+                kern = lambda a=lanes: vpacket.closest_hit_vpacket(v, *a)
+                pk = lambda a=lanes: packet.closest_hit_packet(wb, *a)
+                plain = lambda c=False, a=lanes: vpacket.closest_hit_plain(
+                    v, *a, count_visits=c)
+            out_p, visits = plain(True)
+            err = assert_same(f"{tree} {kname} on {m} lanes", kern(), out_p,
+                              pk())
+            plain_ms = host_ms(plain)
+            rounds = {"V kernel": [], "packet kernel": []}
+            for _ in range(3):  # alternated, so clocks hit both alike
+                rounds["V kernel"].append(cuda_ms(kern, 5))
+                rounds["packet kernel"].append(cuda_ms(pk, 5))
+            ms = sum(rounds["V kernel"]) / 3
+            b_ms, b_by, detail = bound(kname, m, visits, v,
+                                       record_bytes=(4 * node_f, 4 * leaf_f))
+            rb_ms, rb_by, _ = bound(kname, m, visits, wb)
+            say("vpacket", f"{kname} on {m} lanes ({tree} tree): V kernel = V "
+                f"plain = packet kernel bit for bit; three alternated "
+                f"rounds: " + "; ".join(
+                    f"{k} " + " / ".join(f"{x:.4f}" for x in xs) + " ms"
+                    for k, xs in rounds.items())
+                + f"; V plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms by "
+                f"{b_by} ({detail}); the packet kernel's bound on the same "
+                f"visits {rb_ms:.4f} ms by {rb_by}")
+            if tree == "default":
+                errs[kname] = err
+                timings[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+
+    # the slice's entry point: counts set to 0 just before, read just after
+    scene, lens = scenes["room_184k/default"]
+    vpacket.reset_launch_counts()
+    profile_vpacket.bench_scene("room_184k", scene, lens, count_visits=True)
+    launches.update(vpacket.LAUNCHES)
+    say("vpacket", f"profile_vpacket launches {dict(vpacket.LAUNCHES)}")
+    if min(vpacket.LAUNCHES.values()) == 0:
+        raise AssertionError("the row-versus-V run launched no V kernel")
+
+
+def fallback_phase(scenes, cfg):
+    """The dispatch forced into the per-lane walk (the reference's jnp
+    fallback): a stack limit of 1 on an HBM-class scene."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet, traverse
+    from moonshine_tpu_torch.integrator import path
+    from moonshine_tpu_torch.render.renderer import _sample_rays, render_spp
+
+    scene, lens = scenes["flagship"]
+    want, _ = render_spp(scene, lens, 256, 256, 0, 1, cfg)
+    want = want.cpu().numpy()
+    saved = packet.HBM_STACK_DEPTH, packet.VMEM_SCENE_BUDGET_BYTES
+    packet.HBM_STACK_DEPTH, packet.VMEM_SCENE_BUDGET_BYTES = 1, 0
+    try:
+        mode = path._hbm_mode(scene.wide)
+        traverse.reset_call_counts()
+        packet.reset_launch_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        got, rays = render_spp(scene, lens, 256, 256, 0, 1, cfg, stats=stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        calls, pk = dict(traverse.CALLS), dict(packet.LAUNCHES)
+    finally:
+        packet.HBM_STACK_DEPTH, packet.VMEM_SCENE_BUDGET_BYTES = saved
+    got = got.cpu().numpy()
+    pix = (np.abs(got - want) <= 1e-3 + 1e-3 * np.abs(want)).all(-1)
+    mean_rel = abs(got.mean() / want.mean() - 1.0)
+    say("fallback", f"flagship 256x256 x 1 spp in mode {mode}: {int(rays)} "
+        f"rays in {dt:.3f} s, walk calls {calls}, packet launches {pk}, "
+        f"resort {stats['resort']}; against the default path "
+        f"{pix.mean():.4%} of pixels within 1e-3, means rel {mean_rel:.3g}")
+    if (mode != "lanes" or calls["closest_hit"] != stats["segments"]
+            or calls["any_hit"] == 0 or any(pk.values())):
+        raise AssertionError("the forced render did not take the walk")
+    if pix.mean() < 0.99 or mean_rel > 1e-3 or not np.isfinite(got).all():
+        raise AssertionError("the per-lane walk's render disagrees")
+    o, d, _, _ = _sample_rays(lens, 512, 512, 0, True, scene.device)
+    n = o.shape[0]
+    hk = packet.closest_hit_packet(scene.wide, o, d, INF_T)
+    hl = None
+
+    def walk():
+        nonlocal hl
+        hl = traverse.closest_hit(scene.bvh, scene.tri_verts_sorted, o, d,
+                                  INF_T)
+    ms = host_ms(walk)
+    ones = torch.ones(n, dtype=torch.bool, device=o.device)
+    check_closest("per-lane walk vs packet kernel", hl, hk, ones, n,
+                  tag="fallback")
+    pk_ms = cuda_ms(lambda: packet.closest_hit_packet(scene.wide, o, d,
+                                                      INF_T), 5)
+    say("fallback", f"traverse.closest_hit on {n} flagship camera rays: "
+        f"{ms:.2f} ms in torch ops (the packet kernel: {pk_ms:.4f} ms)")
+
+
+def vpu_bounds(kind, dtype, lanes, visits):
+    """(bound_ms, bound_by) of one slab or ALU launch: its inputs read and
+    its output written once against its operations at the dtype's peak
+    (25 per child test and lane, 3 of them float32 compares; 12 per ALU
+    iteration and lane, the chain's two loop-invariant products once)."""
+    import torch
+
+    size = 2 if dtype == torch.bfloat16 else 4
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    if kind == "slab":
+        nbytes = 128 * 128 * 4 + 6 * lanes * size + 4
+        t_ops = visits * 8 * lanes * (22 / peak + 3 / PEAK_FP32)
+    else:
+        nbytes = 3 * lanes * size
+        t_ops = (visits * 12 + 2) * lanes / peak
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def vpu_phase(dev, timings, errs, launches):
+    """The slab and ALU kernels against their plain versions at 20 visits
+    (the reference's inputs and seeded ones), the entry point at 2000
+    visits with its launches counted, and the first slab and ALU
+    configurations held against their plain versions at 2000 visits."""
+    import torch
+
+    from moonshine_tpu_torch.scripts import profile_vpu as V
+
+    for seed in (None, 1):
+        for name, dt, fma_form, packed in V.SLAB_CONFIGS:
+            rows, planes = V.slab_inputs(dt, dev, seed=seed)
+            k = int(V.slab(rows, planes, fma_form, packed, 20))
+            p = int(V.slab_plain(rows, planes, fma_form, packed, 20))
+            say("vpu", f"{name}, {'seeded' if seed else 'reference'} "
+                f"inputs, 20 visits: kernel {k}, plain {p}")
+            if k != p or (seed is not None and k == 0):
+                raise AssertionError(f"{name}: slab counts disagree or no "
+                                     f"lane hit")
+        for name, dt, r in V.ALU_CONFIGS:
+            a, b = V.alu_inputs(dt, r, dev, seed=seed)
+            if not torch.equal(V.alu(a, b, 20), V.alu_plain(a, b, 20)):
+                raise AssertionError(f"{name}: ALU outputs differ")
+        say("vpu", f"ALU chains, {'seeded' if seed else 'reference'} inputs, "
+            f"20 visits: kernel = plain bit for bit in all four")
+    V.reset_launch_counts()
+    ms = V.main()  # the entry point: counts set to 0 just before
+    launches.update(V.LAUNCHES)
+    say("vpu", f"profile_vpu launches {dict(V.LAUNCHES)}")
+    if min(V.LAUNCHES.values()) == 0:
+        raise AssertionError("profile_vpu launched no kernel")
+    for name, dt, fma_form, packed in V.SLAB_CONFIGS:
+        say("vpu", f"{name}: bound %.4f ms by %s" % vpu_bounds(
+            "slab", dt, V.ROWS * 128, V.VISITS))
+    for name, dt, r in V.ALU_CONFIGS:
+        say("vpu", f"{name}: bound %.4f ms by %s" % vpu_bounds(
+            "alu", dt, r * 128, V.VISITS))
+    name, dt, fma_form, packed = V.SLAB_CONFIGS[0]
+    rows, planes = V.slab_inputs(dt, dev)
+    out = {}
+    plain_ms = host_ms(lambda: out.update(p=V.slab_plain(
+        rows, planes, fma_form, packed)))
+    errs["vpu_slab"] = float(abs(int(V.slab(rows, planes, fma_form, packed))
+                                 - int(out["p"])))
+    b_ms, b_by = vpu_bounds("slab", dt, V.ROWS * 128, V.VISITS)
+    timings["vpu_slab"] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+    name, dt, r = V.ALU_CONFIGS[0]
+    a, b = V.alu_inputs(dt, r, dev)
+    plain_ms = host_ms(lambda: out.update(a=V.alu_plain(a, b)))
+    errs["vpu_alu"] = float((V.alu(a, b) - out["a"]).abs().max())
+    b_ms, b_by = vpu_bounds("alu", dt, r * 128, V.VISITS)
+    timings["vpu_alu"] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+    for k in ("vpu_slab", "vpu_alu"):
+        say("vpu", f"{k} at {V.VISITS} visits: kernel {timings[k]['ms']:.4f} "
+            f"ms, plain {timings[k]['plain_ms']:.2f} ms, max|kernel - "
+            f"plain| {errs[k]}")
+    if errs["vpu_slab"] or errs["vpu_alu"]:
+        raise AssertionError("a VPU kernel disagrees at 2000 visits")
 
 
 def main():
@@ -497,7 +770,8 @@ def main():
                      if "registers" in ln or "spill" in ln]
             say("build", f"{lib.path.relative_to(ROOT)} in "
                 f"{lib.build_seconds:.1f} s; stack capacity "
-                f"{lib.stack_capacity}; " + " | ".join(ptxas))
+                f"{getattr(lib, 'stack_capacity', '-')}; "
+                + " | ".join(ptxas))
 
     from moonshine_tpu_torch.integrator import path
     from moonshine_tpu_torch.integrator.path import PathConfig
@@ -674,6 +948,15 @@ def main():
     timings = {}
     with phase("timings"):
         time_kernels(scenes, timings, errs)
+
+    with phase("vpacket"):
+        vpacket_phase(scenes, timings, errs, launches)
+
+    with phase("fallback"):
+        fallback_phase(scenes, cfg)
+
+    with phase("vpu"):
+        vpu_phase(dev, timings, errs, launches)
 
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

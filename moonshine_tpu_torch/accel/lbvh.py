@@ -5,8 +5,9 @@ moonshine_tpu/accel/lbvh.py: `build(..., as_numpy=True)` and
 `build` is a radix tree over Morton-sorted triangle centroids (Karras
 2012); `build_sah` splits top-down by the binned surface-area heuristic.
 Both are vectorised numpy flattened into (left, count, escape) arrays.
-The port only collapses them into the wide BVH (wide.py); the binary tree
-never goes to the device. Karras' 64-bit keys (30-bit Morton << 32 |
+The port collapses them into the wide BVH (wide.py), and `device_bvh`
+puts the binary tree itself on the device for the per-lane fallback walk
+(traverse.py). Karras' 64-bit keys (30-bit Morton << 32 |
 index) are strictly increasing, so its pass loops converge within 70
 iterations even for coincident geometry; the SAH build bounds its depth
 with median splits past 48 levels.
@@ -21,6 +22,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 SENTINEL = np.int32(-1)  # escape target meaning "traversal done"
 
@@ -54,6 +56,22 @@ def _to_bvh(aabb_min, aabb_max, left, count, escape, order, num_nodes,
         num_nodes=num_nodes,
         num_tris=num_tris,
         parent=np.asarray(parent, np.int32),
+    )
+
+
+def device_bvh(bvh: BVH, device) -> BVH:
+    """The BVH's arrays as tensors on `device` (float32 boxes, int64
+    indices); a missing `parent` stays None."""
+    put = lambda a, dt: (None if a is None else
+                         torch.tensor(np.asarray(a, dt), device=device))
+    return bvh._replace(
+        aabb_min=put(bvh.aabb_min, np.float32),
+        aabb_max=put(bvh.aabb_max, np.float32),
+        left=put(bvh.left, np.int64),
+        count=put(bvh.count, np.int64),
+        escape=put(bvh.escape, np.int64),
+        tri_order=put(bvh.tri_order, np.int64),
+        parent=put(bvh.parent, np.int64),
     )
 
 

@@ -1,5 +1,6 @@
-"""Build and load the CUDA traversal libraries (csrc/traverse.cu and
-csrc/treelet.cu, which share csrc/visit.cuh).
+"""Build and load the CUDA libraries: the traversal kernels
+(csrc/traverse.cu, csrc/treelet.cu and csrc/vpacket.cu, which share
+csrc/visit.cuh) and the arithmetic microbenchmarks (csrc/vpu.cu).
 
 nvcc compiles each source into a shared library with a plain C
 interface, loaded with ctypes. A library is built at first use into
@@ -21,7 +22,8 @@ import time
 
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
-SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu"}
+SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
+           "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu"}
 HEADERS = [CSRC / "visit.cuh"]
 BUILD_DIR = _ROOT / "build"
 # -fmad=false keeps every multiply and add separately rounded, as in the
@@ -52,13 +54,23 @@ class NativeLib:
 
 
 class TraverseLib(NativeLib):
+    """traverse.cu's entry points; vpacket.cu's share their signature
+    under another prefix."""
+
+    prefix = "msn"
+
     def __init__(self, *args):
         super().__init__(*args)
         rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I]
-        self.closest_hit = self._fn("msn_closest_hit",
+        self.closest_hit = self._fn(f"{self.prefix}_closest_hit",
                                     rays + [_P, _P, _P, _P, _P])
-        self.any_hit = self._fn("msn_any_hit", rays + [_P, _P])
-        self.stack_capacity = int(self._fn("msn_stack_capacity", [])())
+        self.any_hit = self._fn(f"{self.prefix}_any_hit", rays + [_P, _P])
+        self.stack_capacity = int(
+            self._fn(f"{self.prefix}_stack_capacity", [])())
+
+
+class VPacketLib(TraverseLib):
+    prefix = "msn_v"
 
 
 class TreeletLib(NativeLib):
@@ -72,7 +84,16 @@ class TreeletLib(NativeLib):
             self._fn("msn_treelet_stack_capacity", [])())
 
 
-_CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib}
+class VpuLib(NativeLib):
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.slab = self._fn("msn_vpu_slab",
+                             [_P] * 7 + [_I] * 5 + [_P, _P])
+        self.alu = self._fn("msn_vpu_alu", [_P, _P, _P, _I, _I, _I, _P])
+
+
+_CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
+            "vpacket": VPacketLib, "vpu": VpuLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -127,11 +148,28 @@ def build_all(names=tuple(SOURCES)) -> dict[str, NativeLib]:
     return {name: _LOADED[name] for name in names}
 
 
+def _lib(name: str) -> NativeLib:
+    """A loaded library, built at its first use in this process; later
+    calls cost a dict lookup (wrappers call this at every launch)."""
+    lib = _LOADED.get(name)
+    return lib if lib is not None else build_all((name,))[name]
+
+
 def traverse_lib() -> TraverseLib:
     """The packet traversal library (csrc/traverse.cu)."""
-    return build_all(("traverse",))["traverse"]
+    return _lib("traverse")
 
 
 def treelet_lib() -> TreeletLib:
     """The treelet traversal library (csrc/treelet.cu)."""
-    return build_all(("treelet",))["treelet"]
+    return _lib("treelet")
+
+
+def vpacket_lib() -> VPacketLib:
+    """The format-V traversal library (csrc/vpacket.cu)."""
+    return _lib("vpacket")
+
+
+def vpu_lib() -> VpuLib:
+    """The arithmetic microbenchmark library (csrc/vpu.cu)."""
+    return _lib("vpu")

@@ -151,8 +151,27 @@ FLOPS_PER_TRI_CLOSEST = 55
 FLOPS_PER_TRI_ANY = 54
 
 
+def _row_node_fields(wbvh: WideBVH, ids):
+    """(lo, hi, ptr, axis) of node rows `ids`: lo and hi three [n, w]
+    components, ptr [n, w], axis [n]."""
+    w = wbvh.width
+    rows = wbvh.nodes.reshape(wbvh.nodes.shape[0], -1)[ids]
+    return ([rows[:, c * w:(c + 1) * w] for c in range(3)],
+            [rows[:, (3 + c) * w:(4 + c) * w] for c in range(3)],
+            rows[:, 6 * w:7 * w], rows[:, 7 * w])
+
+
+def _row_leaf_fields(wbvh: WideBVH, ids):
+    """Leaf rows `ids` as [n, 10, S]: field f (v0 xyz, e1 xyz, e2 xyz,
+    tid) of slot j at [:, f, j]."""
+    S = wbvh.leaf_slots
+    rows = wbvh.leaves.reshape(wbvh.leaves.shape[0], -1)[ids]
+    return rows[:, :10 * S].reshape(-1, 10, S)
+
+
 def _walk(wbvh: WideBVH, r, st: dict, lanes, roots, any_hit: bool,
-          treelet_form: bool, stack, counts: dict | None):
+          treelet_form: bool, stack, counts: dict | None,
+          node_fields=_row_node_fields, leaf_fields=_row_leaf_fields):
     """Traverse each lane of `lanes` from its root in `roots` until its
     stack empties (or, for any hit, it is occluded), updating the lane
     state `st` (t_best, tri, u, v, occ) in place.
@@ -161,12 +180,11 @@ def _walk(wbvh: WideBVH, r, st: dict, lanes, roots, any_hit: bool,
     `(b - o) * inv` slabs and `tnear <= tfar & tfar >= 0 & tnear <=
     prune`; otherwise the packet kernel's `b * inv - oinv` slabs and
     `max(tnear, 0) <= min(tfar, prune)`. The two agree for live lanes up
-    to rounding."""
+    to rounding. node_fields and leaf_fields read the records (rows here,
+    format-V tiles in vpacket.py)."""
     o, d, inv, oinv, ray_d = r
     dev = inv[0].device
     w, S = wbvh.width, wbvh.leaf_slots
-    nodes = wbvh.nodes.reshape(wbvh.nodes.shape[0], -1)
-    leaves = wbvh.leaves.reshape(wbvh.leaves.shape[0], -1)
     tmax, t_best, tri = st["tmax"], st["t_best"], st["tri"]
     best_u, best_v, occ = st["u"], st["v"], st["occ"]
     top = torch.zeros(tmax.shape[0], dtype=torch.int64, device=dev)
@@ -181,11 +199,8 @@ def _walk(wbvh: WideBVH, r, st: dict, lanes, roots, any_hit: bool,
         li = lanes[internal]
         if li.numel():
             ids = node[internal]
-            rows = nodes[ids]
             n = len(li)
-            ptr = rows[:, 6 * w:7 * w]
-            lo = [rows[:, c * w:(c + 1) * w] for c in range(3)]
-            hi = [rows[:, (3 + c) * w:(4 + c) * w] for c in range(3)]
+            lo, hi, ptr, axis = node_fields(wbvh, ids)
             if treelet_form:
                 t0 = [(lo[c] - o[c][li, None]) * inv[c][li, None]
                       for c in range(3)]
@@ -212,7 +227,6 @@ def _walk(wbvh: WideBVH, r, st: dict, lanes, roots, any_hit: bool,
                        <= torch.minimum(tfar, prune))
             used = ptr != -1.0
             hit &= used
-            axis = rows[:, 7 * w]
             ax = torch.where(axis < 0.5, 0, torch.where(axis < 1.5, 1, 2))
             fwd = (ray_d[li].gather(1, ax[:, None])[:, 0] >= 0.0)[:, None]
             # push far first: slot w-1 first when the ray runs forward
@@ -230,11 +244,11 @@ def _walk(wbvh: WideBVH, r, st: dict, lanes, roots, any_hit: bool,
         ll = lanes[~internal]
         if ll.numel():
             ids = -2 - node[~internal]
-            rows = leaves[ids]
-            tid = rows[:, 9 * S:10 * S]
+            fields = leaf_fields(wbvh, ids)
+            tid = fields[:, 9]
             ol = [c[ll] for c in o]
             dl = [c[ll] for c in d]
-            comp = lambda k, j: rows[:, k * S + j]
+            comp = lambda k, j: fields[:, k, j]
             if any_hit:
                 tm = tmax[ll]
                 occ_l = occ[ll]
@@ -317,14 +331,15 @@ def _plain_result(st: dict, t_caller, any_hit: bool):
 
 
 def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
-                    any_hit: bool, count_visits: bool = False):
+                    any_hit: bool, count_visits: bool = False, **fields):
     tmax = (t_caller if active_in is None
             else torch.where(active_in, t_caller, _NEG))
     r, st, stack, counts = _plain_state(wbvh, ray_o, ray_d, tmax,
                                         count_visits)
     lanes = torch.nonzero(tmax > 0.0).squeeze(1)
     roots = torch.zeros_like(lanes)  # node 0 is the root
-    _walk(wbvh, r, st, lanes, roots, any_hit, False, stack, counts)
+    _walk(wbvh, r, st, lanes, roots, any_hit, False, stack, counts,
+          **fields)
     out = _plain_result(st, t_caller, any_hit)
     return (out, _visits(counts)) if count_visits else out
 
@@ -433,6 +448,29 @@ def _device_kind(ray_o) -> str:
     return kind
 
 
+def _launch(lib, counts: dict, key: str, wbvh, ray_o, ray_d, t_max,
+            active_in, any_hit: bool):
+    """One launch of `lib`'s closest-hit or any-hit kernel (the C entry
+    points of traverse.cu's signature) on checked rays; counts[key] adds
+    one where the kernel launches. Returns a Hit or a bool tensor."""
+    args, _keep = _launch_args(lib, wbvh, ray_o, ray_d, t_max, active_in)
+    n, dev = ray_o.shape[0], ray_o.device
+    if any_hit:
+        out = (torch.empty(n, dtype=torch.bool, device=dev),)
+        fn = lib.any_hit
+    else:
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        out = (t, torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty_like(t), torch.empty_like(t))
+        fn = lib.closest_hit
+    if n:
+        rc = fn(*args, *(x.data_ptr() for x in out), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+        counts[key] += 1
+    return out[0] if any_hit else Hit(*out)
+
+
 def closest_hit_packet(wbvh: WideBVH, ray_o, ray_d, t_max,
                        active_in=None) -> Hit:
     """Closest hit per ray: the CUDA kernel for CUDA tensors, the plain
@@ -440,22 +478,8 @@ def closest_hit_packet(wbvh: WideBVH, ray_o, ray_d, t_max,
     _check_rays(wbvh, ray_o, ray_d, active_in)
     if _device_kind(ray_o) == "cpu":
         return closest_hit_plain(wbvh, ray_o, ray_d, t_max, active_in)
-    lib = native.traverse_lib()
-    args, _keep = _launch_args(lib, wbvh, ray_o, ray_d, t_max, active_in)
-    n = ray_o.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=ray_o.device)
-    tri = torch.empty(n, dtype=torch.int32, device=ray_o.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    if n:
-        rc = lib.closest_hit(*args, t.data_ptr(), tri.data_ptr(),
-                             u.data_ptr(), v.data_ptr(),
-                             _stream(ray_o.device))
-        if rc != 0:
-            raise RuntimeError(f"closest-hit kernel launch failed: "
-                               f"cudaError {rc}")
-        LAUNCHES["closest_hit"] += 1
-    return Hit(t=t, tri=tri, u=u, v=v)
+    return _launch(native.traverse_lib(), LAUNCHES, "closest_hit", wbvh,
+                   ray_o, ray_d, t_max, active_in, False)
 
 
 def any_hit_packet(wbvh: WideBVH, ray_o, ray_d, t_max,
@@ -465,17 +489,8 @@ def any_hit_packet(wbvh: WideBVH, ray_o, ray_d, t_max,
     _check_rays(wbvh, ray_o, ray_d, active_in)
     if _device_kind(ray_o) == "cpu":
         return any_hit_plain(wbvh, ray_o, ray_d, t_max, active_in)
-    lib = native.traverse_lib()
-    args, _keep = _launch_args(lib, wbvh, ray_o, ray_d, t_max, active_in)
-    n = ray_o.shape[0]
-    occ = torch.empty(n, dtype=torch.bool, device=ray_o.device)
-    if n:
-        rc = lib.any_hit(*args, occ.data_ptr(), _stream(ray_o.device))
-        if rc != 0:
-            raise RuntimeError(f"any-hit kernel launch failed: "
-                               f"cudaError {rc}")
-        LAUNCHES["any_hit"] += 1
-    return occ
+    return _launch(native.traverse_lib(), LAUNCHES, "any_hit", wbvh, ray_o,
+                   ray_d, t_max, active_in, True)
 
 
 def _sorted(fn, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):

@@ -13,7 +13,10 @@ Traversal dispatch follows the reference (`_hbm_mode`): the packet
 kernel for scenes whose rows fit the reference's VMEM budget, the
 treelet-scheduled kernel beyond it when `MSN_TREELETS=1` and the tree is
 8-wide with 8-slot leaves, else the packet kernel on coherence-sorted
-rays. Each wrapper launches its CUDA kernel for CUDA tensors. The
+rays; where the reference falls back to its per-lane jnp walk (no wide
+tree, or an HBM-class tree whose stack bound exceeds the HBM limit), the
+per-lane walk of accel/traverse.py over the binary BVH ("lanes"). Each
+wrapper launches its CUDA kernel for CUDA tensors. The
 per-bounce coherence resort (`_resort_state`) reorders the whole lane
 state, and `_bounce_shrunk` then runs a bounce over the live prefix only;
 both move lanes, never change a lane's result, and radiance returns to
@@ -28,7 +31,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..accel import packet, treelet
+from ..accel import packet, traverse, treelet
 from ..bsdf import materials as B
 from ..core import rng as R
 from ..core.frame import Frame, cos_theta
@@ -214,19 +217,28 @@ def _shadow_compact() -> bool:
 
 
 def _hbm_mode(wide) -> str:
-    """'vmem' | 'treelet' | 'hbm', as the reference picks them. Where the
-    reference falls back to its per-lane jnp traversal (a stack bound over
-    its limit), the port raises."""
+    """'vmem' | 'treelet' | 'hbm' | 'lanes', as the reference picks them
+    ('lanes' is its 'jnp': the per-lane walk of the binary BVH, taken
+    when there is no wide tree or an HBM-class tree's stack bound exceeds
+    the HBM limit)."""
+    if wide is None:
+        return "lanes"
     if packet.fits_vmem(wide) and packet.stack_ok(wide, hbm=False):
         return "vmem"
     if not packet.stack_ok(wide, hbm=True):
-        raise ValueError(
-            f"tree needs a {wide.max_stack}-entry traversal stack; scenes "
-            f"beyond the VMEM budget hold {packet.HBM_STACK_DEPTH} (the "
-            f"reference's per-lane fallback traversal is not ported)")
+        return "lanes"
     if _use_treelets() and treelet.available(wide):
         return "treelet"
     return "hbm"
+
+
+def _binary(scene):
+    """(bvh, tri_verts_sorted) of the fallback walk."""
+    if scene.bvh is None or scene.tri_verts_sorted is None:
+        raise ValueError("the scene needs the per-lane fallback walk but "
+                         "carries no binary BVH (scene_from_arrays without "
+                         "bvh.* arrays)")
+    return scene.bvh, scene.tri_verts_sorted
 
 
 def _closest(scene, o, d, t_max, active, presorted: bool = False):
@@ -239,8 +251,12 @@ def _closest(scene, o, d, t_max, active, presorted: bool = False):
     if mode == "treelet":
         return treelet.closest_hit_treelet(wide, o, d, t_max,
                                            active_in=active)
-    return packet.closest_hit_packet_hbm(wide, o, d, t_max, active_in=active,
-                                         sort=not presorted)
+    if mode == "hbm":
+        return packet.closest_hit_packet_hbm(wide, o, d, t_max,
+                                             active_in=active,
+                                             sort=not presorted)
+    return traverse.closest_hit(*_binary(scene), o, d, t_max,
+                                active_in=active)
 
 
 def _any_hit(scene, o, d, t_max, active, presorted: bool = False):
@@ -250,8 +266,11 @@ def _any_hit(scene, o, d, t_max, active, presorted: bool = False):
         return packet.any_hit_packet(wide, o, d, t_max, active_in=active)
     if mode == "treelet":
         return treelet.any_hit_treelet(wide, o, d, t_max, active_in=active)
-    return packet.any_hit_packet_hbm(wide, o, d, t_max, active_in=active,
-                                     sort=not presorted)
+    if mode == "hbm":
+        return packet.any_hit_packet_hbm(wide, o, d, t_max,
+                                         active_in=active,
+                                         sort=not presorted)
+    return traverse.any_hit(*_binary(scene), o, d, t_max, active_in=active)
 
 
 def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
@@ -260,7 +279,8 @@ def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
     HBM-class scenes (trace_paths: up to 600k lanes, which render_sample
     and render exceed for frames above that; n_lanes=None, the staged
     path: at any lane count) and for VMEM-class ones holding a mirror or
-    glass; treelet scenes sort inside each dispatch instead."""
+    glass; treelet scenes sort inside each dispatch instead, and the
+    per-lane walk ('lanes') takes no resort."""
     if cfg.resort_bounces is not None:
         return cfg.resort_bounces
     mode = _hbm_mode(scene.wide)

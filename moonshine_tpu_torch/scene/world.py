@@ -80,6 +80,11 @@ class DeviceScene(NamedTuple):
     emitters: EmitterTable
     # the scene holds a mirror or glass material
     has_delta: bool
+    # the binary tree and its triangles in traversal (tri_order) order, for
+    # the per-lane fallback walk (accel/traverse.py); None when the arrays
+    # a scene came from did not carry them
+    bvh: lbvh.BVH | None = None
+    tri_verts_sorted: torch.Tensor | None = None  # [T, 3, 3] f32
 
     @property
     def num_tris(self) -> int:
@@ -99,7 +104,9 @@ def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
     tri,rows}. statics: wide.{max_depth,width,leaf_slots},
     mat_atlas.{bsdf,emissive}.{width,chunks},
     mat_atlas.{bsdf_constant,emissive_constant,normals_flat},
-    env.integral, emitters.{count,weight_sum}, has_delta."""
+    env.integral, emitters.{count,weight_sum}, has_delta. Optional arrays:
+    bvh.{aabb_min,aabb_max,left,count,escape,tri_order} (and bvh.parent)
+    with tri_verts_sorted, the binary tree of the fallback walk."""
     a, s = arrays, statics
     put = lambda x, dt=np.float32: torch.tensor(np.asarray(x, dt),
                                                  device=device)
@@ -131,11 +138,20 @@ def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
         count=int(s["emitters.count"]),
         weight_sum=float(s["emitters.weight_sum"]),
     )
+    bvh = tri_sorted = None
+    if "bvh.aabb_min" in a:
+        bvh = lbvh.device_bvh(lbvh.BVH(
+            aabb_min=a["bvh.aabb_min"], aabb_max=a["bvh.aabb_max"],
+            left=a["bvh.left"], count=a["bvh.count"],
+            escape=a["bvh.escape"], tri_order=a["bvh.tri_order"],
+            num_nodes=len(a["bvh.left"]), num_tris=len(a["bvh.tri_order"]),
+            parent=a.get("bvh.parent")), device)
+        tri_sorted = put(a["tri_verts_sorted"])
     return DeviceScene(
         wide=wide, tri_shade=tri_shade,
         materials=MaterialTable(packed=put(a["materials.packed"])),
         mat_atlas=atlas, env=env, emitters=emitters,
-        has_delta=bool(s["has_delta"]),
+        has_delta=bool(s["has_delta"]), bvh=bvh, tri_verts_sorted=tri_sorted,
     )
 
 
@@ -234,7 +250,11 @@ class World:
             "env.alias": env["alias"],
             "emitters.select": em["select"], "emitters.alias": em["alias"],
             "emitters.tri": em["tri"], "emitters.rows": em["rows"],
+            "tri_verts_sorted": verts[bvh.tri_order],
         }
+        arrays.update({f"bvh.{k}": getattr(bvh, k) for k in (
+            "aabb_min", "aabb_max", "left", "count", "escape", "tri_order",
+            "parent")})
         statics = {
             "wide.max_depth": rows.n_levels, "wide.width": width,
             "wide.leaf_slots": leaf_cap,

@@ -1,6 +1,6 @@
-"""The CUDA traversal kernels (packet and treelet) against their plain
-torch versions, on a GPU only (marked `cuda`; each test skips when torch
-sees no CUDA device).
+"""The CUDA kernels (packet, treelet and format-V traversal, the slab and
+ALU microbenchmarks) against their plain torch versions, on a GPU only
+(marked `cuda`; each test skips when torch sees no CUDA device).
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from moonshine_tpu_torch.accel import native, packet, treelet
+from moonshine_tpu_torch.accel import native, packet, treelet, vpacket
 from moonshine_tpu_torch.accel.wide import build_wide
+from moonshine_tpu_torch.scripts import profile_vpu
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +77,7 @@ def test_stack_capacity(cuda):
     libs = native.build_all()
     assert libs["traverse"].stack_capacity == packet.STACK_DEPTH == 512
     assert libs["treelet"].stack_capacity == 512
+    assert libs["vpacket"].stack_capacity == 512
 
 
 @pytest.mark.parametrize("max_rows", [48, 6])
@@ -110,3 +112,55 @@ def test_treelet_launch_counters(cuda):
     treelet.closest_hit_treelet_plain(w, o, d, 1e12)  # never counts
     assert treelet.LAUNCHES == {"treelet_closest_hit": 1,
                                 "treelet_any_hit": 1}
+
+
+@pytest.mark.parametrize("cap,width", [(12, 16), (24, 24), (8, 8)])
+def test_v_kernels_match_plain(cuda, cap, width):
+    """The format-V kernels equal their plain versions bit for bit, and
+    the packet kernel on the same tree in t, tri, u, v and occlusion."""
+    w, o, d, active, t_max = _scene(cuda, cap=cap, width=width)
+    v = vpacket.v_from_wide(w)
+    got = vpacket.closest_hit_vpacket(v, o, d, 1e12, active_in=active)
+    want = vpacket.closest_hit_plain(v, o, d, 1e12, active_in=active)
+    pk = packet.closest_hit_packet(w, o, d, 1e12, active_in=active)
+    torch.cuda.synchronize()
+    for g, x, y in zip(got, want, pk):
+        assert torch.equal(g, x) and torch.equal(g, y)
+    occ = vpacket.any_hit_vpacket(v, o, d, t_max, active_in=active)
+    assert occ.dtype == torch.bool
+    assert torch.equal(occ, vpacket.any_hit_plain(v, o, d, t_max,
+                                                  active_in=active))
+    assert torch.equal(occ, packet.any_hit_packet(w, o, d, t_max,
+                                                  active_in=active))
+    hbm = vpacket.closest_hit_vpacket_hbm(v, o, d, 1e12, active_in=active)
+    for g, x in zip(got, hbm):
+        assert torch.equal(g, x)
+
+
+def test_v_launch_counters(cuda):
+    w, o, d, active, t_max = _scene(cuda)
+    v = vpacket.v_from_wide(w)
+    vpacket.reset_launch_counts()
+    vpacket.closest_hit_vpacket(v, o, d, 1e12)
+    vpacket.any_hit_vpacket_hbm(v, o, d, t_max, active_in=active)
+    vpacket.closest_hit_plain(v, o, d, 1e12)  # never counts
+    assert vpacket.LAUNCHES == {"v_closest_hit": 1, "v_any_hit": 1}
+
+
+@pytest.mark.parametrize("seed", [None, 1])
+def test_vpu_kernels_match_plain(cuda, seed):
+    """Every configuration of the reference's main(), on its inputs and on
+    seeded ones where lanes hit: equal slab counts, bit-equal ALU
+    outputs; each wrapper counts its launches."""
+    profile_vpu.reset_launch_counts()
+    for _, dt, fma_form, packed in profile_vpu.SLAB_CONFIGS:
+        rows, planes = profile_vpu.slab_inputs(dt, cuda, seed=seed)
+        got = profile_vpu.slab(rows, planes, fma_form, packed, 20)
+        want = profile_vpu.slab_plain(rows, planes, fma_form, packed, 20)
+        assert got.dtype == torch.int32 and int(got) == int(want)
+        assert (int(got) > 0) == (seed is not None)
+    for _, dt, r in profile_vpu.ALU_CONFIGS:
+        a, b = profile_vpu.alu_inputs(dt, r, cuda, seed=seed)
+        assert torch.equal(profile_vpu.alu(a, b, 20),
+                           profile_vpu.alu_plain(a, b, 20))
+    assert profile_vpu.LAUNCHES == {"vpu_slab": 5, "vpu_alu": 4}

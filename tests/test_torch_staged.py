@@ -175,7 +175,9 @@ def test_bands_tile_the_frame():
 def test_dispatch_modes(monkeypatch):
     """_hbm_mode picks as the reference: 'vmem' for rows within the
     budget, 'hbm' beyond it, 'treelet' beyond it with MSN_TREELETS=1 on an
-    8-wide / 8-slot tree; a stack bound over the mode's limit raises."""
+    8-wide / 8-slot tree; an HBM-class stack bound over the HBM limit
+    takes the per-lane walk ('lanes', the reference's 'jnp'), and so does
+    a scene without a wide tree."""
     scene, _ = _port(_room)
     wide = scene.wide
     assert P._hbm_mode(wide) == "vmem"
@@ -193,8 +195,8 @@ def test_dispatch_modes(monkeypatch):
                        leaf_cap=8, width=8, device="cpu", max_rows=48)
     assert PT.available(w8) and P._hbm_mode(w8) == "treelet"
     deep = wide._replace(max_depth=20)  # bound 15 * 20 + 1 = 301
-    with pytest.raises(ValueError, match="301-entry"):
-        P._hbm_mode(deep)
+    assert P._hbm_mode(deep) == "lanes"
+    assert P._hbm_mode(None) == "lanes"
     monkeypatch.setattr(PP, "VMEM_SCENE_BUDGET_BYTES", 10 * 1024 * 1024)
     assert P._hbm_mode(deep) == "vmem"  # VMEM-class scenes hold 512
 
@@ -234,7 +236,8 @@ def test_treelet_mode_render(monkeypatch):
 def test_resolve_resort_rules(monkeypatch):
     """The reference's resort choice: as configured, else on for VMEM-class
     scenes with a mirror or glass, and for HBM-class ones up to 600k lanes
-    in trace_paths and at any lane count in the staged path."""
+    in trace_paths and at any lane count in the staged path; never for the
+    per-lane walk."""
     furnace, _ = _port(procedural.furnace_scene)
     room, _ = _port(_room)
     auto = PathConfig(**CFG)
@@ -248,6 +251,10 @@ def test_resolve_resort_rules(monkeypatch):
     assert P._resolve_resort(room, auto)  # staged
     assert P._resolve_resort(room, PathConfig(**CFG, resort_bounces=True),
                              600_001)
+    monkeypatch.setattr(PP, "HBM_STACK_DEPTH", 1)  # the per-lane walk
+    assert P._hbm_mode(room.wide) == "lanes"
+    assert not P._resolve_resort(room, auto, 4096)
+    assert not P._resolve_resort(room, auto)
 
 
 def test_shadow_compact_is_bit_equal(monkeypatch):
