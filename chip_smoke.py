@@ -46,12 +46,33 @@ script exits non-zero without the result line. Phases:
                   plain versions (20 visits, the reference's inputs and
                   seeded ones), then the entry point
                   (scripts/profile_vpu.py) at 2000 visits
+  bitcast         the quantised-row decode kernel against its plain
+                  version bit for bit at the six row widths (the
+                  reference's rows and seeded ones), the probe's entry
+                  point in-process (launches counted) and as
+                  `python -m moonshine_tpu_torch.scripts.probe_bitcast`,
+                  then the kernel timed at each width
+  presplit        room_184k built under MSN_PRESPLIT=1.35 (SBVH
+                  references): its size against the default build, the
+                  packet kernels against their plain versions on it, its
+                  visits and kernel times at the 1080p launches beside
+                  the default tree's, and a 512x512 x 2 spp render
+                  against the default build's
+  offline         the offline CLI: (a) the Cornell glb at the golden's
+                  settings through `python -m
+                  moonshine_tpu_torch.render.offline` against
+                  tests/goldens/cornell.exr; (b) room_184k written as a glb
+                  (184,332 triangles) with a 2048x1024 ZIP skybox, its
+                  glTF build against the source World's, then the CLI at
+                  its defaults (1280x720, max_bounces 1024) with --spp 4,
+                  launches counted, against an in-process render
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import io
 import json
 import os
 import pathlib
@@ -62,6 +83,7 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
+WORK = ROOT / "build" / "smoke"  # files the offline phase writes (gitignored)
 INF_T = 1.0e12
 HD = (1080, 1920)
 # the card's published peaks (H100 SXM, NVIDIA's data sheet): fp32 outside
@@ -87,7 +109,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                  "scripts/profile_vpu.py:101"),
     "vpu_alu": ("moonshine_tpu_torch/csrc/vpu.cu",
                 "scripts/profile_vpu.py:137"),
+    "bitcast": ("moonshine_tpu_torch/csrc/bitcast.cu",
+                "scripts/probe_bitcast.py:63"),
 }
+OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 TREELET_ENV = {"MSN_WIDE": "8", "MSN_LEAF_CAP": "8"}
 
 
@@ -137,6 +162,17 @@ def host_ms(fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def same_image(name, tag, img, ref):
+    """Raises unless >= 99% of pixels agree within 1e-3 (abs + rel) and the
+    means within 1e-3 relative."""
+    pix = (np.abs(img - ref) <= 1e-3 + 1e-3 * np.abs(ref)).all(-1)
+    mean_rel = abs(img.mean() / ref.mean() - 1.0)
+    say(tag, f"{name}: {pix.mean():.4%} of pixels within 1e-3, mean "
+        f"{img.mean():.6f} vs {ref.mean():.6f} (rel {mean_rel:.3g})")
+    if pix.mean() < 0.99 or mean_rel > 1e-3 or not np.isfinite(img).all():
+        raise AssertionError(f"{name}: images disagree")
 
 
 def grazing(hit, lanes):
@@ -632,18 +668,14 @@ def fallback_phase(scenes, cfg):
         calls, pk = dict(traverse.CALLS), dict(packet.LAUNCHES)
     finally:
         packet.HBM_STACK_DEPTH, packet.VMEM_SCENE_BUDGET_BYTES = saved
-    got = got.cpu().numpy()
-    pix = (np.abs(got - want) <= 1e-3 + 1e-3 * np.abs(want)).all(-1)
-    mean_rel = abs(got.mean() / want.mean() - 1.0)
     say("fallback", f"flagship 256x256 x 1 spp in mode {mode}: {int(rays)} "
         f"rays in {dt:.3f} s, walk calls {calls}, packet launches {pk}, "
-        f"resort {stats['resort']}; against the default path "
-        f"{pix.mean():.4%} of pixels within 1e-3, means rel {mean_rel:.3g}")
+        f"resort {stats['resort']}")
     if (mode != "lanes" or calls["closest_hit"] != stats["segments"]
             or calls["any_hit"] == 0 or any(pk.values())):
         raise AssertionError("the forced render did not take the walk")
-    if pix.mean() < 0.99 or mean_rel > 1e-3 or not np.isfinite(got).all():
-        raise AssertionError("the per-lane walk's render disagrees")
+    same_image("the per-lane walk's render against the default path",
+               "fallback", got.cpu().numpy(), want)
     o, d, _, _ = _sample_rays(lens, 512, 512, 0, True, scene.device)
     n = o.shape[0]
     hk = packet.closest_hit_packet(scene.wide, o, d, INF_T)
@@ -743,6 +775,375 @@ def vpu_phase(dev, timings, errs, launches):
             f"plain| {errs[k]}")
     if errs["vpu_slab"] or errs["vpu_alu"]:
         raise AssertionError("a VPU kernel disagrees at 2000 visits")
+
+
+def bitcast_phase(dev, timings, errs, launches):
+    """Kernel 8 against its plain version bit for bit at the six row
+    widths (the reference's rows, and seeded ones whose words exceed 2^24
+    so the conversions round); the probe's entry point in-process with
+    its launches counted and as a module; then the kernel timed at each
+    width, its bound the bytes of one row in and 2 KB out."""
+    import torch
+
+    from moonshine_tpu_torch.scripts import probe_bitcast as B
+
+    err = 0.0
+    for rowlen in B.ROWLENS:
+        for rows in (B.reference_rows(rowlen, dev),
+                     B.seeded_rows(rowlen, rowlen, dev)):
+            got, want = B.decode_rows(rows), B.decode_rows_plain(rows)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"bitcast rowlen {rowlen}: kernel and "
+                                     f"plain version differ")
+    errs["bitcast"] = err
+    say("bitcast", f"kernel = plain bit for bit at rowlens {B.ROWLENS}, "
+        f"the reference's rows and seeded rows")
+    # the probe's path: counts set to 0 just before, read just after
+    B.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = B.main()
+    launches["bitcast"] = B.LAUNCHES["bitcast"]
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        say("bitcast", f"probe: {ln}")
+    if rc != 0 or lines[-1] != "overall: PASS" or launches["bitcast"] != len(
+            B.ROWLENS):
+        raise AssertionError(f"the probe failed or launched "
+                             f"{launches['bitcast']} kernels")
+    proc = subprocess.run(
+        [sys.executable, "-m", "moonshine_tpu_torch.scripts.probe_bitcast"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    say("bitcast", f"python -m moonshine_tpu_torch.scripts.probe_bitcast: "
+        f"exit {proc.returncode}, last line {proc.stdout.strip()[-40:]!r}")
+    if proc.returncode != 0 or not proc.stdout.strip().endswith(
+            "overall: PASS"):
+        raise AssertionError(f"the probe module failed:\n{proc.stdout}"
+                             f"\n{proc.stderr}")
+    for rowlen in B.ROWLENS:
+        rows = B.seeded_rows(rowlen, rowlen, dev)
+        ms = cuda_ms(lambda r=rows: B.decode_rows(r), 200)
+        plain_ms = host_ms(lambda r=rows: B.decode_rows_plain(r))
+        nbytes = 4 * rowlen + 4 * 4 * B.OUT_COLS
+        b_ms = nbytes / PEAK_BYTES * 1e3
+        say("bitcast", f"rowlen {rowlen}: kernel {ms:.4f} ms, plain torch "
+            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by bytes ({nbytes} B: "
+            f"row 1 in, [4, 128] f32 out; a handful of operations); no "
+            f"PyTorch call decodes the row, so no library time")
+        timings["bitcast"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by="bytes")
+
+
+def presplit_phase(scenes, errs, cfg, dev):
+    """room_184k built under MSN_PRESPLIT=1.35 against the default build:
+    size, the packet kernels against their plain versions on it, visits
+    and kernel times at the 1080p launches, and a 512x512 x 2 spp
+    render."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator import path
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import _sample_rays, render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    base, lens = scenes["room_184k/default"]
+    t0 = time.perf_counter()
+    with env(MSN_PRESPLIT="1.35"):
+        world, _ = procedural.room_scene(grid=6, subdivisions=4)
+        scene = world.build(dev, builder="sah")  # "auto" picks it too
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    wb, w0 = scene.wide, base.wide
+    n_refs, n_tris = scene.tri_verts_sorted.shape[0], scene.num_tris
+    say("presplit", f"room_184k presplit: {n_tris} triangles -> {n_refs} "
+        f"references ({n_refs / n_tris:.3f}x), build {t_build:.2f} s; "
+        f"{wb.num_nodes} nodes, {wb.num_leaves} leaves, rows "
+        f"{packet.row_bytes(wb)} B (default {w0.num_nodes} / "
+        f"{w0.num_leaves}, {packet.row_bytes(w0)} B), mode "
+        f"{path._hbm_mode(wb)}, stack bound {wb.max_stack} (default "
+        f"{w0.max_stack}), K {wb.t_roots.shape[0]}")
+    if n_refs <= n_tris or path._hbm_mode(wb) != "hbm":
+        raise AssertionError("the presplit build made no references or is "
+                             "not HBM-class")
+    compare_packet("room_184k/presplit", scene, lens, errs)
+
+    h, w = HD
+    o, d, _, _ = _sample_rays(lens, h, w, 0, True, dev)
+    n = o.shape[0]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    tmax = torch.full((n,), INF_T, device=dev)
+    shadow = shadow_batch(o, d, packet.closest_hit_packet(w0, o, d, INF_T))
+    trees = {"default": w0, "presplit": wb}
+    out = {}
+    for tree, t in trees.items():
+        hp, v_c = packet.closest_hit_plain(t, o, d, tmax, ones,
+                                           count_visits=True)
+        ap, v_a = packet.any_hit_plain(t, *shadow, count_visits=True)
+        out[tree] = dict(hp=hp, ap=ap, v_c=v_c, v_a=v_a,
+                         hk=packet.closest_hit_packet(t, o, d, tmax, ones),
+                         ak=packet.any_hit_packet(t, *shadow))
+        check_closest(f"presplit phase, {tree} tree closest_hit ({n} rays)",
+                      out[tree]["hk"], hp, ones, n, tag="presplit")
+        check_any(f"presplit phase, {tree} tree any_hit", out[tree]["ak"],
+                  ap, t, *shadow)
+    k0, k1 = out["default"]["hk"], out["presplit"]["hk"]
+    ties_ok = bool(torch.equal(k0.t[k0.tri != k1.tri], k1.t[k0.tri != k1.tri]))
+    same = (torch.equal(k0.t, k1.t) and torch.equal(k0.tri >= 0, k1.tri >= 0)
+            and ties_ok and torch.equal(out["default"]["ak"],
+                                        out["presplit"]["ak"]))
+    say("presplit", f"presplit kernel vs default kernel at 1080p: t and "
+        f"is_hit equal, tri differs on {int((k0.tri != k1.tri).sum())} "
+        f"lanes, all at equal t; occlusion equal: {same}")
+    if not same:
+        raise AssertionError("the presplit tree's hits differ")
+    for kind, key in (("closest", "v_c"), ("any", "v_a")):
+        for tree in trees:
+            v = out[tree][key]
+            say("presplit", f"{kind} hit visits, {tree} tree: {v.nodes} "
+                f"node visits ({v.node_slots} slots), {v.leaves} leaf visits "
+                f"({v.leaf_tris} triangles)")
+    rounds = {f"{kind} {tree}": [] for kind in ("closest", "any")
+              for tree in trees}
+    for _ in range(3):  # alternated, so clocks hit all alike
+        for tree, t in trees.items():
+            rounds[f"closest {tree}"].append(cuda_ms(
+                lambda t=t: packet.closest_hit_packet(t, o, d, tmax, ones), 5))
+            rounds[f"any {tree}"].append(cuda_ms(
+                lambda t=t: packet.any_hit_packet(t, *shadow), 5))
+    for key, xs in rounds.items():
+        kind, tree = key.split()
+        name = "closest_hit" if kind == "closest" else "any_hit"
+        m = n if kind == "closest" else shadow[0].shape[0]
+        b_ms, b_by, _ = bound(name, m, out[tree]["v_c" if kind == "closest"
+                                                 else "v_a"], trees[tree])
+        say("presplit", f"{name} on {m} lanes, {tree} tree, three alternated "
+            f"rounds: " + " / ".join(f"{x:.4f}" for x in xs)
+            + f" ms; bound {b_ms:.4f} ms by {b_by}")
+    del out, shadow
+    spp = 2
+    imgs = {}
+    for tree, sc in (("default", base), ("presplit", scene)):
+        acc, _ = render_spp(sc, lens, 512, 512, 0, spp, cfg)
+        imgs[tree] = (acc / spp).cpu().numpy()
+    same_image("presplit render vs default build, 512x512 x 2 spp",
+               "presplit", imgs["presplit"], imgs["default"])
+
+
+def glb_builder():
+    """tests/glb_builder.py, the repo's glb writer (numpy only)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import glb_builder
+
+    return glb_builder
+
+
+def room_glb(world, lens) -> bytes:
+    """A .glb of a procedural World with constant materials, one geometry
+    per instance: one glTF mesh per (mesh, material) pair, node matrices
+    stored with rows 1 and 2 of the Z-up transform swapped (the loader's
+    Y-up -> Z-up row permutation gives each transform back exactly), the
+    light's material named "Emitter", and a camera node from the lens."""
+    from moonshine_tpu_torch.scene.types import (
+        Glass, Lambert, Mirror, StandardPBR,
+    )
+
+    sampled = {g.material for inst in world.instances
+               for g in inst.geometries if g.sampled}
+    materials = []
+    for i, info in enumerate(world.materials):
+        v, em = info.variant, np.float32(info.emissive)
+        m = {"name": "Emitter" if i in sampled else f"material_{i}"}
+        if isinstance(v, Glass):
+            m["extensions"] = {
+                "KHR_materials_transmission": {"transmissionFactor": 1.0},
+                "KHR_materials_ior": {"ior": float(v.ior)}}
+        elif isinstance(v, Mirror):
+            m["pbrMetallicRoughness"] = {"metallicFactor": 1.0,
+                                         "roughnessFactor": 0.0}
+        else:
+            color = [float(c) for c in v.color] + [1.0]
+            pbr = isinstance(v, StandardPBR)
+            assert pbr or isinstance(v, Lambert)
+            m["pbrMetallicRoughness"] = {
+                "baseColorFactor": color,
+                "metallicFactor": float(v.metalness) if pbr else 0.0,
+                "roughnessFactor": float(v.roughness) if pbr else 1.0}
+            if pbr:
+                m["extensions"] = {"KHR_materials_ior": {"ior": float(v.ior)}}
+        if em.any():
+            s = float(em.max())
+            m["emissiveFactor"] = [float(c) for c in em / s]
+            m.setdefault("extensions", {})[
+                "KHR_materials_emissive_strength"] = {"emissiveStrength": s}
+        materials.append(m)
+    meshes, mesh_of, nodes = [], {}, []
+    for inst in world.instances:
+        (g,) = inst.geometries
+        if (g.mesh, g.material) not in mesh_of:
+            src = world.meshes[g.mesh]
+            assert np.max(src.indices) < 65536
+            mesh_of[(g.mesh, g.material)] = len(meshes)
+            meshes.append(dict(positions=src.positions, indices=src.indices,
+                               normals=src.normals, texcoords=src.texcoords,
+                               material=g.material))
+        m4 = np.zeros((4, 4), np.float32)
+        t = np.asarray(inst.transform, np.float32)
+        m4[[0, 2, 1], :] = t
+        m4[3, 3] = 1.0
+        nodes.append({"mesh": mesh_of[(g.mesh, g.material)],
+                      "matrix": m4.T.reshape(-1).tolist()})
+    fwd = np.float32(lens.forward)
+    up = np.float32(lens.up)
+    right = np.cross(fwd, up)
+    cam = np.zeros((4, 4), np.float32)
+    cam[[0, 2, 1], :3] = np.stack([right / np.linalg.norm(right), up, -fwd],
+                                  axis=1)
+    cam[[0, 2, 1], 3] = np.float32(lens.origin)
+    cam[3, 3] = 1.0
+    nodes.append({"camera": 0, "matrix": cam.T.reshape(-1).tolist()})
+    cameras = [{"type": "perspective",
+                "perspective": {"yfov": float(lens.vfov), "znear": 0.01}}]
+    return glb_builder().build_glb(meshes, materials, nodes, cameras)
+
+
+def skybox():
+    """A 2048x1024 equirectangular sky: a vertical gradient, seeded
+    low-frequency clouds and a small bright sun, float32 [h, w, 3]."""
+    h, w = 1024, 2048
+    rs = np.random.RandomState(5)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    elev = 1.0 - yy / h
+    sky = np.stack([0.25 + 0.35 * elev, 0.35 + 0.4 * elev,
+                    0.5 + 0.45 * elev], -1)
+    coarse = rs.rand(8, 16, 1).astype(np.float32)
+    sky *= 0.8 + 0.4 * np.repeat(np.repeat(coarse, h // 8, 0), w // 16, 1)
+    sky[h // 5:h // 5 + 12, w // 3:w // 3 + 12] = 400.0
+    return sky.astype(np.float32)
+
+
+def offline_phase(dev):
+    """The offline CLI: (a) the Cornell golden through the module in a
+    subprocess; (b) room_184k through a glb at the CLI's defaults, in
+    process with its launches counted, against an in-process render of
+    the source World."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.io.exr import read_exr, write_exr
+    from moonshine_tpu_torch.render import offline
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import render
+    from moonshine_tpu_torch.scene import procedural
+    from moonshine_tpu_torch.scene.gltf import lens_from_glb, world_from_glb
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    # (a) the Cornell golden: 96x96, 8 spp, max_bounces 4, mesh NEE only
+    (WORK / "cornell.glb").write_bytes(glb_builder().cornell_box_glb())
+    write_exr(WORK / "zero_sky.exr", np.zeros((4, 8, 3), np.float32))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "moonshine_tpu_torch.render.offline",
+         str(WORK / "cornell.glb"), str(WORK / "zero_sky.exr"),
+         str(WORK / "cornell.exr"), "--width", "96", "--height", "96",
+         "--spp", "8", "--max-bounces", "4", "--env-samples", "0",
+         "--mesh-samples", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for ln in proc.stdout.strip().splitlines():
+        say("offline", f"cornell CLI: {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed:\n{proc.stderr}")
+    say("offline", f"cornell CLI process took "
+        f"{time.perf_counter() - t0:.1f} s")
+    gold = read_exr(ROOT / "tests" / "goldens" / "cornell.exr")[..., :3]
+    same_image("cornell CLI vs tests/goldens/cornell.exr", "offline",
+               read_exr(WORK / "cornell.exr")[..., :3], gold)
+
+    # (b) room_184k as a glb, at the CLI's defaults
+    src, src_lens = procedural.room_scene(grid=6, subdivisions=4,
+                                          textured=False)
+    t0 = time.perf_counter()
+    glb = room_glb(src, src_lens)
+    (WORK / "room.glb").write_bytes(glb)
+    sky = skybox()
+    write_exr(WORK / "sky.exr", sky)
+    say("offline", f"room glb {len(glb)} B and {sky.shape[1]}x"
+        f"{sky.shape[0]} ZIP skybox "
+        f"{(WORK / 'sky.exr').stat().st_size} B written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    gw = world_from_glb(WORK / "room.glb")
+    src.set_background(None)
+    gw.set_background(None)
+    (want, want_s), (got, got_s) = src.build_arrays(), gw.build_arrays()
+    diff = [k for k in want if not np.array_equal(got[k], want[k])]
+    diff += [k for k in want_s if got_s[k] != want_s[k]]
+    glens = lens_from_glb(WORK / "room.glb")
+    lens_err = max(float(np.abs(np.float32(getattr(glens, f))
+                                - np.float32(getattr(src_lens, f))).max())
+                   for f in ("origin", "forward", "up"))
+    lens_err = max(lens_err, abs(glens.vfov - src_lens.vfov))
+    say("offline", f"glb world: {len(got['tri_shade'])} triangles, "
+        f"build_arrays equal to the source World's in {len(want)} arrays "
+        f"and {len(want_s)} statics: {not diff} {diff}; lens max|diff| "
+        f"{lens_err:.3g}; both built in {time.perf_counter() - t0:.1f} s")
+    if diff or lens_err > 1e-6:
+        raise AssertionError("the glb does not give back the source World")
+    del want, got
+
+    # the main path: counts set to 0 just before the CLI, read just after
+    seen = {}
+
+    def timed_render(*a, **k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sensor, rays = render(*a, **k)
+        torch.cuda.synchronize()
+        seen.update(rays=rays, seconds=time.perf_counter() - t1)
+        return sensor, rays
+
+    args = [str(WORK / "room.glb"), str(WORK / "sky.exr"),
+            str(WORK / "room.exr"), "--spp", str(OFFLINE_SPP)]
+    opts = offline.parse_args(args)  # the CLI's defaults but for --spp
+    offline.render = timed_render
+    torch.cuda.reset_peak_memory_stats()
+    packet.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = offline.main(args)
+    finally:
+        offline.render = render
+    wall = time.perf_counter() - t0
+    counts = dict(packet.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for ln in buf.getvalue().strip().splitlines():
+        say("offline", f"room CLI: {ln}")
+    rays, secs = int(seen["rays"]), seen["seconds"]
+    say("offline", f"room CLI {opts.width}x{opts.height} x {opts.spp} spp, "
+        f"max_bounces {opts.max_bounces}: exit {rc}, {wall:.1f} s in all; "
+        f"render {rays} rays in {secs:.4f} s = {rays / secs / 1e6:.3f} "
+        f"Mrays/s, "
+        f"{secs / opts.spp * 1e3:.2f} ms/spp, segments per sample "
+        f"{counts['closest_hit'] / opts.spp:.2f}, launches {counts}, "
+        f"peak device memory {peak:.1f} MiB")
+    if rc != 0 or counts["closest_hit"] == 0 or counts["any_hit"] == 0:
+        raise AssertionError("the CLI's render launched no kernel")
+    got = read_exr(WORK / "room.exr")[..., :3]
+    src.set_background(read_exr(WORK / "sky.exr")[..., :3])
+    scene = src.build(dev)
+    sensor, _ = render(scene, LensArrays.from_lens(glens, dev), opts.height,
+                       opts.width, spp=opts.spp, cfg=PathConfig(
+                           max_bounces=opts.max_bounces,
+                           env_samples_per_bounce=opts.env_samples,
+                           mesh_samples_per_bounce=opts.mesh_samples))
+    same_image("room CLI vs in-process render of the source World",
+               "offline", got, sensor.image.cpu().numpy())
 
 
 def main():
@@ -867,16 +1268,10 @@ def main():
         acc, _ = render_spp(sc, LensArrays.from_lens(l, dev), 96, 96, 0, 8,
                             PathConfig(max_bounces=6, env_samples_per_bounce=1,
                                        mesh_samples_per_bounce=0))
-        img = (acc / 8).cpu().numpy()
         gold = read_exr(ROOT / "tests" / "goldens" / "mirror_glass.exr")[
             ..., :3]
-        pix = (np.abs(img - gold) <= 1e-3 + 1e-3 * np.abs(gold)).all(-1)
-        mean_rel = abs(img.mean() / gold.mean() - 1.0)
-        say("goldens", f"mirror_glass 96x96 x 8 spp: {pix.mean():.4%} of "
-            f"pixels within 1e-3, mean {img.mean():.6f} vs golden "
-            f"{gold.mean():.6f} (rel {mean_rel:.3g})")
-        if pix.mean() < 0.99 or mean_rel > 1e-3:
-            raise AssertionError("mirror_glass drifted from its golden")
+        same_image("mirror_glass 96x96 x 8 spp against its golden", "goldens",
+                   (acc / 8).cpu().numpy(), gold)
 
     with phase("room_184k"):
         scene, lens = scenes["room_184k/default"]
@@ -926,13 +1321,8 @@ def main():
                                  f"segments {stats['segments']}")
         launches.update(treelet_closest_hit=counts["treelet_closest_hit"],
                         treelet_any_hit=counts["treelet_any_hit"])
-        pix = (np.abs(img_treelet - img_default)
-               <= 1e-3 + 1e-3 * np.abs(img_default)).all(-1)
-        mean_rel = abs(img_treelet.mean() / img_default.mean() - 1.0)
-        say("treelet_1080p", f"against room_1080p: {pix.mean():.4%} of "
-            f"pixels within 1e-3, means rel {mean_rel:.3g}")
-        if pix.mean() < 0.99 or mean_rel > 1e-3:
-            raise AssertionError("treelet_1080p disagrees with room_1080p")
+        same_image("treelet_1080p against room_1080p", "treelet_1080p",
+                   img_treelet, img_default)
 
     with phase("staged_vs_fused"):
         scene, lens = scenes["room_184k/default"]
@@ -957,6 +1347,15 @@ def main():
 
     with phase("vpu"):
         vpu_phase(dev, timings, errs, launches)
+
+    with phase("bitcast"):
+        bitcast_phase(dev, timings, errs, launches)
+
+    with phase("presplit"):
+        presplit_phase(scenes, errs, cfg, dev)
+
+    with phase("offline"):
+        offline_phase(dev)
 
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -12,9 +12,12 @@ index) are strictly increasing, so its pass loops converge within 70
 iterations even for coincident geometry; the SAH build bounds its depth
 with median splits past 48 levels.
 
-Not ported: `presplit_refs` (spatial-split references, off by default in
-the reference) and the reference's power-of-two node padding (padding
-nodes are unreachable, so the wide rows are the same without it).
+`presplit_refs` splits large triangles into spatial-split references
+(tri id, clipped box), SBVH-style; `build_sah(refs=...)` then partitions
+references instead of triangles (the reference's `MSN_PRESPLIT` path, off
+by default). Not ported: the reference's power-of-two node padding
+(padding nodes are unreachable, so the wide rows are the same without
+it).
 """
 
 from __future__ import annotations
@@ -339,22 +342,138 @@ def _half_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     return np.where((e >= 0).all(axis=-1), a, 0.0)
 
 
-def build_sah(tri_verts: np.ndarray, leaf_size: int = 4,
-              n_bins: int = 16) -> BVH:
-    """Top-down binned-SAH BVH over [T, 3, 3] triangles, in the same
-    flattened layout as `build`. Each level bins every frontier node's
-    triangles along its dominant centroid axis, sweeps the bins for the
-    least-SAH partition and partitions the triangle order in place, all
-    as segment operations over the whole frontier."""
+def _clip_tri_aabb(v, axis, p, left):
+    """AABB of each triangle clipped to the half-space (coord <= p[k] when
+    left else >= p[k]) along `axis`, in float64. v: [K, 3, 3], p: [K].
+    Returns (lo, hi) [K, 3]; an inverted box means the triangle misses
+    that side."""
+    K = len(v)
+    d = v[:, :, axis] - p[:, None]  # [K, 3] signed vertex-plane distance
+    inside = (d <= 0) if left else (d >= 0)
+    # candidates: the vertices on the kept side and the three edge-plane
+    # crossings (computed for every edge, masked by validity)
+    pts = np.empty((K, 6, 3), np.float64)
+    ok = np.empty((K, 6), bool)
+    pts[:, 0:3] = v
+    ok[:, 0:3] = inside
+    for e, (i, j) in enumerate(((0, 1), (1, 2), (2, 0))):
+        di, dj = d[:, i], d[:, j]
+        cross = (di * dj) < 0
+        t = np.where(cross, di / np.where(di == dj, 1.0, di - dj), 0.0)
+        pts[:, 3 + e] = v[:, i] + t[:, None] * (v[:, j] - v[:, i])
+        ok[:, 3 + e] = cross
+    okk = ok[:, :, None]
+    return (np.where(okk, pts, np.inf).min(axis=1),
+            np.where(okk, pts, -np.inf).max(axis=1))
+
+
+def presplit_refs(tri_verts: np.ndarray, max_refs_factor: float = 1.35,
+                  area_factor: float = 8.0, rounds: int = 16):
+    """SBVH-style pre-splitting: triangles whose box half-area is far above
+    the median become several references (tri id, clipped sub-box), so the
+    builder can carve tight boxes around large wall and floor triangles
+    instead of leaves that span the scene. Traversal still intersects the
+    whole triangle at every reference, so duplicates change the visits,
+    never the hits (the spatial-split argument of Stich et al., SBVH).
+
+    Each round splits the references above `area_factor` x the median
+    half-area (the largest first, within the budget of
+    T * max_refs_factor references) at the middle of their longest axis;
+    the left half keeps the slot, the right half is appended. Returns
+    (ref_tri [R] i64, ref_lo [R, 3] f32, ref_hi [R, 3] f32): the float64
+    clips rounded outward to float32 (nextafter), so a reference box never
+    shrinks past the true clipped extent."""
     tri_verts = np.asarray(tri_verts, np.float32)
     T = len(tri_verts)
+    ref_tri = np.arange(T, dtype=np.int64)
+    ref_lo = tri_verts.min(axis=1).astype(np.float64)
+    ref_hi = tri_verts.max(axis=1).astype(np.float64)
+    budget = int(T * max_refs_factor)
+    for _ in range(rounds):
+        free = budget - len(ref_tri)
+        if free <= 0:
+            break
+        area = _half_area(ref_lo, ref_hi)
+        thresh = max(float(np.median(area)) * area_factor, 1e-30)
+        cand = np.flatnonzero(area > thresh)
+        if len(cand) == 0:
+            break
+        if len(cand) > free:
+            cand = cand[np.argsort(area[cand])[::-1][:free]]
+        v = tri_verts[ref_tri[cand]].astype(np.float64)
+        ext = ref_hi[cand] - ref_lo[cand]
+        axis = ext.argmax(axis=1)
+        p = (ref_lo[cand] + ref_hi[cand])[np.arange(len(cand)), axis] * 0.5
+        l_lo = np.empty_like(ref_lo[cand])
+        l_hi = np.empty_like(l_lo)
+        r_lo = np.empty_like(l_lo)
+        r_hi = np.empty_like(l_lo)
+        for a in range(3):  # per-axis groups, each clip vectorised
+            g = np.flatnonzero(axis == a)
+            if not len(g):
+                continue
+            l_lo[g], l_hi[g] = _clip_tri_aabb(v[g], a, p[g], True)
+            r_lo[g], r_hi[g] = _clip_tri_aabb(v[g], a, p[g], False)
+        # stay inside the parent reference's box and cap at the plane
+        sel = np.arange(len(cand))
+        l_lo = np.maximum(l_lo, ref_lo[cand])
+        l_hi = np.minimum(l_hi, ref_hi[cand])
+        l_hi[sel, axis] = np.minimum(l_hi[sel, axis], p)
+        r_lo = np.maximum(r_lo, ref_lo[cand])
+        r_hi = np.minimum(r_hi, ref_hi[cand])
+        r_lo[sel, axis] = np.maximum(r_lo[sel, axis], p)
+        both = (l_lo <= l_hi).all(axis=1) & (r_lo <= r_hi).all(axis=1)
+        if not both.any():
+            break
+        c2 = cand[both]
+        ref_lo[c2] = l_lo[both]
+        ref_hi[c2] = l_hi[both]
+        ref_tri = np.concatenate([ref_tri, ref_tri[c2]])
+        ref_lo = np.concatenate([ref_lo, r_lo[both]])
+        ref_hi = np.concatenate([ref_hi, r_hi[both]])
+    lo32 = ref_lo.astype(np.float32)
+    hi32 = ref_hi.astype(np.float32)
+    lo32 = np.where(lo32.astype(np.float64) > ref_lo,
+                    np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32.astype(np.float64) < ref_hi,
+                    np.nextafter(hi32, np.float32(np.inf)), hi32)
+    return ref_tri, lo32, hi32
+
+
+def build_sah(tri_verts: np.ndarray, leaf_size: int = 4, n_bins: int = 16,
+              refs=None):
+    """Top-down binned-SAH BVH over [T, 3, 3] triangles, in the same
+    flattened layout as `build`. Each level bins every frontier node's
+    items along its dominant centroid axis, sweeps the bins for the
+    least-SAH partition and partitions the item order in place, all as
+    segment operations over the whole frontier.
+
+    refs: (ref_tri, ref_lo, ref_hi) from `presplit_refs`. The build then
+    partitions the R references by their clipped boxes, `tri_order` maps
+    the R sorted positions to triangle ids (with duplicates) and node
+    boxes come from the clipped boxes; returns (bvh, clip_lo_sorted,
+    clip_hi_sorted), the [R, 3] clipped boxes in sorted order, for the
+    wide collapse's leaf boxes. Without refs, returns the BVH."""
+    tri_verts = np.asarray(tri_verts, np.float32)
+    if refs is not None:
+        ref_tri, ref_lo, ref_hi = refs
+        cent = ((ref_lo + ref_hi) * 0.5).astype(np.float64)
+        tmin = ref_lo.astype(np.float64)
+        tmax = ref_hi.astype(np.float64)
+        T = len(ref_tri)
+    else:
+        T = len(tri_verts)
     if T == 0:
         raise ValueError("cannot build a BVH over zero triangles")
     if T <= leaf_size:
+        if refs is not None:
+            raise ValueError(f"{T} references: a presplit build needs more "
+                             f"than leaf_size ({leaf_size})")
         return _single_leaf_bvh(tri_verts, np.arange(T, dtype=np.int64), T)
-    cent = tri_verts.mean(axis=1).astype(np.float64)
-    tmin = tri_verts.min(axis=1).astype(np.float64)
-    tmax = tri_verts.max(axis=1).astype(np.float64)
+    if refs is None:
+        cent = tri_verts.mean(axis=1).astype(np.float64)
+        tmin = tri_verts.min(axis=1).astype(np.float64)
+        tmax = tri_verts.max(axis=1).astype(np.float64)
 
     order = np.arange(T, dtype=np.int64)
     # emitted nodes (root = 0): ranges + children; leaves resolved at the end
@@ -461,14 +580,25 @@ def build_sah(tri_verts: np.ndarray, leaf_size: int = 4,
     child_right = np.full(n_nodes, -1, np.int64)
     child_left[np.concatenate(link_parent)] = np.concatenate(link_left)
     child_right[np.concatenate(link_parent)] = np.concatenate(link_right)
-    return _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
-                             child_right, 2 * n_levels + 6)
+    if refs is None:
+        return _finalize_topdown(tri_verts, order, node_lo, node_len,
+                                 child_left, child_right, 2 * n_levels + 6)
+    clip_lo = tmin[order].astype(np.float32)
+    clip_hi = tmax[order].astype(np.float32)
+    bvh = _finalize_topdown(tri_verts, ref_tri[order], node_lo, node_len,
+                            child_left, child_right, 2 * n_levels + 6,
+                            item_min=clip_lo, item_max=clip_hi)
+    return bvh, clip_lo, clip_hi
 
 
 def _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
-                      child_right, depth_bound) -> BVH:
+                      child_right, depth_bound, item_min=None,
+                      item_max=None) -> BVH:
     """Escape links, parent links and AABBs for a top-down tree over
-    contiguous ranges of `order` (node ids in emit order)."""
+    contiguous ranges of `order` (node ids in emit order). item_min /
+    item_max, [len(order), 3] in sorted order, replace the triangles'
+    boxes (the presplit build's clipped reference boxes). num_tris is
+    len(order): with references it exceeds the triangle count."""
     M = len(node_lo)
     is_leaf = child_left < 0
 
@@ -495,9 +625,12 @@ def _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
 
     # AABBs straight from ranges (every node covers order[lo:lo+len)),
     # chunked so the member scratch stays bounded
-    sorted_verts = tri_verts[order]
-    tri_min = sorted_verts.min(axis=1)
-    tri_max = sorted_verts.max(axis=1)
+    if item_min is not None:
+        tri_min, tri_max = item_min, item_max
+    else:
+        sorted_verts = tri_verts[order]
+        tri_min = sorted_verts.min(axis=1)
+        tri_max = sorted_verts.max(axis=1)
     aabb_min = np.empty((M, 3), np.float32)
     aabb_max = np.empty((M, 3), np.float32)
     for i_grp in range(0, M, 1 << 16):

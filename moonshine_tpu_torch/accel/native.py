@@ -1,6 +1,7 @@
 """Build and load the CUDA libraries: the traversal kernels
 (csrc/traverse.cu, csrc/treelet.cu and csrc/vpacket.cu, which share
-csrc/visit.cuh) and the arithmetic microbenchmarks (csrc/vpu.cu).
+csrc/visit.cuh), the arithmetic microbenchmarks (csrc/vpu.cu) and the
+quantised-row decode probe (csrc/bitcast.cu).
 
 nvcc compiles each source into a shared library with a plain C
 interface, loaded with ctypes. A library is built at first use into
@@ -23,7 +24,8 @@ import time
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
 SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
-           "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu"}
+           "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
+           "bitcast": CSRC / "bitcast.cu"}
 HEADERS = [CSRC / "visit.cuh"]
 BUILD_DIR = _ROOT / "build"
 # -fmad=false keeps every multiply and add separately rounded, as in the
@@ -92,8 +94,14 @@ class VpuLib(NativeLib):
         self.alu = self._fn("msn_vpu_alu", [_P, _P, _P, _I, _I, _I, _P])
 
 
+class BitcastLib(NativeLib):
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.decode = self._fn("msn_bitcast_decode", [_P, _I, _P, _P])
+
+
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
-            "vpacket": VPacketLib, "vpu": VpuLib}
+            "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -173,3 +181,8 @@ def vpacket_lib() -> VPacketLib:
 def vpu_lib() -> VpuLib:
     """The arithmetic microbenchmark library (csrc/vpu.cu)."""
     return _lib("vpu")
+
+
+def bitcast_lib() -> BitcastLib:
+    """The quantised-row decode probe's library (csrc/bitcast.cu)."""
+    return _lib("bitcast")

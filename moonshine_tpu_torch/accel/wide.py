@@ -8,7 +8,11 @@ leaf children into fat leaves of up to `leaf_cap` fully unpacked
 triangles, and sorts child slots along the node's dominant centroid axis.
 It also partitions the tree into treelets (subtrees with their boxes),
 the schedule of accel/treelet.py. The host build is numpy; `build_wide`
-puts the rows on the requested device.
+puts the rows on the requested device. Over a presplit binary tree
+(`lbvh.build_sah(refs=...)`), `clip_sorted` carries the clipped reference
+boxes, and leaf boxes are carved from them instead of from whole
+triangles (build time only: the clipped boxes bound each leaf's part of
+its triangles).
 
 Row layout (w = width, S = leaf slots), as the reference documents it at
 moonshine_tpu/accel/wide.py:283-297:
@@ -57,6 +61,10 @@ class WideTopology(NamedTuple):
     n_levels: int
     leaf_cap: int
     width: int
+    # presplit builds: the clipped reference box of each leaf slot,
+    # [L, cap, 3] each; None without presplit
+    clip_lo: np.ndarray | None = None
+    clip_hi: np.ndarray | None = None
 
 
 class WideRows(NamedTuple):
@@ -99,8 +107,11 @@ class WideBVH(NamedTuple):
 
 
 def assemble_rows(topo: WideTopology, b_min: np.ndarray, b_max: np.ndarray,
-                  tri_verts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Node/leaf rows from topology + binary-node AABBs + triangles."""
+                  tri_verts: np.ndarray, use_clip: bool = False
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Node/leaf rows from topology + binary-node AABBs + triangles.
+    use_clip: leaf boxes from the topology's clipped reference boxes,
+    when it carries them, instead of from the whole triangles."""
     W_n = len(topo.ptr)
     cap = topo.leaf_cap
     L = len(topo.orig)
@@ -108,9 +119,14 @@ def assemble_rows(topo: WideTopology, b_min: np.ndarray, b_max: np.ndarray,
 
     safe_orig = np.clip(topo.orig, 0, len(tri_verts) - 1)
     v = tri_verts[safe_orig]  # [L, cap, 3, 3]
-    occ = topo.in_range[:, :, None, None]
-    vlo = np.where(occ, v, np.inf).min(axis=(1, 2))
-    vhi = np.where(occ, v, -np.inf).max(axis=(1, 2))
+    if use_clip and topo.clip_lo is not None:
+        occ3 = topo.in_range[:, :, None]
+        vlo = np.where(occ3, topo.clip_lo, np.inf).min(axis=1)
+        vhi = np.where(occ3, topo.clip_hi, -np.inf).max(axis=1)
+    else:
+        occ = topo.in_range[:, :, None, None]
+        vlo = np.where(occ, v, np.inf).min(axis=(1, 2))
+        vhi = np.where(occ, v, -np.inf).max(axis=(1, 2))
     leaf_lo = np.where(np.isfinite(vlo), vlo, 0.0).astype(np.float32)
     leaf_hi = np.where(np.isfinite(vhi), vhi, 0.0).astype(np.float32)
 
@@ -223,9 +239,12 @@ def _treelet_boxes(roots: np.ndarray, nodes: np.ndarray, leaves: np.ndarray,
 
 def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
                     leaf_cap: int = LEAF_CAP, width: int = WIDTH,
-                    max_rows: int | None = None) -> WideRows:
+                    max_rows: int | None = None, clip_sorted=None
+                    ) -> WideRows:
     """Host build of the rows and the treelet plan (`max_rows` as in
-    plan_treelets)."""
+    plan_treelets). clip_sorted: (clip_lo, clip_hi) [R, 3], aligned with
+    the binary tree's sorted order (lbvh.build_sah(refs=...)); leaf boxes
+    then come from them."""
     if not 1 <= leaf_cap <= 24:
         raise ValueError(f"leaf_cap {leaf_cap} outside 1..24")
     if width not in (8, 16, 24, 32):
@@ -321,6 +340,7 @@ def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
     int_ids = np.full((W, width), -1, np.int64)
     ptr = np.full((W, width), -1, np.int64)
     orig_rows: list[np.ndarray] = []
+    pos_rows: list[np.ndarray] = []  # sorted positions, for clipped boxes
     cent = np.zeros((W, width, 3), np.float64)
     with np.errstate(invalid="ignore"):
         b_cent = np.nan_to_num((b_min + b_max) * 0.5, posinf=0.0,
@@ -350,11 +370,12 @@ def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
                 bins.append([j])
                 bin_counts.append(c)
         for members in bins:
-            orig_rows.append(np.concatenate([
-                order[starts[slots_all[r, j]]:
-                      starts[slots_all[r, j]] + counts[slots_all[r, j]]]
-                for j in members
-            ]))
+            pos = np.concatenate([
+                np.arange(starts[slots_all[r, j]],
+                          starts[slots_all[r, j]] + counts[slots_all[r, j]])
+                for j in members])
+            orig_rows.append(order[pos])
+            pos_rows.append(pos)
             ptr[r, col] = -2 - (len(orig_rows) - 1)
             cent[r, col] = b_cent[[slots_all[r, j] for j in members]].mean(
                 axis=0)
@@ -367,6 +388,13 @@ def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
         orig[i, :len(ids)] = ids
         in_range[i, :len(ids)] = True
     orig = np.clip(orig, 0, max(T - 1, 0))
+    clip_lo = clip_hi = None
+    if clip_sorted is not None:
+        clip_lo = np.zeros((max(n_leaves, 1), leaf_cap, 3), np.float32)
+        clip_hi = np.zeros_like(clip_lo)
+        for i, pos in enumerate(pos_rows):
+            clip_lo[i, :len(pos)] = clip_sorted[0][pos]
+            clip_hi[i, :len(pos)] = clip_sorted[1][pos]
 
     # ordered traversal: child slots ascending by centroid along the
     # node's dominant axis, recorded in col 7w
@@ -386,8 +414,10 @@ def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
         ptr=np.take_along_axis(ptr, slot_order, axis=1),
         node_axis=node_axis, orig=orig, in_range=in_range,
         n_levels=max(len(all_rows), 1), leaf_cap=leaf_cap, width=width,
+        clip_lo=clip_lo, clip_hi=clip_hi,
     )
-    nodes, leaves = assemble_rows(topo, b_min, b_max, tri_verts)
+    nodes, leaves = assemble_rows(topo, b_min, b_max, tri_verts,
+                                  use_clip=clip_sorted is not None)
     bounds = np.stack([tri_verts.min(axis=(0, 1)),
                        tri_verts.max(axis=(0, 1))]).astype(np.float32)
     roots = plan_treelets(topo.ptr, max_rows)
@@ -412,9 +442,12 @@ def wide_from_rows(nodes, leaves, bounds, max_depth: int, width: int,
 
 def build_wide(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
                leaf_cap: int = LEAF_CAP, width: int = WIDTH,
-               device="cuda", max_rows: int | None = None) -> WideBVH:
-    """tri_verts: [T, 3, 3] world space -> WideBVH on `device`."""
-    r = build_wide_rows(tri_verts, binary, leaf_cap, width, max_rows)
+               device="cuda", max_rows: int | None = None,
+               clip_sorted=None) -> WideBVH:
+    """tri_verts: [T, 3, 3] world space -> WideBVH on `device`
+    (clip_sorted as in build_wide_rows)."""
+    r = build_wide_rows(tri_verts, binary, leaf_cap, width, max_rows,
+                        clip_sorted)
     return wide_from_rows(r.nodes, r.leaves, r.bounds, r.n_levels, width,
                           leaf_cap, len(tri_verts), device, r.t_roots,
                           r.t_lo, r.t_hi)

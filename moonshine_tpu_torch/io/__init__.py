@@ -1,1 +1,1 @@
-from .exr import read_exr  # noqa: F401
+from .exr import read_exr, write_exr  # noqa: F401

@@ -13,9 +13,14 @@ traverse byte-identical rows.
 
 The binary tree is Karras below 50k triangles and binned SAH above (the
 reference's rule); `MSN_WIDE` and `MSN_LEAF_CAP` override the wide layout
-as in the reference. Not ported yet: refits and material/background
-edits (every build() is a full build), spatial-split presplitting
-(`MSN_PRESPLIT`, off by default in the reference), and two-level
+as in the reference. `MSN_PRESPLIT=<factor>` (factor > 1, SAH builds
+only, off by default as in the reference) builds over spatial-split
+references (`lbvh.presplit_refs`, at most factor x T of them): the wide
+leaves' boxes come from the clipped reference boxes, leaf slots and the
+binary tree's `tri_order` repeat triangle ids, and `tri_verts_sorted` has
+one row per reference, so every dispatch mode (the packet, treelet and
+per-lane walks) traverses the same tree. Not ported yet: refits and
+material/background edits (every build() is a full build), and two-level
 instancing (a scene that would need it raises).
 """
 
@@ -228,10 +233,18 @@ class World:
         T = len(verts)
         if builder == "auto":
             builder = "sah" if T > SAH_MIN_TRIS else "karras"
-        bvh = lbvh.build_sah(verts) if builder == "sah" else lbvh.build(verts)
+        clip_sorted = None
+        presplit = float(os.environ.get("MSN_PRESPLIT", "0"))
+        if builder == "sah" and presplit > 1.0:
+            refs = lbvh.presplit_refs(verts, max_refs_factor=presplit)
+            bvh, *clip_sorted = lbvh.build_sah(verts, refs=refs)
+        elif builder == "sah":
+            bvh = lbvh.build_sah(verts)
+        else:
+            bvh = lbvh.build(verts)
         width, leaf_cap = _wide_layout(T)
         rows = wide_bvh.build_wide_rows(verts, binary=bvh, leaf_cap=leaf_cap,
-                                        width=width)
+                                        width=width, clip_sorted=clip_sorted)
 
         emitter_tris = np.nonzero(flat["sampled"])[0]
         em = _build_emitters(verts, emitter_tris, flat["uvs"],

@@ -2,6 +2,7 @@
 
     python -m moonshine_tpu_torch.scripts.profile_vpacket [--full]
     python -m moonshine_tpu_torch.scripts.profile_vpu
+    python -m moonshine_tpu_torch.scripts.probe_bitcast
 
 `cuda_ms` is their kernel timer (CUDA events around many launches).
 """

@@ -1,6 +1,7 @@
 """The CUDA kernels (packet, treelet and format-V traversal, the slab and
-ALU microbenchmarks) against their plain torch versions, on a GPU only
-(marked `cuda`; each test skips when torch sees no CUDA device).
+ALU microbenchmarks, the quantised-row decode probe) against their plain
+torch versions, on a GPU only (marked `cuda`; each test skips when torch
+sees no CUDA device).
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -12,7 +13,7 @@ import torch
 
 from moonshine_tpu_torch.accel import native, packet, treelet, vpacket
 from moonshine_tpu_torch.accel.wide import build_wide
-from moonshine_tpu_torch.scripts import profile_vpu
+from moonshine_tpu_torch.scripts import probe_bitcast, profile_vpu
 
 pytestmark = pytest.mark.cuda
 
@@ -164,3 +165,18 @@ def test_vpu_kernels_match_plain(cuda, seed):
         assert torch.equal(profile_vpu.alu(a, b, 20),
                            profile_vpu.alu_plain(a, b, 20))
     assert profile_vpu.LAUNCHES == {"vpu_slab": 5, "vpu_alu": 4}
+
+
+def test_bitcast_kernel_matches_plain(cuda):
+    """The decode probe at all six widths, on the reference's rows and on
+    seeded ones, bit for bit; one launch counted per call."""
+    probe_bitcast.reset_launch_counts()
+    for rowlen in probe_bitcast.ROWLENS:
+        for rows in (probe_bitcast.reference_rows(rowlen, cuda),
+                     probe_bitcast.seeded_rows(rowlen, rowlen, cuda)):
+            got = probe_bitcast.decode_rows(rows)
+            want = probe_bitcast.decode_rows_plain(rows)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert probe_bitcast.LAUNCHES == {"bitcast": 12}
+    with pytest.raises(ValueError):
+        probe_bitcast.decode_rows(rows[:, ::2])
