@@ -8,8 +8,9 @@ script exits non-zero without the result line. Phases:
 
   device          the card's name and power limit (nvidia-smi)
   build           nvcc builds csrc/traverse.cu, csrc/treelet.cu,
-                  csrc/vpacket.cu and csrc/vpu.cu into build/, one process
-                  each, started together
+                  csrc/vpacket.cu, csrc/vpu.cu and csrc/bitcast.cu into
+                  build/, one process each, started together; prints each
+                  kernel's registers, shared memory and spills (ptxas)
   scenes          flagship, room_184k (SAH, 24-wide / 24-slot) and
                   room_184k as the treelet build (MSN_WIDE=8
                   MSN_LEAF_CAP=8): builder, layout, row bytes against the
@@ -30,9 +31,12 @@ script exits non-zero without the result line. Phases:
   staged_vs_fused room_184k 512x512 x 1 spp through both paths
   timings         each kernel at the largest shape of the 1080p main path
                   (2,073,600 closest-hit rays, 4,147,200 shadow rays): the
-                  kernel held against its plain version there and timed
-                  beside it, its bound from the plain version's visit
-                  counts, and the treelet dispatch's phase 1 alone
+                  kernel held against its plain version there (the packet
+                  kernels bit for bit) and timed beside it, its bound from
+                  the plain version's visit counts, and the treelet
+                  dispatch's phase 1 alone; the packet kernels' launch
+                  layout (G, R, block, shared bytes) and three alternated
+                  rounds of them against the format-V kernels
   vpacket         format-V tiles of both room_184k trees: the V kernels
                   against their plain versions and the packet kernel on
                   the test batch and at the 1080p launches (bit for bit),
@@ -404,42 +408,21 @@ def phase1_bytes(n, k):
     return n * k * 261
 
 
-def shadow_batch(o, d, hit):
-    """The main path's any-hit batch for a bounce whose closest hits are
-    `hit`: one env shadow ray (a seeded direction on the camera's side,
-    t_max unbounded) then one mesh-light shadow ray (to the ceiling light,
-    t_max just short of it) per lane, concatenated as path.py does it, so
-    2N lanes, dead where the closest-hit ray missed."""
-    import torch
-
-    dev = o.device
-    n = o.shape[0]
-    p = o + hit.t[:, None].clamp_max(1e6) * d - 1e-4 * d
-    to_l = torch.tensor([0.0, 0.0, 13.5], device=dev) - p
-    dist = torch.linalg.norm(to_l, dim=1)
-    env_d = np.random.RandomState(11).randn(n, 3).astype(np.float32)
-    env_d = torch.from_numpy(env_d / np.linalg.norm(env_d, axis=1,
-                                                    keepdims=True)).to(dev)
-    env_d = torch.where((env_d * d).sum(1, keepdim=True) > 0, -env_d, env_d)
-    return (torch.cat([p, p]), torch.cat([env_d, to_l / dist[:, None]]),
-            torch.cat([torch.full((n,), INF_T, device=dev),
-                       dist * (1 - 1e-4)]),
-            (hit.tri >= 0).repeat(2))
-
-
 def time_kernels(scenes, timings, errs):
     """Each kernel at the largest shape the 1080p main path gives it:
     closest hit on the frame's 2,073,600 camera rays, any hit on their
     4,147,200-lane shadow batch. The kernel alone on the inputs it gets
     (treelet kernels on phase-1 sorted lanes) is timed and held against its
-    plain version on the same inputs, whose visit counts also bound it.
-    Any hit is held again on the batch's mesh-light half (2,073,600 lanes,
-    the shadow batch of a half-width live-prefix bounce)."""
+    plain version on the same inputs, whose visit counts also bound it;
+    the packet kernels also bit for bit, and in three alternated rounds
+    against the format-V kernels on the same rays. Any hit is held again
+    on the batch's mesh-light half (2,073,600 lanes, the shadow batch of a
+    half-width live-prefix bounce)."""
     import torch
 
-    from moonshine_tpu_torch.accel import packet, treelet
-
+    from moonshine_tpu_torch.accel import native, packet, treelet, vpacket
     from moonshine_tpu_torch.render.renderer import _sample_rays
+    from moonshine_tpu_torch.scripts import shadow_batch
 
     h, w = HD
     for tree in ("default", "treelet"):
@@ -447,6 +430,23 @@ def time_kernels(scenes, timings, errs):
         wb = scene.wide
         o, d, _, _ = _sample_rays(lens, h, w, 0, True, scene.device)
         n = o.shape[0]
+        if tree == "default":
+            layout = packet.kernel_layout(wb)
+            lib = native.traverse_lib()
+            kernel_bytes = lib.shared_bytes(
+                layout.top_rows, wb.nodes[0].numel(), layout.stack_depth)
+            g = lib.group_lanes(wb.width)
+            say("timings", f"packet kernels on the {wb.width}/"
+                f"{wb.leaf_slots} tree: G = {g} lanes a ray, blocks of "
+                f"{packet.GROUPS_PER_BLOCK} groups ({packet.GROUPS_PER_BLOCK * g}"
+                f" threads), R = {layout.top_rows} top rows in shared "
+                f"memory, stacks of "
+                f"{layout.stack_depth} entries, {layout.shared_bytes} B of "
+                f"shared memory a block (the kernel counts {kernel_bytes})")
+            if kernel_bytes != layout.shared_bytes:
+                raise AssertionError("kernel_layout and the kernel count "
+                                     "shared memory differently")
+            v = vpacket.v_from_wide(wb)
         batches = {
             "closest_hit": (o, d, torch.full((n,), INF_T, device=o.device),
                             torch.ones(n, dtype=torch.bool, device=o.device),
@@ -507,10 +507,29 @@ def time_kernels(scenes, timings, errs):
                         "alternated rounds: " + "; ".join(
                             f"{k} " + " / ".join(f"{x:.4f}" for x in v)
                             + " ms" for k, v in ms_runs.items()))
+            if tree == "default":  # the packet kernel against format V
+                vk = (vpacket.any_hit_vpacket if any_hit
+                      else vpacket.closest_hit_vpacket)
+                runs = {"packet kernel": kern,
+                        "V kernel (one thread per ray)": lambda a=lanes, f=vk:
+                            f(v, *a)}
+                ms_runs = {k: [] for k in runs}
+                for _ in range(3):  # alternated, so clocks hit both alike
+                    for k, fn in runs.items():
+                        ms_runs[k].append(cuda_ms(fn, 5))
+                say("timings", f"{kname} on {m} lanes, the same {wb.width}/"
+                    f"{wb.leaf_slots} rays, three alternated rounds: "
+                    + "; ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in xs)
+                                + " ms" for k, xs in ms_runs.items()))
             ms = cuda_ms(kern, 5)
             out_k = kern()
             out_p, visits = plain(True)  # also the plain version's warm-up
             plain_ms = host_ms(plain)
+            if tree == "default":
+                assert_same(f"{kname} on {m} lanes", out_k, out_p)
+                say("timings", f"{kname} on {m} lanes: kernel = plain bit for "
+                    f"bit (" + ("occlusion" if any_hit else "t, tri, u, v")
+                    + ")")
             if any_hit:
                 err = check_any(f"{kname} (timed batch)", out_k, out_p, wb,
                                 *lanes)
@@ -557,7 +576,7 @@ def vpacket_phase(scenes, timings, errs, launches):
 
     from moonshine_tpu_torch.accel import packet, vpacket
     from moonshine_tpu_torch.render.renderer import _sample_rays
-    from moonshine_tpu_torch.scripts import profile_vpacket
+    from moonshine_tpu_torch.scripts import profile_vpacket, shadow_batch
 
     h, w = HD
     for tree in ("default", "treelet"):
@@ -848,6 +867,7 @@ def presplit_phase(scenes, errs, cfg, dev):
     from moonshine_tpu_torch.render.camera import LensArrays
     from moonshine_tpu_torch.render.renderer import _sample_rays, render_spp
     from moonshine_tpu_torch.scene import procedural
+    from moonshine_tpu_torch.scripts import shadow_batch
 
     base, lens = scenes["room_184k/default"]
     t0 = time.perf_counter()
@@ -1010,21 +1030,6 @@ def room_glb(world, lens) -> bytes:
     return glb_builder().build_glb(meshes, materials, nodes, cameras)
 
 
-def skybox():
-    """A 2048x1024 equirectangular sky: a vertical gradient, seeded
-    low-frequency clouds and a small bright sun, float32 [h, w, 3]."""
-    h, w = 1024, 2048
-    rs = np.random.RandomState(5)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    elev = 1.0 - yy / h
-    sky = np.stack([0.25 + 0.35 * elev, 0.35 + 0.4 * elev,
-                    0.5 + 0.45 * elev], -1)
-    coarse = rs.rand(8, 16, 1).astype(np.float32)
-    sky *= 0.8 + 0.4 * np.repeat(np.repeat(coarse, h // 8, 0), w // 16, 1)
-    sky[h // 5:h // 5 + 12, w // 3:w // 3 + 12] = 400.0
-    return sky.astype(np.float32)
-
-
 def offline_phase(dev):
     """The offline CLI: (a) the Cornell golden through the module in a
     subprocess; (b) room_184k through a glb at the CLI's defaults, in
@@ -1040,6 +1045,7 @@ def offline_phase(dev):
     from moonshine_tpu_torch.render.renderer import render
     from moonshine_tpu_torch.scene import procedural
     from moonshine_tpu_torch.scene.gltf import lens_from_glb, world_from_glb
+    from moonshine_tpu_torch.scripts import skybox
 
     WORK.mkdir(parents=True, exist_ok=True)
     # (a) the Cornell golden: 96x96, 8 spp, max_bounces 4, mesh NEE only

@@ -56,23 +56,29 @@ class NativeLib:
 
 
 class TraverseLib(NativeLib):
-    """traverse.cu's entry points; vpacket.cu's share their signature
-    under another prefix."""
+    """traverse.cu's entry points: after the rays, the launch layout (top
+    rows, stack depth) and the ray counter; vpacket.cu's take the rays
+    alone, under another prefix."""
 
     prefix = "msn"
+    layout = [_I, _I, _P]
 
     def __init__(self, *args):
         super().__init__(*args)
-        rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I]
+        rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I] + self.layout
         self.closest_hit = self._fn(f"{self.prefix}_closest_hit",
                                     rays + [_P, _P, _P, _P, _P])
         self.any_hit = self._fn(f"{self.prefix}_any_hit", rays + [_P, _P])
         self.stack_capacity = int(
             self._fn(f"{self.prefix}_stack_capacity", [])())
+        if self.layout:
+            self.shared_bytes = self._fn("msn_shared_bytes", [_I, _I, _I])
+            self.group_lanes = self._fn("msn_group_lanes", [_I])
 
 
 class VPacketLib(TraverseLib):
     prefix = "msn_v"
+    layout = []
 
 
 class TreeletLib(NativeLib):

@@ -47,6 +47,13 @@ HBM_STACK_DEPTH = 256
 # would pick; it is not a memory limit.
 VMEM_SCENE_BUDGET_BYTES = 10 * 1024 * 1024
 
+# The CUDA kernel's blocks (csrc/traverse.cu's kBlockGroups): a block of
+# GROUPS_PER_BLOCK lane groups, each tracing one ray with its own stack,
+# shares one copy of the tree's top rows; a block may hold at most
+# SHARED_BYTES_MAX bytes of shared memory on the H100 (227 KB)
+GROUPS_PER_BLOCK = 64
+SHARED_BYTES_MAX = 232_448
+
 # Kernel launches per kernel, for showing that a run went through them.
 # A wrapper adds one exactly where it launches; callers reset to 0.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0}
@@ -82,6 +89,23 @@ def stack_ok(wbvh: WideBVH, hbm: bool) -> bool:
     """True when the tree's worst-case stack occupancy fits the
     reference's stack for its residency."""
     return wbvh.max_stack <= (HBM_STACK_DEPTH if hbm else STACK_DEPTH)
+
+
+class KernelLayout(NamedTuple):
+    """What the CUDA kernel keeps in one block's shared memory."""
+
+    top_rows: int  # R: node rows 0..R-1, the root and its internal children
+    stack_depth: int  # entries of each group's stack: the tree's max_stack
+    shared_bytes: int  # the R rows, then GROUPS_PER_BLOCK int32 stacks
+
+
+def kernel_layout(wbvh: WideBVH) -> KernelLayout:
+    """The shared-memory layout the kernel gets for this tree (plain
+    Python: only the tree's static facts are read)."""
+    row = wbvh.nodes.stride(0) * 4  # contiguous: the floats of a row
+    stacks = GROUPS_PER_BLOCK * wbvh.max_stack * 4
+    return KernelLayout(wbvh.top_rows, wbvh.max_stack,
+                        wbvh.top_rows * row + stacks)
 
 
 # --- plain torch versions ---
@@ -429,7 +453,7 @@ def _launch_args(lib, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):
     keep = (ray_o, ray_d, t_lanes, act)  # alive until the launch returns
     args = [
         wbvh.nodes.data_ptr(), wbvh.leaves.data_ptr(),
-        wbvh.nodes[0].numel(), wbvh.leaves[0].numel(),
+        wbvh.nodes.stride(0), wbvh.leaves.stride(0),  # floats a row
         wbvh.width, wbvh.leaf_slots,
         ray_o.data_ptr(), ray_d.data_ptr(), t_lanes.data_ptr(),
         None if act is None else act.data_ptr(), n,
@@ -451,8 +475,10 @@ def _device_kind(ray_o) -> str:
 def _launch(lib, counts: dict, key: str, wbvh, ray_o, ray_d, t_max,
             active_in, any_hit: bool):
     """One launch of `lib`'s closest-hit or any-hit kernel (the C entry
-    points of traverse.cu's signature) on checked rays; counts[key] adds
-    one where the kernel launches. Returns a Hit or a bool tensor."""
+    points of traverse.cu or vpacket.cu) on checked rays; counts[key] adds
+    one where the kernel launches. traverse.cu's also take the tree's
+    kernel_layout and 4 bytes for the ray counter, which the launch zeroes.
+    Returns a Hit or a bool tensor."""
     args, _keep = _launch_args(lib, wbvh, ray_o, ray_d, t_max, active_in)
     n, dev = ray_o.shape[0], ray_o.device
     if any_hit:
@@ -464,6 +490,11 @@ def _launch(lib, counts: dict, key: str, wbvh, ray_o, ray_d, t_max,
                torch.empty_like(t), torch.empty_like(t))
         fn = lib.closest_hit
     if n:
+        if lib.layout:
+            layout = kernel_layout(wbvh)
+            next_ray = torch.empty(1, dtype=torch.int32, device=dev)
+            args += [layout.top_rows, layout.stack_depth,
+                     next_ray.data_ptr()]
         rc = fn(*args, *(x.data_ptr() for x in out), _stream(dev))
         if rc != 0:
             raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")

@@ -98,6 +98,9 @@ class WideBVH(NamedTuple):
     t_roots: torch.Tensor | None = None  # [K] i32
     t_lo: torch.Tensor | None = None  # [K, 3] f32
     t_hi: torch.Tensor | None = None  # [K, 3] f32
+    # rows 0..top_rows-1 are the root and its internal children (the rows
+    # are breadth-first), as `top_rows` counts them from the root row
+    top_rows: int = 1
 
     @property
     def max_stack(self) -> int:
@@ -437,7 +440,15 @@ def wide_from_rows(nodes, leaves, bounds, max_depth: int, width: int,
         leaf_slots=int(leaf_slots), num_nodes=len(nodes),
         num_leaves=len(leaves), num_tris=int(num_tris),
         t_roots=put(t_roots, np.int32), t_lo=put(t_lo), t_hi=put(t_hi),
+        top_rows=top_rows(nodes, width),
     )
+
+
+def top_rows(nodes, width: int) -> int:
+    """1 + the root's internal children: in the breadth-first layout those
+    children are rows 1..m, so rows 0..m are the top two levels."""
+    root = np.asarray(nodes).reshape(len(nodes), -1)[0]
+    return 1 + int((root[6 * width:7 * width] >= 0).sum())
 
 
 def build_wide(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,

@@ -3,13 +3,18 @@
     python -m moonshine_tpu_torch.scripts.profile_vpacket [--full]
     python -m moonshine_tpu_torch.scripts.profile_vpu
     python -m moonshine_tpu_torch.scripts.probe_bitcast
+    python -m moonshine_tpu_torch.scripts.compare_traverse [--against DIR]
 
-`cuda_ms` is their kernel timer (CUDA events around many launches).
+`cuda_ms` is their kernel timer (CUDA events around many launches);
+`shadow_batch` builds the any-hit launch that the 1080p frame times;
+`skybox` is the offline cell's seeded sky.
 """
 
 from __future__ import annotations
 
 import time
+
+import numpy as np
 
 # clock rate assumed to turn a hold time into torch.cuda._sleep cycles (at
 # or above the H100's boost clock, so a hold lasts at least as asked)
@@ -44,3 +49,42 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def shadow_batch(o, d, hit, inf_t: float = 1.0e12):
+    """The main path's any-hit batch for a bounce whose closest hits are
+    `hit` (room_184k's camera rays): one env shadow ray (a seeded
+    direction on the camera's side, t_max `inf_t`) then one mesh-light
+    shadow ray (to the ceiling light, t_max just short of it) per lane,
+    concatenated as integrator/path.py does it, so 2N lanes, dead where
+    the closest-hit ray missed. Returns (o, d, t_max, active)."""
+    import torch
+
+    dev = o.device
+    n = o.shape[0]
+    p = o + hit.t[:, None].clamp_max(1e6) * d - 1e-4 * d
+    to_l = torch.tensor([0.0, 0.0, 13.5], device=dev) - p
+    dist = torch.linalg.norm(to_l, dim=1)
+    env_d = np.random.RandomState(11).randn(n, 3).astype(np.float32)
+    env_d = torch.from_numpy(env_d / np.linalg.norm(env_d, axis=1,
+                                                    keepdims=True)).to(dev)
+    env_d = torch.where((env_d * d).sum(1, keepdim=True) > 0, -env_d, env_d)
+    return (torch.cat([p, p]), torch.cat([env_d, to_l / dist[:, None]]),
+            torch.cat([torch.full((n,), inf_t, device=dev),
+                       dist * (1 - 1e-4)]),
+            (hit.tri >= 0).repeat(2))
+
+
+def skybox():
+    """A 2048x1024 equirectangular sky: a vertical gradient, seeded
+    low-frequency clouds and a small bright sun, float32 [h, w, 3]."""
+    h, w = 1024, 2048
+    rs = np.random.RandomState(5)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    elev = 1.0 - yy / h
+    sky = np.stack([0.25 + 0.35 * elev, 0.35 + 0.4 * elev,
+                    0.5 + 0.45 * elev], -1)
+    coarse = rs.rand(8, 16, 1).astype(np.float32)
+    sky *= 0.8 + 0.4 * np.repeat(np.repeat(coarse, h // 8, 0), w // 16, 1)
+    sky[h // 5:h // 5 + 12, w // 3:w // 3 + 12] = 400.0
+    return sky.astype(np.float32)

@@ -5,7 +5,10 @@ sees no CUDA device).
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-chip_smoke.py makes the same comparison at the render's real shapes."""
+The packet kernels are held to their plain versions bit for bit (t, tri,
+u, v, occlusion, ties included) over widths 8/16/24/32 x leaf caps
+1/7/12/24. chip_smoke.py makes the same comparison at the render's real
+shapes."""
 
 import numpy as np
 import pytest
@@ -14,6 +17,8 @@ import torch
 from moonshine_tpu_torch.accel import native, packet, treelet, vpacket
 from moonshine_tpu_torch.accel.wide import build_wide
 from moonshine_tpu_torch.scripts import probe_bitcast, profile_vpu
+
+from test_torch_group_walk import CAPS, WIDTHS, tie_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -41,26 +46,109 @@ def _scene(device, n_tris=700, cap=12, width=16, n_rays=5000, seed=3,
         t_max.to(device)
 
 
-@pytest.mark.parametrize("cap,width", [(12, 16), (24, 24)])
-def test_closest_hit_kernel_matches_plain(cuda, cap, width):
-    w, o, d, active, _ = _scene(cuda, cap=cap, width=width)
-    got = packet.closest_hit_packet(w, o, d, 1e12, active_in=active)
-    want = packet.closest_hit_plain(w, o, d, 1e12, active_in=active)
+def _tie_case(device, cap, width, n_rays=3000, seed=11):
+    """tie_scene's tree and rays on `device`: exact equal-t ties, dead
+    lanes, finite t_max."""
+    tris, o, d, active, t_max = tie_scene(seed + cap + width, n_tris=700,
+                                          n_rays=n_rays)
+    wbvh = build_wide(tris, leaf_cap=cap, width=width, device=device)
+    return wbvh, *(torch.from_numpy(x).to(device)
+                   for x in (o, d, active, t_max))
+
+
+def _assert_equal(got, want):
     torch.cuda.synchronize()
-    assert torch.equal(got.tri >= 0, want.tri >= 0)
-    torch.testing.assert_close(got.t, want.t, rtol=1e-5, atol=0)
-    same = got.tri == want.tri
-    assert same.float().mean() > 0.999
-    torch.testing.assert_close(got.u[same], want.u[same], rtol=0, atol=1e-4)
+    for g, x in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == x.dtype and torch.equal(g, x)
 
 
-@pytest.mark.parametrize("cap,width", [(12, 16), (24, 24)])
+GRID = [(cap, width) for cap in CAPS for width in WIDTHS]
+
+
+@pytest.mark.parametrize("cap,width", GRID)
+def test_closest_hit_kernel_matches_plain(cuda, cap, width):
+    """t, tri, u, v bit for bit, equal-t ties included, with an unbounded
+    and a per-lane t_max."""
+    w, o, d, active, t_max = _tie_case(cuda, cap, width)
+    for tm in (1e12, t_max):
+        _assert_equal(
+            packet.closest_hit_packet(w, o, d, tm, active_in=active),
+            packet.closest_hit_plain(w, o, d, tm, active_in=active))
+
+
+@pytest.mark.parametrize("cap,width", GRID)
 def test_any_hit_kernel_matches_plain(cuda, cap, width):
-    w, o, d, active, t_max = _scene(cuda, cap=cap, width=width)
+    w, o, d, active, t_max = _tie_case(cuda, cap, width)
     got = packet.any_hit_packet(w, o, d, t_max, active_in=active)
-    want = packet.any_hit_plain(w, o, d, t_max, active_in=active)
     assert got.dtype == torch.bool
-    assert torch.equal(got, want)
+    _assert_equal(got, packet.any_hit_plain(w, o, d, t_max,
+                                            active_in=active))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4099])
+def test_kernels_on_small_and_ragged_batches(cuda, n):
+    """No ray, one ray, and a count that no group count or fetch size
+    divides; nothing is launched for n = 0."""
+    w, o, d, active, t_max = _tie_case(cuda, 12, 24, n_rays=max(n, 1))
+    o, d, active, t_max = o[:n], d[:n], active[:n], t_max[:n]
+    packet.reset_launch_counts()
+    _assert_equal(packet.closest_hit_packet(w, o, d, 1e12, active_in=active),
+                  packet.closest_hit_plain(w, o, d, 1e12, active_in=active))
+    _assert_equal(packet.any_hit_packet(w, o, d, t_max),
+                  packet.any_hit_plain(w, o, d, t_max))
+    assert packet.LAUNCHES == {"closest_hit": int(n > 0),
+                               "any_hit": int(n > 0)}
+
+
+@pytest.mark.parametrize("live", [0, 37, 700])
+def test_kernels_on_mostly_dead_batches(cuda, live):
+    """20,000 lanes of which `live` are active, as in the offline path's
+    late segments, and a seventh of those with t_max <= 0: the warps
+    retire dead lanes 32 at a time and hand the live ones to groups."""
+    n = 20000
+    w, o, d, _, t_max = _tie_case(cuda, 12, 24, n_rays=n)
+    act = np.zeros(n, bool)
+    act[np.random.RandomState(live).choice(n, live, replace=False)] = True
+    active = torch.from_numpy(act).to(cuda)
+    t_max = torch.where(torch.arange(n, device=cuda) % 7 == 0, -t_max, t_max)
+    _assert_equal(packet.closest_hit_packet(w, o, d, t_max, active),
+                  packet.closest_hit_plain(w, o, d, t_max, active))
+    _assert_equal(packet.any_hit_packet(w, o, d, t_max, active),
+                  packet.any_hit_plain(w, o, d, t_max, active))
+
+
+def test_kernels_with_a_deep_stack_bound(cuda):
+    """Stacks sized from a bound above 256 (so above 48 KB of shared
+    memory a block). No tree small enough for a test has such a bound:
+    max_stack = 31 * depth + 1 on a 32-wide tree needs depth 9, and the
+    wide collapse of a few thousand triangles is 2-3 levels deep. So the
+    case raises the tree's declared depth, which sizes the stacks as a
+    real bound of 257-512 would; the hits must not change."""
+    w, o, d, active, t_max = _tie_case(cuda, 7, 32)
+    deep = w._replace(max_depth=16)
+    layout = packet.kernel_layout(deep)
+    assert deep.max_stack == layout.stack_depth == 497
+    assert layout.shared_bytes > 48 * 1024
+    _assert_equal(packet.closest_hit_packet(deep, o, d, 1e12, active),
+                  packet.closest_hit_plain(w, o, d, 1e12, active))
+    _assert_equal(packet.any_hit_packet(deep, o, d, t_max, active),
+                  packet.any_hit_plain(w, o, d, t_max, active))
+
+
+def test_shared_layout_matches_kernel(cuda):
+    """The kernel's own count of its shared memory equals kernel_layout's,
+    R counts the root and its internal children, and every width has its
+    kernel (2 or 4 lanes a ray)."""
+    lib = native.build_all(("traverse",))["traverse"]
+    for cap, width in GRID:
+        w, *_ = _tie_case(cuda, cap, width, n_rays=8)
+        layout = packet.kernel_layout(w)
+        assert lib.shared_bytes(layout.top_rows, w.nodes[0].numel(),
+                                layout.stack_depth) == layout.shared_bytes
+        assert lib.group_lanes(width) in (2, 4)
+        root = w.nodes.reshape(w.num_nodes, -1)[0, 6 * width:7 * width]
+        assert layout.top_rows == 1 + int((root >= 0).sum())
 
 
 def test_launch_counters(cuda):
