@@ -16,9 +16,10 @@ script exits non-zero without the result line. Phases:
                   MSN_LEAF_CAP=8): builder, layout, row bytes against the
                   reference's 10 MiB budget, dispatch mode, stack bound, K
   kernels         each kernel against its plain torch version (packet
-                  kernels on flagship and room_184k, treelet kernels on the
-                  treelet build, also against the packet kernel there):
-                  camera rays plus a seeded bounce batch with dead lanes
+                  kernels on flagship and room_184k; treelet phase 1 and
+                  walk bit for bit on the treelet build, the walk also
+                  against the packet kernel there): camera rays plus a
+                  seeded bounce batch with dead lanes
   flagship        render_spp of the flagship, 512x512, 8 spp, after a
                   warm-up run; Mrays/s from one run's rays and time
   goldens         furnace (every pixel 1) and mirror_glass against the
@@ -27,16 +28,20 @@ script exits non-zero without the result line. Phases:
   room_1080p      room_184k, 1920x1080 x 2 spp through render_spp (the
                   staged path, resort on), packet kernels
   treelet_1080p   the same frame with MSN_TREELETS=1 on the treelet build,
-                  treelet kernels; its image against room_1080p's
+                  treelet kernels (a phase-1 launch per walk launch); its
+                  image against room_1080p's
   staged_vs_fused room_184k 512x512 x 1 spp through both paths
   timings         each kernel at the largest shape of the 1080p main path
                   (2,073,600 closest-hit rays, 4,147,200 shadow rays): the
                   kernel held against its plain version there (the packet
-                  kernels bit for bit) and timed beside it, its bound from
-                  the plain version's visit counts, and the treelet
-                  dispatch's phase 1 alone; the packet kernels' launch
-                  layout (G, R, block, shared bytes) and three alternated
-                  rounds of them against the format-V kernels
+                  and treelet kernels bit for bit) and timed beside it, its
+                  bound from the plain version's visit counts; the treelet
+                  dispatch's phase-1 kernel against its torch version (bit
+                  for bit, both timed, with the torch version's traffic),
+                  the whole treelet wrappers and the walk's shape (block,
+                  stack bound, root visits skipped); the packet kernels'
+                  launch layout (G, R, block, shared bytes) and three
+                  alternated rounds of them against the format-V kernels
   vpacket         format-V tiles of both room_184k trees: the V kernels
                   against their plain versions and the packet kernel on
                   the test batch and at the 1080p launches (bit for bit),
@@ -105,6 +110,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                             "moonshine_tpu/accel/treelet.py:510"),
     "treelet_any_hit": ("moonshine_tpu_torch/csrc/treelet.cu",
                         "moonshine_tpu/accel/treelet.py:510"),
+    "treelet_pending": ("moonshine_tpu_torch/csrc/treelet.cu",
+                        "moonshine_tpu/accel/treelet.py:372 _pending_masks "
+                        "(jnp, no pallas_call)"),
     "v_closest_hit": ("moonshine_tpu_torch/csrc/vpacket.cu",
                       "moonshine_tpu/accel/vpacket.py:546"),
     "v_any_hit": ("moonshine_tpu_torch/csrc/vpacket.cu",
@@ -294,9 +302,9 @@ def compare_packet(name, scene, lens, errs):
 
 
 def compare_treelet(scene, lens, errs):
-    """Treelet kernels against their plain versions and against the packet
-    kernel on the same 8-wide tree (t and is_hit equal, tri only on equal
-    t; occlusion equal)."""
+    """Treelet phase 1 and the walk against their plain versions bit for
+    bit, and the walk against the packet kernel on the same 8-wide tree (t
+    and is_hit equal, tri only on equal t; occlusion equal)."""
     import torch
 
     from moonshine_tpu_torch.accel import packet, treelet
@@ -304,11 +312,20 @@ def compare_treelet(scene, lens, errs):
     o, d, active, t_fin = test_batch(scene, lens)
     n = o.shape[0]
     w = scene.wide
+    for name, tm in (("1e12", INF_T), ("finite", t_fin)):
+        t_eff = torch.where(active, torch.as_tensor(tm, device=o.device),
+                            -1e30)
+        errs["treelet_pending"] = assert_same(
+            f"treelet phase 1 ({name} t_max)",
+            treelet._pending_masks(w, o, d, t_eff),
+            treelet._pending_masks_plain(w, o, d, t_eff))
+    say("kernels", f"room_184k/treelet treelet_pending on {n} rays, 1e12 and "
+        f"finite t_max: kernel = plain bit for bit (words, nearest)")
     hk = treelet.closest_hit_treelet(w, o, d, INF_T, active_in=active)
-    t_err, _ = check_closest(
-        "room_184k/treelet treelet_closest_hit", hk,
-        treelet.closest_hit_treelet_plain(w, o, d, INF_T, active_in=active),
-        active, n)
+    hp = treelet.closest_hit_treelet_plain(w, o, d, INF_T, active_in=active)
+    t_err, _ = check_closest("room_184k/treelet treelet_closest_hit", hk, hp,
+                             active, n)
+    assert_same("room_184k/treelet treelet_closest_hit", hk, hp)
     pk = packet.closest_hit_packet(w, o, d, INF_T, active_in=active)
     same_t = bool(torch.equal(hk.t, pk.t))
     same_hit = bool(torch.equal(hk.tri >= 0, pk.tri >= 0))
@@ -319,10 +336,12 @@ def compare_treelet(scene, lens, errs):
     if not (same_t and same_hit and tie_ok):
         raise AssertionError("treelet and packet kernels disagree")
     ok_k = treelet.any_hit_treelet(w, o, d, t_fin, active_in=active)
-    occ_err = check_any(
-        "room_184k/treelet treelet_any_hit (finite t_max)", ok_k,
-        treelet.any_hit_treelet_plain(w, o, d, t_fin, active_in=active), w,
-        o, d, t_fin, active)
+    ok_p = treelet.any_hit_treelet_plain(w, o, d, t_fin, active_in=active)
+    occ_err = check_any("room_184k/treelet treelet_any_hit (finite t_max)",
+                        ok_k, ok_p, w, o, d, t_fin, active)
+    assert_same("room_184k/treelet treelet_any_hit", ok_k, ok_p)
+    say("kernels", "room_184k/treelet walk = plain bit for bit (t, tri, u, "
+        "v; occlusion)")
     pa = packet.any_hit_packet(w, o, d, t_fin, active_in=active)
     say("kernels", f"room_184k/treelet treelet vs packet any hit: "
         f"{int((ok_k != pa).sum())} mismatches")
@@ -398,14 +417,51 @@ def bound(name, n, visits, wbvh, k32=0, record_bytes=None):
 
 
 def phase1_bytes(n, k):
-    """Bytes that `treelet._pending_masks` moves for n rays and k treelets,
-    counted from its tensor ops on [chunk, 32] temporaries (each read and
-    each write once, per-ray terms left out; a 1M-lane chunk's tensors
-    exceed L2): per axis two slabs (a subtract and a multiply, 12 B each)
-    and a min and a max (12 B each), on axes 1-2 also the running max and
-    min (12 B each): 192 B; the hit mask 27 B, the bit-word sum 17 B, the
-    entry t 17 B, its amin and argmin 8 B."""
+    """Bytes that `treelet._pending_masks_plain` moves for n rays and k
+    treelets, counted from its tensor ops on [chunk, 32] temporaries (each
+    read and each write once, per-ray terms left out; a 1M-lane chunk's
+    tensors exceed L2): per axis two slabs (a subtract and a multiply, 12
+    B each) and a min and a max (12 B each), on axes 1-2 also the running
+    max and min (12 B each): 192 B; the hit mask 27 B, the bit-word sum 17
+    B, the entry t 17 B, its amin and argmin 8 B."""
     return n * k * 261
+
+
+def time_pending(wb, o, d, t_eff, label):
+    """Treelet phase 1 on one launch's lanes: the kernel against its torch
+    version bit for bit, both timed; the bound counts each ray's o, d and
+    t_max read and its words and nearest treelet written once, the boxes
+    read once, and a child box test (packet.FLOPS_PER_NODE_SLOT) per live
+    (ray, treelet) pair plus an entry max and compare per pending pair.
+    Returns the timings entry."""
+    from moonshine_tpu_torch.accel import packet, treelet
+
+    got = treelet._pending_masks(wb, o, d, t_eff)
+    want = treelet._pending_masks_plain(wb, o, d, t_eff)
+    assert_same(f"treelet_pending on {label}", got, want)
+    pend = got[0]
+    k, k32 = wb.t_roots.shape[0], pend.shape[1]
+    live = int((t_eff > 0.0).sum())
+    pairs = sum(int(((pend >> b) & 1).sum()) for b in range(32))
+    ms = cuda_ms(lambda: treelet._pending_masks(wb, o, d, t_eff), 20)
+    plain_ms = cuda_ms(lambda: treelet._pending_masks_plain(wb, o, d, t_eff),
+                       3)
+    m = o.shape[0]
+    nbytes = m * (12 + 12 + 4 + 4 * k32 + 4) + k * 24
+    flops = live * k * packet.FLOPS_PER_NODE_SLOT + 2 * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    nb = phase1_bytes(m, k)
+    say("timings", f"treelet_pending on {label}: kernel = plain bit for bit "
+        f"(words, nearest); kernel {ms:.4f} ms, torch version {plain_ms:.2f} "
+        f"ms (moving ~{nb / 1e9:.2f} GB by its tensor ops = "
+        f"{nb / plain_ms / 1e9:.3f} TB/s); bound {max(t_bytes, t_ops):.4f} ms "
+        f"by {by} ({live} live of {m} lanes x K {k}, {pairs} pending pairs; "
+        f"{nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP "
+        f"-> {t_ops:.4f} ms); no single PyTorch call does it, so no library "
+        f"time")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by=by)
 
 
 def time_kernels(scenes, timings, errs):
@@ -470,8 +526,9 @@ def time_kernels(scenes, timings, errs):
             else:
                 kname = f"treelet_{base}"
                 t_eff = torch.where(act, tm, -1e30)
-                ms_p1 = cuda_ms(
-                    lambda: treelet._pending_masks(wb, ro, rd, t_eff), 3)
+                p1 = time_pending(wb, ro, rd, t_eff, f"{m} {base} lanes")
+                if not any_hit:  # the JSON line's: 2,073,600 camera rays
+                    timings["treelet_pending"] = p1
                 perm, srt = treelet._sort_lanes(wb, ro, rd, t_eff)
                 k32 = srt[3].shape[1]
                 lanes = (*srt[:3], srt[2] > 0.0)
@@ -483,13 +540,13 @@ def time_kernels(scenes, timings, errs):
                     0, p, x)
                 fk = treelet.any_hit_treelet if any_hit else \
                     treelet.closest_hit_treelet
-                ms_wrap = cuda_ms(lambda: fk(wb, ro, rd, tm, act), 3)
-                nb = phase1_bytes(m, wb.t_roots.shape[0])
+                ms_wrap = cuda_ms(lambda: fk(wb, ro, rd, tm, act), 5)
                 say("timings", f"{kname} on {m} rays: whole wrapper "
-                    f"(phase 1, sort, kernel, unsort) {ms_wrap:.4f} ms, "
-                    f"phase 1 alone {ms_p1:.4f} ms, moving ~{nb / 1e9:.2f} "
-                    f"GB (counted from its tensor ops) = "
-                    f"{nb / ms_p1 / 1e9:.3f} TB/s")
+                    f"(phase 1, sort, walk, unsort) {ms_wrap:.4f} ms, phase "
+                    f"1 {p1['ms']:.4f} ms of it; the walk: blocks of "
+                    f"{native.treelet_lib().block(wb.treelet_stack)} "
+                    f"threads, stacks of {wb.treelet_stack} entries (the "
+                    f"tree's bound {wb.max_stack})")
                 if not any_hit:  # the schedule against the packet kernel
                     runs = {"treelet kernel": lambda a=srt: (
                                 treelet._dispatch_kernel(wb, *a, False)),
@@ -525,11 +582,12 @@ def time_kernels(scenes, timings, errs):
             out_k = kern()
             out_p, visits = plain(True)  # also the plain version's warm-up
             plain_ms = host_ms(plain)
-            if tree == "default":
-                assert_same(f"{kname} on {m} lanes", out_k, out_p)
-                say("timings", f"{kname} on {m} lanes: kernel = plain bit for "
-                    f"bit (" + ("occlusion" if any_hit else "t, tri, u, v")
-                    + ")")
+            assert_same(f"{kname} on {m} lanes", out_k, out_p)
+            say("timings", f"{kname} on {m} lanes: kernel = plain bit for "
+                f"bit (" + ("occlusion" if any_hit else "t, tri, u, v")
+                + ")" + (f"; {visits.roots_skipped} root visits skipped "
+                         f"({visits.roots_skipped / m:.4f} a lane)"
+                         if tree == "treelet" else ""))
             if any_hit:
                 err = check_any(f"{kname} (timed batch)", out_k, out_p, wb,
                                 *lanes)
@@ -1309,7 +1367,8 @@ def main():
         if (counts["closest_hit"] != stats["segments"]
                 or counts["any_hit"] == 0
                 or counts["treelet_closest_hit"]
-                or counts["treelet_any_hit"]):
+                or counts["treelet_any_hit"]
+                or counts["treelet_pending"]):
             raise AssertionError(f"room_1080p launches {counts}, segments "
                                  f"{stats['segments']}")
         launches.update(closest_hit=counts["closest_hit"],
@@ -1322,11 +1381,14 @@ def main():
                 resort=False)
         if (counts["treelet_closest_hit"] != stats["segments"]
                 or counts["treelet_any_hit"] == 0
+                or counts["treelet_pending"] != counts["treelet_closest_hit"]
+                + counts["treelet_any_hit"]
                 or counts["closest_hit"] or counts["any_hit"]):
             raise AssertionError(f"treelet_1080p launches {counts}, "
                                  f"segments {stats['segments']}")
         launches.update(treelet_closest_hit=counts["treelet_closest_hit"],
-                        treelet_any_hit=counts["treelet_any_hit"])
+                        treelet_any_hit=counts["treelet_any_hit"],
+                        treelet_pending=counts["treelet_pending"])
         same_image("treelet_1080p against room_1080p", "treelet_1080p",
                    img_treelet, img_default)
 

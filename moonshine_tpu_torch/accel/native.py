@@ -82,12 +82,20 @@ class VPacketLib(TraverseLib):
 
 
 class TreeletLib(NativeLib):
+    """treelet.cu's entry points: phase 1 (`pending`), the walk (after the
+    tree: roots, boxes, K and the treelet stack bound; then the pending
+    words, nearest treelets and rays) and the walk's block size."""
+
     def __init__(self, *args):
         super().__init__(*args)
-        rays = [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I]
+        self.pending = self._fn("msn_treelet_pending",
+                                [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P])
+        rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                _P, _P, _I]
         self.closest_hit = self._fn("msn_treelet_closest_hit",
                                     rays + [_P, _P, _P, _P, _P])
         self.any_hit = self._fn("msn_treelet_any_hit", rays + [_P, _P])
+        self.block = self._fn("msn_treelet_block", [_I])
         self.stack_capacity = int(
             self._fn("msn_treelet_stack_capacity", [])())
 

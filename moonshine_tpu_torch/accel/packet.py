@@ -156,7 +156,9 @@ def _tri_any(v0, e1, e2, o, d, t_max):
 class Visits(NamedTuple):
     """What one plain traversal touched, for the kernels' bound: visits,
     occupied child slots tested at internal visits, occupied triangle
-    slots tested at leaf visits, and distinct rows read."""
+    slots tested at leaf visits, and distinct rows read; for the treelet
+    walk also the (lane, treelet) root visits skipped because the lane
+    entered the treelet's box beyond its t_best."""
 
     nodes: int
     leaves: int
@@ -164,6 +166,7 @@ class Visits(NamedTuple):
     leaf_tris: int
     node_rows: int
     leaf_rows: int
+    roots_skipped: int = 0
 
 
 # fp32 operations per occupied slot, counted off the plain expressions
@@ -307,9 +310,12 @@ def _walk(wbvh: WideBVH, r, st: dict, lanes, roots, any_hit: bool,
         lanes = lanes[keep]
 
 
-def _plain_state(wbvh: WideBVH, ray_o, ray_d, t_eff, count_visits: bool):
+def _plain_state(wbvh: WideBVH, ray_o, ray_d, t_eff, count_visits: bool,
+                 stack_depth: int | None = None):
     """(ray terms, lane state, stack, visit counters) for a plain walk
-    over lanes whose effective t_max is `t_eff` (dead lanes <= 0)."""
+    over lanes whose effective t_max is `t_eff` (dead lanes <= 0); the
+    stack holds `stack_depth` entries a lane (default: the tree's
+    max_stack; a walk past it raises)."""
     N = ray_o.shape[0]
     dev = ray_o.device
     o = list(ray_o.unbind(1))
@@ -326,11 +332,12 @@ def _plain_state(wbvh: WideBVH, ray_o, ray_d, t_eff, count_visits: bool):
         v=torch.zeros(N, dtype=torch.float32, device=dev),
         occ=torch.zeros(N, dtype=torch.bool, device=dev),
     )
-    stack = torch.zeros((N, wbvh.max_stack), dtype=torch.int64, device=dev)
+    stack = torch.zeros((N, stack_depth or wbvh.max_stack),
+                        dtype=torch.int64, device=dev)
     counts = None
     if count_visits:
         counts = dict(
-            nodes=0, leaves=0, node_slots=0, leaf_tris=0,
+            nodes=0, leaves=0, node_slots=0, leaf_tris=0, roots_skipped=0,
             node_seen=torch.zeros(wbvh.nodes.shape[0], dtype=torch.bool,
                                   device=dev),
             leaf_seen=torch.zeros(wbvh.leaves.shape[0], dtype=torch.bool,
@@ -343,7 +350,8 @@ def _visits(counts: dict) -> Visits:
                   node_slots=counts["node_slots"],
                   leaf_tris=counts["leaf_tris"],
                   node_rows=int(counts["node_seen"].sum()),
-                  leaf_rows=int(counts["leaf_seen"].sum()))
+                  leaf_rows=int(counts["leaf_seen"].sum()),
+                  roots_skipped=counts["roots_skipped"])
 
 
 def _plain_result(st: dict, t_caller, any_hit: bool):

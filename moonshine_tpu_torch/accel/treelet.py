@@ -4,18 +4,23 @@ The wide tree is partitioned into K subtrees, "treelets" (wide.py's
 `plan_treelets`), whose roots and boxes ride on the WideBVH. A traversal
 then runs in three steps:
 
-  1. `_pending_masks` (torch ops): every ray against every treelet box,
-     giving a pending bit mask [N, ceil(K/32)] (uint32 words held in
-     int32, bit 31 negative, equal to the reference's bit for bit) and
-     the nearest pending treelet per ray (K if none).
+  1. `_pending_masks`: every ray against every treelet box, giving a
+     pending bit mask [N, ceil(K/32)] (uint32 words held in int32, bit
+     31 negative, equal to the reference's bit for bit) and the nearest
+     pending treelet per ray (K if none); the CUDA kernel of
+     csrc/treelet.cu for CUDA tensors, torch ops
+     (`_pending_masks_plain`) for CPU tensors.
   2. One stable sort of the rays by `nearest * MAX_KEYED + sort_key`
      (packet.sort_key: 4^3 origin cells x 8 octants, the reference's
      `_subkey`).
   3. One launch of the CUDA kernel of csrc/treelet.cu on the sorted
      rays (CUDA tensors), or `_dispatch_plain` (CPU tensors): each ray
      walks its own pending treelets, its nearest first and then the rest
-     in ascending id, with its t_best pruning across treelets; an any-hit
-     ray stops at its first occluder. Results go back to lane order.
+     in ascending id, with its t_best pruning across treelets; a
+     closest-hit ray skips a pending node-root treelet whose box it
+     enters beyond its t_best (the root visit would push nothing); an
+     any-hit ray stops at its first occluder. Results go back to lane
+     order.
 
 The contract is that of packet.closest_hit_packet_hbm /
 any_hit_packet_hbm. The child box test is the reference treelet
@@ -24,9 +29,10 @@ kernel's own form, `(b - o) * inv` slabs and `tnear <= tfar & tfar >= 0
 
 The reference's TPU schedule (a block-shared stack, block-OR'd masks, a
 DMA ring of rows) is not carried over: each CUDA thread walks its own
-stack. `available` keeps the reference's rule (8-wide nodes, 8-slot
-leaves, at least two treelets) for dispatch, though the kernel reads
-rows by stride and accepts any width.
+stack, in shared memory, sized by the deepest treelet
+(`WideBVH.treelet_stack`). `available` keeps the reference's rule
+(8-wide nodes, 8-slot leaves, at least two treelets) for dispatch,
+though the kernel takes every width the build makes (8, 16, 24, 32).
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ MAX_KEYED = 512  # subkey space: 4^3 origin cells x 8 octants
 # 128 MB each, under 1 GB in all
 PENDING_CHUNK = 1 << 20
 
-LAUNCHES = {"treelet_closest_hit": 0, "treelet_any_hit": 0}
+LAUNCHES = {"treelet_pending": 0, "treelet_closest_hit": 0,
+            "treelet_any_hit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,12 +85,47 @@ def _safe_inv(d):
 
 
 def _pending_masks(wbvh: WideBVH, o, d, tmax_vec):
-    """Phase 1: per-(ray, treelet) slab tests, chunked over lanes and over
-    32-treelet words, one axis at a time (a max or min of three is exact
-    in any order, so this equals the reference's [N, 32, 3] form). Returns
-    pend [N, ceil(K/32)] int32 bit words of the treelets each ray enters,
-    and nearest [N] int32, the pending treelet with the smallest entry t
-    (K if none)."""
+    """Phase 1: pend [N, ceil(K/32)] int32 bit words of the treelets each
+    ray enters, and nearest [N] int32, the pending treelet with the
+    smallest entry t (K if none). The CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors; the two are equal bit for bit."""
+    if _device_kind(o) == "cpu":
+        return _pending_masks_plain(wbvh, o, d, tmax_vec)
+    return _pending_kernel(native.treelet_lib(), wbvh, o, d, tmax_vec)
+
+
+def _pending_kernel(lib, wbvh: WideBVH, o, d, tmax_vec):
+    """One launch of `lib`'s phase-1 kernel on CUDA tensors."""
+    K = wbvh.t_roots.shape[0]
+    N = o.shape[0]
+    if N >= 2**31 or K >= 2**30:
+        raise ValueError("too many rays or treelets for one launch")
+    for name, x in (("t_lo", wbvh.t_lo), ("t_hi", wbvh.t_hi),
+                    ("t_max", tmax_vec)):
+        if x.dtype != torch.float32 or x.device != o.device:
+            raise ValueError(f"{name} must be float32 on the rays' device")
+    o, d = o.contiguous(), d.contiguous()
+    t_lo, t_hi = wbvh.t_lo.contiguous(), wbvh.t_hi.contiguous()
+    tmax_vec = tmax_vec.contiguous()
+    pend = torch.empty((N, -(-K // 32)), dtype=torch.int32, device=o.device)
+    nearest = torch.empty(N, dtype=torch.int32, device=o.device)
+    if N:
+        rc = lib.pending(t_lo.data_ptr(), t_hi.data_ptr(), K, o.data_ptr(),
+                         d.data_ptr(), tmax_vec.data_ptr(), N,
+                         pend.data_ptr(), nearest.data_ptr(),
+                         _stream(o.device))
+        if rc != 0:
+            raise RuntimeError(f"treelet phase-1 kernel launch failed: "
+                               f"cudaError {rc}")
+        LAUNCHES["treelet_pending"] += 1
+    return pend, nearest
+
+
+def _pending_masks_plain(wbvh: WideBVH, o, d, tmax_vec):
+    """The phase-1 kernel's plain version in torch ops on any device:
+    per-(ray, treelet) slab tests, chunked over lanes and over 32-treelet
+    words, one axis at a time (a max or min of three is exact in any
+    order, so this equals the reference's [N, 32, 3] form)."""
     K = wbvh.t_roots.shape[0]
     K32 = -(-K // 32)
     N = o.shape[0]
@@ -131,14 +173,29 @@ def _pending_bit(pend, tid: int):
     return ((pend[:, tid >> 5] >> (tid & 31)) & 1) == 1
 
 
+def _box_entry(wbvh: WideBVH, tid: int, o, inv, lanes):
+    """tnear of `lanes` into treelet tid's box, phase 1's expressions."""
+    near = [torch.minimum((wbvh.t_lo[tid, c] - o[c][lanes]) * inv[c][lanes],
+                          (wbvh.t_hi[tid, c] - o[c][lanes]) * inv[c][lanes])
+            for c in range(3)]
+    return torch.maximum(torch.maximum(near[0], near[1]), near[2])
+
+
 def _dispatch_plain(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
                     any_hit: bool, count_visits: bool = False):
     """The kernel's plain version on sorted lanes: the lane's nearest
     pending treelet first, then its other pending treelets in ascending
-    id, each walked from its root with the lane state carried across."""
+    id, each walked from its root with the lane state carried across.
+    A closest-hit lane skips a node-root treelet whose box it enters
+    beyond its t_best, as the kernel does (each skip, counted in
+    Visits.roots_skipped, saves one root visit that would push
+    nothing)."""
     K = wbvh.t_roots.shape[0]
     roots = wbvh.t_roots.to(torch.int64)
-    r, st, stack, counts = _plain_state(wbvh, o_s, d_s, t_s, count_visits)
+    node_root = (wbvh.t_roots >= 0).tolist()
+    # the kernel's stack bound: a walk that outgrew it would raise here
+    r, st, stack, counts = _plain_state(wbvh, o_s, d_s, t_s, count_visits,
+                                        wbvh.treelet_stack)
     live = t_s > 0.0
     first = first_s.to(torch.int64)
     lanes = torch.nonzero(live & (first < K)).squeeze(1)
@@ -149,6 +206,12 @@ def _dispatch_plain(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
         if any_hit:
             sel &= ~st["occ"]
         lanes = torch.nonzero(sel).squeeze(1)
+        if not any_hit and node_root[tid] and lanes.numel():
+            beyond = _box_entry(wbvh, tid, r[0], r[2], lanes) \
+                > st["t_best"][lanes]
+            if counts is not None:
+                counts["roots_skipped"] += int(beyond.sum())
+            lanes = lanes[~beyond]
         if lanes.numel():
             _walk(wbvh, r, st, lanes, roots[tid].expand(lanes.shape[0]),
                   any_hit, True, stack, counts)
@@ -157,12 +220,24 @@ def _dispatch_plain(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
 
 
 def _dispatch_kernel(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
-                     any_hit: bool):
-    lib = native.treelet_lib()
+                     any_hit: bool, lib=None):
+    """One launch of the walk (`lib`'s, by default this checkout's) on
+    sorted lanes."""
+    lib = lib or native.treelet_lib()
     n = o_s.shape[0]
     _check_launch(lib, wbvh, n)
     if wbvh.t_roots.dtype != torch.int32 or not wbvh.t_roots.is_contiguous():
         raise ValueError("t_roots must be contiguous int32")
+    for name, x in (("t_lo", wbvh.t_lo), ("t_hi", wbvh.t_hi)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+    # rows are read as float4s: 16-byte aligned, a multiple of 4 floats long
+    for name, x in (("nodes", wbvh.nodes), ("leaves", wbvh.leaves)):
+        if x.data_ptr() % 16 or x[0].numel() % 4:
+            raise ValueError(f"{name} rows must be 16-byte aligned")
+    if not 1 <= wbvh.treelet_stack <= lib.stack_capacity:
+        raise ValueError(f"treelet stack bound {wbvh.treelet_stack} outside "
+                         f"1..{lib.stack_capacity}")
     dev = o_s.device
     o_s, d_s, t_s = o_s.contiguous(), d_s.contiguous(), t_s.contiguous()
     pend_s, first_s = pend_s.contiguous(), first_s.contiguous()
@@ -170,7 +245,8 @@ def _dispatch_kernel(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
         wbvh.nodes.data_ptr(), wbvh.leaves.data_ptr(),
         wbvh.nodes[0].numel(), wbvh.leaves[0].numel(),
         wbvh.width, wbvh.leaf_slots,
-        wbvh.t_roots.data_ptr(), wbvh.t_roots.shape[0],
+        wbvh.t_roots.data_ptr(), wbvh.t_lo.data_ptr(), wbvh.t_hi.data_ptr(),
+        wbvh.t_roots.shape[0], wbvh.treelet_stack,
         pend_s.data_ptr(), pend_s.shape[1], first_s.data_ptr(),
         o_s.data_ptr(), d_s.data_ptr(), t_s.data_ptr(), n,
     ]
@@ -197,12 +273,14 @@ def _dispatch_kernel(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
-def _sort_lanes(wbvh: WideBVH, ray_o, ray_d, t_eff):
-    """Phase 1 and the sort: (perm, (o, d, t_eff, pend, nearest) in the
-    sorted lane order the kernel takes)."""
-    pend, nearest = _pending_masks(wbvh, ray_o, ray_d, t_eff)
-    key = (nearest.to(torch.int64) * MAX_KEYED
-           + sort_key(wbvh, ray_o, ray_d))
+def _sort_lanes(wbvh: WideBVH, ray_o, ray_d, t_eff, plain: bool = False):
+    """Phase 1 (its plain version with plain=True) and the sort: (perm,
+    (o, d, t_eff, pend, nearest) in the sorted lane order the kernel
+    takes)."""
+    phase1 = _pending_masks_plain if plain else _pending_masks
+    pend, nearest = phase1(wbvh, ray_o, ray_d, t_eff)
+    # int32 keys (K * 512 stays far below 2^31) sort faster than int64
+    key = nearest * MAX_KEYED + sort_key(wbvh, ray_o, ray_d)
     perm = torch.argsort(key, stable=True)
     return perm, (ray_o[perm], ray_d[perm], t_eff[perm], pend[perm],
                   nearest[perm])
@@ -219,7 +297,7 @@ def _run(wbvh: WideBVH, ray_o, ray_d, t_max, active_in, any_hit: bool,
     t_caller = _t_max_lanes(t_max, n, ray_o.device)
     t_eff = (t_caller if active_in is None
              else torch.where(active_in, t_caller, _NEG))
-    perm, sorted_lanes = _sort_lanes(wbvh, ray_o, ray_d, t_eff)
+    perm, sorted_lanes = _sort_lanes(wbvh, ray_o, ray_d, t_eff, plain)
     visits = None
     if plain:
         out = _dispatch_plain(wbvh, *sorted_lanes, any_hit,

@@ -101,6 +101,9 @@ class WideBVH(NamedTuple):
     # rows 0..top_rows-1 are the root and its internal children (the rows
     # are breadth-first), as `top_rows` counts them from the root row
     top_rows: int = 1
+    # worst-case stack occupancy of a walk from one treelet root, as
+    # `treelet_stack` counts it from the rows (0 without a treelet plan)
+    treelet_stack: int = 0
 
     @property
     def max_stack(self) -> int:
@@ -441,6 +444,7 @@ def wide_from_rows(nodes, leaves, bounds, max_depth: int, width: int,
         num_leaves=len(leaves), num_tris=int(num_tris),
         t_roots=put(t_roots, np.int32), t_lo=put(t_lo), t_hi=put(t_hi),
         top_rows=top_rows(nodes, width),
+        treelet_stack=treelet_stack(nodes, width, t_roots),
     )
 
 
@@ -449,6 +453,30 @@ def top_rows(nodes, width: int) -> int:
     children are rows 1..m, so rows 0..m are the top two levels."""
     root = np.asarray(nodes).reshape(len(nodes), -1)[0]
     return 1 + int((root[6 * width:7 * width] >= 0).sum())
+
+
+def treelet_stack(nodes, width: int, t_roots) -> int:
+    """Worst-case stack occupancy of a walk from one treelet root: (width -
+    1) * levels + 1 under a node root whose subtree is `levels` node rows
+    deep (each visit pops one entry and pushes at most `width`), 1 under a
+    leaf root; the largest over the plan, 0 without one. Children have
+    larger row ids than their parent (breadth-first rows), so the heights
+    settle in as many vectorised sweeps as the tree is deep."""
+    if t_roots is None or len(t_roots) == 0:
+        return 0
+    rows = np.asarray(nodes).reshape(len(nodes), -1)
+    ptr = rows[:, 6 * width:7 * width].astype(np.int64)
+    kid = ptr >= 0
+    child = np.clip(ptr, 0, len(rows) - 1)
+    levels = np.ones(len(rows), np.int64)
+    while True:
+        deeper = 1 + np.where(kid, levels[child], 0).max(axis=1)
+        if np.array_equal(deeper, levels):
+            break
+        levels = deeper
+    roots = np.asarray(t_roots).astype(np.int64)
+    under = np.where(roots >= 0, levels[np.clip(roots, 0, None)], 0)
+    return int(((width - 1) * under).max()) + 1
 
 
 def build_wide(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,

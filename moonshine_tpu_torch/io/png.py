@@ -23,8 +23,10 @@ decode to the same texels in both packages. Where they part:
 Chunks are walked with their CRCs checked, IDAT chunks concatenated and
 inflated, and the five scanline filters undone over anti-diagonals of
 whole pixels (each reconstructed pixel depends on its left, upper and
-upper-left neighbours, so one diagonal at a time is one numpy step).
-Interlaced (Adam7) files raise NotImplementedError.
+upper-left neighbours, so one diagonal at a time is one numpy step). An
+interlaced (Adam7) file holds seven reduced images one after another,
+each filtered on its own; each is unfiltered and unpacked alone and
+scattered into the pixels it covers.
 """
 
 from __future__ import annotations
@@ -38,6 +40,10 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type: (channels, allowed bit depths)
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
                 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# the reduced images of each interlace method: (x0, y0, dx, dy) each
+_PASSES = {0: ((0, 0, 1, 1),),
+           1: ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+               (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))}
 
 
 def _chunks(data: bytes):
@@ -118,22 +124,31 @@ def decode_png(data: bytes, name: str = "PNG image") -> np.ndarray:
     if header is None:
         raise ValueError(f"{name}: PNG without IHDR")
     width, height, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise NotImplementedError(
-            f"{name}: interlaced (Adam7) PNG is not supported; re-save it "
-            f"without interlacing")
     if ctype not in _COLOR_TYPES or depth not in _COLOR_TYPES[ctype][1]:
         raise ValueError(f"{name}: PNG colour type {ctype} at bit depth "
                          f"{depth} is invalid")
+    if interlace not in _PASSES:
+        raise ValueError(f"{name}: PNG interlace method {interlace} unknown")
     channels = _COLOR_TYPES[ctype][0]
-    row_bytes = (width * channels * depth + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (row_bytes + 1):
-        raise ValueError(f"{name}: PNG image data has {raw.size} bytes, "
-                         f"expected {height * (row_bytes + 1)}")
     bpp = max(1, channels * depth // 8)
-    s = _samples(_unfilter(raw, height, row_bytes, bpp), width, channels,
-                 depth)
+    passes = []  # (x0, y0, dx, dy, pass width, pass height, row bytes)
+    for x0, y0, dx, dy in _PASSES[interlace]:
+        pw, ph = -(-max(width - x0, 0) // dx), -(-max(height - y0, 0) // dy)
+        if pw and ph:  # an empty reduced image has no scanlines at all
+            passes.append((x0, y0, dx, dy, pw, ph,
+                           (pw * channels * depth + 7) // 8))
+    expected = sum(ph * (rb + 1) for *_, ph, rb in passes)
+    if raw.size != expected:
+        raise ValueError(f"{name}: PNG image data has {raw.size} bytes, "
+                         f"expected {expected}")
+    s = np.zeros((height, width, channels), np.int64)
+    off = 0
+    for x0, y0, dx, dy, pw, ph, rb in passes:
+        n = ph * (rb + 1)
+        s[y0::dy, x0::dx] = _samples(_unfilter(raw[off:off + n], ph, rb, bpp),
+                                     pw, channels, depth)
+        off += n
 
     out = np.full((height, width, 4), 255, np.uint8)
     if ctype == 3:

@@ -10,8 +10,8 @@ one sample unprofiled (host clock around a synchronised render_spp),
 then traces one more under torch.profiler. Prints one JSON line: the
 card, the unprofiled wall, the kernel count, the summed kernel time, the
 device busy time (union of kernel intervals) over the profiled wall, the
-traversal kernels' time and the five kernels that took longest. Needs a
-CUDA device.
+traversal kernels' time, the treelet phase-1 kernel's time and the five
+kernels that took longest. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -93,6 +93,7 @@ def main(argv=None) -> dict:
     total_us = sum(by_name.values())
     traversal_us = sum(v for k, v in by_name.items()
                        if "traverse_kernel" in k or "treelet_kernel" in k)
+    phase1_us = sum(v for k, v in by_name.items() if "pending_kernel" in k)
     busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     smi = subprocess.run(
@@ -107,6 +108,7 @@ def main(argv=None) -> dict:
         "busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / 1e3 / prof_wall_ms,
         "traversal_ms": traversal_us / 1e3,
+        "treelet_phase1_ms": phase1_us / 1e3,
         "top": [[k[:80], v / 1e3] for k, v in top],
     }
     print(json.dumps(out), flush=True)

@@ -21,7 +21,7 @@ buffers, accessors with strides and sparse overlays, the node hierarchy)
 is plain Python and numpy. PNG textures decode with io/png.py, which
 gives PIL's RGBA conversion (its docstring lists where PIL's rules are
 not the obvious ones), because the JAX package decodes with PIL. JPEG
-and interlaced PNG textures raise NotImplementedError naming the image.
+textures raise NotImplementedError naming the image.
 """
 
 from __future__ import annotations

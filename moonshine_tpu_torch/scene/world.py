@@ -45,8 +45,9 @@ from .types import (
 # material type codes (world.hlsl:31-36 enum order)
 TYPE_GLASS, TYPE_LAMBERT, TYPE_MIRROR, TYPE_PBR = 0, 1, 2, 3
 
-# past this many flattened triangles the reference switches to two-level
-# instancing, which the port does not have yet
+# past this many flattened triangles (MSN_MAX_FLAT_TRIS overrides it, read
+# at each build) the reference switches to two-level instancing, which the
+# port does not have yet
 MAX_FLAT_TRIS = 16_000_000
 # builder="auto" picks binned SAH above this many triangles, Karras below
 SAH_MIN_TRIS = 50_000
@@ -209,10 +210,11 @@ class World:
             raise ValueError(f"unknown builder {builder!r}")
         flat_tris = sum(len(self.meshes[g.mesh].indices)
                         for inst in self.instances for g in inst.geometries)
-        if flat_tris > MAX_FLAT_TRIS:
+        cap = int(os.environ.get("MSN_MAX_FLAT_TRIS", str(MAX_FLAT_TRIS)))
+        if flat_tris > cap:
             raise NotImplementedError(
-                f"scene flattens to {flat_tris:,} triangles (cap "
-                f"{MAX_FLAT_TRIS:,}); two-level instancing is not ported")
+                f"scene flattens to {flat_tris:,} triangles (cap {cap:,}, "
+                f"MSN_MAX_FLAT_TRIS); two-level instancing is not ported")
 
         packed, planes = _build_materials(self.materials,
                                           MaterialBlockBuilder())

@@ -2,7 +2,8 @@
 and the port's give equal flattened scene arrays and equal lenses; the
 port's PNG decoder equals PIL's `convert("RGBA") / 255` (the JAX
 package's texture decode) for every colour type, bit depth, filter and
-transparency form; JPEG and interlaced textures raise."""
+transparency form, interlaced (Adam7) files included; JPEG textures
+raise."""
 
 import base64
 import io
@@ -30,14 +31,37 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
 def encode_png(samples, color_type, depth, filters=(0,), palette=None,
                trns=None, interlace=0) -> bytes:
     """A PNG of integer samples [H, W, C], row y filtered with
     filters[y % len(filters)] (0-4), its IDAT split in two chunks; the
-    PNG spec's encoder, written out so that 16-bit colour and sub-byte
-    depths, which PIL cannot write, are covered too."""
+    PNG spec's encoder, written out so that 16-bit colour, sub-byte
+    depths and Adam7 interlacing (interlace=1: the seven reduced images
+    one after another, each filtered on its own, empty ones left out),
+    which PIL cannot write, are covered too."""
     s = np.asarray(samples)
     h, w, _ = s.shape
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    data = b"".join(_filtered(s[y0::dy, x0::dx], depth, filters)
+                    for x0, y0, dx, dy in passes if x0 < w and y0 < h)
+    z = zlib.compress(data)
+    png = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color_type, 0, 0, interlace))
+    if palette is not None:
+        png += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        png += _chunk(b"tRNS", trns)
+    return (png + _chunk(b"IDAT", z[:len(z) // 2])
+            + _chunk(b"IDAT", z[len(z) // 2:]) + _chunk(b"IEND", b""))
+
+
+def _filtered(s, depth, filters) -> bytes:
+    """Scanlines of samples [H, W, C], each led by its filter type."""
+    h = s.shape[0]
     if depth == 16:
         raw = s.astype(">u2").reshape(h, -1).view(np.uint8)
     elif depth == 8:
@@ -63,15 +87,7 @@ def encode_png(samples, color_type, depth, filters=(0,), palette=None,
         out.append(f)
         out += ((row - pred) & 0xFF).astype(np.uint8).tobytes()
         prev = row
-    z = zlib.compress(bytes(out))
-    png = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", w, h, depth, color_type, 0, 0, interlace))
-    if palette is not None:
-        png += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
-    if trns is not None:
-        png += _chunk(b"tRNS", trns)
-    return (png + _chunk(b"IDAT", z[:len(z) // 2])
-            + _chunk(b"IDAT", z[len(z) // 2:]) + _chunk(b"IEND", b""))
+    return bytes(out)
 
 
 def pil_png(array, **save) -> bytes:
@@ -156,10 +172,50 @@ def test_png_decoder_matches_pil(name):
     np.testing.assert_array_equal(got, want)
 
 
+def _interlaced_cases():
+    """Adam7 files of every colour type and bit depth the decoder takes,
+    at sizes whose reduced images are partly empty (1x1, 3x2) or ragged
+    (13x11, 17x9), with every filter and the tRNS forms."""
+    rs = _rs(2)
+    every_filter = (0, 1, 2, 3, 4)
+    forms = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+             6: (8, 16)}
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+    cases = {}
+    for ctype, depths in forms.items():
+        for depth in depths:
+            for h, w in ((13, 11), (1, 1), (3, 2), (9, 17)):
+                top = 2 ** depth
+                samples = rs.randint(0, top, (h, w, channels[ctype]))
+                kw = {}
+                if ctype == 3:
+                    kw = dict(palette=rs.randint(0, 256, (min(top, 40), 3)),
+                              trns=bytes(rs.randint(0, 256, 5)))
+                elif ctype == 0:
+                    kw = dict(trns=struct.pack(">H", int(samples[0, 0, 0])))
+                elif ctype == 2:
+                    kw = dict(trns=struct.pack(">HHH", *samples[-1, -1]))
+                cases[f"adam7_c{ctype}_d{depth}_{h}x{w}"] = encode_png(
+                    samples, ctype, depth, every_filter, interlace=1, **kw)
+    return cases
+
+
+INTERLACED_CASES = _interlaced_cases()
+
+
+@pytest.mark.parametrize("name", sorted(INTERLACED_CASES))
+def test_png_decoder_matches_pil_interlaced(name):
+    """Adam7 files built by the hand encoder (PIL writes none) decode to
+    PIL's texels."""
+    data = INTERLACED_CASES[name]
+    assert data[28] == 1  # IHDR's interlace method
+    np.testing.assert_array_equal(PNG.png_rgba(data, name), pil_rgba(data))
+
+
 def test_png_rejects_interlaced_and_jpeg():
+    """JPEG textures raise and a bad CRC raises; interlaced files decode
+    now (test_png_decoder_matches_pil_interlaced)."""
     data = encode_png(np.zeros((2, 2, 3)), 2, 8, interlace=1)
-    with pytest.raises(NotImplementedError, match=r"tex.png: interlaced"):
-        PNG.png_rgba(data, "tex.png")
     glb = textured_glb(extra_images=[b"\xff\xd8\xff\xe0" + b"\x00" * 16])
     doc, binary = unpack_glb(glb)
     doc["materials"][0]["pbrMetallicRoughness"]["baseColorTexture"] = {

@@ -7,8 +7,10 @@ sees no CUDA device).
 
 The packet kernels are held to their plain versions bit for bit (t, tri,
 u, v, occlusion, ties included) over widths 8/16/24/32 x leaf caps
-1/7/12/24. chip_smoke.py makes the same comparison at the render's real
-shapes."""
+1/7/12/24; the treelet walk on 8- and 16-wide trees, one treelet, a deep
+stack bound and K beyond its shared memory; treelet phase 1 (pending
+words and nearest treelets) over K and ray counts. chip_smoke.py makes
+the same comparisons at the render's real shapes."""
 
 import numpy as np
 import pytest
@@ -192,6 +194,97 @@ def test_treelet_kernels_match_plain(cuda, max_rows):
     assert torch.equal(got.t, pk.t)
 
 
+@pytest.mark.parametrize("case", ["16-wide", "7 slots", "one treelet",
+                                  "deep bound", "many treelets"])
+def test_treelet_kernels_on_more_trees(cuda, case):
+    """The walk against its plain version bit for bit where its design
+    branches: a 16-wide tree with 12 slots (float4 rows of other widths),
+    7 slots (leaves read one float at a time), one treelet holding the
+    whole tree (its stack bound is the tree's), a declared bound of 497
+    (blocks shrink to 64 threads, over 48 KB of shared memory), and over
+    2048 treelets, a leaf treelet per leaf (max_rows=1) on 20,000
+    triangles."""
+    width, cap, max_rows, n_tris = {
+        "16-wide": (16, 12, 48, 1500), "7 slots": (8, 7, 48, 1500),
+        "one treelet": (8, 8, 10**9, 1500), "deep bound": (8, 8, 48, 1500),
+        "many treelets": (8, 8, 1, 20000)}[case]
+    w, o, d, active, t_max = _scene(cuda, n_tris=n_tris, cap=cap,
+                                    width=width, n_rays=3000,
+                                    max_rows=max_rows)
+    k = w.t_roots.shape[0]
+    lib = native.treelet_lib()
+    if case == "deep bound":
+        w = w._replace(treelet_stack=497)
+        assert lib.block(497) == 64
+    else:
+        assert lib.block(w.treelet_stack) == 128
+    if case == "one treelet":
+        assert k == 1 and w.treelet_stack == w.max_stack
+    if case == "many treelets":
+        assert k > 2048
+    got = treelet.closest_hit_treelet(w, o, d, 1e12, active_in=active)
+    want = treelet.closest_hit_treelet_plain(w, o, d, 1e12,
+                                             active_in=active)
+    _assert_equal(tuple(got), tuple(want))
+    for tm in (t_max, 1e12):
+        _assert_equal(
+            treelet.any_hit_treelet(w, o, d, tm, active_in=active),
+            treelet.any_hit_treelet_plain(w, o, d, tm, active_in=active))
+
+
+def _pending_case(device, k, n, seed):
+    """A tree whose treelet plan is replaced by k seeded boxes (phase 1
+    reads only the boxes): duplicates (equal entry t), inverted boxes
+    (never entered), rays inside boxes (entry 0), axis-parallel
+    directions (safe_inv clamps), dead lanes, t_max <= 0, finite and
+    1e12 t_max."""
+    rs = np.random.RandomState(seed)
+    w, *_ = _scene(device, n_tris=300, cap=8, width=8, n_rays=1)
+    c = rs.randn(k, 3) * 4
+    ext = rs.rand(k, 3) * 2 + 0.05
+    lo, hi = c - ext, c + ext
+    dup = rs.rand(k) < 0.2
+    src = rs.randint(0, k, k)
+    lo[dup], hi[dup] = lo[src[dup]], hi[src[dup]]
+    inverted = rs.rand(k) < 0.1
+    lo[inverted], hi[inverted] = 0.0, -1.0
+    w = w._replace(t_roots=torch.arange(k, dtype=torch.int32, device=device),
+                   t_lo=torch.tensor(lo, dtype=torch.float32, device=device),
+                   t_hi=torch.tensor(hi, dtype=torch.float32, device=device))
+    o = rs.randn(n, 3) * 5
+    d = rs.randn(n, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    axis = rs.rand(n) < 0.2
+    d[axis] = np.eye(3)[rs.randint(0, 3, int(axis.sum()))] * rs.choice(
+        [-1.0, 1.0], (int(axis.sum()), 1))
+    d[rs.rand(n) < 0.1, 1] = 0.0
+    t = np.where(rs.rand(n) < 0.5, 1e12, rs.rand(n) * 8)
+    t[rs.rand(n) < 0.2] = -1e30  # dead
+    t[rs.rand(n) < 0.05] = 0.0
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    return w, f(o), f(d), f(t)
+
+
+@pytest.mark.parametrize("k", [2, 33, 64, 75, 1100])
+@pytest.mark.parametrize("n", [0, 1, 4099])
+def test_treelet_pending_matches_plain(cuda, k, n):
+    """Phase 1's kernel against its plain version bit for bit (words and
+    nearest treelets): K below, at and above word and tile sizes (bit 31
+    set), no ray, one ray, a count no block size divides; one launch for
+    n > 0."""
+    w, o, d, t = _pending_case(cuda, k, n, seed=k + n)
+    treelet.reset_launch_counts()
+    pend, near = treelet._pending_masks(w, o, d, t)
+    want = treelet._pending_masks_plain(w, o, d, t)
+    _assert_equal((pend, near), want)
+    assert pend.shape == (n, -(-k // 32))
+    assert treelet.LAUNCHES["treelet_pending"] == int(n > 0)
+    if n == 4099:
+        assert (near < k).sum() >= 40 and (near == k).sum() >= 1000
+        if k > 32:
+            assert (pend < 0).any()
+
+
 def test_treelet_launch_counters(cuda):
     w, o, d, active, t_max = _scene(cuda, n_tris=1500, cap=8, width=8,
                                     max_rows=48)
@@ -199,7 +292,8 @@ def test_treelet_launch_counters(cuda):
     treelet.closest_hit_treelet(w, o, d, 1e12, active_in=active)
     treelet.any_hit_treelet(w, o, d, t_max, active_in=active)
     treelet.closest_hit_treelet_plain(w, o, d, 1e12)  # never counts
-    assert treelet.LAUNCHES == {"treelet_closest_hit": 1,
+    assert treelet.LAUNCHES == {"treelet_pending": 2,
+                                "treelet_closest_hit": 1,
                                 "treelet_any_hit": 1}
 
 

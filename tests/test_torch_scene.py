@@ -223,3 +223,21 @@ def test_build_defaults_to_the_card():
     for fn in (PWorld.World.build, build_wide, LensArrays.from_lens,
                Sensor.create):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_flatten_cap_reads_the_variable(monkeypatch):
+    """MSN_MAX_FLAT_TRIS sets the flatten cap at each build, as in the
+    reference (world.py:350): below the scene's triangle count the build
+    raises (two-level instancing is not ported), at the count it builds
+    the same arrays as under the default cap."""
+    pw, _ = PP.room_scene(grid=2, subdivisions=1)
+    want, want_s = pw.build_arrays()
+    n_tris = len(want["tri_shade"])
+    monkeypatch.setenv("MSN_MAX_FLAT_TRIS", str(n_tris - 1))
+    with pytest.raises(NotImplementedError, match="MSN_MAX_FLAT_TRIS"):
+        pw.build_arrays()
+    monkeypatch.setenv("MSN_MAX_FLAT_TRIS", str(n_tris))
+    got, got_s = pw.build_arrays()
+    assert got_s == want_s and set(got) == set(want)
+    for key, w in want.items():
+        np.testing.assert_array_equal(got[key], w, err_msg=key)

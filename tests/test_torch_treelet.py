@@ -183,7 +183,8 @@ def test_dead_lanes_scalar_tmax_and_counts():
     assert (h.t[h.tri >= 0] < 3.0).all()
     assert torch.equal(PT.any_hit_treelet(pw, o, d, 3.0, active_in=act),
                        h.tri >= 0)
-    assert PT.LAUNCHES == {"treelet_closest_hit": 0, "treelet_any_hit": 0}
+    assert PT.LAUNCHES == {"treelet_pending": 0, "treelet_closest_hit": 0,
+                           "treelet_any_hit": 0}
     h3, visits = PT.closest_hit_treelet_plain(pw, o, d, 3.0, active_in=act,
                                               count_visits=True)
     for a, b in zip(h, h3):
@@ -205,3 +206,103 @@ def test_available_follows_the_reference():
     o, d, _, _ = _rays(10, 1)
     with pytest.raises(ValueError, match="treelet plan"):
         PT.closest_hit_treelet(pw._replace(t_roots=None), *_t(o, d), 1e12)
+
+
+def _subtree_levels(ptr, r):
+    """Node levels of the subtree under wide row r, walked recursively."""
+    kids = [int(c) for c in ptr[r] if c >= 0]
+    return 1 + max((_subtree_levels(ptr, c) for c in kids), default=0)
+
+
+@pytest.mark.parametrize("n_tris,seed,max_rows", [(1500, 3, 48),
+                                                  (1500, 3, 3),
+                                                  (900, 5, None),
+                                                  (1500, 3, 10**9)])
+def test_treelet_boxes_bound_their_root_rows(n_tris, seed, max_rows):
+    """The premise of the closest-hit skip: a node treelet's box is
+    exactly the min / max of its root row's occupied child boxes, and
+    every child box has lo <= hi, so a ray's entry into any child is at
+    or beyond its entry into the box. Also the treelet stack bound:
+    (width - 1) * the deepest treelet's node levels + 1, at most the
+    tree's max_stack (max_rows=10**9 makes the whole tree one treelet)."""
+    pw = PW.build_wide(random_tris(n_tris, seed=seed), device="cpu",
+                       max_rows=max_rows)
+    w = pw.width
+    rows = pw.nodes.reshape(pw.num_nodes, -1).numpy()
+    roots = pw.t_roots.numpy()
+    node_roots = roots[roots >= 0]
+    assert len(node_roots) >= 1
+    for t in np.nonzero(roots >= 0)[0]:
+        row = rows[roots[t]]
+        used = row[6 * w:7 * w] != -1.0
+        lo = row[0:3 * w].reshape(3, w)[:, used]
+        hi = row[3 * w:6 * w].reshape(3, w)[:, used]
+        assert (lo <= hi).all()
+        np.testing.assert_array_equal(pw.t_lo[t].numpy(), lo.min(axis=1))
+        np.testing.assert_array_equal(pw.t_hi[t].numpy(), hi.max(axis=1))
+    ptr = rows[:, 6 * w:7 * w].astype(np.int64)
+    levels = max(_subtree_levels(ptr, r) for r in node_roots)
+    assert pw.treelet_stack == (w - 1) * levels + 1 <= pw.max_stack
+    if max_rows == 10**9:
+        assert len(roots) == 1 and pw.treelet_stack == pw.max_stack
+
+
+@pytest.mark.parametrize("n_tris,seed,max_rows", [(900, 5, 48),
+                                                  (1200, 7, 24)])
+def test_skip_beyond_t_best_keeps_the_hits(n_tris, seed, max_rows):
+    """The plain dispatch with the skip (the kernel's rule) gives the JAX
+    kernel's hits (interpret mode; tolerances as in
+    test_closest_hit_matches_reference) and, bit for bit, what the walk
+    without the skip gives, in fewer node visits: exactly one fewer for
+    each skipped (lane, treelet) root. The walk without the skip is the
+    same dispatch with unbounded treelet boxes, which no ray enters
+    beyond its t_best (the boxes matter to the walk only there)."""
+    jw, pw = _pair(n_tris, seed, max_rows)
+    o, d, active, _ = _rays(700, seed + 1)
+    want = JT.closest_hit_treelet(jw, jnp.asarray(o), jnp.asarray(d), 1e12,
+                                  active_in=jnp.asarray(active),
+                                  interpret=True)
+    o_t, d_t, act = _t(o, d, active)
+    t_eff = torch.where(act, torch.tensor(1e12), torch.tensor(-1e30))
+    perm, srt = PT._sort_lanes(pw, o_t, d_t, t_eff)
+    unsort = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
+    unbounded = pw._replace(t_lo=torch.full_like(pw.t_lo, -np.inf),
+                            t_hi=torch.full_like(pw.t_hi, np.inf))
+    h, v = PT._dispatch_plain(pw, *srt, False, count_visits=True)
+    h0, v0 = PT._dispatch_plain(unbounded, *srt, False, count_visits=True)
+    for a, b in zip(h, h0):
+        assert torch.equal(a, b)
+    assert v.roots_skipped > 0 and v0.roots_skipped == 0
+    assert v.nodes + v.roots_skipped == v0.nodes
+    assert v.leaves == v0.leaves and v.leaf_tris == v0.leaf_tris
+    got = PT.closest_hit_treelet(pw, o_t, d_t, 1e12, active_in=act)
+    for a, b in zip(got, (unsort(x) for x in h)):
+        np.testing.assert_array_equal(a.numpy()[act.numpy()],
+                                      b.numpy()[act.numpy()])
+    w_tri, g_tri = np.asarray(want.tri), got.tri.numpy()
+    np.testing.assert_array_equal(g_tri >= 0, w_tri >= 0)
+    hit = w_tri >= 0
+    assert hit.sum() >= 20
+    np.testing.assert_allclose(got.t.numpy()[hit], np.asarray(want.t)[hit],
+                               **T_TOL)
+    same = hit & (g_tri == w_tri)
+    assert same.mean() > 0.9 * hit.mean()
+    for g, w in ((got.u, want.u), (got.v, want.v)):
+        np.testing.assert_allclose(g.numpy()[same], np.asarray(w)[same],
+                                   atol=UV_ATOL)
+
+
+def test_one_treelet_is_the_whole_tree():
+    """A plan of one treelet (the root) walks the whole tree under the
+    treelet stack bound: the packet traversal's hits."""
+    pw = PW.build_wide(random_tris(1500, seed=3), device="cpu",
+                       max_rows=10**9)
+    assert pw.t_roots.tolist() == [0]
+    o, d, active, t_max = _rays(1500, 17)
+    o, d, act, tm = _t(o, d, active, t_max)
+    got = PT.closest_hit_treelet(pw, o, d, 1e12, active_in=act)
+    want = PP.closest_hit_plain(pw, o, d, 1e12, active_in=act)
+    assert torch.equal(got.t, want.t)
+    assert torch.equal(got.tri >= 0, want.tri >= 0)
+    assert torch.equal(PT.any_hit_treelet(pw, o, d, tm, active_in=act),
+                       PP.any_hit_plain(pw, o, d, tm, active_in=act))
