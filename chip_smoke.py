@@ -42,8 +42,10 @@ script exits non-zero without the result line. Phases:
                   stack bound, root visits skipped); the packet kernels'
                   launch layout (G, R, block, shared bytes) and three
                   alternated rounds of them against the format-V kernels
-  vpacket         format-V tiles of both room_184k trees: the V kernels
-                  against their plain versions and the packet kernel on
+  vpacket         format-V tiles of both room_184k trees: the V kernels'
+                  launch layout (G, shared bytes, as vpacket.kernel_layout
+                  and the kernel count it), the kernels against their
+                  plain versions and the packet kernel on
                   the test batch and at the 1080p launches (bit for bit),
                   timed beside the packet kernel with bounds; then the
                   row-versus-V entry point (scripts/profile_vpacket.py)
@@ -568,7 +570,7 @@ def time_kernels(scenes, timings, errs):
                 vk = (vpacket.any_hit_vpacket if any_hit
                       else vpacket.closest_hit_vpacket)
                 runs = {"packet kernel": kern,
-                        "V kernel (one thread per ray)": lambda a=lanes, f=vk:
+                        "V kernel": lambda a=lanes, f=vk:
                             f(v, *a)}
                 ms_runs = {k: [] for k in runs}
                 for _ in range(3):  # alternated, so clocks hit both alike
@@ -632,11 +634,12 @@ def vpacket_phase(scenes, timings, errs, launches):
     then the row-versus-V entry point, whose launches are counted."""
     import torch
 
-    from moonshine_tpu_torch.accel import packet, vpacket
+    from moonshine_tpu_torch.accel import native, packet, vpacket
     from moonshine_tpu_torch.render.renderer import _sample_rays
     from moonshine_tpu_torch.scripts import profile_vpacket, shadow_batch
 
     h, w = HD
+    lib = native.vpacket_lib()
     for tree in ("default", "treelet"):
         scene, lens = scenes[f"room_184k/{tree}"]
         wb = scene.wide
@@ -644,10 +647,22 @@ def vpacket_phase(scenes, timings, errs, launches):
         v = vpacket.v_from_wide(wb)
         torch.cuda.synchronize()
         tb, rb = vpacket.tile_bytes(v), packet.row_bytes(wb)
+        layout = vpacket.kernel_layout(v)
+        kernel_bytes = lib.shared_bytes(layout.top_rows, v.nodes[0].numel(),
+                                        layout.stack_depth)
+        g = lib.group_lanes(wb.width)
         say("vpacket", f"room_184k/{tree} ({wb.width}/{wb.leaf_slots}): "
             f"{wb.num_nodes} + {wb.num_leaves} tiles = {tb} B, "
             f"{tb / rb:.2f}x the rows' {rb} B; tiled in "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{time.perf_counter() - t0:.2f} s; V kernels: G = {g} lanes a "
+            f"ray, blocks of {packet.GROUPS_PER_BLOCK * g} threads, "
+            f"{layout.top_rows} top tiles and stacks of "
+            f"{layout.stack_depth} entries in shared memory, "
+            f"{layout.shared_bytes} B a block (the kernel counts "
+            f"{kernel_bytes})")
+        if kernel_bytes != layout.shared_bytes:
+            raise AssertionError("vpacket.kernel_layout and the V kernel "
+                                 "count shared memory differently")
         o, d, active, t_fin = test_batch(scene, lens)
         args = (o, d, INF_T, active)
         assert_same(f"{tree} test batch closest hit",

@@ -1,7 +1,8 @@
 """Build and load the CUDA libraries: the traversal kernels
 (csrc/traverse.cu, csrc/treelet.cu and csrc/vpacket.cu, which share
-csrc/visit.cuh), the arithmetic microbenchmarks (csrc/vpu.cu) and the
-quantised-row decode probe (csrc/bitcast.cu).
+csrc/visit.cuh; traverse.cu and vpacket.cu also share the group walk of
+csrc/group_walk.cuh), the arithmetic microbenchmarks (csrc/vpu.cu) and
+the quantised-row decode probe (csrc/bitcast.cu).
 
 nvcc compiles each source into a shared library with a plain C
 interface, loaded with ctypes. A library is built at first use into
@@ -26,7 +27,7 @@ CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
 SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
            "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
            "bitcast": CSRC / "bitcast.cu"}
-HEADERS = [CSRC / "visit.cuh"]
+HEADERS = [CSRC / "visit.cuh", CSRC / "group_walk.cuh"]
 BUILD_DIR = _ROOT / "build"
 # -fmad=false keeps every multiply and add separately rounded, as in the
 # plain torch version; IEEE division is nvcc's default without fast math
@@ -56,9 +57,9 @@ class NativeLib:
 
 
 class TraverseLib(NativeLib):
-    """traverse.cu's entry points: after the rays, the launch layout (top
-    rows, stack depth) and the ray counter; vpacket.cu's take the rays
-    alone, under another prefix."""
+    """traverse.cu's entry points (vpacket.cu's, over tiles, under the
+    prefix msn_v): after the rays, the launch layout (top records, stack
+    depth) and the ray counter."""
 
     prefix = "msn"
     layout = [_I, _I, _P]
@@ -72,13 +73,13 @@ class TraverseLib(NativeLib):
         self.stack_capacity = int(
             self._fn(f"{self.prefix}_stack_capacity", [])())
         if self.layout:
-            self.shared_bytes = self._fn("msn_shared_bytes", [_I, _I, _I])
-            self.group_lanes = self._fn("msn_group_lanes", [_I])
+            self.shared_bytes = self._fn(f"{self.prefix}_shared_bytes",
+                                         [_I, _I, _I])
+            self.group_lanes = self._fn(f"{self.prefix}_group_lanes", [_I])
 
 
 class VPacketLib(TraverseLib):
     prefix = "msn_v"
-    layout = []
 
 
 class TreeletLib(NativeLib):

@@ -47,10 +47,11 @@ HBM_STACK_DEPTH = 256
 # would pick; it is not a memory limit.
 VMEM_SCENE_BUDGET_BYTES = 10 * 1024 * 1024
 
-# The CUDA kernel's blocks (csrc/traverse.cu's kBlockGroups): a block of
-# GROUPS_PER_BLOCK lane groups, each tracing one ray with its own stack,
-# shares one copy of the tree's top rows; a block may hold at most
-# SHARED_BYTES_MAX bytes of shared memory on the H100 (227 KB)
+# The CUDA kernels' blocks (csrc/group_walk.cuh's kBlockGroups, for rows
+# and for format V): a block of GROUPS_PER_BLOCK lane groups, each tracing
+# one ray with its own stack, shares one copy of the tree's top records;
+# a block may hold at most SHARED_BYTES_MAX bytes of shared memory on the
+# H100 (227 KB)
 GROUPS_PER_BLOCK = 64
 SHARED_BYTES_MAX = 232_448
 
@@ -481,12 +482,13 @@ def _device_kind(ray_o) -> str:
 
 
 def _launch(lib, counts: dict, key: str, wbvh, ray_o, ray_d, t_max,
-            active_in, any_hit: bool):
+            active_in, any_hit: bool, layout_of=kernel_layout):
     """One launch of `lib`'s closest-hit or any-hit kernel (the C entry
     points of traverse.cu or vpacket.cu) on checked rays; counts[key] adds
-    one where the kernel launches. traverse.cu's also take the tree's
-    kernel_layout and 4 bytes for the ray counter, which the launch zeroes.
-    Returns a Hit or a bool tensor."""
+    one where the kernel launches. Entry points with a launch layout
+    (`lib.layout`) also take the tree's (`layout_of(wbvh)`: this module's
+    kernel_layout for rows, vpacket's for tiles) and 4 bytes for the ray
+    counter, which the launch zeroes. Returns a Hit or a bool tensor."""
     args, _keep = _launch_args(lib, wbvh, ray_o, ray_d, t_max, active_in)
     n, dev = ray_o.shape[0], ray_o.device
     if any_hit:
@@ -499,7 +501,7 @@ def _launch(lib, counts: dict, key: str, wbvh, ray_o, ray_d, t_max,
         fn = lib.closest_hit
     if n:
         if lib.layout:
-            layout = kernel_layout(wbvh)
+            layout = layout_of(wbvh)
             next_ray = torch.empty(1, dtype=torch.int32, device=dev)
             args += [layout.top_rows, layout.stack_depth,
                      next_ray.data_ptr()]

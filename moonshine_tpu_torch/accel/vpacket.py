@@ -20,6 +20,13 @@ other device raises, and a kernel that does not build or launch raises.
 The `_hbm` names sort the rays by coherence first (`sort=True`, their
 default) through packet._sorted. The contract is packet.py's.
 
+The kernels walk the tree as the packet kernels do (csrc/group_walk.cuh):
+a group of lanes traces one ray, and lane k of a group of G owns
+sublanes k, k + G, ... of every tile, so it reads its children's bounds
+and its slots' fields as contiguous runs; each group's stack lives in
+shared memory (`kernel_layout`), and persistent warps take rays 32 at a
+time from a counter.
+
 The plain versions read the tiles at the addresses above, in
 packet._walk's order and expressions (the packet slab form, `b * inv -
 oinv` and `max(tnear, 0) <= min(tfar, prune)`). Empty child slots, and
@@ -202,13 +209,22 @@ def any_hit_plain(vbvh: VWide, ray_o, ray_d, t_max, active_in=None,
 
 # --- CUDA wrappers ---
 
+def kernel_layout(vbvh: VWide) -> packet.KernelLayout:
+    """The shared-memory layout the kernel gets for this tree: no top
+    tiles, and packet.GROUPS_PER_BLOCK stacks of max_stack entries (plain
+    Python: only the tree's static facts are read)."""
+    return packet.KernelLayout(
+        0, vbvh.max_stack, packet.GROUPS_PER_BLOCK * vbvh.max_stack * 4)
+
+
 def _launch(vbvh: VWide, ray_o, ray_d, t_max, active_in, any_hit: bool):
     for name, x in (("nodes", vbvh.nodes), ("leaves", vbvh.leaves)):
         if tuple(x.shape[1:]) != (8, 128):
             raise ValueError(f"{name} must be [n, 8, 128] tiles")
     key = "v_any_hit" if any_hit else "v_closest_hit"
     return packet._launch(native.vpacket_lib(), LAUNCHES, key, vbvh, ray_o,
-                          ray_d, t_max, active_in, any_hit)
+                          ray_d, t_max, active_in, any_hit,
+                          layout_of=kernel_layout)
 
 
 def closest_hit_vpacket(vbvh: VWide, ray_o, ray_d, t_max, active_in=None,

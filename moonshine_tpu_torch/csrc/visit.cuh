@@ -1,5 +1,5 @@
 // Visit code shared by the traversal kernels (traverse.cu, treelet.cu,
-// vpacket.cu): record reads, the two triangle tests, the leaf visit and the
+// vpacket.cu): the two triangle tests, the leaf visit over a row and the
 // stack capacity.
 //
 // Numerics: the kernels are built with -fmad=false and IEEE division, so
@@ -17,10 +17,9 @@ namespace msn {
 // Traversal pushes at most (width-1)*depth+1 entries; the wrappers refuse
 // trees whose bound exceeds this capacity (see msn_stack_capacity). 512 is
 // the reference's VMEM-class limit (moonshine_tpu/accel/packet.py:55); its
-// HBM-class limit of 256 is applied by dispatch, not here. 2 KB of local
-// memory per thread.
+// HBM-class limit of 256 is applied by dispatch, not here. Each kernel
+// holds its stacks in shared memory, sized by the tree's own bound.
 constexpr int kStackCap = 512;
-constexpr int kBlock = 128;
 constexpr float kTiny = 1e-12f;
 constexpr float kDead = -1.0e30f;
 
@@ -79,21 +78,22 @@ __device__ __forceinline__ bool tri_any(
          (u_n + v_n <= det_a) && (t_n > 0.0f) && (t_n < t_max * det_a);
 }
 
-// One leaf visit: every occupied slot against the ray, field f (v0 xyz, e1
-// xyz, e2 xyz, tid) of slot j read at field(f, j). Closest hit keeps the
-// strict `t < t_best` rule; any hit returns true at the first occluder.
-template <bool AnyHit, class Field>
-__device__ __forceinline__ bool visit_leaf_fields(
-    Field field, int slots, const float o[3], const float d[3], float tmax,
-    float& t_best, int& best_tri, float& best_u, float& best_v) {
+// One leaf visit: every occupied slot of a leaf row against the ray, field
+// f (v0 xyz, e1 xyz, e2 xyz, tid) of slot j at row[f * slots + j]. Closest
+// hit keeps the strict `t < t_best` rule; any hit returns true at the
+// first occluder.
+template <bool AnyHit>
+__device__ __forceinline__ bool visit_leaf(
+    const float* row, int slots, const float o[3], const float d[3],
+    float tmax, float& t_best, int& best_tri, float& best_u, float& best_v) {
   for (int j = 0; j < slots; ++j) {
-    const float tid = ld(field(9, j));
+    const float tid = ld(row + 9 * slots + j);
     if (tid < 0.0f) continue;  // empty slot
     float v0[3], e1[3], e2[3];
     for (int c = 0; c < 3; ++c) {
-      v0[c] = ld(field(c, j));
-      e1[c] = ld(field(3 + c, j));
-      e2[c] = ld(field(6 + c, j));
+      v0[c] = ld(row + c * slots + j);
+      e1[c] = ld(row + (3 + c) * slots + j);
+      e2[c] = ld(row + (6 + c) * slots + j);
     }
     if (AnyHit) {
       if (tri_any(v0, e1, e2, o, d, tmax)) return true;
@@ -108,16 +108,6 @@ __device__ __forceinline__ bool visit_leaf_fields(
     }
   }
   return false;
-}
-
-// A leaf row: field f of slot j at row[f * slots + j].
-template <bool AnyHit>
-__device__ __forceinline__ bool visit_leaf(
-    const float* row, int slots, const float o[3], const float d[3],
-    float tmax, float& t_best, int& best_tri, float& best_u, float& best_v) {
-  return visit_leaf_fields<AnyHit>(
-      [=](int f, int j) { return row + f * slots + j; }, slots, o, d, tmax,
-      t_best, best_tri, best_u, best_v);
 }
 
 }  // namespace msn

@@ -1,27 +1,30 @@
-"""The packet traversal kernels (csrc/traverse.cu) against what they
-replace, on the same rays, on the card:
+"""The traversal kernels over rows (csrc/traverse.cu) and over format-V
+tiles (csrc/vpacket.cu) against what they replace, on the same rays, on
+the card:
 
     python -m moonshine_tpu_torch.scripts.compare_traverse [--rounds N]
-        [--against DIR] [--offline-samples N]
+        [--against DIR ...] [--offline-samples N]
 
 On room_184k built 24-wide / 24-slot (its default), 32/24, 16/12 (the
 default width below 100k triangles) and 8/8, at the 1080p frame's
 launches (2,073,600 camera rays; their 4,147,200-lane shadow batch), it
-times the kernels at the layout the wrapper gives them, with R = 0 (no
-top rows in shared memory) and with all of the tree's top rows, beside
-the format-V kernels (csrc/vpacket.cu, one thread per ray). With
-`--against DIR`, DIR is another checkout of the repo (an earlier commit
-unpacked with `git archive`): its csrc/traverse.cu is built beside this
-one and runs on the same rays, so two designs meet on one card in one
-process. On the 24/24 tree it then times the offline CLI's late
-segments, 921,600 lanes (1280x720) of which few are live, and their 2N
-shadow batch: kernel time and the wrapper's host time a call. Last, one
-offline sample (the same scene untextured under scripts.skybox,
-1280x720, max_bounces 1024, as the offline_720p cell renders it) with
-each traverse.cu alternated, timed on the host clock, and one more of
-each under torch.profiler: kernels, kernel time, device idle share,
-traversal kernel time, segments. Every kernel output must equal the
-plain versions bit for bit, and the two offline images each other.
+times the row kernels at the layout the wrapper gives them, with R = 0
+(no top rows in shared memory) and with all of the tree's top rows, and
+the format-V kernels of the same tree at their layout and with the same
+top records as tiles. Each `--against DIR` is another checkout of the
+repo (an earlier commit unpacked with `git archive`, or a variant of this
+one copied into a gitignored directory): its csrc/traverse.cu and
+csrc/vpacket.cu are built beside this checkout's, each unless it and the
+headers beside it equal this checkout's, and run on the same rays, so
+designs meet on one card in one process. On the 24/24 tree it then times
+the offline CLI's late segments, 921,600 lanes (1280x720) of which few
+are live, and their 2N shadow batch: kernel time and the wrapper's host
+time a call. Last, one offline sample (the same scene untextured under
+scripts.skybox, 1280x720, max_bounces 1024, as the offline_720p cell
+renders it) with each traverse.cu alternated, timed on the host clock,
+and one more of each under torch.profiler: kernels, kernel time, device
+idle share, traversal kernel time, segments. Every kernel output must
+equal the plain versions bit for bit, and the offline images each other.
 Kernel times come from alternated rounds (scripts.cuda_ms). Prints one
 line per measurement, then one JSON line; exits 1 if an output differs
 or a launch is refused.
@@ -55,24 +58,54 @@ class _RaysOnlyLib(native.TraverseLib):
     layout = []
 
 
-def build_against(checkout: str):
-    """Start nvcc on DIR's traverse.cu (as native builds this one); returns
-    a function that waits for it and loads the library."""
-    src = pathlib.Path(checkout) / "moonshine_tpu_torch" / "csrc" / "traverse.cu"
-    out = native.BUILD_DIR / "compare" / "libmsn_traverse_against.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
+class _RaysOnlyVLib(native.VPacketLib):
+    """A vpacket.cu whose entry points take the rays alone (the
+    one-thread-per-ray V kernel's signature)."""
+
+    layout = []
+
+
+def _sources(checkout, name: str) -> list:
+    """The bytes of DIR's csrc/NAME.cu and of the headers beside it."""
+    csrc = pathlib.Path(checkout) / "moonshine_tpu_torch" / "csrc"
+    return [(f.name, f.read_bytes())
+            for f in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]]
+
+
+def build_against(checkouts):
+    """Start nvcc on each DIR's traverse.cu and vpacket.cu that differ from
+    this checkout's (as native builds this one, all at once); returns a
+    function that waits for them and loads them as {kind: {label: lib}},
+    a DIR's label being its directory's name."""
+    started = []
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [native._nvcc(), *native.NVCC_FLAGS, "-o", str(out), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for i, checkout in enumerate(checkouts):
+        label = pathlib.Path(checkout).resolve().name
+        for kind, key, cls, old in (
+                ("traverse", "msn_shared_bytes", native.TraverseLib,
+                 _RaysOnlyLib),
+                ("vpacket", "msn_v_shared_bytes", native.VPacketLib,
+                 _RaysOnlyVLib)):
+            if _sources(checkout, kind) == _sources(native._ROOT, kind):
+                continue
+            src = (pathlib.Path(checkout) / "moonshine_tpu_torch" / "csrc"
+                   / f"{kind}.cu")
+            out = native.BUILD_DIR / "compare" / f"libmsn_{kind}_{i}.so"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            lib_cls = cls if key in src.read_text() else old
+            started.append((kind, label, src, out, lib_cls, subprocess.Popen(
+                [native._nvcc(), *native.NVCC_FLAGS, "-o", str(out),
+                 str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
 
     def load():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        cls = (native.TraverseLib if "msn_shared_bytes" in src.read_text()
-               else _RaysOnlyLib)
-        return cls(out, time.perf_counter() - t0, log)
+        libs = {"traverse": {}, "vpacket": {}}
+        for kind, label, src, out, lib_cls, proc in started:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+            libs[kind][label] = lib_cls(out, time.perf_counter() - t0, log)
+        return libs
 
     return load
 
@@ -164,13 +197,34 @@ def _host_us(fn, reps: int) -> float:
     return us
 
 
-def _launcher(lib, wb, rays, any_hit):
+def _launcher(lib, tree, rays, any_hit, layout_of=None):
+    """One launch of `lib` on `rays` (its wrapper's checks skipped), at
+    the layout `layout_of(tree)`: by default the layout the shipped
+    wrapper gives rows or tiles."""
+    from moonshine_tpu_torch.accel import packet, vpacket
+
+    if layout_of is None:
+        layout_of = (vpacket.kernel_layout
+                     if isinstance(tree, vpacket.VWide)
+                     else packet.kernel_layout)
+    return lambda: packet._launch(lib, {"k": 0}, "k", tree, *rays, any_hit,
+                                  layout_of=layout_of)
+
+
+def _top_tiles(r: int):
+    """vpacket.kernel_layout with tiles 0..r-1 in shared memory."""
     from moonshine_tpu_torch.accel import packet
 
-    return lambda: packet._launch(lib, {"k": 0}, "k", wb, *rays, any_hit)
+    def layout_of(v):
+        stacks = packet.GROUPS_PER_BLOCK * v.max_stack * 4
+        return packet.KernelLayout(r, v.max_stack,
+                                   r * v.nodes[0].numel() * 4 + stacks)
+
+    return layout_of
 
 
-def trees_phase(libs, rounds, bad):
+def trees_phase(rows, tiles, rounds, bad):
+    """Every row and tile kernel on the four trees' 1080p launches."""
     import torch
 
     from moonshine_tpu_torch.accel import packet, vpacket
@@ -190,20 +244,36 @@ def trees_phase(libs, rounds, bad):
         shadow = shadow_batch(o, d, wants[0])
         wants.append(packet.any_hit_plain(wb, *shadow))
         layout = packet.kernel_layout(wb)
+        v = vpacket.v_from_wide(wb)
+        v_layout = vpacket.kernel_layout(v)
         print(f"{label}: {n} camera rays, {shadow[0].shape[0]} shadow lanes; "
-              f"{layout}; the tree's top rows {wb.top_rows}", flush=True)
+              f"rows {layout}, G = {rows['shipped'].group_lanes(width)}; "
+              f"tiles {v_layout}, G = {tiles['shipped'].group_lanes(width)}; "
+              f"the tree's top records {wb.top_rows}", flush=True)
         runs = {}
         for r in sorted({layout.top_rows, 0, wb.top_rows}, reverse=True):
-            name = f"R = {r}" + (" (shipped)" if r == layout.top_rows else "")
+            name = f"rows R = {r}" + (" (shipped)" if r == layout.top_rows
+                                      else "")
             tree = wb._replace(top_rows=r)
-            runs[name] = (_launcher(libs["traverse"], tree, closest, False),
-                          _launcher(libs["traverse"], tree, shadow, True))
-        if "against" in libs:
-            runs["against"] = (_launcher(libs["against"], wb, closest, False),
-                               _launcher(libs["against"], wb, shadow, True))
-        v = vpacket.v_from_wide(wb)
-        runs["format V"] = (lambda: vpacket.closest_hit_vpacket(v, *closest),
-                            lambda: vpacket.any_hit_vpacket(v, *shadow))
+            runs[name] = (_launcher(rows["shipped"], tree, closest, False),
+                          _launcher(rows["shipped"], tree, shadow, True))
+        for name, lib in rows.items():
+            if name != "shipped":
+                runs[f"rows {name}"] = (_launcher(lib, wb, closest, False),
+                                        _launcher(lib, wb, shadow, True))
+        for r in sorted({v_layout.top_rows, 0, wb.top_rows}):
+            at = _top_tiles(r)
+            if at(v).shared_bytes > packet.SHARED_BYTES_MAX:
+                continue
+            name = f"V R = {r}" + (" (shipped)" if r == v_layout.top_rows
+                                   else "")
+            runs[name] = (
+                _launcher(tiles["shipped"], v, closest, False, layout_of=at),
+                _launcher(tiles["shipped"], v, shadow, True, layout_of=at))
+        for name, lib in tiles.items():
+            if name != "shipped":
+                runs[f"V {name}"] = (_launcher(lib, v, closest, False),
+                                     _launcher(lib, v, shadow, True))
         _check(label, runs, wants, bad)
         out[label] = _alternate(label, runs, rounds, 5)
         del scene, wb, v, runs, wants, shadow, closest
@@ -211,22 +281,23 @@ def trees_phase(libs, rounds, bad):
     return out
 
 
-def late_phase(libs, rounds, bad):
-    """The offline frame's late segments on the 24/24 tree."""
+def late_phase(rows, tiles, rounds, bad):
+    """The offline frame's late segments on the 24/24 tree, over rows and
+    over its tiles."""
     import numpy as np
     import torch
 
-    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.accel import packet, vpacket
     from moonshine_tpu_torch.render.renderer import _sample_rays
     from moonshine_tpu_torch.scripts import shadow_batch
 
     scene, lens = _room()
     wb = scene.wide
+    v = vpacket.v_from_wide(wb)
     dev = wb.nodes.device
     h, w = OFFLINE_SIZE
     o, d, _, _ = _sample_rays(lens, h, w, 0, True, dev)
     n = o.shape[0]
-    names = ["shipped"] + (["against"] if "against" in libs else [])
     out = {}
     for live in LATE_LIVE:
         act = np.zeros(n, bool)
@@ -237,10 +308,12 @@ def late_phase(libs, rounds, bad):
         shadow = shadow_batch(o, d, wants[0])
         wants.append(packet.any_hit_plain(wb, *shadow))
         label = f"late 24/24 {live} of {n} live"
-        lib = {"shipped": libs["traverse"], "against": libs.get("against")}
-        runs = {name: (_launcher(lib[name], wb, closest, False),
-                       _launcher(lib[name], wb, shadow, True))
-                for name in names}
+        runs = {}
+        for prefix, libs, tree in (("rows", rows, wb), ("V", tiles, v)):
+            for name, lib in libs.items():
+                runs[f"{prefix} {name}"] = (
+                    _launcher(lib, tree, closest, False),
+                    _launcher(lib, tree, shadow, True))
         _check(label, runs, wants, bad)
         ms = _alternate(label, runs, rounds, 20)
         host = {name: {"closest": [], "any": []} for name in runs}
@@ -253,13 +326,13 @@ def late_phase(libs, rounds, bad):
                 f"{k} " + " / ".join(f"{x:.1f}" for x in v)
                 for k, v in by.items()), flush=True)
         out[label] = {"kernel_ms": ms, "host_us": host}
-    del scene, wb
+    del scene, wb, v
     torch.cuda.empty_cache()
     return out
 
 
-def offline_phase(libs, samples, bad):
-    """One offline sample per kernel, alternated, then one profiled."""
+def offline_phase(rows, samples, bad):
+    """One offline sample per row kernel, alternated, then one profiled."""
     import torch
 
     from moonshine_tpu_torch.accel import packet
@@ -272,12 +345,11 @@ def offline_phase(libs, samples, bad):
     h, w = OFFLINE_SIZE
     cfg = PathConfig(max_bounces=1024, env_samples_per_bounce=1,
                      mesh_samples_per_bounce=1)
-    names = ["shipped"] + (["against"] if "against" in libs else [])
-    lib = {"shipped": libs["traverse"], "against": libs.get("against")}
+    names = list(rows)
     shipped = native._LOADED["traverse"]
 
     def sample(name):
-        native._LOADED["traverse"] = lib[name]
+        native._LOADED["traverse"] = rows[name]
         try:
             packet.reset_launch_counts()
             torch.cuda.synchronize()
@@ -289,11 +361,11 @@ def offline_phase(libs, samples, bad):
             native._LOADED["traverse"] = shipped
 
     images = {name: sample(name)[0] for name in names}  # warm-up
-    if len(names) == 2 and not torch.equal(*images.values()):
-        bad.append("offline image: shipped != against")
+    differ = [name for name in names
+              if not torch.equal(images[name], images["shipped"])]
+    bad += [f"offline image: {name} != shipped" for name in differ]
     print(f"offline {w}x{h}: the images of {names} are equal: "
-          f"{torch.equal(*images.values()) if len(names) == 2 else 'n/a'}",
-          flush=True)
+          f"{not differ}", flush=True)
     wall = {name: [] for name in names}
     counts = {}
     for i in range(samples):
@@ -333,8 +405,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--against", default=None,
-                    help="another checkout whose traverse.cu runs beside")
+    ap.add_argument("--against", action="append", default=[],
+                    help="another checkout whose traverse.cu and vpacket.cu "
+                    "run beside")
     ap.add_argument("--offline-samples", type=int, default=2,
                     help="timed offline samples per kernel (0: none)")
     args = ap.parse_args(argv)
@@ -345,22 +418,25 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
 
-    load = build_against(args.against) if args.against else None
-    libs = dict(native.build_all(("traverse", "vpacket")))
-    if load is not None:
-        libs["against"] = load()
-    for name, lib in libs.items():
-        ptxas = sorted({ln.split(":", 1)[-1].strip()
-                        for ln in lib.log.splitlines()
-                        if "registers" in ln or "spill" in ln})
-        print(f"{name}: {lib.path.name}, built in {lib.build_seconds:.1f} s; "
-              f"ptxas: {' | '.join(ptxas) or 'not rebuilt'}", flush=True)
+    load = build_against(args.against)
+    this = native.build_all(("traverse", "vpacket"))
+    against = load()
+    rows = {"shipped": this["traverse"], **against["traverse"]}
+    tiles = {"shipped": this["vpacket"], **against["vpacket"]}
+    for kind, libs in (("traverse", rows), ("vpacket", tiles)):
+        for name, lib in libs.items():
+            ptxas = sorted({ln.split(":", 1)[-1].strip()
+                            for ln in lib.log.splitlines()
+                            if "registers" in ln or "spill" in ln})
+            print(f"{kind} {name}: {lib.path.name}, built in "
+                  f"{lib.build_seconds:.1f} s; ptxas: "
+                  f"{' | '.join(ptxas) or 'not rebuilt'}", flush=True)
 
     bad: list[str] = []
-    result = {"card": smi, "trees": trees_phase(libs, args.rounds, bad),
-              "late": late_phase(libs, args.rounds, bad)}
+    result = {"card": smi, "trees": trees_phase(rows, tiles, args.rounds, bad),
+              "late": late_phase(rows, tiles, args.rounds, bad)}
     if args.offline_samples:
-        result["offline"] = offline_phase(libs, args.offline_samples, bad)
+        result["offline"] = offline_phase(rows, args.offline_samples, bad)
     result["mismatch"] = bad
     print(json.dumps(result), flush=True)
     return 1 if bad else 0

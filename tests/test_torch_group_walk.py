@@ -1,31 +1,42 @@
-"""The exactness argument of the packet kernels' group design
-(csrc/traverse.cu), on the CPU.
+"""The exactness argument of the group design of the packet kernels
+(csrc/traverse.cu, over rows) and the format-V kernels (csrc/vpacket.cu,
+over tiles), which share the walk of csrc/group_walk.cuh, on the CPU.
 
-The kernel traces one ray with a group of G lanes: lane k tests children
-k, k + G, ... of a node and slots k, k + G, ... of a leaf. It pushes a
-node's hit children at positions counted from the group's hit mask
-(top + popc(hits above j) when the ray runs forward on the node's axis,
-else top + popc(hits below j)), and takes a closest-hit leaf's result as
-the lexicographic minimum of (t, slot) over the lanes by xor shuffles.
-The model below does the same in Python, and must give what
-packet._walk's sequential leaf loop and flip-and-cumsum pushes give: the
-same visits and t, tri, u, v and occlusion bit for bit, equal-t ties
-included (duplicated triangles; overlapping triangles in one plane, which
-a ray crosses at one exactly computed t). The kernel's shared-memory
-layout (packet.kernel_layout) is checked against the tree: rows 0..R-1
-are the root and its internal children, and the bytes fit a block."""
+The kernels trace one ray with a group of G lanes. Over rows, lane k tests
+children k, k + G, ... of a node and slots k, k + G, ... of a leaf. Over
+tiles, lane k owns sublanes k, k + G, ... (G divides 8), so child or slot
+j = 8g + s is lane s % G's: it reads a child's six bounds as one float4
+and one float2 from its sublane, a slot's ten fields as two float4s and a
+float2, and walks its slots column group by column group. Either way the group pushes
+a node's hit children at positions counted from the group's hit mask (top
++ popc(hits above j) when the ray runs forward on the node's axis, else
+top + popc(hits below j)), and takes a closest-hit leaf's result as the
+lexicographic minimum of (t, slot) over the lanes by xor shuffles. The
+model below does the same in Python, reading rows and tiles at the
+kernels' addresses, and must give what packet._walk's sequential leaf loop
+and flip-and-cumsum pushes give: the same visits and t, tri, u, v and
+occlusion bit for bit, equal-t ties included (duplicated triangles;
+overlapping triangles in one plane, which a ray crosses at one exactly
+computed t). The kernels' shared-memory layouts (packet.kernel_layout,
+vpacket.kernel_layout) are checked against the tree: rows 0..R-1 are the
+root and its internal children, and the bytes fit a block."""
 
 import numpy as np
 import pytest
 import torch
 
-from moonshine_tpu_torch.accel import lbvh, packet
+from moonshine_tpu_torch.accel import lbvh, packet, vpacket
 from moonshine_tpu_torch.accel.wide import build_wide
 
 WIDTHS = (8, 16, 24, 32)
 CAPS = (1, 7, 12, 24)
 GROUPS = (2, 4, 8, 16, 32)
+# (record format, lanes a ray) of the model's cases: any power-of-two
+# group over rows; over tiles a lane owns whole sublanes, so G divides 8
+FORMAT_GROUPS = ([("rows", G) for G in GROUPS]
+                 + [("tiles", G) for G in (1, 2, 4, 8)])
 NO_SLOT = 2**31 - 1  # the kernel's INT_MAX: a lane without a valid slot
+SUBLANE = 128  # floats a tile's sublane
 
 
 def tie_scene(seed, n_tris=120, n_rays=96):
@@ -70,18 +81,27 @@ def _popc(x: int) -> int:
     return bin(x).count("1")
 
 
-def group_push(hit, ptr, fwd: bool, top: int, stack: list, G: int) -> int:
-    """The group's pushes: lane k owns children k, k + G, ...; the hit
-    mask is the OR of the lanes' masks, and each lane writes its hit
-    children where the popcounts place them. Returns the new top."""
-    w = len(hit)
-    lane_mask = [sum(1 << j for j in range(k, w, G) if hit[j])
-                 for k in range(G)]
+def lane_slots(n: int, G: int, fmt: str) -> list:
+    """The children (or slots) j < n that each lane of a group of G tests,
+    in the order it tests them: over rows k, k + G, ...; over tiles those
+    of its sublanes s = k, k + G, ..., column group g (j = 8g + s) by
+    column group, so in rising j as well."""
+    if fmt == "rows":
+        return [list(range(k, n, G)) for k in range(G)]
+    return [[8 * g + s for g in range(-(-n // 8)) for s in range(k, 8, G)
+             if 8 * g + s < n] for k in range(G)]
+
+
+def group_push(hit, ptr, fwd: bool, top: int, stack: list, lanes) -> int:
+    """The group's pushes: lane k owns children lanes[k]; the hit mask is
+    the OR of the lanes' masks, and each lane writes its hit children
+    where the popcounts place them. Returns the new top."""
+    lane_mask = [sum(1 << j for j in own if hit[j]) for own in lanes]
     mask = 0
     for m in lane_mask:  # __reduce_or_sync
         mask |= m
-    for k in range(G):
-        for j in range(k, w, G):
+    for k, own in enumerate(lanes):
+        for j in own:
             if lane_mask[k] >> j & 1:
                 below = _popc(mask & ((1 << j) - 1))
                 above = _popc(mask) - below - 1
@@ -89,29 +109,31 @@ def group_push(hit, ptr, fwd: bool, top: int, stack: list, G: int) -> int:
     return top + _popc(mask)
 
 
-def group_leaf_min(t, valid, G: int):
+def group_leaf_min(t, valid, lanes):
     """(t, slot) of the group's lexicographic minimum: each lane's first
-    least valid t over its slots, then the xor butterfly over the lanes;
-    (inf, NO_SLOT) when no slot is valid. Every lane ends on the same
-    pair."""
-    lanes = []
-    for k in range(G):
+    least valid t over its slots lanes[k], then the xor butterfly over the
+    lanes; (inf, NO_SLOT) when no slot is valid. Every lane ends on the
+    same pair."""
+    G = len(lanes)
+    best = []
+    for own in lanes:
         bt, bs = np.float32(np.inf), NO_SLOT
-        for j in range(k, len(t), G):
+        for j in own:
             if valid[j] and t[j] < bt:
                 bt, bs = t[j], j
-        lanes.append((bt, bs))
+        best.append((bt, bs))
     off = G // 2
     while off:
         nxt = []
         for k in range(G):
-            (bt, bs), (ot, os_) = lanes[k], lanes[k ^ off]
+            (bt, bs), (ot, os_) = best[k], best[k ^ off]
             take = ot < bt or (ot == bt and os_ < bs)
             nxt.append((ot, os_) if take else (bt, bs))
-        lanes = nxt
+        best = nxt
         off //= 2
-    assert all(x == lanes[0] for x in lanes)
-    return lanes[0]
+    assert all(x == best[0] for x in best)
+    assert best[0][1] == NO_SLOT or best[0][1] in lanes[best[0][1] % G]
+    return best[0]
 
 
 def sequential_leaf(t, valid, t_best):
@@ -135,29 +157,36 @@ def walk_push(hit, ptr, fwd: bool, top: int, stack: list) -> int:
     return top + int(hit.sum())
 
 
-@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("fmt,G", FORMAT_GROUPS)
 @pytest.mark.parametrize("cap", CAPS)
-def test_leaf_min_is_the_sequential_choice(cap, G):
+def test_leaf_min_is_the_sequential_choice(cap, fmt, G):
     """On seeded leaves with many equal t (values from a set of five),
     empty and failing slots: the group's (t, slot) minimum over slots that
-    beat t_best is the slot the sequential loop keeps."""
+    beat t_best is the slot the sequential loop keeps, and the slot's
+    owner (slot % G, which shuffles out its u, v and triangle) tests it."""
     rs = np.random.RandomState(cap * 100 + G)
+    lanes = lane_slots(cap, G, fmt)
+    assert sorted(sum(lanes, [])) == list(range(cap))
     for _ in range(300):
         t = rs.choice(np.float32([0.5, 1.0, 1.0, 2.0, 7.25]), cap)
         raw = rs.rand(cap) > 0.3
         t_best = np.float32(rs.choice([1.0, 2.0, 100.0]))
-        bt, bs = group_leaf_min(t, raw & (t < t_best), G)
+        bt, bs = group_leaf_min(t, raw & (t < t_best), lanes)
         want = sequential_leaf(t, raw, t_best)
         assert (None if bs == NO_SLOT else bs) == want
         if want is not None:
             assert bt == t[want]
 
 
-@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("fmt,G", FORMAT_GROUPS)
 @pytest.mark.parametrize("width", WIDTHS)
-def test_push_positions_are_the_walks(width, G):
+def test_push_positions_are_the_walks(width, fmt, G):
     """On seeded hit masks and both directions, the popcount positions
-    fill the stack as packet._walk's flip-and-cumsum pushes do."""
+    fill the stack as packet._walk's flip-and-cumsum pushes do; lane k
+    owns the children j with j % G == k in both formats."""
+    lanes = lane_slots(width, G, fmt)
+    assert all(sorted(own) == list(range(k, width, G))
+               for k, own in enumerate(lanes))
     rs = np.random.RandomState(width * 100 + G)
     for _ in range(100):
         hit = (rs.rand(width) < rs.choice([0.1, 0.5, 0.9])).tolist()
@@ -166,21 +195,67 @@ def test_push_positions_are_the_walks(width, G):
         top = int(rs.randint(0, 5))
         want, got = [None] * (top + width), [None] * (top + width)
         n_want = walk_push(hit, ptr, fwd, top, want)
-        assert group_push(hit, ptr, fwd, top, got, G) == n_want
+        assert group_push(hit, ptr, fwd, top, got, lanes) == n_want
         assert got == want
 
 
-def group_walk(wbvh, o, d, t_max, active, any_hit: bool, G: int):
-    """The kernel's walk in Python, one ray at a time, with the group's
-    pushes and leaf choice; the child and triangle tests are the plain
+def vector_loads(rec, off: int, sizes) -> torch.Tensor:
+    """rec[off:] read as the kernel's vector loads of `sizes` floats, each
+    at an address aligned to its own size (tiles are 16-byte aligned)."""
+    out = []
+    for n in sizes:
+        assert off % n == 0, f"a {4 * n}-byte load at float {off}"
+        out.append(rec[off:off + n])
+        off += n
+    return torch.cat(out)
+
+
+def records(wbvh, fmt: str):
+    """(node, leaf) readers at the kernels' addresses: node(i) gives node
+    record i's child bounds [w, 6] (lo xyz, hi xyz), pointers [w] and sort
+    axis; leaf(i) leaf record i's fields [10, S]. Over tiles, child j = 8g
+    + s is a float4 and a float2 (a float2 and a float4 at odd g) at
+    sublane s, column 6g, and slot j two float4s and a float2 (a float2
+    and two float4s at odd g) at column 10g."""
+    w, S = wbvh.width, wbvh.leaf_slots
+    if fmt == "rows":
+        nodes = wbvh.nodes.reshape(wbvh.num_nodes, -1)
+        leaves = wbvh.leaves.reshape(wbvh.num_leaves, -1)
+        return (lambda i: (nodes[i][:6 * w].reshape(6, w).T,
+                           nodes[i][6 * w:7 * w], float(nodes[i][7 * w])),
+                lambda i: leaves[i][:10 * S].reshape(10, S))
+    v = vpacket.v_from_wide(wbvh)
+    nodes = v.nodes.reshape(len(v.nodes), -1)
+    leaves = v.leaves.reshape(len(v.leaves), -1)
+
+    def node(i):
+        b = torch.stack([vector_loads(
+            nodes[i], j % 8 * SUBLANE + 6 * (j // 8),
+            (4, 2) if j // 8 % 2 == 0 else (2, 4)) for j in range(w)])
+        return (b, nodes[i][vpacket.PTR_LANE0:vpacket.PTR_LANE0 + w],
+                float(nodes[i][vpacket.AXIS_LANE]))
+
+    def leaf(i):
+        return torch.stack([vector_loads(
+            leaves[i], j % 8 * SUBLANE + 10 * (j // 8),
+            (4, 4, 2) if j // 8 % 2 == 0 else (2, 4, 4)) for j in range(S)], 1)
+
+    return node, leaf
+
+
+def group_walk(wbvh, o, d, t_max, active, any_hit: bool, G: int,
+               fmt: str = "rows"):
+    """The kernels' walk in Python, one ray at a time, with the group's
+    pushes and leaf choice over the records of `fmt` (rows, or the tiles
+    of the same tree); the child and triangle tests are the plain
     version's expressions. Returns (result as the plain versions give it,
     node visits, leaf visits)."""
     t_eff = torch.where(active, t_max, packet._NEG)
     r, _, _, _ = packet._plain_state(wbvh, o, d, t_eff, False)
     o_c, d_c, inv, oinv, _ = r
     w, S = wbvh.width, wbvh.leaf_slots
-    nodes = wbvh.nodes.reshape(wbvh.num_nodes, -1)
-    leaves = wbvh.leaves.reshape(wbvh.num_leaves, -1)
+    node_rec, leaf_rec = records(wbvh, fmt)
+    children, slots = lane_slots(w, G, fmt), lane_slots(S, G, fmt)
     n = o.shape[0]
     t_out, tri_out = t_max.clone(), torch.full((n,), -1, dtype=torch.int32)
     u_out, v_out = torch.zeros(n), torch.zeros(n)
@@ -198,10 +273,9 @@ def group_walk(wbvh, o, d, t_max, active, any_hit: bool, G: int):
             node = stack[top]
             if node >= 0:
                 n_nodes += 1
-                row = nodes[node]
-                t0 = [row[c * w:(c + 1) * w] * inv[c][i] - oinv[c][i]
-                      for c in range(3)]
-                t1 = [row[(3 + c) * w:(4 + c) * w] * inv[c][i] - oinv[c][i]
+                b, ptr, axis = node_rec(node)
+                t0 = [b[:, c] * inv[c][i] - oinv[c][i] for c in range(3)]
+                t1 = [b[:, 3 + c] * inv[c][i] - oinv[c][i]
                       for c in range(3)]
                 tnear = torch.maximum(
                     torch.maximum(torch.minimum(t0[0], t1[0]),
@@ -212,16 +286,15 @@ def group_walk(wbvh, o, d, t_max, active, any_hit: bool, G: int):
                                   torch.maximum(t0[1], t1[1])),
                     torch.maximum(t0[2], t1[2]))
                 prune = tmax if any_hit else t_best
-                ptr = row[6 * w:7 * w]
                 hit = ((torch.clamp_min(tnear, 0.0)
                         <= torch.minimum(tfar, prune)) & (ptr != -1.0))
-                axis = float(row[7 * w])
                 ax = 0 if axis < 0.5 else (1 if axis < 1.5 else 2)
                 top = group_push(hit.tolist(), ptr.long().tolist(),
-                                 bool(d_c[ax][i] >= 0.0), top, stack, G)
+                                 bool(d_c[ax][i] >= 0.0), top, stack,
+                                 children)
                 continue
             n_leaves += 1
-            f = leaves[-2 - node][:10 * S].reshape(10, S)
+            f = leaf_rec(-2 - node)
             v0, e1, e2 = ([f[c] for c in range(b, b + 3)] for b in (0, 3, 6))
             oi = [x[i].expand(S) for x in o_c]
             di = [x[i].expand(S) for x in d_c]
@@ -229,14 +302,13 @@ def group_walk(wbvh, o, d, t_max, active, any_hit: bool, G: int):
             if any_hit:
                 occ = (packet._tri_any(v0, e1, e2, oi, di, tmax)
                        & used).tolist()
-                if any(any(occ[j] for j in range(k, S, G))
-                       for k in range(G)):  # __any_sync
-                    occ_out[i] = True
+                if any(any(occ[j] for j in own) for own in slots):
+                    occ_out[i] = True  # __any_sync
                     break
                 continue
             valid, t, uu, vv = packet._tri_closest(v0, e1, e2, oi, di,
                                                    t_best)
-            bt, bs = group_leaf_min(t.numpy(), (valid & used).numpy(), G)
+            bt, bs = group_leaf_min(t.numpy(), (valid & used).numpy(), slots)
             if bs != NO_SLOT:
                 t_best, tri, u, v = t[bs], int(f[9, bs]), uu[bs], vv[bs]
         if tri >= 0:
@@ -250,12 +322,15 @@ def _tensors(o, d, active, t_max):
             torch.from_numpy(active), torch.from_numpy(t_max))
 
 
+@pytest.mark.parametrize("fmt", ["rows", "tiles"])
 @pytest.mark.parametrize("cap", CAPS)
 @pytest.mark.parametrize("width", WIDTHS)
-def test_group_walk_equals_plain_walk(width, cap):
-    """The model's walk (G = 2 and 4, the kernel's group sizes, and 8)
-    against closest_hit_plain and any_hit_plain on a tree with exact ties:
-    the same visits, and t, tri, u, v and occlusion bit for bit."""
+def test_group_walk_equals_plain_walk(width, cap, fmt):
+    """The model's walk against the plain versions on a tree with exact
+    ties: over rows (G = 2 and 4, the packet kernels' group sizes, and 8)
+    closest_hit_plain and any_hit_plain, over tiles (G = 1, 2, 4 and 8)
+    vpacket's and packet's; the same visits, and t, tri, u, v and
+    occlusion bit for bit."""
     tris, *rays = tie_scene(seed=width + cap, n_tris=100, n_rays=48)
     o, d, active, t_max = _tensors(*rays)
     wbvh = build_wide(tris, leaf_cap=cap, width=width, device="cpu")
@@ -264,14 +339,23 @@ def test_group_walk_equals_plain_walk(width, cap):
     occ_want, occ_vis = packet.any_hit_plain(wbvh, o, d, t_max, active,
                                              count_visits=True)
     assert int(want.is_hit.sum()) >= 10
-    for G in (2, 4, 8):
+    if fmt == "tiles":
+        v = vpacket.v_from_wide(wbvh)
+        v_want, v_vis = vpacket.closest_hit_plain(v, o, d, t_max, active,
+                                                  count_visits=True)
+        v_occ, v_occ_vis = vpacket.any_hit_plain(v, o, d, t_max, active,
+                                                 count_visits=True)
+        assert all(torch.equal(g, x) for g, x in zip(v_want, want))
+        assert torch.equal(v_occ, occ_want)
+        assert (v_vis, v_occ_vis) == (vis, occ_vis)
+    for G in ((2, 4, 8) if fmt == "rows" else (1, 2, 4, 8)):
         got, n_nodes, n_leaves = group_walk(wbvh, o, d, t_max, active,
-                                            False, G)
+                                            False, G, fmt)
         for g, x in zip(got, want):
             assert torch.equal(g, x)
         assert (n_nodes, n_leaves) == (vis.nodes, vis.leaves)
         occ, n_nodes, n_leaves = group_walk(wbvh, o, d, t_max, active,
-                                            True, G)
+                                            True, G, fmt)
         assert torch.equal(occ, occ_want)
         assert (n_nodes, n_leaves) == (occ_vis.nodes, occ_vis.leaves)
 
@@ -312,20 +396,27 @@ def test_top_rows_are_root_and_level_one(builder, width):
     assert not ((deeper >= 0) & (deeper < R)).any()
 
 
+@pytest.mark.parametrize("fmt", ["rows", "tiles"])
 @pytest.mark.parametrize("cap", CAPS)
 @pytest.mark.parametrize("width", WIDTHS)
-def test_shared_bytes_fit_a_block(width, cap):
-    """At the deepest tree the kernel takes (a stack of 512 entries) and
-    the most top rows a width can have, the block's shared memory stays
+def test_shared_bytes_fit_a_block(width, cap, fmt):
+    """At the deepest tree the kernels take (a stack of 512 entries) and
+    the most top records a width can have (rows: the root and its
+    internal children; tiles: none), the block's shared memory stays
     within the card's 227 KB."""
     tris, *_ = tie_scene(seed=cap, n_tris=60, n_rays=6)
     wbvh = build_wide(tris, leaf_cap=cap, width=width, device="cpu")
-    deepest = wbvh._replace(
-        max_depth=(packet.STACK_DEPTH - 1) // (width - 1),
-        top_rows=width + 1)
-    layout = packet.kernel_layout(deepest)
+    depth = (packet.STACK_DEPTH - 1) // (width - 1)
+    if fmt == "rows":
+        tree = wbvh._replace(max_depth=depth, top_rows=width + 1)
+        layout, top = packet.kernel_layout(tree), width + 1
+        record = wbvh.nodes[0].numel() * 4
+    else:
+        tree = vpacket.v_from_wide(wbvh)._replace(max_depth=depth)
+        layout, top = vpacket.kernel_layout(tree), 0
+        record = 8 * SUBLANE * 4
     assert 256 < layout.stack_depth <= packet.STACK_DEPTH == 512
+    assert layout.top_rows == top
     assert layout.shared_bytes <= packet.SHARED_BYTES_MAX
     assert layout.shared_bytes == (
-        (width + 1) * wbvh.nodes[0].numel() * 4
-        + packet.GROUPS_PER_BLOCK * layout.stack_depth * 4)
+        top * record + packet.GROUPS_PER_BLOCK * layout.stack_depth * 4)

@@ -5,9 +5,11 @@ sees no CUDA device).
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-The packet kernels are held to their plain versions bit for bit (t, tri,
-u, v, occlusion, ties included) over widths 8/16/24/32 x leaf caps
-1/7/12/24; the treelet walk on 8- and 16-wide trees, one treelet, a deep
+The packet and format-V kernels are held to their plain versions bit for
+bit (t, tri, u, v, occlusion, ties included) over widths 8/16/24/32 x
+leaf caps 1/7/12/24, n = 0/1/4099, mostly dead batches and a 497-entry
+stack bound, and the V kernels also to the packet kernels; the treelet
+walk on 8- and 16-wide trees, one treelet, a deep
 stack bound and K beyond its shared memory; treelet phase 1 (pending
 words and nearest treelets) over K and ray counts. chip_smoke.py makes
 the same comparisons at the render's real shapes."""
@@ -297,27 +299,85 @@ def test_treelet_launch_counters(cuda):
                                 "treelet_any_hit": 1}
 
 
-@pytest.mark.parametrize("cap,width", [(12, 16), (24, 24), (8, 8)])
-def test_v_kernels_match_plain(cuda, cap, width):
-    """The format-V kernels equal their plain versions bit for bit, and
-    the packet kernel on the same tree in t, tri, u, v and occlusion."""
-    w, o, d, active, t_max = _scene(cuda, cap=cap, width=width)
+V_CASES = ([f"{width}/{cap}" for cap, width in GRID]
+           + ["n=0", "n=1", "n=4099", "dead 0", "dead 37", "dead 700",
+              "deep bound"])
+
+
+def _v_case(device, case):
+    """(rows, lanes) of one V case: tie_scene trees over widths x caps with
+    a per-lane t_max; no ray, one ray and 4099 rays; 20,000 lanes of which
+    0 / 37 / 700 are active and a seventh have t_max <= 0; and a 32-wide
+    tree declared 16 deep, so that its stacks hold 497 entries (over 48 KB
+    of shared memory a block)."""
+    if "/" in case:
+        width, cap = map(int, case.split("/"))
+        return _tie_case(device, cap, width)
+    if case.startswith("n="):
+        n = int(case[2:])
+        w, o, d, active, t_max = _tie_case(device, 12, 24, n_rays=max(n, 1))
+        return w, o[:n], d[:n], active[:n], t_max[:n]
+    if case.startswith("dead"):
+        live, n = int(case.split()[1]), 20000
+        w, o, d, _, t_max = _tie_case(device, 12, 24, n_rays=n)
+        act = np.zeros(n, bool)
+        act[np.random.RandomState(live).choice(n, live,
+                                               replace=False)] = True
+        t_max = torch.where(torch.arange(n, device=device) % 7 == 0, -t_max,
+                            t_max)
+        return w, o, d, torch.from_numpy(act).to(device), t_max
+    w, o, d, active, t_max = _tie_case(device, 7, 32)
+    return w._replace(max_depth=16), o, d, active, t_max
+
+
+@pytest.mark.parametrize("case", V_CASES)
+def test_v_kernels_match_plain(cuda, case):
+    """The format-V kernels equal their plain versions and the packet
+    kernels on the same tree bit for bit (t, tri, u, v, occlusion, equal-t
+    ties included), unbounded and with a per-lane t_max, through the plain
+    and the sorting wrappers; one launch a call for n > 0, none for n = 0;
+    the stack bound the kernel gets is the tree's."""
+    w, o, d, active, t_max = _v_case(cuda, case)
     v = vpacket.v_from_wide(w)
-    got = vpacket.closest_hit_vpacket(v, o, d, 1e12, active_in=active)
-    want = vpacket.closest_hit_plain(v, o, d, 1e12, active_in=active)
-    pk = packet.closest_hit_packet(w, o, d, 1e12, active_in=active)
-    torch.cuda.synchronize()
-    for g, x, y in zip(got, want, pk):
-        assert torch.equal(g, x) and torch.equal(g, y)
-    occ = vpacket.any_hit_vpacket(v, o, d, t_max, active_in=active)
-    assert occ.dtype == torch.bool
-    assert torch.equal(occ, vpacket.any_hit_plain(v, o, d, t_max,
-                                                  active_in=active))
-    assert torch.equal(occ, packet.any_hit_packet(w, o, d, t_max,
-                                                  active_in=active))
-    hbm = vpacket.closest_hit_vpacket_hbm(v, o, d, 1e12, active_in=active)
-    for g, x in zip(got, hbm):
-        assert torch.equal(g, x)
+    n = o.shape[0]
+    layout = vpacket.kernel_layout(v)
+    assert layout.stack_depth == v.max_stack == w.max_stack
+    if case == "deep bound":
+        assert layout.stack_depth == 497
+        assert layout.shared_bytes > 48 * 1024
+    vpacket.reset_launch_counts()
+    for tm in (1e12, t_max):
+        got = vpacket.closest_hit_vpacket(v, o, d, tm, active_in=active)
+        _assert_equal(tuple(got), tuple(vpacket.closest_hit_plain(
+            v, o, d, tm, active_in=active)))
+        _assert_equal(tuple(got), tuple(packet.closest_hit_packet(
+            w, o, d, tm, active_in=active)))
+        _assert_equal(tuple(got), tuple(vpacket.closest_hit_vpacket_hbm(
+            v, o, d, tm, active_in=active)))
+        occ = vpacket.any_hit_vpacket(v, o, d, tm, active_in=active)
+        assert occ.dtype == torch.bool
+        _assert_equal(occ, vpacket.any_hit_plain(v, o, d, tm,
+                                                 active_in=active))
+        _assert_equal(occ, packet.any_hit_packet(w, o, d, tm,
+                                                 active_in=active))
+        _assert_equal(occ, vpacket.any_hit_vpacket_hbm(v, o, d, tm,
+                                                       active_in=active))
+    assert vpacket.LAUNCHES == {"v_closest_hit": 4 * int(n > 0),
+                                "v_any_hit": 4 * int(n > 0)}
+
+
+def test_v_shared_layout_matches_kernel(cuda):
+    """The V kernel's own count of its shared memory equals
+    vpacket.kernel_layout's on every width and cap, and every width has
+    its kernel."""
+    lib = native.build_all(("vpacket",))["vpacket"]
+    for cap, width in GRID:
+        w, *_ = _tie_case(cuda, cap, width, n_rays=8)
+        v = vpacket.v_from_wide(w)
+        layout = vpacket.kernel_layout(v)
+        assert lib.shared_bytes(layout.top_rows, v.nodes[0].numel(),
+                                layout.stack_depth) == layout.shared_bytes
+        assert lib.group_lanes(width) in (1, 2, 4, 8)
 
 
 def test_v_launch_counters(cuda):
