@@ -54,9 +54,14 @@ script exits non-zero without the result line. Phases:
                   against the default path, and the walk on 262,144
                   camera rays against the packet kernel, timed
   vpu             the slab and ALU microbenchmark kernels against their
-                  plain versions (20 visits, the reference's inputs and
-                  seeded ones), then the entry point
-                  (scripts/profile_vpu.py) at 2000 visits
+                  plain versions, every configuration at 1, 20, 127 and
+                  129 visits and at 2000, on the reference's inputs and
+                  on seeded ones (where lanes hit); the latency probe
+                  (cycles of each operation class, the SM clock, the ALU
+                  chain's floor) and an empty kernel's time; then the
+                  entry point
+                  (scripts/profile_vpu.py) at 2000 visits, each
+                  configuration's time beside its bound and floors
   bitcast         the quantised-row decode kernel against its plain
                   version bit for bit at the six row widths (the
                   reference's rows and seeded ones), the probe's entry
@@ -103,6 +108,10 @@ HD = (1080, 1920)
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# bf16 outside the tensor cores, the rate of elementwise bf16 math (NVIDIA
+# H100 Tensor Core GPU Architecture white paper, SXM5: 133.8 TFLOP/s, an
+# FMA counting two, as the 67 TFLOP/s fp32 rate counts it)
+PEAK_BF16_VECTOR = 133.8e12
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "closest_hit": ("moonshine_tpu_torch/csrc/traverse.cu",
                     "moonshine_tpu/accel/packet.py:825"),
@@ -790,12 +799,13 @@ def fallback_phase(scenes, cfg):
 def vpu_bounds(kind, dtype, lanes, visits):
     """(bound_ms, bound_by) of one slab or ALU launch: its inputs read and
     its output written once against its operations at the dtype's peak
-    (25 per child test and lane, 3 of them float32 compares; 12 per ALU
-    iteration and lane, the chain's two loop-invariant products once)."""
+    outside the tensor cores (25 per child test and lane, 3 of them
+    float32 compares; 12 per ALU iteration and lane, the chain's two
+    loop-invariant products once)."""
     import torch
 
     size = 2 if dtype == torch.bfloat16 else 4
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    peak = PEAK_BF16_VECTOR if dtype == torch.bfloat16 else PEAK_FP32
     if kind == "slab":
         nbytes = 128 * 128 * 4 + 6 * lanes * size + 4
         t_ops = visits * 8 * lanes * (22 / peak + 3 / PEAK_FP32)
@@ -808,30 +818,93 @@ def vpu_bounds(kind, dtype, lanes, visits):
 
 
 def vpu_phase(dev, timings, errs, launches):
-    """The slab and ALU kernels against their plain versions at 20 visits
-    (the reference's inputs and seeded ones), the entry point at 2000
-    visits with its launches counted, and the first slab and ALU
-    configurations held against their plain versions at 2000 visits."""
+    """The slab and ALU kernels against their plain versions: every
+    configuration at 1, 20, 127 and 129 visits (either side of a chunk's
+    edge and of the v % 128 wrap) on the reference's inputs and seeded
+    ones (where lanes hit), then at 2000 visits on both; the latency probe
+    and the ALU chain's floor, an empty kernel; the entry point at 2000
+    visits with its launches counted."""
     import torch
 
     from moonshine_tpu_torch.scripts import profile_vpu as V
 
-    for seed in (None, 1):
+    def check(seed, visits, nonzero):
+        tag = f"{'seeded' if seed else 'reference'} inputs, {visits} visits"
+        counts = []
         for name, dt, fma_form, packed in V.SLAB_CONFIGS:
             rows, planes = V.slab_inputs(dt, dev, seed=seed)
-            k = int(V.slab(rows, planes, fma_form, packed, 20))
-            p = int(V.slab_plain(rows, planes, fma_form, packed, 20))
-            say("vpu", f"{name}, {'seeded' if seed else 'reference'} "
-                f"inputs, 20 visits: kernel {k}, plain {p}")
-            if k != p or (seed is not None and k == 0):
-                raise AssertionError(f"{name}: slab counts disagree or no "
-                                     f"lane hit")
+            k = int(V.slab(rows, planes, fma_form, packed, visits))
+            p = int(V.slab_plain(rows, planes, fma_form, packed, visits))
+            counts.append(f"{k}/{p}")
+            if k != p or (nonzero and k == 0):
+                raise AssertionError(f"{name}, {tag}: slab counts disagree "
+                                     f"({k} against {p}) or no lane hit")
         for name, dt, r in V.ALU_CONFIGS:
             a, b = V.alu_inputs(dt, r, dev, seed=seed)
-            if not torch.equal(V.alu(a, b, 20), V.alu_plain(a, b, 20)):
-                raise AssertionError(f"{name}: ALU outputs differ")
-        say("vpu", f"ALU chains, {'seeded' if seed else 'reference'} inputs, "
-            f"20 visits: kernel = plain bit for bit in all four")
+            if not torch.equal(V.alu(a, b, visits), V.alu_plain(a, b, visits)):
+                raise AssertionError(f"{name}, {tag}: ALU outputs differ")
+        say("vpu", f"{tag}: slab counts kernel/plain {' '.join(counts)}; "
+            f"ALU kernel = plain bit for bit in all four")
+
+    for visits in (1, 20, 127, 129):
+        for seed in (None, V.SEED):
+            check(seed, visits, nonzero=seed is not None and visits >= 20)
+    # every configuration at 2000 visits on both inputs (seeded: lanes
+    # hit); the kernels line takes the first of each kind on the
+    # reference's inputs, the ones the entry point times, for its error
+    # and plain time as for its kernel time
+    out = {}
+    for seed in (V.SEED, None):
+        inputs = "seeded" if seed else "reference"
+        for i, (name, dt, fma_form, packed) in enumerate(V.SLAB_CONFIGS):
+            rows, planes = V.slab_inputs(dt, dev, seed=seed)
+            plain_ms = host_ms(lambda: out.update(p=V.slab_plain(
+                rows, planes, fma_form, packed)))
+            k = int(V.slab(rows, planes, fma_form, packed))
+            say("vpu", f"{name}, {inputs} inputs, {V.VISITS} visits: "
+                f"kernel {k}, plain {int(out['p'])} ({plain_ms:.2f} ms)")
+            if k != int(out["p"]) or (seed and k == 0):
+                raise AssertionError(f"{name}, {inputs} inputs: slab counts "
+                                     f"disagree at {V.VISITS} visits or no "
+                                     f"lane hit")
+            if i == 0 and seed is None:
+                errs["vpu_slab"] = float(abs(k - int(out["p"])))
+                timings["vpu_slab"] = dict(plain_ms=plain_ms)
+        for i, (name, dt, r) in enumerate(V.ALU_CONFIGS):
+            a, b = V.alu_inputs(dt, r, dev, seed=seed)
+            plain_ms = host_ms(lambda: out.update(a=V.alu_plain(a, b)))
+            got = V.alu(a, b)
+            if not torch.equal(got, out["a"]):
+                raise AssertionError(f"{name}, {inputs} inputs: ALU outputs "
+                                     f"differ at {V.VISITS} visits")
+            if i == 0 and seed is None:
+                errs["vpu_alu"] = float((got - out["a"]).abs().max())
+                timings["vpu_alu"] = dict(plain_ms=plain_ms)
+    say("vpu", f"{V.VISITS} visits: all five slab counts equal the plain "
+        f"versions' and all four ALU chains bit for bit, on the reference's "
+        f"inputs and on seeded ones")
+    # floors beside the roofline bounds: the chain's latency and a launch
+    lat, hz = V.latencies(dev)
+    for kind in V.KINDS:
+        say("vpu", f"latency {kind}: " + ", ".join(
+            f"{op} {lat[kind][op]:.3f}" for op in V.OPS)
+            + " cycles a dependent op")
+    floors = {dt: V.chain_floor_ms(lat[kind], hz)
+              for dt, kind in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16"))}
+    floor_x2 = V.chain_floor_ms(lat["bf16x2"], hz)
+    empty = V.empty_ms(dev)
+    # the chain itself on one warp: 32 elements, nothing to share an SM with
+    warp = {}
+    for dt in (torch.float32, torch.bfloat16):
+        a, b = (x[:, :32].contiguous() for x in V.alu_inputs(dt, 1, dev))
+        warp[dt] = cuda_ms(lambda: V.alu(a, b), 5)
+    say("vpu", f"SM clock {hz / 1e9:.4f} GHz (probe cycles over event "
+        f"time); ALU chain floor at {V.VISITS} visits: f32 "
+        f"{floors[torch.float32]:.4f} ms, bf16 {floors[torch.bfloat16]:.4f} "
+        f"ms (bf16x2 ops {floor_x2:.4f} ms); the ALU kernel on one warp "
+        f"(32 elements): f32 {warp[torch.float32]:.4f} ms, bf16 "
+        f"{warp[torch.bfloat16]:.4f} ms; empty kernel {empty:.4f} ms")
     V.reset_launch_counts()
     ms = V.main()  # the entry point: counts set to 0 just before
     launches.update(V.LAUNCHES)
@@ -839,32 +912,23 @@ def vpu_phase(dev, timings, errs, launches):
     if min(V.LAUNCHES.values()) == 0:
         raise AssertionError("profile_vpu launched no kernel")
     for name, dt, fma_form, packed in V.SLAB_CONFIGS:
-        say("vpu", f"{name}: bound %.4f ms by %s" % vpu_bounds(
-            "slab", dt, V.ROWS * 128, V.VISITS))
+        say("vpu", f"{name}: {ms[name]:.4f} ms, bound %.4f ms by %s; "
+            f"floor: empty kernel {empty:.4f} ms" % vpu_bounds(
+                "slab", dt, V.ROWS * 128, V.VISITS))
     for name, dt, r in V.ALU_CONFIGS:
-        say("vpu", f"{name}: bound %.4f ms by %s" % vpu_bounds(
-            "alu", dt, r * 128, V.VISITS))
-    name, dt, fma_form, packed = V.SLAB_CONFIGS[0]
-    rows, planes = V.slab_inputs(dt, dev)
-    out = {}
-    plain_ms = host_ms(lambda: out.update(p=V.slab_plain(
-        rows, planes, fma_form, packed)))
-    errs["vpu_slab"] = float(abs(int(V.slab(rows, planes, fma_form, packed))
-                                 - int(out["p"])))
-    b_ms, b_by = vpu_bounds("slab", dt, V.ROWS * 128, V.VISITS)
-    timings["vpu_slab"] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by)
-    name, dt, r = V.ALU_CONFIGS[0]
-    a, b = V.alu_inputs(dt, r, dev)
-    plain_ms = host_ms(lambda: out.update(a=V.alu_plain(a, b)))
-    errs["vpu_alu"] = float((V.alu(a, b) - out["a"]).abs().max())
-    b_ms, b_by = vpu_bounds("alu", dt, r * 128, V.VISITS)
-    timings["vpu_alu"] = dict(ms=ms[name], plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by)
-    for k in ("vpu_slab", "vpu_alu"):
-        say("vpu", f"{k} at {V.VISITS} visits: kernel {timings[k]['ms']:.4f} "
-            f"ms, plain {timings[k]['plain_ms']:.2f} ms, max|kernel - "
-            f"plain| {errs[k]}")
+        say("vpu", f"{name}: {ms[name]:.4f} ms, bound %.4f ms by %s; "
+            f"floors: chain {floors[dt]:.4f} ms, empty kernel {empty:.4f} "
+            f"ms" % vpu_bounds("alu", dt, r * 128, V.VISITS))
+    for key, (name, dt, lanes) in (
+            ("vpu_slab", (V.SLAB_CONFIGS[0][0], V.SLAB_CONFIGS[0][1],
+                          V.ROWS * 128)),
+            ("vpu_alu", (V.ALU_CONFIGS[0][0], V.ALU_CONFIGS[0][1],
+                         V.ALU_CONFIGS[0][2] * 128))):
+        b_ms, b_by = vpu_bounds(key[4:], dt, lanes, V.VISITS)
+        timings[key].update(ms=ms[name], bound_ms=b_ms, bound_by=b_by)
+        say("vpu", f"{key} at {V.VISITS} visits, reference inputs: kernel "
+            f"{timings[key]['ms']:.4f} ms, plain {timings[key]['plain_ms']:.2f}"
+            f" ms, max|kernel - plain| {errs[key]}")
     if errs["vpu_slab"] or errs["vpu_alu"]:
         raise AssertionError("a VPU kernel disagrees at 2000 visits")
 

@@ -9,7 +9,10 @@ interface, loaded with ctypes. A library is built at first use into
 `build/` at the root of the checkout (listed in .gitignore) and rebuilt
 whenever its source, the shared header or the flags change: its name
 carries their hash. `build_all` starts one nvcc per source at once and
-waits for all. Nothing here runs at import time.
+waits for all; `build_against` builds another checkout's sources beside
+them, for the scripts that time two designs in one process. A library
+binds the entry points its source has, so an earlier source loads too.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -55,17 +59,22 @@ class NativeLib:
         fn.restype = _I
         return fn
 
+    def _has(self, name: str) -> bool:
+        return hasattr(self._lib, name)
+
 
 class TraverseLib(NativeLib):
     """traverse.cu's entry points (vpacket.cu's, over tiles, under the
     prefix msn_v): after the rays, the launch layout (top records, stack
-    depth) and the ray counter."""
+    depth) and the ray counter; `layout` is empty for a source whose entry
+    points take the rays alone (the one-thread-per-ray kernels)."""
 
     prefix = "msn"
-    layout = [_I, _I, _P]
 
     def __init__(self, *args):
         super().__init__(*args)
+        self.layout = ([_I, _I, _P]
+                       if self._has(f"{self.prefix}_shared_bytes") else [])
         rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I] + self.layout
         self.closest_hit = self._fn(f"{self.prefix}_closest_hit",
                                     rays + [_P, _P, _P, _P, _P])
@@ -85,28 +94,43 @@ class VPacketLib(TraverseLib):
 class TreeletLib(NativeLib):
     """treelet.cu's entry points: phase 1 (`pending`), the walk (after the
     tree: roots, boxes, K and the treelet stack bound; then the pending
-    words, nearest treelets and rays) and the walk's block size."""
+    words, nearest treelets and rays) and the walk's block size. A source
+    without phase 1 (`pending` None) has the one-thread-per-ray walk,
+    which takes the roots and K alone, and no block size."""
 
     def __init__(self, *args):
         super().__init__(*args)
-        self.pending = self._fn("msn_treelet_pending",
-                                [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P])
-        rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
-                _P, _P, _I]
+        self.pending = self.block = None
+        if self._has("msn_treelet_pending"):
+            self.pending = self._fn("msn_treelet_pending",
+                                    [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P])
+            self.block = self._fn("msn_treelet_block", [_I])
+            rays = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P,
+                    _P, _P, _P, _I]
+        else:
+            rays = [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
+                    _I]
         self.closest_hit = self._fn("msn_treelet_closest_hit",
                                     rays + [_P, _P, _P, _P, _P])
         self.any_hit = self._fn("msn_treelet_any_hit", rays + [_P, _P])
-        self.block = self._fn("msn_treelet_block", [_I])
         self.stack_capacity = int(
             self._fn("msn_treelet_stack_capacity", [])())
 
 
 class VpuLib(NativeLib):
+    """vpu.cu's entry points: the two kernels, and the latency probe and an
+    empty kernel (None in a source that has only the kernels)."""
+
     def __init__(self, *args):
         super().__init__(*args)
         self.slab = self._fn("msn_vpu_slab",
                              [_P] * 7 + [_I] * 5 + [_P, _P])
         self.alu = self._fn("msn_vpu_alu", [_P, _P, _P, _I, _I, _I, _P])
+        self.latency = self.empty = None
+        if self._has("msn_vpu_latency"):
+            self.latency = self._fn("msn_vpu_latency",
+                                    [_I, _I, _P, _P, _P, _I, _P])
+            self.empty = self._fn("msn_vpu_empty", [_P])
 
 
 class BitcastLib(NativeLib):
@@ -169,6 +193,60 @@ def build_all(names=tuple(SOURCES)) -> dict[str, NativeLib]:
             _LOADED[name] = _CLASSES[name](_target(name), seconds,
                                            logs.get(name, ""))
     return {name: _LOADED[name] for name in names}
+
+
+def _sources(csrc: pathlib.Path, name: str) -> list:
+    """The bytes of csrc/NAME.cu and of the headers beside it."""
+    return [(f.name, f.read_bytes())
+            for f in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]]
+
+
+def build_against(checkouts, names):
+    """Start nvcc on csrc/NAME.cu of each checkout DIR, for each NAME in
+    `names`, unless it and the headers beside it equal this checkout's
+    (all at once, into build/compare/); returns a function that builds
+    this checkout's own meanwhile, waits for all and loads theirs as
+    {name: {label: lib}}, a DIR's label being its directory's name."""
+    t0 = time.perf_counter()
+    started = []
+    for i, checkout in enumerate(checkouts):
+        csrc = pathlib.Path(checkout) / "moonshine_tpu_torch" / "csrc"
+        label = pathlib.Path(checkout).resolve().name
+        for name in names:
+            if _sources(csrc, name) == _sources(CSRC, name):
+                print(f"{checkout}: {name}.cu and its headers equal this "
+                      f"checkout's; not built", flush=True)
+                continue
+            src = csrc / f"{name}.cu"
+            out = BUILD_DIR / "compare" / f"libmsn_{name}_{i}.so"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            started.append((name, label, src, out, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def load() -> dict:
+        build_all(names)
+        libs = {name: {} for name in names}
+        for name, label, src, out, proc in started:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+            libs[name][label] = _CLASSES[name](out, time.perf_counter() - t0,
+                                               log)
+        return libs
+
+    return load
+
+
+def ptxas_summary(log: str) -> str:
+    """What ptxas -v said of a build's kernels, in one line: their count,
+    the fewest and most registers a thread, and the spill bytes."""
+    regs = [int(w.split()[1]) for w in re.findall(r"Used \d+ registers", log)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
+    if not regs:
+        return "no ptxas report (built earlier)"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{spills} bytes of spill stores")
 
 
 def _lib(name: str) -> NativeLib:

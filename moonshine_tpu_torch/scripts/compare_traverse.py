@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import pathlib
 import subprocess
 import sys
 import time
@@ -49,65 +48,6 @@ TREES = [("24/24", 24, 24), ("32/24", 32, 24), ("16/12", 16, 12),
 # late segments (the first segment has them all live)
 LATE_LIVE = (92, 922, 9216, 921_600)
 OFFLINE_SIZE = (720, 1280)
-
-
-class _RaysOnlyLib(native.TraverseLib):
-    """A traverse.cu whose entry points take the rays alone (the
-    one-thread-per-ray kernel's signature)."""
-
-    layout = []
-
-
-class _RaysOnlyVLib(native.VPacketLib):
-    """A vpacket.cu whose entry points take the rays alone (the
-    one-thread-per-ray V kernel's signature)."""
-
-    layout = []
-
-
-def _sources(checkout, name: str) -> list:
-    """The bytes of DIR's csrc/NAME.cu and of the headers beside it."""
-    csrc = pathlib.Path(checkout) / "moonshine_tpu_torch" / "csrc"
-    return [(f.name, f.read_bytes())
-            for f in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]]
-
-
-def build_against(checkouts):
-    """Start nvcc on each DIR's traverse.cu and vpacket.cu that differ from
-    this checkout's (as native builds this one, all at once); returns a
-    function that waits for them and loads them as {kind: {label: lib}},
-    a DIR's label being its directory's name."""
-    started = []
-    t0 = time.perf_counter()
-    for i, checkout in enumerate(checkouts):
-        label = pathlib.Path(checkout).resolve().name
-        for kind, key, cls, old in (
-                ("traverse", "msn_shared_bytes", native.TraverseLib,
-                 _RaysOnlyLib),
-                ("vpacket", "msn_v_shared_bytes", native.VPacketLib,
-                 _RaysOnlyVLib)):
-            if _sources(checkout, kind) == _sources(native._ROOT, kind):
-                continue
-            src = (pathlib.Path(checkout) / "moonshine_tpu_torch" / "csrc"
-                   / f"{kind}.cu")
-            out = native.BUILD_DIR / "compare" / f"libmsn_{kind}_{i}.so"
-            out.parent.mkdir(parents=True, exist_ok=True)
-            lib_cls = cls if key in src.read_text() else old
-            started.append((kind, label, src, out, lib_cls, subprocess.Popen(
-                [native._nvcc(), *native.NVCC_FLAGS, "-o", str(out),
-                 str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-
-    def load():
-        libs = {"traverse": {}, "vpacket": {}}
-        for kind, label, src, out, lib_cls, proc in started:
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-            libs[kind][label] = lib_cls(out, time.perf_counter() - t0, log)
-        return libs
-
-    return load
 
 
 def _room(width: int | None = None, cap: int | None = None,
@@ -418,19 +358,15 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
 
-    load = build_against(args.against)
+    against = native.build_against(args.against, ("traverse", "vpacket"))()
     this = native.build_all(("traverse", "vpacket"))
-    against = load()
     rows = {"shipped": this["traverse"], **against["traverse"]}
     tiles = {"shipped": this["vpacket"], **against["vpacket"]}
     for kind, libs in (("traverse", rows), ("vpacket", tiles)):
         for name, lib in libs.items():
-            ptxas = sorted({ln.split(":", 1)[-1].strip()
-                            for ln in lib.log.splitlines()
-                            if "registers" in ln or "spill" in ln})
             print(f"{kind} {name}: {lib.path.name}, built in "
                   f"{lib.build_seconds:.1f} s; ptxas: "
-                  f"{' | '.join(ptxas) or 'not rebuilt'}", flush=True)
+                  f"{native.ptxas_summary(lib.log)}", flush=True)
 
     bad: list[str] = []
     result = {"card": smi, "trees": trees_phase(rows, tiles, args.rounds, bad),

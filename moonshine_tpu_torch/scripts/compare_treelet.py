@@ -11,7 +11,8 @@ its plain torch version (bit for bit, both timed), the walk on the
 phase-1 sorted lanes, and the whole wrappers (phase 1, sort, walk,
 unsort). Each `--against DIR` is another checkout (an earlier commit, or
 a variant of this one, unpacked into a gitignored directory): its
-csrc/treelet.cu is built beside this one, and its walk and, where it has
+csrc/treelet.cu is built beside this one (unless it and the headers
+beside it equal this checkout's), and its walk and, where it has
 one, its phase 1 run on the same lanes, alternated with this checkout's,
 and must give the same outputs bit for bit. A treelet.cu without phase 1
 is taken to have the one-thread-per-ray walk's signature (roots and K
@@ -24,59 +25,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import pathlib
 import subprocess
 import sys
-import time
 
 from moonshine_tpu_torch.accel import native
-from moonshine_tpu_torch.accel.native import _I, _P
 
 TREELET_TREE = (8, 8)  # MSN_WIDE, MSN_LEAF_CAP
-
-
-class _RootsOnlyLib(native.NativeLib):
-    """A treelet.cu whose walk takes the roots and K alone (the
-    one-thread-per-ray, local-stack walk) and which has no phase 1."""
-
-    pending = None
-
-    def __init__(self, *args):
-        super().__init__(*args)
-        rays = [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I]
-        self.closest_hit = self._fn("msn_treelet_closest_hit",
-                                    rays + [_P, _P, _P, _P, _P])
-        self.any_hit = self._fn("msn_treelet_any_hit", rays + [_P, _P])
-        self.stack_capacity = int(
-            self._fn("msn_treelet_stack_capacity", [])())
-
-
-def build_against(checkouts):
-    """Start nvcc on each DIR's treelet.cu (as native builds this one, all
-    at once); returns a function that waits for them and loads them."""
-    started = []
-    t0 = time.perf_counter()
-    for i, checkout in enumerate(checkouts):
-        src = pathlib.Path(checkout) / "moonshine_tpu_torch" / "csrc" / \
-            "treelet.cu"
-        out = native.BUILD_DIR / "compare" / f"libmsn_treelet_against{i}.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        started.append((checkout, src, out, subprocess.Popen(
-            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(out), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-
-    def load():
-        libs = {}
-        for checkout, src, out, proc in started:
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-            cls = (native.TreeletLib if "msn_treelet_pending" in
-                   src.read_text() else _RootsOnlyLib)
-            libs[checkout] = cls(out, time.perf_counter() - t0, log)
-        return libs
-
-    return load
 
 
 def _walk_launcher(lib, wb, srt, any_hit):
@@ -85,7 +39,7 @@ def _walk_launcher(lib, wb, srt, any_hit):
 
     from moonshine_tpu_torch.accel import packet, treelet
 
-    if not isinstance(lib, _RootsOnlyLib):
+    if lib.pending is not None:
         return lambda: treelet._dispatch_kernel(wb, *srt, any_hit, lib=lib)
     o, d, t, pend, first = srt
     n, dev = o.shape[0], o.device
@@ -201,14 +155,12 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
-    load = build_against(args.against)
-    libs = {"this": native.build_all(("treelet",))["treelet"], **load()}
+    against = native.build_against(args.against, ("treelet",))()
+    libs = {"this": native.build_all(("treelet",))["treelet"],
+            **against["treelet"]}
     for name, lib in libs.items():
-        ptxas = sorted({ln.split(":", 1)[-1].strip()
-                        for ln in lib.log.splitlines()
-                        if "registers" in ln or "spill" in ln})
         print(f"{name}: {lib.path.name}, built in {lib.build_seconds:.1f} s; "
-              f"ptxas: {' | '.join(ptxas) or 'not rebuilt'}", flush=True)
+              f"ptxas: {native.ptxas_summary(lib.log)}", flush=True)
     bad: list[str] = []
     result = {"card": smi, "ms": compare(libs, args.rounds, bad),
               "mismatch": bad}

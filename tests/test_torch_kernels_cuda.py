@@ -20,7 +20,7 @@ import torch
 
 from moonshine_tpu_torch.accel import native, packet, treelet, vpacket
 from moonshine_tpu_torch.accel.wide import build_wide
-from moonshine_tpu_torch.scripts import probe_bitcast, profile_vpu
+from moonshine_tpu_torch.scripts import cuda_ms, probe_bitcast, profile_vpu
 
 from test_torch_group_walk import CAPS, WIDTHS, tie_scene
 
@@ -393,20 +393,79 @@ def test_v_launch_counters(cuda):
 @pytest.mark.parametrize("seed", [None, 1])
 def test_vpu_kernels_match_plain(cuda, seed):
     """Every configuration of the reference's main(), on its inputs and on
-    seeded ones where lanes hit: equal slab counts, bit-equal ALU
-    outputs; each wrapper counts its launches."""
+    seeded ones where lanes hit, at visit counts either side of a chunk's
+    edge and of the v % 128 wrap (1, 20, 127, 129, 2000): equal slab
+    counts, bit-equal ALU outputs; each wrapper counts its launches, and
+    a launch of another build of vpu.cu (`lib=`) is not counted."""
+    visit_counts = (1, 20, 127, 129, 2000)
     profile_vpu.reset_launch_counts()
+    for visits in visit_counts:
+        for _, dt, fma_form, packed in profile_vpu.SLAB_CONFIGS:
+            rows, planes = profile_vpu.slab_inputs(dt, cuda, seed=seed)
+            got = profile_vpu.slab(rows, planes, fma_form, packed, visits)
+            want = profile_vpu.slab_plain(rows, planes, fma_form, packed,
+                                          visits)
+            assert got.dtype == torch.int32 and int(got) == int(want)
+            if visits >= 20:
+                assert (int(got) > 0) == (seed is not None)
+        for _, dt, r in profile_vpu.ALU_CONFIGS:
+            a, b = profile_vpu.alu_inputs(dt, r, cuda, seed=seed)
+            assert torch.equal(profile_vpu.alu(a, b, visits),
+                               profile_vpu.alu_plain(a, b, visits))
+    n = len(visit_counts)
+    assert profile_vpu.LAUNCHES == {"vpu_slab": 5 * n, "vpu_alu": 4 * n}
+    a, b = profile_vpu.alu_inputs(torch.float32, device=cuda, seed=seed)
+    profile_vpu.alu(a, b, 3, lib=native.vpu_lib())
+    assert profile_vpu.LAUNCHES["vpu_alu"] == 4 * n
+
+
+def test_vpu_slab_odd_lanes_and_offsets(cuda):
+    """Lane counts that leave a tile, a bf16x2 pair or a warp part-filled,
+    and planes that start on an odd element: counts equal the plain
+    version's."""
+    for dt in (torch.float32, torch.bfloat16):
+        rows, planes = profile_vpu.slab_inputs(dt, cuda, seed=2)
+        for n in (1, 33, 511, 513, 1025, 8191):
+            part = [p.reshape(-1)[1:n + 1] for p in planes]
+            for fma_form, packed in ((False, False), (True, False),
+                                     (False, True)):
+                got = profile_vpu.slab(rows, part, fma_form, packed, 129)
+                want = profile_vpu.slab_plain(rows, part, fma_form, packed,
+                                              129)
+                assert int(got) == int(want), (dt, n, fma_form, packed)
+
+
+def test_vpu_slab_many_lanes(cuda):
+    """532,480 lanes (65 x 8192, seeded, all distinct): one block a lane
+    tile fills the card, so chunks hold as many visits as a block may
+    walk (256) and no fewer than the visits need; counts equal the plain
+    version's at 1, 256, 257 and 2000 visits."""
+    rs = np.random.RandomState(3)
+    n = 65 * profile_vpu.ROWS * 128
+    o = rs.uniform(-2.0, 2.0, (3, n))
+    d = rs.uniform(0.05, 1.0, (3, n)) * rs.choice([-1, 1], (3, n))
+    rows = profile_vpu.slab_inputs(torch.float32, cuda, seed=1)[0]
     for _, dt, fma_form, packed in profile_vpu.SLAB_CONFIGS:
-        rows, planes = profile_vpu.slab_inputs(dt, cuda, seed=seed)
-        got = profile_vpu.slab(rows, planes, fma_form, packed, 20)
-        want = profile_vpu.slab_plain(rows, planes, fma_form, packed, 20)
-        assert got.dtype == torch.int32 and int(got) == int(want)
-        assert (int(got) > 0) == (seed is not None)
-    for _, dt, r in profile_vpu.ALU_CONFIGS:
-        a, b = profile_vpu.alu_inputs(dt, r, cuda, seed=seed)
-        assert torch.equal(profile_vpu.alu(a, b, 20),
-                           profile_vpu.alu_plain(a, b, 20))
-    assert profile_vpu.LAUNCHES == {"vpu_slab": 5, "vpu_alu": 4}
+        planes = [torch.from_numpy(x.astype(np.float32)).to(cuda, dt)
+                  for x in (*o, *(1.0 / d))]
+        for visits in (1, 256, 257, 2000):
+            got = profile_vpu.slab(rows, planes, fma_form, packed, visits)
+            want = profile_vpu.slab_plain(rows, planes, fma_form, packed,
+                                          visits)
+            assert int(got) == int(want) > 0, (dt, fma_form, packed, visits)
+
+
+def test_vpu_probes(cuda):
+    """The latency probe's cycles are positive and give a clock within the
+    H100's range; the chain floor lies under the ALU kernel's time; an
+    empty kernel takes under 0.05 ms."""
+    lat, hz = profile_vpu.latencies(cuda, iters=1 << 16)
+    assert 0.5e9 < hz < 2.5e9
+    assert all(0 < c < 100 for ops in lat.values() for c in ops.values())
+    floor = profile_vpu.chain_floor_ms(lat["f32"], hz)
+    a, b = profile_vpu.alu_inputs(torch.float32, device=cuda)
+    assert floor < cuda_ms(lambda: profile_vpu.alu(a, b), 3)
+    assert 0 < profile_vpu.empty_ms(cuda, 10) < 0.05
 
 
 def test_bitcast_kernel_matches_plain(cuda):

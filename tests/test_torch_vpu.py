@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from moonshine_tpu_torch.accel import native
 from moonshine_tpu_torch.scripts import profile_vpu as PV
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
@@ -120,6 +121,70 @@ def test_slab_counts_hits(fma_form, packed):
     rows, planes = PV.slab_inputs(torch.bfloat16, "cpu", seed=1)
     got_bf16 = int(PV.slab(rows, planes, fma_form, packed, VISITS))
     assert abs(got_bf16 - got) <= 0.05 * got
+
+
+@pytest.mark.parametrize("fma_form,packed", [(False, False), (True, False),
+                                             (False, True)])
+def test_slab_plain_past_the_wrap(fma_form, packed):
+    """Past row 127 the visits wrap to row 0 (130 visits: rows 0-127, then
+    0 and 1 again): the plain version's float32 count equals a direct
+    numpy count, and exceeds its count at 128 visits by what visits 0-1
+    count."""
+    rows, planes = PV.slab_inputs(torch.float32, "cpu", seed=PV.SEED)
+    got = int(PV.slab_plain(rows, planes, fma_form, packed, 130))
+    assert got == _numpy_slab(rows, planes, fma_form, packed, 130)
+    assert got == (int(PV.slab_plain(rows, planes, fma_form, packed, 128))
+                   + int(PV.slab_plain(rows, planes, fma_form, packed, 2)))
+
+
+def test_chain_floor_counts_the_critical_path():
+    """Ten dependent operations an iteration: at 4 cycles each and 1 GHz,
+    2000 iterations take 0.08 ms; the slower of mul and add sets the two
+    steps that take both in parallel."""
+    lat = dict(mul=4.0, add=4.0, min=4.0, max=4.0)
+    assert PV.chain_floor_ms(lat, 1e9) == pytest.approx(0.08)
+    lat = dict(mul=6.0, add=4.0, min=2.0, max=3.0)
+    per_iter = 2 * 6 + 2 * 4 + 2 * 6 + 2 * 2 + 2 * 3
+    assert PV.chain_floor_ms(lat, 2e9, 10) == pytest.approx(
+        10 * per_iter / 2e9 * 1e3)
+
+
+def test_ptxas_summary():
+    """The --against scripts' build report: kernels, registers and spills
+    from ptxas -v's lines; a library loaded from an earlier build has
+    none."""
+    log = ("ptxas info    : Function properties for _Z4slab\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           "loads\nptxas info    : Used 40 registers, used 1 barriers\n"
+           "ptxas info    : Function properties for _Z3alu\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 128 registers\n")
+    assert native.ptxas_summary(log) == ("2 kernels, 40-128 registers, 8 "
+                                         "bytes of spill stores")
+    assert native.ptxas_summary("") == "no ptxas report (built earlier)"
+
+
+def test_against_builds_nothing_for_an_identical_checkout(capsys):
+    """A checkout whose sources and headers equal this one's starts no
+    nvcc (none is needed to ask), and says so for each source."""
+    root = pathlib.Path(native.__file__).resolve().parents[2]
+    native.build_against([root], ("vpu", "treelet"))
+    said = capsys.readouterr().out
+    assert "vpu.cu and its headers equal" in said
+    assert "treelet.cu and its headers equal" in said
+
+
+def test_probes_and_entry_point_need_the_card():
+    """The probes run on a CUDA device only; profile_vpu's entry point
+    raises without one (with or without --against)."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        PV.latency("f32", "mul", device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        PV.empty_ms("cpu")
+    if not torch.cuda.is_available():
+        for argv in ([], ["--against", "elsewhere"]):
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                PV.main(argv)
 
 
 def test_wrappers_reject_bad_input():
