@@ -82,6 +82,31 @@ script exits non-zero without the result line. Phases:
                   glTF build against the source World's, then the CLI at
                   its defaults (1280x720, max_bounces 1024) with --spp 4,
                   launches counted, against an in-process render
+  jpeg            the committed JPEG fixtures (tests/torch_fixtures/)
+                  against their PIL goldens bit for bit; a seeded
+                  2048x2048 texture's decode timed on this host
+                  (scripts/time_jpeg.py); the Cornell glb with a JPEG
+                  texture through the CLI against an in-process render
+  engine          room_184k entered through the Engine's handles, 1280x720
+                  at the Engine's defaults (max_bounces 1024, NEE off, no
+                  flip): 4 frames of 1 spp (ms/frame, Mrays/s), their
+                  packet-kernel launches held against the plain versions;
+                  set_transform's refit against a full build, the packet
+                  kernels bit for bit on the refit rows and closest-hit t
+                  against the full build's; a material-only rebuild; how
+                  long render(wait=False) blocks; a pick from a second
+                  thread during a frame; a checkpoint round trip
+  direct          trace_direct on room_184k's 1920x1080 camera rays (one env
+                  and one mesh-light sample), timed, its launches held
+                  against the plain versions
+  sharded         render_sharded on cuda:0 x4 (sp=2, dp=2) and on
+                  mesh_from_spec("auto") against the one-device render
+                  (512x512 x 2 spp, within 2e-6 x max(1, |pixel|)), launches
+                  held against the plain versions; the Cornell CLI with
+                  --mesh auto against tests/goldens/cornell.exr
+  viewer          run_web on a free local port: GET /frame.png decodes to
+                  tonemap of the sensor; a material edit and a key reset
+                  the sample count
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -136,6 +161,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                 "scripts/probe_bitcast.py:63"),
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
+ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
+SHARDED_HWS = (512, 512, 2)  # the sharded phase's frame and spp
 TREELET_ENV = {"MSN_WIDE": "8", "MSN_LEAF_CAP": "8"}
 
 
@@ -1098,6 +1125,40 @@ def glb_builder():
     return glb_builder
 
 
+def repack_glb(doc: dict, binary: bytes) -> bytes:
+    """A .glb of a glTF document and its binary chunk (the buffer's
+    length set, both chunks padded to 4 bytes)."""
+    import struct
+
+    binary = binary + b"\x00" * (-len(binary) % 4)
+    doc["buffers"] = [{"byteLength": len(binary)}]
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    total = 12 + 8 + len(js) + 8 + len(binary)
+    return (struct.pack("<4sII", b"glTF", 2, total)
+            + struct.pack("<I4s", len(js), b"JSON") + js
+            + struct.pack("<I4s", len(binary), b"BIN\x00") + binary)
+
+
+def cornell_jpeg_glb(jpeg: bytes) -> bytes:
+    """tests/glb_builder.py's Cornell glb with `jpeg` embedded as image 0
+    and made the white walls' base-colour texture (the walls have no
+    texcoords, so each triangle reads the default corner uvs)."""
+    from moonshine_tpu_torch.scene.gltf import Glb
+
+    g = Glb.parse(glb_builder().cornell_box_glb())
+    doc, binary = json.loads(json.dumps(g.json)), bytes(g.binary)
+    binary += b"\x00" * (-len(binary) % 4)
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(binary),
+                               "byteLength": len(jpeg)})
+    doc["images"] = [{"bufferView": len(doc["bufferViews"]) - 1,
+                      "mimeType": "image/jpeg"}]
+    doc["textures"] = [{"source": 0}]
+    doc["materials"][0]["pbrMetallicRoughness"]["baseColorTexture"] = {
+        "index": 0}
+    return repack_glb(doc, binary + jpeg)
+
+
 def room_glb(world, lens) -> bytes:
     """A .glb of a procedural World with constant materials, one geometry
     per instance: one glTF mesh per (mesh, material) pair, node matrices
@@ -1287,6 +1348,488 @@ def offline_phase(dev):
                            mesh_samples_per_bounce=opts.mesh_samples))
     same_image("room CLI vs in-process render of the source World",
                "offline", got, sensor.image.cpu().numpy())
+
+
+# --- the progressive-engine slice: jpeg, engine, direct, sharded, viewer ---
+
+# the Cornell golden's settings (tests/goldens/cornell.exr)
+CORNELL_OPTS = ["--width", "96", "--height", "96", "--spp", "8",
+                "--max-bounces", "4", "--env-samples", "0",
+                "--mesh-samples", "1"]
+
+
+def cli(tag, name, argv):
+    """The offline CLI's main on `argv` in this process (the offline
+    phase runs it as `python -m` once), its phase lines printed."""
+    from moonshine_tpu_torch.render import offline
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = offline.main(argv)
+    for ln in buf.getvalue().strip().splitlines():
+        say(tag, f"{name} CLI: {ln}")
+    say(tag, f"{name} CLI: exit {rc} in {time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"the CLI failed on {name}")
+
+@contextlib.contextmanager
+def recording(max_lanes=16384):
+    """Every packet-kernel launch inside the block, recorded: (kind,
+    tree, then the rays, t_max, active mask and the kernel's output, each
+    on an evenly spaced subsample of at most `max_lanes` lanes). Each
+    lane's result depends on that lane only, so `hold_recorded` can hold
+    the subsample against the plain version; the plain calls count no
+    launch. Recording copies at every launch, so the timed runs are made
+    outside it and a further run is recorded."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet
+
+    rec = []
+    real = {"closest_hit": packet.closest_hit_packet,
+            "any_hit": packet.any_hit_packet}
+
+    def wrap(kind):
+        def launch(wbvh, o, d, t_max, active_in=None):
+            out = real[kind](wbvh, o, d, t_max, active_in)
+            n = o.shape[0]
+            idx = torch.arange(0, n, max(1, -(-n // max_lanes)),
+                               device=o.device)
+            sub = lambda x: (x if x is None or not torch.is_tensor(x)
+                             or x.ndim == 0 else x[idx].clone())
+            rec.append((kind, wbvh, sub(o), sub(d), sub(t_max),
+                        sub(active_in),
+                        tuple(sub(x) for x in out) if kind == "closest_hit"
+                        else sub(out)))
+            return out
+        return launch
+
+    packet.closest_hit_packet = wrap("closest_hit")
+    packet.any_hit_packet = wrap("any_hit")
+    try:
+        yield rec
+    finally:
+        packet.closest_hit_packet = real["closest_hit"]
+        packet.any_hit_packet = real["any_hit"]
+
+
+def hold_recorded(tag, rec, per_kind=4):
+    """Up to `per_kind` recorded launches of each kind, evenly spaced over
+    the run (the first and the last included), against the plain
+    versions bit for bit; returns {kind: launches recorded}."""
+    from moonshine_tpu_torch.accel import packet
+
+    plain = {"closest_hit": packet.closest_hit_plain,
+             "any_hit": packet.any_hit_plain}
+    seen = {}
+    for kind in plain:
+        runs = [r for r in rec if r[0] == kind]
+        seen[kind] = len(runs)
+        pick = sorted({round(i * (len(runs) - 1) / max(per_kind - 1, 1))
+                       for i in range(per_kind)}) if runs else []
+        lanes = 0
+        for i in pick:
+            _, w, o, d, t, act, out = runs[i]
+            want = plain[kind](w, o, d, t, active_in=act)
+            assert_same(f"{tag} {kind} launch {i}",
+                        out if kind == "any_hit" else packet.Hit(*out),
+                        want)
+            lanes += o.shape[0]
+        say(tag, f"{kind}: {len(runs)} launches recorded, {len(pick)} held "
+            f"against the plain version bit for bit on {lanes} lanes")
+    return seen
+
+
+def engine_from_world(world, dev):
+    """An Engine holding `world` entered through its handles: a mesh per
+    mesh, a StandardPBR material per material from solid or raw
+    textures (Lambert as metalness 0, roughness 1; a mirror as
+    metalness 1, roughness 0; glass as a white dielectric with its ior:
+    the Engine, like hydra, exposes StandardPBR only), an instance per
+    instance, a white background."""
+    from moonshine_tpu_torch.engine import Engine
+    from moonshine_tpu_torch.scene.types import Glass, Lambert, Mirror
+
+    e = Engine(device=dev)
+    tex = lambda v: (e.create_raw_texture(v)
+                     if isinstance(v, np.ndarray) and v.ndim == 3
+                     else e.create_solid_texture(v))
+    for m in world.meshes:
+        e.create_mesh(m.positions, m.indices, m.normals, m.texcoords,
+                      m.indexed_attributes)
+    for info in world.materials:
+        v = info.variant
+        if isinstance(v, Lambert):
+            c, metal, rough, ior = v.color, 0.0, 1.0, 1.5
+        elif isinstance(v, Mirror):
+            c, metal, rough, ior = (1.0, 1.0, 1.0), 1.0, 0.0, 1.5
+        elif isinstance(v, Glass):
+            c, metal, rough, ior = (1.0, 1.0, 1.0), 0.0, 0.0, v.ior
+        else:
+            c, metal, rough, ior = v.color, v.metalness, v.roughness, v.ior
+        e.create_material(color=tex(c), metalness=tex(metal),
+                          roughness=tex(rough), emissive=tex(info.emissive),
+                          ior=ior)
+    for inst in world.instances:
+        e.create_instance(inst.transform,
+                          [(g.mesh, g.material, g.sampled)
+                           for g in inst.geometries], inst.visible)
+    e.set_background(None)
+    return e
+
+
+def jpeg_phase(dev):
+    """The committed JPEG fixtures against their PIL goldens, the decode
+    of a 2048x2048 texture timed on this host, and the Cornell glb with a
+    JPEG texture through the CLI against an in-process render."""
+    import torch
+
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.io.exr import read_exr, write_exr
+    from moonshine_tpu_torch.io.jpeg import decode_jpeg
+    from moonshine_tpu_torch.render.renderer import render
+    from moonshine_tpu_torch.scene.gltf import lens_from_glb, world_from_glb
+    from moonshine_tpu_torch.scripts import time_jpeg
+
+    fixtures = ROOT / "tests" / "torch_fixtures"
+    for name in ("baseline_420", "progressive_422", "grey_restart"):
+        data = (fixtures / f"{name}.jpg").read_bytes()
+        gold = np.load(fixtures / f"{name}.npy")
+        t0 = time.perf_counter()
+        got = decode_jpeg(data, name)
+        dt = time.perf_counter() - t0
+        same = got.shape == gold.shape and np.array_equal(got, gold)
+        say("jpeg", f"{name}.jpg ({len(data)} B, {gold.shape[1]}x"
+            f"{gold.shape[0]}): equal to its PIL golden {same}, decode "
+            f"{dt * 1e3:.2f} ms (host)")
+        if not same:
+            raise AssertionError(f"{name}.jpg decodes differently from PIL")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t = time_jpeg.main(["--reps", "1"])
+    say("jpeg", f"2048x2048 texture decode on this host (not device time): "
+        f"{buf.getvalue().strip()}")
+    WORK.mkdir(parents=True, exist_ok=True)
+    glb = cornell_jpeg_glb((fixtures / "baseline_420.jpg").read_bytes())
+    (WORK / "cornell_jpeg.glb").write_bytes(glb)
+    write_exr(WORK / "zero_sky.exr", np.zeros((4, 8, 3), np.float32))
+    cli("jpeg", "cornell_jpeg", [
+        str(WORK / "cornell_jpeg.glb"), str(WORK / "zero_sky.exr"),
+        str(WORK / "cornell_jpeg.exr"), *CORNELL_OPTS])
+    world = world_from_glb(glb)
+    world.set_background(np.zeros((4, 8, 3), np.float32))
+    sensor, _ = render(world.build(dev), lens_from_glb(glb), 96, 96, spp=8,
+                       cfg=PathConfig(max_bounces=4, env_samples_per_bounce=0,
+                                      mesh_samples_per_bounce=1))
+    got = read_exr(WORK / "cornell_jpeg.exr")[..., :3]
+    same_image("cornell_jpeg CLI vs in-process render", "jpeg", got,
+               sensor.image.cpu().numpy())
+    plain = read_exr(ROOT / "tests" / "goldens" / "cornell.exr")[..., :3]
+    rel = abs(got.mean() / plain.mean() - 1.0)
+    say("jpeg", f"textured walls move the image mean by {rel:.4f} relative "
+        f"against the untextured golden")
+    if rel < 0.01:
+        raise AssertionError("the JPEG texture did not reach the render")
+    return t
+
+
+def engine_phase(room_world, room_lens, dev, launches_out):
+    """room_184k through the Engine's handles at 1280x720 with its default
+    config: frames, a refit, a material edit, a pick during a frame, a
+    checkpoint; the packet kernels against their plain versions on the
+    refit rows and on the frames' launches."""
+    import threading
+
+    import torch
+
+    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.scene.types import translate
+    from moonshine_tpu_torch.scene.world import scene_from_arrays
+
+    h, w = ENGINE_HW
+    e = engine_from_world(room_world, dev)
+    cfg = e.config
+    sensor = e.create_sensor(w, h)
+    lens = e.create_lens(room_lens)
+    t0 = time.perf_counter()
+    scene = e._ensure_scene()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    say("engine", f"room_184k through the Engine's handles: "
+        f"{len(room_world.meshes)} meshes, {len(room_world.materials)} "
+        f"materials, {len(room_world.instances)} instances, "
+        f"{scene.num_tris} triangles; full build {full_s:.3f} s; config "
+        f"max_bounces {cfg.max_bounces}, NEE env {cfg.env_samples_per_bounce}"
+        f" mesh {cfg.mesh_samples_per_bounce}")
+    e.render(sensor, lens)  # warm-up frame
+    e.reset_sensor(sensor)
+    packet.reset_launch_counts()
+    for i in range(4):
+        img = e.render(sensor, lens)
+        m = e.metrics
+        say("engine", f"frame {i}: {m['last_frame_seconds'] * 1e3:.2f} "
+            f"ms/frame, {m['last_mrays_per_sec']:.3f} Mrays/s "
+            f"({w}x{h}, 1 spp)")
+    counts = dict(packet.LAUNCHES)
+    say("engine", f"4 frames: launches {counts}, samples "
+        f"{e.sample_count(sensor)}, image mean {img[..., :3].mean():.6f}")
+    if (counts["closest_hit"] == 0 or e.sample_count(sensor) != 4
+            or not np.isfinite(img).all()):
+        raise AssertionError("the Engine's frames failed")
+    launches_out["engine"] = counts
+    with recording() as rec:  # a fifth frame, for the plain versions
+        e.render(sensor, lens)
+    hold_recorded("engine", rec)
+
+    # a transform edit (the last instance, an object on the floor): a
+    # host refit
+    moved = len(room_world.instances) - 1
+    e.set_instance_transform(moved, translate(0.6, -0.4, 0.3))
+    t0 = time.perf_counter()
+    refit = e._ensure_scene()
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    if refit.bvh.tri_order is not scene.bvh.tri_order:
+        raise AssertionError("the transform edit did not refit")
+    t0 = time.perf_counter()
+    full = scene_from_arrays(*e.world.build_arrays(), refit.device)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    say("engine", f"set_transform: refit {refit_s * 1e3:.2f} ms against a "
+        f"full build of the edited world {rebuild_s:.3f} s (first build "
+        f"{full_s:.3f} s)")
+    o, d, active, t_fin = test_batch(refit, LensArrays.from_lens(room_lens,
+                                                                  dev))
+    wb = refit.wide
+    hk = packet.closest_hit_packet(wb, o, d, INF_T, active_in=active)
+    assert_same("engine refit closest_hit", hk, packet.closest_hit_plain(
+        wb, o, d, INF_T, active_in=active))
+    assert_same("engine refit any_hit",
+                packet.any_hit_packet(wb, o, d, t_fin, active_in=active),
+                packet.any_hit_plain(wb, o, d, t_fin, active_in=active))
+    hf = packet.closest_hit_packet(full.wide, o, d, INF_T, active_in=active)
+    both = (hk.tri >= 0) & (hf.tri >= 0)
+    rel = float(((hk.t - hf.t).abs() / hf.t.abs().clamp_min(1e-30))[
+        both].max())
+    flips = int(((hk.tri >= 0) != (hf.tri >= 0)).sum())
+    say("engine", f"refit rows ({o.shape[0]} rays): packet kernels equal "
+        f"the plain versions bit for bit; closest-hit t against the full "
+        f"build's: max rel {rel:.3g}, is_hit flips {flips}")
+    if rel > 1e-5 or flips > 1e-5 * o.shape[0]:
+        raise AssertionError("the refit scene disagrees with a full build")
+
+    # a material edit: the material table only
+    grey = e.create_solid_texture([0.3, 0.3, 0.3])
+    e.set_material_color(0, grey)
+    t0 = time.perf_counter()
+    mat_scene = e._ensure_scene()
+    torch.cuda.synchronize()
+    say("engine", f"set_material_color: material-only rebuild "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    if mat_scene.wide is not refit.wide:
+        raise AssertionError("the material edit rebuilt the tree")
+
+    # wait=False: how long the call blocks against when its frame is done
+    e.reset_sensor(sensor)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.render(sensor, lens, wait=False)
+    call_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    drained = time.perf_counter() - t0
+    say("engine", f"render(wait=False) returned after {call_s * 1e3:.2f} ms, "
+        f"its frame done on the device at {drained * 1e3:.2f} ms: the "
+        f"looped bounce loop reads whether a lane lives once a segment")
+
+    # a pick from a second thread during a frame
+    started, done = threading.Event(), threading.Event()
+
+    def frame():
+        started.set()
+        e.render(sensor, lens)
+        done.set()
+
+    th = threading.Thread(target=frame)
+    th.start()
+    if not started.wait(timeout=60):
+        raise AssertionError("the frame's thread did not start")
+    time.sleep(0.05)
+    t0 = time.perf_counter()
+    hit = e.pick(lens, w, h, w // 2, 5 * h // 6)  # the floor
+    pick_ms = (time.perf_counter() - t0) * 1e3
+    during = not done.is_set()
+    th.join(timeout=600)
+    if th.is_alive():
+        raise AssertionError("the frame did not end")
+    t0 = time.perf_counter()
+    idle = e.pick(lens, w, h, w // 2, 5 * h // 6)
+    idle_ms = (time.perf_counter() - t0) * 1e3
+    say("engine", f"pick during a frame: {pick_ms:.2f} ms, returned before "
+        f"the frame ended {during}, hit instance {hit.instance} geometry "
+        f"{hit.geometry} primitive {hit.primitive}; the frame took "
+        f"{e.metrics['last_frame_seconds'] * 1e3:.2f} ms; the same pick "
+        f"with no frame running {idle_ms:.2f} ms")
+    if not hit.hit or not during or idle != hit:
+        raise AssertionError("the pick waited for the frame or missed")
+
+    path = WORK / "engine_ckpt.npz"
+    e.save_checkpoint(path, sensor)
+    s2 = e.create_sensor(w, h)
+    e.load_checkpoint(path, s2)
+    same = (e.sample_count(s2) == e.sample_count(sensor) and np.array_equal(
+        e.get_sensor_data(s2), e.get_sensor_data(sensor)))
+    say("engine", f"checkpoint round trip ({path.stat().st_size} B): equal "
+        f"{same}, samples {e.sample_count(s2)}")
+    if not same:
+        raise AssertionError("checkpoint round trip differs")
+
+
+def direct_phase(scene, lens, launches_out):
+    """trace_direct on room_184k's 1080p camera rays (one env and one
+    mesh-light sample), timed, its launches held against the plain
+    versions."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator.direct import DirectConfig, \
+        trace_direct
+    from moonshine_tpu_torch.render.renderer import _sample_rays
+
+    h, w = HD
+    o, d, rng, unpack = _sample_rays(lens, h, w, 0, True, scene.device)
+    cfg = DirectConfig()
+    trace_direct(scene, o, d, rng, cfg)  # warm-up
+    torch.cuda.synchronize()
+    packet.reset_launch_counts()
+    t0 = time.perf_counter()
+    rad, _, rays = trace_direct(scene, o, d, rng, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(packet.LAUNCHES)
+    rays = int(rays)
+    img = unpack(rad).cpu().numpy()
+    say("direct", f"{w}x{h}: {dt * 1e3:.2f} ms, {rays} rays = "
+        f"{rays / dt / 1e6:.3f} Mrays/s, launches {counts}, image mean "
+        f"{img.mean():.6f}")
+    if (counts["closest_hit"] != 1 or counts["any_hit"] != 2
+            or not np.isfinite(img).all()):
+        raise AssertionError("trace_direct failed")
+    launches_out["direct"] = counts
+    with recording() as rec:  # the same call again, for the plain versions
+        trace_direct(scene, o, d, rng, cfg)
+    hold_recorded("direct", rec)
+
+
+def sharded_phase(scene, lens, dev, launches_out):
+    """render_sharded on cuda:0 x4 (sp=2, dp=2) and on mesh_from_spec
+    ("auto") against the single-device render; the CLI with --mesh
+    auto."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.io.exr import read_exr, write_exr
+    from moonshine_tpu_torch.parallel import (
+        make_mesh, mesh_from_spec, render_sharded,
+    )
+    from moonshine_tpu_torch.render.renderer import render
+
+    cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
+                     mesh_samples_per_bounce=1)
+    h, w, spp = SHARDED_HWS
+    t0 = time.perf_counter()
+    sensor, rays_one = render(scene, lens, h, w, spp, cfg)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    ref = sensor.image
+    for name, mesh in (("cuda:0 x4 (sp=2, dp=2)",
+                        make_mesh([dev] * 4, sp=2)),
+                       ("mesh_from_spec('auto')", mesh_from_spec("auto"))):
+        packet.reset_launch_counts()
+        t0 = time.perf_counter()
+        img, rays = render_sharded(scene, lens, h, w, spp, cfg, mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(packet.LAUNCHES)
+        err = float(((img - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        say("sharded", f"{name}: {mesh.shape}, {w}x{h} x {spp} spp in "
+            f"{dt:.4f} s (single device {one_s:.4f} s), rays {int(rays)} vs "
+            f"{rays_one}, max |diff| / max(1, |pixel|) {err:.3g}, launches "
+            f"{counts}")
+        if (err > 2e-6 or int(rays) != rays_one or counts["closest_hit"] == 0
+                or counts["any_hit"] == 0):
+            raise AssertionError(f"{name}: the sharded render disagrees")
+        launches_out[f"sharded {name}"] = counts
+        with recording() as rec:  # again, for the plain versions
+            render_sharded(scene, lens, h, w, spp, cfg, mesh)
+        hold_recorded("sharded", rec, per_kind=2)
+    WORK.mkdir(parents=True, exist_ok=True)
+    (WORK / "cornell.glb").write_bytes(glb_builder().cornell_box_glb())
+    write_exr(WORK / "zero_sky.exr", np.zeros((4, 8, 3), np.float32))
+    cli("sharded", "cornell --mesh auto", [
+        str(WORK / "cornell.glb"), str(WORK / "zero_sky.exr"),
+        str(WORK / "cornell_mesh.exr"), *CORNELL_OPTS, "--mesh", "auto"])
+    gold = read_exr(ROOT / "tests" / "goldens" / "cornell.exr")[..., :3]
+    same_image("cornell CLI --mesh auto vs tests/goldens/cornell.exr",
+               "sharded", read_exr(WORK / "cornell_mesh.exr")[..., :3], gold)
+
+
+def viewer_phase(world, lens, dev):
+    """run_web on a free local port: a frame over HTTP equals tonemap of
+    the sensor; a material edit and a key reset the sample count."""
+    import threading
+    import urllib.request
+
+    from moonshine_tpu_torch.io.png import decode_png
+    from moonshine_tpu_torch.render.viewer import Viewer, tonemap
+
+    v = Viewer(engine_from_world(world, dev), lens, 256, 256)
+    th = threading.Thread(target=lambda: v.run_web(
+        port=0, background_render=False), daemon=True)
+    th.start()
+    try:
+        deadline = time.time() + 30
+        while v.port is None and time.time() < deadline:
+            time.sleep(0.05)
+        base = f"http://127.0.0.1:{v.port}"
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, method="POST",
+                                         data=json.dumps(body).encode())
+            return urllib.request.urlopen(req, timeout=60).read()
+
+        for _ in range(2):
+            v.step()
+        t0 = time.perf_counter()
+        png = urllib.request.urlopen(base + "/frame.png", timeout=60).read()
+        get_ms = (time.perf_counter() - t0) * 1e3
+        rgba = decode_png(png)
+        want = tonemap(v.engine.get_sensor_data(v.sensor))
+        same = np.array_equal(rgba[..., :3], want)
+        status = json.loads(urllib.request.urlopen(base + "/status",
+                                                   timeout=60).read())
+        say("viewer", f"port {v.port}: GET /frame.png {len(png)} B in "
+            f"{get_ms:.2f} ms, equal to tonemap of the sensor {same}; status "
+            f"samples {status['samples']}, last frame "
+            f"{status['last_frame_seconds'] * 1e3:.2f} ms")
+        info = json.loads(post("/pick", {"u": 0.5, "v": 0.5}))
+        post("/edit/material", {"color": [0.9, 0.2, 0.1], "roughness": 0.5})
+        after_edit = v.engine.sample_count(v.sensor)
+        v.step()
+        post("/key/w", {})
+        after_key = v.engine.sample_count(v.sensor)
+        say("viewer", f"pick {info}; samples after the material edit "
+            f"{after_edit}, after a step and the key 'w' {after_key}")
+        if (not same or status["samples"] != 2 or not info.get("hit")
+                or after_edit != 0 or after_key != 0):
+            raise AssertionError("the viewer's round trip failed")
+    finally:
+        v.stop()
+        th.join(timeout=30)
+    if th.is_alive():
+        raise AssertionError("the viewer's server did not stop")
 
 
 def main():
@@ -1503,6 +2046,26 @@ def main():
 
     with phase("offline"):
         offline_phase(dev)
+
+    # the progressive-engine slice: each path's counts set to 0 just
+    # before it and read just after
+    slice_launches = {}
+    with phase("jpeg"):
+        jpeg_phase(dev)
+
+    with phase("engine"):
+        engine_phase(*procedural.room_scene(grid=6, subdivisions=4), dev,
+                     slice_launches)
+
+    with phase("direct"):
+        direct_phase(*scenes["room_184k/default"], slice_launches)
+
+    with phase("sharded"):
+        sharded_phase(*scenes["room_184k/default"], dev, slice_launches)
+
+    with phase("viewer"):
+        viewer_phase(*procedural.flagship_scene(), dev)
+    say("slice", f"packet-kernel launches by path: {slice_launches}")
 
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -646,3 +646,41 @@ def _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
     escape = np.where(escape == -1, SENTINEL, escape)
     return _to_bvh(aabb_min, aabb_max, node_left, node_count, escape, order,
                    M, len(order), parent)
+
+
+def refit_host(left: np.ndarray, count: np.ndarray, escape: np.ndarray,
+               tri_order: np.ndarray, tri_verts: np.ndarray,
+               depth_bound: int = 70) -> tuple[np.ndarray, np.ndarray]:
+    """Node boxes for moved triangles on a fixed topology (the reference's
+    host refit, lbvh.py:806 there): leaf boxes from their triangles, then
+    parents from their two children in sweeps until nothing changes (at
+    most `depth_bound`). Returns (aabb_min, aabb_max) [M, 3] float32."""
+    tri_verts = np.asarray(tri_verts, np.float32)
+    sorted_verts = tri_verts[np.asarray(tri_order)]
+    tri_min = sorted_verts.min(axis=1)
+    tri_max = sorted_verts.max(axis=1)
+    left = np.asarray(left)
+    count = np.asarray(count)
+    escape = np.asarray(escape)
+    M = len(left)
+    T = len(tri_verts)
+    is_leaf = count > 0
+    lo = np.full((M, 3), np.inf, np.float32)
+    hi = np.full((M, 3), -np.inf, np.float32)
+    for j in range(int(count.max(initial=0))):
+        take = is_leaf & (j < count)
+        idx = np.clip(left + j, 0, T - 1)
+        lo[take] = np.minimum(lo[take], tri_min[idx[take]])
+        hi[take] = np.maximum(hi[take], tri_max[idx[take]])
+    left_child = np.clip(left, 0, M - 1)
+    right_child = np.clip(escape[left_child], 0, M - 1)
+    internal = ~is_leaf
+    for _ in range(depth_bound):
+        nlo = np.where(internal[:, None],
+                       np.minimum(lo[left_child], lo[right_child]), lo)
+        nhi = np.where(internal[:, None],
+                       np.maximum(hi[left_child], hi[right_child]), hi)
+        if np.array_equal(nlo, lo) and np.array_equal(nhi, hi):
+            break
+        lo, hi = nlo, nhi
+    return lo, hi

@@ -26,6 +26,7 @@ With count_visits=True they also return what the traversal touched
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -58,6 +59,9 @@ SHARED_BYTES_MAX = 232_448
 # Kernel launches per kernel, for showing that a run went through them.
 # A wrapper adds one exactly where it launches; callers reset to 0.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0}
+# the Engine's pick launches from another thread while a frame does
+# (engine/engine.py), so the counts add under a lock
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -470,8 +474,19 @@ def _launch_args(lib, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):
     return args, keep
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+def _call_on(fn, device, *args) -> int:
+    """fn(*args, stream): a C entry point called with `device` made the
+    thread's current CUDA device and given that device's current stream.
+    The entry points launch on the calling thread's current device (and
+    a null stream means that device's), so a caller on another card's
+    tensors launches on the right one."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def count_launch(counts: dict, key: str) -> None:
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def _device_kind(ray_o) -> str:
@@ -505,10 +520,10 @@ def _launch(lib, counts: dict, key: str, wbvh, ray_o, ray_d, t_max,
             next_ray = torch.empty(1, dtype=torch.int32, device=dev)
             args += [layout.top_rows, layout.stack_depth,
                      next_ray.data_ptr()]
-        rc = fn(*args, *(x.data_ptr() for x in out), _stream(dev))
+        rc = _call_on(fn, dev, *args, *(x.data_ptr() for x in out))
         if rc != 0:
             raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
-        counts[key] += 1
+        count_launch(counts, key)
     return out[0] if any_hit else Hit(*out)
 
 

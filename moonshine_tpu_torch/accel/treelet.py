@@ -47,11 +47,12 @@ from .packet import (
     _check_rays,
     _device_kind,
     _plain_result,
+    _call_on,
     _plain_state,
-    _stream,
     _t_max_lanes,
     _visits,
     _walk,
+    count_launch,
     sort_key,
 )
 from .wide import LEAF_CAP, WIDTH, WideBVH
@@ -110,14 +111,14 @@ def _pending_kernel(lib, wbvh: WideBVH, o, d, tmax_vec):
     pend = torch.empty((N, -(-K // 32)), dtype=torch.int32, device=o.device)
     nearest = torch.empty(N, dtype=torch.int32, device=o.device)
     if N:
-        rc = lib.pending(t_lo.data_ptr(), t_hi.data_ptr(), K, o.data_ptr(),
-                         d.data_ptr(), tmax_vec.data_ptr(), N,
-                         pend.data_ptr(), nearest.data_ptr(),
-                         _stream(o.device))
+        rc = _call_on(lib.pending, o.device, t_lo.data_ptr(),
+                      t_hi.data_ptr(), K, o.data_ptr(), d.data_ptr(),
+                      tmax_vec.data_ptr(), N, pend.data_ptr(),
+                      nearest.data_ptr())
         if rc != 0:
             raise RuntimeError(f"treelet phase-1 kernel launch failed: "
                                f"cudaError {rc}")
-        LAUNCHES["treelet_pending"] += 1
+        count_launch(LAUNCHES, "treelet_pending")
     return pend, nearest
 
 
@@ -253,23 +254,23 @@ def _dispatch_kernel(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
     if any_hit:
         occ = torch.empty(n, dtype=torch.bool, device=dev)
         if n:
-            rc = lib.any_hit(*args, occ.data_ptr(), _stream(dev))
+            rc = _call_on(lib.any_hit, dev, *args, occ.data_ptr())
             if rc != 0:
                 raise RuntimeError(f"treelet any-hit kernel launch failed: "
                                    f"cudaError {rc}")
-            LAUNCHES["treelet_any_hit"] += 1
+            count_launch(LAUNCHES, "treelet_any_hit")
         return occ
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     if n:
-        rc = lib.closest_hit(*args, t.data_ptr(), tri.data_ptr(),
-                             u.data_ptr(), v.data_ptr(), _stream(dev))
+        rc = _call_on(lib.closest_hit, dev, *args, t.data_ptr(),
+                      tri.data_ptr(), u.data_ptr(), v.data_ptr())
         if rc != 0:
             raise RuntimeError(f"treelet closest-hit kernel launch failed: "
                                f"cudaError {rc}")
-        LAUNCHES["treelet_closest_hit"] += 1
+        count_launch(LAUNCHES, "treelet_closest_hit")
     return Hit(t=t, tri=tri, u=u, v=v)
 
 

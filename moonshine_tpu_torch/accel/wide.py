@@ -65,6 +65,8 @@ class WideTopology(NamedTuple):
     # [L, cap, 3] each; None without presplit
     clip_lo: np.ndarray | None = None
     clip_hi: np.ndarray | None = None
+    # the treelet plan (plan_treelets), ptr-encoded roots, kept for refits
+    treelet_roots: np.ndarray | None = None
 
 
 class WideRows(NamedTuple):
@@ -77,6 +79,8 @@ class WideRows(NamedTuple):
     t_roots: np.ndarray  # [K] i64 ptr-encoded treelet roots
     t_lo: np.ndarray  # [K, 3] f32
     t_hi: np.ndarray  # [K, 3] f32
+    # what a refit keeps (refit_wide_rows)
+    topo: WideTopology | None = None
 
 
 class WideBVH(NamedTuple):
@@ -415,20 +419,46 @@ def build_wide_rows(tri_verts: np.ndarray, binary: lbvh.BVH | None = None,
         np.inf,
     )
     slot_order = np.argsort(key, axis=1, kind="stable")
+    ptr = np.take_along_axis(ptr, slot_order, axis=1)
     topo = WideTopology(
         int_ids=np.take_along_axis(int_ids, slot_order, axis=1),
-        ptr=np.take_along_axis(ptr, slot_order, axis=1),
-        node_axis=node_axis, orig=orig, in_range=in_range,
+        ptr=ptr, node_axis=node_axis, orig=orig, in_range=in_range,
         n_levels=max(len(all_rows), 1), leaf_cap=leaf_cap, width=width,
         clip_lo=clip_lo, clip_hi=clip_hi,
+        treelet_roots=plan_treelets(ptr, max_rows),
     )
-    nodes, leaves = assemble_rows(topo, b_min, b_max, tri_verts,
-                                  use_clip=clip_sorted is not None)
+    return refit_wide_rows(topo, b_min, b_max, tri_verts,
+                           use_clip=clip_sorted is not None)
+
+
+def refit_wide_rows(topo: WideTopology, b_min: np.ndarray, b_max: np.ndarray,
+                    tri_verts: np.ndarray, use_clip: bool = False
+                    ) -> WideRows:
+    """Host rows for (moved) triangles on a fixed topology: `b_min` /
+    `b_max` are the binary tree's node boxes (lbvh.refit_host after a
+    move), the treelet boxes are recomputed, every shape stays. use_clip
+    is for the build only: a refit takes whole-triangle leaf boxes, since
+    stale clipped boxes could uncover moved geometry (the reference's
+    rule, wide.py:253 there)."""
+    tri_verts = np.asarray(tri_verts, np.float32)
+    nodes, leaves = assemble_rows(topo, b_min, b_max, tri_verts, use_clip)
     bounds = np.stack([tri_verts.min(axis=(0, 1)),
                        tri_verts.max(axis=(0, 1))]).astype(np.float32)
-    roots = plan_treelets(topo.ptr, max_rows)
-    t_lo, t_hi = _treelet_boxes(roots, nodes, leaves, width, leaf_cap)
-    return WideRows(nodes, leaves, bounds, topo.n_levels, roots, t_lo, t_hi)
+    roots = topo.treelet_roots
+    t_lo, t_hi = _treelet_boxes(roots, nodes, leaves, topo.width,
+                                topo.leaf_cap)
+    return WideRows(nodes, leaves, bounds, topo.n_levels, roots, t_lo, t_hi,
+                    topo)
+
+
+def refit_wide(topo: WideTopology, b_min: np.ndarray, b_max: np.ndarray,
+               tri_verts: np.ndarray, use_clip: bool = False,
+               device="cuda") -> WideBVH:
+    """refit_wide_rows' rows as a WideBVH on `device`."""
+    r = refit_wide_rows(topo, b_min, b_max, tri_verts, use_clip)
+    return wide_from_rows(r.nodes, r.leaves, r.bounds, r.n_levels,
+                          topo.width, topo.leaf_cap, len(tri_verts), device,
+                          r.t_roots, r.t_lo, r.t_hi)
 
 
 def wide_from_rows(nodes, leaves, bounds, max_depth: int, width: int,

@@ -171,6 +171,28 @@ def _pbr_pdf(mat: MaterialLanes, w_i, w_o):
     return lam + (mic - lam) * p_spec
 
 
+# --- DisneyDiffuse (material.hlsl:272-311): not in the runtime dispatch,
+# callable on its own, as the reference carries it ---
+
+def disney_diffuse_sample(color, roughness, w_o, square):
+    return _lambert_sample(w_o, square)
+
+
+def disney_diffuse_pdf(w_i, w_o):
+    return _lambert_pdf(w_i, w_o)
+
+
+def disney_diffuse_eval(color, roughness, w_i, w_o):
+    h = safe_normalize(w_i + w_o)
+    cos_hi = dot(w_i, h, keepdims=False)
+    f_i = (1.0 - torch.abs(cos_theta(w_i))) ** 5
+    f_o = (1.0 - torch.abs(cos_theta(w_o))) ** 5
+    r_r = 2.0 * roughness * cos_hi * cos_hi
+    retro = r_r * (f_i + f_o + f_i * f_o * (r_r - 1.0))
+    scale = (1.0 - f_i / 2.0) * (1.0 - f_o / 2.0) + retro
+    return _lambert_eval(color) * scale[..., None]
+
+
 # --- PerfectMirror (material.hlsl:313-332) ---
 
 def _mirror_sample(w_o):

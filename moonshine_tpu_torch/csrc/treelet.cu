@@ -56,6 +56,8 @@
 //    applies the same rule. The roots and boxes are read through L1: a
 //    copy into each block's shared memory cost more than it saved.
 
+#include <atomic>
+
 #include "visit.cuh"
 
 namespace {
@@ -383,13 +385,19 @@ int launch_walk(const float* nodes, const float* leaves, int node_stride,
                 const float* ray_o, const float* ray_d, const float* t_eff,
                 int n, float* t_out, int32_t* tri_out, float* u_out,
                 float* v_out, uint8_t* occ_out, cudaStream_t stream) {
-  static bool raised = false;  // the >48 KB opt-in, once per kernel
-  if (!raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        treelet_kernel<AnyHit, W>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedMax);
+  // the >48 KB opt-in, once per kernel and device (a function attribute
+  // is the current device's; a mesh's shards launch on several)
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if ((raised.load() & bit) == 0) {
+    e = cudaFuncSetAttribute(treelet_kernel<AnyHit, W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSharedMax);
     if (e != cudaSuccess) return (int)e;
-    raised = true;
+    raised.fetch_or(bit);
   }
   const int threads = walk_threads(stack_depth);
   if (threads == 0) return (int)cudaErrorInvalidValue;

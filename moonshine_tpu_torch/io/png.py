@@ -1,5 +1,6 @@
 """PNG decoding on the standard library's zlib and numpy, for glTF textures
-(the JAX package decodes them with PIL, which the port's GPU host lacks).
+(the JAX package decodes them with PIL, which the port's GPU host lacks),
+and `encode_png`, the viewer's frame encoder (8-bit RGB/RGBA, filter 0).
 
 `decode_png(data) -> uint8 [H, W, 4]` returns what PIL's
 `Image.open(...).convert("RGBA")` returns for the same file, and
@@ -185,3 +186,23 @@ def decode_png(data: bytes, name: str = "PNG image") -> np.ndarray:
 def png_rgba(data: bytes, name: str = "PNG image") -> np.ndarray:
     """float32 [H, W, 4] in [0, 1]: decode_png / 255."""
     return decode_png(data, name).astype(np.float32) / 255.0
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(pixels: np.ndarray, level: int = 6) -> bytes:
+    """uint8 [H, W, 3] (RGB) or [H, W, 4] (RGBA) -> PNG bytes: 8-bit,
+    non-interlaced, every scanline with filter 0, one zlib stream."""
+    px = np.ascontiguousarray(pixels, dtype=np.uint8)
+    if px.ndim != 3 or px.shape[2] not in (3, 4):
+        raise ValueError(f"expected [H, W, 3|4] uint8, got {px.shape}")
+    h, w, c = px.shape
+    raw = np.zeros((h, 1 + w * c), np.uint8)  # leading 0: filter None
+    raw[:, 1:] = px.reshape(h, w * c)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))

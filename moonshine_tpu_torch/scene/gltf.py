@@ -20,8 +20,9 @@ The container parser (GLB chunks or .gltf JSON with external or `data:`
 buffers, accessors with strides and sparse overlays, the node hierarchy)
 is plain Python and numpy. PNG textures decode with io/png.py, which
 gives PIL's RGBA conversion (its docstring lists where PIL's rules are
-not the obvious ones), because the JAX package decodes with PIL. JPEG
-textures raise NotImplementedError naming the image.
+not the obvious ones), because the JAX package decodes with PIL; JPEG
+textures decode with io/jpeg.py, which gives libjpeg-turbo's texels (the
+kinds it does not read raise NotImplementedError naming the image).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from .types import (
     Mirror,
     StandardPBR,
 )
+from ..io.jpeg import jpeg_rgba
 from ..io.png import png_rgba
 from .world import World
 
@@ -158,7 +160,7 @@ class Glb:
 
     def image_rgba(self, image_index: int) -> np.ndarray:
         """Decode an image to float [h,w,4] in [0,1] (no transfer function
-        applied). PNG only: JPEG raises NotImplementedError."""
+        applied): PNG through io/png.py, JPEG through io/jpeg.py."""
         img_def = self.json["images"][image_index]
         uri = img_def.get("uri", "")
         label = img_def.get("name") or (
@@ -172,9 +174,8 @@ class Glb:
             raw = _read_uri(img_def["uri"], self.base_dir)
         else:
             raise ValueError("glTF image has neither bufferView nor uri")
-        if raw[:3] == b"\xff\xd8\xff":
-            raise NotImplementedError(
-                f"{name}: JPEG textures are not supported yet (PNG only)")
+        if raw[:2] == b"\xff\xd8":
+            return jpeg_rgba(raw, name)
         return png_rgba(raw, name)
 
     def texture_image(self, texture_index: int) -> np.ndarray:

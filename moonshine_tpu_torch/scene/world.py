@@ -19,9 +19,22 @@ references (`lbvh.presplit_refs`, at most factor x T of them): the wide
 leaves' boxes come from the clipped reference boxes, leaf slots and the
 binary tree's `tri_order` repeat triangle ids, and `tri_verts_sorted` has
 one row per reference, so every dispatch mode (the packet, treelet and
-per-lane walks) traverses the same tree. Not ported yet: refits and
-material/background edits (every build() is a full build), and two-level
-instancing (a scene that would need it raises).
+per-lane walks) traverses the same tree. Two-level instancing is not
+ported yet: a scene that would need it raises.
+
+Edits (set_transform / set_visibility / update_material / use_background)
+make `build()` staged, as in the reference: it returns the cached scene
+when nothing changed; a transform or visibility edit re-transforms the
+cached object-space flatten and refits both trees on the host
+(lbvh.refit_host, wide.refit_wide), every shape kept (hidden
+instances collapse to zero-area triangles at their translation, and the
+emitter table keeps its rows, a hidden emitter weighing 0); a material
+edit rebuilds only the material table and atlas (and refolds the
+material columns of tri_shade and the emitter rows); a background edit
+swaps in the env map, built once per background as the reference's;
+adding meshes or instances, another builder or another device does the
+full build.
+`build_arrays()` is always the full host build.
 """
 
 from __future__ import annotations
@@ -101,6 +114,33 @@ class DeviceScene(NamedTuple):
         return self.tri_shade.device
 
 
+def _emitters_on(a: dict, s: dict, device) -> EmitterTable:
+    put = lambda x, dt=np.float32: torch.tensor(np.asarray(x, dt),
+                                                 device=device)
+    return EmitterTable(
+        select=put(a["emitters.select"]),
+        alias=put(a["emitters.alias"], np.int64),
+        tri=put(a["emitters.tri"], np.int64),
+        rows=put(a["emitters.rows"]),
+        count=int(s["emitters.count"]),
+        weight_sum=float(s["emitters.weight_sum"]),
+    )
+
+
+def _atlas_on(a: dict, s: dict, device) -> MaterialAtlas:
+    planes = {
+        k: plane_from_rows(a[f"mat_atlas.{k}.data"], s[f"mat_atlas.{k}.width"],
+                           s[f"mat_atlas.{k}.chunks"], device)
+        for k in ("bsdf", "emissive")
+    }
+    return MaterialAtlas(
+        bsdf=planes["bsdf"], emissive=planes["emissive"],
+        bsdf_constant=bool(s["mat_atlas.bsdf_constant"]),
+        emissive_constant=bool(s["mat_atlas.emissive_constant"]),
+        normals_flat=bool(s["mat_atlas.normals_flat"]),
+    )
+
+
 def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
     """DeviceScene on `device` from host arrays and static facts.
 
@@ -122,28 +162,9 @@ def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
         s["wide.max_depth"], s["wide.width"], s["wide.leaf_slots"],
         len(tri_shade), device, a["wide.t_roots"], a["wide.t_lo"],
         a["wide.t_hi"])
-    planes = {
-        k: plane_from_rows(a[f"mat_atlas.{k}.data"], s[f"mat_atlas.{k}.width"],
-                           s[f"mat_atlas.{k}.chunks"], device)
-        for k in ("bsdf", "emissive")
-    }
-    atlas = MaterialAtlas(
-        bsdf=planes["bsdf"], emissive=planes["emissive"],
-        bsdf_constant=bool(s["mat_atlas.bsdf_constant"]),
-        emissive_constant=bool(s["mat_atlas.emissive_constant"]),
-        normals_flat=bool(s["mat_atlas.normals_flat"]),
-    )
     env = envmap_from_arrays(
         {k: a[f"env.{k}"] for k in ("rgbl", "select", "alias")}
         | {"integral": s["env.integral"]}, device)
-    emitters = EmitterTable(
-        select=put(a["emitters.select"]),
-        alias=put(a["emitters.alias"], np.int64),
-        tri=put(a["emitters.tri"], np.int64),
-        rows=put(a["emitters.rows"]),
-        count=int(s["emitters.count"]),
-        weight_sum=float(s["emitters.weight_sum"]),
-    )
     bvh = tri_sorted = None
     if "bvh.aabb_min" in a:
         bvh = lbvh.device_bvh(lbvh.BVH(
@@ -156,13 +177,22 @@ def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
     return DeviceScene(
         wide=wide, tri_shade=tri_shade,
         materials=MaterialTable(packed=put(a["materials.packed"])),
-        mat_atlas=atlas, env=env, emitters=emitters,
+        mat_atlas=_atlas_on(a, s, device), env=env,
+        emitters=_emitters_on(a, s, device),
         has_delta=bool(s["has_delta"]), bvh=bvh, tri_verts_sorted=tri_sorted,
     )
 
 
+def _device_key(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class World:
-    """Mutable host scene; `build(device)` freezes it into a DeviceScene."""
+    """Mutable host scene; `build(device)` freezes it into a DeviceScene,
+    staged as the module docstring says."""
 
     def __init__(self):
         self.meshes: list[Mesh] = []
@@ -170,17 +200,31 @@ class World:
         self.instances: list[Instance] = []
         self._backgrounds: list = []  # (equirect | None, size) per handle
         self._active_background: int | None = None
+        # handle -> (env arrays, {device: EnvMap}), built at a
+        # background's first use and kept, as the reference's _env_cache
+        # (a switch back reuses the table)
+        self._envs: dict = {}
+        self._scene: DeviceScene | None = None
+        self._state: dict | None = None  # what the staged build keeps
+        self._builder: str | None = None
+        self._dirty_topology = True
+        self._dirty_transforms = False
+        self._dirty_materials = False
+        self._dirty_env = False
 
     def add_mesh(self, mesh: Mesh) -> int:
         self.meshes.append(mesh)
+        self._dirty_topology = True
         return len(self.meshes) - 1
 
     def add_material(self, info: MaterialInfo) -> int:
         self.materials.append(info)
+        self._dirty_materials = True
         return len(self.materials) - 1
 
     def add_instance(self, instance: Instance) -> int:
         self.instances.append(instance)
+        self._dirty_topology = True
         return len(self.instances) - 1
 
     def add_background(self, equirect_rgb: np.ndarray | None,
@@ -192,22 +236,85 @@ class World:
     def use_background(self, handle: int):
         if not 0 <= handle < len(self._backgrounds):
             raise IndexError(f"no background {handle}")
-        self._active_background = handle
+        if handle != self._active_background:
+            self._active_background = handle
+            self._dirty_env = True
 
     def set_background(self, equirect_rgb: np.ndarray | None,
                        size: int | None = None):
         """Register and select in one call."""
         self.use_background(self.add_background(equirect_rgb, size))
 
-    def build(self, device="cuda", builder: str = "auto") -> DeviceScene:
-        """Full build onto `device`. builder: "karras", "sah", or "auto"
-        (SAH above SAH_MIN_TRIS triangles, Karras below)."""
-        return scene_from_arrays(*self.build_arrays(builder), device)
+    # --- edits (reference world.py:245-257) ---
 
-    def build_arrays(self, builder: str = "auto") -> tuple[dict, dict]:
-        """Host half of build(): (arrays, statics) for scene_from_arrays."""
+    def set_transform(self, instance: int, transform: np.ndarray):
+        self.instances[instance].transform = np.asarray(transform, np.float32)
+        self._dirty_transforms = True
+
+    def set_visibility(self, instance: int, visible: bool):
+        self.instances[instance].visible = visible
+        self._dirty_transforms = True
+
+    def update_material(self, handle: int, info: MaterialInfo):
+        self.materials[handle] = info
+        self._dirty_materials = True
+
+    # --- freeze ---
+
+    def build(self, device="cuda", builder: str = "auto") -> DeviceScene:
+        """The DeviceScene on `device`, staged (module docstring): the
+        cached scene when nothing changed, else only the dirty stages
+        rebuilt. builder: "karras", "sah", or "auto" (SAH above
+        SAH_MIN_TRIS triangles, Karras below; what it resolved to stays
+        until an explicit other builder asks for a full build)."""
         if builder not in ("auto", "karras", "sah"):
             raise ValueError(f"unknown builder {builder!r}")
+        dev = _device_key(device)
+        if (self._builder is not None and builder != "auto"
+                and builder != self._builder):
+            self._dirty_topology = True
+        if builder != "auto":
+            self._builder = builder
+        if self._scene is not None and self._scene.device != dev:
+            self._dirty_topology = True
+        if self._scene is not None and not (
+                self._dirty_topology or self._dirty_transforms
+                or self._dirty_materials or self._dirty_env):
+            return self._scene
+        if self._scene is None or self._dirty_topology:
+            arrays, statics, state = self._full_arrays(
+                self._builder or "auto")
+            self._builder = state["builder"]
+            scene = scene_from_arrays(arrays, statics, dev)
+            scene = scene._replace(env=self._envs[
+                self._active_background][1].setdefault(dev, scene.env))
+            self._state = state
+            self._dirty_transforms = self._dirty_materials = False
+            self._dirty_env = False
+        else:
+            scene = self._scene
+            if self._dirty_transforms:
+                scene = self._refit(scene, dev)
+                self._dirty_transforms = False
+            if self._dirty_materials:
+                scene = self._rebuild_materials(scene, dev)
+                self._dirty_materials = False
+            if self._dirty_env:
+                scene = scene._replace(env=self._env_on(dev))
+                self._dirty_env = False
+        self._dirty_topology = False
+        self._scene = scene
+        return scene
+
+    def build_arrays(self, builder: str = "auto") -> tuple[dict, dict]:
+        """The full host build: (arrays, statics) for scene_from_arrays."""
+        if builder not in ("auto", "karras", "sah"):
+            raise ValueError(f"unknown builder {builder!r}")
+        return self._full_arrays(builder)[:2]
+
+    def _full_arrays(self, builder: str) -> tuple[dict, dict, dict]:
+        """(arrays, statics, state): the full host build, and what a later
+        refit or material edit starts from."""
         flat_tris = sum(len(self.meshes[g.mesh].indices)
                         for inst in self.instances for g in inst.geometries)
         cap = int(os.environ.get("MSN_MAX_FLAT_TRIS", str(MAX_FLAT_TRIS)))
@@ -218,9 +325,8 @@ class World:
 
         packed, planes = _build_materials(self.materials,
                                           MaterialBlockBuilder())
-
-        flat = _flatten(self.meshes, self.instances)
-        if flat is None:
+        cache = _flatten_object(self.meshes, self.instances)
+        if cache is None:
             # empty scene: one degenerate triangle that is never hit
             normals = np.zeros((1, 3, 3), np.float32)
             normals[:, :, 2] = 1.0
@@ -231,6 +337,8 @@ class World:
                         inst_ids=np.full(1, -1, np.int32),
                         geo_ids=np.zeros(1, np.int32),
                         prim_ids=np.zeros(1, np.int32))
+        else:
+            flat = _world_flat(cache, self.instances)
         verts = flat["verts"]
         T = len(verts)
         if builder == "auto":
@@ -252,48 +360,132 @@ class World:
         em = _build_emitters(verts, emitter_tris, flat["uvs"],
                              flat["mat_ids"], packed)
         env = self._build_env()
-        tri_shade = _pack_tri_shade(flat, packed)
 
         arrays = {
             "wide.nodes": rows.nodes, "wide.leaves": rows.leaves,
             "wide.bounds": rows.bounds, "wide.t_roots": rows.t_roots,
             "wide.t_lo": rows.t_lo, "wide.t_hi": rows.t_hi,
-            "tri_shade": tri_shade, "materials.packed": packed,
-            "mat_atlas.bsdf.data": planes["bsdf"][0],
-            "mat_atlas.emissive.data": planes["emissive"][0],
+            "tri_shade": _pack_tri_shade(flat, packed),
+            "materials.packed": packed,
             "env.rgbl": env["rgbl"], "env.select": env["select"],
             "env.alias": env["alias"],
-            "emitters.select": em["select"], "emitters.alias": em["alias"],
-            "emitters.tri": em["tri"], "emitters.rows": em["rows"],
             "tri_verts_sorted": verts[bvh.tri_order],
         }
+        arrays.update(_atlas_arrays(planes))
+        arrays.update(_emitter_arrays(em))
         arrays.update({f"bvh.{k}": getattr(bvh, k) for k in (
             "aabb_min", "aabb_max", "left", "count", "escape", "tri_order",
             "parent")})
         statics = {
             "wide.max_depth": rows.n_levels, "wide.width": width,
             "wide.leaf_slots": leaf_cap,
-            "mat_atlas.bsdf.width": planes["bsdf"][1],
-            "mat_atlas.bsdf.chunks": planes["bsdf"][2],
-            "mat_atlas.emissive.width": planes["emissive"][1],
-            "mat_atlas.emissive.chunks": planes["emissive"][2],
-            "mat_atlas.bsdf_constant": planes["bsdf_constant"],
-            "mat_atlas.emissive_constant": planes["emissive_constant"],
-            "mat_atlas.normals_flat": planes["normals_flat"],
             "env.integral": env["integral"],
-            "emitters.count": em["count"],
-            "emitters.weight_sum": em["weight_sum"],
             "has_delta": any(isinstance(m.variant, (Mirror, Glass))
                              for m in self.materials),
         }
-        return arrays, statics
+        statics.update(_atlas_statics(planes))
+        statics.update(_emitter_statics(em))
+        state = dict(builder=builder, cache=cache, bvh=bvh, topo=rows.topo,
+                     flat=flat, packed=packed, emitter_tris=emitter_tris,
+                     statics=statics)
+        return arrays, statics, state
+
+    def _refit(self, scene: DeviceScene, dev) -> DeviceScene:
+        """Transform/visibility edit: re-transform the cached object-space
+        flatten and refit both trees on the host (reference world.py:
+        485-522); every array keeps its shape."""
+        st = self._state
+        if st["cache"] is None:  # the empty scene has nothing to move
+            return scene
+        flat = _world_flat(st["cache"], self.instances)
+        verts = flat["verts"]
+        b = st["bvh"]
+        b_min, b_max = lbvh.refit_host(b.left, b.count, b.escape,
+                                       b.tri_order, verts)
+        em = _build_emitters(verts, st["emitter_tris"], flat["uvs"],
+                             flat["mat_ids"], st["packed"])
+        st["flat"] = flat
+        st["statics"].update(_emitter_statics(em))
+        put = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+        return scene._replace(
+            bvh=scene.bvh._replace(aabb_min=put(b_min), aabb_max=put(b_max)),
+            wide=wide_bvh.refit_wide(st["topo"], b_min, b_max, verts,
+                                     device=dev),
+            tri_verts_sorted=put(verts[b.tri_order]),
+            tri_shade=put(_pack_tri_shade(flat, st["packed"])),
+            emitters=_emitters_on(_emitter_arrays(em), st["statics"], dev),
+        )
+
+    def _rebuild_materials(self, scene: DeviceScene, dev) -> DeviceScene:
+        """Material edit: the material table and atlas anew, the material
+        columns of tri_shade refolded and the emitter rows repacked; the
+        trees, the geometry columns and the env stay."""
+        st = self._state
+        packed, planes = _build_materials(self.materials,
+                                          MaterialBlockBuilder())
+        st["packed"] = packed
+        st["statics"].update(_atlas_statics(planes))
+        packed_dev = torch.tensor(packed, device=dev)
+        ids = scene.tri_shade[:, 24].to(torch.int64).clamp(0,
+                                                            len(packed) - 1)
+        tri_shade = scene.tri_shade.clone()
+        tri_shade[:, 32:48] = packed_dev[ids]
+        emitters = scene.emitters
+        etris = st["emitter_tris"]
+        if len(etris):
+            f = st["flat"]
+            rows = _emitter_rows(f["verts"][etris], f["uvs"][etris],
+                                 f["mat_ids"][etris], packed, etris)
+            emitters = emitters._replace(rows=torch.tensor(rows, device=dev))
+        return scene._replace(
+            materials=MaterialTable(packed=packed_dev),
+            mat_atlas=_atlas_on(_atlas_arrays(planes), st["statics"], dev),
+            emitters=emitters, tri_shade=tri_shade)
+
+    def _env_on(self, dev) -> EnvMap:
+        arrays = self._build_env()
+        maps = self._envs[self._active_background][1]
+        if dev not in maps:
+            maps[dev] = envmap_from_arrays(arrays, dev)
+        return maps[dev]
 
     def _build_env(self) -> dict:
+        """The active background's env arrays, built at its first use."""
         h = self._active_background
-        equirect, size = (None, None) if h is None else self._backgrounds[h]
-        if equirect is None:
-            return constant_envmap((1.0, 1.0, 1.0))
-        return build_envmap(equirect, size)
+        if h not in self._envs:
+            equirect, size = ((None, None) if h is None
+                              else self._backgrounds[h])
+            self._envs[h] = (constant_envmap((1.0, 1.0, 1.0))
+                             if equirect is None
+                             else build_envmap(equirect, size), {})
+        return self._envs[h][0]
+
+
+def _atlas_arrays(planes: dict) -> dict:
+    return {"mat_atlas.bsdf.data": planes["bsdf"][0],
+            "mat_atlas.emissive.data": planes["emissive"][0]}
+
+
+def _atlas_statics(planes: dict) -> dict:
+    return {
+        "mat_atlas.bsdf.width": planes["bsdf"][1],
+        "mat_atlas.bsdf.chunks": planes["bsdf"][2],
+        "mat_atlas.emissive.width": planes["emissive"][1],
+        "mat_atlas.emissive.chunks": planes["emissive"][2],
+        "mat_atlas.bsdf_constant": planes["bsdf_constant"],
+        "mat_atlas.emissive_constant": planes["emissive_constant"],
+        "mat_atlas.normals_flat": planes["normals_flat"],
+    }
+
+
+def _emitter_arrays(em: dict) -> dict:
+    return {f"emitters.{k}": em[k] for k in ("select", "alias", "tri",
+                                             "rows")}
+
+
+def _emitter_statics(em: dict) -> dict:
+    return {"emitters.count": em["count"],
+            "emitters.weight_sum": em["weight_sum"]}
 
 
 def _wide_layout(n_tris: int) -> tuple[int, int]:
@@ -376,13 +568,12 @@ def _build_materials(materials, builder: MaterialBlockBuilder):
     return packed, planes
 
 
-def _flatten(meshes, instances) -> dict | None:
-    """World-space flatten of every instance, visible or not. Object-space
-    attributes are concatenated first and each instance's slice is then
-    transformed as one array, as the reference does; hidden instances
-    collapse to their translation point (zero-area triangles that are
-    never hit). Returns None for a scene with no triangles."""
-    cols = {k: [] for k in ("p", "n", "uvs", "mat_ids", "sampled",
+def _flatten_object(meshes, instances) -> dict | None:
+    """Object-space flatten of every instance, visible or not (reference
+    world.py:685): corners, normals (the geometric normal where a mesh has
+    none), uvs ((0,0),(1,0),(1,1) where absent), ids, and each instance's
+    triangle range ("slices"). None for a scene with no triangles."""
+    cols = {k: [] for k in ("obj_p", "obj_n", "uvs", "mat_ids", "sampled",
                             "inst_ids", "geo_ids", "prim_ids")}
     slices = []
     t = 0
@@ -408,8 +599,8 @@ def _flatten(meshes, instances) -> dict | None:
                 uv = np.broadcast_to(
                     np.asarray([[0, 0], [1, 0], [1, 1]], np.float32),
                     (F, 3, 2)).copy()
-            cols["p"].append(p)
-            cols["n"].append(nrm)
+            cols["obj_p"].append(p)
+            cols["obj_n"].append(nrm)
             cols["uvs"].append(uv)
             cols["mat_ids"].append(np.full(F, geo.material, np.int32))
             cols["sampled"].append(np.full(F, geo.sampled, bool))
@@ -420,13 +611,24 @@ def _flatten(meshes, instances) -> dict | None:
         slices.append((start, t))
     if t == 0:
         return None
-    flat = {k: np.concatenate(v, axis=0) for k, v in cols.items()}
-    obj_p = flat.pop("p").astype(np.float32)
-    obj_n = flat.pop("n").astype(np.float32)
-    uvs = flat["uvs"].astype(np.float32)
-    verts = np.empty((t, 3, 3), np.float32)
-    normals = np.empty((t, 3, 3), np.float32)
-    for inst, (s, e) in zip(instances, slices):
+    cache = {k: np.concatenate(v, axis=0) for k, v in cols.items()}
+    for k in ("obj_p", "obj_n", "uvs"):
+        cache[k] = cache[k].astype(np.float32)
+    cache["slices"] = slices
+    return cache
+
+
+def _world_flat(cache: dict, instances) -> dict:
+    """The world-space flatten (reference world.py:754): each instance's
+    slice transformed as one array, normals by the inverse transpose,
+    corners 1/2 (and their normals and uvs) swapped under mirroring;
+    hidden instances collapse to their translation point (zero-area
+    triangles that are never hit), so shapes never change."""
+    T = len(cache["obj_p"])
+    verts = np.empty((T, 3, 3), np.float32)
+    normals = np.empty((T, 3, 3), np.float32)
+    uvs = cache["uvs"].copy()
+    for inst, (s, e) in zip(instances, cache["slices"]):
         if s == e:
             continue
         M = np.asarray(inst.transform, np.float32)
@@ -438,8 +640,8 @@ def _flatten(meshes, instances) -> dict | None:
             continue
         det = float(np.linalg.det(lin))
         nrm_m = np.linalg.inv(lin).T if abs(det) > 1e-20 else lin
-        pw = obj_p[s:e] @ lin.T + trans
-        nw = obj_n[s:e] @ nrm_m.T
+        pw = cache["obj_p"][s:e] @ lin.T + trans
+        nw = cache["obj_n"][s:e] @ nrm_m.T
         nw = nw / np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True),
                              1e-20)
         if det < 0.0:
@@ -448,12 +650,29 @@ def _flatten(meshes, instances) -> dict | None:
             uvs[s:e] = uvs[s:e][:, [0, 2, 1]]
         verts[s:e] = pw
         normals[s:e] = nw
+    flat = {k: cache[k] for k in ("mat_ids", "sampled", "inst_ids",
+                                  "geo_ids", "prim_ids")}
     flat.update(verts=verts, normals=normals, uvs=uvs)
     return flat
 
 
+def _emitter_rows(tv, tuv, tmids, mat_packed, emitter_tris) -> np.ndarray:
+    """The EmitterTable.rows of the given emitter triangles."""
+    E = len(emitter_tris)
+    rows = np.zeros((E, 25), np.float32)
+    rows[:, 0:9] = tv.reshape(E, 9)
+    rows[:, 9:15] = tuv.reshape(E, 6)
+    mrow = mat_packed[np.clip(tmids, 0, len(mat_packed) - 1)]
+    rows[:, 15:18] = mrow[:, 7:10]
+    rows[:, 18:22] = mrow[:, 12:16]
+    rows[:, 22] = emitter_tris
+    return rows
+
+
 def _build_emitters(verts, emitter_tris, uvs, mat_ids, mat_packed) -> dict:
-    """Host arrays of the emitter alias table and light rows."""
+    """Host arrays of the emitter alias table and light rows, over the
+    fixed set of sampled triangles: a hidden emitter has zero area and
+    weight, and count drops to 0 when all are hidden."""
     if len(emitter_tris) == 0:
         return dict(select=np.ones(1, np.float32), alias=np.zeros(1, np.int64),
                     tri=np.zeros(1, np.int64),
@@ -463,14 +682,8 @@ def _build_emitters(verts, emitter_tris, uvs, mat_ids, mat_packed) -> dict:
     areas = 0.5 * np.linalg.norm(
         np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]), axis=-1)
     table = alias_table.build(areas)
-    E = len(emitter_tris)
-    rows = np.zeros((E, 25), np.float32)
-    rows[:, 0:9] = tv.reshape(E, 9)
-    rows[:, 9:15] = uvs[emitter_tris].reshape(E, 6)
-    mrow = mat_packed[np.clip(mat_ids[emitter_tris], 0, len(mat_packed) - 1)]
-    rows[:, 15:18] = mrow[:, 7:10]
-    rows[:, 18:22] = mrow[:, 12:16]
-    rows[:, 22] = emitter_tris
+    rows = _emitter_rows(tv, uvs[emitter_tris], mat_ids[emitter_tris],
+                         mat_packed, emitter_tris)
     return dict(select=table.select, alias=table.alias.astype(np.int64),
                 tri=emitter_tris.astype(np.int64), rows=rows,
                 count=int(table.count) if table.weight_sum > 0.0 else 0,

@@ -2,8 +2,9 @@
 and the port's give equal flattened scene arrays and equal lenses; the
 port's PNG decoder equals PIL's `convert("RGBA") / 255` (the JAX
 package's texture decode) for every colour type, bit depth, filter and
-transparency form, interlaced (Adam7) files included; JPEG textures
-raise."""
+transparency form, interlaced (Adam7) files included; a JPEG texture
+of a kind the port does not read raises (tests/test_torch_jpeg.py holds
+the JPEG decoder against PIL)."""
 
 import base64
 import io
@@ -20,6 +21,7 @@ from moonshine_tpu.scene import gltf as JG
 from moonshine_tpu_torch.io import png as PNG
 from moonshine_tpu_torch.scene import gltf as PG
 
+from chip_smoke import repack_glb
 from glb_builder import build_glb, cornell_box_glb
 from test_torch_scene import ENV_KEYS, ENV_TOL, jax_scene_arrays
 
@@ -213,14 +215,19 @@ def test_png_decoder_matches_pil_interlaced(name):
 
 
 def test_png_rejects_interlaced_and_jpeg():
-    """JPEG textures raise and a bad CRC raises; interlaced files decode
-    now (test_png_decoder_matches_pil_interlaced)."""
+    """A JPEG texture of a kind io/jpeg.py does not read (arithmetic
+    coding) raises naming the image, and a bad CRC raises; interlaced
+    files decode (test_png_decoder_matches_pil_interlaced), and so do
+    the JPEG kinds tests/test_torch_jpeg.py covers."""
     data = encode_png(np.zeros((2, 2, 3)), 2, 8, interlace=1)
-    glb = textured_glb(extra_images=[b"\xff\xd8\xff\xe0" + b"\x00" * 16])
+    arithmetic = (b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x02\x00\x02\x01"
+                  b"\x01\x11\x00\xff\xd9")
+    glb = textured_glb(extra_images=[arithmetic])
     doc, binary = unpack_glb(glb)
     doc["materials"][0]["pbrMetallicRoughness"]["baseColorTexture"] = {
         "index": len(doc["images"]) - 1}
-    with pytest.raises(NotImplementedError, match=r"glTF image 5 .*JPEG"):
+    with pytest.raises(NotImplementedError,
+                       match=r"glTF image 5 .*arithmetic coding"):
         PG.world_from_glb(repack_glb(doc, binary))
     with pytest.raises(ValueError, match="CRC"):
         PNG.decode_png(data[:20] + bytes([data[20] ^ 1]) + data[21:])
@@ -231,17 +238,6 @@ def test_png_rejects_interlaced_and_jpeg():
 def unpack_glb(glb: bytes):
     g = JG.Glb.parse(glb)
     return json.loads(json.dumps(g.json)), bytes(g.binary)
-
-
-def repack_glb(doc: dict, binary: bytes) -> bytes:
-    binary = binary + b"\x00" * (-len(binary) % 4)
-    doc["buffers"] = [{"byteLength": len(binary)}]
-    js = json.dumps(doc).encode()
-    js += b" " * (-len(js) % 4)
-    total = 12 + 8 + len(js) + 8 + len(binary)
-    return (struct.pack("<4sII", b"glTF", 2, total)
-            + struct.pack("<I4s", len(js), b"JSON") + js
-            + struct.pack("<I4s", len(binary), b"BIN\x00") + binary)
 
 
 def textured_glb(extra_images=()):

@@ -14,7 +14,11 @@ SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py"))
 # modules a later slice added, which the walk below must reach
 SLICE_MODULES = ["scripts/probe_bitcast.py", "io/exr.py", "io/png.py",
                  "scene/gltf.py", "render/offline.py", "accel/lbvh.py",
-                 "accel/wide.py", "scene/world.py"]
+                 "accel/wide.py", "scene/world.py", "io/jpeg.py",
+                 "io/dds.py", "integrator/direct.py", "parallel/__init__.py",
+                 "parallel/sharding.py", "engine/__init__.py",
+                 "engine/engine.py", "render/viewer.py",
+                 "scripts/time_jpeg.py", "scripts/time_sharded.py"]
 BLOCKED = "sys.modules['jax'] = None\nsys.modules['PIL'] = None\n"
 
 

@@ -481,3 +481,142 @@ def test_bitcast_kernel_matches_plain(cuda):
     assert probe_bitcast.LAUNCHES == {"bitcast": 12}
     with pytest.raises(ValueError):
         probe_bitcast.decode_rows(rows[:, ::2])
+
+
+def _refit_world():
+    from moonshine_tpu_torch.scene import procedural
+    from moonshine_tpu_torch.scene.types import translate
+
+    world, _ = procedural.room_scene(grid=2, subdivisions=2)
+    return world, translate
+
+
+@pytest.mark.parametrize("builder", ["karras", "sah"])
+def test_kernels_on_refit_rows(cuda, builder):
+    """A World moved and hidden after its build (a host refit, every
+    shape kept): the packet kernels equal their plain versions bit for
+    bit on the refit rows, and the closest-hit t equals a fresh full
+    build's within 1e-5 relative."""
+    world, translate = _refit_world()
+    scene = world.build(cuda, builder=builder)
+    world.set_transform(1, translate(0.4, -0.3, 0.2))
+    world.set_visibility(2, False)
+    refit = world.build(cuda, builder=builder)
+    assert refit.bvh.tri_order is scene.bvh.tri_order
+    assert refit.wide.nodes.shape == scene.wide.nodes.shape
+    rs = np.random.RandomState(9)
+    lo, hi = (refit.wide.bounds[0].cpu().numpy(),
+              refit.wide.bounds[1].cpu().numpy())
+    n = 20_003
+    o = torch.from_numpy((lo + rs.rand(n, 3) * (hi - lo)).astype(
+        np.float32)).to(cuda)
+    d = torch.from_numpy(rs.randn(n, 3).astype(np.float32)).to(cuda)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    active = torch.from_numpy(rs.rand(n) > 0.1).to(cuda)
+    t_max = torch.from_numpy((rs.rand(n) * 5).astype(np.float32)).to(cuda)
+    w = refit.wide
+    _assert_equal(packet.closest_hit_packet(w, o, d, 1e12, active_in=active),
+                  packet.closest_hit_plain(w, o, d, 1e12, active_in=active))
+    _assert_equal(packet.any_hit_packet(w, o, d, t_max, active_in=active),
+                  packet.any_hit_plain(w, o, d, t_max, active_in=active))
+    fresh, _ = _refit_world()
+    fresh.set_transform(1, translate(0.4, -0.3, 0.2))
+    fresh.set_visibility(2, False)
+    full = fresh.build(cuda, builder=builder)
+    hr = packet.closest_hit_packet(w, o, d, 1e12, active_in=active)
+    hf = packet.closest_hit_packet(full.wide, o, d, 1e12, active_in=active)
+    both = (hr.tri >= 0) & (hf.tri >= 0)
+    assert torch.equal(hr.tri >= 0, hf.tri >= 0)
+    rel = ((hr.t - hf.t).abs() / hf.t.abs().clamp_min(1e-30))[both]
+    assert float(rel.max()) <= 1e-5
+
+
+def test_engine_pick_and_direct_on_the_card(cuda):
+    """The Engine's pick on its own stream and trace_direct on the card
+    agree with the same calls on the CPU."""
+    from moonshine_tpu_torch.engine import Engine
+    from moonshine_tpu_torch.integrator.direct import DirectConfig, \
+        trace_direct
+    from moonshine_tpu_torch.render.renderer import _sample_rays
+    from moonshine_tpu_torch.scene import procedural
+
+    world, lens = procedural.flagship_scene()
+    picks = []
+    for dev in ("cpu", cuda):
+        e = Engine(device=dev)
+        e.world = world
+        lh = e.create_lens(lens)
+        picks.append([e.pick(lh, 64, 48, x, y)
+                      for x, y in ((32, 24), (5, 40), (60, 3))])
+    assert [(p.instance, p.geometry, p.primitive) for p in picks[0]] == \
+        [(p.instance, p.geometry, p.primitive) for p in picks[1]]
+    out = []
+    for dev in ("cpu", cuda):
+        scene = world.build(dev)
+        from moonshine_tpu_torch.render.camera import LensArrays
+
+        o, d, rng, _ = _sample_rays(LensArrays.from_lens(lens, dev), 64, 64,
+                                    0, True, dev)
+        rad, _, rays = trace_direct(scene, o, d, rng, DirectConfig())
+        out.append((rad.cpu(), int(rays)))
+    assert out[0][1] == out[1][1]
+    assert float((out[0][0] - out[1][0]).abs().max()) < 1e-4
+
+
+def test_kernels_and_sharded_render_across_cards(cuda):
+    """Where two or more cards are visible: the packet and treelet
+    kernels on cuda:1's tensors, launched from a thread whose current
+    device is cuda:0, equal their plain versions bit for bit; and
+    render_sharded on a mesh of every visible card (each shard under its
+    own card) equals the render on one card within 2e-6 x max(1, |pixel|) (the
+    smoke's bound: the flagship's emitters exceed 1), launches counted."""
+    import threading
+
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.parallel import make_mesh, render_sharded
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import render
+    from moonshine_tpu_torch.scene import procedural
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    w, o, d, active, t_max = _scene(other, n_tris=1500, cap=8, width=8,
+                                    max_rows=6)
+    out = {}
+
+    def launch():
+        torch.cuda.set_device(0)
+        out["closest"] = packet.closest_hit_packet(w, o, d, 1e12,
+                                                   active_in=active)
+        out["any"] = packet.any_hit_packet(w, o, d, t_max, active_in=active)
+        out["treelet"] = treelet.closest_hit_treelet(w, o, d, 1e12,
+                                                     active_in=active)
+        torch.cuda.synchronize(other)
+
+    th = threading.Thread(target=launch)
+    th.start()
+    th.join()
+    assert out["closest"].t.device == other
+    _assert_equal(out["closest"], packet.closest_hit_plain(
+        w, o, d, 1e12, active_in=active))
+    _assert_equal(out["any"], packet.any_hit_plain(
+        w, o, d, t_max, active_in=active))
+    _assert_equal(tuple(out["treelet"]), tuple(
+        treelet.closest_hit_treelet_plain(w, o, d, 1e12, active_in=active)))
+
+    world, lens = procedural.flagship_scene()
+    scene = world.build(cuda)
+    cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
+                     mesh_samples_per_bounce=1)
+    sensor, rays_one = render(scene, lens, 64, 64, 4, cfg)
+    mesh = make_mesh()
+    assert len(set(mesh.devices.flat)) == torch.cuda.device_count()
+    packet.reset_launch_counts()
+    img, rays = render_sharded(scene, LensArrays.from_lens(lens, cuda),
+                               64, 64, 4, cfg, mesh)
+    assert packet.LAUNCHES["closest_hit"] > 0
+    assert int(rays) == rays_one
+    ref = sensor.image
+    assert float(((img - ref).abs() / ref.abs().clamp_min(1.0)).max()) \
+        <= 2e-6

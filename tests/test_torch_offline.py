@@ -56,5 +56,6 @@ def test_cli_defaults_and_device(inputs):
     import inspect
 
     assert inspect.signature(PO.main).parameters["device"].default == "cuda"
-    with pytest.raises(SystemExit):  # no --mesh until sharding is ported
-        PO.parse_args(["a.glb", "b.exr", "c.exr", "--mesh", "2,4"])
+    assert args.mesh is None  # one device unless --mesh is given
+    assert PO.parse_args(["a.glb", "b.exr", "c.exr", "--mesh",
+                          "2,4"]).mesh == "2,4"

@@ -232,6 +232,8 @@ def test_presplit_render_matches_default(monkeypatch):
     want, _ = render_spp(world.build("cpu", builder="sah"), lens, 32, 32, 0,
                          1, cfg)
     monkeypatch.setenv("MSN_PRESPLIT", "1.35")
+    # a fresh World: a built one returns its cached scene until edited
+    world, _ = PP.room_scene(grid=2, subdivisions=2)
     scene = world.build("cpu", builder="sah")
     assert scene.tri_verts_sorted.shape[0] > scene.num_tris
     got, _ = render_spp(scene, lens, 32, 32, 0, 1, cfg)
