@@ -8,7 +8,8 @@ script exits non-zero without the result line. Phases:
 
   device          the card's name and power limit (nvidia-smi)
   build           nvcc builds csrc/traverse.cu, csrc/treelet.cu,
-                  csrc/vpacket.cu, csrc/vpu.cu and csrc/bitcast.cu into
+                  csrc/vpacket.cu, csrc/vpu.cu, csrc/bitcast.cu and
+                  csrc/tlas.cu into
                   build/, one process each, started together; prints each
                   kernel's registers, shared memory and spills (ptxas)
   scenes          flagship, room_184k (SAH, 24-wide / 24-slot) and
@@ -82,11 +83,14 @@ script exits non-zero without the result line. Phases:
                   glTF build against the source World's, then the CLI at
                   its defaults (1280x720, max_bounces 1024) with --spp 4,
                   launches counted, against an in-process render
-  jpeg            the committed JPEG fixtures (tests/torch_fixtures/)
-                  against their PIL goldens bit for bit; a seeded
-                  2048x2048 texture's decode timed on this host
-                  (scripts/time_jpeg.py); the Cornell glb with a JPEG
-                  texture through the CLI against an in-process render
+  jpeg            every committed JPEG fixture (tests/torch_fixtures/:
+                  baseline, progressive, restarts, CMYK, YCCK, lossless,
+                  arithmetic-coded sequential and progressive, block
+                  smoothing) against its PIL golden bit for bit; a seeded
+                  2048x2048 texture's decode timed on this host, Huffman
+                  and arithmetic-coded (scripts/time_jpeg.py); the Cornell
+                  glb with a JPEG texture through the CLI against an
+                  in-process render
   engine          room_184k entered through the Engine's handles, 1280x720
                   at the Engine's defaults (max_bounces 1024, NEE off, no
                   flip): 4 frames of 1 spp (ms/frame, Mrays/s), their
@@ -107,6 +111,22 @@ script exits non-zero without the result line. Phases:
   viewer          run_web on a free local port: GET /frame.png decodes to
                   tonemap of the sensor; a material edit and a key reset
                   the sample count
+  tlas            instanced_1080p: procedural.instanced_scene() (4096
+                  instances of icosphere(6), 335,544,320 triangles
+                  flattened) built two-level by the cap, with its warning;
+                  1920x1080 x 2 spp through csrc/tlas.cu (launches counted
+                  from 0 for the timed run); a recorded 1-spp run's first
+                  and a later launch of each kind held against the plain
+                  versions bit for bit on 65,536 lanes; the kernels at the
+                  frame's largest launches bit for bit, timed, bounded by
+                  the plain versions' visit counts; a 40-instance world
+                  flattened against two-level (the reference's bounds)
+  capi            build/libmoonshine_tpu_torch.so built with g++ and loaded
+                  with ctypes here: native/test_shim.cpp's scene through
+                  Msn* calls on the card (engine on cuda, traversal
+                  launches counted, the sensor against the Engine's render
+                  bit for bit, the EXR round trip); then the port's copy
+                  of that C++ host as a subprocess, "shim ok"
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -159,6 +179,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                 "scripts/profile_vpu.py:137"),
     "bitcast": ("moonshine_tpu_torch/csrc/bitcast.cu",
                 "scripts/probe_bitcast.py:63"),
+    "tlas_closest_hit": ("moonshine_tpu_torch/csrc/tlas.cu",
+                         "moonshine_tpu/accel/tlas.py:228 closest_hit_tlas "
+                         "(jnp while_loop, no pallas_call)"),
+    "tlas_any_hit": ("moonshine_tpu_torch/csrc/tlas.cu",
+                     "moonshine_tpu/accel/tlas.py:325 any_hit_tlas "
+                     "(jnp while_loop, no pallas_call)"),
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
@@ -396,7 +422,7 @@ def render_1080p(name, scene, lens, cfg, resort, spp=2):
     which sort inside each dispatch); returns (image, stats, launches)."""
     import torch
 
-    from moonshine_tpu_torch.accel import packet, treelet
+    from moonshine_tpu_torch.accel import packet, tlas, treelet
     from moonshine_tpu_torch.render.renderer import render_spp
 
     h, w = HD
@@ -406,11 +432,12 @@ def render_1080p(name, scene, lens, cfg, resort, spp=2):
     stats = {}
     packet.reset_launch_counts()
     treelet.reset_launch_counts()
+    tlas.reset_launch_counts()
     t0 = time.perf_counter()
     acc, rays = render_spp(scene, lens, h, w, 0, spp, cfg, stats=stats)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {**packet.LAUNCHES, **treelet.LAUNCHES}
+    launches = {**packet.LAUNCHES, **treelet.LAUNCHES, **tlas.LAUNCHES}
     rays = int(rays)
     img = (acc / spp).cpu().numpy()
     say(name, f"{w}x{h} x {spp} spp: {rays} rays in {dt:.4f} s = "
@@ -1374,44 +1401,47 @@ def cli(tag, name, argv):
         raise AssertionError(f"the CLI failed on {name}")
 
 @contextlib.contextmanager
-def recording(max_lanes=16384):
-    """Every packet-kernel launch inside the block, recorded: (kind,
-    tree, then the rays, t_max, active mask and the kernel's output, each
-    on an evenly spaced subsample of at most `max_lanes` lanes). Each
-    lane's result depends on that lane only, so `hold_recorded` can hold
-    the subsample against the plain version; the plain calls count no
-    launch. Recording copies at every launch, so the timed runs are made
-    outside it and a further run is recorded."""
+def recording(max_lanes=16384, module=None, names=None):
+    """Every kernel launch of `module`'s two wrappers inside the block
+    (`names`: kind -> wrapper; by default the packet kernels'), recorded:
+    (kind, tree, then the rays, t_max, active mask and the kernel's
+    output, each on an evenly spaced subsample of at most `max_lanes`
+    lanes). Each lane's result depends on that lane only, so the
+    subsample can be held against the plain version; the plain calls
+    count no launch. Recording copies at every launch, so the timed runs
+    are made outside it and a further run is recorded."""
     import torch
 
     from moonshine_tpu_torch.accel import packet
 
+    if module is None:
+        module, names = packet, {"closest_hit": "closest_hit_packet",
+                                 "any_hit": "any_hit_packet"}
     rec = []
-    real = {"closest_hit": packet.closest_hit_packet,
-            "any_hit": packet.any_hit_packet}
+    real = {kind: getattr(module, name) for kind, name in names.items()}
 
     def wrap(kind):
-        def launch(wbvh, o, d, t_max, active_in=None):
-            out = real[kind](wbvh, o, d, t_max, active_in)
+        def launch(tree, o, d, t_max, active_in=None):
+            out = real[kind](tree, o, d, t_max, active_in)
             n = o.shape[0]
             idx = torch.arange(0, n, max(1, -(-n // max_lanes)),
                                device=o.device)
             sub = lambda x: (x if x is None or not torch.is_tensor(x)
                              or x.ndim == 0 else x[idx].clone())
-            rec.append((kind, wbvh, sub(o), sub(d), sub(t_max),
+            rec.append((kind, tree, sub(o), sub(d), sub(t_max),
                         sub(active_in),
                         tuple(sub(x) for x in out) if kind == "closest_hit"
                         else sub(out)))
             return out
         return launch
 
-    packet.closest_hit_packet = wrap("closest_hit")
-    packet.any_hit_packet = wrap("any_hit")
+    for kind, name in names.items():
+        setattr(module, name, wrap(kind))
     try:
         yield rec
     finally:
-        packet.closest_hit_packet = real["closest_hit"]
-        packet.any_hit_packet = real["any_hit"]
+        for kind, name in names.items():
+            setattr(module, name, real[kind])
 
 
 def hold_recorded(tag, rec, per_kind=4):
@@ -1493,7 +1523,7 @@ def jpeg_phase(dev):
     from moonshine_tpu_torch.scripts import time_jpeg
 
     fixtures = ROOT / "tests" / "torch_fixtures"
-    for name in ("baseline_420", "progressive_422", "grey_restart"):
+    for name in sorted(p.stem for p in fixtures.glob("*.jpg")):
         data = (fixtures / f"{name}.jpg").read_bytes()
         gold = np.load(fixtures / f"{name}.npy")
         t0 = time.perf_counter()
@@ -1832,6 +1862,350 @@ def viewer_phase(world, lens, dev):
         raise AssertionError("the viewer's server did not stop")
 
 
+TLAS_HOLD_LANES = 65_536  # lanes of each recorded launch held bit for bit
+
+
+def tlas_bound(name, n, visits, t):
+    """(bound_ms, bound_by, detail) of one two-level launch on n rays that
+    touched `visits` (the plain version's count on the same rays): each
+    ray's inputs and outputs and every array of the structure moved once,
+    against the box, triangle and entry operations over fp32 peak."""
+    from moonshine_tpu_torch.accel import tlas
+
+    closest = "closest" in name
+    struct_b = sum(getattr(t, k).numel() * getattr(t, k).element_size()
+                   for k in tlas.ARRAY_FIELDS)
+    nbytes = n * (12 + 12 + 4 + 1 + (20 if closest else 1)) + struct_b
+    flops = ((visits.top + visits.blas) * tlas.FLOPS_PER_BOX
+             + visits.tris * tlas.FLOPS_PER_TRI
+             + visits.entries * tlas.FLOPS_PER_ENTRY)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, (
+        f"{visits.top} top and {visits.blas} BLAS node visits "
+        f"({visits.top / max(n, 1):.1f} + {visits.blas / max(n, 1):.1f} a "
+        f"ray), {visits.entries} instance entries, {visits.leaves} leaf "
+        f"visits, {visits.tris} triangle tests; {nbytes / 1e6:.2f} MB -> "
+        f"{t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms")
+
+
+def tlas_phase(dev, cfg, timings, errs, launches):
+    """instanced_1080p: 4096 instances of icosphere(6) (81,920 triangles;
+    335,544,320 flattened, past the 16M cap), built two-level by the cap
+    with its warning; 1920x1080 x 2 spp with the tlas counts set to 0
+    just before and read just after; a recorded 1-spp run whose first and
+    a later launch of each kind are held against the plain versions bit
+    for bit on 65,536 lanes (the plain closest hit timed there); the
+    kernels at the frame's largest launches against their plain versions
+    bit for bit, timed, bounded by the plain versions' visit counts; then
+    a 40-instance world rendered flattened and two-level within the
+    reference's bounds."""
+    import warnings
+
+    import torch
+
+    from moonshine_tpu_torch.accel import tlas
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import _sample_rays, render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    t0 = time.perf_counter()
+    world, lens = procedural.instanced_scene()
+    t_make = time.perf_counter() - t0
+    flat = sum(len(world.meshes[g.mesh].indices) for inst in world.instances
+               for g in inst.geometries)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        scene = world.build(dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    warned = [str(w.message) for w in caught
+              if "two-level instancing" in str(w.message)]
+    t = scene.tlas
+    say("tlas", f"instanced_1080p: {len(world.instances)} instances, "
+        f"{flat:,} triangles flattened, {t.num_obj_tris} object triangles "
+        f"({scene.num_tris} shading rows), {t.top_left.shape[0]} top and "
+        f"{t.blas_left.shape[0]} BLAS nodes; scene made in {t_make:.2f} s, "
+        f"built in {t_build:.2f} s; warning: {warned[0] if warned else None}")
+    if t is None or scene.wide is not None or not warned or \
+            os.environ.get("MSN_FORCE_TLAS") == "1":
+        raise AssertionError("instanced_1080p did not go two-level by the cap")
+    la = LensArrays.from_lens(lens, dev)
+
+    img, stats, counts = render_1080p("instanced_1080p", scene, la, cfg,
+                                      resort=False)
+    if (counts["tlas_closest_hit"] != stats["segments"]
+            or counts["tlas_any_hit"] == 0
+            or any(counts[k] for k in counts if not k.startswith("tlas"))):
+        raise AssertionError(f"instanced_1080p launches {counts}, segments "
+                             f"{stats['segments']}")
+    launches.update(tlas_closest_hit=counts["tlas_closest_hit"],
+                    tlas_any_hit=counts["tlas_any_hit"])
+    if not 0.05 < float(img.mean()) < 10.0:
+        raise AssertionError("instanced_1080p image mean out of range")
+
+    with recording(TLAS_HOLD_LANES, tlas, {"closest_hit": "closest_hit_tlas",
+                                           "any_hit": "any_hit_tlas"}) as rec:
+        render_spp(scene, la, HD[0], HD[1], 7, 1, cfg)
+    plain = {"closest_hit": tlas.closest_hit_tlas_plain,
+             "any_hit": tlas.any_hit_tlas_plain}
+    for kind, fn in plain.items():
+        runs = [r for r in rec if r[0] == kind]
+        for i in (0, min(2, len(runs) - 1)):
+            _, tt, o, d, tm, act, out = runs[i]
+            if i == 0 and kind == "closest_hit":
+                want = None
+
+                def run():
+                    nonlocal want
+                    want = fn(tt, o, d, tm, active_in=act)
+                ms = host_ms(run)
+                say("tlas", f"plain closest hit on {o.shape[0]} lanes of "
+                    f"the camera launch: {ms:.2f} ms in torch ops")
+            else:
+                want = fn(tt, o, d, tm, active_in=act)
+            got = out if kind == "any_hit" else tlas.TlasHit(*out)
+            assert_same(f"tlas {kind} launch {i}", got, want)
+            live = int(act.sum()) if act is not None else o.shape[0]
+            say("tlas", f"{kind} launch {i} of {len(runs)}: {o.shape[0]} "
+                f"lanes ({live} live) bit for bit against the plain version")
+
+    h, w = HD
+    o, d, _, _ = _sample_rays(la, h, w, 0, True, dev)
+    n = o.shape[0]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    hit = tlas.closest_hit_tlas(t, o, d, INF_T, active_in=ones)
+    # the first bounce's shadow batch: an env ray (a seeded direction on
+    # the camera's side) and a ray to the lamp's centre per live lane
+    p = o + hit.t[:, None].clamp_max(1e6) * d - 1e-4 * d
+    to_l = torch.tensor([0.0, 0.0, 20.0], device=dev) - p
+    dist = torch.linalg.norm(to_l, dim=1)
+    env_d = torch.from_numpy(np.random.RandomState(11).randn(n, 3).astype(
+        np.float32)).to(dev)
+    env_d = env_d / torch.linalg.norm(env_d, dim=1, keepdim=True)
+    env_d = torch.where((env_d * d).sum(1, keepdim=True) > 0, -env_d, env_d)
+    batches = {
+        "tlas_closest_hit": (o, d, torch.full((n,), INF_T, device=dev), ones,
+                             False),
+        "tlas_any_hit": (torch.cat([p, p]),
+                         torch.cat([env_d, to_l / dist[:, None]]),
+                         torch.cat([torch.full((n,), INF_T, device=dev),
+                                    dist * (1 - 1e-4)]),
+                         hit.is_hit.repeat(2), True),
+    }
+    for name, (ro, rd, tm, act, any_hit) in batches.items():
+        fk = tlas.any_hit_tlas if any_hit else tlas.closest_hit_tlas
+        fp = tlas.any_hit_tlas_plain if any_hit else \
+            tlas.closest_hit_tlas_plain
+        got = fk(t, ro, rd, tm, act)
+        res = {}
+
+        def run_plain():
+            res["out"] = fp(t, ro, rd, tm, act, count_visits=True)
+        plain_ms = host_ms(run_plain)
+        want, visits = res["out"]
+        assert_same(f"{name} at {ro.shape[0]} rays", got, want)
+        errs[name] = 0.0
+        ms = cuda_ms(lambda: fk(t, ro, rd, tm, act), 5)
+        b_ms, by, detail = tlas_bound(name, ro.shape[0], visits, t)
+        timings[name] = {"ms": round(ms, 4), "plain_ms": round(plain_ms, 2),
+                         "bound_ms": round(b_ms, 4), "bound_by": by}
+        say("tlas", f"{name} on {ro.shape[0]} rays ({int(act.sum())} live): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (visits counted), "
+            f"bit for bit; bound {b_ms:.4f} ms ({by}: {detail}); "
+            f"{ms / b_ms:.1f}x the bound")
+
+    world, small_lens = procedural.instanced_scene(grid=(8, 5),
+                                                   subdivisions=4)
+    sl = LensArrays.from_lens(small_lens, dev)
+    with env(MSN_MAX_FLAT_TRIS="1000000000"):
+        flat_scene = world.build(dev)
+    with env(MSN_FORCE_TLAS="1"):
+        world, _ = procedural.instanced_scene(grid=(8, 5), subdivisions=4)
+        two_scene = world.build(dev)
+    if flat_scene.tlas is not None or two_scene.tlas is None:
+        raise AssertionError("the 40-instance builds took the wrong route")
+    ref, _ = render_spp(flat_scene, sl, 512, 512, 0, 2, cfg)
+    got, _ = render_spp(two_scene, sl, 512, 512, 0, 2, cfg)
+    ref, got = (ref / 2).cpu().numpy(), (got / 2).cpu().numpy()
+    close = float(np.isclose(got, ref, rtol=5e-3, atol=5e-3).mean())
+    rel = abs(got.mean() / ref.mean() - 1.0)
+    say("tlas", f"40 instances of icosphere(4) ({flat_scene.num_tris} "
+        f"triangles flattened), 512x512 x 2 spp: two-level against "
+        f"flattened {close:.4%} of values within 5e-3, means "
+        f"{got.mean():.6f} / {ref.mean():.6f} (rel {rel:.3g})")
+    if close < 0.995 or rel > 2e-3 or not np.isfinite(got).all():
+        raise AssertionError("two-level and flattened renders disagree")
+
+
+def capi_phase(dev):
+    """The C ABI on the card: the port's library built with g++ and loaded
+    in this process with ctypes; native/test_shim.cpp's scene through the
+    Msn* calls (an engine on `cuda`, traversal launches counted, its
+    sensor against the Engine's render of the same scene and an EXR round
+    trip through MsnExrWrite / MsnExrRead); then the port's copy of that
+    C++ host built and run as a subprocess, which prints "shim ok"."""
+    import ctypes
+
+    import torch
+
+    from moonshine_tpu_torch import capi
+    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.engine.engine import Engine
+    from moonshine_tpu_torch.native import build
+    from moonshine_tpu_torch.scene.types import Lens
+
+    u32, f32, P = ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p
+
+    class F3(ctypes.Structure):
+        _fields_ = [("x", f32), ("y", f32), ("z", f32)]
+
+    class U3(ctypes.Structure):
+        _fields_ = [("x", u32), ("y", u32), ("z", u32)]
+
+    class Mat(ctypes.Structure):
+        _fields_ = [("m", f32 * 12)]
+
+    class Geo(ctypes.Structure):
+        _fields_ = [("mesh", u32), ("material", u32), ("sampled", ctypes.c_bool)]
+
+    class Ext(ctypes.Structure):
+        _fields_ = [("width", u32), ("height", u32)]
+
+    class LensC(ctypes.Structure):
+        _fields_ = [("origin", F3), ("forward", F3), ("up", F3),
+                    ("vfov", f32), ("aperture", f32),
+                    ("focus_distance", f32)]
+
+    class MatC(ctypes.Structure):
+        _fields_ = [("normal", u32), ("emissive", u32), ("color", u32),
+                    ("metalness", u32), ("roughness", u32), ("ior", f32)]
+
+    t0 = time.perf_counter()
+    path = build.build_library()
+    say("capi", f"{path.relative_to(ROOT)} built in "
+        f"{time.perf_counter() - t0:.2f} s (g++, python3-config --embed; "
+        f"Python.h at {build.python_headers()})")
+    lib = ctypes.CDLL(str(path))
+    sig = {"MsnCreate": ([], P), "MsnDestroy": ([P], None),
+           "MsnRender": ([P, u32, u32], ctypes.c_bool),
+           "MsnCreateMesh": ([P, ctypes.POINTER(F3), ctypes.c_size_t, P,
+                              ctypes.c_size_t, P, ctypes.c_size_t,
+                              ctypes.POINTER(U3), ctypes.c_size_t], u32),
+           "MsnCreateSolidTexture1": ([P, f32], u32),
+           "MsnCreateSolidTexture3": ([P, F3], u32),
+           "MsnCreateMaterial": ([P, MatC], u32),
+           "MsnCreateInstance": ([P, Mat, ctypes.POINTER(Geo),
+                                  ctypes.c_size_t, ctypes.c_bool], u32),
+           "MsnSetInstanceVisibility": ([P, u32, ctypes.c_bool], None),
+           "MsnCreateSensor": ([P, Ext], u32),
+           "MsnGetSensorData": ([P, u32], ctypes.POINTER(f32)),
+           "MsnGetSensorSampleCount": ([P, u32], u32),
+           "MsnCreateLens": ([P, LensC], u32),
+           "MsnExrWrite": ([ctypes.c_char_p, ctypes.POINTER(f32), u32, u32,
+                            u32], ctypes.c_int),
+           "MsnExrRead": ([ctypes.c_char_p,
+                           ctypes.POINTER(ctypes.POINTER(f32)),
+                           ctypes.POINTER(u32), ctypes.POINTER(u32)],
+                          ctypes.c_int),
+           "MsnExrFree": ([ctypes.POINTER(f32)], None)}
+    for name, (args, res) in sig.items():
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
+
+    e = lib.MsnCreate()
+    if not e:
+        raise AssertionError("MsnCreate returned a null engine")
+    eng = capi.get_engine(int(e))
+    quad = (F3 * 4)(F3(-3, -3, 0), F3(3, -3, 0), F3(3, 3, 0), F3(-3, 3, 0))
+    idx = (U3 * 2)(U3(0, 1, 2), U3(0, 2, 3))
+    mesh = lib.MsnCreateMesh(e, quad, 4, None, 0, None, 0, idx, 2)
+    white = lib.MsnCreateSolidTexture3(e, F3(0.8, 0.8, 0.8))
+    black = lib.MsnCreateSolidTexture3(e, F3(0, 0, 0))
+    rough = lib.MsnCreateSolidTexture1(e, 1.0)
+    metal = lib.MsnCreateSolidTexture1(e, 0.0)
+    mat = lib.MsnCreateMaterial(e, MatC(0xFFFFFFFF, black, white, metal,
+                                        rough, 1.5))
+    ident = Mat((f32 * 12)(1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0))
+    geo = Geo(mesh, mat, False)
+    inst = lib.MsnCreateInstance(e, ident, ctypes.byref(geo), 1, True)
+    sensor = lib.MsnCreateSensor(e, Ext(32, 24))
+    lens_c = LensC(F3(0, -4, 2), F3(0, 0.92, -0.38), F3(0, 0, 1), 0.8, 0.0,
+                   1.0)
+    lens = lib.MsnCreateLens(e, lens_c)
+    packet.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        if not lib.MsnRender(e, sensor, lens):
+            raise AssertionError("MsnRender failed")
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 2
+    counts = dict(packet.LAUNCHES)
+    got = np.ctypeslib.as_array(lib.MsnGetSensorData(e, sensor),
+                                shape=(24, 32, 4)).copy()
+    say("capi", f"the test_shim scene through Msn* calls: engine on "
+        f"{eng.device}, {lib.MsnGetSensorSampleCount(e, sensor)} samples, "
+        f"{dt * 1e3:.2f} ms a frame (32x24, max_bounces 1024, NEE off), "
+        f"packet launches {counts}, image mean {got.mean():.6f}")
+    if eng.device.type != "cuda" or counts["closest_hit"] == 0 or \
+            lib.MsnGetSensorSampleCount(e, sensor) != 2:
+        raise AssertionError("the ABI's renders did not run on the card")
+    ref = Engine(device=dev)
+    m = ref.create_mesh(np.ctypeslib.as_array(
+        ctypes.cast(quad, ctypes.POINTER(f32)), shape=(4, 3)),
+        np.uint32([[0, 1, 2], [0, 2, 3]]))
+    tex = [ref.create_solid_texture(v) for v in
+           ([0.8, 0.8, 0.8], [0, 0, 0], [1.0], [0.0])]
+    rm = ref.create_material(color=tex[0], metalness=tex[3],
+                             roughness=tex[2], emissive=tex[1], ior=1.5)
+    ref.create_instance(np.float32([[1, 0, 0, 0], [0, 1, 0, 0],
+                                    [0, 0, 1, 0]]), [(m, rm, False)])
+    rs = ref.create_sensor(32, 24)
+    rl = ref.create_lens(Lens(origin=np.float32([0, -4, 2]),
+                              forward=np.float32([0, 0.92, -0.38]),
+                              up=np.float32([0, 0, 1]), vfov=0.8))
+    ref.render(rs, rl)
+    want = ref.render(rs, rl)
+    same = bool(np.array_equal(got, want))
+    say("capi", f"sensor against Engine's render of the same scene on the "
+        f"card: bit-equal {same}, max|diff| {np.abs(got - want).max():.3g}")
+    if not same:
+        raise AssertionError("the ABI's sensor differs from the Engine's")
+    WORK.mkdir(parents=True, exist_ok=True)
+    exr_path = str(WORK / "capi.exr").encode()
+    if lib.MsnExrWrite(exr_path, lib.MsnGetSensorData(e, sensor), 32, 24,
+                       4) != 0:
+        raise AssertionError("MsnExrWrite failed")
+    out = ctypes.POINTER(f32)()
+    w, h = u32(), u32()
+    if lib.MsnExrRead(exr_path, ctypes.byref(out), ctypes.byref(w),
+                      ctypes.byref(h)) != 0:
+        raise AssertionError("MsnExrRead failed")
+    back = np.ctypeslib.as_array(out, shape=(h.value, w.value, 4)).copy()
+    lib.MsnExrFree(out)
+    if not np.array_equal(back, got):
+        raise AssertionError("the EXR round trip through the ABI differs")
+    lib.MsnSetInstanceVisibility(e, inst, False)
+    lib.MsnDestroy(e)
+    say("capi", "EXR round trip through MsnExrWrite / MsnExrRead exact; "
+        "visibility edit and destroy done")
+
+    t0 = time.perf_counter()
+    exe = build.build_host([build.NATIVE / "test_shim.cpp"],
+                           WORK / "test_shim")
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = subprocess.run([str(exe), str(WORK / "shim.exr")],
+                       capture_output=True, text=True, env=build.host_env(),
+                       cwd=WORK, timeout=300)
+    say("capi", f"C++ host built in {t_host:.2f} s, ran in "
+        f"{time.perf_counter() - t0:.2f} s on the card (no MSN_PLATFORM): "
+        f"rc {r.returncode}, {r.stdout.strip()!r}")
+    if r.returncode != 0 or "shim ok" not in r.stdout:
+        raise AssertionError(f"C++ host failed: {r.stderr[-1500:]}")
+
+
 def main():
     with phase("device"):
         import torch
@@ -2066,6 +2440,14 @@ def main():
     with phase("viewer"):
         viewer_phase(*procedural.flagship_scene(), dev)
     say("slice", f"packet-kernel launches by path: {slice_launches}")
+
+    # the last slice: two-level instancing (its counts set to 0 just
+    # before its 1080p run and read just after) and the C ABI
+    with phase("tlas"):
+        tlas_phase(dev, cfg, timings, errs, launches)
+
+    with phase("capi"):
+        capi_phase(dev)
 
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -1,8 +1,9 @@
 """Build and load the CUDA libraries: the traversal kernels
-(csrc/traverse.cu, csrc/treelet.cu and csrc/vpacket.cu, which share
-csrc/visit.cuh; traverse.cu and vpacket.cu also share the group walk of
-csrc/group_walk.cuh), the arithmetic microbenchmarks (csrc/vpu.cu) and
-the quantised-row decode probe (csrc/bitcast.cu).
+(csrc/traverse.cu, csrc/treelet.cu, csrc/vpacket.cu and the two-level
+walk of csrc/tlas.cu, which share csrc/visit.cuh; traverse.cu and
+vpacket.cu also share the group walk of csrc/group_walk.cuh), the
+arithmetic microbenchmarks (csrc/vpu.cu) and the quantised-row decode
+probe (csrc/bitcast.cu).
 
 nvcc compiles each source into a shared library with a plain C
 interface, loaded with ctypes. A library is built at first use into
@@ -30,7 +31,7 @@ _ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
 SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
            "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
-           "bitcast": CSRC / "bitcast.cu"}
+           "bitcast": CSRC / "bitcast.cu", "tlas": CSRC / "tlas.cu"}
 HEADERS = [CSRC / "visit.cuh", CSRC / "group_walk.cuh"]
 BUILD_DIR = _ROOT / "build"
 # -fmad=false keeps every multiply and add separately rounded, as in the
@@ -139,8 +140,21 @@ class BitcastLib(NativeLib):
         self.decode = self._fn("msn_bitcast_decode", [_P, _I, _P, _P])
 
 
+class TlasLib(NativeLib):
+    """tlas.cu's entry points: the TLAS arrays (15 pointers, the instance
+    and triangle counts), the rays, then the outputs."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        rays = [_P] * 15 + [_I, _I] + [_P, _P, _P, _P, _I]
+        self.closest_hit = self._fn("msn_tlas_closest_hit",
+                                    rays + [_P, _P, _P, _P, _P, _P])
+        self.any_hit = self._fn("msn_tlas_any_hit", rays + [_P, _P])
+
+
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
-            "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib}
+            "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib,
+            "tlas": TlasLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -279,3 +293,8 @@ def vpu_lib() -> VpuLib:
 def bitcast_lib() -> BitcastLib:
     """The quantised-row decode probe's library (csrc/bitcast.cu)."""
     return _lib("bitcast")
+
+
+def tlas_lib() -> TlasLib:
+    """The two-level traversal library (csrc/tlas.cu)."""
+    return _lib("tlas")

@@ -74,6 +74,10 @@ class Hit(NamedTuple):
     tri: torch.Tensor  # [N] i32 original triangle id, -1 on a miss
     u: torch.Tensor  # [N] f32 barycentric of vertex 1
     v: torch.Tensor  # [N] f32 barycentric of vertex 2
+    # the instance of each hit: None here, where the triangle ids are of
+    # flattened world rows (their instance is tri_shade column 26); the
+    # two-level walk returns accel/tlas.py's TlasHit, whose `inst` holds it
+    inst = None
 
     @property
     def is_hit(self):
@@ -390,15 +394,18 @@ def _t_max_lanes(t_max, n, device) -> torch.Tensor:
     return tm.expand(n).contiguous()
 
 
-def _check_rays(wbvh: WideBVH, ray_o, ray_d, active_in):
+def _check_rays(wbvh: WideBVH, ray_o, ray_d, active_in, device=None):
+    """Raise unless the rays (float32 [N, 3]) and active_in (bool [N] or
+    None) lie on the device of the tree's rows, or on `device`."""
     for name, x in (("ray_o", ray_o), ("ray_d", ray_d)):
         if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != 3:
             raise ValueError(f"{name} must be float32 [N, 3], got "
                              f"{x.dtype} {tuple(x.shape)}")
     if ray_o.shape != ray_d.shape:
         raise ValueError("ray_o and ray_d differ in shape")
-    if ray_o.device != ray_d.device or ray_o.device != wbvh.nodes.device:
-        raise ValueError("rays and BVH rows must be on one device")
+    device = wbvh.nodes.device if device is None else device
+    if ray_o.device != ray_d.device or ray_o.device != device:
+        raise ValueError("rays and the tree must be on one device")
     if active_in is not None and (active_in.dtype != torch.bool
                                   or active_in.shape != ray_o.shape[:1]
                                   or active_in.device != ray_o.device):

@@ -385,7 +385,8 @@ class Engine:
              y: int) -> PickResult:
         """Trace the camera ray through pixel (x, y) (no jitter, no
         aperture, no flip); returns the hit's instance, geometry and
-        primitive (tri_shade columns 26-28) and barycentrics."""
+        primitive (tri_shade columns 26-28; on a two-level scene the
+        instance comes with the hit) and barycentrics."""
         with self._lock:
             scene = self._ensure_scene()
             lens_arrays = LensArrays.from_lens(self.lenses[lens],
@@ -411,7 +412,10 @@ class Engine:
         if tri < 0:
             return PickResult(-1, -1, -1, (0.0, 0.0))
         row = scene.tri_shade[tri].cpu().numpy()
-        return PickResult(instance=int(row[26]), geometry=int(row[27]),
+        # a two-level scene's rows are shared (column 26 is -1): its hits
+        # carry the instance
+        instance = int(row[26] if hit.inst is None else hit.inst[0])
+        return PickResult(instance=instance, geometry=int(row[27]),
                           primitive=int(row[28]),
                           barycentrics=(float(hit.u[0]), float(hit.v[0])))
 

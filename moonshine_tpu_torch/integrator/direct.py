@@ -49,7 +49,7 @@ def trace_direct(scene, ray_o, ray_d, rng_state, cfg: DirectConfig):
 
     tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
     position, uv, tri_frame, vtx_frame, mat_row, _ = _decode_hit(
-        scene, tri, hit.u, hit.v)
+        scene, tri, hit.u, hit.v, inst=hit.inst)
     mat, emissive, normal_rg = _decode_material(scene, mat_row, uv)
     tex_frame = _texture_frame(normal_rg, vtx_frame)
     w_o_ws = -ray_d

@@ -15,7 +15,11 @@ treelet-scheduled kernel beyond it when `MSN_TREELETS=1` and the tree is
 8-wide with 8-slot leaves, else the packet kernel on coherence-sorted
 rays; where the reference falls back to its per-lane jnp walk (no wide
 tree, or an HBM-class tree whose stack bound exceeds the HBM limit), the
-per-lane walk of accel/traverse.py over the binary BVH ("lanes"). Each
+per-lane walk of accel/traverse.py over the binary BVH ("lanes"). A
+two-level scene (accel/tlas.py, past the flatten cap) goes to the
+two-level walk before any of these; its hits carry the instance, whose
+transform the decode applies to the object-space rows (`_inst_world`),
+and it takes no resort (it has no wide tree to key one on). Each
 wrapper launches its CUDA kernel for CUDA tensors. The
 per-bounce coherence resort (`_resort_state`) reorders the whole lane
 state, and `_bounce_shrunk` then runs a bounce over the live prefix only;
@@ -31,7 +35,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..accel import packet, traverse, treelet
+from ..accel import packet, tlas as tlas_mod, traverse, treelet
 from ..bsdf import materials as B
 from ..core import rng as R
 from ..core.frame import Frame, cos_theta
@@ -107,15 +111,36 @@ def _tangent_bitangent(p0, p1, p2, t0, t1, t2):
     return tangent, bitangent
 
 
-def _decode_hit(scene, tri, bary_u, bary_v):
+def _inst_world(scene, inst, corners, nrms):
+    """Two-level decode: the object-space corners (and normals, unless
+    None) of the gathered rows into world space by each lane's instance
+    (reference path.py:121-137): corners by inst_tf, normals by the
+    transpose of the TLAS's world -> object matrix (the inverse
+    transpose). Returns (corners, normals, determinant sign)."""
+    k = torch.clamp(inst.to(torch.int64), 0, scene.inst_tf.shape[0] - 1)
+    tf = scene.inst_tf[k]  # [N, 13]
+    lin = tf[:, :9].reshape(-1, 3, 3)
+    corners_w = torch.einsum("nij,nkj->nki", lin, corners) + tf[:, None, 9:12]
+    nrms_w = None
+    if nrms is not None:
+        nrm_m = scene.tlas.inst_inv[k][:, :9].reshape(-1, 3, 3)
+        nrms_w = safe_normalize(torch.einsum("nji,nkj->nki", nrm_m, nrms))
+    return corners_w, nrms_w, tf[:, 12]
+
+
+def _decode_hit(scene, tri, bary_u, bary_v, inst=None):
     """Surface attributes at a hit (world.hlsl:107-177). Returns
-    (position, uv, tri_frame, vtx_frame, mat_row, sampled)."""
+    (position, uv, tri_frame, vtx_frame, mat_row, sampled). `inst` (a
+    two-level scene's hits) places the object-space rows in the world."""
     row = scene.tri_shade[tri]  # [N, 48]
     n = tri.shape[0]
     corners = row[:, 0:9].reshape(n, 3, 3)
     nrms = row[:, 9:18].reshape(n, 3, 3)
     uvs = row[:, 18:24].reshape(n, 3, 2)
     sampled = row[:, 25] > 0.5
+    det_sign = None
+    if inst is not None and scene.tlas is not None:
+        corners, nrms, det_sign = _inst_world(scene, inst, corners, nrms)
 
     position = _interp(bary_u, bary_v, corners)
     uv = _interp(bary_u, bary_v, uvs)
@@ -123,13 +148,17 @@ def _decode_hit(scene, tri, bary_u, bary_v):
     tangent, bitangent = _tangent_bitangent(p0, p1, p2, uvs[:, 0],
                                             uvs[:, 1], uvs[:, 2])
     tri_n = safe_normalize(cross(p0 - p2, p1 - p2))
+    if det_sign is not None:
+        # a mirroring instance flips the winding (the flatten swaps
+        # corners instead)
+        tri_n = tri_n * det_sign[..., None]
     tri_frame = Frame(n=tri_n, s=tangent, t=bitangent).reorthogonalize()
     vtx_n = safe_normalize(_interp(bary_u, bary_v, nrms))
     vtx_frame = Frame(n=vtx_n, s=tri_frame.s, t=tri_frame.t).reorthogonalize()
     return position, uv, tri_frame, vtx_frame, row[:, 32:48], sampled
 
 
-def _decode_hit_thin(scene, tri, bary_u, bary_v):
+def _decode_hit_thin(scene, tri, bary_u, bary_v, inst=None):
     """Last-segment decode: position, triangle normal, uv, material row
     and sampled flag only (the last segment only adds emission); values
     equal the full decode's."""
@@ -137,10 +166,15 @@ def _decode_hit_thin(scene, tri, bary_u, bary_v):
     n = tri.shape[0]
     corners = row[:, 0:9].reshape(n, 3, 3)
     uvs = row[:, 18:24].reshape(n, 3, 2)
+    det_sign = None
+    if inst is not None and scene.tlas is not None:
+        corners, _, det_sign = _inst_world(scene, inst, corners, None)
     position = _interp(bary_u, bary_v, corners)
     uv = _interp(bary_u, bary_v, uvs)
     p0, p1, p2 = corners[:, 0], corners[:, 1], corners[:, 2]
     tri_n = safe_normalize(cross(p0 - p2, p1 - p2))
+    if det_sign is not None:
+        tri_n = tri_n * det_sign[..., None]
     return position, uv, tri_n, row[:, 32:48], row[:, 25] > 0.5
 
 
@@ -244,6 +278,9 @@ def _binary(scene):
 def _closest(scene, o, d, t_max, active, presorted: bool = False):
     """Closest-hit dispatch; presorted=True (the per-bounce state resort)
     skips the HBM wrapper's own sort."""
+    tl = getattr(scene, "tlas", None)  # callers may pass a bare namespace
+    if tl is not None:
+        return tlas_mod.closest_hit_tlas(tl, o, d, t_max, active_in=active)
     wide = scene.wide
     mode = _hbm_mode(wide)
     if mode == "vmem":
@@ -260,6 +297,9 @@ def _closest(scene, o, d, t_max, active, presorted: bool = False):
 
 
 def _any_hit(scene, o, d, t_max, active, presorted: bool = False):
+    tl = getattr(scene, "tlas", None)
+    if tl is not None:
+        return tlas_mod.any_hit_tlas(tl, o, d, t_max, active_in=active)
     wide = scene.wide
     mode = _hbm_mode(wide)
     if mode == "vmem":
@@ -280,7 +320,12 @@ def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
     and render exceed for frames above that; n_lanes=None, the staged
     path: at any lane count) and for VMEM-class ones holding a mirror or
     glass; treelet scenes sort inside each dispatch instead, and the
-    per-lane walk ('lanes') takes no resort."""
+    per-lane walk ('lanes') takes no resort. A scene without a wide tree
+    (a two-level one) takes none even when configured: its key is the
+    tree's bounds, and the reference's resort of such a scene moves no
+    lane."""
+    if scene.wide is None:
+        return False
     if cfg.resort_bounces is not None:
         return cfg.resort_bounces
     mode = _hbm_mode(scene.wide)
@@ -327,11 +372,11 @@ def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
     w_o_ws = -d
     if last:
         position, uv, tri_n, mat_row, tri_sampled = _decode_hit_thin(
-            scene, tri, hit.u, hit.v)
+            scene, tri, hit.u, hit.v, inst=hit.inst)
         emissive = _decode_emissive(scene, mat_row, uv)
     else:
         position, uv, tri_frame, vtx_frame, mat_row, tri_sampled = (
-            _decode_hit(scene, tri, hit.u, hit.v))
+            _decode_hit(scene, tri, hit.u, hit.v, inst=hit.inst))
         mat, emissive, normal_rg = _decode_material(scene, mat_row, uv)
         tri_n = tri_frame.n
 
@@ -469,7 +514,10 @@ def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
 def _resort_state(scene, st: dict) -> dict:
     """Reorder every lane array of the state by ray coherence: 8^3 origin
     cells x direction octant, dead lanes keyed 1 << 20 so they form the
-    tail (a stable sort). Lanes keep their RNG streams and pixel ids."""
+    tail (a stable sort). Lanes keep their RNG streams and pixel ids. A
+    scene without a wide tree keeps the state as it is."""
+    if scene.wide is None:
+        return st
     o, d, active = st["o"], st["d"], st["active"]
     lo = scene.wide.bounds[0]
     inv_ext = 1.0 / torch.clamp_min(scene.wide.bounds[1] - lo, 1e-20)

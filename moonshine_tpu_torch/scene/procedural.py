@@ -8,7 +8,10 @@ spheres of every material type, and an emissive ceiling panel;
 spheres, an emissive light and a checkered floor under a gradient sky;
 `furnace_scene` and `mirror_glass_scene` are two of the golden-image
 configurations of tests/test_goldens.py. All reproduce the reference's
-scenes triangle for triangle.
+scenes triangle for triangle. `instanced_scene` (the port's own) is a
+grid of instances of one icosphere under seeded rotations, non-uniform
+scales and mirrors: at its defaults the reference's two-level case, 4096
+instances of one ~100k-triangle mesh (moonshine_tpu/accel/tlas.py:1-4).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ def room_scene(grid: int = 4, subdivisions: int = 3, seed: int = 0,
     emissive ceiling panel. Returns (World, Lens). grid=6, sub=4 is the
     ~184k-triangle ladder rung."""
     rs = np.random.RandomState(seed)
+    spacing = 3.0
     world = World()
     sphere = world.add_mesh(icosphere_mesh(subdivisions))
     quad = world.add_mesh(Mesh(
@@ -235,3 +239,66 @@ def mirror_glass_scene():
     sky[2:4, 5:10] = 12.0
     w.set_background(sky, size=16)
     return w, _golden_lens()
+
+
+def instanced_scene(grid=(64, 64), subdivisions: int = 6, seed: int = 0):
+    """grid[0] x grid[1] instances of one icosphere_mesh(subdivisions) on
+    a grid 3 apart, each under a seeded rotation (a random axis
+    and angle), a non-uniform scale in [0.6, 1.3] and, for one in eight,
+    a mirror (x negated), all of one material; a floor under them and a
+    sampled emissive quad above, a white sky. At the defaults: 4096
+    instances of 81,920 triangles, 335,544,320 flattened, past the
+    flatten cap. Returns (World, Lens)."""
+    rs = np.random.RandomState(seed)
+    spacing = 3.0
+    world = World()
+    sphere = world.add_mesh(icosphere_mesh(subdivisions))
+    nx, ny = grid
+    half = np.float32([(nx - 1) * spacing / 2, (ny - 1) * spacing / 2])
+    ext = float(max(half) + 2 * spacing)
+    floor = world.add_mesh(Mesh(
+        positions=np.float32([[-ext, -ext, -1.5], [ext, -ext, -1.5],
+                              [ext, ext, -1.5], [-ext, ext, -1.5]]),
+        indices=np.uint32([[0, 1, 2], [0, 2, 3]])))
+    quad = world.add_mesh(Mesh(
+        positions=np.float32([[-1, -1, 0], [1, -1, 0], [1, 1, 0],
+                              [-1, 1, 0]]) * np.float32([ext / 4, ext / 4,
+                                                         1]),
+        indices=np.uint32([[0, 2, 1], [0, 3, 2]])))
+    # one material, so every instance shares the one BLAS (the two-level
+    # build keys a BLAS on mesh, material and sampled)
+    red = world.add_material(MaterialInfo(variant=Lambert(
+        color=(0.8, 0.25, 0.2))))
+    grey = world.add_material(MaterialInfo(variant=Lambert(
+        color=(0.6, 0.6, 0.6))))
+    lamp = world.add_material(MaterialInfo(variant=Lambert(color=(0, 0, 0)),
+                                           emissive=(5.0, 5.0, 5.0)))
+    for iy in range(ny):
+        for ix in range(nx):
+            axis = rs.randn(3)
+            axis /= np.linalg.norm(axis)
+            angle = rs.uniform(0.0, 2.0 * np.pi)
+            k = np.float64([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                            [-axis[1], axis[0], 0]])
+            rot = (np.eye(3) + np.sin(angle) * k
+                   + (1.0 - np.cos(angle)) * (k @ k))
+            lin = rot * rs.uniform(0.6, 1.3, 3)[None, :]
+            if rs.rand() < 0.125:
+                lin[:, 0] = -lin[:, 0]
+            m = np.zeros((3, 4), np.float32)
+            m[:, :3] = lin
+            m[:2, 3] = np.float32([ix, iy]) * spacing - half
+            world.add_instance(Instance(transform=m,
+                                        geometries=[Geometry(sphere, red)]))
+    world.add_instance(Instance(transform=translate(0, 0, 0),
+                                geometries=[Geometry(floor, grey)]))
+    world.add_instance(Instance(transform=translate(0, 0, 20.0),
+                                geometries=[Geometry(quad, lamp,
+                                                     sampled=True)]))
+    world.set_background(None)
+    dist = 0.9 * ext
+    lens = Lens(origin=np.float32([0, -dist, 0.45 * dist]),
+                forward=np.float32([0, 1, -0.45]) / np.float32(
+                    np.hypot(1, 0.45)),
+                up=np.float32([0, 0, 1]), vfov=np.pi / 3)
+    return world, lens

@@ -19,8 +19,20 @@ references (`lbvh.presplit_refs`, at most factor x T of them): the wide
 leaves' boxes come from the clipped reference boxes, leaf slots and the
 binary tree's `tri_order` repeat triangle ids, and `tri_verts_sorted` has
 one row per reference, so every dispatch mode (the packet, treelet and
-per-lane walks) traverses the same tree. Two-level instancing is not
-ported yet: a scene that would need it raises.
+per-lane walks) traverses the same tree.
+
+Past `MSN_MAX_FLAT_TRIS` flattened triangles (16M by default, read at
+each build; hidden instances count), or under `MSN_FORCE_TLAS=1`, the
+build switches to two-level instancing (accel/tlas.py), as the
+reference's does, with its warning when the cap decides: one
+object-space BLAS per unique geometry group and a top level over the
+instances' boxes. `tri_shade` then holds the object-space rows of one
+copy of each group (column 26 = -1: the instance comes with each hit),
+`inst_tf` each instance's transform [I, 13] (3x3 row-major, translation,
+the sign of its determinant), and the emitter table flattens only the
+sampled geometries of visible instances. Such a scene has no wide tree
+(`wide` None). A transform or visibility edit does the full build there
+(per unique mesh, so cheap), as the reference's does.
 
 Edits (set_transform / set_visibility / update_material / use_background)
 make `build()` staged, as in the reference: it returns the cached scene
@@ -40,12 +52,13 @@ full build.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..accel import lbvh, wide as wide_bvh
+from ..accel import lbvh, tlas as tlas_mod, wide as wide_bvh
 from ..core import alias_table
 from ..lights.envmap import (
     EnvMap, build_envmap, constant_envmap, envmap_from_arrays,
@@ -59,8 +72,7 @@ from .types import (
 TYPE_GLASS, TYPE_LAMBERT, TYPE_MIRROR, TYPE_PBR = 0, 1, 2, 3
 
 # past this many flattened triangles (MSN_MAX_FLAT_TRIS overrides it, read
-# at each build) the reference switches to two-level instancing, which the
-# port does not have yet
+# at each build) the build switches to two-level instancing
 MAX_FLAT_TRIS = 16_000_000
 # builder="auto" picks binned SAH above this many triangles, Karras below
 SAH_MIN_TRIS = 50_000
@@ -88,7 +100,7 @@ class EmitterTable(NamedTuple):
 
 
 class DeviceScene(NamedTuple):
-    wide: wide_bvh.WideBVH
+    wide: wide_bvh.WideBVH | None  # None for a two-level scene
     # one packed row per triangle: 0-8 corners, 9-17 normals, 18-23 uvs,
     # 24 material id, 25 sampled, 26 instance, 27 geometry, 28 primitive,
     # 32-47 the triangle's MaterialTable row
@@ -104,6 +116,11 @@ class DeviceScene(NamedTuple):
     # a scene came from did not carry them
     bvh: lbvh.BVH | None = None
     tri_verts_sorted: torch.Tensor | None = None  # [T, 3, 3] f32
+    # two-level instancing (accel/tlas.py): the structure, and per instance
+    # its transform (0:9 the 3x3 row-major, 9:12 the translation, 12 the
+    # sign of its determinant); None for a flattened scene
+    tlas: tlas_mod.TLAS | None = None
+    inst_tf: torch.Tensor | None = None  # [I, 13] f32
 
     @property
     def num_tris(self) -> int:
@@ -152,16 +169,27 @@ def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
     mat_atlas.{bsdf_constant,emissive_constant,normals_flat},
     env.integral, emitters.{count,weight_sum}, has_delta. Optional arrays:
     bvh.{aabb_min,aabb_max,left,count,escape,tri_order} (and bvh.parent)
-    with tri_verts_sorted, the binary tree of the fallback walk."""
+    with tri_verts_sorted, the binary tree of the fallback walk. A
+    two-level scene has tlas.<field> for every array of accel/tlas.py's
+    TLAS and inst_tf in place of the wide.* arrays, and statics
+    tlas.num_instances and tlas.num_obj_tris in place of wide.*."""
     a, s = arrays, statics
     put = lambda x, dt=np.float32: torch.tensor(np.asarray(x, dt),
                                                  device=device)
     tri_shade = put(a["tri_shade"])
-    wide = wide_bvh.wide_from_rows(
-        a["wide.nodes"], a["wide.leaves"], a["wide.bounds"],
-        s["wide.max_depth"], s["wide.width"], s["wide.leaf_slots"],
-        len(tri_shade), device, a["wide.t_roots"], a["wide.t_lo"],
-        a["wide.t_hi"])
+    wide = tlas = inst_tf = None
+    if "tlas.top_min" in a:
+        tlas = tlas_mod.device_tlas(tlas_mod.TLAS(
+            **{k: a[f"tlas.{k}"] for k in tlas_mod.ARRAY_FIELDS},
+            num_instances=s["tlas.num_instances"],
+            num_obj_tris=s["tlas.num_obj_tris"]), device)
+        inst_tf = put(a["inst_tf"])
+    else:
+        wide = wide_bvh.wide_from_rows(
+            a["wide.nodes"], a["wide.leaves"], a["wide.bounds"],
+            s["wide.max_depth"], s["wide.width"], s["wide.leaf_slots"],
+            len(tri_shade), device, a["wide.t_roots"], a["wide.t_lo"],
+            a["wide.t_hi"])
     env = envmap_from_arrays(
         {k: a[f"env.{k}"] for k in ("rgbl", "select", "alias")}
         | {"integral": s["env.integral"]}, device)
@@ -180,6 +208,7 @@ def scene_from_arrays(arrays: dict, statics: dict, device) -> DeviceScene:
         mat_atlas=_atlas_on(a, s, device), env=env,
         emitters=_emitters_on(a, s, device),
         has_delta=bool(s["has_delta"]), bvh=bvh, tri_verts_sorted=tri_sorted,
+        tlas=tlas, inst_tf=inst_tf,
     )
 
 
@@ -281,7 +310,8 @@ class World:
                 self._dirty_topology or self._dirty_transforms
                 or self._dirty_materials or self._dirty_env):
             return self._scene
-        if self._scene is None or self._dirty_topology:
+        if (self._scene is None or self._dirty_topology
+                or (self._dirty_transforms and self._scene.tlas is not None)):
             arrays, statics, state = self._full_arrays(
                 self._builder or "auto")
             self._builder = state["builder"]
@@ -318,10 +348,14 @@ class World:
         flat_tris = sum(len(self.meshes[g.mesh].indices)
                         for inst in self.instances for g in inst.geometries)
         cap = int(os.environ.get("MSN_MAX_FLAT_TRIS", str(MAX_FLAT_TRIS)))
-        if flat_tris > cap:
-            raise NotImplementedError(
-                f"scene flattens to {flat_tris:,} triangles (cap {cap:,}, "
-                f"MSN_MAX_FLAT_TRIS); two-level instancing is not ported")
+        force_tlas = os.environ.get("MSN_FORCE_TLAS", "0") == "1"
+        if (flat_tris > cap or force_tlas) and self.instances:
+            if flat_tris > cap:
+                warnings.warn(
+                    f"scene flattens to {flat_tris:,} instanced triangles "
+                    f"(cap {cap:,}): using two-level instancing (shared "
+                    "BLAS + TLAS) instead of the flattened packet kernels.")
+            return self._tlas_arrays(builder)
 
         packed, planes = _build_materials(self.materials,
                                           MaterialBlockBuilder())
@@ -388,6 +422,69 @@ class World:
         state = dict(builder=builder, cache=cache, bvh=bvh, topo=rows.topo,
                      flat=flat, packed=packed, emitter_tris=emitter_tris,
                      statics=statics)
+        return arrays, statics, state
+
+    def _tlas_arrays(self, builder: str) -> tuple[dict, dict, dict]:
+        """_full_arrays of a two-level scene (reference world.py:524-598):
+        object-space shading rows of one copy of each geometry group, the
+        TLAS, each instance's transform, and emitters flattened over the
+        sampled geometries of visible instances only."""
+        packed, planes = _build_materials(self.materials,
+                                          MaterialBlockBuilder())
+        t, obj, _groups = tlas_mod.build_tlas(self.meshes, self.instances)
+        flat = dict(verts=obj["positions"], normals=obj["normals"],
+                    uvs=obj["uvs"], mat_ids=obj["mat_ids"],
+                    sampled=obj["sampled"], inst_ids=obj["inst_ids"],
+                    geo_ids=obj["geo_ids"], prim_ids=obj["prim_ids"])
+        inst_tf = np.zeros((max(len(self.instances), 1), 13), np.float32)
+        inst_tf[:, 12] = 1.0
+        for i, inst in enumerate(self.instances):
+            m = np.asarray(inst.transform, np.float32)
+            inst_tf[i, :9] = m[:, :3].reshape(9)
+            inst_tf[i, 9:12] = m[:, 3]
+            inst_tf[i, 12] = 1.0 if np.linalg.det(m[:, :3]) >= 0 else -1.0
+
+        e_insts = [Instance(transform=inst.transform,
+                            geometries=[g for g in inst.geometries
+                                        if g.sampled])
+                   for inst in self.instances
+                   if inst.visible and any(g.sampled
+                                           for g in inst.geometries)]
+        e_flat = dict(verts=np.zeros((1, 3, 3), np.float32),
+                      uvs=np.zeros((1, 3, 2), np.float32),
+                      mat_ids=np.zeros(1, np.int32))
+        emitter_tris = np.zeros(0, np.int64)
+        if e_insts:
+            e_flat = _world_flat(_flatten_object(self.meshes, e_insts),
+                                 e_insts)
+            emitter_tris = np.nonzero(e_flat["sampled"])[0]
+        em = _build_emitters(e_flat["verts"], emitter_tris, e_flat["uvs"],
+                             e_flat["mat_ids"], packed)
+        env = self._build_env()
+
+        arrays = {f"tlas.{k}": getattr(t, k) for k in tlas_mod.ARRAY_FIELDS}
+        arrays.update({
+            "inst_tf": inst_tf,
+            "tri_shade": _pack_tri_shade(flat, packed),
+            "materials.packed": packed,
+            "env.rgbl": env["rgbl"], "env.select": env["select"],
+            "env.alias": env["alias"],
+        })
+        arrays.update(_atlas_arrays(planes))
+        arrays.update(_emitter_arrays(em))
+        statics = {
+            "tlas.num_instances": t.num_instances,
+            "tlas.num_obj_tris": t.num_obj_tris,
+            "env.integral": env["integral"],
+            "has_delta": any(isinstance(m.variant, (Mirror, Glass))
+                             for m in self.materials),
+        }
+        statics.update(_atlas_statics(planes))
+        statics.update(_emitter_statics(em))
+        # a material edit repacks the emitter rows from e_flat; a transform
+        # or visibility edit rebuilds in full
+        state = dict(builder=builder, cache=None, flat=e_flat, packed=packed,
+                     emitter_tris=emitter_tris, statics=statics)
         return arrays, statics, state
 
     def _refit(self, scene: DeviceScene, dev) -> DeviceScene:

@@ -215,19 +215,19 @@ def test_png_decoder_matches_pil_interlaced(name):
 
 
 def test_png_rejects_interlaced_and_jpeg():
-    """A JPEG texture of a kind io/jpeg.py does not read (arithmetic
-    coding) raises naming the image, and a bad CRC raises; interlaced
-    files decode (test_png_decoder_matches_pil_interlaced), and so do
-    the JPEG kinds tests/test_torch_jpeg.py covers."""
+    """A JPEG texture of a kind io/jpeg.py does not read (hierarchical,
+    which PIL refuses too) raises naming the image, and a bad CRC raises;
+    interlaced files decode (test_png_decoder_matches_pil_interlaced), and
+    so do the JPEG kinds tests/test_torch_jpeg.py covers."""
     data = encode_png(np.zeros((2, 2, 3)), 2, 8, interlace=1)
-    arithmetic = (b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x02\x00\x02\x01"
-                  b"\x01\x11\x00\xff\xd9")
-    glb = textured_glb(extra_images=[arithmetic])
+    hierarchical = (b"\xff\xd8\xff\xc5\x00\x0b\x08\x00\x02\x00\x02\x01"
+                    b"\x01\x11\x00\xff\xd9")
+    glb = textured_glb(extra_images=[hierarchical])
     doc, binary = unpack_glb(glb)
     doc["materials"][0]["pbrMetallicRoughness"]["baseColorTexture"] = {
         "index": len(doc["images"]) - 1}
     with pytest.raises(NotImplementedError,
-                       match=r"glTF image 5 .*arithmetic coding"):
+                       match=r"glTF image 5 .*hierarchical"):
         PG.world_from_glb(repack_glb(doc, binary))
     with pytest.raises(ValueError, match="CRC"):
         PNG.decode_png(data[:20] + bytes([data[20] ^ 1]) + data[21:])

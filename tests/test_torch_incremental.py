@@ -1,6 +1,6 @@
 """The port's staged World.build against the reference's
 (tests/test_incremental.py, whose cases each test here mirrors on the
-port, the two-level-instancing cases left out: TLAS is not ported):
+port, the instancing cap's two among them):
 transform and visibility edits refit instead of rebuilding topology,
 material and background edits swap only their stage, and every edit
 keeps array shapes. Added: the host refits (lbvh.refit_host and
@@ -328,3 +328,34 @@ def test_empty_world_and_device_switch():
     w.add_material(PT.MaterialInfo(variant=PT.Lambert(color=(1, 1, 1))))
     s2 = w.build(torch.device("cpu"))
     assert s2.num_tris == 1 and torch.equal(s2.wide.nodes, s1.wide.nodes)
+
+
+class TestInstancingCap:
+    """tests/test_incremental.py's TestInstancingCap on the port."""
+
+    def test_flatten_cap_switches_to_tlas(self, monkeypatch):
+        """Past the flatten cap the build switches to two-level instancing
+        (shared BLAS per unique geometry + TLAS over instance boxes), with
+        the reference's warning, instead of count x tris rows."""
+        monkeypatch.setenv("MSN_MAX_FLAT_TRIS", "1000")
+        w = World()
+        sphere = w.add_mesh(port_mesh(icosphere(2, with_normals=False)))
+        mat = w.add_material(PT.MaterialInfo(variant=PT.Lambert(
+            color=(1, 1, 1))))
+        n_tris = len(icosphere(2, with_normals=False).indices)
+        n_inst = 1000 // n_tris + 2
+        for i in range(n_inst):
+            w.add_instance(PT.Instance(transform=PT.translate(i * 3.0, 0, 0),
+                                       geometries=[PT.Geometry(sphere, mat)]))
+        w.set_background(None)
+        with pytest.warns(UserWarning, match="two-level instancing"):
+            scene = w.build("cpu")
+        assert scene.tlas is not None and scene.wide is None
+        assert scene.tri_shade.shape[0] == n_tris
+        assert scene.tlas.num_instances == n_inst
+
+    def test_cap_override(self, monkeypatch):
+        monkeypatch.setenv("MSN_MAX_FLAT_TRIS", "100000000")
+        w, a, b = two_sphere_world()
+        scene = w.build("cpu")
+        assert scene is not None and scene.tlas is None

@@ -12,13 +12,16 @@ stack bound, and the V kernels also to the packet kernels; the treelet
 walk on 8- and 16-wide trees, one treelet, a deep
 stack bound and K beyond its shared memory; treelet phase 1 (pending
 words and nearest treelets) over K and ray counts. chip_smoke.py makes
-the same comparisons at the render's real shapes."""
+the same comparisons at the render's real shapes. The two-level walk
+(csrc/tlas.cu) equals its plain version bit for bit (t, tri, u, v, inst,
+occlusion) on an instanced scene with rotated, scaled, mirrored and
+hidden instances, n = 0/1/4099."""
 
 import numpy as np
 import pytest
 import torch
 
-from moonshine_tpu_torch.accel import native, packet, treelet, vpacket
+from moonshine_tpu_torch.accel import native, packet, tlas, treelet, vpacket
 from moonshine_tpu_torch.accel.wide import build_wide
 from moonshine_tpu_torch.scripts import cuda_ms, probe_bitcast, profile_vpu
 
@@ -163,6 +166,62 @@ def test_launch_counters(cuda):
     packet.any_hit_packet(w, o, d, t_max)
     packet.closest_hit_plain(w, o, d, 1e12)  # the plain version never counts
     assert packet.LAUNCHES == {"closest_hit": 1, "any_hit": 2}
+
+
+def _tlas_case(device, n, seed=5):
+    """procedural.instanced_scene at 5 x 4 instances of icosphere(2), one
+    hidden, built two-level on `device`, and n seeded rays through it
+    with dead lanes and a per-lane t_max."""
+    import os
+
+    from moonshine_tpu_torch.scene import procedural
+
+    world, _ = procedural.instanced_scene(grid=(5, 4), subdivisions=2,
+                                          seed=seed)
+    world.set_visibility(7, False)
+    os.environ["MSN_FORCE_TLAS"] = "1"
+    try:
+        scene = world.build(device)
+    finally:
+        del os.environ["MSN_FORCE_TLAS"]
+    rs = np.random.RandomState(seed)
+    o = (rs.rand(n, 3) * np.float32([16, 14, 6]) - np.float32([8, 7, 1])
+         ).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    put = lambda x: torch.from_numpy(x).to(device)
+    return (scene.tlas, put(o), put(d), put(rs.rand(n) > 0.2),
+            put((rs.rand(n) * 12).astype(np.float32)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4099])
+def test_tlas_kernels_match_plain(cuda, n):
+    """The two-level kernel against its plain version bit for bit: every
+    field of the closest hit (the instance too) and the occlusion, with an
+    unbounded and a per-lane t_max, with and without an active mask."""
+    t, o, d, active, t_max = _tlas_case(cuda, n)
+    for tm in (1e12, t_max):
+        for act in (None, active):
+            _assert_equal(
+                tlas.closest_hit_tlas(t, o, d, tm, active_in=act),
+                tlas.closest_hit_tlas_plain(t, o, d, tm, active_in=act))
+            _assert_equal(tlas.any_hit_tlas(t, o, d, tm, active_in=act),
+                          tlas.any_hit_tlas_plain(t, o, d, tm,
+                                                  active_in=act))
+    if n > 1:
+        h = tlas.closest_hit_tlas(t, o, d, 1e12)
+        assert int(h.is_hit.sum()) > n // 10
+        assert set(h.inst[h.is_hit].tolist()) > {0}
+        assert 7 not in h.inst.tolist()
+
+
+def test_tlas_launch_counters(cuda):
+    t, o, d, active, t_max = _tlas_case(cuda, 1000)
+    tlas.reset_launch_counts()
+    tlas.closest_hit_tlas(t, o, d, 1e12)
+    tlas.any_hit_tlas(t, o, d, t_max, active_in=active)
+    tlas.closest_hit_tlas_plain(t, o, d, 1e12)  # never counts
+    assert tlas.LAUNCHES == {"tlas_closest_hit": 1, "tlas_any_hit": 1}
 
 
 def test_stack_capacity(cuda):

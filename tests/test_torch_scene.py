@@ -228,14 +228,15 @@ def test_build_defaults_to_the_card():
 def test_flatten_cap_reads_the_variable(monkeypatch):
     """MSN_MAX_FLAT_TRIS sets the flatten cap at each build, as in the
     reference (world.py:350): below the scene's triangle count the build
-    raises (two-level instancing is not ported), at the count it builds
-    the same arrays as under the default cap."""
+    warns and builds the two-level scene, at the count it builds the same
+    arrays as under the default cap."""
     pw, _ = PP.room_scene(grid=2, subdivisions=1)
     want, want_s = pw.build_arrays()
     n_tris = len(want["tri_shade"])
     monkeypatch.setenv("MSN_MAX_FLAT_TRIS", str(n_tris - 1))
-    with pytest.raises(NotImplementedError, match="MSN_MAX_FLAT_TRIS"):
-        pw.build_arrays()
+    with pytest.warns(UserWarning, match=f"cap {n_tris - 1:,}"):
+        two_level, _ = pw.build_arrays()
+    assert "tlas.top_min" in two_level and "wide.nodes" not in two_level
     monkeypatch.setenv("MSN_MAX_FLAT_TRIS", str(n_tris))
     got, got_s = pw.build_arrays()
     assert got_s == want_s and set(got) == set(want)
