@@ -119,8 +119,11 @@ script exits non-zero without the result line. Phases:
                   and a later launch of each kind held against the plain
                   versions bit for bit on 65,536 lanes; the kernels at the
                   frame's largest launches bit for bit, timed, bounded by
-                  the plain versions' visit counts; a 40-instance world
-                  flattened against two-level (the reference's bounds)
+                  the plain versions' visit counts and by the kernel's own
+                  (its counting build); procedural.tie_scene's exact
+                  equal-t ties on 65,536 rays bit for bit; a 40-instance
+                  world flattened against two-level (the reference's
+                  bounds)
   capi            build/libmoonshine_tpu_torch.so built with g++ and loaded
                   with ctypes here: native/test_shim.cpp's scene through
                   Msn* calls on the card (engine on cuda, traversal
@@ -1866,25 +1869,38 @@ TLAS_HOLD_LANES = 65_536  # lanes of each recorded launch held bit for bit
 
 
 def tlas_bound(name, n, visits, t):
-    """(bound_ms, bound_by, detail) of one two-level launch on n rays that
-    touched `visits` (the plain version's count on the same rays): each
-    ray's inputs and outputs and every array of the structure moved once,
-    against the box, triangle and entry operations over fp32 peak."""
+    """(bound_ms, bound_by, detail) of one two-level launch on n rays:
+    each ray's inputs and outputs and the structure moved once, against
+    the box, triangle and entry operations over fp32 peak. `visits` is
+    the plain version's count on the same rays (TlasVisits: the
+    reference's walk over the reference's arrays, one box a node visit)
+    or the kernel's own (WalkVisits: its walk over its records, the boxes
+    it tested)."""
     from moonshine_tpu_torch.accel import tlas
 
     closest = "closest" in name
-    struct_b = sum(getattr(t, k).numel() * getattr(t, k).element_size()
-                   for k in tlas.ARRAY_FIELDS)
+    if isinstance(visits, tlas.WalkVisits):
+        arrays = [t.walk.nodes, t.walk.tris, t.inst_inv, t.top_inst,
+                  t.walk.inst_root]
+        boxes = visits.boxes
+        what = (f"{visits.top} top and {visits.blas} BLAS 8-wide node "
+                f"visits ({visits.top / max(n, 1):.2f} + "
+                f"{visits.blas / max(n, 1):.2f} a ray), {boxes} boxes "
+                f"({boxes / max(n, 1):.1f} a ray)")
+    else:
+        arrays = [getattr(t, k) for k in tlas.ARRAY_FIELDS]
+        boxes = visits.top + visits.blas
+        what = (f"{visits.top} top and {visits.blas} BLAS node visits "
+                f"({visits.top / max(n, 1):.1f} + "
+                f"{visits.blas / max(n, 1):.1f} a ray)")
+    struct_b = sum(x.numel() * x.element_size() for x in arrays)
     nbytes = n * (12 + 12 + 4 + 1 + (20 if closest else 1)) + struct_b
-    flops = ((visits.top + visits.blas) * tlas.FLOPS_PER_BOX
-             + visits.tris * tlas.FLOPS_PER_TRI
+    flops = (boxes * tlas.FLOPS_PER_BOX + visits.tris * tlas.FLOPS_PER_TRI
              + visits.entries * tlas.FLOPS_PER_ENTRY)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_bytes, t_ops), by, (
-        f"{visits.top} top and {visits.blas} BLAS node visits "
-        f"({visits.top / max(n, 1):.1f} + {visits.blas / max(n, 1):.1f} a "
-        f"ray), {visits.entries} instance entries, {visits.leaves} leaf "
+        f"{what}, {visits.entries} instance entries, {visits.leaves} leaf "
         f"visits, {visits.tris} triangle tests; {nbytes / 1e6:.2f} MB -> "
         f"{t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms")
 
@@ -1897,17 +1913,19 @@ def tlas_phase(dev, cfg, timings, errs, launches):
     a later launch of each kind are held against the plain versions bit
     for bit on 65,536 lanes (the plain closest hit timed there); the
     kernels at the frame's largest launches against their plain versions
-    bit for bit, timed, bounded by the plain versions' visit counts; then
-    a 40-instance world rendered flattened and two-level within the
-    reference's bounds."""
+    bit for bit, timed, bounded by the plain versions' visit counts and by
+    the kernel's own (its counting build); procedural.tie_scene (exact
+    equal-t ties) on 65,536 rays bit for bit; then a 40-instance world
+    rendered flattened and two-level within the reference's bounds."""
     import warnings
 
     import torch
 
     from moonshine_tpu_torch.accel import tlas
     from moonshine_tpu_torch.render.camera import LensArrays
-    from moonshine_tpu_torch.render.renderer import _sample_rays, render_spp
+    from moonshine_tpu_torch.render.renderer import render_spp
     from moonshine_tpu_torch.scene import procedural
+    from moonshine_tpu_torch.scripts import compare_tlas
 
     t0 = time.perf_counter()
     world, lens = procedural.instanced_scene()
@@ -1971,29 +1989,7 @@ def tlas_phase(dev, cfg, timings, errs, launches):
             say("tlas", f"{kind} launch {i} of {len(runs)}: {o.shape[0]} "
                 f"lanes ({live} live) bit for bit against the plain version")
 
-    h, w = HD
-    o, d, _, _ = _sample_rays(la, h, w, 0, True, dev)
-    n = o.shape[0]
-    ones = torch.ones(n, dtype=torch.bool, device=dev)
-    hit = tlas.closest_hit_tlas(t, o, d, INF_T, active_in=ones)
-    # the first bounce's shadow batch: an env ray (a seeded direction on
-    # the camera's side) and a ray to the lamp's centre per live lane
-    p = o + hit.t[:, None].clamp_max(1e6) * d - 1e-4 * d
-    to_l = torch.tensor([0.0, 0.0, 20.0], device=dev) - p
-    dist = torch.linalg.norm(to_l, dim=1)
-    env_d = torch.from_numpy(np.random.RandomState(11).randn(n, 3).astype(
-        np.float32)).to(dev)
-    env_d = env_d / torch.linalg.norm(env_d, dim=1, keepdim=True)
-    env_d = torch.where((env_d * d).sum(1, keepdim=True) > 0, -env_d, env_d)
-    batches = {
-        "tlas_closest_hit": (o, d, torch.full((n,), INF_T, device=dev), ones,
-                             False),
-        "tlas_any_hit": (torch.cat([p, p]),
-                         torch.cat([env_d, to_l / dist[:, None]]),
-                         torch.cat([torch.full((n,), INF_T, device=dev),
-                                    dist * (1 - 1e-4)]),
-                         hit.is_hit.repeat(2), True),
-    }
+    batches = compare_tlas.batches(scene, la, dev)
     for name, (ro, rd, tm, act, any_hit) in batches.items():
         fk = tlas.any_hit_tlas if any_hit else tlas.closest_hit_tlas
         fp = tlas.any_hit_tlas_plain if any_hit else \
@@ -2009,12 +2005,41 @@ def tlas_phase(dev, cfg, timings, errs, launches):
         errs[name] = 0.0
         ms = cuda_ms(lambda: fk(t, ro, rd, tm, act), 5)
         b_ms, by, detail = tlas_bound(name, ro.shape[0], visits, t)
+        own = tlas.walk_visits(t, ro, rd, tm, act, any_hit)
+        w_ms, w_by, w_detail = tlas_bound(name, ro.shape[0], own, t)
         timings[name] = {"ms": round(ms, 4), "plain_ms": round(plain_ms, 2),
                          "bound_ms": round(b_ms, 4), "bound_by": by}
         say("tlas", f"{name} on {ro.shape[0]} rays ({int(act.sum())} live): "
             f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (visits counted), "
-            f"bit for bit; bound {b_ms:.4f} ms ({by}: {detail}); "
-            f"{ms / b_ms:.1f}x the bound")
+            f"bit for bit; bound on the reference's visits {b_ms:.4f} ms "
+            f"({by}: {detail}); {ms / b_ms:.1f}x it")
+        say("tlas", f"{name}: bound on the kernel's own walk (its counting "
+            f"build) {w_ms:.4f} ms ({w_by}: {w_detail}); {ms / w_ms:.1f}x "
+            f"it; the {'own walk' if w_ms >= b_ms else 'reference'}'s "
+            f"governs (the larger)" + (
+                "; the kernel runs below the reference-visit bound: its "
+                "walk does fewer visits" if ms < b_ms else ""))
+
+    # exact equal-t ties: instances under one transform, repeated triangles
+    world, o_np, d_np = procedural.tie_scene(TLAS_HOLD_LANES, seed=1)
+    tt = tlas.device_tlas(tlas.build_tlas(world.meshes, world.instances)[0],
+                          dev)
+    o, d = torch.from_numpy(o_np).to(dev), torch.from_numpy(d_np).to(dev)
+    for fk, fp, tm in ((tlas.closest_hit_tlas, tlas.closest_hit_tlas_plain,
+                        INF_T),
+                       (tlas.any_hit_tlas, tlas.any_hit_tlas_plain, 14.0)):
+        got = fk(tt, o, d, tm)
+        assert_same(f"tie scene {fk.__name__}", got, fp(tt, o, d, tm))
+    hit = tlas.closest_hit_tlas(tt, o, d, INF_T)
+    # an instance with a twin (same transform, same BLAS) ties every hit
+    twin = ((tt.inst_inv[:, None] == tt.inst_inv[None]).all(-1)
+            & (tt.inst_root[:, None] == tt.inst_root[None])).sum(1) > 1
+    ties = int(twin[hit.inst[hit.is_hit].long()].sum())
+    say("tlas", f"tie scene: {o.shape[0]} rays, {int(hit.is_hit.sum())} "
+        f"hits, {ties} of them on an instance with a twin (a tie in t); "
+        f"both kernels bit for bit against the plain versions")
+    if ties == 0:
+        raise AssertionError("the tie scene holds no tie")
 
     world, small_lens = procedural.instanced_scene(grid=(8, 5),
                                                    subdivisions=4)

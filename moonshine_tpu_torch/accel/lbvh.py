@@ -648,6 +648,38 @@ def _finalize_topdown(tri_verts, order, node_lo, node_len, child_left,
                    M, len(order), parent)
 
 
+def refit(bvh: BVH, tri_verts: torch.Tensor, max_leaf_size: int = 4,
+          depth_bound: int = 70) -> BVH:
+    """Node boxes for moved vertices on a fixed topology, in torch ops on
+    the BVH's device (the reference's device refit, lbvh.py:764 there):
+    leaf boxes from their first `max_leaf_size` triangles, then
+    `depth_bound` passes that set each internal node to the union of its
+    two children (the right one the left one's escape). `bvh` is a
+    device_bvh; tri_verts [T, 3, 3] float32 in original order."""
+    sorted_verts = tri_verts[bvh.tri_order]
+    tri_min = sorted_verts.amin(dim=1)
+    tri_max = sorted_verts.amax(dim=1)
+    m = bvh.left.shape[0]
+    is_leaf = bvh.count > 0
+    lo = torch.full((m, 3), float("inf"), dtype=torch.float32,
+                    device=tri_verts.device)
+    hi = -lo
+    for j in range(max_leaf_size):
+        take = (is_leaf & (j < bvh.count))[:, None]
+        idx = torch.clamp(bvh.left + j, 0, bvh.num_tris - 1)
+        lo = torch.where(take, torch.minimum(lo, tri_min[idx]), lo)
+        hi = torch.where(take, torch.maximum(hi, tri_max[idx]), hi)
+    left_child = torch.clamp(bvh.left, 0, m - 1)
+    right_child = torch.clamp(bvh.escape[left_child], 0, m - 1)
+    internal = (~is_leaf)[:, None]
+    for _ in range(depth_bound):
+        lo = torch.where(internal, torch.minimum(lo[left_child],
+                                                 lo[right_child]), lo)
+        hi = torch.where(internal, torch.maximum(hi[left_child],
+                                                 hi[right_child]), hi)
+    return bvh._replace(aabb_min=lo, aabb_max=hi)
+
+
 def refit_host(left: np.ndarray, count: np.ndarray, escape: np.ndarray,
                tri_order: np.ndarray, tri_verts: np.ndarray,
                depth_bound: int = 70) -> tuple[np.ndarray, np.ndarray]:

@@ -3,7 +3,8 @@
 walk of csrc/tlas.cu, which share csrc/visit.cuh; traverse.cu and
 vpacket.cu also share the group walk of csrc/group_walk.cuh), the
 arithmetic microbenchmarks (csrc/vpu.cu) and the quantised-row decode
-probe (csrc/bitcast.cu).
+probe (csrc/bitcast.cu); csrc/tlas.cu is built twice, the second time
+with its visit counters (`tlas_count`).
 
 nvcc compiles each source into a shared library with a plain C
 interface, loaded with ctypes. A library is built at first use into
@@ -31,7 +32,11 @@ _ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
 SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
            "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
-           "bitcast": CSRC / "bitcast.cu", "tlas": CSRC / "tlas.cu"}
+           "bitcast": CSRC / "bitcast.cu", "tlas": CSRC / "tlas.cu",
+           "tlas_count": CSRC / "tlas.cu"}
+# a library's own flags: tlas_count is the two-level walk that counts its
+# visits (accel/tlas.py walk_visits), never the timed build
+EXTRA_FLAGS = {"tlas_count": ["-DMSN_TLAS_COUNT"]}
 HEADERS = [CSRC / "visit.cuh", CSRC / "group_walk.cuh"]
 BUILD_DIR = _ROOT / "build"
 # -fmad=false keeps every multiply and add separately rounded, as in the
@@ -141,12 +146,24 @@ class BitcastLib(NativeLib):
 
 
 class TlasLib(NativeLib):
-    """tlas.cu's entry points: the TLAS arrays (15 pointers, the instance
-    and triangle counts), the rays, then the outputs."""
+    """tlas.cu's entry points: the walk's records (five pointers, the
+    instance and triangle counts, the counters), the rays, the stack
+    depth and the ray counter, then the outputs; `counting` is 1 for the
+    counting build. `records` is False for a source whose entry points
+    take the reference's 15 TLAS arrays and the rays alone (the
+    one-thread-per-ray kernel)."""
 
     def __init__(self, *args):
         super().__init__(*args)
-        rays = [_P] * 15 + [_I, _I] + [_P, _P, _P, _P, _I]
+        self.records = self._has("msn_tlas_shared_bytes")
+        if self.records:
+            rays = ([_P] * 5 + [_I, _I, _P] + [_P, _P, _P, _P, _I]
+                    + [_I, _P])
+            self.shared_bytes = self._fn("msn_tlas_shared_bytes", [_I])
+            self.counting = int(self._fn("msn_tlas_counting", [])())
+        else:
+            rays = [_P] * 15 + [_I, _I] + [_P, _P, _P, _P, _I]
+            self.counting = 0
         self.closest_hit = self._fn("msn_tlas_closest_hit",
                                     rays + [_P, _P, _P, _P, _P, _P])
         self.any_hit = self._fn("msn_tlas_any_hit", rays + [_P, _P])
@@ -154,7 +171,7 @@ class TlasLib(NativeLib):
 
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
             "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib,
-            "tlas": TlasLib}
+            "tlas": TlasLib, "tlas_count": TlasLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -169,9 +186,13 @@ def _nvcc() -> str:
                        "CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def _target(name: str) -> pathlib.Path:
     blob = SOURCES[name].read_bytes() + b"".join(
-        h.read_bytes() for h in HEADERS) + " ".join(NVCC_FLAGS).encode()
+        h.read_bytes() for h in HEADERS) + " ".join(_flags(name)).encode()
     digest = hashlib.sha256(blob).hexdigest()[:16]
     return BUILD_DIR / f"libmsn_{name}_{digest}.so"
 
@@ -188,7 +209,7 @@ def build_all(names=tuple(SOURCES)) -> dict[str, NativeLib]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         started[name] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [_nvcc(), *_flags(name), "-o", str(tmp), str(SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = {}
     failed = []
@@ -210,9 +231,10 @@ def build_all(names=tuple(SOURCES)) -> dict[str, NativeLib]:
 
 
 def _sources(csrc: pathlib.Path, name: str) -> list:
-    """The bytes of csrc/NAME.cu and of the headers beside it."""
+    """The bytes of library NAME's source and of the headers beside it."""
     return [(f.name, f.read_bytes())
-            for f in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]]
+            for f in [csrc / SOURCES[name].name,
+                      *sorted(csrc.glob("*.cuh"))]]
 
 
 def build_against(checkouts, names):
@@ -231,11 +253,11 @@ def build_against(checkouts, names):
                 print(f"{checkout}: {name}.cu and its headers equal this "
                       f"checkout's; not built", flush=True)
                 continue
-            src = csrc / f"{name}.cu"
+            src = csrc / SOURCES[name].name
             out = BUILD_DIR / "compare" / f"libmsn_{name}_{i}.so"
             out.parent.mkdir(parents=True, exist_ok=True)
             started.append((name, label, src, out, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                [_nvcc(), *_flags(name), "-o", str(out), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
 
     def load() -> dict:
@@ -298,3 +320,8 @@ def bitcast_lib() -> BitcastLib:
 def tlas_lib() -> TlasLib:
     """The two-level traversal library (csrc/tlas.cu)."""
     return _lib("tlas")
+
+
+def tlas_count_lib() -> TlasLib:
+    """csrc/tlas.cu built to count its visits (-DMSN_TLAS_COUNT)."""
+    return _lib("tlas_count")

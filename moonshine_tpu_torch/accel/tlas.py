@@ -20,16 +20,26 @@ reference's arrays: each BLAS and the top level padded to a power of two
 -1 with their box collapsed to their translation, the top level built
 over the degenerate triangles (lo, hi, lo) with one instance a leaf.
 
+`device_tlas` also derives the kernel's records from those arrays
+(`build_walk`, a `TlasWalk` in the TLAS's `walk` field): 8-wide nodes
+collapsed from the binary top level and BLASes, in order, each child a
+box and a code in two float4s, and each triangle as v0, e1, e2.
+`build_tlas` returns the reference's arrays alone (`walk` None).
+
 `closest_hit_tlas` and `any_hit_tlas` launch the CUDA kernel of
 csrc/tlas.cu for CUDA tensors and run the plain versions for CPU
 tensors; any other device raises. The plain versions
 (`closest_hit_tlas_plain`, `any_hit_tlas_plain`) are the reference's
 lockstep walk in torch ops, each iteration over the lanes still walking
 (a lane's result does not depend on the others), built from
-accel/traverse.py's box and triangle tests; the kernel evaluates the
-same expressions in the same order, so both are bit-equal. With
-count_visits=True the plain versions also return what the walk touched
-(`TlasVisits`), from which the kernel's least time is bounded.
+accel/traverse.py's box and triangle tests. The kernel walks the
+records near child first and breaks equal-t ties by (top-level leaf
+position, BLAS slot), the order in which the plain walk meets its
+leaves, with the same expressions, so both are bit-equal (csrc/tlas.cu's
+header gives the argument). With count_visits=True the plain versions
+also return what the walk touched (`TlasVisits`), from which the
+kernel's least time is bounded; `walk_visits` counts what the kernel's
+own walk touches, through a counting build of it.
 """
 
 from __future__ import annotations
@@ -78,9 +88,31 @@ class TLAS(NamedTuple):
     inst_inv: object  # [I, 12] world -> object, 3x3 row-major then t
     num_instances: int
     num_obj_tris: int
+    walk: object = None  # TlasWalk, from device_tlas
 
 
-ARRAY_FIELDS = TLAS._fields[:-2]
+ARRAY_FIELDS = TLAS._fields[:15]  # the reference's arrays
+
+
+class TlasWalk(NamedTuple):
+    """The kernel's records (`build_walk`), derived from a TLAS's arrays.
+
+    nodes: [N, WIDE, 8] float32; child j of node n is (lo xyz, code) and
+    (hi xyz, 0), the code's int32 bits in a float: >= 0 a node, -1 an
+    empty child (a hidden instance too), -2 - x a leaf, x the top-level
+    leaf position or, in a BLAS, slot * 4 + count - 1. Node 0 is the top
+    level's root. tris: [Ts, 12] float32, slot s as v0 xyz and its
+    triangle id's bits, e1 = v1 - v0 and 0, e2 = v2 - v0 and 0.
+    inst_root: [I] int32, each instance's BLAS root node, -1 hidden.
+    stack_depth: the most entries the walk's stack holds."""
+
+    nodes: object
+    tris: object
+    inst_root: object
+    stack_depth: int
+
+
+WIDE = 8  # children a node of the records (csrc/tlas.cu kW)
 
 
 class TlasHit(NamedTuple):
@@ -95,6 +127,19 @@ class TlasHit(NamedTuple):
     @property
     def is_hit(self):
         return self.tri >= 0
+
+
+class WalkVisits(NamedTuple):
+    """What the kernel's own walk touched (`walk_visits`): top-level and
+    BLAS node visits, the boxes they tested (non-empty children),
+    instance entries, leaf visits and the triangles they tested."""
+
+    top: int
+    blas: int
+    boxes: int
+    entries: int
+    leaves: int
+    tris: int
 
 
 class TlasVisits(NamedTuple):
@@ -242,17 +287,130 @@ def build_tlas(meshes, instances) -> tuple[TLAS, dict, dict]:
     ), obj_info, groups
 
 
+def _wide_children(left, count, escape, ids):
+    """[len(ids), WIDE] binary children of wide nodes over binary nodes
+    `ids`, in order (-1 empty): an internal node's two children (the
+    right one the left one's escape), each internal one of those replaced
+    by its two, twice; a leaf node is its own only child."""
+    leaf = count[ids] > 0
+    c = np.full((len(ids), WIDE), -1, np.int64)
+    c[leaf, 0] = ids[leaf]
+    lc = left[ids[~leaf]]
+    c[~leaf, 0], c[~leaf, 1] = lc, escape[lc]
+    rows = np.broadcast_to(np.arange(len(ids))[:, None], c.shape)
+    for _ in range(2):  # 2 -> 4 -> 8
+        valid = c >= 0
+        inner = valid & (count[np.maximum(c, 0)] == 0)
+        w = valid.astype(np.int64) + inner
+        pos = np.cumsum(w, axis=1) - w
+        lc = left[np.maximum(c, 0)]
+        out = np.full(c.shape, -1, np.int64)
+        out[rows[valid], pos[valid]] = np.where(inner, lc, c)[valid]
+        out[rows[inner], pos[inner] + 1] = escape[lc[inner]]
+        c = out
+    return c
+
+
+def _collapse(left, count, escape, roots):
+    """Wide nodes over the binary trees at `roots`, breadth first: (their
+    binary children [K, WIDE], the wide node of each binary node or -1,
+    the most stack entries a walk from a root down to a leaf leaves
+    behind, its siblings at each node)."""
+    wid = np.full(len(left), -1, np.int64)
+    kids, base, depth = [], 0, 0
+    ids = np.asarray(roots, np.int64)
+    acc = np.zeros(len(ids), np.int64)  # entries left at the ancestors
+    while len(ids):
+        wid[ids] = base + np.arange(len(ids))
+        ch = _wide_children(left, count, escape, ids)
+        kids.append(ch)
+        base += len(ids)
+        n_ch = (ch >= 0).sum(1)
+        here = acc + n_ch - 1
+        depth = max(depth, int(here.max()))
+        inner = (ch >= 0) & (count[np.maximum(ch, 0)] == 0)
+        ids = ch[inner]
+        acc = np.broadcast_to(here[:, None], ch.shape)[inner]
+    return np.concatenate(kids), wid, depth
+
+
+def _records(kids, wid, count, mn, mx, code_of_leaf, offset):
+    """[K, WIDE, 8] float32 child records of wide nodes (see TlasWalk)."""
+    valid = kids >= 0
+    x = np.maximum(kids, 0)
+    code = np.where(count[x] == 0, wid[x] + offset, code_of_leaf[x])
+    code = np.where(valid, code, -1).astype(np.int32)
+    keep = (code != -1)[..., None]
+    rec = np.zeros(kids.shape + (8,), np.float32)
+    rec[..., 0:3] = np.where(keep, mn[x], 0.0)
+    rec[..., 4:7] = np.where(keep, mx[x], 0.0)
+    rec[..., 3] = code.view(np.float32)
+    return rec
+
+
+def build_walk(t: TLAS) -> TlasWalk:
+    """The kernel's records (TlasWalk) from a TLAS of numpy arrays (the
+    reference's, as `build_tlas` or a JAX build gives them). Wide node 0
+    is the top level's root, the BLASes' nodes follow."""
+    a = {k: np.asarray(getattr(t, k)) for k in ARRAY_FIELDS}
+    t_left = a["top_left"].astype(np.int64)
+    t_count = a["top_count"].astype(np.int64)
+    t_esc = a["top_escape"].astype(np.int64)
+    b_left = a["blas_left"].astype(np.int64)
+    b_count = a["blas_count"].astype(np.int64)
+    b_esc = a["blas_escape"].astype(np.int64)
+    if (b_count > BLAS_LEAF).any() or (t_count > 1).any():
+        raise ValueError("TLAS leaves hold more than BLAS_LEAF triangles "
+                         "or more than one instance")
+    inst_root = a["inst_root"].astype(np.int64)
+    n_inst = len(inst_root)
+    top_kids, top_wid, top_depth = _collapse(t_left, t_count, t_esc, [0])
+    # a top-level leaf's code: -2 - its position, or -1 (never entered)
+    # for a hidden instance
+    pos = np.clip(t_left, 0, n_inst - 1)
+    hidden = inst_root[a["top_inst"].astype(np.int64)[pos]] < 0
+    top_codes = np.where(hidden, -1, -2 - t_left)
+    roots = np.unique(inst_root[inst_root >= 0])
+    b_codes = -2 - (b_left * 4 + np.maximum(b_count, 1) - 1)
+    nodes = [_records(top_kids, top_wid, t_count, a["top_min"],
+                      a["top_max"], top_codes, 0)]
+    blas_depth = 0
+    w_root = np.full(n_inst, -1, np.int64)
+    if len(roots):
+        b_kids, b_wid, blas_depth = _collapse(b_left, b_count, b_esc, roots)
+        nodes.append(_records(b_kids, b_wid, b_count, a["blas_min"],
+                              a["blas_max"], b_codes, len(top_kids)))
+        vis = inst_root >= 0
+        w_root[vis] = b_wid[inst_root[vis]] + len(top_kids)
+    v = a["blas_tris"].astype(np.float32)
+    tris = np.zeros((len(v), 12), np.float32)
+    tris[:, 0:3] = v[:, 0]
+    tris[:, 3] = a["blas_tri_id"].astype(np.int32).view(np.float32)
+    tris[:, 4:7] = v[:, 1] - v[:, 0]
+    tris[:, 8:11] = v[:, 2] - v[:, 0]
+    # the top level's entries, one replaced by the BLAS root, then the
+    # BLAS's own
+    return TlasWalk(nodes=np.concatenate(nodes), tris=tris,
+                    inst_root=w_root.astype(np.int32),
+                    stack_depth=top_depth + blas_depth + 1)
+
+
 def device_tlas(t: TLAS, device) -> TLAS:
     """The TLAS's arrays as contiguous tensors on `device` (float32 boxes,
-    triangles and transforms, int32 links)."""
-    def put(name):
-        x = np.asarray(getattr(t, name))
+    triangles and transforms, int32 links), with the kernel's records
+    (`build_walk`) in `walk`."""
+    def put(x):
+        x = np.asarray(x)
         dt = np.float32 if x.dtype.kind == "f" else np.int32
         return torch.tensor(np.ascontiguousarray(x, dt), device=device)
 
-    return t._replace(**{name: put(name) for name in ARRAY_FIELDS},
+    w = build_walk(t)
+    return t._replace(**{name: put(getattr(t, name))
+                         for name in ARRAY_FIELDS},
                       num_instances=int(t.num_instances),
-                      num_obj_tris=int(t.num_obj_tris))
+                      num_obj_tris=int(t.num_obj_tris),
+                      walk=w._replace(nodes=put(w.nodes), tris=put(w.tris),
+                                      inst_root=put(w.inst_root)))
 
 
 # --- plain torch versions ---
@@ -404,25 +562,44 @@ def any_hit_tlas_plain(t: TLAS, ray_o, ray_d, t_max, active_in=None,
 
 # --- CUDA wrappers ---
 
-def _launch(t: TLAS, ray_o, ray_d, t_max, active_in, any_hit: bool):
+def _aligned(name, x, dtype):
+    if (x.dtype != dtype or not x.is_contiguous()
+            or x.data_ptr() % 16 != 0):
+        raise ValueError(f"TLAS {name} must be contiguous {dtype}, 16-byte "
+                         "aligned")
+    return x
+
+
+def _launch(t: TLAS, ray_o, ray_d, t_max, active_in, any_hit: bool,
+            lib=None, counts=None):
     """One launch of csrc/tlas.cu's kernel; LAUNCHES adds one where it
-    launches."""
-    lib = native.tlas_lib()
+    launches. lib: another build of it (the counting one, with its int64
+    [6] `counts`, for `walk_visits`; another checkout's, for
+    scripts/compare_tlas.py), whose launches LAUNCHES does not count."""
+    w = t.walk
+    if w is None:
+        raise ValueError("the TLAS has no kernel records: make it with "
+                         "device_tlas")
+    own = lib is None
+    lib = lib or native.tlas_lib()
     n, dev = ray_o.shape[0], ray_o.device
     if n >= 2**31:
         raise ValueError("too many rays for one launch")
     ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
     t_lanes = _t_max_lanes(t_max, n, dev)
     act = None if active_in is None else active_in.contiguous()
-    arrays = [getattr(t, name) for name in ARRAY_FIELDS]
-    for name, x in zip(ARRAY_FIELDS, arrays):
-        want = torch.float32 if x.is_floating_point() else torch.int32
-        if x.dtype != want or not x.is_contiguous():
-            raise ValueError(f"TLAS {name} must be contiguous {want}")
-    args = [x.data_ptr() for x in arrays] + [
-        t.num_instances, t.blas_tris.shape[0],
-        ray_o.data_ptr(), ray_d.data_ptr(), t_lanes.data_ptr(),
-        None if act is None else act.data_ptr(), n]
+    for name, x in (("top_inst", t.top_inst), ("walk.inst_root",
+                                                w.inst_root)):
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"TLAS {name} must be contiguous int32")
+    args = [_aligned("walk.nodes", w.nodes, torch.float32).data_ptr(),
+            _aligned("walk.tris", w.tris, torch.float32).data_ptr(),
+            _aligned("inst_inv", t.inst_inv, torch.float32).data_ptr(),
+            t.top_inst.data_ptr(), w.inst_root.data_ptr(),
+            t.num_instances, w.tris.shape[0],
+            None if counts is None else counts.data_ptr(),
+            ray_o.data_ptr(), ray_d.data_ptr(), t_lanes.data_ptr(),
+            None if act is None else act.data_ptr(), n, w.stack_depth]
     if any_hit:
         out = (torch.empty(n, dtype=torch.bool, device=dev),)
         fn, key = lib.any_hit, "tlas_any_hit"
@@ -433,11 +610,29 @@ def _launch(t: TLAS, ray_o, ray_d, t_max, active_in, any_hit: bool):
                torch.empty(n, dtype=torch.int32, device=dev))
         fn, key = lib.closest_hit, "tlas_closest_hit"
     if n:
-        rc = _call_on(fn, dev, *args, *(x.data_ptr() for x in out))
+        next_ray = torch.empty(1, dtype=torch.int32, device=dev)
+        rc = _call_on(fn, dev, *args, next_ray.data_ptr(),
+                      *(x.data_ptr() for x in out))
         if rc != 0:
             raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
-        count_launch(LAUNCHES, key)
+        if own:
+            count_launch(LAUNCHES, key)
     return out[0] if any_hit else TlasHit(*out)
+
+
+def walk_visits(t: TLAS, ray_o, ray_d, t_max, active_in=None,
+                any_hit: bool = False) -> WalkVisits:
+    """What the kernel's walk visits on these CUDA rays, counted by the
+    counting build of csrc/tlas.cu (never the timed one; LAUNCHES does
+    not count it). The outputs equal the kernel's and are dropped."""
+    _check(t, ray_o, ray_d, active_in)
+    if _device_kind(ray_o) != "cuda":
+        raise ValueError("walk_visits counts the CUDA kernel's walk")
+    counts = torch.zeros(len(WalkVisits._fields), dtype=torch.int64,
+                         device=ray_o.device)
+    _launch(t, ray_o, ray_d, t_max, active_in, any_hit,
+            lib=native.tlas_count_lib(), counts=counts)
+    return WalkVisits(*(int(x) for x in counts.tolist()))
 
 
 def closest_hit_tlas(t: TLAS, ray_o, ray_d, t_max, active_in=None

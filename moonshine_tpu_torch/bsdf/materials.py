@@ -77,8 +77,16 @@ def ggx_pdf(alpha, m):
 
 # --- Fresnel (material.hlsl:71-123) ---
 
+def schlick_r0(eta_i, eta_t):
+    return ((eta_t - eta_i) / (eta_t + eta_i)) ** 2
+
+
 def schlick_weight(c):
     return (1.0 - c) ** 5
+
+
+def schlick_scalar(cos_t, r0):
+    return r0 + (1.0 - r0) * schlick_weight(cos_t)
 
 
 def schlick_color(cos_t, r0_rgb):

@@ -56,6 +56,10 @@ def sin2_theta(v):
     return torch.clamp_min(1.0 - cos2_theta(v), 0.0)
 
 
+def sin_theta(v):
+    return torch.sqrt(sin2_theta(v))
+
+
 def tan2_theta(v):
     return sin2_theta(v) / torch.clamp_min(cos2_theta(v), 1e-30)
 

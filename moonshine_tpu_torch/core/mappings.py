@@ -54,6 +54,14 @@ def square_to_cosine_hemisphere(square):
     return torch.cat([d, z[..., None]], dim=-1)
 
 
+def square_to_uniform_hemisphere(square):
+    """Uniform upper hemisphere: z = u, phi = 2 pi v."""
+    z = square[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * PI * square[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
 def spherical_to_cartesian(sin_theta, cos_theta, phi):
     return torch.stack(
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta],

@@ -68,3 +68,20 @@ def coordinate_system(v1):
     v2_b = torch.stack([zeros, z * inv_b, -y * inv_b], dim=-1)
     v2 = torch.where(use_x[..., None], v2_a, v2_b)
     return v2, cross(v2, v1)
+
+
+def reflect(v, n):
+    """Mirror v about normal n (both unit, pointing away from surface)."""
+    return 2.0 * dot(v, n) * n - v
+
+
+def transform_point(mat3x4, p):
+    """Apply a [..., 3, 4] affine transform to [..., 3] points."""
+    return (torch.einsum("...ij,...j->...i", mat3x4[..., :, :3], p)
+            + mat3x4[..., :, 3])
+
+
+def transform_dir(mat3x4, d):
+    """Apply the linear part of a [..., 3, 4] transform to [..., 3]
+    vectors."""
+    return torch.einsum("...ij,...j->...i", mat3x4[..., :, :3], d)

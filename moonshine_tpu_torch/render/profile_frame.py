@@ -1,17 +1,23 @@
 """Where one sample's time goes on the card, for one scene configuration.
 
-    python -m moonshine_tpu_torch.render.profile_frame [--config default|treelet]
-        [--size 1920x1080] [--grid 6] [--subdivisions 4]
+    python -m moonshine_tpu_torch.render.profile_frame
+        [--config default|treelet|instanced] [--size 1920x1080] [--grid 6]
+        [--subdivisions 4]
 
 Builds the room scene (grid=6, subdivisions=4 is room_184k) as the
 default build, or as the treelet configuration (MSN_WIDE=8 MSN_LEAF_CAP=8
-at build, MSN_TREELETS=1 at dispatch), renders one warm-up sample, times
+at build, MSN_TREELETS=1 at dispatch), or instanced_1080p's scene
+(`procedural.instanced_scene()`, two-level by the flatten cap; --grid
+and --subdivisions do not apply), renders one warm-up sample, times
 one sample unprofiled (host clock around a synchronised render_spp),
 then traces one more under torch.profiler. Prints one JSON line: the
 card, the unprofiled wall, the kernel count, the summed kernel time, the
 device busy time (union of kernel intervals) over the profiled wall, the
-traversal kernels' time, the treelet phase-1 kernel's time and the five
-kernels that took longest. Needs a CUDA device.
+traversal kernels' time (packet, treelet or two-level), the treelet
+phase-1 kernel's time, the two-level decode's instance transform
+(integrator/path.py `_inst_world`: its calls, their host time and the
+time of the kernels they launched) and the five kernels that took
+longest. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,13 +30,27 @@ import tempfile
 import time
 
 
-def _kernel_events(prof) -> list[dict]:
+def _trace_events(prof) -> list[dict]:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+            return json.load(f)["traceEvents"]
+
+
+def _annotated(events, name) -> tuple[int, float, float]:
+    """(calls, host us, kernel us) of the ranges `name` marks: the
+    kernels whose launches fall inside them, by correlation id."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == name and e.get("cat") == "user_annotation"
+             and "dur" in e]
+    corr = {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") == "cuda_runtime"
+            and any(a <= e["ts"] <= b for a, b in spans)}
+    corr.discard(None)
+    kernel_us = sum(e["dur"] for e in events if e.get("cat") == "kernel"
+                    and e.get("args", {}).get("correlation") in corr)
+    return len(spans), sum(b - a for a, b in spans), kernel_us
 
 
 def _union_us(spans) -> float:
@@ -45,7 +65,7 @@ def _union_us(spans) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("default", "treelet"),
+    ap.add_argument("--config", choices=("default", "treelet", "instanced"),
                     default="default")
     ap.add_argument("--size", default="1920x1080")
     ap.add_argument("--grid", type=int, default=6)
@@ -56,6 +76,7 @@ def main(argv=None) -> dict:
 
     from .camera import LensArrays
     from .renderer import render_spp
+    from ..integrator import path
     from ..integrator.path import PathConfig, _hbm_mode
     from ..scene import procedural
 
@@ -65,8 +86,11 @@ def main(argv=None) -> dict:
     if args.config == "treelet":
         os.environ.update(MSN_WIDE="8", MSN_LEAF_CAP="8", MSN_TREELETS="1")
     dev = torch.device("cuda", 0)
-    world, lens = procedural.room_scene(grid=args.grid,
-                                        subdivisions=args.subdivisions)
+    if args.config == "instanced":
+        world, lens = procedural.instanced_scene()
+    else:
+        world, lens = procedural.room_scene(grid=args.grid,
+                                            subdivisions=args.subdivisions)
     scene = world.build(dev)
     lens = LensArrays.from_lens(lens, dev)
     cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
@@ -79,20 +103,33 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
+    inst_world = path._inst_world
+
+    def marked(*a, **kw):  # the instance transform, marked in the trace
+        with torch.profiler.record_function("inst_world"):
+            return inst_world(*a, **kw)
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        render_spp(scene, lens, height, width, 2, 1, cfg)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _kernel_events(prof)
+    path._inst_world = marked
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            render_spp(scene, lens, height, width, 2, 1, cfg)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        path._inst_world = inst_world
+    events = _trace_events(prof)
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    iw_calls, iw_host_us, iw_kernel_us = _annotated(events, "inst_world")
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     total_us = sum(by_name.values())
     traversal_us = sum(v for k, v in by_name.items()
-                       if "traverse_kernel" in k or "treelet_kernel" in k)
+                       if "traverse_kernel" in k or "treelet_kernel" in k
+                       or "tlas_kernel" in k)
     phase1_us = sum(v for k, v in by_name.items() if "pending_kernel" in k)
     busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
@@ -102,13 +139,16 @@ def main(argv=None) -> dict:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {
         "card": smi, "config": args.config, "size": args.size,
-        "mode": _hbm_mode(scene.wide), "triangles": scene.num_tris,
+        "mode": "tlas" if scene.tlas is not None else _hbm_mode(scene.wide),
+        "triangles": scene.num_tris,
         "wall_ms_unprofiled": wall_ms, "wall_ms_profiled": prof_wall_ms,
         "kernels": len(kernels), "kernel_ms": total_us / 1e3,
         "busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / 1e3 / prof_wall_ms,
         "traversal_ms": traversal_us / 1e3,
         "treelet_phase1_ms": phase1_us / 1e3,
+        "inst_world": {"calls": iw_calls, "host_ms": iw_host_us / 1e3,
+                       "kernel_ms": iw_kernel_us / 1e3},
         "top": [[k[:80], v / 1e3] for k, v in top],
     }
     print(json.dumps(out), flush=True)

@@ -12,6 +12,8 @@ scenes triangle for triangle. `instanced_scene` (the port's own) is a
 grid of instances of one icosphere under seeded rotations, non-uniform
 scales and mirrors: at its defaults the reference's two-level case, 4096
 instances of one ~100k-triangle mesh (moonshine_tpu/accel/tlas.py:1-4).
+`tie_scene` (the port's own) holds hits that tie exactly in t, for the
+two-level walk's tie rule.
 """
 
 from __future__ import annotations
@@ -302,3 +304,55 @@ def instanced_scene(grid=(64, 64), subdivisions: int = 6, seed: int = 0):
                     np.hypot(1, 0.45)),
                 up=np.float32([0, 0, 1]), vfov=np.pi / 3)
     return world, lens
+
+
+def tie_scene(n_rays: int = 4096, seed: int = 0):
+    """Instances whose hits tie exactly in t: a rotated, scaled
+    icosphere(2) twice under one transform, a plane of 8x8 quads whose
+    index list repeats six of its triangles, twice under one tilted
+    transform and once axis-aligned behind them, and a lone icosphere.
+    Returns (World, ray_o, ray_d): n_rays seeded rays from the plane
+    y = -10 towards the instances (float32 numpy)."""
+    rs = np.random.RandomState(seed)
+    world = World()
+    sphere = world.add_mesh(icosphere_mesh(2))
+    g = np.linspace(-2.0, 2.0, 9, dtype=np.float32)
+    xs, zs = np.meshgrid(g, g, indexing="ij")
+    pos = np.stack([xs, np.zeros_like(xs), zs], -1).reshape(-1, 3)
+    q = (np.arange(8)[:, None] * 9 + np.arange(8)[None, :]).reshape(-1)
+    faces = np.concatenate([np.stack([q, q + 9, q + 10], -1),
+                            np.stack([q, q + 10, q + 1], -1)])
+    faces = np.concatenate([faces, faces[rs.choice(len(faces), 6,
+                                                   replace=False)]])
+    plane = world.add_mesh(Mesh(positions=pos,
+                                indices=faces.astype(np.uint32)))
+    mat = world.add_material(MaterialInfo(variant=Lambert(
+        color=(0.7, 0.7, 0.7))))
+
+    def transform(axis, angle, scale, at):
+        axis = np.float64(axis) / np.linalg.norm(axis)
+        k = np.float64([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                        [-axis[1], axis[0], 0]])
+        rot = (np.eye(3) + np.sin(angle) * k
+               + (1.0 - np.cos(angle)) * (k @ k))
+        m = np.zeros((3, 4), np.float32)
+        m[:, :3] = rot * np.float64(scale)[None, :]
+        m[:, 3] = at
+        return m
+
+    twin_sphere = transform([1, 2, 3], 0.8, [1.2, 0.9, 1.1], [-3, 0, 1])
+    tilted = transform([1, 0, 0.3], 0.5, [1, 1, 1], [2.5, 1, 0])
+    for m, mesh in ((twin_sphere, sphere), (tilted, plane),
+                    (translate(0, 6, 0), plane), (twin_sphere, sphere),
+                    (transform([0, 0, 1], 0.3, [0.8] * 3, [0, -1, -2.5]),
+                     sphere), (tilted, plane)):
+        world.add_instance(Instance(transform=m,
+                                    geometries=[Geometry(mesh, mat)]))
+    world.set_background(None)
+    o = rs.uniform(-5, 5, (n_rays, 3)).astype(np.float32)
+    o[:, 1] = -10.0
+    target = rs.uniform(-4, 4, (n_rays, 3)).astype(np.float32)
+    target[:, 1] = 0.0
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return world, o, d.astype(np.float32)

@@ -145,3 +145,52 @@ def test_alias_build_and_draws():
                        _t(r))
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji).astype(np.int64))
     np.testing.assert_allclose(pr.numpy(), np.asarray(jr), **ULP4)
+
+
+def _helper_cases():
+    """name -> (port call, reference call) on seeded inputs."""
+    from moonshine_tpu.bsdf import materials as JMat
+    from moonshine_tpu_torch.bsdf import materials as PMat
+
+    sq, v, n = _square(2000, 9), _unit(2000, 10), _unit(2000, 11)
+    rs = np.random.RandomState(12)
+    m = rs.randn(2000, 3, 4).astype(np.float32)
+    p = (rs.randn(2000, 3) * 5).astype(np.float32)
+    c = rs.rand(2000).astype(np.float32)
+    c[:2] = [0.0, 1.0]
+    r0 = rs.rand(2000).astype(np.float32)
+    eta_i = (1.0 + rs.rand(2000)).astype(np.float32)
+    eta_t = (1.0 + rs.rand(2000)).astype(np.float32)
+    j = jnp.asarray
+    return {
+        "square_to_uniform_hemisphere": (
+            lambda: PM.square_to_uniform_hemisphere(_t(sq)),
+            lambda: JM.square_to_uniform_hemisphere(j(sq))),
+        "reflect": (lambda: PU.reflect(_t(v), _t(n)),
+                    lambda: JU.reflect(j(v), j(n))),
+        "transform_point": (lambda: PU.transform_point(_t(m), _t(p)),
+                            lambda: JU.transform_point(j(m), j(p))),
+        "transform_dir": (lambda: PU.transform_dir(_t(m), _t(v)),
+                          lambda: JU.transform_dir(j(m), j(v))),
+        "sin_theta": (lambda: PF.sin_theta(_t(v)),
+                      lambda: JF.sin_theta(j(v))),
+        "schlick_r0": (lambda: PMat.schlick_r0(_t(eta_i), _t(eta_t)),
+                       lambda: JMat.schlick_r0(j(eta_i), j(eta_t))),
+        "schlick_scalar": (lambda: PMat.schlick_scalar(_t(c), _t(r0)),
+                           lambda: JMat.schlick_scalar(j(c), j(r0))),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "square_to_uniform_hemisphere", "reflect", "transform_point",
+    "transform_dir", "sin_theta", "schlick_r0", "schlick_scalar",
+])
+def test_reference_public_helpers(name):
+    """The reference's last public helpers in the port, against it
+    within 4 ulp at unit scale (transform_point: points of norm ~5 under
+    matrices of entries ~1, so 4 ulp of the result's scale)."""
+    port, ref = _helper_cases()[name]
+    got, want = port().numpy(), np.asarray(ref())
+    assert got.shape == want.shape
+    tol = dict(rtol=5e-7, atol=4e-6) if name == "transform_point" else ULP4
+    np.testing.assert_allclose(got, want, **tol)

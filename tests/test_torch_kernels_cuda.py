@@ -15,7 +15,8 @@ words and nearest treelets) over K and ray counts. chip_smoke.py makes
 the same comparisons at the render's real shapes. The two-level walk
 (csrc/tlas.cu) equals its plain version bit for bit (t, tri, u, v, inst,
 occlusion) on an instanced scene with rotated, scaled, mirrored and
-hidden instances, n = 0/1/4099."""
+hidden instances and on a scene of exact equal-t ties
+(procedural.tie_scene), n = 0/1/4099; its counting build counts."""
 
 import numpy as np
 import pytest
@@ -168,38 +169,47 @@ def test_launch_counters(cuda):
     assert packet.LAUNCHES == {"closest_hit": 1, "any_hit": 2}
 
 
-def _tlas_case(device, n, seed=5):
+def _tlas_case(device, n, seed=5, scene="grid"):
     """procedural.instanced_scene at 5 x 4 instances of icosphere(2), one
     hidden, built two-level on `device`, and n seeded rays through it
-    with dead lanes and a per-lane t_max."""
+    with dead lanes and a per-lane t_max; or (scene="ties")
+    procedural.tie_scene's instances and rays, whose hits tie exactly
+    in t."""
     import os
 
     from moonshine_tpu_torch.scene import procedural
 
-    world, _ = procedural.instanced_scene(grid=(5, 4), subdivisions=2,
-                                          seed=seed)
-    world.set_visibility(7, False)
-    os.environ["MSN_FORCE_TLAS"] = "1"
-    try:
-        scene = world.build(device)
-    finally:
-        del os.environ["MSN_FORCE_TLAS"]
     rs = np.random.RandomState(seed)
-    o = (rs.rand(n, 3) * np.float32([16, 14, 6]) - np.float32([8, 7, 1])
-         ).astype(np.float32)
-    d = rs.randn(n, 3).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if scene == "ties":
+        world, o, d = procedural.tie_scene(n, seed=seed)
+        t = tlas.device_tlas(tlas.build_tlas(world.meshes,
+                                             world.instances)[0], device)
+    else:
+        world, _ = procedural.instanced_scene(grid=(5, 4), subdivisions=2,
+                                              seed=seed)
+        world.set_visibility(7, False)
+        os.environ["MSN_FORCE_TLAS"] = "1"
+        try:
+            t = world.build(device).tlas
+        finally:
+            del os.environ["MSN_FORCE_TLAS"]
+        o = (rs.rand(n, 3) * np.float32([16, 14, 6])
+             - np.float32([8, 7, 1])).astype(np.float32)
+        d = rs.randn(n, 3).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
     put = lambda x: torch.from_numpy(x).to(device)
-    return (scene.tlas, put(o), put(d), put(rs.rand(n) > 0.2),
+    return (t, put(o), put(d), put(rs.rand(n) > 0.2),
             put((rs.rand(n) * 12).astype(np.float32)))
 
 
+@pytest.mark.parametrize("scene", ["grid", "ties"])
 @pytest.mark.parametrize("n", [0, 1, 4099])
-def test_tlas_kernels_match_plain(cuda, n):
+def test_tlas_kernels_match_plain(cuda, n, scene):
     """The two-level kernel against its plain version bit for bit: every
     field of the closest hit (the instance too) and the occlusion, with an
-    unbounded and a per-lane t_max, with and without an active mask."""
-    t, o, d, active, t_max = _tlas_case(cuda, n)
+    unbounded and a per-lane t_max, with and without an active mask; on
+    the instanced grid and on the scene of exact equal-t ties."""
+    t, o, d, active, t_max = _tlas_case(cuda, n, scene=scene)
     for tm in (1e12, t_max):
         for act in (None, active):
             _assert_equal(
@@ -212,7 +222,23 @@ def test_tlas_kernels_match_plain(cuda, n):
         h = tlas.closest_hit_tlas(t, o, d, 1e12)
         assert int(h.is_hit.sum()) > n // 10
         assert set(h.inst[h.is_hit].tolist()) > {0}
-        assert 7 not in h.inst.tolist()
+        if scene == "grid":
+            assert 7 not in h.inst.tolist()
+
+
+def test_tlas_walk_visits(cuda):
+    """The counting build gives the kernel's outputs (its launch is not
+    counted) and counts a visit per box-tested node, an entry per
+    instance walked, a leaf visit per triangle batch."""
+    t, o, d, active, t_max = _tlas_case(cuda, 4099)
+    tlas.reset_launch_counts()
+    v = tlas.walk_visits(t, o, d, 1e12, active)
+    assert tlas.LAUNCHES == {"tlas_closest_hit": 0, "tlas_any_hit": 0}
+    assert v.top >= int(active.sum()) and v.entries > 0 and v.blas > 0
+    assert v.top + v.blas <= v.boxes <= 8 * (v.top + v.blas)
+    assert v.leaves <= v.tris <= 4 * v.leaves
+    occ = tlas.walk_visits(t, o, d, t_max, active, any_hit=True)
+    assert occ.top > 0 and occ.tris <= 4 * occ.leaves
 
 
 def test_tlas_launch_counters(cuda):

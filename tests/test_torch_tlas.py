@@ -425,3 +425,415 @@ def test_transform_edit_rebuilds_two_level_scene():
     assert edited.tlas is got.tlas
     np.testing.assert_array_equal(edited.tri_shade[:, 33:36].numpy()[0],
                                   np.float32([0.1, 0.9, 0.1]))
+
+
+# --- the kernel's walk and its tie rule (csrc/tlas.cu) ---
+
+def _skip_link_leaves(left, count, escape, root):
+    """The first slots of the leaves in the order the reference's
+    skip-link walk meets them when every box passes."""
+    out, cur = [], int(root)
+    while cur >= 0:
+        if count[cur] > 0:
+            out.append(int(left[cur]))
+            cur = int(escape[cur])
+        else:
+            cur = int(left[cur])
+    return out
+
+
+def _blas_roots(t):
+    return sorted({int(r) for r in np.asarray(t.inst_root) if r >= 0})
+
+
+def test_reference_walk_meets_leaves_in_rising_order():
+    """The premise of the kernel's tie rule: on the reference's build_tlas
+    of a scene of several geometry groups with a hidden instance, the
+    reference's walk meets the leaves in rising order of their first slot
+    on the top level and in every BLAS; every internal box holds its two
+    children's (the right child the left one's escape), so a wide node
+    may skip the binary boxes between it and its children."""
+    w = jax_world(n=6, mirrored=True, hidden=4)
+    t, _, groups = JT.build_tlas(w.meshes, w.instances)
+    f = lambda k: np.asarray(getattr(t, k))
+    levels = [("top", [0])] + [("blas", _blas_roots(t))]
+    assert len(groups) >= 2 and (f("inst_root") == -1).sum() == 1
+    for prefix, roots in levels:
+        left, count, esc = (f(f"{prefix}_left"), f(f"{prefix}_count"),
+                            f(f"{prefix}_escape"))
+        mn, mx = f(f"{prefix}_min"), f(f"{prefix}_max")
+        orders = [_skip_link_leaves(left, count, esc, r) for r in roots]
+        for order in orders:
+            assert order == sorted(set(order)), prefix
+        assert max(len(x) for x in orders) > 1, prefix
+        reach = np.zeros(len(left), bool)
+        for root in roots:  # the nodes the walks can reach
+            stack = [root]
+            while stack:
+                n = stack.pop()
+                reach[n] = True
+                if count[n] == 0:
+                    stack += [left[n], esc[left[n]]]
+        inner = np.nonzero(reach & (count == 0))[0]
+        for child in (left[inner], esc[left[inner]]):
+            assert (mn[inner] <= mn[child]).all() and \
+                (mx[inner] >= mx[child]).all(), prefix
+
+
+def _wide_leaves(nodes, node):
+    """Leaf codes under a wide node, children in order."""
+    codes = nodes[node, :, 3].copy().view(np.int32)
+    out = []
+    for c in codes:
+        if c >= 0:
+            out += _wide_leaves(nodes, c)
+        elif c <= -2:
+            out.append(int(c))
+    return out
+
+
+def test_walk_records_keep_the_reference_order():
+    """build_walk: the 8-wide nodes hold the binary leaves in the
+    reference walk's order (the top level's without the hidden
+    instance), each child box the binary node's own, triangles as v0, e1,
+    e2 and their ids; the stack bound covers the deepest walk."""
+    pw = instanced_world(n=6, mirrored=True, hidden=4)
+    t, _, _ = PT.build_tlas(pw.meshes, pw.instances)
+    w = PT.build_walk(t)
+    nodes = np.asarray(w.nodes)
+    top = _skip_link_leaves(t.top_left, t.top_count, t.top_escape, 0)
+    shown = [p for p in top if t.inst_root[t.top_inst[p]] >= 0]
+    assert _wide_leaves(nodes, 0) == [-2 - p for p in shown]
+    assert len(shown) == len(top) - 1
+    for inst in range(t.num_instances):
+        root = int(t.inst_root[inst])
+        assert (root < 0) == (int(w.inst_root[inst]) < 0)
+        if root < 0:
+            continue
+        want = [-2 - (s * 4 + int(t.blas_count[n]) - 1)
+                for n, s in _blas_leaf_nodes(t, root)]
+        assert _wide_leaves(nodes, int(w.inst_root[inst])) == want
+    boxes = np.concatenate([np.concatenate([t.top_min, t.top_max], 1),
+                            np.concatenate([t.blas_min, t.blas_max], 1)])
+    held = nodes[..., [0, 1, 2, 4, 5, 6]].reshape(-1, 6)
+    code = nodes[..., 3].copy().view(np.int32).reshape(-1)
+    assert (held[code != -1][:, None] == boxes[None]).all(-1).any(1).all()
+    tv = np.asarray(t.blas_tris)
+    np.testing.assert_array_equal(w.tris[:, 0:3], tv[:, 0])
+    np.testing.assert_array_equal(w.tris[:, 4:7], tv[:, 1] - tv[:, 0])
+    np.testing.assert_array_equal(w.tris[:, 8:11], tv[:, 2] - tv[:, 0])
+    np.testing.assert_array_equal(w.tris[:, 3].copy().view(np.int32),
+                                  t.blas_tri_id)
+    blas = {}
+
+    def enter(code):
+        r = int(w.inst_root[t.top_inst[-2 - code]])
+        if r not in blas:
+            blas[r] = _deepest(nodes, r) if r >= 0 else 0
+        return blas[r]
+
+    assert w.stack_depth >= _deepest(nodes, 0, enter)
+
+
+def _blas_leaf_nodes(t, root):
+    out, cur = [], int(root)
+    while cur >= 0:
+        if t.blas_count[cur] > 0:
+            out.append((cur, int(t.blas_left[cur])))
+            cur = int(t.blas_escape[cur])
+        else:
+            cur = int(t.blas_left[cur])
+    return out
+
+
+def _deepest(nodes, node, enter=None):
+    """The most stack entries a walk from wide node `node` holds: all its
+    children pushed, then each walked in turn above the siblings still
+    on the stack; enter(code) -> the extra entries of the BLAS behind a
+    top-level leaf."""
+    codes = [int(c) for c in nodes[node, :, 3].copy().view(np.int32)
+             if c != -1]
+    most = len(codes)
+    for i, c in enumerate(codes):
+        below = len(codes) - 1 - i
+        if c >= 0:
+            most = max(most, below + _deepest(nodes, c, enter))
+        elif enter is not None:
+            most = max(most, below + enter(c))
+    return most
+
+
+def _np_hits(t, inst, o, d, lo, hi, t_max):
+    """(hit, t) [N, hi - lo] of slots lo..hi of `inst`'s BLAS, in numpy
+    float32 with the plain version's expressions in its order."""
+    r = np.asarray(t.inst_inv)[inst]
+    oo = np.stack([r[3 * i] * o[:, 0] + r[3 * i + 1] * o[:, 1]
+                   + r[3 * i + 2] * o[:, 2] + r[9 + i] for i in range(3)],
+                  -1)[:, None]
+    dd = np.stack([r[3 * i] * d[:, 0] + r[3 * i + 1] * d[:, 1]
+                   + r[3 * i + 2] * d[:, 2] for i in range(3)], -1)[:, None]
+    v = np.asarray(t.blas_tris)[lo:hi][None]
+    v0, e1, e2 = v[..., 0, :], v[..., 1, :] - v[..., 0, :], \
+        v[..., 2, :] - v[..., 0, :]
+
+    def cross(a, b):
+        return np.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                         a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+    def dot(a, b):
+        p = a * b
+        return p[..., 0] + p[..., 1] + p[..., 2]
+
+    tiny = np.float32(1e-12)
+    p = cross(dd, e2)
+    det = dot(e1, p)
+    inv_det = np.float32(1) / np.where(np.abs(det) < tiny, tiny, det)
+    tv = oo - v0
+    u = dot(tv, p) * inv_det
+    q = cross(tv, e1)
+    vv = dot(dd, q) * inv_det
+    tt = dot(e2, q) * inv_det
+    hit = ((np.abs(det) > tiny) & (u >= 0) & (vv >= 0) & (u + vv <= 1)
+           & (tt > 0) & (tt < np.float32(t_max)))
+    return hit, tt
+
+
+def _brute_least_key(world, t, groups, o, d, t_max):
+    """Per ray the least (t, top-level leaf position, BLAS slot) over
+    every triangle hit of every visible instance: (tri, inst, lanes
+    where two hits or more share the least t)."""
+    starts = np.cumsum([0] + [c for _, c in groups.values()])
+    slot0 = {k: int(s) for k, s in zip(groups, starts)}
+    pos = np.empty(t.num_instances, np.int64)
+    pos[np.asarray(t.top_inst)] = np.arange(t.num_instances)
+    n = len(o)
+    best_t = np.full(n, np.inf, np.float32)
+    best_key = np.full(n, np.iinfo(np.int64).max)
+    tri = np.full(n, -1, np.int32)
+    inst_out = np.full(n, -1, np.int32)
+    n_least = np.zeros(n, np.int64)
+    for i, inst in enumerate(world.instances):
+        if not inst.visible:
+            continue
+        k = tuple((g.mesh, g.material, g.sampled) for g in inst.geometries)
+        lo, cnt = slot0[k], groups[k][1]
+        hit, tt = _np_hits(t, i, o, d, lo, lo + cnt, t_max)
+        tt = np.where(hit, tt, np.float32(np.inf))
+        s = tt.argmin(1)  # the first slot of least t
+        ts = tt[np.arange(n), s]
+        key = pos[i] << 32 | (lo + s)
+        n_least = np.where(ts < best_t, 0, n_least) + np.where(
+            np.isfinite(ts) & (ts <= best_t), (tt == ts[:, None]).sum(1), 0)
+        take = (ts < best_t) | ((ts == best_t) & (key < best_key))
+        take &= np.isfinite(ts)
+        best_t = np.where(take, ts, best_t)
+        best_key = np.where(take, key, best_key)
+        tri = np.where(take, np.asarray(t.blas_tri_id)[lo + s], tri)
+        inst_out = np.where(take, i, inst_out)
+    return tri, inst_out, n_least > 1
+
+
+def test_equal_t_ties_resolve_as_the_reference_does():
+    """On procedural.tie_scene (instances under one transform, repeated
+    triangles): a numpy brute force of the least (t, top-level leaf
+    position, BLAS slot) over every hit equals the plain walk and the
+    reference's closest_hit_tlas in tri and inst, on lanes that tie."""
+    from moonshine_tpu_torch.scene import procedural
+
+    world, o, d = procedural.tie_scene(2048, seed=2)
+    t, _, groups = PT.build_tlas(world.meshes, world.instances)
+    tri, inst, tied = _brute_least_key(world, t, groups, o, d, INF_T)
+    assert tied.sum() > 200 and (inst[tied] >= 0).all()
+    got = PT.closest_hit_tlas_plain(PT.device_tlas(t, "cpu"),
+                                    torch.from_numpy(o),
+                                    torch.from_numpy(d), INF_T)
+    jmesh = [JTy.Mesh(positions=m.positions, indices=m.indices)
+             for m in world.meshes]
+    jinst = [JTy.Instance(transform=i.transform, visible=i.visible,
+                          geometries=[JTy.Geometry(g.mesh, g.material,
+                                                   g.sampled)
+                                      for g in i.geometries])
+             for i in world.instances]
+    jt, _, _ = JT.build_tlas(jmesh, jinst)
+    want = JT.closest_hit_tlas(jt, o, d, INF_T)
+    for name, a in (("port", got), ("reference", want)):
+        np.testing.assert_array_equal(np.asarray(a.tri)[tied], tri[tied],
+                                      err_msg=name)
+        np.testing.assert_array_equal(np.asarray(a.inst)[tied],
+                                      inst[tied], err_msg=name)
+        np.testing.assert_array_equal(np.asarray(a.tri), tri, err_msg=name)
+        np.testing.assert_array_equal(np.asarray(a.inst), inst,
+                                      err_msg=name)
+
+
+def _tri_test(v0, e1, e2, o, d, bound):
+    """visit.cuh tri_closest in float32 numpy scalars: (hit, t, u, v)."""
+    f, tiny = np.float32, np.float32(1e-12)
+    px = d[1] * e2[2] - d[2] * e2[1]
+    py = d[2] * e2[0] - d[0] * e2[2]
+    pz = d[0] * e2[1] - d[1] * e2[0]
+    det = e1[0] * px + e1[1] * py + e1[2] * pz
+    inv_det = f(1) / (tiny if abs(det) < tiny else det)
+    tx, ty, tz = o[0] - v0[0], o[1] - v0[1], o[2] - v0[2]
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx, qy, qz = ty * e1[2] - tz * e1[1], tz * e1[0] - tx * e1[2], \
+        tx * e1[1] - ty * e1[0]
+    v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv_det
+    t = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv_det
+    hit = (abs(det) > tiny and u >= 0 and v >= 0 and u + v <= 1 and t > 0
+           and t < bound)
+    return hit, t, u, v
+
+
+def walk_model(t, o, d, t_max, active, any_hit):
+    """csrc/tlas.cu's walk of one ray at a time in float32 numpy, over the
+    records (t.walk): near child first (the nearest hit child on top, the
+    others in key order; any hit in key order), entries dropped at pop
+    when past the best t, an instance entered and its BLAS root visited
+    in one step, equal-t hits taken for a smaller key. Returns the plain
+    version's outputs (TlasHit fields or the occlusion) and the most
+    stack entries any ray held."""
+    w = t.walk
+    nodes = np.asarray(w.nodes)
+    codes = nodes[..., 3].copy().view(np.int32)
+    tris = np.asarray(w.tris)
+    tids = tris[:, 3].copy().view(np.int32)
+    w_root, top_inst = np.asarray(w.inst_root), np.asarray(t.top_inst)
+    inv_m = np.asarray(t.inst_inv)
+    inv_all = traverse._safe_inv(torch.from_numpy(d)).numpy()
+    n, inf = len(o), np.float32(np.inf)
+    res = (np.asarray(t_max, np.float32).copy(), np.full(n, -1, np.int32),
+           np.zeros(n, np.float32), np.zeros(n, np.float32),
+           np.full(n, -1, np.int32))
+    occ = np.zeros(n, bool)
+    most = 0
+    for i in range(n):
+        t_lane = np.float32(t_max[i])
+        if (active is not None and not active[i]) or not t_lane > 0:
+            continue
+        t_far, best, hit = t_lane, (-1, -1), (-1, np.float32(0),
+                                                np.float32(0), -1)
+        stack, base, cur = [(0, -inf)], n + 10**9, (0, 0)
+        ray = (o[i], inv_all[i])
+        while stack:
+            most = max(most, len(stack))
+            while not any_hit and stack and stack[-1][1] > t_far:
+                stack.pop()
+            if not stack:
+                break
+            e = len(stack) - 1
+            code, tn_e = stack.pop()
+            obj = e >= base
+            if not obj:
+                base = n + 10**9
+            if code < 0 and obj:  # a BLAS leaf
+                x = -2 - code
+                s0, cand = x >> 2, None
+                for j in range((x & 3) + 1):
+                    s = min(max(s0 + j, 0), len(tris) - 1)
+                    r = tris[s]
+                    if any_hit:
+                        if _tri_test(r[0:3], r[4:7], r[8:11], oo, dd,
+                                     t_lane)[0]:
+                            occ[i], stack = True, []
+                            break
+                        continue
+                    before = cur[0] < best[0] or (cur[0] == best[0]
+                                                  and s < best[1])
+                    bound = np.nextafter(t_far, inf) if before else t_far
+                    h, tt, u, v = _tri_test(r[0:3], r[4:7], r[8:11], oo,
+                                            dd, bound)
+                    if h and (cand is None or tt < cand[0]):
+                        cand = (tt, s, u, v)
+                if cand is not None:
+                    t_far, best = cand[0], (cur[0], cand[1])
+                    hit = (tids[cand[1]], cand[2], cand[3], cur[1])
+                continue
+            if code < 0:  # enter the instance, then visit its root
+                p = min(max(-2 - code, 0), len(top_inst) - 1)
+                code = int(w_root[top_inst[p]])
+                if code < 0:
+                    continue
+                r = inv_m[top_inst[p]]
+                oi, di = o[i], d[i]
+                oo = np.array([r[3 * c] * oi[0] + r[3 * c + 1] * oi[1]
+                               + r[3 * c + 2] * oi[2] + r[9 + c]
+                               for c in range(3)], np.float32)
+                dd = np.array([r[3 * c] * di[0] + r[3 * c + 1] * di[1]
+                               + r[3 * c + 2] * di[2] for c in range(3)],
+                              np.float32)
+                ray = (oo, traverse._safe_inv(torch.from_numpy(dd)).numpy())
+                cur, base, obj = (p, int(top_inst[p])), len(stack), True
+            ro, ri = ray if obj else (o[i], inv_all[i])
+            if not obj:
+                ray = (o[i], inv_all[i])
+            rec, c = nodes[code], codes[code]
+            with np.errstate(invalid="ignore", over="ignore"):
+                t0 = (rec[:, 0:3] - ro) * ri
+                t1 = (rec[:, 4:7] - ro) * ri
+                tn = np.minimum(t0, t1).max(1)
+                tf = np.maximum(t0, t1).min(1)
+                nan = np.isnan(t0).any(1) | np.isnan(t1).any(1)
+                prune = t_lane if any_hit else t_far
+                ok = (c != -1) & ~nan & (tn <= tf) & (tf >= 0) & (tn <= prune)
+            js = list(np.nonzero(ok)[0])
+            if js and not any_hit:  # the nearest on top
+                near = min(js, key=lambda j: (tn[j], j))
+                js = [j for j in js if j != near] + [near]
+                js = sorted(js[:-1], reverse=True) + [near]
+            else:
+                js = sorted(js, reverse=True)
+            stack += [(int(c[j]), tn[j]) for j in js]
+        if not any_hit:
+            res[0][i] = t_far
+            res[1][i], res[2][i], res[3][i], res[4][i] = hit
+    return (occ if any_hit else res), most
+
+
+def _grid_case(n, seed=5):
+    """tests/test_torch_kernels_cuda.py's _tlas_case on the CPU."""
+    from moonshine_tpu_torch.scene import procedural
+
+    world, _ = procedural.instanced_scene(grid=(5, 4), subdivisions=2,
+                                          seed=seed)
+    world.set_visibility(7, False)
+    t, _, _ = PT.build_tlas(world.meshes, world.instances)
+    rs = np.random.RandomState(seed)
+    o = (rs.rand(n, 3) * np.float32([16, 14, 6])
+         - np.float32([8, 7, 1])).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (PT.device_tlas(t, "cpu"), o, d, rs.rand(n) > 0.2,
+            (rs.rand(n) * 12).astype(np.float32))
+
+
+@pytest.mark.parametrize("scene", ["grid", "ties"])
+def test_kernel_walk_model_matches_plain(scene):
+    """The CPU model of the argument: csrc/tlas.cu's walk over the
+    records, transcribed (walk_model), equals the plain walk bit for bit
+    (t, tri, u, v, inst, occlusion) with unbounded and per-lane t_max,
+    dead lanes included, on the instanced grid and on exact equal-t
+    ties; its stack never holds more than the records' bound."""
+    from moonshine_tpu_torch.scene import procedural
+
+    if scene == "ties":
+        world, o, d = procedural.tie_scene(1024, seed=3)
+        t = PT.device_tlas(PT.build_tlas(world.meshes, world.instances)[0],
+                           "cpu")
+        active, t_lane = None, np.full(len(o), 14.0, np.float32)
+    else:
+        t, o, d, active, t_lane = _grid_case(1024)
+    ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    at = None if active is None else torch.from_numpy(active)
+    for tm in (np.full(len(o), INF_T, np.float32), t_lane):
+        want = PT.closest_hit_tlas_plain(t, ot, dt, torch.from_numpy(tm),
+                                         active_in=at)
+        got, most = walk_model(t, o, d, tm, active, False)
+        assert int(want.is_hit.sum()) > 100
+        for g, x, name in zip(got, want, want._fields):
+            np.testing.assert_array_equal(g, x.numpy(), err_msg=name)
+        occ, most_any = walk_model(t, o, d, tm, active, True)
+        np.testing.assert_array_equal(occ, PT.any_hit_tlas_plain(
+            t, ot, dt, torch.from_numpy(tm), active_in=at).numpy())
+        assert max(most, most_any) <= t.walk.stack_depth

@@ -116,3 +116,35 @@ def test_wrapper_rejects_bad_input():
     meta = pw._replace(nodes=pw.nodes.to("meta"), leaves=pw.leaves.to("meta"))
     with pytest.raises(ValueError, match="no traversal for device"):
         PP.closest_hit_packet(meta, o.to("meta"), d.to("meta"), 1e12)
+
+
+def test_refit_matches_reference():
+    """lbvh.refit (torch ops) against the reference's refit on moved
+    triangles (tests/test_bvh.py:153's case): the boxes equal exactly
+    (min and max round nothing), and the binary walk over the refitted
+    tree finds what brute force finds on the moved triangles."""
+    from moonshine_tpu.accel import lbvh as JL
+    from moonshine_tpu_torch.accel import lbvh as PL
+    from moonshine_tpu_torch.accel import traverse as PT
+
+    tris = random_tris(400, seed=12)
+    moved = tris + np.float32([0.3, -0.2, 0.1]) + 0.05 * np.sin(tris)
+    jb = JL.build(tris)
+    want = JL.refit(jb, jnp.asarray(moved))
+    pb = PL.device_bvh(PL.build(tris), "cpu")
+    got = PL.refit(pb, torch.from_numpy(moved))
+    m = got.aabb_min.shape[0]  # the reference pads to a power of two
+    np.testing.assert_array_equal(np.asarray(jb.left)[:m], PL.build(
+        tris).left)
+    np.testing.assert_array_equal(got.aabb_min.numpy(),
+                                  np.asarray(want.aabb_min)[:m])
+    np.testing.assert_array_equal(got.aabb_max.numpy(),
+                                  np.asarray(want.aabb_max)[:m])
+    o, d = (torch.from_numpy(np.array(x)) for x in random_rays(256, 13))
+    moved_t = torch.from_numpy(moved)
+    hit = PT.closest_hit(got, moved_t[got.tri_order], o, d, 1e12)
+    ref = PT.brute_force_closest(moved_t, o, d, 1e12)
+    np.testing.assert_array_equal(hit.is_hit.numpy(), ref.is_hit.numpy())
+    h = ref.is_hit.numpy()
+    np.testing.assert_allclose(hit.t.numpy()[h], ref.t.numpy()[h],
+                               rtol=1e-4, atol=1e-5)
