@@ -124,6 +124,15 @@ script exits non-zero without the result line. Phases:
                   equal-t ties on 65,536 rays bit for bit; a 40-instance
                   world flattened against two-level (the reference's
                   bounds)
+  graphs          the bounce loop as CUDA graph replays (every phase above
+                  runs them; the recorded runs use the eager loop) against
+                  the eager loop (integrator/graphs.py eager()) on
+                  room_184k (512x512), room_1080p, one offline_720p
+                  sample, engine_720p frames and instanced_1080p: image,
+                  rays and launches bit for bit; each way ms/spp,
+                  kernels, graph replays, host dispatches and reads, the
+                  device's idle share (render/profile_frame.py `profile`)
+                  and peak memory
   capi            build/libmoonshine_tpu_torch.so built with g++ and loaded
                   with ctypes here: native/test_shim.cpp's scene through
                   Msn* calls on the card (engine on cuda, traversal
@@ -1378,6 +1387,7 @@ def offline_phase(dev):
                            mesh_samples_per_bounce=opts.mesh_samples))
     same_image("room CLI vs in-process render of the source World",
                "offline", got, sensor.image.cpu().numpy())
+    return scene, LensArrays.from_lens(glens, dev), opts
 
 
 # --- the progressive-engine slice: jpeg, engine, direct, sharded, viewer ---
@@ -1412,10 +1422,13 @@ def recording(max_lanes=16384, module=None, names=None):
     lanes). Each lane's result depends on that lane only, so the
     subsample can be held against the plain version; the plain calls
     count no launch. Recording copies at every launch, so the timed runs
-    are made outside it and a further run is recorded."""
+    are made outside it and a further run is recorded, on the eager loop
+    (graphs.eager()): the wrappers are called at every launch only there,
+    and graph replays are held against that loop bit for bit."""
     import torch
 
     from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator import graphs
 
     if module is None:
         module, names = packet, {"closest_hit": "closest_hit_packet",
@@ -1441,7 +1454,8 @@ def recording(max_lanes=16384, module=None, names=None):
     for kind, name in names.items():
         setattr(module, name, wrap(kind))
     try:
-        yield rec
+        with graphs.eager():  # a replay would call no wrapper
+            yield rec
     finally:
         for kind, name in names.items():
             setattr(module, name, real[kind])
@@ -1772,6 +1786,8 @@ def sharded_phase(scene, lens, dev, launches_out):
     cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
                      mesh_samples_per_bounce=1)
     h, w, spp = SHARDED_HWS
+    render(scene, lens, h, w, 1, cfg)  # warm-up: the graphs' captures
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     sensor, rays_one = render(scene, lens, h, w, spp, cfg)
     torch.cuda.synchronize()
@@ -1780,6 +1796,8 @@ def sharded_phase(scene, lens, dev, launches_out):
     for name, mesh in (("cuda:0 x4 (sp=2, dp=2)",
                         make_mesh([dev] * 4, sp=2)),
                        ("mesh_from_spec('auto')", mesh_from_spec("auto"))):
+        render_sharded(scene, lens, h, w, spp, cfg, mesh)  # warm-up
+        torch.cuda.synchronize()
         packet.reset_launch_counts()
         t0 = time.perf_counter()
         img, rays = render_sharded(scene, lens, h, w, spp, cfg, mesh)
@@ -2062,6 +2080,121 @@ def tlas_phase(dev, cfg, timings, errs, launches):
         f"{got.mean():.6f} / {ref.mean():.6f} (rel {rel:.3g})")
     if close < 0.995 or rel > 2e-3 or not np.isfinite(got).all():
         raise AssertionError("two-level and flattened renders disagree")
+    return scene, la
+
+
+def graphs_phase(cells):
+    """Each cell's sample (`cells`: name -> sample(i), which renders
+    sample i and returns (image, rays or None)) on the eager loop
+    (graphs.eager()) and as graph replays, each from a clear cache: a
+    warm-up sample (for the graphs, their captures), then sample 0 with
+    the launch counts set to 0 just before and read just after, held
+    bit for bit against the other mode's (image, rays, launches), with
+    the device memory's peaks (allocated and reserved, from the warm-up
+    on); then sample 2 timed and profiled (render/profile_frame.py
+    `profile`): ms/spp, kernels, graph replays, host dispatches and
+    reads, kernel time and the device's idle share; last, what stays
+    reserved once the allocator's cache of freed blocks is emptied (the
+    graphs' pool and static buffers stay)."""
+    import torch
+
+    from moonshine_tpu_torch.accel import packet, tlas, treelet
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.render.profile_frame import profile
+
+    modules = (packet, treelet, tlas)
+    for name, sample in cells.items():
+        rows = {}
+        for mode in ("eager", "graphs"):
+            with (graphs.eager() if mode == "eager"
+                  else contextlib.nullcontext()):
+                graphs.clear()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                sample(1)
+                for m in modules:
+                    m.reset_launch_counts()
+                img, rays = sample(0)
+                torch.cuda.synchronize()
+                counts = {k: v for m in modules for k, v in m.LAUNCHES.items()
+                          if v}
+                peak = (torch.cuda.max_memory_allocated() / 2**20,
+                        torch.cuda.max_memory_reserved() / 2**20)
+                prof = profile(lambda: sample(2))
+                prof.pop("by_name_us")
+                torch.cuda.empty_cache()  # the cache of freed blocks
+                held = torch.cuda.memory_reserved() / 2**20
+            rows[mode] = (img, rays, counts, peak, prof)
+            say("graphs", f"{name} {mode}: {prof['wall_ms_unprofiled']:.2f}"
+                f" ms/spp ({prof['wall_ms_profiled']:.2f} profiled), "
+                f"{prof['kernels']} kernels in {prof['replays']} graph "
+                f"replays and {prof['host_dispatches']} host dispatches, "
+                f"{prof['host_reads']} host reads, kernel time "
+                f"{prof['kernel_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms,"
+                f" device idle {prof['idle_share']:.1%}; peak device memory "
+                f"{peak[0]:.1f} MiB allocated, {peak[1]:.1f} MiB reserved, "
+                f"{held:.1f} MiB reserved after empty_cache; launches a "
+                f"sample {counts}")
+        (ei, er, ec, _, ep), (gi, gr, gc, _, gp) = rows["eager"], \
+            rows["graphs"]
+        same_rays = (er is None and gr is None) or int(er) == int(gr)
+        same = bool(torch.equal(torch.as_tensor(ei), torch.as_tensor(gi))
+                    and same_rays and ec == gc)
+        say("graphs", f"{name}: replays equal the eager loop bit for bit "
+            f"(image, rays, launches): {same}; ms/spp "
+            f"{ep['wall_ms_unprofiled']:.2f} -> {gp['wall_ms_unprofiled']:.2f}"
+            f", host dispatches a sample {ep['host_dispatches']} -> "
+            f"{gp['host_dispatches']}")
+        if not same or not np.isfinite(np.asarray(torch.as_tensor(
+                gi).cpu())).all():
+            raise AssertionError(f"{name}: graph replays differ from the "
+                                 "eager loop")
+        if gp["replays"] == 0 or ep["replays"] != 0:
+            raise AssertionError(f"{name}: the graphs did not replay, or "
+                                 "the eager loop did")
+    graphs.clear()
+
+
+def graph_cells(scenes, offline_cell, instanced, cfg, dev):
+    """The graphs phase's cells: room_184k at 512x512 (one sample, the
+    fused path), room_1080p and instanced_1080p through render_spp (one
+    sample, the staged path), one offline_720p sample
+    (the CLI's render_sample on the glb's scene, max_bounces 1024: the
+    looped form), an engine_720p frame (room_184k through the Engine's
+    handles, its defaults, a sensor reset before each frame: sample 0
+    each time)."""
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.renderer import render_sample, render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    def staged(scene, lens):
+        return lambda i: render_spp(scene, lens, HD[0], HD[1], i, 1, cfg)
+
+    o_scene, o_lens, opts = offline_cell
+    o_cfg = PathConfig(max_bounces=opts.max_bounces,
+                       env_samples_per_bounce=opts.env_samples,
+                       mesh_samples_per_bounce=opts.mesh_samples)
+    world, room_lens = procedural.room_scene(grid=6, subdivisions=4)
+    e = engine_from_world(world, dev)
+    h, w = ENGINE_HW
+    sensor = e.create_sensor(w, h)
+    lens = e.create_lens(room_lens)
+
+    def frame(_):
+        e.reset_sensor(sensor)
+        return e.render(sensor, lens), None
+
+    room, room_la = scenes["room_184k/default"]
+    return {
+        "room_184k": lambda i: render_spp(room, room_la, 512, 512, i, 1,
+                                          cfg),
+        "room_1080p": staged(room, room_la),
+        "offline_720p": lambda i: render_sample(
+            o_scene, o_lens, opts.height, opts.width, i, o_cfg),
+        "engine_720p": frame,
+        "instanced_1080p": staged(*instanced),
+    }
 
 
 def capi_phase(dev):
@@ -2444,7 +2577,7 @@ def main():
         presplit_phase(scenes, errs, cfg, dev)
 
     with phase("offline"):
-        offline_phase(dev)
+        offline_cell = offline_phase(dev)
 
     # the progressive-engine slice: each path's counts set to 0 just
     # before it and read just after
@@ -2469,7 +2602,11 @@ def main():
     # the last slice: two-level instancing (its counts set to 0 just
     # before its 1080p run and read just after) and the C ABI
     with phase("tlas"):
-        tlas_phase(dev, cfg, timings, errs, launches)
+        instanced = tlas_phase(dev, cfg, timings, errs, launches)
+
+    with phase("graphs"):
+        graphs_phase(graph_cells(scenes, offline_cell, instanced, cfg, dev))
+        del offline_cell, instanced
 
     with phase("capi"):
         capi_phase(dev)

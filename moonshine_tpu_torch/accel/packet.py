@@ -26,6 +26,8 @@ With count_visits=True they also return what the traversal touched
 
 from __future__ import annotations
 
+import contextlib
+import numbers
 import threading
 from typing import NamedTuple
 
@@ -57,11 +59,15 @@ GROUPS_PER_BLOCK = 64
 SHARED_BYTES_MAX = 232_448
 
 # Kernel launches per kernel, for showing that a run went through them.
-# A wrapper adds one exactly where it launches; callers reset to 0.
+# A wrapper adds one exactly where it launches; callers reset to 0. A
+# wrapper called while its thread captures a CUDA graph launches nothing:
+# its count goes to the capture's tally, which each replay of the graph
+# adds (integrator/graphs.py).
 LAUNCHES = {"closest_hit": 0, "any_hit": 0}
 # the Engine's pick launches from another thread while a frame does
 # (engine/engine.py), so the counts add under a lock
 _COUNT_LOCK = threading.Lock()
+_CAPTURE = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -386,7 +392,11 @@ def _traverse_plain(wbvh: WideBVH, ray_o, ray_d, t_caller, active_in,
 
 
 def _t_max_lanes(t_max, n, device) -> torch.Tensor:
-    """t_max (scalar or [N]) as a contiguous float32 [N] tensor."""
+    """t_max (scalar or [N]) as a contiguous float32 [N] tensor. A Python
+    number is filled on the device (no host-to-device copy, so a CUDA
+    graph may capture the call)."""
+    if isinstance(t_max, numbers.Real):
+        return torch.full((n,), t_max, dtype=torch.float32, device=device)
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=device)
     if tm.ndim not in (0, 1) or (tm.ndim == 1 and tm.shape[0] != n):
         raise ValueError(f"t_max must be a scalar or [{n}], got "
@@ -492,8 +502,33 @@ def _call_on(fn, device, *args) -> int:
 
 
 def count_launch(counts: dict, key: str) -> None:
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:  # captured, not launched: counted at each replay
+        tally.append((counts, key))
+        return
     with _COUNT_LOCK:
         counts[key] += 1
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """The launches that this thread's wrappers make inside the block, as
+    a list of (counts, key), instead of counting them: for a CUDA graph
+    capture, whose kernels launch only when it is replayed."""
+    tally = []
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
+
+
+def count_replay(tally) -> None:
+    """Add a captured graph's launches (its `launch_tally`) to the counts:
+    one replay launches each of them once."""
+    with _COUNT_LOCK:
+        for counts, key in tally:
+            counts[key] += 1
 
 
 def _device_kind(ray_o) -> str:

@@ -97,8 +97,10 @@ def fresnel_dielectric(cos_theta_i, eta_i, eta_t):
     """Exact unpolarised dielectric Fresnel (PBRT form)."""
     c = torch.clamp(cos_theta_i, -1.0, 1.0)
     entering = c > 0.0
-    eta_i = torch.as_tensor(eta_i, dtype=c.dtype, device=c.device)
-    eta_t = torch.as_tensor(eta_t, dtype=c.dtype, device=c.device)
+    # a Python ior is filled on the device, not copied from the host
+    on_device = lambda x: (x.to(c.dtype) if torch.is_tensor(x) else
+                           torch.full((), x, dtype=c.dtype, device=c.device))
+    eta_i, eta_t = on_device(eta_i), on_device(eta_t)
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     c = torch.abs(c)

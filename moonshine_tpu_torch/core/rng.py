@@ -37,11 +37,15 @@ def hash_pcg(a: torch.Tensor) -> torch.Tensor:
 
 def seed(sample_index, x, y) -> torch.Tensor:
     """Per-lane states from (sample index, pixel x, pixel y)
-    (Rng::fromSeed, random.hlsl:28-31)."""
+    (Rng::fromSeed, random.hlsl:28-31). The sample index is a Python int
+    or an integer tensor on the pixels' device (a CUDA graph's static
+    scalar): both give the same states, and an int is added as a scalar,
+    with no host-to-device copy."""
     x = _u32(x)
     device = x.device
     y = _u32(y, device)
-    s = _u32(sample_index, device)
+    s = (sample_index & _MASK if isinstance(sample_index, int)
+         else _u32(sample_index, device))
     return hash_pcg((s + hash_pcg((x + hash_pcg(y)) & _MASK)) & _MASK)
 
 

@@ -19,10 +19,14 @@ device a pick runs on a stream of its own, which waits for the scene's
 upload but not for the frames queued on the default stream.
 
 `render(..., wait=False)` returns without reading the frame back; the
-bounce loop still reads on the host, once per segment, whether any lane
-is live when max_bounces + 2 > 10 (its looped form) and, with the
-per-bounce resort, each segment's live count, so the call returns when
-the frame's last segment is queued, not when it is dispatched.
+bounce loop still reads its live count on the host once a segment, when
+max_bounces + 2 > 10 (its looped form) or with the per-bounce resort,
+so the call returns when the frame's last segment is queued, not when
+it is dispatched. On a card each segment is a CUDA graph replay
+(integrator/graphs.py), captured under the frame lock at a frame's
+first use; a scene edit gives new graphs. Captures run in the
+thread-local error mode, so a pick during a capture is neither captured
+nor an error.
 """
 
 from __future__ import annotations

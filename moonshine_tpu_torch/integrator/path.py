@@ -26,11 +26,18 @@ state, and `_bounce_shrunk` then runs a bounce over the live prefix only;
 both move lanes, never change a lane's result, and radiance returns to
 pixel order at the end. `trace_paths_staged` is the reference's staged
 API for very large frames (renderer.MAX_LANES).
+
+The loop (`_Trace`) keeps its state in static buffers and runs each
+segment as a step of graphs.Steps: on a CUDA device a graph replay, on
+the CPU (and inside graphs.eager()) the same functions eagerly. A
+segment reads nothing on the host; the loop reads the live count
+between segments where it needs it.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -58,6 +65,7 @@ from ..lights.envmap import (
 from ..lights.mesh_lights import area_to_solid_angle, sample_mesh_lights
 from ..scene import textures as TX
 from ..scene.textures import sample_material_block
+from . import graphs
 
 
 @dataclass(frozen=True)
@@ -334,13 +342,19 @@ def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
     return mode == "vmem" and scene.has_delta
 
 
-def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
-                 last: bool = False, resort: bool = False) -> dict:
-    """One bounce over the whole lane batch. last=True marks the final
-    segment of the unrolled form, where every lane dies after the
+def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
+                 last: bool = False, resort: bool = False,
+                 roulette: bool | None = None) -> dict:
+    """One bounce over the whole lane batch. `bounce` is an int or a
+    device scalar (the graphed loop's, so that one graph serves many
+    bounces); `roulette` is whether bounce > 3, the one branch on it taken
+    on the host (by default read from an int bounce). last=True marks the
+    final segment of the unrolled form, where every lane dies after the
     emissive/miss accumulation, so NEE, roulette and scatter are skipped.
     resort=True: the state is coherence-sorted, so traversal skips its
     own sort."""
+    if roulette is None:
+        roulette = bounce > 3
     active = st["active"]
     o, d = st["o"], st["d"]
     throughput = st["throughput"]
@@ -424,7 +438,7 @@ def _bounce_body(scene, cfg: PathConfig, bounce: int, st: dict,
     # ---- termination (integrator.hlsl:126-135)
     active = active & (bounce < cfg.max_bounces + 1)
     rng, rr_rand = R.next_float(rng)
-    if bounce > 3:
+    if roulette:
         p_survive = torch.clamp_max(luminance(throughput), 0.95)
         active = active & ~(rr_rand > p_survive)
         throughput = torch.where(
@@ -536,36 +550,41 @@ def _is_lane(v, n: int) -> bool:
     return torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == n
 
 
-def _bounce_shrunk(scene, cfg: PathConfig, bounce: int, st: dict,
-                   last: bool) -> dict:
-    """A bounce over the live prefix only, on a resorted state (live lanes
-    first): a quarter or a half of the lanes when the live count fits,
-    else all. Dead lanes' state is final, so the image is unchanged; their
-    RNG stops advancing, which nothing observes. One host read of the
-    live count per bounce."""
+_SHRINK_MIN = 4 * 1024  # lanes below which the live prefix is not worth it
+
+
+def _prefix_width(n: int, live: int) -> int:
+    """The lanes a resorted bounce runs over: a quarter or a half of the n
+    lanes when the live count fits, else all (all below _SHRINK_MIN)."""
+    if n < _SHRINK_MIN:
+        return n
+    return n // 4 if live <= n // 4 else (n // 2 if live <= n // 2 else n)
+
+
+def _store(dst: dict, src: dict) -> None:
+    """Copy src's values into dst's tensors in place (skipping any that
+    already is dst's): a step leaves its results in static buffers."""
+    for k, v in src.items():
+        if v is not dst[k]:
+            dst[k].copy_(v)
+
+
+def _bounce_shrunk(scene, cfg: PathConfig, bounce, st: dict, last: bool,
+                   width: int, roulette: bool = False) -> dict:
+    """A bounce over the first `width` lanes of a resorted state (live
+    lanes first; `_prefix_width` of the live count), written into that
+    prefix of `st` in place. Dead lanes' state is final, so the image is
+    unchanged; their RNG stops advancing, which nothing observes."""
     n = st["o"].shape[0]
-    if n < 4 * 1024:  # not worth it
-        return _bounce_body(scene, cfg, bounce, st, last=last, resort=True)
-    live = int(st["active"].sum())
-    m = n // 4 if live <= n // 4 else (n // 2 if live <= n // 2 else n)
-    if m == n:
-        return _bounce_body(scene, cfg, bounce, st, last=last, resort=True)
-    head = {k: (v[:m] if _is_lane(v, n) else v) for k, v in st.items()}
-    out = _bounce_body(scene, cfg, bounce, head, last=last, resort=True)
-    return {k: (torch.cat([out[k], v[m:]]) if _is_lane(v, n) else out[k])
-            for k, v in st.items()}
-
-
-def _finish(st: dict, resort: bool):
-    """(radiance in pixel order, rng, rays)."""
-    radiance = st["radiance"]
-    if resort:  # lanes moved: scatter back to pixel order
-        radiance = torch.empty_like(radiance).index_copy_(0, st["pix"],
-                                                          radiance)
-    return radiance, st["rng"], st["rays"]
+    head = {k: (v[:width] if _is_lane(v, n) else v) for k, v in st.items()}
+    _store(head, _bounce_body(scene, cfg, bounce, head, last=last,
+                              resort=True, roulette=roulette))
+    return st
 
 
 def _init_state(ray_o, ray_d, rng_state) -> dict:
+    """A fresh lane state for these camera rays (what _Trace.reset makes
+    in its static buffers)."""
     N = ray_o.shape[0]
     dev = ray_o.device
     f32 = torch.float32
@@ -583,29 +602,145 @@ def _init_state(ray_o, ray_d, rng_state) -> dict:
     )
 
 
-def _trace(scene, cfg: PathConfig, st: dict, resort: bool, unroll: bool,
-           sort_first: bool):
-    """The segment loop of trace_paths and trace_paths_staged. Returns
-    (radiance in pixel order, rng, rays, segments run). The unrolled form
-    runs all max_bounces + 2 segments, the last one thin; the looped form
-    stops as soon as no lane is live (one host sync per segment). With
-    `resort` every segment after the first runs on a resorted state over
-    its live prefix; the first traces the camera rays in their own order
-    unless `sort_first`, which sorts them inside traversal."""
-    n_segments = cfg.max_bounces + 2
-    segments = 0
-    for bounce in range(n_segments):
-        if not unroll and not bool(st["active"].any()):
-            break
-        last = unroll and bounce == n_segments - 1
-        if resort and bounce > 0:
-            st = _resort_state(scene, st)
-            st = _bounce_shrunk(scene, cfg, bounce, st, last=last)
-        else:
-            st = _bounce_body(scene, cfg, bounce, st, last=last,
-                              resort=resort and not sort_first)
-        segments += 1
-    return (*_finish(st, resort), segments)
+class _Trace:
+    """The bounce loop of one run shape (scene, lane count, cfg and form)
+    over static state: the lane arrays, the device bounce index and the
+    live count. Each segment is one step of `steps` (graphs.Steps),
+    keyed by what its body does: (last, roulette, presorted) for a body
+    over all lanes, or the prefix width for a resorted one. Between
+    segments the loop reads the live count, one device-to-host read that
+    serves both the looped form's stop and the prefix width (the
+    reference's lax.cond, path.py:687-711 there); the unrolled form
+    without resort reads nothing."""
+
+    def __init__(self, n: int, device, cfg: PathConfig, resort: bool,
+                 unroll: bool, sort_first: bool, capture: bool):
+        self.cfg, self.resort = cfg, resort
+        self.unroll, self.sort_first = unroll, sort_first
+        rays = torch.empty((n, 3), dtype=torch.float32, device=device)
+        self.st = _init_state(rays, torch.empty_like(rays),
+                              torch.empty(n, dtype=torch.int64,
+                                          device=device))
+        self.bounce = torch.empty((), dtype=torch.int64, device=device)
+        self.live = torch.empty_like(self.bounce)
+        self.steps = graphs.Steps(device, capture)
+        # held by a caller from loading the buffers to reading them
+        self.lock = threading.Lock()
+
+    def reset(self) -> None:
+        """The state of fresh camera rays, whose o, d and rng the caller
+        wrote (a step's work)."""
+        st = self.st
+        n = st["pix"].shape[0]
+        st["active"].fill_(True)
+        st["throughput"].fill_(1.0)
+        st["radiance"].zero_()
+        st["last_pdf"].fill_(1.0)
+        st["last_delta"].zero_()
+        st["rays"].zero_()
+        torch.arange(n, out=st["pix"])
+        self.bounce.zero_()
+
+    def run(self, scene) -> int:
+        """The segments of one trace from the state `reset` made; returns
+        the segments run. The unrolled form runs all max_bounces + 2, the
+        last one thin; the looped form stops as soon as no lane is live.
+        With `resort` every segment after the first runs on a resorted
+        state over its live prefix; the first traces the camera rays in
+        their own order unless `sort_first`, which sorts them inside
+        traversal."""
+        n = self.st["pix"].shape[0]
+        n_segments = self.cfg.max_bounces + 2
+        for bounce in range(n_segments):
+            shrink = self.resort and bounce > 0
+            live = n  # reset made every lane live
+            if bounce > 0 and (not self.unroll
+                               or (shrink and n >= _SHRINK_MIN)):
+                live = int(self.live)  # the segment's one host read
+            if not self.unroll and live == 0:
+                return bounce
+            last = self.unroll and bounce == n_segments - 1
+            roulette = bounce > 3
+            if shrink:
+                width = _prefix_width(n, live)
+                self.steps.run(
+                    ("resorted", width, last, roulette),
+                    lambda: self._resorted(scene, width, last, roulette))
+            else:
+                presorted = self.resort and not self.sort_first
+                self.steps.run(
+                    ("body", last, roulette, presorted),
+                    lambda: self._body(scene, last, roulette, presorted))
+        return n_segments
+
+    def _body(self, scene, last, roulette, presorted) -> None:
+        _store(self.st, _bounce_body(scene, self.cfg, self.bounce, self.st,
+                                     last=last, resort=presorted,
+                                     roulette=roulette))
+        self._advance()
+
+    def _resorted(self, scene, width, last, roulette) -> None:
+        st = _resort_state(scene, self.st)
+        _store(self.st, _bounce_shrunk(scene, self.cfg, self.bounce, st,
+                                       last, width, roulette))
+        self._advance()
+
+    def _advance(self) -> None:
+        self.bounce += 1
+        self.live.copy_(self.st["active"].sum())
+
+    def radiance(self) -> torch.Tensor:
+        """Radiance in pixel order (the lanes moved under `resort`)."""
+        radiance = self.st["radiance"]
+        if not self.resort:
+            return radiance
+        return torch.empty_like(radiance).index_copy_(0, self.st["pix"],
+                                                      radiance)
+
+
+def _run_key(scene) -> tuple:
+    """The scene's part of a run shape's key: its fingerprint and what
+    dispatch reads at run time besides it (graphs.py)."""
+    mode = ("tlas" if getattr(scene, "tlas", None) is not None
+            else _hbm_mode(scene.wide))
+    return graphs.fingerprint(scene), mode, _shadow_compact()
+
+
+def _trace_form(scene, cfg: PathConfig, n: int, staged: bool):
+    """(resort, unroll, sort_first) of trace_paths (staged=False) or
+    trace_paths_staged for n lanes."""
+    if staged:
+        return _resolve_resort(scene, cfg), True, True
+    unroll = (cfg.unroll if cfg.unroll is not None
+              else cfg.max_bounces + 2 <= 10)
+    return _resolve_resort(scene, cfg, n), unroll, False
+
+
+def _new_trace(scene, cfg: PathConfig, n: int, staged: bool) -> _Trace:
+    """An uncached _Trace of n lanes on the scene's device. Its steps are
+    graphed on a CUDA device unless the dispatch is the per-lane walk
+    ('lanes'), whose loop reads its live lanes on the host at every
+    step of the walk (accel/traverse.py): a graph cannot hold it."""
+    key = _run_key(scene)
+    return _Trace(n, scene.device, cfg, *_trace_form(scene, cfg, n, staged),
+                  capture=key[1] != "lanes")
+
+
+def _trace_rays(scene, ray_o, ray_d, rng_state, cfg: PathConfig,
+                staged: bool):
+    n = ray_o.shape[0]
+    key = ("trace", _run_key(scene), cfg, n, staged)
+    tr = graphs.run_shape(key, lambda: _new_trace(scene, cfg, n, staged),
+                          scene)
+    with tr.lock:
+        _store(tr.st, dict(o=ray_o, d=ray_d, rng=rng_state))
+        tr.steps.run("reset", tr.reset)
+        segments = tr.run(scene)
+        radiance = tr.radiance()
+        if radiance is tr.st["radiance"]:
+            radiance = radiance.clone()
+        return (radiance, tr.st["rng"].clone(), tr.st["rays"].clone(),
+                segments)
 
 
 def trace_paths(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
@@ -617,12 +752,10 @@ def trace_paths(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
     and segments is the number of bounce segments run (one closest-hit
     dispatch each). The unrolled form (auto for max_bounces + 2 <= 10)
     runs every segment; the looped one stops when no lane is live. The
-    resort follows `_resolve_resort` for this lane count."""
-    unroll = (cfg.unroll if cfg.unroll is not None
-              else cfg.max_bounces + 2 <= 10)
-    return _trace(scene, cfg, _init_state(ray_o, ray_d, rng_state),
-                  _resolve_resort(scene, cfg, ray_o.shape[0]), unroll,
-                  sort_first=False)
+    resort follows `_resolve_resort` for this lane count. On a CUDA
+    device the rays are copied into the run shape's static buffers and
+    each segment is a graph replay (graphs.py)."""
+    return _trace_rays(scene, ray_o, ray_d, rng_state, cfg, staged=False)
 
 
 def trace_paths_staged(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
@@ -631,5 +764,4 @@ def trace_paths_staged(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
     (`_resolve_resort`), and the first segment sorts inside traversal.
     Same per-lane RNG consumption as trace_paths, so the image matches it;
     returns what trace_paths returns."""
-    return _trace(scene, cfg, _init_state(ray_o, ray_d, rng_state),
-                  _resolve_resort(scene, cfg), unroll=True, sort_first=True)
+    return _trace_rays(scene, ray_o, ray_d, rng_state, cfg, staged=True)

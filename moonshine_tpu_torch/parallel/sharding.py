@@ -16,7 +16,10 @@ device made current (the kernels launch on the current device). The
 shards run one after another in the calling thread: the bounce loop is
 bound by the host's dispatch of small kernels, and a thread a shard
 made four cards 6x slower than the same shards in turn (the threads
-contend for the GIL at every torch call; PERF.md, section 6).
+contend for the GIL at every torch call; PERF.md, section 6). On a card
+a shard's samples are graph replays (integrator/graphs.py), captured
+per shard under its device; a scene copied to another card at each
+call has new addresses, so that card's graphs are captured anew.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from ..integrator.path import PathConfig, trace_paths, trace_paths_staged
+from ..integrator.path import PathConfig
 from ..render.camera import LensArrays
-from ..render.renderer import MAX_LANES, _sample_rays
+from ..render.renderer import MAX_LANES, _sample_sum
 
 # "auto" and "SP,DP" specs on the CPU draw from this many entries of the
 # one CPU device: the size of the reference's CPU test mesh (8 virtual
@@ -112,19 +115,15 @@ def _current(device):
     return contextlib.nullcontext()
 
 
-def _shard(scene, lens, height, width, rows, row0, samples, cfg, staged,
-           flip_image, device):
-    """Radiance summed over `samples` for rows [row0, row0 + rows), and
-    the rays traced, on `device` (where `scene` and `lens` are)."""
-    trace = trace_paths_staged if staged else trace_paths
-    acc = torch.zeros((rows, width, 3), dtype=torch.float32, device=device)
-    rays = torch.zeros((), dtype=torch.int64, device=device)
-    for sample_index in samples:
-        o, d, rng, unpack = _sample_rays(lens, height, width, sample_index,
-                                         flip_image, device, row0, rows)
-        radiance, _, r, _ = trace(scene, o, d, rng, cfg)
-        acc = acc + unpack(radiance)
-        rays = rays + r
+def _shard(scene, lens, height, width, rows, row0, start, count, cfg,
+           staged, flip_image):
+    """Radiance summed over `count` samples from `start` on for rows
+    [row0, row0 + rows), and the rays traced, on the device where `scene`
+    and `lens` are: one sample at a time through trace_paths' form, or
+    trace_paths_staged's (renderer._sample_sum, graph replays on a card)."""
+    acc, rays, _ = _sample_sum(scene, lens, height, width, start, count, cfg,
+                               flip_image, y0=row0, band_h=rows,
+                               staged=staged)
     return acc, rays
 
 
@@ -164,8 +163,7 @@ def render_sharded(scene, lens: LensArrays, height: int, width: int,
         dev = mesh.devices[si, di]
         with _current(dev):
             return _shard(*copies[dev], height, width, rows, di * rows,
-                          range(start, start + local_spp), cfg, staged,
-                          flip_image, dev)
+                          start, local_spp, cfg, staged, flip_image)
 
     parts = {j: run(j) for j in jobs}
     out = scene.device

@@ -11,13 +11,23 @@ at build, MSN_TREELETS=1 at dispatch), or instanced_1080p's scene
 and --subdivisions do not apply), renders one warm-up sample, times
 one sample unprofiled (host clock around a synchronised render_spp),
 then traces one more under torch.profiler. Prints one JSON line: the
-card, the unprofiled wall, the kernel count, the summed kernel time, the
-device busy time (union of kernel intervals) over the profiled wall, the
-traversal kernels' time (packet, treelet or two-level), the treelet
-phase-1 kernel's time, the two-level decode's instance transform
-(integrator/path.py `_inst_world`: its calls, their host time and the
-time of the kernels they launched) and the five kernels that took
-longest. Needs a CUDA device.
+card, the unprofiled wall, the kernel count, the graph replays, the
+host's dispatches and reads, the summed kernel time, the device busy
+time (union of kernel intervals) over the profiled wall, the traversal
+kernels' time (packet, treelet or two-level), the treelet phase-1
+kernel's time, the five kernels that took longest, and the same sample
+on the eager loop (graphs.eager(): its wall, kernels and idle share, and
+the two-level decode's instance transform, integrator/path.py
+`_inst_world`: its calls, their host time and the time of the kernels
+they launched, which a graph replay runs without calling Python). Needs
+a CUDA device.
+
+The bounce loop runs as CUDA graph replays (integrator/graphs.py): a
+replay is one host dispatch for many kernels. `profile(fn)` counts the
+host's dispatches (graph replays, and the kernels, copies and fills
+launched outside a graph: device operations by correlation id) and its
+reads (device-to-host copies); the smoke's `graphs` phase calls it on
+other cells.
 """
 
 from __future__ import annotations
@@ -63,6 +73,67 @@ def _union_us(spans) -> float:
     return busy
 
 
+def _host_ops(events) -> tuple[int, int, int]:
+    """(graph replays, host dispatches, device-to-host copies) in a
+    trace: the device operations (kernels, copies, fills) a
+    cudaGraphLaunch runs share its correlation id, so a replay counts
+    once."""
+    replays = {e.get("args", {}).get("correlation") for e in events
+               if e.get("cat") == "cuda_runtime"
+               and e.get("name") == "cudaGraphLaunch"}
+    ops = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launched = {e.get("args", {}).get("correlation") for e in ops} - replays
+    reads = sum(1 for e in ops if e.get("cat") == "gpu_memcpy"
+                and "DtoH" in e.get("name", ""))
+    return len(replays), len(replays) + len(launched), reads
+
+
+def profile(fn, marks=()) -> dict:
+    """One call of fn (a sample, already warmed up) timed on the host
+    clock, then one more under torch.profiler: the unprofiled and
+    profiled wall, kernels, graph replays, host dispatches and reads,
+    kernel time, device busy time and idle share, kernel time by name
+    (us), and for each name in `marks` (a range that fn's callees open
+    with record_function) its calls, host ms and kernel ms. CPU activity
+    is traced only when there are marks."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if marks:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _trace_events(prof)
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    replays, dispatches, reads = _host_ops(events)
+    out = {
+        "wall_ms_unprofiled": wall_ms, "wall_ms_profiled": prof_wall_ms,
+        "kernels": len(kernels), "replays": replays,
+        "host_dispatches": dispatches, "host_reads": reads,
+        "kernel_ms": sum(by_name.values()) / 1e3, "busy_ms": busy_us / 1e3,
+        "idle_share": 1.0 - busy_us / 1e3 / prof_wall_ms,
+        "by_name_us": by_name,
+    }
+    for name in marks:
+        calls, host_us, kernel_us = _annotated(events, name)
+        out[name] = {"calls": calls, "host_ms": host_us / 1e3,
+                     "kernel_ms": kernel_us / 1e3}
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("default", "treelet", "instanced"),
@@ -76,7 +147,7 @@ def main(argv=None) -> dict:
 
     from .camera import LensArrays
     from .renderer import render_spp
-    from ..integrator import path
+    from ..integrator import graphs, path
     from ..integrator.path import PathConfig, _hbm_mode
     from ..scene import procedural
 
@@ -95,13 +166,11 @@ def main(argv=None) -> dict:
     lens = LensArrays.from_lens(lens, dev)
     cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
                      mesh_samples_per_bounce=1)
+    sample = lambda: render_spp(scene, lens, height, width, 2, 1, cfg)
 
-    render_spp(scene, lens, height, width, 0, 1, cfg)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    render_spp(scene, lens, height, width, 1, 1, cfg)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    render_spp(scene, lens, height, width, 0, 1, cfg)  # warm-up, captures
+    prof = profile(sample)
+    by_name = prof.pop("by_name_us")
 
     inst_world = path._inst_world
 
@@ -109,29 +178,16 @@ def main(argv=None) -> dict:
         with torch.profiler.record_function("inst_world"):
             return inst_world(*a, **kw)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     path._inst_world = marked
     try:
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            render_spp(scene, lens, height, width, 2, 1, cfg)
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        with graphs.eager():
+            eager = profile(sample, marks=("inst_world",))
     finally:
         path._inst_world = inst_world
-    events = _trace_events(prof)
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    iw_calls, iw_host_us, iw_kernel_us = _annotated(events, "inst_world")
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-    total_us = sum(by_name.values())
     traversal_us = sum(v for k, v in by_name.items()
                        if "traverse_kernel" in k or "treelet_kernel" in k
                        or "tlas_kernel" in k)
     phase1_us = sum(v for k, v in by_name.items() if "pending_kernel" in k)
-    busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -140,16 +196,13 @@ def main(argv=None) -> dict:
     out = {
         "card": smi, "config": args.config, "size": args.size,
         "mode": "tlas" if scene.tlas is not None else _hbm_mode(scene.wide),
-        "triangles": scene.num_tris,
-        "wall_ms_unprofiled": wall_ms, "wall_ms_profiled": prof_wall_ms,
-        "kernels": len(kernels), "kernel_ms": total_us / 1e3,
-        "busy_ms": busy_us / 1e3,
-        "idle_share": 1.0 - busy_us / 1e3 / prof_wall_ms,
+        "triangles": scene.num_tris, **prof,
         "traversal_ms": traversal_us / 1e3,
         "treelet_phase1_ms": phase1_us / 1e3,
-        "inst_world": {"calls": iw_calls, "host_ms": iw_host_us / 1e3,
-                       "kernel_ms": iw_kernel_us / 1e3},
         "top": [[k[:80], v / 1e3] for k, v in top],
+        "eager": {k: eager[k] for k in (
+            "wall_ms_unprofiled", "kernels", "host_dispatches", "kernel_ms",
+            "idle_share", "inst_world")},
     }
     print(json.dumps(out), flush=True)
     return out

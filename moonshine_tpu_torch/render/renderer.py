@@ -6,7 +6,9 @@ moonshine_tpu/render/renderer.py).
 frames above MAX_LANES pixels to the staged per-bounce path
 (`_render_spp_staged`); `render` folds samples into a Sensor. RNG streams
 are keyed by (sample, x, y), so any lane order, banding or batching gives
-the same image.
+the same image. Each runs through a cached `_Frame`: camera rays, the
+bounce loop and the accumulation as graph steps (integrator/graphs.py),
+the sample index a device scalar.
 """
 
 from __future__ import annotations
@@ -14,12 +16,8 @@ from __future__ import annotations
 import torch
 
 from ..core import rng as R
-from ..integrator.path import (
-    PathConfig,
-    _resolve_resort,
-    trace_paths,
-    trace_paths_staged,
-)
+from ..integrator import graphs, path
+from ..integrator.path import PathConfig, _new_trace, _resolve_resort
 from .camera import LensArrays, generate_rays, pixel_uv
 from .sensor import Sensor, accumulate
 
@@ -74,13 +72,84 @@ def _sample_rays(lens: LensArrays, height: int, width: int,
     return o, d, rng, unpack
 
 
-def _render_sample(scene, lens: LensArrays, height: int, width: int,
-                   sample_index: int, cfg: PathConfig, flip_image: bool,
-                   y0: int = 0, band_h: int | None = None):
-    o, d, rng, unpack = _sample_rays(lens, height, width, sample_index,
-                                     flip_image, scene.device, y0, band_h)
-    radiance, _rng, rays, segments = trace_paths(scene, o, d, rng, cfg)
-    return unpack(radiance), rays, segments
+class _Frame:
+    """One frame shape's run: camera rays of `nbatch` samples of rows
+    [y0, y0 + bh) (sample-major on the lane axis) through one bounce loop
+    (path._Trace), summed over samples into `acc` in pixel order. The
+    lens, the first sample index, `acc` and the ray count are static
+    buffers, so the camera-ray step and the accumulation are graph steps
+    too; `run` loads the lens and the index and replays."""
+
+    def __init__(self, scene, lens: LensArrays, cfg: PathConfig,
+                 height: int, width: int, y0: int, bh: int, nbatch: int,
+                 flip_image: bool, staged: bool):
+        dev = scene.device
+        self.trace = _new_trace(scene, cfg, nbatch * bh * width, staged)
+        self.height, self.width, self.y0, self.bh = height, width, y0, bh
+        self.nbatch, self.flip_image = nbatch, flip_image
+        self.lens = LensArrays(*(torch.empty_like(x, device=dev)
+                                 for x in lens))
+        self.sample = torch.zeros((), dtype=torch.int64, device=dev)
+        self.acc = torch.zeros((bh, width, 3), dtype=torch.float32,
+                               device=dev)
+        self.rays = torch.zeros((), dtype=torch.int64, device=dev)
+        self.unpack = _pixel_coords(bh, width, dev)[2]
+
+    def raygen(self) -> None:
+        """The step before a trace: this sample's camera rays and RNG in
+        the trace's buffers, its state reset."""
+        rays = [_sample_rays(self.lens, self.height, self.width,
+                             self.sample + s, self.flip_image,
+                             self.acc.device, self.y0, self.bh)[:3]
+                for s in range(self.nbatch)]
+        st = self.trace.st
+        for k, parts in zip(("o", "d", "rng"), zip(*rays)):
+            st[k].copy_(parts[0] if self.nbatch == 1 else torch.cat(parts))
+        self.trace.reset()
+
+    def accumulate(self) -> None:
+        """The step after a trace: its radiance, summed over the batch's
+        samples, into acc; the next sample index."""
+        radiance = self.trace.radiance()
+        if self.nbatch > 1:
+            radiance = radiance.reshape(self.nbatch, -1, 3).sum(dim=0)
+        self.acc += self.unpack(radiance)
+        self.rays += self.trace.st["rays"]
+        self.sample += self.nbatch
+
+    def run(self, scene, lens: LensArrays, start: int, groups: int):
+        """(sum of radiance [bh, W, 3], rays int64 scalar, segments) of
+        `groups` batches of samples from `start` on."""
+        steps = self.trace.steps
+        with self.trace.lock:
+            for dst, src in zip(self.lens, lens):
+                dst.copy_(src)
+            self.sample.fill_(start)
+            self.acc.zero_()
+            self.rays.zero_()
+            segments = 0
+            for _ in range(groups):
+                steps.run("raygen", self.raygen)
+                segments += self.trace.run(scene)
+                steps.run("accumulate", self.accumulate)
+            return self.acc.clone(), self.rays.clone(), segments
+
+
+def _sample_sum(scene, lens: LensArrays, height: int, width: int,
+                start: int, groups: int, cfg: PathConfig, flip_image: bool,
+                y0: int = 0, band_h: int | None = None, nbatch: int = 1,
+                staged: bool = False):
+    """_Frame.run of the cached frame shape: (radiance summed over
+    groups x nbatch samples from `start` on [band_h, W, 3], rays int64
+    scalar, segments). staged: each batch through trace_paths_staged's
+    form, else trace_paths'."""
+    bh = height if band_h is None else band_h
+    key = ("frame", path._run_key(scene), cfg, height, width, y0, bh,
+           nbatch, flip_image, staged)
+    frame = graphs.run_shape(key, lambda: _Frame(
+        scene, lens, cfg, height, width, y0, bh, nbatch, flip_image,
+        staged), scene)
+    return frame.run(scene, lens, start, groups)
 
 
 def render_sample(scene, lens: LensArrays, height: int, width: int,
@@ -90,29 +159,9 @@ def render_sample(scene, lens: LensArrays, height: int, width: int,
     """Trace one sample for every pixel of rows [y0, y0 + band_h) (band_h
     defaults to the full height). Returns (radiance [band_h, W, 3],
     rays_traced int64 scalar tensor)."""
-    img, rays, _ = _render_sample(scene, lens, height, width, sample_index,
-                                  cfg, flip_image, y0, band_h)
+    img, rays, _ = _sample_sum(scene, lens, height, width, sample_index, 1,
+                               cfg, flip_image, y0, band_h)
     return img, rays
-
-
-def _sample_rays_batched(lens: LensArrays, height: int, width: int,
-                         start_index: int, nbatch: int, flip_image: bool,
-                         device):
-    """Rays and RNG of `nbatch` consecutive samples, concatenated on the
-    lane axis (sample-major); the streams are the unbatched ones."""
-    rays = [_sample_rays(lens, height, width, start_index + s, flip_image,
-                         device)[:3] for s in range(nbatch)]
-    return tuple(torch.cat(parts) for parts in zip(*rays))
-
-
-def _staged_accum(acc, rays_acc, radiance_flat, rays, height: int,
-                  width: int):
-    """acc + the batch's radiance summed over its samples, in pixel order."""
-    _, _, unpack = _pixel_coords(height, width, acc.device)
-    n = height * width
-    if radiance_flat.shape[0] != n:  # sample-batched
-        radiance_flat = radiance_flat.reshape(-1, n, 3).sum(dim=0)
-    return acc + unpack(radiance_flat), rays_acc + rays
 
 
 def _render_spp_staged(scene, lens: LensArrays, height: int, width: int,
@@ -124,21 +173,23 @@ def _render_spp_staged(scene, lens: LensArrays, height: int, width: int,
     lanes = height * width
     if batch is None:
         batch = max(1, min(spp, STAGE_TARGET_LANES // lanes))
-    acc = torch.zeros((height, width, 3), dtype=torch.float32,
-                      device=scene.device)
-    rays_acc = torch.zeros((), dtype=torch.int64, device=scene.device)
+    acc = rays_acc = None
     segments = 0
     s = 0
-    while s < spp:
+    while s < spp:  # the full batches, then the rest as one batch
         b = min(batch, spp - s)
-        o, d, rng = _sample_rays_batched(lens, height, width,
-                                         start_index + s, b, flip_image,
-                                         scene.device)
-        radiance, _, rays, seg = trace_paths_staged(scene, o, d, rng, cfg)
-        acc, rays_acc = _staged_accum(acc, rays_acc, radiance, rays, height,
-                                      width)
+        groups = (spp - s) // b
+        part, rays, seg = _sample_sum(scene, lens, height, width,
+                                      start_index + s, groups, cfg,
+                                      flip_image, nbatch=b, staged=True)
+        acc = part if acc is None else acc + part
+        rays_acc = rays if rays_acc is None else rays_acc + rays
         segments += seg
-        s += b
+        s += groups * b
+    if acc is None:
+        acc = torch.zeros((height, width, 3), dtype=torch.float32,
+                          device=scene.device)
+        rays_acc = torch.zeros((), dtype=torch.int64, device=scene.device)
     if stats is not None:
         stats.update(path="staged", resort=_resolve_resort(scene, cfg),
                      segments=segments)
@@ -156,16 +207,8 @@ def render_spp(scene, lens: LensArrays, height: int, width: int,
     if height * width > MAX_LANES:
         return _render_spp_staged(scene, lens, height, width, start_index,
                                   spp, cfg, flip_image, stats=stats)
-    acc = torch.zeros((height, width, 3), dtype=torch.float32,
-                      device=scene.device)
-    rays = torch.zeros((), dtype=torch.int64, device=scene.device)
-    segments = 0
-    for i in range(spp):
-        img, r, seg = _render_sample(scene, lens, height, width,
-                                     start_index + i, cfg, flip_image)
-        acc += img
-        rays += r
-        segments += seg
+    acc, rays, segments = _sample_sum(scene, lens, height, width,
+                                      start_index, spp, cfg, flip_image)
     if stats is not None:
         stats.update(path="fused",
                      resort=_resolve_resort(scene, cfg, height * width),

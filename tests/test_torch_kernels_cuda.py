@@ -16,7 +16,11 @@ the same comparisons at the render's real shapes. The two-level walk
 (csrc/tlas.cu) equals its plain version bit for bit (t, tri, u, v, inst,
 occlusion) on an instanced scene with rotated, scaled, mirrored and
 hidden instances and on a scene of exact equal-t ties
-(procedural.tie_scene), n = 0/1/4099; its counting build counts."""
+(procedural.tie_scene), n = 0/1/4099; its counting build counts. The
+bounce loop as CUDA graph replays (integrator/graphs.py) equals the eager
+loop bit for bit (image, rays, launch counts): the fused flagship, a
+staged 1080p batch, the looped offline form, a two-level scene, and
+Engine frames, which capture anew after each edit."""
 
 import numpy as np
 import pytest
@@ -705,3 +709,229 @@ def test_kernels_and_sharded_render_across_cards(cuda):
     ref = sensor.image
     assert float(((img - ref).abs() / ref.abs().clamp_min(1.0)).max()) \
         <= 2e-6
+
+
+# --- the bounce loop as CUDA graph replays (integrator/graphs.py) ---
+
+def _launches():
+    return {**packet.LAUNCHES, **treelet.LAUNCHES, **tlas.LAUNCHES}
+
+
+def _eager_and_replayed(monkeypatch, fn):
+    """fn() on the eager loop (graphs.eager()) and as graph replays, each
+    from a clear cache after a warm-up call (for the graphs, the one that
+    captures): [(fn's result, launches), ...] for eager then replays;
+    asserts that the second ran only replays."""
+    import contextlib
+
+    from moonshine_tpu_torch.integrator import graphs
+
+    replays = []
+    replay = torch.cuda.CUDAGraph.replay
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay",
+                        lambda g: replays.append(1) or replay(g))
+    out = []
+    for eager in (True, False):
+        graphs.clear()
+        with graphs.eager() if eager else contextlib.nullcontext():
+            fn()
+            captured = len(replays)
+            for m in (packet, treelet, tlas):
+                m.reset_launch_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            out.append((res, _launches()))
+        assert (len(replays) > captured) != eager
+    graphs.clear()
+    return out
+
+
+def _assert_same_render(out):
+    (a, la), (b, lb) = out
+    for x, y in zip(a, b):
+        if torch.is_tensor(x):
+            assert torch.equal(x, y)
+        else:
+            assert x == y
+    assert la == lb and any(la.values())
+
+
+def _room_cuda(cuda, **kw):
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.scene import procedural
+
+    world, lens = procedural.room_scene(**kw)
+    return world.build(cuda), LensArrays.from_lens(lens, cuda)
+
+
+CFG4 = dict(max_bounces=4, env_samples_per_bounce=1,
+            mesh_samples_per_bounce=1)
+
+
+def test_graphs_fused_flagship_equal_eager(cuda, monkeypatch):
+    """The flagship, 256x256 x 3 spp through render_spp (the fused path,
+    resort on: resorted segments over live prefixes): replays equal the
+    eager loop bit for bit, rays and launches too."""
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    world, lens = procedural.flagship_scene()
+    scene, la = world.build(cuda), LensArrays.from_lens(lens, cuda)
+    stats = {}
+    out = _eager_and_replayed(monkeypatch, lambda: render_spp(
+        scene, la, 256, 256, 5, 3, PathConfig(**CFG4), stats=stats))
+    assert stats["path"] == "fused" and stats["resort"]
+    _assert_same_render(out)
+
+
+def test_graphs_staged_room_1080p_equal_eager(cuda, monkeypatch):
+    """room_184k at 1920x1080 x 1 spp (the staged path, one batch of
+    2,073,600 lanes, resort on): replays equal the eager loop."""
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.renderer import render_spp
+
+    scene, la = _room_cuda(cuda, grid=6, subdivisions=4)
+    stats = {}
+    out = _eager_and_replayed(monkeypatch, lambda: render_spp(
+        scene, la, 1080, 1920, 3, 1, PathConfig(**CFG4), stats=stats))
+    assert stats == dict(path="staged", resort=True, segments=6)
+    _assert_same_render(out)
+
+
+def test_graphs_looped_offline_form_equal_eager(cuda, monkeypatch):
+    """The offline CLI's form: render_sample with max_bounces 1024 (the
+    looped form, one host read a segment), room_184k at 320x240 with the
+    resort off and on: replays equal the eager loop."""
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.renderer import render_sample
+
+    scene, la = _room_cuda(cuda, grid=6, subdivisions=4)
+    for resort in (None, True):
+        cfg = PathConfig(max_bounces=1024, resort_bounces=resort)
+        out = _eager_and_replayed(monkeypatch, lambda: render_sample(
+            scene, la, 240, 320, 2, cfg))
+        _assert_same_render(out)
+
+
+def test_graphs_instanced_equal_eager(cuda, monkeypatch):
+    """40 instances of icosphere(4) built two-level (MSN_FORCE_TLAS=1),
+    512x512 x 2 spp: the two-level walk and the instance transform as
+    replays equal the eager loop."""
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    monkeypatch.setenv("MSN_FORCE_TLAS", "1")
+    world, lens = procedural.instanced_scene(grid=(8, 5), subdivisions=4)
+    scene = world.build(cuda)
+    assert scene.tlas is not None
+    la = LensArrays.from_lens(lens, cuda)
+    out = _eager_and_replayed(monkeypatch, lambda: render_spp(
+        scene, la, 512, 512, 0, 2, PathConfig(**CFG4)))
+    _assert_same_render(out)
+    assert out[1][1]["tlas_closest_hit"] > 0
+
+
+def _engine_of(world, dev):
+    """An Engine holding `world` through its handles: StandardPBR from
+    solid textures (Lambert as metalness 0, roughness 1; a mirror as
+    metalness 1, roughness 0; glass as its ior)."""
+    from moonshine_tpu_torch.engine import Engine
+    from moonshine_tpu_torch.scene.types import Lambert, StandardPBR
+
+    e = Engine(device=dev)
+    for m in world.meshes:
+        e.create_mesh(m.positions, m.indices, m.normals, m.texcoords,
+                      m.indexed_attributes)
+    for info in world.materials:
+        v = info.variant
+        if isinstance(v, StandardPBR):
+            fields = (v.color, v.metalness, v.roughness, v.ior)
+        elif isinstance(v, Lambert):
+            fields = (v.color, 0.0, 1.0, 1.5)
+        else:  # Mirror, Glass
+            fields = ((1.0, 1.0, 1.0), 1.0, 0.0, getattr(v, "ior", 1.5))
+        color, metal, rough, ior = fields
+        solid = e.create_solid_texture
+        e.create_material(color=solid(color), metalness=solid(metal),
+                          roughness=solid(rough),
+                          emissive=solid(info.emissive), ior=ior)
+    for inst in world.instances:
+        e.create_instance(inst.transform, [(g.mesh, g.material, g.sampled)
+                                           for g in inst.geometries],
+                          inst.visible)
+    e.set_background(None)
+    return e
+
+
+def test_graphs_engine_frames_recapture_after_edits(cuda, monkeypatch):
+    """Engine frames (its defaults: max_bounces 1024, NEE off; the small
+    room at 160x120): an eager frame, a frame that captures and one that
+    replays, all equal bit for bit; after a material edit and after a
+    transform edit (a refit) the scene's tensors are new, so the next
+    graph frame captures anew (never replays on the old scene) and the
+    frames still agree; the image changes with each edit. A second
+    thread picks while a frame captures: neither fails."""
+    import threading
+
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.scene import procedural
+    from moonshine_tpu_torch.scene.types import translate
+
+    world, lens = procedural.room_scene(grid=2, subdivisions=2)
+    e = _engine_of(world, cuda)
+    sensor, lh = e.create_sensor(160, 120), e.create_lens(lens)
+    captures = []
+    capture = graphs.Steps._capture
+    monkeypatch.setattr(graphs.Steps, "_capture",
+                        lambda self, fn: captures.append(1)
+                        or capture(self, fn))
+    graphs.clear()
+
+    def frames():
+        out = []
+        for eager in (True, False, False):
+            e.reset_sensor(sensor)
+            if eager:
+                with graphs.eager():
+                    out.append(e.render(sensor, lh))
+            else:
+                before = len(captures)
+                out.append(e.render(sensor, lh))
+                out.append(len(captures) - before)
+        img, graphed, n_new, replayed, n_again = out
+        assert np.array_equal(img, graphed) and np.array_equal(img, replayed)
+        assert n_new > 0 and n_again == 0
+        return img
+
+    first = frames()
+    e.set_material_color(0, e.create_solid_texture([0.3, 0.3, 0.3]))
+    edited = frames()
+    e.set_instance_transform(len(world.instances) - 1,
+                             translate(0.6, -0.4, 0.3))
+    refit = frames()
+    assert not np.array_equal(first, edited)
+    assert not np.array_equal(edited, refit)
+
+    e.set_instance_visibility(0, False)
+    picks, stop = [], threading.Event()
+
+    def pick():
+        while not stop.is_set():
+            picks.append(e.pick(lh, 160, 120, 80, 100))
+
+    th = threading.Thread(target=pick)
+    th.start()
+    try:
+        before = len(captures)
+        e.reset_sensor(sensor)
+        img = e.render(sensor, lh)
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    assert not th.is_alive() and picks
+    assert len(captures) > before and np.isfinite(img).all()
+    graphs.clear()

@@ -71,10 +71,13 @@ def test_bounce_shrunk_runs_on_the_live_prefix(monkeypatch):
     monkeypatch.setattr(P, "_bounce_body", lambda sc, cfg, b, s, **k:
                         seen.append(s["o"].shape[0]) or body(sc, cfg, b, s,
                                                              **k))
-    out = P._bounce_shrunk(scene, PathConfig(**CFG), 1, st, last=False)
-    assert seen == [1024]
-    assert torch.equal(out["radiance"][1024:], st["radiance"][1024:])
-    assert torch.equal(out["pix"], st["pix"])
+    before = {k: v.clone() for k, v in st.items()}
+    width = P._prefix_width(4096, 820)
+    out = P._bounce_shrunk(scene, PathConfig(**CFG), 1, st, last=False,
+                           width=width)
+    assert seen == [1024] and width == 1024
+    assert torch.equal(out["radiance"][1024:], before["radiance"][1024:])
+    assert torch.equal(out["pix"], before["pix"])
 
 
 def test_resort_state_matches_reference():
