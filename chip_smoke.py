@@ -106,7 +106,16 @@ script exits non-zero without the result line. Phases:
   sharded         render_sharded on cuda:0 x4 (sp=2, dp=2) and on
                   mesh_from_spec("auto") against the one-device render
                   (512x512 x 2 spp, within 2e-6 x max(1, |pixel|)), launches
-                  held against the plain versions; the Cornell CLI with
+                  held against the plain versions; then room_1080p
+                  (1920x1080 x 2 spp, each shard staged) on both meshes:
+                  ms per call after a warm-up, replays, reads, captures
+                  (none after the warm-up) and scene copies a call, the
+                  image bit for bit against the same shards run in turn
+                  and within 2e-6 x max(1, |pixel|) of the one-device
+                  render, rays and launches equal, one call profiled (each
+                  card's busy share, the shards' overlap on one card), one
+                  recorded and its launches held against the plain
+                  versions at the shards' shapes; the Cornell CLI with
                   --mesh auto against tests/goldens/cornell.exr
   viewer          run_web on a free local port: GET /frame.png decodes to
                   tonemap of the sensor; a material edit and a key reset
@@ -1816,6 +1825,7 @@ def sharded_phase(scene, lens, dev, launches_out):
         with recording() as rec:  # again, for the plain versions
             render_sharded(scene, lens, h, w, spp, cfg, mesh)
         hold_recorded("sharded", rec, per_kind=2)
+    sharded_1080p(scene, lens, dev, cfg, launches_out)
     WORK.mkdir(parents=True, exist_ok=True)
     (WORK / "cornell.glb").write_bytes(glb_builder().cornell_box_glb())
     write_exr(WORK / "zero_sky.exr", np.zeros((4, 8, 3), np.float32))
@@ -1825,6 +1835,79 @@ def sharded_phase(scene, lens, dev, launches_out):
     gold = read_exr(ROOT / "tests" / "goldens" / "cornell.exr")[..., :3]
     same_image("cornell CLI --mesh auto vs tests/goldens/cornell.exr",
                "sharded", read_exr(WORK / "cornell_mesh.exr")[..., :3], gold)
+
+
+def sharded_1080p(scene, lens, dev, cfg, launches_out, reps=3):
+    """room_1080p (1920x1080 x 2 spp) through render_sharded on cuda:0 x4
+    (sp=2, dp=2: 540x1920 = 1,036,800 lanes a shard, the staged form)
+    and on mesh_from_spec("auto"), each through time_sharded.compare: a
+    warm-up call, then `reps` stepped calls alternated with the same
+    shards run in turn (launches set to 0 before each call and read
+    after it), each with its graph captures (0 after the warm-up),
+    replays, live-count reads and scene copies; the image held bit for
+    bit against the shards in turn with the same rays and launches, and
+    within 2e-6 x max(1, |pixel|) of the one-device render_spp with the
+    same rays; then one call profiled (profile_frame.profile: each card's
+    busy share and the overlap of the shards on one card), each card's
+    memory reserved, and one more
+    recorded on the eager loop, its kernel launches held against the
+    plain versions bit for bit at the shards' shapes."""
+    import torch
+
+    from moonshine_tpu_torch.parallel import (
+        make_mesh, mesh_from_spec, render_sharded,
+    )
+    from moonshine_tpu_torch.render.profile_frame import profile
+    from moonshine_tpu_torch.render.renderer import render_spp
+    from moonshine_tpu_torch.scripts.time_sharded import (
+        CHECKS, compare, timed_run,
+    )
+
+    (h, w), spp = HD, 2
+    one = lambda: render_spp(scene, lens, h, w, 0, spp, cfg)
+    one()  # warm-up: the captures
+    (acc, rays_one), one_s, _, _ = timed_run(one)
+    ref, rays_one = acc / spp, int(rays_one)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    say("sharded", f"1080p on {smi}: one device (render_spp) "
+        f"{one_s * 1e3:.2f} ms, {rays_one} rays")
+    for name, mesh in (("cuda:0 x4 (sp=2, dp=2)",
+                        make_mesh([dev] * 4, sp=2)),
+                       ("mesh_from_spec('auto')", mesh_from_spec("auto"))):
+        (img, rays), launches, rec = compare(scene, lens, h, w, spp, cfg,
+                                             mesh, ref, rays_one, reps)
+        call = lambda: render_sharded(scene, lens, h, w, spp, cfg, mesh)
+        prof = profile(call)
+        reserved = {str(d): round(torch.cuda.memory_reserved(d) / 2**30, 3)
+                    for d in sorted(set(mesh.devices.flat), key=str)}
+        ms = lambda xs: [round(x * 1e3, 2) for x in xs]
+        counts = rec["per_call"]
+        say("sharded", f"1080p {name}: {mesh.shape}, {w}x{h} x {spp} spp, "
+            f"ms per call {ms(rec['stepped_s'])} (warm-up "
+            f"{rec['first_call_s']['stepped'] * 1e3:.2f}; the shards in "
+            f"turn {ms(rec['in_turn_s'])}; one device {one_s * 1e3:.2f}); "
+            f"per call {counts['replays']} replays, {counts['reads']} reads, "
+            f"{counts['captures']} captures, {counts['copies']} scene "
+            f"copies (warm-up {rec['first_call']['stepped']}; in turn "
+            f"{rec['in_turn_per_call']}); checks "
+            f"{ {k: rec[k] for k in CHECKS} }; rays {int(rays)} vs "
+            f"{rays_one} on one device, max |diff| / max(1, |pixel|) "
+            f"{rec['max_rel_err']:.3g}; launches {launches}; profiled: "
+            f"{prof['wall_ms_profiled']:.2f} ms, {prof['replays']} replays,"
+            f" {prof['host_reads']} reads, by card {prof['devices']}; "
+            f"memory reserved by card (GiB) {reserved}; {smi}")
+        if (not all(rec[k] for k in CHECKS) or launches["closest_hit"] == 0
+                or launches["any_hit"] == 0
+                or not torch.isfinite(img).all()):
+            raise AssertionError(f"1080p {name}: the sharded render "
+                                 "disagrees or captured again")
+        launches_out[f"sharded_1080p {name}"] = launches
+        with recording() as recorded:  # again, for the plain versions
+            call()
+        hold_recorded("sharded_1080p", recorded, per_kind=2)
 
 
 def viewer_phase(world, lens, dev):

@@ -25,7 +25,8 @@ Run shapes are cached by key (`run_shape`), the scene's part of it its
 so a scene whose tensors were replaced (a World edit) gets new graphs,
 and a graph replays only on tensors at the addresses it captured. A
 shape goes when one of its scene's tensors is freed, or when
-MAX_RUN_SHAPES newer ones push it out.
+MAX_RUN_SHAPES newer ones (and as many as the last sharded render's mesh
+needs, `keep_room`) push it out.
 
 Launch counts: a wrapper called during a capture launches nothing, so
 its count goes to the capture's tally (`packet.launch_tally`), which
@@ -46,12 +47,33 @@ from ..accel import packet
 # run shapes kept (the least recently used goes first); each holds its
 # static buffers and its graphs' memory pool
 MAX_RUN_SHAPES = 8
+# more shapes kept beside those: as many as the last sharded render's
+# mesh has shards and scene copies (parallel/sharding.py, `keep_room`),
+# so that mesh replays at its next call; 0 for a process without a mesh
+_mesh_room = 0
+
+# host-side tallies, for tools and tests to read: graph captures and
+# replays (Steps), live-count reads (path._Trace.live_count) and scene
+# copies to another device (parallel/sharding.py `scene_on`)
+COUNTS = {"captures": 0, "replays": 0, "reads": 0, "copies": 0}
+_COUNTS_LOCK = threading.Lock()
 
 _MODE = threading.local()
 # key -> (run shape, finalizers that drop it with its scene's tensors)
 _SHAPES: collections.OrderedDict = collections.OrderedDict()
 # reentrant: a finalizer may run (and drop a shape) while the lock is held
 _SHAPES_LOCK = threading.RLock()
+
+
+def count(key: str) -> None:
+    with _COUNTS_LOCK:
+        COUNTS[key] += 1
+
+
+def reset_counts() -> None:
+    with _COUNTS_LOCK:
+        for k in COUNTS:
+            COUNTS[k] = 0
 
 
 @contextlib.contextmanager
@@ -91,6 +113,7 @@ class Steps:
             graph, tally = hit
             graph.replay()
             packet.count_replay(tally)
+            count("replays")
 
     def _capture(self, fn):
         fn()  # the warm-up: builds the kernels, and does this step's work
@@ -102,6 +125,7 @@ class Steps:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
                 fn()
+        count("captures")
         return graph, tuple(tally)
 
 
@@ -147,9 +171,18 @@ def run_shape(key, make, scene=None):
             _detach(watch)
             return hit[0]
         _SHAPES[key] = (shape, watch)
-        while len(_SHAPES) > MAX_RUN_SHAPES:
+        while len(_SHAPES) > MAX_RUN_SHAPES + _mesh_room:
             _detach(_SHAPES.popitem(last=False)[1][1])
     return shape
+
+
+def keep_room(n: int) -> None:
+    """Keep n run shapes beyond MAX_RUN_SHAPES: a sharded render's shards
+    and scene copies, set at each call to its mesh's, so that a mesh's
+    shapes outlast the single-device ones made between its calls."""
+    global _mesh_room
+    with _SHAPES_LOCK:
+        _mesh_room = n
 
 
 def _detach(watch) -> None:
@@ -165,8 +198,11 @@ def _drop(key) -> None:
 
 
 def clear() -> None:
-    """Drop every cached run shape, its buffers and its graphs."""
+    """Drop every cached run shape, its buffers and its graphs, and the
+    room kept for a mesh's."""
+    global _mesh_room
     with _SHAPES_LOCK:
         for _, watch in _SHAPES.values():
             _detach(watch)
         _SHAPES.clear()
+        _mesh_room = 0

@@ -611,7 +611,12 @@ class _Trace:
     segments the loop reads the live count, one device-to-host read that
     serves both the looped form's stop and the prefix width (the
     reference's lax.cond, path.py:687-711 there); the unrolled form
-    without resort reads nothing."""
+    without resort reads nothing.
+
+    `run` is resumable at that read: it enqueues the count's copy to the
+    host and yields this trace, and the caller sends back `live_count()`
+    (`run_alone` does so at once; parallel/sharding.py first enqueues
+    every other shard's segment)."""
 
     def __init__(self, n: int, device, cfg: PathConfig, resort: bool,
                  unroll: bool, sort_first: bool, capture: bool):
@@ -623,6 +628,13 @@ class _Trace:
                                           device=device))
         self.bounce = torch.empty((), dtype=torch.int64, device=device)
         self.live = torch.empty_like(self.bounce)
+        # the live count on the host: on a card a pinned copy, made
+        # without blocking, and an event that says when it has landed
+        self._live_host, self._landed = self.live, None
+        if self.live.device.type == "cuda":
+            self._live_host = torch.empty((), dtype=torch.int64,
+                                          pin_memory=True)
+            self._landed = torch.cuda.Event()
         self.steps = graphs.Steps(device, capture)
         # held by a caller from loading the buffers to reading them
         self.lock = threading.Lock()
@@ -641,14 +653,16 @@ class _Trace:
         torch.arange(n, out=st["pix"])
         self.bounce.zero_()
 
-    def run(self, scene) -> int:
-        """The segments of one trace from the state `reset` made; returns
-        the segments run. The unrolled form runs all max_bounces + 2, the
-        last one thin; the looped form stops as soon as no lane is live.
-        With `resort` every segment after the first runs on a resorted
-        state over its live prefix; the first traces the camera rays in
-        their own order unless `sort_first`, which sorts them inside
-        traversal."""
+    def run(self, scene):
+        """The segments of one trace from the state `reset` made, as a
+        generator whose value is the segments run. The unrolled form runs
+        all max_bounces + 2, the last one thin; the looped form stops as
+        soon as no lane is live. With `resort` every segment after the
+        first runs on a resorted state over its live prefix; the first
+        traces the camera rays in their own order unless `sort_first`,
+        which sorts them inside traversal. Where a segment needs the live
+        count, the generator enqueues its copy to the host, yields this
+        trace and takes the count back (`live_count()`) from `send`."""
         n = self.st["pix"].shape[0]
         n_segments = self.cfg.max_bounces + 2
         for bounce in range(n_segments):
@@ -656,7 +670,11 @@ class _Trace:
             live = n  # reset made every lane live
             if bounce > 0 and (not self.unroll
                                or (shrink and n >= _SHRINK_MIN)):
-                live = int(self.live)  # the segment's one host read
+                if self._landed is not None:
+                    self._live_host.copy_(self.live, non_blocking=True)
+                    self._landed.record(
+                        torch.cuda.current_stream(self.live.device))
+                live = yield self
             if not self.unroll and live == 0:
                 return bounce
             last = self.unroll and bounce == n_segments - 1
@@ -689,6 +707,14 @@ class _Trace:
         self.bounce += 1
         self.live.copy_(self.st["active"].sum())
 
+    def live_count(self) -> int:
+        """The live count whose copy `run` enqueued before it yielded,
+        once the copy has landed: the segment's one host read."""
+        if self._landed is not None:
+            self._landed.synchronize()
+        graphs.count("reads")
+        return int(self._live_host)
+
     def radiance(self) -> torch.Tensor:
         """Radiance in pixel order (the lanes moved under `resort`)."""
         radiance = self.st["radiance"]
@@ -696,6 +722,18 @@ class _Trace:
             return radiance
         return torch.empty_like(radiance).index_copy_(0, self.st["pix"],
                                                       radiance)
+
+
+def run_alone(steps):
+    """Drive a resumable trace or frame (`_Trace.run`, renderer's
+    `_Frame.run`) to its end on its own: it gets each live count as soon
+    as the count has landed. Returns the generator's value."""
+    try:
+        trace = next(steps)
+        while True:
+            trace = steps.send(trace.live_count())
+    except StopIteration as done:
+        return done.value
 
 
 def _run_key(scene) -> tuple:
@@ -735,7 +773,7 @@ def _trace_rays(scene, ray_o, ray_d, rng_state, cfg: PathConfig,
     with tr.lock:
         _store(tr.st, dict(o=ray_o, d=ray_d, rng=rng_state))
         tr.steps.run("reset", tr.reset)
-        segments = tr.run(scene)
+        segments = run_alone(tr.run(scene))
         radiance = tr.radiance()
         if radiance is tr.st["radiance"]:
             radiance = radiance.clone()

@@ -2,7 +2,7 @@
 
     python -m moonshine_tpu_torch.render.profile_frame
         [--config default|treelet|instanced] [--size 1920x1080] [--grid 6]
-        [--subdivisions 4]
+        [--subdivisions 4] [--mesh auto|SP,DP [--one-card]]
 
 Builds the room scene (grid=6, subdivisions=4 is room_184k) as the
 default build, or as the treelet configuration (MSN_WIDE=8 MSN_LEAF_CAP=8
@@ -19,7 +19,10 @@ kernel's time, the five kernels that took longest, and the same sample
 on the eager loop (graphs.eager(): its wall, kernels and idle share, and
 the two-level decode's instance transform, integrator/path.py
 `_inst_world`: its calls, their host time and the time of the kernels
-they launched, which a graph replay runs without calling Python). Needs
+they launched, which a graph replay runs without calling Python). With
+--mesh it profiles one `render_sharded` call of SP samples (one a
+sample shard; --one-card puts every shard on cuda:0) instead, and gives
+each card's busy share and the overlap of the shards on one card. Needs
 a CUDA device.
 
 The bounce loop runs as CUDA graph replays (integrator/graphs.py): a
@@ -63,14 +66,48 @@ def _annotated(events, name) -> tuple[int, float, float]:
     return len(spans), sum(b - a for a, b in spans), kernel_us
 
 
-def _union_us(spans) -> float:
-    busy, end = 0.0, float("-inf")
+def _merged(spans) -> list:
+    """The union of (start, stop) spans as disjoint sorted spans."""
+    out = []
     for start, stop in sorted(spans):
-        if stop <= end:
-            continue
-        busy += stop - max(start, end)
-        end = stop
-    return busy
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], stop)
+        else:
+            out.append([start, stop])
+    return out
+
+
+def _union_us(spans) -> float:
+    return sum(stop - start for start, stop in _merged(spans))
+
+
+def _by_device(kernels, wall_us) -> dict:
+    """For each device in the kernel events: its streams, its busy time
+    (union of its kernel intervals) and share of the profiled wall, and
+    the overlap: the time in which kernels of two or more of its streams
+    ran at once (shards stepped together on one card), as a share of its
+    busy time."""
+    streams: dict = {}
+    for e in kernels:
+        args = e.get("args", {})
+        streams.setdefault(args.get("device"), {}).setdefault(
+            args.get("stream"), []).append((e["ts"], e["ts"] + e["dur"]))
+    out = {}
+    for device, spans in sorted(streams.items(), key=lambda kv: str(kv[0])):
+        edges = sorted((t, step) for s in spans.values()
+                       for a, b in _merged(s) for t, step in ((a, 1),
+                                                              (b, -1)))
+        overlap, live, last = 0.0, 0, 0.0
+        for t, step in edges:
+            if live >= 2:
+                overlap += t - last
+            live, last = live + step, t
+        busy = _union_us(x for s in spans.values() for x in s)
+        out[str(device)] = {
+            "streams": len(spans), "busy_ms": busy / 1e3,
+            "busy_share": busy / wall_us, "overlap_ms": overlap / 1e3,
+            "overlap_share": overlap / busy if busy else 0.0}
+    return out
 
 
 def _host_ops(events) -> tuple[int, int, int]:
@@ -93,16 +130,22 @@ def profile(fn, marks=()) -> dict:
     """One call of fn (a sample, already warmed up) timed on the host
     clock, then one more under torch.profiler: the unprofiled and
     profiled wall, kernels, graph replays, host dispatches and reads,
-    kernel time, device busy time and idle share, kernel time by name
-    (us), and for each name in `marks` (a range that fn's callees open
-    with record_function) its calls, host ms and kernel ms. CPU activity
-    is traced only when there are marks."""
+    kernel time, device busy time and idle share (over every device),
+    each device's busy share and the overlap of its streams
+    (`_by_device`), kernel time by name (us), and for each name in
+    `marks` (a range that fn's callees open with record_function) its
+    calls, host ms and kernel ms. CPU activity is traced only when there
+    are marks."""
     import torch
 
-    torch.cuda.synchronize()
+    def synchronize():  # every card: fn may run a mesh
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    synchronize()
     t0 = time.perf_counter()
     fn()
-    torch.cuda.synchronize()
+    synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if marks:
@@ -110,7 +153,7 @@ def profile(fn, marks=()) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     events = _trace_events(prof)
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
@@ -125,6 +168,7 @@ def profile(fn, marks=()) -> dict:
         "host_dispatches": dispatches, "host_reads": reads,
         "kernel_ms": sum(by_name.values()) / 1e3, "busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / 1e3 / prof_wall_ms,
+        "devices": _by_device(kernels, prof_wall_ms * 1e3),
         "by_name_us": by_name,
     }
     for name in marks:
@@ -141,6 +185,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--size", default="1920x1080")
     ap.add_argument("--grid", type=int, default=6)
     ap.add_argument("--subdivisions", type=int, default=4)
+    ap.add_argument("--mesh", default=None, metavar="auto|SP,DP",
+                    help="profile one render_sharded call of SP samples on "
+                    "this mesh of the visible cards instead")
+    ap.add_argument("--one-card", action="store_true",
+                    help="with --mesh SP,DP: every shard on cuda:0")
     args = ap.parse_args(argv)
 
     import torch
@@ -166,6 +215,12 @@ def main(argv=None) -> dict:
     lens = LensArrays.from_lens(lens, dev)
     cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
                      mesh_samples_per_bounce=1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.mesh:
+        return _profile_mesh(args, scene, lens, cfg, smi)
     sample = lambda: render_spp(scene, lens, height, width, 2, 1, cfg)
 
     render_spp(scene, lens, height, width, 0, 1, cfg)  # warm-up, captures
@@ -189,10 +244,6 @@ def main(argv=None) -> dict:
                        or "tlas_kernel" in k)
     phase1_us = sum(v for k, v in by_name.items() if "pending_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {
         "card": smi, "config": args.config, "size": args.size,
         "mode": "tlas" if scene.tlas is not None else _hbm_mode(scene.wide),
@@ -204,6 +255,36 @@ def main(argv=None) -> dict:
             "wall_ms_unprofiled", "kernels", "host_dispatches", "kernel_ms",
             "idle_share", "inst_world")},
     }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _profile_mesh(args, scene, lens, cfg, smi) -> dict:
+    """One render_sharded call on the mesh (`--mesh`, `--one-card`), after
+    a warm-up call (the captures): profile()'s numbers, with each card's
+    busy share and the overlap of the shards on one card (`devices`)."""
+    import torch
+
+    from ..parallel import make_mesh, mesh_from_spec, render_sharded
+
+    width, height = (int(x) for x in args.size.split("x"))
+    if args.one_card:
+        sp, dp = (int(x) for x in args.mesh.split(","))
+        mesh = make_mesh([torch.device("cuda", 0)] * (sp * dp), sp=sp)
+    else:
+        mesh = mesh_from_spec(args.mesh)
+    spp = mesh.shape["sp"]
+    call = lambda: render_sharded(scene, lens, height, width, spp, cfg, mesh)
+    call()  # warm-up: the copies and captures
+    prof = profile(call)
+    by_name = prof.pop("by_name_us")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out = {"card": smi, "config": args.config, "size": args.size,
+           "spp": spp, "mesh": mesh.shape,
+           "mesh_devices": [str(d) for d in mesh.devices.flat], **prof,
+           "traversal_ms": sum(v for k, v in by_name.items()
+                               if "traverse_kernel" in k) / 1e3,
+           "top": [[k[:80], v / 1e3] for k, v in top]}
     print(json.dumps(out), flush=True)
     return out
 

@@ -78,7 +78,8 @@ class _Frame:
     (path._Trace), summed over samples into `acc` in pixel order. The
     lens, the first sample index, `acc` and the ray count are static
     buffers, so the camera-ray step and the accumulation are graph steps
-    too; `run` loads the lens and the index and replays."""
+    too; `run` loads the lens and the index and replays, resumable at
+    each read of the live count (path._Trace.run)."""
 
     def __init__(self, scene, lens: LensArrays, cfg: PathConfig,
                  height: int, width: int, y0: int, bh: int, nbatch: int,
@@ -118,8 +119,11 @@ class _Frame:
         self.sample += self.nbatch
 
     def run(self, scene, lens: LensArrays, start: int, groups: int):
-        """(sum of radiance [bh, W, 3], rays int64 scalar, segments) of
-        `groups` batches of samples from `start` on."""
+        """`groups` batches of samples from `start` on, as a generator
+        that yields the trace at each read of its live count (driven by
+        path.run_alone, or with other shards by parallel/sharding.py) and
+        whose value is (sum of radiance [bh, W, 3], rays int64 scalar,
+        segments). The lens may lie on another device."""
         steps = self.trace.steps
         with self.trace.lock:
             for dst, src in zip(self.lens, lens):
@@ -130,9 +134,22 @@ class _Frame:
             segments = 0
             for _ in range(groups):
                 steps.run("raygen", self.raygen)
-                segments += self.trace.run(scene)
+                segments += yield from self.trace.run(scene)
                 steps.run("accumulate", self.accumulate)
             return self.acc.clone(), self.rays.clone(), segments
+
+
+def _frame(scene, lens: LensArrays, cfg: PathConfig, height: int,
+           width: int, y0: int, bh: int, nbatch: int, flip_image: bool,
+           staged: bool, slot=None) -> _Frame:
+    """The cached frame shape. `slot` (a sharded render's shard) keeps
+    apart shards that would share every other part of the key: two sample
+    shards of the same rows on one device."""
+    key = ("frame", path._run_key(scene), cfg, height, width, y0, bh,
+           nbatch, flip_image, staged, slot)
+    return graphs.run_shape(key, lambda: _Frame(
+        scene, lens, cfg, height, width, y0, bh, nbatch, flip_image,
+        staged), scene)
 
 
 def _sample_sum(scene, lens: LensArrays, height: int, width: int,
@@ -144,12 +161,9 @@ def _sample_sum(scene, lens: LensArrays, height: int, width: int,
     scalar, segments). staged: each batch through trace_paths_staged's
     form, else trace_paths'."""
     bh = height if band_h is None else band_h
-    key = ("frame", path._run_key(scene), cfg, height, width, y0, bh,
-           nbatch, flip_image, staged)
-    frame = graphs.run_shape(key, lambda: _Frame(
-        scene, lens, cfg, height, width, y0, bh, nbatch, flip_image,
-        staged), scene)
-    return frame.run(scene, lens, start, groups)
+    frame = _frame(scene, lens, cfg, height, width, y0, bh, nbatch,
+                   flip_image, staged)
+    return path.run_alone(frame.run(scene, lens, start, groups))
 
 
 def render_sample(scene, lens: LensArrays, height: int, width: int,

@@ -232,6 +232,34 @@ def test_staged_and_sharded_steps_read_nothing_on_the_host(guarded,
     torch.testing.assert_close(sharded, fused / 2, rtol=2e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("unroll", [False, True])
+def test_stepped_shards_read_each_live_count_once(guarded, monkeypatch,
+                                                  unroll):
+    """render_sharded steps its four shards (the small room, 32x32 x 4
+    spp on a 2x2 CPU mesh, resort on) together: no step reads the host,
+    and the rounds read each shard's live count once a segment where its
+    form needs it (every segment after the first looped; the resorted
+    prefix's width unrolled, none below _SHRINK_MIN lanes), exactly as
+    often as the shards run alone, and the image is theirs."""
+    scene, lens = _port(_room)
+    monkeypatch.setattr(PP, "VMEM_SCENE_BUDGET_BYTES", 0)
+    monkeypatch.setattr(P, "_SHRINK_MIN", 64)
+    cfg = PathConfig(**CFG, unroll=unroll, resort_bounces=True)
+    mesh = mesh_from_spec("2,2", "cpu")
+    before = guarded["reads"]
+    for si in range(2):
+        for di in range(2):
+            RR._sample_sum(scene, lens, 32, 32, si * 2, 2, cfg, True,
+                           y0=di * 16, band_h=16)
+    alone_reads, before = guarded["reads"] - before, guarded["reads"]
+    # unrolled: 5 reads a sample, 2 samples a shard
+    assert alone_reads == 40 or (not unroll and alone_reads > 0)
+    img, _ = render_sharded(scene, lens, 32, 32, 4, cfg, mesh)
+    assert guarded["reads"] - before == alone_reads
+    fused, _ = RR.render_spp(scene, lens, 32, 32, 0, 4, cfg)
+    torch.testing.assert_close(img, fused / 4, rtol=2e-6, atol=2e-6)
+
+
 def test_trace_paths_steps_read_nothing_on_the_host(guarded):
     """trace_paths on the caller's rays: the rays are copied into the run
     shape's buffers outside the steps; its results equal a plain dict

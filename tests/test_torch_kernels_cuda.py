@@ -20,7 +20,9 @@ hidden instances and on a scene of exact equal-t ties
 bounce loop as CUDA graph replays (integrator/graphs.py) equals the eager
 loop bit for bit (image, rays, launch counts): the fused flagship, a
 staged 1080p batch, the looped offline form, a two-level scene, and
-Engine frames, which capture anew after each edit."""
+Engine frames, which capture anew after each edit. render_sharded,
+its shards stepped together, equals the same shards run in turn bit for
+bit on cuda:0 x4 and across cards, and replays from its second call."""
 
 import numpy as np
 import pytest
@@ -708,6 +710,91 @@ def test_kernels_and_sharded_render_across_cards(cuda):
     assert int(rays) == rays_one
     ref = sensor.image
     assert float(((img - ref).abs() / ref.abs().clamp_min(1.0)).max()) \
+        <= 2e-6
+    _assert_stepped_as_in_turn(scene, LensArrays.from_lens(lens, cuda), 64,
+                               64, 4, cfg, mesh)
+
+
+def _assert_stepped_as_in_turn(scene, la, h, w, spp, cfg, mesh):
+    """render_sharded on the mesh equals its shards run in turn
+    (time_sharded.in_turn) bit for bit: image, rays and packet launches;
+    a call after the first copies no scene and captures no graph, and
+    replays. Returns the image, the rays and the first call's counts."""
+    from moonshine_tpu_torch.parallel import render_sharded
+    from moonshine_tpu_torch.scripts.time_sharded import in_turn, timed_run
+
+    stepped = lambda: render_sharded(scene, la, h, w, spp, cfg, mesh)
+    first = timed_run(stepped)
+    (img, rays), _, counts, launches = timed_run(stepped)
+    (want, want_rays), _, _, want_launches = timed_run(
+        lambda: in_turn(scene, la, h, w, spp, cfg, mesh))
+    assert torch.equal(img, want) and int(rays) == int(want_rays)
+    assert launches == want_launches and launches["closest_hit"] > 0
+    assert counts["captures"] == 0 and counts["copies"] == 0
+    assert counts["replays"] > 0
+    return img, rays, first[2]
+
+
+def test_sharded_on_one_card_steps_as_its_shards_in_turn(cuda):
+    """cuda:0 x4 (sp=2, dp=2), each shard on its own stream: the flagship
+    at 256x256 x 4 spp (unrolled, resort on: a live-count read a
+    segment) and the small room at 160x120 x 2 spp in the offline CLI's
+    looped form (max bounces 1024, shards that end at different
+    segments) equal their shards run in turn bit for bit, launches too,
+    and the one-card render within 2e-6 x max(1, |pixel|). The four
+    shards ran on four distinct streams."""
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.parallel import make_mesh, sharding
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    mesh = make_mesh([cuda] * 4, sp=2)
+    for make, (h, w, spp), cfg in (
+            (procedural.flagship_scene, (256, 256, 4), PathConfig(**CFG4)),
+            (lambda: procedural.room_scene(grid=2, subdivisions=2),
+             (120, 160, 2), PathConfig(max_bounces=1024))):
+        world, lens = make()
+        scene, la = world.build(cuda), LensArrays.from_lens(lens, cuda)
+        img, rays, first = _assert_stepped_as_in_turn(scene, la, h, w, spp,
+                                                      cfg, mesh)
+        assert first["captures"] > 0
+        acc, rays_one = render_spp(scene, la, h, w, 0, spp, cfg)
+        ref = acc / spp
+        assert int(rays) == int(rays_one)
+        assert float(((img - ref).abs() / ref.abs().clamp_min(1.0)).max()) \
+            <= 2e-6
+    assert len({s.cuda_stream for s in sharding._STREAMS[cuda][:4]}) == 4
+
+
+def test_engine_on_a_dp_mesh_replays_from_its_second_frame(cuda):
+    """An Engine (its defaults: max bounces 1024, NEE off) on a dp-only
+    mesh of cuda:0 x2, the small room at 160x120: its first frame
+    captures, every later frame only replays and copies nothing, and the
+    accumulated image agrees with the Engine's without a mesh within
+    2e-6 x max(1, |pixel|)."""
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.parallel import make_mesh
+    from moonshine_tpu_torch.scene import procedural
+
+    world, lens = procedural.room_scene(grid=2, subdivisions=2)
+    images = []
+    for mesh in (None, make_mesh([cuda] * 2, sp=1)):
+        e = _engine_of(world, cuda)
+        if mesh is not None:
+            e.set_mesh(mesh)
+        sensor, lh = e.create_sensor(160, 120), e.create_lens(lens)
+        for frame in range(3):
+            graphs.reset_counts()
+            img = e.render(sensor, lh)
+            counts = dict(graphs.COUNTS)
+            if mesh is not None:
+                assert (counts["captures"] > 0) == (frame == 0)
+                assert counts["replays"] > 0 and counts["copies"] == 0
+        images.append(img)
+    ref, got = images
+    assert np.isfinite(got).all()
+    assert float((np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)).max()) \
         <= 2e-6
 
 
