@@ -8,8 +8,8 @@ script exits non-zero without the result line. Phases:
 
   device          the card's name and power limit (nvidia-smi)
   build           nvcc builds csrc/traverse.cu, csrc/treelet.cu,
-                  csrc/vpacket.cu, csrc/vpu.cu, csrc/bitcast.cu and
-                  csrc/tlas.cu into
+                  csrc/vpacket.cu, csrc/vpu.cu, csrc/bitcast.cu,
+                  csrc/tlas.cu and csrc/shade.cu into
                   build/, one process each, started together; prints each
                   kernel's registers, shared memory and spills (ptxas)
   scenes          flagship, room_184k (SAH, 24-wide / 24-slot) and
@@ -27,7 +27,9 @@ script exits non-zero without the result line. Phases:
                   committed golden image
   room_184k       render_spp of room_184k, 512x512, 2 spp (fused path)
   room_1080p      room_184k, 1920x1080 x 2 spp through render_spp (the
-                  staged path, resort on), packet kernels
+                  staged path, resort on), packet kernels and the shading
+                  kernels (a surface and env-miss launch a segment, a
+                  scatter and env-draw launch a shadow batch)
   treelet_1080p   the same frame with MSN_TREELETS=1 on the treelet build,
                   treelet kernels (a phase-1 launch per walk launch); its
                   image against room_1080p's
@@ -133,6 +135,13 @@ script exits non-zero without the result line. Phases:
                   equal-t ties on 65,536 rays bit for bit; a 40-instance
                   world flattened against two-level (the reference's
                   bounds)
+  shade           the shading kernels of csrc/shade.cu (surface in its
+                  full and thin forms, scatter, env miss, env draw): one
+                  eager sample of room_1080p and of instanced_1080p
+                  recorded, each kernel's first launch (2,073,600 lanes)
+                  replayed through the kernel and its plain version, every
+                  output bit for bit, both timed, with the bound from the
+                  bytes and operations of those inputs
   graphs          the bounce loop as CUDA graph replays (every phase above
                   runs them; the recorded runs use the eager loop) against
                   the eager loop (integrator/graphs.py eager()) on
@@ -206,6 +215,22 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "tlas_any_hit": ("moonshine_tpu_torch/csrc/tlas.cu",
                      "moonshine_tpu/accel/tlas.py:325 any_hit_tlas "
                      "(jnp while_loop, no pallas_call)"),
+    "surface": ("moonshine_tpu_torch/csrc/shade.cu",
+                "moonshine_tpu/integrator/path.py:424 _bounce_body's hit "
+                "decode (_decode_hit :139, _decode_material :214, "
+                "core/gather.py:61 gather_rows, :78 shift_gather_rows; jnp, "
+                "no pallas_call)"),
+    "scatter": ("moonshine_tpu_torch/csrc/shade.cu",
+                "moonshine_tpu/integrator/path.py:583 _bounce_body's light "
+                "weighting and scatter (bsdf/materials.py:278-370; jnp, no "
+                "pallas_call)"),
+    "env_miss": ("moonshine_tpu_torch/csrc/shade.cu",
+                 "moonshine_tpu/lights/envmap.py:175 miss_radiance_and_pdf "
+                 "with path.py:404 (core/gather.py:61, :126 "
+                 "weighted_gather_rows; jnp, no pallas_call)"),
+    "env_draw": ("moonshine_tpu_torch/csrc/shade.cu",
+                 "moonshine_tpu/lights/envmap.py:134 sample_envmap "
+                 "(core/gather.py:61 gather_rows; jnp, no pallas_call)"),
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
@@ -444,6 +469,7 @@ def render_1080p(name, scene, lens, cfg, resort, spp=2):
     import torch
 
     from moonshine_tpu_torch.accel import packet, tlas, treelet
+    from moonshine_tpu_torch.integrator import shade
     from moonshine_tpu_torch.render.renderer import render_spp
 
     h, w = HD
@@ -451,14 +477,14 @@ def render_1080p(name, scene, lens, cfg, resort, spp=2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
-    packet.reset_launch_counts()
-    treelet.reset_launch_counts()
-    tlas.reset_launch_counts()
+    for m in (packet, treelet, tlas, shade):
+        m.reset_launch_counts()
     t0 = time.perf_counter()
     acc, rays = render_spp(scene, lens, h, w, 0, spp, cfg, stats=stats)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {**packet.LAUNCHES, **treelet.LAUNCHES, **tlas.LAUNCHES}
+    launches = {**packet.LAUNCHES, **treelet.LAUNCHES, **tlas.LAUNCHES,
+                **shade.LAUNCHES}
     rays = int(rays)
     img = (acc / spp).cpu().numpy()
     say(name, f"{w}x{h} x {spp} spp: {rays} rays in {dt:.4f} s = "
@@ -1749,6 +1775,7 @@ def direct_phase(scene, lens, launches_out):
     import torch
 
     from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator import shade
     from moonshine_tpu_torch.integrator.direct import DirectConfig, \
         trace_direct
     from moonshine_tpu_torch.render.renderer import _sample_rays
@@ -1759,17 +1786,20 @@ def direct_phase(scene, lens, launches_out):
     trace_direct(scene, o, d, rng, cfg)  # warm-up
     torch.cuda.synchronize()
     packet.reset_launch_counts()
+    shade.reset_launch_counts()
     t0 = time.perf_counter()
     rad, _, rays = trace_direct(scene, o, d, rng, cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(packet.LAUNCHES)
+    shaded = dict(shade.LAUNCHES)
     rays = int(rays)
     img = unpack(rad).cpu().numpy()
     say("direct", f"{w}x{h}: {dt * 1e3:.2f} ms, {rays} rays = "
-        f"{rays / dt / 1e6:.3f} Mrays/s, launches {counts}, image mean "
-        f"{img.mean():.6f}")
+        f"{rays / dt / 1e6:.3f} Mrays/s, launches {counts}, shading "
+        f"launches {shaded}, image mean {img.mean():.6f}")
     if (counts["closest_hit"] != 1 or counts["any_hit"] != 2
+            or shaded != dict(surface=1, scatter=0, env_miss=1, env_draw=1)
             or not np.isfinite(img).all()):
         raise AssertionError("trace_direct failed")
     launches_out["direct"] = counts
@@ -2054,9 +2084,13 @@ def tlas_phase(dev, cfg, timings, errs, launches):
 
     img, stats, counts = render_1080p("instanced_1080p", scene, la, cfg,
                                       resort=False)
+    shading = ("surface", "scatter", "env_miss", "env_draw")
     if (counts["tlas_closest_hit"] != stats["segments"]
             or counts["tlas_any_hit"] == 0
-            or any(counts[k] for k in counts if not k.startswith("tlas"))):
+            or counts["surface"] != stats["segments"]
+            or counts["scatter"] != counts["tlas_any_hit"]
+            or any(counts[k] for k in counts
+                   if not k.startswith("tlas") and k not in shading)):
         raise AssertionError(f"instanced_1080p launches {counts}, segments "
                              f"{stats['segments']}")
     launches.update(tlas_closest_hit=counts["tlas_closest_hit"],
@@ -2166,6 +2200,338 @@ def tlas_phase(dev, cfg, timings, errs, launches):
     return scene, la
 
 
+# Float operations a lane, counted from csrc/shade.cu's source (a
+# transcendental as one), each charged only on the lanes whose outputs
+# need it: the bounds' operation terms. Tuples are by material type
+# (glass, lambert, mirror, pbr: bsdf/materials.py's ids).
+SHADE_OPS = {
+    "surface": 236,  # full form, every lane: decode, frames, pick, w_o_ss
+    "surface_thin": 53,  # thin form, a live lane: position, uv, tri_n
+    "two_level": 153,  # full form: the corners' and normals' transform
+    "two_level_thin": 66,  # thin form: the corners' transform
+    "normal_map": 87,  # _texture_frame and its pick (not normals_flat)
+    "atlas_bsdf": 70, "atlas_emissive": 38,  # a 4-tap fetch
+    "emission": 15, "emission_mis": 28,  # a live lane; mesh-light MIS
+    "scatter_light": (74, 48, 45, 180),  # a NEE sample's weighted lane
+    "scatter_draw": (53, 22, 2, 58),  # every lane: PCG draw, sample_bsdf
+    "scatter_ray": (83, 55, 54, 173),  # a lane that goes on: the new
+    # ray, eval_bsdf, the throughput
+    "env_miss": (63, 6), "env_miss_mis": (20, 17),  # a missing lane, by
+    # env size > 1 and == 1; the MIS weight where env samples are drawn
+    "env_draw": (41, 27),  # every lane, by env size > 1 and == 1
+}
+
+
+@contextlib.contextmanager
+def shade_recording():
+    """The first call of each shading wrapper (integrator/shade.py:
+    surface in each form, scatter, env_miss, env_draw) inside the block,
+    its tensor arguments cloned (the loop's static buffers change in
+    place afterwards); on the eager loop, where the wrappers are called.
+    Yields {key: (name, args)}."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import graphs, shade
+
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*map(clone, x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(map(clone, x))
+        return x
+
+    rec = {}
+    names = ("surface", "scatter", "env_miss", "env_draw")
+    real = {k: getattr(shade, k) for k in names}
+
+    def wrap(name):
+        def call(*args):
+            key = name if name != "surface" else f"surface/{args[-1]}"
+            if key not in rec:
+                # the scene or env map is the caller's, never written
+                keep = 0 if name == "scatter" else 1
+                rec[key] = (name, args[:keep] + tuple(map(clone,
+                                                          args[keep:])))
+            return real[name](*args)
+        return call
+
+    for k in names:
+        setattr(shade, k, wrap(k))
+    try:
+        with graphs.eager():
+            yield rec
+    finally:
+        for k in names:
+            setattr(shade, k, real[k])
+
+
+def shade_outputs(out):
+    """A shading function's result as {name: tensor}."""
+    import torch
+
+    if torch.is_tensor(out):
+        return {"radiance": out}
+    if isinstance(out, dict):
+        return dict(out)
+    if hasattr(out, "frame"):  # a Surface
+        got = {k: getattr(out, k) for k in ("position", "tri_n", "w_o_ss",
+                                            "radiance", "active")}
+        if out.frame is not None:
+            got.update({f"frame.{k}": getattr(out.frame, k)
+                        for k in ("n", "s", "t")})
+            got.update({f"mat.{k}": getattr(out.mat, k)
+                        for k in out.mat._fields})
+        return {k: v for k, v in got.items() if v is not None}
+    return dict(zip(("dir", "radiance", "pdf"), out))
+
+
+def _distinct(x):
+    """The number of distinct values of an index tensor."""
+    import torch
+
+    return int(torch.unique(x).numel())
+
+
+def _atlas_taps(plane, rect, uv):
+    """The atlas rows a 4-tap fetch (scene/textures.py
+    sample_material_block) reads at these lanes, as one index tensor."""
+    import torch
+
+    x0, y0 = rect[:, 0].to(torch.int64), rect[:, 1].to(torch.int64)
+    tw, th = rect[:, 2], rect[:, 3]
+    iu = torch.floor(uv[:, 0] * tw - 0.5).to(torch.int32)
+    iv = torch.floor(uv[:, 1] * th - 0.5).to(torch.int32)
+    base = ((y0 + torch.remainder(iv, th.to(torch.int32))) * plane.width
+            + x0 + torch.remainder(iu, tw.to(torch.int32)))
+    taps = torch.cat([base + k for k in (0, 1, plane.width,
+                                         plane.width + 1)])
+    return torch.clamp(taps, 0, plane.data.shape[0] - 1)
+
+
+def _env_taps(env, d):
+    """The env texels the miss reads at directions d: the bilinear's four
+    taps and miss_radiance_and_pdf's texel (lights/envmap.py)."""
+    import torch
+
+    from moonshine_tpu_torch.core.mappings import (
+        square_to_equal_area_sphere_inverse)
+
+    S = env.size
+    uv = square_to_equal_area_sphere_inverse(d)
+    idx = torch.clamp((uv * S).to(torch.int64), 0, S - 1)
+    xi0 = torch.clamp(torch.floor(uv[:, 0] * S - 0.5).to(torch.int64),
+                      0, S - 1)
+    yi0 = torch.clamp(torch.floor(uv[:, 1] * S - 0.5).to(torch.int64),
+                      0, S - 1)
+    xi1, yi1 = torch.clamp(xi0 + 1, 0, S - 1), torch.clamp(yi0 + 1, 0, S - 1)
+    return torch.cat([idx[:, 0] * S + idx[:, 1], xi0 * S + yi0,
+                      xi1 * S + yi0, xi0 * S + yi1, xi1 * S + yi1])
+
+
+def shade_work(name, args, out):
+    """(bytes, float operations) the shading function (surface in its
+    path forms, full and thin) must move and do for these inputs, given
+    its outputs `out` (shade_outputs): each output written once; each
+    lane input read once, on the lanes whose outputs depend on it (a
+    masked term's inputs on its mask's lanes: a dead lane's state, a hit
+    lane's env inputs, an occluded or untraced light sample's direction
+    and radiance are not read); each distinct shading row (the fields
+    the form reads), instance transform, atlas texel, env texel and
+    alias bucket the lanes reach, once; SHADE_OPS' operations on the
+    lanes that need them."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import shade
+
+    count = lambda mask: int(mask.sum())
+    if name == "surface":
+        scene, mesh, _, hit, o, d, active, thr, rad, lp, ld, mode = args
+        atlas = scene.mat_atlas
+        n = hit.tri.shape[0]
+        # the lanes it decodes: the thin form's live ones, else all
+        live = active if mode == "thin" else torch.ones_like(active)
+        tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
+        two = hit.inst is not None and scene.tlas is not None
+        n_live, n_act = count(live), count(active)
+        # every lane's mask and radiance; the decoded lanes' hit and
+        # ray; the live lanes' emission inputs; the outputs
+        nb = (n * (1 + 12) + n_live * (12 + 12 + (4 if two else 0))
+              + n_act * (12 + 1 + (16 if mesh > 0 else 0))
+              + n * (13 if mode == "thin" else 112))
+        # a row's fields the form reads: the corners; the uv corners
+        # where a tangent is formed or a texel fetched; the emission;
+        # the sampled flag; the normals and the material
+        uvs = mode != "thin" or not atlas.emissive_constant
+        row = 36 + (24 if uvs else 0) + (
+            12 if atlas.emissive_constant else 16) + 4
+        if mode != "thin":
+            row += 36 + (36 if atlas.bsdf_constant else 24)
+        rows = tri[live]
+        nb += _distinct(rows) * row
+        flops = n_live * SHADE_OPS["surface_thin" if mode == "thin"
+                                   else "surface"]
+        if mode != "thin" and not atlas.normals_flat:
+            flops += n * SHADE_OPS["normal_map"]
+        flops += n_act * (SHADE_OPS["emission"]
+                          + (SHADE_OPS["emission_mis"] if mesh > 0 else 0))
+        if two:
+            inst = torch.clamp(hit.inst[live].to(torch.int64), 0,
+                               scene.inst_tf.shape[0] - 1)
+            nb += _distinct(inst) * (52 + (0 if mode == "thin" else 36))
+            flops += n_live * SHADE_OPS["two_level_thin" if mode == "thin"
+                                        else "two_level"]
+        if not (atlas.emissive_constant and atlas.bsdf_constant):
+            tr = scene.tri_shade[rows]
+            uv = shade._interp(hit.u[live], hit.v[live],
+                               tr[:, 18:24].reshape(-1, 3, 2))
+            if not atlas.bsdf_constant and mode != "thin":
+                nb += _distinct(_atlas_taps(atlas.bsdf, tr[:, 33:37],
+                                            uv)) * 14
+                flops += n * SHADE_OPS["atlas_bsdf"]
+            if not atlas.emissive_constant:
+                emit = active[live]
+                nb += _distinct(_atlas_taps(atlas.emissive,
+                                            tr[emit, 44:48], uv[emit])) * 6
+                flops += n_act * SHADE_OPS["atlas_emissive"]
+        return nb, flops
+    if name == "scatter":
+        surf, o, d, thr, rad, rng, active, lights = args
+        n = active.shape[0]
+        mtype = surf.mat.type.to(torch.int64)
+        ops_of = lambda lanes, ops: int(
+            (torch.bincount(mtype[lanes], minlength=4)[:4]
+             * torch.tensor(ops, device=mtype.device)).sum())
+        go = out["active"]
+        # every lane: the material's scalars, w_o_ss, throughput,
+        # radiance, rng and mask in, the outputs out
+        nb = n * (16 + 12 + 12 + 12 + 8 + 1) + n * 62
+        flops = ops_of(torch.ones_like(go), SHADE_OPS["scatter_draw"])
+        weighted = torch.zeros_like(go)
+        for light in lights:
+            seen = light.lane & ~light.occluded
+            need = seen & (light.pdf > 0.0)
+            nb += (n + count(light.lane) + 4 * count(seen)
+                   + 24 * count(need))
+            flops += ops_of(need, SHADE_OPS["scatter_light"])
+            weighted |= need
+        # the frame and colour where a sample is weighted or the path
+        # goes on; there the new ray's inputs, elsewhere the old ray
+        nb += count(go | weighted) * (36 + 12) + count(go) * 24
+        nb += count(~go) * 24
+        flops += ops_of(go, SHADE_OPS["scatter_ray"])
+        return nb, flops
+    if name == "env_miss":
+        env, samples, _, d, active, tri, thr, rad, lp, ld = args
+        n = active.shape[0]
+        miss = active & ~(tri >= 0)
+        n_miss = count(miss)
+        nb = n * (1 + 12 + 12) + count(active) * 4
+        nb += n_miss * (12 + 12 + 1 + (4 if samples > 0 else 0))
+        k = 0 if env.size > 1 else 1
+        flops = n_miss * (SHADE_OPS["env_miss"][k]
+                          + (SHADE_OPS["env_miss_mis"][k] if samples > 0
+                             else 0))
+        if env.size == 1:
+            nb += 16 if n_miss else 0
+        else:
+            nb += _distinct(_env_taps(env, d[miss])) * 16
+        return nb, flops
+    from moonshine_tpu_torch.core import alias_table
+
+    env, rand2 = args
+    n = rand2.shape[0]
+    nb = n * (8 + 28)
+    if env.size == 1:
+        return nb + 16, n * SHADE_OPS["env_draw"][1]
+    texels = env.size * env.size
+    idx = torch.clamp_max((rand2[:, 0] * float(texels)).to(torch.int64),
+                          texels - 1)
+    texel, _ = alias_table.sample(env.select, env.alias, texels,
+                                  rand2[:, 0])
+    nb += (_distinct(idx) * 4 + _distinct(idx[texel != idx]) * 8
+           + _distinct(texel) * 16)
+    return nb, n * SHADE_OPS["env_draw"][0]
+
+
+def shade_phase(cells, timings, errs):
+    """The shading kernels (csrc/shade.cu) at the 1080p main path's
+    shapes: one eager sample of each cell (room_1080p, instanced_1080p)
+    recorded, and the first launch of each kernel and form (2,073,600
+    lanes: the first segment's; the thin form at the last segment's)
+    replayed through the kernel and through its plain version on the
+    same inputs, every output held bit for bit, both timed, with the
+    bound from the bytes and operations of these inputs. The kernels
+    line takes room_1080p's full surface form and its other kernels."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import shade
+    from moonshine_tpu_torch.render.renderer import render_spp
+
+    plain = {"surface": shade.surface_plain, "scatter": shade.scatter_plain,
+             "env_miss": shade.env_miss_plain,
+             "env_draw": shade.env_draw_plain}
+    for cell, (scene, lens, cfg) in cells.items():
+        with shade_recording() as rec:
+            render_spp(scene, lens, HD[0], HD[1], 7, 1, cfg)
+        torch.cuda.synchronize()
+        for key in sorted(rec):
+            name, args = rec[key]
+            kern = lambda: getattr(shade, name)(*args)
+            ref = lambda: plain[name](*args)
+            got, want = shade_outputs(kern()), shade_outputs(ref())
+            n = next(iter(want.values())).shape[0]
+            worst = 0.0
+            diffs = []
+            for k, w in want.items():
+                g = got[k]
+                w = w.contiguous()
+                if g.dtype == torch.float32:
+                    same = (torch.isnan(g) & torch.isnan(w)) | (
+                        g.view(torch.int32) == w.view(torch.int32))
+                    err = float(torch.nan_to_num(
+                        (g.double() - w.double()).abs(), nan=0.0).max())
+                    rel = float(torch.nan_to_num(
+                        ((g.double() - w.double()).abs()
+                         / w.double().abs().clamp_min(1e-30)),
+                        nan=0.0).max())
+                else:
+                    same = g == w
+                    err = rel = float((g != w).sum())
+                bad = int((~same).sum())
+                worst = max(worst, err)
+                if bad:
+                    diffs.append(f"{k}: {bad} of {same.numel()} differ, max "
+                                 f"abs {err:.3g}, max rel {rel:.3g}")
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(ref, 3)
+            nb, flops = shade_work(name, args, want)
+            t_bytes, t_ops = nb / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            say("shade", f"{cell} {key} on {n} lanes: kernel "
+                + ("= plain bit for bit (" + ", ".join(want) + ")"
+                   if not diffs else "differs: " + "; ".join(diffs))
+                + f"; kernel {ms:.4f} ms, plain torch {plain_ms:.3f} ms, "
+                f"bound {max(t_bytes, t_ops):.4f} ms by {by} ({nb / 1e6:.2f}"
+                f" MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> "
+                f"{t_ops:.4f} ms); no single PyTorch call computes it, so no "
+                f"library time")
+            if diffs:
+                raise AssertionError(f"{cell} {key}: the kernel differs from "
+                                     "its plain version")
+            if cell == "room_1080p" and key in ("surface/full", "scatter",
+                                                "env_miss", "env_draw"):
+                kname = name
+                timings[kname] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=max(t_bytes, t_ops),
+                                      bound_by=by)
+                errs[kname] = worst
+        if set(rec) != {"surface/full", "surface/thin", "scatter",
+                        "env_miss", "env_draw"}:
+            raise AssertionError(f"{cell}: recorded {sorted(rec)}")
+
+
 def graphs_phase(cells):
     """Each cell's sample (`cells`: name -> sample(i), which renders
     sample i and returns (image, rays or None)) on the eager loop
@@ -2182,10 +2548,10 @@ def graphs_phase(cells):
     import torch
 
     from moonshine_tpu_torch.accel import packet, tlas, treelet
-    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.integrator import graphs, shade
     from moonshine_tpu_torch.render.profile_frame import profile
 
-    modules = (packet, treelet, tlas)
+    modules = (packet, treelet, tlas, shade)
     for name, sample in cells.items():
         rows = {}
         for mode in ("eager", "graphs"):
@@ -2601,15 +2967,20 @@ def main():
     with phase("room_1080p"):
         img_default, stats, counts = render_1080p(
             "room_1080p", *scenes["room_184k/default"], cfg, resort=True)
-        if (counts["closest_hit"] != stats["segments"]
+        segs = stats["segments"]
+        if (counts["closest_hit"] != segs
                 or counts["any_hit"] == 0
                 or counts["treelet_closest_hit"]
                 or counts["treelet_any_hit"]
-                or counts["treelet_pending"]):
+                or counts["treelet_pending"]
+                or counts["surface"] != segs or counts["env_miss"] != segs
+                or counts["scatter"] != counts["any_hit"]
+                or counts["env_draw"] != counts["any_hit"]):
             raise AssertionError(f"room_1080p launches {counts}, segments "
-                                 f"{stats['segments']}")
-        launches.update(closest_hit=counts["closest_hit"],
-                        any_hit=counts["any_hit"])
+                                 f"{segs}")
+        launches.update({k: counts[k] for k in (
+            "closest_hit", "any_hit", "surface", "scatter", "env_miss",
+            "env_draw")})
 
     with phase("treelet_1080p"):
         with env(MSN_TREELETS="1"):
@@ -2686,6 +3057,11 @@ def main():
     # before its 1080p run and read just after) and the C ABI
     with phase("tlas"):
         instanced = tlas_phase(dev, cfg, timings, errs, launches)
+
+    # this slice: the bounce's shading kernels at the 1080p shapes
+    with phase("shade"):
+        shade_phase({"room_1080p": (*scenes["room_184k/default"], cfg),
+                     "instanced_1080p": (*instanced, cfg)}, timings, errs)
 
     with phase("graphs"):
         graphs_phase(graph_cells(scenes, offline_cell, instanced, cfg, dev))

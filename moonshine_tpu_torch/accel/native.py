@@ -2,9 +2,10 @@
 (csrc/traverse.cu, csrc/treelet.cu, csrc/vpacket.cu and the two-level
 walk of csrc/tlas.cu, which share csrc/visit.cuh; traverse.cu and
 vpacket.cu also share the group walk of csrc/group_walk.cuh), the
-arithmetic microbenchmarks (csrc/vpu.cu) and the quantised-row decode
-probe (csrc/bitcast.cu); csrc/tlas.cu is built twice, the second time
-with its visit counters (`tlas_count`).
+arithmetic microbenchmarks (csrc/vpu.cu), the quantised-row decode
+probe (csrc/bitcast.cu) and the bounce's shading (csrc/shade.cu);
+csrc/tlas.cu is built twice, the second time with its visit counters
+(`tlas_count`).
 
 nvcc compiles each source into a shared library with a plain C
 interface, loaded with ctypes. A library is built at first use into
@@ -33,7 +34,7 @@ CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
 SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
            "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
            "bitcast": CSRC / "bitcast.cu", "tlas": CSRC / "tlas.cu",
-           "tlas_count": CSRC / "tlas.cu"}
+           "tlas_count": CSRC / "tlas.cu", "shade": CSRC / "shade.cu"}
 # a library's own flags: tlas_count is the two-level walk that counts its
 # visits (accel/tlas.py walk_visits), never the timed build
 EXTRA_FLAGS = {"tlas_count": ["-DMSN_TLAS_COUNT"]}
@@ -48,6 +49,8 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 class NativeLib:
@@ -169,9 +172,30 @@ class TlasLib(NativeLib):
         self.any_hit = self._fn("msn_tlas_any_hit", rays + [_P, _P])
 
 
+class ShadeLib(NativeLib):
+    """shade.cu's entry points: the surface, scatter, env miss and env
+    draw kernels (integrator/shade.py), and the most NEE samples one
+    scatter launch weighs."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.surface = self._fn(
+            "msn_shade_surface",
+            [_I, _I, _P, _L, _P, _P, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I,
+             _I, _F] + [_P] * 12 + [_L] + [_P] * 13 + [_P])
+        self.scatter = self._fn(
+            "msn_shade_scatter", [_P] * 17 + [_I, _P, _P, _I, _L] + [_P] * 9)
+        self.env_miss = self._fn(
+            "msn_shade_env_miss", [_P, _I, _F, _I] + [_P] * 8 + [_L, _P, _P])
+        self.env_draw = self._fn(
+            "msn_shade_env_draw", [_P, _P, _P, _I, _F, _P, _L, _P, _P, _P,
+                                   _P])
+        self.max_lights = int(self._fn("msn_shade_max_lights", [])())
+
+
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
             "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib,
-            "tlas": TlasLib, "tlas_count": TlasLib}
+            "tlas": TlasLib, "tlas_count": TlasLib, "shade": ShadeLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -325,3 +349,8 @@ def tlas_lib() -> TlasLib:
 def tlas_count_lib() -> TlasLib:
     """csrc/tlas.cu built to count its visits (-DMSN_TLAS_COUNT)."""
     return _lib("tlas_count")
+
+
+def shade_lib() -> ShadeLib:
+    """The bounce's shading kernels (csrc/shade.cu)."""
+    return _lib("shade")

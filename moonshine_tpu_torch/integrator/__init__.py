@@ -1,1 +1,2 @@
-from .path import PathConfig, trace_paths, power_heuristic  # noqa: F401
+from .path import PathConfig, trace_paths  # noqa: F401
+from .shade import power_heuristic  # noqa: F401

@@ -2,30 +2,24 @@
 (port of moonshine_tpu/integrator/direct.py; parity:
 DirectLightIntegrator, integrator.hlsl:188-249), on the path tracer's
 traversal dispatch and surface decode, so its closest and any hits run
-the same kernels as a path's bounce."""
+the same kernels as a path's bounce, and its miss, surface decode and
+env draw the shading kernels of integrator/shade.py."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from ..bsdf import materials as B
 from ..core import rng as R
-from ..core.frame import Frame, cos_theta
-from ..core.mathutil import INF_T, dot, face_forward, norm, offset_along_normal
-from ..lights.envmap import envmap_incoming_radiance, sample_envmap
+from ..core.frame import cos_theta
+from ..core.mathutil import INF_T, face_forward, norm, offset_along_normal
 from ..lights.mesh_lights import sample_mesh_lights
-from .path import (
-    _any_hit,
-    _closest,
-    _decode_hit,
-    _decode_material,
-    _emissive_at,
-    _masked,
-    _texture_frame,
-    power_heuristic,
-)
+from . import shade
+from .path import _any_hit, _closest, _emissive_at
+from .shade import _masked, power_heuristic
 
 
 @dataclass(frozen=True)
@@ -43,37 +37,42 @@ def trace_direct(scene, ray_o, ray_d, rng_state, cfg: DirectConfig):
     rng = rng_state
     rays = torch.tensor(n, dtype=torch.int64, device=ray_o.device)
 
-    hit = _closest(scene, ray_o, ray_d, INF_T, None)
+    with record_function("traversal"):
+        hit = _closest(scene, ray_o, ray_d, INF_T, None)
     active = hit.is_hit
-    radiance = _masked(~active, envmap_incoming_radiance(scene.env, ray_d))
-
-    tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
-    position, uv, tri_frame, vtx_frame, mat_row, _ = _decode_hit(
-        scene, tri, hit.u, hit.v, inst=hit.inst)
-    mat, emissive, normal_rg = _decode_material(scene, mat_row, uv)
-    tex_frame = _texture_frame(normal_rg, vtx_frame)
-    w_o_ws = -ray_d
-    tex_ok = (dot(w_o_ws, tex_frame.n, keepdims=False) > 0.0)[..., None]
-    vtx_ok = (dot(w_o_ws, vtx_frame.n, keepdims=False) > 0.0)[..., None]
-
-    def pick(a, b, c):
-        return torch.where(tex_ok, a, torch.where(vtx_ok, b, c))
-
-    frame = Frame(n=pick(tex_frame.n, vtx_frame.n, tri_frame.n),
-                  s=pick(tex_frame.s, vtx_frame.s, tri_frame.s),
-                  t=pick(tex_frame.t, vtx_frame.t, tri_frame.t))
-    w_o_ss = frame.world_to_frame(w_o_ws)
-    radiance = radiance + _masked(active, emissive)
+    dev, f32 = ray_o.device, torch.float32
+    with record_function("env"):
+        # the env miss as a path's first segment without env samples:
+        # every lane live, unit throughput, radiance from 0
+        radiance = shade.env_miss(
+            scene.env, 0, 0, ray_d,
+            torch.ones(n, dtype=torch.bool, device=dev), hit.tri,
+            torch.ones((n, 3), dtype=f32, device=dev),
+            torch.zeros((n, 3), dtype=f32, device=dev),
+            torch.ones(n, dtype=f32, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev))
+    with record_function("surface"):
+        surf = shade.surface(scene, 0, None, hit, None, ray_d, active, None,
+                             radiance, None, None, shade.DIRECT)
+    position, tri_n, frame, w_o_ss, mat, radiance = surf[:6]
 
     def nee(radiance, rng, rays, sampler, n_samples):
         for _ in range(n_samples):
-            rng, r2 = R.next_float2(rng)
-            l_dir, l_rad, l_pdf, tmax = sampler(r2)
-            shadow_o = offset_along_normal(position,
-                                           face_forward(tri_frame.n, l_dir))
-            lane = active & (l_pdf > 0.0)
-            occluded = _any_hit(scene, shadow_o, l_dir, tmax, lane)
+            with record_function("nee_draw"):
+                rng, r2 = R.next_float2(rng)
+                l_dir, l_rad, l_pdf, tmax = sampler(r2)
+                shadow_o = offset_along_normal(position,
+                                               face_forward(tri_n, l_dir))
+                lane = active & (l_pdf > 0.0)
+            with record_function("any_hit"):
+                occluded = _any_hit(scene, shadow_o, l_dir, tmax, lane)
+            radiance = weight(radiance, lane, occluded, l_dir, l_rad, l_pdf,
+                              n_samples)
             rays = rays + lane.sum()
+        return radiance, rng, rays
+
+    def weight(radiance, lane, occluded, l_dir, l_rad, l_pdf, n_samples):
+        with record_function("scatter"):  # the light weighting, a bounce's
             l_pdf = torch.where(occluded, 0.0, l_pdf)
             w_i_ss = frame.world_to_frame(l_dir)
             scatter_pdf = B.pdf_bsdf(mat, w_i_ss, w_o_ss)
@@ -83,12 +82,11 @@ def trace_direct(scene, ray_o, ray_d, rng_state, cfg: DirectConfig):
                 torch.abs(cos_theta(w_i_ss)) * mis
                 / torch.clamp_min(l_pdf, 1e-30))[..., None]
             ok = lane & (l_pdf > 0.0) & (scatter_pdf > 0.0)
-            radiance = radiance + _masked(ok, contrib / n_samples)
-        return radiance, rng, rays
+            return radiance + _masked(ok, contrib / n_samples)
 
     if cfg.env_samples_per_bounce > 0:
         def env_sampler(r2):
-            l_dir, l_rad, l_pdf = sample_envmap(scene.env, r2)
+            l_dir, l_rad, l_pdf = shade.env_draw(scene.env, r2)
             return l_dir, l_rad, l_pdf, torch.full_like(l_pdf, INF_T)
 
         radiance, rng, rays = nee(radiance, rng, rays, env_sampler,

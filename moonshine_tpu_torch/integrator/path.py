@@ -32,6 +32,12 @@ segment as a step of graphs.Steps: on a CUDA device a graph replay, on
 the CPU (and inside graphs.eager()) the same functions eagerly. A
 segment reads nothing on the host; the loop reads the live count
 between segments where it needs it.
+
+A segment's shading (the env miss, the surface decode, the env draw and
+the light weighting with the BSDF scatter) is integrator/shade.py: a
+kernel of csrc/shade.cu each on the card, the plain torch version on the
+CPU. The termination, the mesh-light draw, the shadow batch and the
+resort stay torch ops.
 """
 
 from __future__ import annotations
@@ -41,31 +47,23 @@ import threading
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from ..accel import packet, tlas as tlas_mod, traverse, treelet
 from ..bsdf import materials as B
 from ..core import rng as R
-from ..core.frame import Frame, cos_theta
 from ..core.mathutil import (
     INF_T,
-    cross,
-    dot,
     face_forward,
     luminance,
     norm,
-    normalize,
     offset_along_normal,
-    safe_normalize,
 )
-from ..lights.envmap import (
-    envmap_incoming_radiance,
-    miss_radiance_and_pdf,
-    sample_envmap,
-)
-from ..lights.mesh_lights import area_to_solid_angle, sample_mesh_lights
+from ..lights.mesh_lights import sample_mesh_lights
 from ..scene import textures as TX
 from ..scene.textures import sample_material_block
-from . import graphs
+from . import graphs, shade
+from .shade import _interp
 
 
 @dataclass(frozen=True)
@@ -84,151 +82,6 @@ class PathConfig:
     resort_bounces: bool | None = None
 
 
-def power_heuristic(numf, f_pdf, numg, g_pdf):
-    """Power heuristic, exponent 2 (integrator.hlsl:10-16)."""
-    f = numf * f_pdf
-    g = numg * g_pdf
-    f2 = f * f
-    return f2 / torch.clamp_min(f2 + g * g, 1e-30)
-
-
-def _interp(bary_u, bary_v, corners):
-    """Barycentric interpolation of [N,3,C] corner attributes."""
-    b0 = (1.0 - bary_u - bary_v)[..., None]
-    return (b0 * corners[:, 0] + bary_u[..., None] * corners[:, 1]
-            + bary_v[..., None] * corners[:, 2])
-
-
-def _tangent_bitangent(p0, p1, p2, t0, t1, t2):
-    """UV-gradient tangent frame (world.hlsl:86-100)."""
-    dt02 = t0 - t2
-    dt12 = t1 - t2
-    dp02 = p0 - p2
-    dp12 = p1 - p2
-    det = dt02[..., 0] * dt12[..., 1] - dt02[..., 1] * dt12[..., 0]
-    bad = torch.abs(det) < 1e-12
-    inv = 1.0 / torch.where(bad, 1e-12, det)
-    tangent = safe_normalize(
-        (dt12[..., 1:2] * dp02 - dt02[..., 1:2] * dp12) * inv[..., None])
-    bitangent = safe_normalize(
-        (-dt12[..., 0:1] * dp02 + dt02[..., 0:1] * dp12) * inv[..., None])
-    # degenerate uvs: an arbitrary frame around the normal
-    fallback = Frame.from_normal(safe_normalize(cross(p2 - p0, p1 - p0)))
-    tangent = torch.where(bad[..., None], fallback.s, tangent)
-    bitangent = torch.where(bad[..., None], fallback.t, bitangent)
-    return tangent, bitangent
-
-
-def _inst_world(scene, inst, corners, nrms):
-    """Two-level decode: the object-space corners (and normals, unless
-    None) of the gathered rows into world space by each lane's instance
-    (reference path.py:121-137): corners by inst_tf, normals by the
-    transpose of the TLAS's world -> object matrix (the inverse
-    transpose). Returns (corners, normals, determinant sign)."""
-    k = torch.clamp(inst.to(torch.int64), 0, scene.inst_tf.shape[0] - 1)
-    tf = scene.inst_tf[k]  # [N, 13]
-    lin = tf[:, :9].reshape(-1, 3, 3)
-    corners_w = torch.einsum("nij,nkj->nki", lin, corners) + tf[:, None, 9:12]
-    nrms_w = None
-    if nrms is not None:
-        nrm_m = scene.tlas.inst_inv[k][:, :9].reshape(-1, 3, 3)
-        nrms_w = safe_normalize(torch.einsum("nji,nkj->nki", nrm_m, nrms))
-    return corners_w, nrms_w, tf[:, 12]
-
-
-def _decode_hit(scene, tri, bary_u, bary_v, inst=None):
-    """Surface attributes at a hit (world.hlsl:107-177). Returns
-    (position, uv, tri_frame, vtx_frame, mat_row, sampled). `inst` (a
-    two-level scene's hits) places the object-space rows in the world."""
-    row = scene.tri_shade[tri]  # [N, 48]
-    n = tri.shape[0]
-    corners = row[:, 0:9].reshape(n, 3, 3)
-    nrms = row[:, 9:18].reshape(n, 3, 3)
-    uvs = row[:, 18:24].reshape(n, 3, 2)
-    sampled = row[:, 25] > 0.5
-    det_sign = None
-    if inst is not None and scene.tlas is not None:
-        corners, nrms, det_sign = _inst_world(scene, inst, corners, nrms)
-
-    position = _interp(bary_u, bary_v, corners)
-    uv = _interp(bary_u, bary_v, uvs)
-    p0, p1, p2 = corners[:, 0], corners[:, 1], corners[:, 2]
-    tangent, bitangent = _tangent_bitangent(p0, p1, p2, uvs[:, 0],
-                                            uvs[:, 1], uvs[:, 2])
-    tri_n = safe_normalize(cross(p0 - p2, p1 - p2))
-    if det_sign is not None:
-        # a mirroring instance flips the winding (the flatten swaps
-        # corners instead)
-        tri_n = tri_n * det_sign[..., None]
-    tri_frame = Frame(n=tri_n, s=tangent, t=bitangent).reorthogonalize()
-    vtx_n = safe_normalize(_interp(bary_u, bary_v, nrms))
-    vtx_frame = Frame(n=vtx_n, s=tri_frame.s, t=tri_frame.t).reorthogonalize()
-    return position, uv, tri_frame, vtx_frame, row[:, 32:48], sampled
-
-
-def _decode_hit_thin(scene, tri, bary_u, bary_v, inst=None):
-    """Last-segment decode: position, triangle normal, uv, material row
-    and sampled flag only (the last segment only adds emission); values
-    equal the full decode's."""
-    row = scene.tri_shade[tri]
-    n = tri.shape[0]
-    corners = row[:, 0:9].reshape(n, 3, 3)
-    uvs = row[:, 18:24].reshape(n, 3, 2)
-    det_sign = None
-    if inst is not None and scene.tlas is not None:
-        corners, _, det_sign = _inst_world(scene, inst, corners, None)
-    position = _interp(bary_u, bary_v, corners)
-    uv = _interp(bary_u, bary_v, uvs)
-    p0, p1, p2 = corners[:, 0], corners[:, 1], corners[:, 2]
-    tri_n = safe_normalize(cross(p0 - p2, p1 - p2))
-    if det_sign is not None:
-        tri_n = tri_n * det_sign[..., None]
-    return position, uv, tri_n, row[:, 32:48], row[:, 25] > 0.5
-
-
-def _decode_emissive(scene, mat_row, uv):
-    """Emitted radiance (getEmissive, material.hlsl:519-522)."""
-    if scene.mat_atlas.emissive_constant:
-        return mat_row[:, 7:10]
-    block = sample_material_block(scene.mat_atlas.emissive,
-                                  mat_row[:, 12:16], uv)
-    return block[:, TX.EMISSIVE]
-
-
-def _decode_material(scene, mat_row, uv):
-    """(MaterialLanes, emissive, tangent-space normal rg); constant
-    planes read straight from the packed material row."""
-    if scene.mat_atlas.bsdf_constant:
-        color = mat_row[:, 1:4]
-        metalness = mat_row[:, 4]
-        roughness = mat_row[:, 6]
-        normal_rg = mat_row[:, 10:12]
-    else:
-        block = sample_material_block(scene.mat_atlas.bsdf,
-                                      mat_row[:, 1:5], uv)
-        color = block[:, TX.COLOR]
-        metalness = block[:, TX.METALNESS]
-        roughness = block[:, TX.ROUGHNESS]
-        normal_rg = block[:, TX.NORMAL_RG]
-    lanes = B.MaterialLanes(
-        type=mat_row[:, 0].to(torch.int32),
-        color=color,
-        metalness=metalness,
-        alpha=torch.clamp_min(roughness * roughness, 1e-3),
-        ior=mat_row[:, 5],
-    )
-    return lanes, _decode_emissive(scene, mat_row, uv), normal_rg
-
-
-def _texture_frame(normal_rg, vtx_frame):
-    """Normal-mapped shading frame (material.hlsl:489-517)."""
-    rg = normal_rg * 2.0 - 1.0
-    z = torch.sqrt(torch.clamp(1.0 - torch.sum(rg * rg, dim=-1), 0.0, 1.0))
-    n_ts = torch.cat([rg, z[..., None]], dim=-1)
-    n_ws = normalize(vtx_frame.frame_to_world(n_ts))
-    return Frame(n=n_ws, s=vtx_frame.s, t=vtx_frame.t).reorthogonalize()
-
-
 def _emissive_at(scene, light_row, bary):
     """Emitted radiance at a light sample from its packed emitter row."""
     if scene.mat_atlas.emissive_constant:
@@ -238,11 +91,6 @@ def _emissive_at(scene, light_row, bary):
     block = sample_material_block(scene.mat_atlas.emissive,
                                   light_row[:, 18:22], uv)
     return block[:, TX.EMISSIVE]
-
-
-def _masked(mask, value):
-    """value where mask (broadcast over the trailing axis), else 0."""
-    return torch.where(mask[..., None], value, torch.zeros_like(value))
 
 
 # Opt-in treelet-scheduled traversal for HBM-class scenes (the reference's
@@ -342,6 +190,13 @@ def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
     return mode == "vmem" and scene.has_delta
 
 
+# the profiler ranges a bounce opens around its stages, in order
+# (render/profile_frame.py splits a sample's kernel time by them); the
+# direct integrator opens the same ones
+STAGES = ("traversal", "env", "surface", "nee_draw", "any_hit", "scatter",
+          "resort")
+
+
 def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
                  last: bool = False, resort: bool = False,
                  roulette: bool | None = None) -> dict:
@@ -352,177 +207,106 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
     final segment of the unrolled form, where every lane dies after the
     emissive/miss accumulation, so NEE, roulette and scatter are skipped.
     resort=True: the state is coherence-sorted, so traversal skips its
-    own sort."""
+    own sort. Each stage runs inside a profiler range (STAGES); the
+    miss, the surface decode, the env draw and the scatter are kernels of
+    csrc/shade.cu (integrator/shade.py)."""
     if roulette is None:
         roulette = bounce > 3
     active = st["active"]
     o, d = st["o"], st["d"]
     throughput = st["throughput"]
-    radiance = st["radiance"]
     last_pdf = st["last_pdf"]
     last_delta = st["last_delta"]
     rng = st["rng"]
     rays = st["rays"] + active.sum()
 
-    hit = _closest(scene, o, d, INF_T, active, presorted=resort)
-    is_hit = active & hit.is_hit
-    miss = active & ~hit.is_hit
-
+    with record_function("traversal"):
+        hit = _closest(scene, o, d, INF_T, active, presorted=resort)
     # ---- miss: environment radiance (integrator.hlsl:166-180)
-    env_plain = (last_delta | (bounce == 0)
-                 | (cfg.env_samples_per_bounce == 0))
-    if cfg.env_samples_per_bounce > 0:
-        env_rad, rad_e, pdf_e = miss_radiance_and_pdf(scene.env, d)
-        w = power_heuristic(1.0, last_pdf, cfg.env_samples_per_bounce, pdf_e)
-        radiance = radiance + _masked(miss & ~env_plain & (pdf_e > 0.0),
-                                      throughput * rad_e * w[..., None])
-    else:
-        env_rad = envmap_incoming_radiance(scene.env, d)
-    radiance = radiance + _masked(miss & env_plain, throughput * env_rad)
-    active = is_hit
+    with record_function("env"):
+        radiance = shade.env_miss(scene.env, cfg.env_samples_per_bounce,
+                                  bounce, d, active, hit.tri, throughput,
+                                  st["radiance"], last_pdf, last_delta)
+    active = active & hit.is_hit
 
-    # ---- decode the surface (masked lanes read clamped junk rows)
-    tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
-    w_o_ws = -d
-    if last:
-        position, uv, tri_n, mat_row, tri_sampled = _decode_hit_thin(
-            scene, tri, hit.u, hit.v, inst=hit.inst)
-        emissive = _decode_emissive(scene, mat_row, uv)
-    else:
-        position, uv, tri_frame, vtx_frame, mat_row, tri_sampled = (
-            _decode_hit(scene, tri, hit.u, hit.v, inst=hit.inst))
-        mat, emissive, normal_rg = _decode_material(scene, mat_row, uv)
-        tri_n = tri_frame.n
-
-        # shading-normal selection chain (integrator.hlsl:93-104); with
-        # flat normal maps the texture frame is the vertex frame
-        frontfacing = dot(tri_frame.n, w_o_ws, keepdims=False) > 0.0
-        sgn = torch.where(frontfacing, 1.0, -1.0)
-        vtx_ok = (sgn * dot(w_o_ws, vtx_frame.n, keepdims=False) > 0.0)[
-            ..., None]
-        if scene.mat_atlas.normals_flat:
-            def pick(a, b, c):
-                return torch.where(vtx_ok, b, c)
-            tex_frame = vtx_frame
-        else:
-            tex_frame = _texture_frame(normal_rg, vtx_frame)
-            tex_ok = (sgn * dot(w_o_ws, tex_frame.n, keepdims=False)
-                      > 0.0)[..., None]
-
-            def pick(a, b, c):
-                return torch.where(tex_ok, a, torch.where(vtx_ok, b, c))
-        frame = Frame(n=pick(tex_frame.n, vtx_frame.n, tri_frame.n),
-                      s=pick(tex_frame.s, vtx_frame.s, tri_frame.s),
-                      t=pick(tex_frame.t, vtx_frame.t, tri_frame.t))
-        w_o_ss = frame.world_to_frame(w_o_ws)
-
-    # ---- emissive accumulation (integrator.hlsl:109-124)
-    emit_plain = (~tri_sampled | last_delta | (bounce == 0)
-                  | (cfg.mesh_samples_per_bounce == 0))
-    emit_front = dot(w_o_ws, tri_n, keepdims=False) > 0.0
-    radiance = radiance + _masked(active & emit_plain & emit_front,
-                                  throughput * emissive)
-    if cfg.mesh_samples_per_bounce > 0:
-        light_pdf = area_to_solid_angle(position, o, d, tri_n) / max(
-            scene.emitters.weight_sum, 1e-20)
-        w = power_heuristic(1.0, last_pdf, cfg.mesh_samples_per_bounce,
-                            light_pdf)
-        radiance = radiance + _masked(active & ~emit_plain & (light_pdf > 0.0),
-                                      throughput * emissive * w[..., None])
-
+    # ---- decode the surface and add its emission (integrator.hlsl:93-124)
+    with record_function("surface"):
+        surf = shade.surface(scene, cfg.mesh_samples_per_bounce, bounce, hit,
+                             o, d, active, throughput, radiance, last_pdf,
+                             last_delta, shade.THIN if last else shade.FULL)
     if last:
         # the max-bounce cut kills every lane here
-        return dict(st, active=torch.zeros_like(active), radiance=radiance,
+        return dict(st, active=surf.active, radiance=surf.radiance,
                     rays=rays)
 
-    # ---- termination (integrator.hlsl:126-135)
-    active = active & (bounce < cfg.max_bounces + 1)
-    rng, rr_rand = R.next_float(rng)
-    if roulette:
-        p_survive = torch.clamp_max(luminance(throughput), 0.95)
-        active = active & ~(rr_rand > p_survive)
-        throughput = torch.where(
-            active[..., None],
-            throughput / torch.clamp_min(p_survive, 1e-20)[..., None],
-            throughput)
+    with record_function("nee_draw"):
+        # ---- termination (integrator.hlsl:126-135)
+        active = active & (bounce < cfg.max_bounces + 1)
+        rng, rr_rand = R.next_float(rng)
+        if roulette:
+            p_survive = torch.clamp_max(luminance(throughput), 0.95)
+            active = active & ~(rr_rand > p_survive)
+            throughput = torch.where(
+                active[..., None],
+                throughput / torch.clamp_min(p_survive, 1e-20)[..., None],
+                throughput)
 
-    is_delta = B.is_delta(mat.type)
-    nee_active = active & ~is_delta
+        nee_active = active & ~B.is_delta(surf.mat.type)
+        position, tri_n = surf.position, surf.tri_n
 
-    # ---- NEE (integrator.hlsl:139-151): draw every light sample, trace
-    # all shadow rays as one any-hit batch, then weight
-    shadow = []  # (origin, dir, tmax, lane, kind, l_dir, l_rad, l_pdf)
-    for _ in range(cfg.env_samples_per_bounce):
-        rng, r2 = R.next_float2(rng)
-        l_dir, l_rad, l_pdf = sample_envmap(scene.env, r2)
-        shadow_o = offset_along_normal(position,
-                                       face_forward(tri_frame.n, l_dir))
-        shadow.append((shadow_o, l_dir, torch.full_like(l_pdf, INF_T),
-                       nee_active & (l_pdf > 0.0), "env", l_dir, l_rad, l_pdf))
-    for _ in range(cfg.mesh_samples_per_bounce):
-        rng, r2 = R.next_float2(rng)
-        l_dir, l_pos, l_n, _tri, l_bary, l_pdf, l_row = sample_mesh_lights(
-            scene, position, r2)
-        l_rad = _emissive_at(scene, l_row, l_bary)
-        # two-ended shadow segment (light.hlsl:149-154)
-        off_light = offset_along_normal(l_pos, l_n)
-        off_shade = offset_along_normal(position,
-                                        face_forward(tri_frame.n, l_dir))
-        seg = off_light - off_shade
-        seg_len = norm(seg)[..., 0]
-        seg_dir = seg / torch.clamp_min(seg_len, 1e-20)[..., None]
-        shadow.append((off_shade, seg_dir, seg_len, nee_active & (l_pdf > 0.0),
-                       "mesh", l_dir, l_rad, l_pdf))
+        # ---- NEE (integrator.hlsl:139-151): draw every light sample,
+        # trace all shadow rays as one any-hit batch, then weight
+        shadow = []  # (origin, dir, tmax, lane, n_samples, l_dir, l_rad,
+        #             l_pdf)
+        for _ in range(cfg.env_samples_per_bounce):
+            rng, r2 = R.next_float2(rng)
+            l_dir, l_rad, l_pdf = shade.env_draw(scene.env, r2)
+            shadow_o = offset_along_normal(position,
+                                           face_forward(tri_n, l_dir))
+            shadow.append((shadow_o, l_dir, torch.full_like(l_pdf, INF_T),
+                           nee_active & (l_pdf > 0.0),
+                           cfg.env_samples_per_bounce, l_dir, l_rad, l_pdf))
+        for _ in range(cfg.mesh_samples_per_bounce):
+            rng, r2 = R.next_float2(rng)
+            l_dir, l_pos, l_n, _tri, l_bary, l_pdf, l_row = (
+                sample_mesh_lights(scene, position, r2))
+            l_rad = _emissive_at(scene, l_row, l_bary)
+            # two-ended shadow segment (light.hlsl:149-154)
+            off_light = offset_along_normal(l_pos, l_n)
+            off_shade = offset_along_normal(position,
+                                            face_forward(tri_n, l_dir))
+            seg = off_light - off_shade
+            seg_len = norm(seg)[..., 0]
+            seg_dir = seg / torch.clamp_min(seg_len, 1e-20)[..., None]
+            shadow.append((off_shade, seg_dir, seg_len,
+                           nee_active & (l_pdf > 0.0),
+                           cfg.mesh_samples_per_bounce, l_dir, l_rad, l_pdf))
 
+    lights = []
     if shadow:
-        # shadow rays inherit the (possibly resorted) lane order
-        occ_all = _any_hit(
-            scene,
-            torch.cat([b[0] for b in shadow]),
-            torch.cat([b[1] for b in shadow]),
-            torch.cat([b[2] for b in shadow]),
-            torch.cat([b[3] for b in shadow]),
-            presorted=resort and not (_shadow_compact()
-                                        and scene.has_delta),
-        )
+        with record_function("any_hit"):
+            # shadow rays inherit the (possibly resorted) lane order
+            occ_all = _any_hit(
+                scene,
+                torch.cat([b[0] for b in shadow]),
+                torch.cat([b[1] for b in shadow]),
+                torch.cat([b[2] for b in shadow]),
+                torch.cat([b[3] for b in shadow]),
+                presorted=resort and not (_shadow_compact()
+                                            and scene.has_delta),
+            )
         n = position.shape[0]
-        for i, (_, _, _, lane, kind, l_dir, l_rad, l_pdf) in enumerate(shadow):
-            occluded = occ_all[i * n:(i + 1) * n]
+        for i, (_, _, _, lane, n_samples, l_dir, l_rad, l_pdf) in enumerate(
+                shadow):
             rays = rays + lane.sum()
-            l_pdf = torch.where(occluded, 0.0, l_pdf)
-            w_i_ss = frame.world_to_frame(l_dir)
-            brdf, scatter_pdf = B.eval_pdf_bsdf(mat, w_i_ss, w_o_ss)
-            n_samples = (cfg.env_samples_per_bounce if kind == "env"
-                         else cfg.mesh_samples_per_bounce)
-            mis = power_heuristic(n_samples, l_pdf, 1.0, scatter_pdf)
-            contrib = l_rad * brdf * (
-                torch.abs(cos_theta(w_i_ss)) * mis
-                / torch.clamp_min(l_pdf, 1e-30))[..., None]
-            ok = lane & (l_pdf > 0.0) & (scatter_pdf > 0.0)
-            radiance = radiance + _masked(ok, throughput * contrib / n_samples)
+            lights.append(shade.Light(l_dir, l_rad, l_pdf, lane,
+                                      occ_all[i * n:(i + 1) * n], n_samples))
 
-    # ---- scatter (integrator.hlsl:153-163)
-    rng, r2 = R.next_float2(rng)
-    w_i_ss, pdf = B.sample_bsdf(mat, w_o_ss, r2)
-    active = active & (pdf > 0.0)
-    new_d = normalize(frame.frame_to_world(w_i_ss))
-    new_o = offset_along_normal(position, face_forward(tri_frame.n, new_d))
-    f = B.eval_bsdf(mat, w_i_ss, w_o_ss)
-    thr_mul = f * (torch.abs(cos_theta(w_i_ss))
-                   / torch.clamp_min(pdf, 1e-30))[..., None]
-    act = active[..., None]
-    return dict(
-        st,
-        active=active,
-        o=torch.where(act, new_o, o),
-        d=torch.where(act, new_d, d),
-        throughput=torch.where(act, throughput * thr_mul, throughput),
-        radiance=radiance,
-        last_pdf=pdf,
-        last_delta=is_delta,
-        rng=rng,
-        rays=rays,
-    )
+    # ---- weight the light samples and scatter (integrator.hlsl:139-163)
+    with record_function("scatter"):
+        out = shade.scatter(surf, o, d, throughput, surf.radiance, rng,
+                            active, lights)
+    return dict(st, **out, rays=rays)
 
 
 def _resort_state(scene, st: dict) -> dict:
@@ -698,7 +482,8 @@ class _Trace:
         self._advance()
 
     def _resorted(self, scene, width, last, roulette) -> None:
-        st = _resort_state(scene, self.st)
+        with record_function("resort"):
+            st = _resort_state(scene, self.st)
         _store(self.st, _bounce_shrunk(scene, self.cfg, self.bounce, st,
                                        last, width, roulette))
         self._advance()

@@ -1,8 +1,8 @@
 """Where one sample's time goes on the card, for one scene configuration.
 
     python -m moonshine_tpu_torch.render.profile_frame
-        [--config default|treelet|instanced] [--size 1920x1080] [--grid 6]
-        [--subdivisions 4] [--mesh auto|SP,DP [--one-card]]
+        [--config default|treelet|instanced|direct] [--size 1920x1080]
+        [--grid 6] [--subdivisions 4] [--mesh auto|SP,DP [--one-card]]
 
 Builds the room scene (grid=6, subdivisions=4 is room_184k) as the
 default build, or as the treelet configuration (MSN_WIDE=8 MSN_LEAF_CAP=8
@@ -15,15 +15,17 @@ card, the unprofiled wall, the kernel count, the graph replays, the
 host's dispatches and reads, the summed kernel time, the device busy
 time (union of kernel intervals) over the profiled wall, the traversal
 kernels' time (packet, treelet or two-level), the treelet phase-1
-kernel's time, the five kernels that took longest, and the same sample
-on the eager loop (graphs.eager(): its wall, kernels and idle share, and
-the two-level decode's instance transform, integrator/path.py
-`_inst_world`: its calls, their host time and the time of the kernels
-they launched, which a graph replay runs without calling Python). With
---mesh it profiles one `render_sharded` call of SP samples (one a
-sample shard; --one-card puts every shard on cuda:0) instead, and gives
-each card's busy share and the overlap of the shards on one card. Needs
-a CUDA device.
+kernel's time, the shading kernels' time (csrc/shade.cu), the five
+kernels that took longest, and the same sample on the eager loop
+(graphs.eager(): its wall, kernels and idle share, and its time split
+by the bounce's stages, integrator/path.py STAGES: each stage's calls,
+host time and the time of the kernels it launched, which a graph
+replay runs without calling Python). --config direct profiles
+trace_direct on room_184k's camera rays instead (eager: it runs no
+graphs), split by the same stages. With --mesh it profiles one
+`render_sharded` call of SP samples (one a sample shard; --one-card
+puts every shard on cuda:0) instead, and gives each card's busy share
+and the overlap of the shards on one card. Needs a CUDA device.
 
 The bounce loop runs as CUDA graph replays (integrator/graphs.py): a
 replay is one host dispatch for many kernels. `profile(fn)` counts the
@@ -180,8 +182,8 @@ def profile(fn, marks=()) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("default", "treelet", "instanced"),
-                    default="default")
+    ap.add_argument("--config", choices=("default", "treelet", "instanced",
+                                         "direct"), default="default")
     ap.add_argument("--size", default="1920x1080")
     ap.add_argument("--grid", type=int, default=6)
     ap.add_argument("--subdivisions", type=int, default=4)
@@ -221,40 +223,62 @@ def main(argv=None) -> dict:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if args.mesh:
         return _profile_mesh(args, scene, lens, cfg, smi)
+    if args.config == "direct":
+        return _profile_direct(args, scene, lens, smi)
     sample = lambda: render_spp(scene, lens, height, width, 2, 1, cfg)
 
     render_spp(scene, lens, height, width, 0, 1, cfg)  # warm-up, captures
     prof = profile(sample)
     by_name = prof.pop("by_name_us")
-
-    inst_world = path._inst_world
-
-    def marked(*a, **kw):  # the instance transform, marked in the trace
-        with torch.profiler.record_function("inst_world"):
-            return inst_world(*a, **kw)
-
-    path._inst_world = marked
-    try:
-        with graphs.eager():
-            eager = profile(sample, marks=("inst_world",))
-    finally:
-        path._inst_world = inst_world
-    traversal_us = sum(v for k, v in by_name.items()
-                       if "traverse_kernel" in k or "treelet_kernel" in k
-                       or "tlas_kernel" in k)
-    phase1_us = sum(v for k, v in by_name.items() if "pending_kernel" in k)
+    with graphs.eager():
+        eager = profile(sample, marks=path.STAGES)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     out = {
         "card": smi, "config": args.config, "size": args.size,
         "mode": "tlas" if scene.tlas is not None else _hbm_mode(scene.wide),
-        "triangles": scene.num_tris, **prof,
-        "traversal_ms": traversal_us / 1e3,
-        "treelet_phase1_ms": phase1_us / 1e3,
+        "triangles": scene.num_tris, **prof, **_kinds(by_name),
         "top": [[k[:80], v / 1e3] for k, v in top],
         "eager": {k: eager[k] for k in (
             "wall_ms_unprofiled", "kernels", "host_dispatches", "kernel_ms",
-            "idle_share", "inst_world")},
+            "idle_share")},
+        "stages": {k: eager[k] for k in path.STAGES},
     }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _kinds(by_name) -> dict:
+    """Kernel time (ms) of the traversal kernels (packet, treelet or
+    two-level), treelet phase 1 and the shading kernels."""
+    ms = lambda *keys: sum(v for k, v in by_name.items()
+                           if any(key in k for key in keys)) / 1e3
+    return {"traversal_ms": ms("traverse_kernel", "treelet_kernel",
+                               "tlas_kernel"),
+            "treelet_phase1_ms": ms("pending_kernel"),
+            "shade_ms": ms("surface_kernel", "scatter_kernel",
+                           "env_miss_kernel", "env_draw_kernel")}
+
+
+def _profile_direct(args, scene, lens, smi) -> dict:
+    """trace_direct on the frame's camera rays (one env and one
+    mesh-light sample), after a warm-up call: profile()'s numbers, split
+    by the bounce's stages."""
+    from ..integrator import path
+    from ..integrator.direct import DirectConfig, trace_direct
+    from .renderer import _sample_rays
+
+    width, height = (int(x) for x in args.size.split("x"))
+    o, d, rng, _ = _sample_rays(lens, height, width, 0, True, scene.device)
+    call = lambda: trace_direct(scene, o, d, rng, DirectConfig())
+    call()  # warm-up: the kernels' builds
+    prof = profile(call, marks=path.STAGES)
+    by_name = prof.pop("by_name_us")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out = {"card": smi, "config": args.config, "size": args.size,
+           "triangles": scene.num_tris,
+           **{k: v for k, v in prof.items() if k not in path.STAGES},
+           **_kinds(by_name), "top": [[k[:80], v / 1e3] for k, v in top],
+           "stages": {k: prof[k] for k in path.STAGES}}
     print(json.dumps(out), flush=True)
     return out
 

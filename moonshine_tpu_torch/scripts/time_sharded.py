@@ -33,7 +33,7 @@ import time
 import torch
 
 from ..accel import packet
-from ..integrator import graphs
+from ..integrator import graphs, shade
 from ..integrator.path import PathConfig
 from ..parallel import make_mesh, render_sharded, sharding
 from ..render.camera import LensArrays
@@ -67,17 +67,20 @@ def synchronize_all() -> None:
 
 
 def timed_run(fn):
-    """(fn's result, seconds, counts, packet launches) of one call, every
-    card synchronised before and after; counts are graphs.COUNTS (graph
-    captures and replays, live-count reads, scene copies) of the call."""
+    """(fn's result, seconds, counts, launches) of one call, every card
+    synchronised before and after; counts are graphs.COUNTS (graph
+    captures and replays, live-count reads, scene copies) of the call,
+    launches the packet and shading kernels'."""
     synchronize_all()
     packet.reset_launch_counts()
+    shade.reset_launch_counts()
     graphs.reset_counts()
     t0 = time.perf_counter()
     out = fn()
     synchronize_all()
     secs = time.perf_counter() - t0
-    return out, secs, dict(graphs.COUNTS), dict(packet.LAUNCHES)
+    return out, secs, dict(graphs.COUNTS), {**packet.LAUNCHES,
+                                            **shade.LAUNCHES}
 
 
 def rel_err(img, ref) -> float:

@@ -276,6 +276,54 @@ def test_trace_paths_steps_read_nothing_on_the_host(guarded):
     assert int(rays) == int(st["rays"])
 
 
+@pytest.mark.parametrize("name", ["flagship", "two_level"])
+def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
+    """The shading kernels' plain versions (integrator/shade.py: the env
+    miss and draw, the surface decode in its three forms and the
+    scatter), which stand in for the launches a graph captures, read
+    nothing on the host: each runs inside a guarded step on a device
+    bounce index, on the flagship (a textured atlas, every material) and
+    a two-level scene, and gives what it gives outside the guard."""
+    from moonshine_tpu_torch.integrator import shade as S
+
+    scene, lens = SCENES[name]()
+    o, d, rng, _ = RR._sample_rays(lens, 16, 16, 3, True, "cpu")
+    n = o.shape[0]
+    st = P._init_state(o, d, rng)
+    hit = P._closest(scene, o, d, 1e12, st["active"])
+    bounce = torch.tensor(1)
+    active = st["active"] & hit.is_hit
+    rs = np.random.RandomState(5)
+    r2 = torch.from_numpy(rs.rand(n, 2).astype(np.float32))
+    thr = torch.from_numpy(rs.rand(n, 3).astype(np.float32))
+    last_delta = torch.from_numpy(rs.rand(n) < 0.3)
+    steps = graphs.Steps("cpu")
+
+    def shading(out):
+        rad = S.env_miss_plain(scene.env, 1, bounce, d, st["active"],
+                               hit.tri, thr, st["radiance"], st["last_pdf"],
+                               last_delta)
+        surf = {mode: S.surface_plain(scene, 1, bounce, hit, o, d, active,
+                                      thr, rad, st["last_pdf"], last_delta,
+                                      mode)
+                for mode in (S.FULL, S.THIN, S.DIRECT)}
+        l_dir, l_rad, l_pdf = S.env_draw_plain(scene.env, r2)
+        light = S.Light(l_dir, l_rad, l_pdf, active & (l_pdf > 0.0),
+                        l_pdf > 1.0, 1)
+        out.update(rad=rad, surf=surf, scatter=S.scatter_plain(
+            surf[S.FULL], o, d, thr, surf[S.FULL].radiance, rng, active,
+            [light, light._replace(n_samples=2)]))
+
+    guarded_out, free_out = {}, {}
+    steps.run("shade", lambda: shading(guarded_out))
+    shading(free_out)
+    assert ("shade" in guarded["steps"]) and guarded["reads"] == 0
+    assert torch.equal(guarded_out["rad"], free_out["rad"])
+    for k in guarded_out["scatter"]:
+        assert torch.equal(guarded_out["scatter"][k], free_out["scatter"][k])
+    assert int(guarded_out["scatter"]["active"].sum()) > 0
+
+
 def test_a_host_read_in_a_step_raises(guarded):
     """The guard is live: a step that reads the host fails."""
     steps = graphs.Steps("cpu")

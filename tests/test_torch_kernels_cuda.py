@@ -22,13 +22,19 @@ loop bit for bit (image, rays, launch counts): the fused flagship, a
 staged 1080p batch, the looped offline form, a two-level scene, and
 Engine frames, which capture anew after each edit. render_sharded,
 its shards stepped together, equals the same shards run in turn bit for
-bit on cuda:0 x4 and across cards, and replays from its second call."""
+bit on cuda:0 x4 and across cards, and replays from its second call.
+The shading kernels (csrc/shade.cu: surface in its full, thin and direct
+forms, scatter, env miss and env draw) equal their plain versions bit for
+bit on the flagship (every material, a textured atlas), the room
+(constant atlas) and two-level scenes (mirroring instances, the tie
+scene), dead and missed lanes included, with env maps of size 1 and 32."""
 
 import numpy as np
 import pytest
 import torch
 
 from moonshine_tpu_torch.accel import native, packet, tlas, treelet, vpacket
+from moonshine_tpu_torch.integrator import shade
 from moonshine_tpu_torch.accel.wide import build_wide
 from moonshine_tpu_torch.scripts import cuda_ms, probe_bitcast, profile_vpu
 
@@ -801,7 +807,8 @@ def test_engine_on_a_dp_mesh_replays_from_its_second_frame(cuda):
 # --- the bounce loop as CUDA graph replays (integrator/graphs.py) ---
 
 def _launches():
-    return {**packet.LAUNCHES, **treelet.LAUNCHES, **tlas.LAUNCHES}
+    return {**packet.LAUNCHES, **treelet.LAUNCHES, **tlas.LAUNCHES,
+            **shade.LAUNCHES}
 
 
 def _eager_and_replayed(monkeypatch, fn):
@@ -823,7 +830,7 @@ def _eager_and_replayed(monkeypatch, fn):
         with graphs.eager() if eager else contextlib.nullcontext():
             fn()
             captured = len(replays)
-            for m in (packet, treelet, tlas):
+            for m in (packet, treelet, tlas, shade):
                 m.reset_launch_counts()
             res = fn()
             torch.cuda.synchronize()
@@ -1022,3 +1029,238 @@ def test_graphs_engine_frames_recapture_after_edits(cuda, monkeypatch):
     assert not th.is_alive() and picks
     assert len(captures) > before and np.isfinite(img).all()
     graphs.clear()
+
+
+# --- the shading kernels (csrc/shade.cu, integrator/shade.py) ---
+
+def _bits(x):
+    """x's bits: floats as int32 words with every NaN the same word."""
+    if x.dtype == torch.float32:
+        return torch.where(torch.isnan(x), torch.full_like(x, float("nan")),
+                           x).view(torch.int32)
+    return x
+
+
+def _assert_bits(got, want, what):
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    same = _bits(got) == _bits(want)
+    assert bool(same.all()), (
+        f"{what}: {int((~same).sum())} of {same.numel()} values differ")
+
+
+def _shade_scene(kind, device):
+    """(scene, two_level) of a shading case: the flagship (every material,
+    a textured floor), the small room (constant atlas), the instanced
+    grid built two-level (mirroring instances, one hidden) or the tie
+    scene built two-level."""
+    import os
+
+    from moonshine_tpu_torch.scene import procedural
+
+    if kind == "flagship":
+        return procedural.flagship_scene()[0].build(device), False
+    if kind == "room":
+        return procedural.room_scene(grid=2, subdivisions=2)[0].build(
+            device), False
+    if kind == "instanced":
+        world, _ = procedural.instanced_scene(grid=(5, 4), subdivisions=2)
+        world.set_visibility(7, False)
+    else:
+        world = procedural.tie_scene(16)[0]
+    os.environ["MSN_FORCE_TLAS"] = "1"
+    try:
+        scene = world.build(device)
+    finally:
+        del os.environ["MSN_FORCE_TLAS"]
+    assert scene.tlas is not None
+    if kind == "instanced":
+        assert bool((scene.inst_tf[:, 12] < 0).any())  # a mirror
+    return scene, True
+
+
+def _shade_lanes(scene, two_level, n, seed, device):
+    """Seeded lane state for the surface kernel: hits on random triangles
+    (a sixth missed, tri -1 with u = v = 0 as the walks write them; some
+    with junk barycentrics), instances (-1 on a miss), rays, throughput,
+    radiance, last_pdf (some 0) and last_delta; a third of the lanes
+    dead."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    tri = rs.randint(0, scene.num_tris, n).astype(np.int32)
+    miss = rs.rand(n) < 1 / 6
+    tri[miss] = -1
+    u = rs.rand(n).astype(f32)
+    v = (rs.rand(n) * (1 - u)).astype(f32)
+    junk = rs.rand(n) < 0.05
+    u[junk] = rs.randn(junk.sum()).astype(f32) * 3
+    u[miss] = v[miss] = 0.0
+    inst = None
+    if two_level:
+        inst = rs.randint(0, scene.inst_tf.shape[0], n).astype(np.int32)
+        inst[miss] = -1
+    d = rs.randn(n, 3).astype(f32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    hit = tlas.TlasHit(t=put(rs.rand(n).astype(f32)), tri=put(tri),
+                       u=put(u), v=put(v),
+                       inst=None if inst is None else put(inst))
+    last_pdf = rs.rand(n).astype(f32) * 3
+    last_pdf[rs.rand(n) < 0.1] = 0.0
+    return dict(
+        hit=hit, o=put((rs.randn(n, 3) * 4).astype(f32)), d=put(d),
+        active=put(rs.rand(n) > 0.33) & (hit.tri >= 0),
+        throughput=put(rs.rand(n, 3).astype(f32)),
+        radiance=put(rs.rand(n, 3).astype(f32)), last_pdf=put(last_pdf),
+        last_delta=put(rs.rand(n) < 0.2))
+
+
+def _assert_surface(got, want, what, exact=True):
+    """Every output of the surface kernel equal to the plain version's,
+    bit for bit, or (exact=False) the float ones within 1e-5 relative."""
+    pairs = [(getattr(got, k), getattr(want, k), k) for k in (
+        "position", "tri_n", "w_o_ss", "radiance", "active")
+        if getattr(want, k) is not None]
+    if want.frame is not None:
+        pairs += [(getattr(got.frame, k), getattr(want.frame, k), k)
+                  for k in ("n", "s", "t")]
+        pairs += [(getattr(got.mat, k), getattr(want.mat, k), k)
+                  for k in want.mat._fields]
+    for g, w, name in pairs:
+        if exact or not w.dtype.is_floating_point:
+            _assert_bits(g, w, f"{what} {name}")
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6,
+                                       msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("kind", ["flagship", "room", "instanced", "ties"])
+@pytest.mark.parametrize("n", [1, 4099])
+def test_shade_surface_matches_plain(cuda, kind, n):
+    """The surface kernel in its three forms against surface_plain on the
+    same lanes, every output bit for bit: the bounce's (bounce 0 and 3,
+    mesh samples 1 and 0), the last segment's and the direct
+    integrator's. One two-level lane is held within 1e-5 instead: torch
+    takes an einsum of a batch of one through an unbatched matrix product
+    whose cuBLAS kernel rounds the instance transform otherwise than the
+    batched one the kernel reproduces (4099 lanes and the 1080p frame's,
+    chip_smoke.py `shade`, are bit for bit)."""
+    scene, two_level = _shade_scene(kind, cuda)
+    lanes = _shade_lanes(scene, two_level, n, 7, cuda)
+    shade.reset_launch_counts()
+    calls = 0
+    for mode in (shade.FULL, shade.THIN, shade.DIRECT):
+        for bounce, mesh_samples in ((0, 1), (3, 1), (3, 0)):
+            b = torch.full((), bounce, dtype=torch.int64, device=cuda)
+            args = (scene, mesh_samples, b, lanes["hit"], lanes["o"],
+                    lanes["d"], lanes["active"], lanes["throughput"],
+                    lanes["radiance"], lanes["last_pdf"],
+                    lanes["last_delta"], mode)
+            _assert_surface(shade.surface(*args), shade.surface_plain(*args),
+                            f"{kind} {mode} bounce {bounce}",
+                            exact=not (two_level and n == 1))
+            calls += 1
+    assert shade.LAUNCHES["surface"] == calls
+
+
+def _shade_lights(surf, env, n, seed, device, counts):
+    """Seeded NEE samples for the scatter kernel: per sample count in
+    `counts`, a draw from the env kernel and a random one, with lanes and
+    occlusion at random."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    lights = []
+    for k, count in enumerate(counts):
+        if k % 2 == 0:
+            l_dir, l_rad, l_pdf = shade.env_draw(env, put(rs.rand(n, 2)
+                                                          .astype(f32)))
+        else:
+            d = rs.randn(n, 3).astype(f32)
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            pdf = rs.rand(n).astype(f32) * 2
+            pdf[rs.rand(n) < 0.1] = 0.0
+            l_dir, l_rad, l_pdf = put(d), put(rs.rand(n, 3).astype(f32)), \
+                put(pdf)
+        lights.append(shade.Light(l_dir, l_rad, l_pdf,
+                                  put(rs.rand(n) > 0.3) & (l_pdf > 0.0),
+                                  put(rs.rand(n) < 0.3), count))
+    return lights
+
+
+def _env(kind, device):
+    from moonshine_tpu_torch.lights import envmap
+
+    if kind == "constant":
+        return envmap.envmap_from_arrays(envmap.constant_envmap(
+            (0.7, 0.8, 1.1)), device)
+    rs = np.random.RandomState(3)
+    sky = (rs.rand(32, 64, 3) ** 4 * 5).astype(np.float32)
+    env = envmap.envmap_from_arrays(envmap.build_envmap(sky), device)
+    assert env.size == 32
+    return env
+
+
+@pytest.mark.parametrize("mat_type", [None, 0, 1, 2, 3])
+@pytest.mark.parametrize("counts", [(1, 1), (2, 1, 2), (), (5,) * 10])
+def test_shade_scatter_matches_plain(cuda, mat_type, counts):
+    """The scatter kernel against scatter_plain bit for bit (active, o,
+    d, throughput, radiance, last_pdf, last_delta, rng) on the
+    flagship's decoded lanes, as they are (None: every material) and with
+    every lane's material set to glass, Lambert, mirror or PBR; with no
+    light sample, one env and one mesh sample, sample counts of 2, and
+    ten samples (two launches: one weighs the first eight)."""
+    scene, _ = _shade_scene("flagship", cuda)
+    n = 4099
+    lanes = _shade_lanes(scene, False, n, 11, cuda)
+    surf = shade.surface(scene, 1, 2, lanes["hit"], lanes["o"], lanes["d"],
+                         lanes["active"], lanes["throughput"],
+                         lanes["radiance"], lanes["last_pdf"],
+                         lanes["last_delta"])
+    if mat_type is not None:
+        surf = surf._replace(mat=surf.mat._replace(
+            type=torch.full_like(surf.mat.type, mat_type)))
+    assert set(surf.mat.type.tolist()) >= ({0, 1, 2, 3} if mat_type is None
+                                           else {mat_type})
+    rs = np.random.RandomState(5)
+    rng = torch.from_numpy(rs.randint(0, 2**32, n, dtype=np.int64)).to(cuda)
+    lights = _shade_lights(surf, _env("map", cuda), n, 13, cuda, counts)
+    args = (surf, lanes["o"], lanes["d"], lanes["throughput"],
+            surf.radiance, rng, surf.active, lights)
+    shade.reset_launch_counts()
+    got, want = shade.scatter(*args), shade.scatter_plain(*args)
+    assert shade.LAUNCHES["scatter"] == (2 if len(counts) > 8 else 1)
+    assert list(got) == list(want)
+    for k in want:
+        _assert_bits(got[k], want[k], f"scatter {k}")
+    assert bool(got["active"].any())
+
+
+@pytest.mark.parametrize("env_kind", ["constant", "map"])
+def test_shade_env_kernels_match_plain(cuda, env_kind):
+    """The env miss kernel against env_miss_plain (env samples 0, 1 and
+    2; bounce 0 and 2) and the env draw kernel against env_draw_plain
+    (rand 0, near 1 and seeded), bit for bit, at env size 1 and 32."""
+    env = _env(env_kind, cuda)
+    scene, _ = _shade_scene("room", cuda)
+    n = 4099
+    lanes = _shade_lanes(scene, False, n, 17, cuda)
+    shade.reset_launch_counts()
+    for env_samples in (0, 1, 2):
+        for bounce in (0, 2):
+            args = (env, env_samples, bounce, lanes["d"], lanes["active"],
+                    lanes["hit"].tri, lanes["throughput"],
+                    lanes["radiance"], lanes["last_pdf"],
+                    lanes["last_delta"])
+            _assert_bits(shade.env_miss(*args), shade.env_miss_plain(*args),
+                         f"env_miss {env_samples} {bounce}")
+    rs = np.random.RandomState(19)
+    rand2 = rs.rand(n, 2).astype(np.float32)
+    rand2[:3] = [[0, 0], [np.float32(1 - 2**-24), 0.5],
+                 [0.5, np.float32(1 - 2**-24)]]
+    rand2 = torch.from_numpy(rand2).to(cuda)
+    for got, want, name in zip(shade.env_draw(env, rand2),
+                               shade.env_draw_plain(env, rand2),
+                               ("dir", "radiance", "pdf")):
+        _assert_bits(got, want.contiguous(), f"env_draw {name}")
+    assert shade.LAUNCHES["env_miss"] == 6
+    assert shade.LAUNCHES["env_draw"] == 1
