@@ -218,7 +218,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "surface": ("moonshine_tpu_torch/csrc/shade.cu",
                 "moonshine_tpu/integrator/path.py:424 _bounce_body's hit "
                 "decode (_decode_hit :139, _decode_material :214, "
-                "core/gather.py:61 gather_rows, :78 shift_gather_rows; jnp, "
+                "core/gather.py:61 gather_rows, :78 shift_gather_rows) and "
+                "its light draw (:503-573, lights/mesh_lights.py:29-71; jnp, "
                 "no pallas_call)"),
     "scatter": ("moonshine_tpu_torch/csrc/shade.cu",
                 "moonshine_tpu/integrator/path.py:583 _bounce_body's light "
@@ -229,8 +230,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                  "with path.py:404 (core/gather.py:61, :126 "
                  "weighted_gather_rows; jnp, no pallas_call)"),
     "env_draw": ("moonshine_tpu_torch/csrc/shade.cu",
-                 "moonshine_tpu/lights/envmap.py:134 sample_envmap "
-                 "(core/gather.py:61 gather_rows; jnp, no pallas_call)"),
+                 "moonshine_tpu/lights/envmap.py:134 sample_envmap on the "
+                 "direct integrator's path (core/gather.py:61 gather_rows; "
+                 "jnp, no pallas_call)"),
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
@@ -1733,11 +1735,13 @@ def engine_phase(room_world, room_lens, dev, launches_out):
         e.render(sensor, lens)
         done.set()
 
+    frame_s = e.metrics["last_frame_seconds"]
     th = threading.Thread(target=frame)
     th.start()
     if not started.wait(timeout=60):
         raise AssertionError("the frame's thread did not start")
-    time.sleep(0.05)
+    # into the frame: a quarter of the last frame's time
+    time.sleep(min(0.05, frame_s / 4))
     t0 = time.perf_counter()
     hit = e.pick(lens, w, h, w // 2, 5 * h // 6)  # the floor
     pick_ms = (time.perf_counter() - t0) * 1e3
@@ -1803,6 +1807,7 @@ def direct_phase(scene, lens, launches_out):
             or not np.isfinite(img).all()):
         raise AssertionError("trace_direct failed")
     launches_out["direct"] = counts
+    launches_out["direct_shading"] = shaded
     with recording() as rec:  # the same call again, for the plain versions
         trace_direct(scene, o, d, rng, cfg)
     hold_recorded("direct", rec)
@@ -2205,86 +2210,36 @@ def tlas_phase(dev, cfg, timings, errs, launches):
 # need it: the bounds' operation terms. Tuples are by material type
 # (glass, lambert, mirror, pbr: bsdf/materials.py's ids).
 SHADE_OPS = {
-    "surface": 236,  # full form, every lane: decode, frames, pick, w_o_ss
+    "surface": 236,  # full form, a live lane: decode, frames, pick, w_o_ss
     "surface_thin": 53,  # thin form, a live lane: position, uv, tri_n
     "two_level": 153,  # full form: the corners' and normals' transform
     "two_level_thin": 66,  # thin form: the corners' transform
     "normal_map": 87,  # _texture_frame and its pick (not normals_flat)
     "atlas_bsdf": 70, "atlas_emissive": 38,  # a 4-tap fetch
     "emission": 15, "emission_mis": 28,  # a live lane; mesh-light MIS
+    "roulette": 10,  # luminance, clamp, test, the throughput's scale
+    "draw_env": (61, 47),  # an env sample with its shadow ray, by env
+    # size > 1 and == 1
+    "draw_mesh": 122,  # a mesh sample: alias pick, point, normal, pdf,
+    # the two-ended segment
+    "draw_mesh_atlas": 48,  # its uv and emissive fetch (textured)
     "scatter_light": (74, 48, 45, 180),  # a NEE sample's weighted lane
-    "scatter_draw": (53, 22, 2, 58),  # every lane: PCG draw, sample_bsdf
+    "scatter_draw": (53, 22, 2, 58),  # a live lane: PCG draw, sample_bsdf
     "scatter_ray": (83, 55, 54, 173),  # a lane that goes on: the new
     # ray, eval_bsdf, the throughput
     "env_miss": (63, 6), "env_miss_mis": (20, 17),  # a missing lane, by
     # env size > 1 and == 1; the MIS weight where env samples are drawn
     "env_draw": (41, 27),  # every lane, by env size > 1 and == 1
 }
-
-
-@contextlib.contextmanager
-def shade_recording():
-    """The first call of each shading wrapper (integrator/shade.py:
-    surface in each form, scatter, env_miss, env_draw) inside the block,
-    its tensor arguments cloned (the loop's static buffers change in
-    place afterwards); on the eager loop, where the wrappers are called.
-    Yields {key: (name, args)}."""
-    import torch
-
-    from moonshine_tpu_torch.integrator import graphs, shade
-
-    def clone(x):
-        if torch.is_tensor(x):
-            return x.clone()
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*map(clone, x))
-        if isinstance(x, (list, tuple)):
-            return type(x)(map(clone, x))
-        return x
-
-    rec = {}
-    names = ("surface", "scatter", "env_miss", "env_draw")
-    real = {k: getattr(shade, k) for k in names}
-
-    def wrap(name):
-        def call(*args):
-            key = name if name != "surface" else f"surface/{args[-1]}"
-            if key not in rec:
-                # the scene or env map is the caller's, never written
-                keep = 0 if name == "scatter" else 1
-                rec[key] = (name, args[:keep] + tuple(map(clone,
-                                                          args[keep:])))
-            return real[name](*args)
-        return call
-
-    for k in names:
-        setattr(shade, k, wrap(k))
-    try:
-        with graphs.eager():
-            yield rec
-    finally:
-        for k in names:
-            setattr(shade, k, real[k])
-
-
-def shade_outputs(out):
-    """A shading function's result as {name: tensor}."""
-    import torch
-
-    if torch.is_tensor(out):
-        return {"radiance": out}
-    if isinstance(out, dict):
-        return dict(out)
-    if hasattr(out, "frame"):  # a Surface
-        got = {k: getattr(out, k) for k in ("position", "tri_n", "w_o_ss",
-                                            "radiance", "active")}
-        if out.frame is not None:
-            got.update({f"frame.{k}": getattr(out.frame, k)
-                        for k in ("n", "s", "t")})
-            got.update({f"mat.{k}": getattr(out.mat, k)
-                        for k in out.mat._fields})
-        return {k: v for k, v in got.items() if v is not None}
-    return dict(zip(("dir", "radiance", "pdf"), out))
+# The kernels' earlier forms (every lane computed and written, the
+# bounce's light draw in torch) at the same shapes, as PERF.md section 6
+# records them, printed beside this run's times
+EARLIER_MS = {("room_1080p", "surface/full"): 0.1948,
+           ("room_1080p", "surface/thin"): 0.0187,
+           ("room_1080p", "scatter"): 0.2426,
+           ("instanced_1080p", "surface/full"): 0.2258,
+           ("instanced_1080p", "surface/thin"): 0.0683,
+           ("instanced_1080p", "scatter"): 0.1993}
 
 
 def _distinct(x):
@@ -2330,100 +2285,167 @@ def _env_taps(env, d):
                       xi1 * S + yi0, xi0 * S + yi1, xi1 * S + yi1])
 
 
-def shade_work(name, args, out):
-    """(bytes, float operations) the shading function (surface in its
-    path forms, full and thin) must move and do for these inputs, given
-    its outputs `out` (shade_outputs): each output written once; each
-    lane input read once, on the lanes whose outputs depend on it (a
-    masked term's inputs on its mask's lanes: a dead lane's state, a hit
-    lane's env inputs, an occluded or untraced light sample's direction
-    and radiance are not read); each distinct shading row (the fields
-    the form reads), instance transform, atlas texel, env texel and
-    alias bucket the lanes reach, once; SHADE_OPS' operations on the
-    lanes that need them."""
+def _alias_bytes(select, alias, count, rand, row_bytes):
+    """The bytes an alias draw reads at uniforms `rand`: each distinct
+    bucket's select (4), alias (8) where it is not kept, and each
+    distinct picked row."""
     import torch
 
+    from moonshine_tpu_torch.core import alias_table
+
+    idx = torch.clamp_max((rand * float(count)).to(torch.int64), count - 1)
+    picked, _ = alias_table.sample(select, alias, count, rand)
+    return (_distinct(idx) * 4 + _distinct(idx[picked != idx]) * 8
+            + _distinct(picked) * row_bytes), picked
+
+
+def _surface_work(args, out):
+    """shade_work of the surface kernel in its path forms (full with the
+    bounce's light draw, thin)."""
+    import torch
+
+    from moonshine_tpu_torch.core import rng as R
     from moonshine_tpu_torch.integrator import shade
 
     count = lambda mask: int(mask.sum())
-    if name == "surface":
-        scene, mesh, _, hit, o, d, active, thr, rad, lp, ld, mode = args
-        atlas = scene.mat_atlas
-        n = hit.tri.shape[0]
-        # the lanes it decodes: the thin form's live ones, else all
-        live = active if mode == "thin" else torch.ones_like(active)
-        tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
-        two = hit.inst is not None and scene.tlas is not None
-        n_live, n_act = count(live), count(active)
-        # every lane's mask and radiance; the decoded lanes' hit and
-        # ray; the live lanes' emission inputs; the outputs
-        nb = (n * (1 + 12) + n_live * (12 + 12 + (4 if two else 0))
-              + n_act * (12 + 1 + (16 if mesh > 0 else 0))
-              + n * (13 if mode == "thin" else 112))
-        # a row's fields the form reads: the corners; the uv corners
-        # where a tangent is formed or a texel fetched; the emission;
-        # the sampled flag; the normals and the material
-        uvs = mode != "thin" or not atlas.emissive_constant
-        row = 36 + (24 if uvs else 0) + (
-            12 if atlas.emissive_constant else 16) + 4
-        if mode != "thin":
-            row += 36 + (36 if atlas.bsdf_constant else 24)
-        rows = tri[live]
-        nb += _distinct(rows) * row
-        flops = n_live * SHADE_OPS["surface_thin" if mode == "thin"
-                                   else "surface"]
-        if mode != "thin" and not atlas.normals_flat:
-            flops += n * SHADE_OPS["normal_map"]
-        flops += n_act * (SHADE_OPS["emission"]
-                          + (SHADE_OPS["emission_mis"] if mesh > 0 else 0))
-        if two:
-            inst = torch.clamp(hit.inst[live].to(torch.int64), 0,
-                               scene.inst_tf.shape[0] - 1)
-            nb += _distinct(inst) * (52 + (0 if mode == "thin" else 36))
-            flops += n_live * SHADE_OPS["two_level_thin" if mode == "thin"
-                                        else "two_level"]
-        if not (atlas.emissive_constant and atlas.bsdf_constant):
-            tr = scene.tri_shade[rows]
-            uv = shade._interp(hit.u[live], hit.v[live],
-                               tr[:, 18:24].reshape(-1, 3, 2))
-            if not atlas.bsdf_constant and mode != "thin":
-                nb += _distinct(_atlas_taps(atlas.bsdf, tr[:, 33:37],
-                                            uv)) * 14
-                flops += n * SHADE_OPS["atlas_bsdf"]
-            if not atlas.emissive_constant:
-                emit = active[live]
-                nb += _distinct(_atlas_taps(atlas.emissive,
-                                            tr[emit, 44:48], uv[emit])) * 6
-                flops += n_act * SHADE_OPS["atlas_emissive"]
+    scene, mesh, _, hit, o, d, active, thr, rad, lp, ld, mode = args[:12]
+    draw = args[12] if len(args) > 12 else None
+    atlas = scene.mat_atlas
+    n = hit.tri.shape[0]
+    tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
+    two = hit.inst is not None and scene.tlas is not None
+    n_live = count(active)
+    n_samples = draw.env_samples + mesh if draw is not None else 0
+    # every lane: its mask and shadow lanes; a live lane: its hit, ray
+    # direction, radiance in and out, the emission's state (throughput,
+    # last_delta; last_pdf and o for the mesh-light MIS)
+    nb = n * (1 + n_samples) + n_live * (
+        12 + (4 if two else 0) + 12 + 24 + 12 + 1 + (16 if mesh > 0 else 0))
+    if mode == "thin":
+        nb += n_live  # its mask cleared
+    else:
+        nb += n_live * 112  # the decoded hit
+    uvs = mode != "thin" or not atlas.emissive_constant
+    row = 36 + (24 if uvs else 0) + (
+        12 if atlas.emissive_constant else 16) + 4
+    if mode != "thin":
+        row += 36 + (36 if atlas.bsdf_constant else 24)
+    rows = tri[active]
+    nb += _distinct(rows) * row
+    flops = n_live * (SHADE_OPS["surface_thin" if mode == "thin"
+                                else "surface"] + SHADE_OPS["emission"]
+                      + (SHADE_OPS["emission_mis"] if mesh > 0 else 0))
+    if mode != "thin" and not atlas.normals_flat:
+        flops += n_live * SHADE_OPS["normal_map"]
+    if two:
+        inst = torch.clamp(hit.inst[active].to(torch.int64), 0,
+                           scene.inst_tf.shape[0] - 1)
+        nb += _distinct(inst) * (52 + (0 if mode == "thin" else 36))
+        flops += n_live * SHADE_OPS["two_level_thin" if mode == "thin"
+                                    else "two_level"]
+    if not (atlas.emissive_constant and atlas.bsdf_constant):
+        tr = scene.tri_shade[rows]
+        uv = shade._interp(hit.u[active], hit.v[active],
+                           tr[:, 18:24].reshape(-1, 3, 2))
+        if not atlas.bsdf_constant and mode != "thin":
+            nb += _distinct(_atlas_taps(atlas.bsdf, tr[:, 33:37], uv)) * 14
+            flops += n_live * SHADE_OPS["atlas_bsdf"]
+        if not atlas.emissive_constant:
+            nb += _distinct(_atlas_taps(atlas.emissive, tr[:, 44:48],
+                                        uv)) * 6
+            flops += n_live * SHADE_OPS["atlas_emissive"]
+    if draw is None:
         return nb, flops
+    # the termination: a live lane's PCG state in and, where it stays
+    # live, out; a scaled throughput out; a killed lane's mask out
+    alive = out.active
+    n_alive = count(alive)
+    nb += n_live * 8 + n_alive * 8 + (n_live - n_alive)
+    if draw.roulette:
+        nb += n_alive * 12
+        flops += n_live * SHADE_OPS["roulette"]
+    # the draws of the lanes live after it and not on a delta material,
+    # from the same PCG streams
+    drawn = alive & ~((out.mat.type == 0) | (out.mat.type == 2))
+    state, _ = R.next_float(draw.rng)
+    env = draw.env
+    em = scene.emitters
+    for k in range(n_samples):
+        state, r2 = R.next_float2(state)
+        r2 = r2[drawn]
+        traced = out.lights.lane[k]
+        nb += count(traced) * 56  # the sample and its shadow ray out
+        if k < draw.env_samples:
+            if env.size > 1:
+                nb += _alias_bytes(env.select, env.alias,
+                                   env.size * env.size, r2[:, 0], 16)[0]
+            else:
+                nb += 16
+            flops += count(drawn) * SHADE_OPS["draw_env"][
+                0 if env.size > 1 else 1]
+            continue
+        taken, slot = _alias_bytes(em.select, em.alias, max(em.count, 1),
+                                   r2[:, 0], 100)
+        nb += taken
+        flops += count(drawn) * SHADE_OPS["draw_mesh"]
+        if not atlas.emissive_constant:
+            rows_em = em.rows[torch.clamp(slot, 0, em.rows.shape[0] - 1)]
+            flops += count(drawn) * SHADE_OPS["draw_mesh_atlas"]
+            s = torch.sqrt(torch.clamp_min(1.0 - r2[:, 0], 0.0))
+            bary = torch.stack([1.0 - s, r2[:, 1] * s], -1)
+            uv = shade._interp(bary[:, 0], bary[:, 1],
+                               rows_em[:, 9:15].reshape(-1, 3, 2))
+            nb += _distinct(_atlas_taps(atlas.emissive, rows_em[:, 18:22],
+                                        uv)) * 6
+    return nb, flops
+
+
+def shade_work(key, args, out):
+    """(bytes, float operations) the shading function must move and do
+    for these inputs, given its outputs `out`: each output written once,
+    on the lanes it is written on; each lane input read once, on the lanes
+    whose outputs depend on it (a dead lane's state, a hit lane's env
+    inputs, an untraced or occluded light sample are not read); each
+    distinct shading row (the fields the form reads), instance transform,
+    atlas texel, env texel, emitter row and alias bucket the lanes reach,
+    once; SHADE_OPS' operations on the lanes that need them."""
+    import torch
+
+    count = lambda mask: int(mask.sum())
+    name = key.split("/")[0]
+    if name == "surface":
+        return _surface_work(args, out)
     if name == "scatter":
-        surf, o, d, thr, rad, rng, active, lights = args
+        surf, o, d, thr, rad, rng, active, lights = args[:8]
         n = active.shape[0]
         mtype = surf.mat.type.to(torch.int64)
         ops_of = lambda lanes, ops: int(
             (torch.bincount(mtype[lanes], minlength=4)[:4]
              * torch.tensor(ops, device=mtype.device)).sum())
         go = out["active"]
-        # every lane: the material's scalars, w_o_ss, throughput,
-        # radiance, rng and mask in, the outputs out
-        nb = n * (16 + 12 + 12 + 12 + 8 + 1) + n * 62
-        flops = ops_of(torch.ones_like(go), SHADE_OPS["scatter_draw"])
+        live = active
+        # every lane: its mask in and out; a live lane: the material,
+        # w_o_ss, throughput, radiance and rng in and out, last_pdf and
+        # last_delta out
+        nb = n * 2 + count(live) * (28 + 12 + 12 + 24 + 16 + 5)
+        flops = ops_of(live, SHADE_OPS["scatter_draw"])
         weighted = torch.zeros_like(go)
-        for light in lights:
-            seen = light.lane & ~light.occluded
-            need = seen & (light.pdf > 0.0)
-            nb += (n + count(light.lane) + 4 * count(seen)
-                   + 24 * count(need))
+        for k in range(0 if lights is None else lights.pdf.shape[0]):
+            lane = lights.lane[k] & live
+            seen = lane & ~lights.occluded[k]
+            need = seen & (lights.pdf[k] > 0.0)
+            nb += count(live) + count(lane) + 4 * count(seen) + 24 * count(
+                need)
             flops += ops_of(need, SHADE_OPS["scatter_light"])
             weighted |= need
-        # the frame and colour where a sample is weighted or the path
-        # goes on; there the new ray's inputs, elsewhere the old ray
-        nb += count(go | weighted) * (36 + 12) + count(go) * 24
-        nb += count(~go) * 24
+        # the frame where a sample is weighted or the path goes on; there
+        # the new ray's inputs (position, tri_n) and outputs (o, d,
+        # throughput)
+        nb += count(go | weighted) * 36 + count(go) * (24 + 36)
         flops += ops_of(go, SHADE_OPS["scatter_ray"])
         return nb, flops
     if name == "env_miss":
-        env, samples, _, d, active, tri, thr, rad, lp, ld = args
+        env, samples, _, d, active, tri, thr, rad, lp, ld = args[:10]
         n = active.shape[0]
         miss = active & ~(tri >= 0)
         n_miss = count(miss)
@@ -2438,83 +2460,70 @@ def shade_work(name, args, out):
         else:
             nb += _distinct(_env_taps(env, d[miss])) * 16
         return nb, flops
-    from moonshine_tpu_torch.core import alias_table
-
     env, rand2 = args
     n = rand2.shape[0]
     nb = n * (8 + 28)
     if env.size == 1:
         return nb + 16, n * SHADE_OPS["env_draw"][1]
-    texels = env.size * env.size
-    idx = torch.clamp_max((rand2[:, 0] * float(texels)).to(torch.int64),
-                          texels - 1)
-    texel, _ = alias_table.sample(env.select, env.alias, texels,
-                                  rand2[:, 0])
-    nb += (_distinct(idx) * 4 + _distinct(idx[texel != idx]) * 8
-           + _distinct(texel) * 16)
+    nb += _alias_bytes(env.select, env.alias, env.size * env.size,
+                       rand2[:, 0], 16)[0]
     return nb, n * SHADE_OPS["env_draw"][0]
 
 
 def shade_phase(cells, timings, errs):
     """The shading kernels (csrc/shade.cu) at the 1080p main path's
     shapes: one eager sample of each cell (room_1080p, instanced_1080p)
-    recorded, and the first launch of each kernel and form (2,073,600
-    lanes: the first segment's; the thin form at the last segment's)
-    replayed through the kernel and through its plain version on the
-    same inputs, every output held bit for bit, both timed, with the
-    bound from the bytes and operations of these inputs. The kernels
-    line takes room_1080p's full surface form and its other kernels."""
+    recorded (scripts/compare_shade.py `recording`), and the first launch
+    of each kernel and form (2,073,600 lanes: the first segment's; the
+    thin form at the last segment's) replayed through the kernel and
+    through its plain version on the same inputs, every output held bit
+    for bit on the lanes the kernel writes it (`held`), both timed (the
+    kernel's in-place inputs restored before each launch), with the bound
+    from the bytes and operations of these inputs and the earlier form's
+    recorded time beside. The env draw, on the direct integrator's path since the
+    surface draws a bounce's samples, runs on 2,073,600 seeded uniforms.
+    The kernels line takes room_1080p's full surface form and its other
+    kernels."""
     import torch
 
     from moonshine_tpu_torch.integrator import shade
-    from moonshine_tpu_torch.render.renderer import render_spp
+    from moonshine_tpu_torch.scripts import compare_shade as CS
 
     plain = {"surface": shade.surface_plain, "scatter": shade.scatter_plain,
              "env_miss": shade.env_miss_plain,
              "env_draw": shade.env_draw_plain}
     for cell, (scene, lens, cfg) in cells.items():
-        with shade_recording() as rec:
-            render_spp(scene, lens, HD[0], HD[1], 7, 1, cfg)
-        torch.cuda.synchronize()
+        rec = CS.record_sample(scene, lens, cfg)
+        if set(rec) != {"surface/full", "surface/thin", "scatter",
+                        "env_miss"}:
+            raise AssertionError(f"{cell}: recorded {sorted(rec)}")
+        n = rec["env_miss"][1][3].shape[0]
+        rand2 = torch.from_numpy(np.random.RandomState(5).rand(n, 2).astype(
+            np.float32)).to(scene.device)
+        rec["env_draw"] = ("env_draw", (scene.env, rand2), {})
         for key in sorted(rec):
-            name, args = rec[key]
-            kern = lambda: getattr(shade, name)(*args)
-            ref = lambda: plain[name](*args)
-            got, want = shade_outputs(kern()), shade_outputs(ref())
-            n = next(iter(want.values())).shape[0]
-            worst = 0.0
-            diffs = []
-            for k, w in want.items():
-                g = got[k]
-                w = w.contiguous()
-                if g.dtype == torch.float32:
-                    same = (torch.isnan(g) & torch.isnan(w)) | (
-                        g.view(torch.int32) == w.view(torch.int32))
-                    err = float(torch.nan_to_num(
-                        (g.double() - w.double()).abs(), nan=0.0).max())
-                    rel = float(torch.nan_to_num(
-                        ((g.double() - w.double()).abs()
-                         / w.double().abs().clamp_min(1e-30)),
-                        nan=0.0).max())
-                else:
-                    same = g == w
-                    err = rel = float((g != w).sum())
-                bad = int((~same).sum())
-                worst = max(worst, err)
-                if bad:
-                    diffs.append(f"{k}: {bad} of {same.numel()} differ, max "
-                                 f"abs {err:.3g}, max rel {rel:.3g}")
-            ms = cuda_ms(kern, 20)
-            plain_ms = cuda_ms(ref, 3)
-            nb, flops = shade_work(name, args, want)
+            name, args, kw = rec[key]
+            kernel = getattr(shade, name)
+            got = kernel(*CS.fresh(name, args), **CS.clone(kw))
+            want = plain[name](*args, **kw)
+            diffs, worst = CS.compare(key, args, got, want)
+            work = CS.fresh(name, args)
+            ms = CS.time_inplace(CS.call(kernel, work, CS.clone(kw)), work,
+                                 args, 20)
+            plain_ms = cuda_ms(CS.call(plain[name], args, kw), 3)
+            nb, flops = shade_work(key, args, want)
             t_bytes, t_ops = nb / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
             by = "operations" if t_ops >= t_bytes else "bytes"
+            before = EARLIER_MS.get((cell, key))
             say("shade", f"{cell} {key} on {n} lanes: kernel "
-                + ("= plain bit for bit (" + ", ".join(want) + ")"
-                   if not diffs else "differs: " + "; ".join(diffs))
-                + f"; kernel {ms:.4f} ms, plain torch {plain_ms:.3f} ms, "
-                f"bound {max(t_bytes, t_ops):.4f} ms by {by} ({nb / 1e6:.2f}"
-                f" MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> "
+                + ("= plain bit for bit (" + ", ".join(CS.outputs(want))
+                   + ")" if not diffs else "differs: " + "; ".join(diffs))
+                + f"; kernel {ms:.4f} ms"
+                + (f" (earlier form {before:.4f} ms, PERF.md)" if before
+                   else "")
+                + f", plain torch {plain_ms:.3f} ms, bound "
+                f"{max(t_bytes, t_ops):.4f} ms by {by} ({nb / 1e6:.2f} MB ->"
+                f" {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> "
                 f"{t_ops:.4f} ms); no single PyTorch call computes it, so no "
                 f"library time")
             if diffs:
@@ -2522,14 +2531,10 @@ def shade_phase(cells, timings, errs):
                                      "its plain version")
             if cell == "room_1080p" and key in ("surface/full", "scatter",
                                                 "env_miss", "env_draw"):
-                kname = name
-                timings[kname] = dict(ms=ms, plain_ms=plain_ms,
-                                      bound_ms=max(t_bytes, t_ops),
-                                      bound_by=by)
-                errs[kname] = worst
-        if set(rec) != {"surface/full", "surface/thin", "scatter",
-                        "env_miss", "env_draw"}:
-            raise AssertionError(f"{cell}: recorded {sorted(rec)}")
+                timings[name] = dict(ms=ms, plain_ms=plain_ms,
+                                     bound_ms=max(t_bytes, t_ops),
+                                     bound_by=by)
+                errs[name] = worst
 
 
 def graphs_phase(cells):
@@ -2975,12 +2980,11 @@ def main():
                 or counts["treelet_pending"]
                 or counts["surface"] != segs or counts["env_miss"] != segs
                 or counts["scatter"] != counts["any_hit"]
-                or counts["env_draw"] != counts["any_hit"]):
+                or counts["env_draw"]):
             raise AssertionError(f"room_1080p launches {counts}, segments "
                                  f"{segs}")
         launches.update({k: counts[k] for k in (
-            "closest_hit", "any_hit", "surface", "scatter", "env_miss",
-            "env_draw")})
+            "closest_hit", "any_hit", "surface", "scatter", "env_miss")})
 
     with phase("treelet_1080p"):
         with env(MSN_TREELETS="1"):
@@ -3045,6 +3049,8 @@ def main():
 
     with phase("direct"):
         direct_phase(*scenes["room_184k/default"], slice_launches)
+        # the env draw's path: a bounce's samples are the surface's now
+        launches["env_draw"] = slice_launches["direct_shading"]["env_draw"]
 
     with phase("sharded"):
         sharded_phase(*scenes["room_184k/default"], dev, slice_launches)

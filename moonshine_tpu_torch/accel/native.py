@@ -173,24 +173,25 @@ class TlasLib(NativeLib):
 
 
 class ShadeLib(NativeLib):
-    """shade.cu's entry points: the surface, scatter, env miss and env
-    draw kernels (integrator/shade.py), and the most NEE samples one
-    scatter launch weighs."""
+    """shade.cu's entry points: the surface (with the bounce's light
+    draw), scatter, env miss and env draw kernels
+    (integrator/shade.py)."""
 
     def __init__(self, *args):
         super().__init__(*args)
         self.surface = self._fn(
             "msn_shade_surface",
             [_I, _I, _P, _L, _P, _P, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I,
-             _I, _F] + [_P] * 12 + [_L] + [_P] * 13 + [_P])
+             _I, _F] + [_P] * 12 + [_L] + [_P] * 11
+            + [_I, _L, _I, _P, _P, _P, _P, _I, _F, _P, _L, _P, _P, _I,
+               _I] + [_P] * 8)
         self.scatter = self._fn(
-            "msn_shade_scatter", [_P] * 17 + [_I, _P, _P, _I, _L] + [_P] * 9)
+            "msn_shade_scatter", [_P] * 17 + [_I, _I, _L] + [_P] * 9)
         self.env_miss = self._fn(
             "msn_shade_env_miss", [_P, _I, _F, _I] + [_P] * 8 + [_L, _P, _P])
         self.env_draw = self._fn(
             "msn_shade_env_draw", [_P, _P, _P, _I, _F, _P, _L, _P, _P, _P,
                                    _P])
-        self.max_lights = int(self._fn("msn_shade_max_lights", [])())
 
 
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,

@@ -20,6 +20,7 @@ from ..core.mappings import (
     spherical_to_cartesian,
     square_to_cosine_hemisphere,
 )
+from ..core import mathutil as M
 from ..core.mathutil import AIR_IOR, PI, dot, safe_normalize
 
 GLASS = 0
@@ -53,7 +54,7 @@ def ggx_d(alpha, m):
 
 def _ggx_lambda(alpha, v):
     t2 = tan2_theta(v)
-    return (torch.sqrt(1.0 + alpha * alpha * t2) - 1.0) / 2.0
+    return (M.sqrt(1.0 + alpha * alpha * t2) - 1.0) / 2.0
 
 
 def ggx_g(alpha, w_i, w_o):
@@ -64,8 +65,8 @@ def ggx_sample(alpha, w_o, square):
     tan2 = alpha * alpha * square[..., 0] / torch.clamp_min(
         1.0 - square[..., 0], 1e-8)
     cos2 = 1.0 / (1.0 + tan2)
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos2, 0.0))
-    cos_t = torch.sqrt(cos2)
+    sin_t = M.sqrt(torch.clamp_min(1.0 - cos2, 0.0))
+    cos_t = M.sqrt(cos2)
     phi = 2.0 * PI * square[..., 1]
     h = spherical_to_cartesian(sin_t, cos_t, phi)
     return torch.where(same_hemisphere(w_o, h)[..., None], h, -h)
@@ -82,7 +83,7 @@ def schlick_r0(eta_i, eta_t):
 
 
 def schlick_weight(c):
-    return (1.0 - c) ** 5
+    return M.pow(1.0 - c, 5)
 
 
 def schlick_scalar(cos_t, r0):
@@ -104,10 +105,10 @@ def fresnel_dielectric(cos_theta_i, eta_i, eta_t):
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     c = torch.abs(c)
-    sin_i = torch.sqrt(torch.clamp_min(1.0 - c * c, 0.0))
+    sin_i = M.sqrt(torch.clamp_min(1.0 - c * c, 0.0))
     sin_t = ei / et * sin_i
     tir = sin_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin_t * sin_t, 0.0))
+    cos_t = M.sqrt(torch.clamp_min(1.0 - sin_t * sin_t, 0.0))
     r_parl = (et * c - ei * cos_t) / torch.clamp_min(et * c + ei * cos_t,
                                                      1e-12)
     r_perp = (ei * c - et * cos_t) / torch.clamp_min(ei * c + et * cos_t,
@@ -195,8 +196,8 @@ def disney_diffuse_pdf(w_i, w_o):
 def disney_diffuse_eval(color, roughness, w_i, w_o):
     h = safe_normalize(w_i + w_o)
     cos_hi = dot(w_i, h, keepdims=False)
-    f_i = (1.0 - torch.abs(cos_theta(w_i))) ** 5
-    f_o = (1.0 - torch.abs(cos_theta(w_o))) ** 5
+    f_i = M.pow(1.0 - torch.abs(cos_theta(w_i)), 5)
+    f_o = M.pow(1.0 - torch.abs(cos_theta(w_o)), 5)
     r_r = 2.0 * roughness * cos_hi * cos_hi
     retro = r_r * (f_i + f_o + f_i * f_o * (r_r - 1.0))
     scale = (1.0 - f_i / 2.0) * (1.0 - f_o / 2.0) + retro
@@ -223,7 +224,7 @@ def _refract_dir(wi, n, eta):
     sin2_i = torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
     sin2_t = eta * eta * sin2_i
     valid = sin2_t < 1.0
-    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    cos_t = M.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
     d = eta[..., None] * -wi + (eta * cos_i - cos_t)[..., None] * n
     return torch.where(valid[..., None], d, _zeros(d)), valid
 

@@ -6,6 +6,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import mathutil as M
 from .mathutil import coordinate_system, cross, dot, safe_normalize
 
 
@@ -57,7 +58,7 @@ def sin2_theta(v):
 
 
 def sin_theta(v):
-    return torch.sqrt(sin2_theta(v))
+    return M.sqrt(sin2_theta(v))
 
 
 def tan2_theta(v):

@@ -5,12 +5,13 @@ from __future__ import annotations
 
 import torch
 
+from . import mathutil as M
 from .mathutil import PI
 
 
 def square_to_triangle(square):
     """Uniform barycentric (a, b) on the standard triangle."""
-    s = torch.sqrt(torch.clamp_min(1.0 - square[..., 0], 0.0))
+    s = M.sqrt(torch.clamp_min(1.0 - square[..., 0], 0.0))
     a = 1.0 - s
     b = square[..., 1] * s
     return torch.stack([a, b], dim=-1)
@@ -20,9 +21,9 @@ def square_to_gaussian(square):
     """Box-Muller standard 2D Gaussian."""
     u1 = 1.0 - square[..., 0]
     u2 = square[..., 1]
-    r = torch.sqrt(-2.0 * torch.log(torch.clamp_min(u1, 1e-38)))
+    r = M.sqrt(-2.0 * M.log(torch.clamp_min(u1, 1e-38)))
     theta = 2.0 * PI * u2
-    return r[..., None] * torch.stack([torch.cos(theta), torch.sin(theta)],
+    return r[..., None] * torch.stack([M.cos(theta), M.sin(theta)],
                                       dim=-1)
 
 
@@ -43,37 +44,37 @@ def square_to_uniform_disk_concentric(square):
     )
     at_origin = (ux == 0.0) & (uy == 0.0)
     r = torch.where(at_origin, torch.zeros_like(r), r)
-    return r[..., None] * torch.stack([torch.cos(theta), torch.sin(theta)],
+    return r[..., None] * torch.stack([M.cos(theta), M.sin(theta)],
                                       dim=-1)
 
 
 def square_to_cosine_hemisphere(square):
     """Cosine-weighted upper hemisphere via the disk warp."""
     d = square_to_uniform_disk_concentric(square)
-    z = torch.sqrt(torch.clamp_min(1.0 - torch.sum(d * d, dim=-1), 0.0))
+    z = M.sqrt(torch.clamp_min(1.0 - torch.sum(d * d, dim=-1), 0.0))
     return torch.cat([d, z[..., None]], dim=-1)
 
 
 def square_to_uniform_hemisphere(square):
     """Uniform upper hemisphere: z = u, phi = 2 pi v."""
     z = square[..., 0]
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = M.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = 2.0 * PI * square[..., 1]
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+    return torch.stack([r * M.cos(phi), r * M.sin(phi), z], -1)
 
 
 def spherical_to_cartesian(sin_theta, cos_theta, phi):
     return torch.stack(
-        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta],
+        [sin_theta * M.cos(phi), sin_theta * M.sin(phi), cos_theta],
         dim=-1,
     )
 
 
 def cartesian_to_spherical(v):
     """(phi in [0, 2pi], theta in [0, pi]) of a unit vector."""
-    p = torch.atan2(v[..., 1], v[..., 0])
+    p = M.atan2(v[..., 1], v[..., 0])
     phi = torch.where(p < 0.0, p + 2.0 * PI, p)
-    theta = torch.acos(torch.clamp(v[..., 2], -1.0, 1.0))
+    theta = M.acos(torch.clamp(v[..., 2], -1.0, 1.0))
     return torch.stack([phi, theta], dim=-1)
 
 
@@ -92,12 +93,12 @@ def square_to_equal_area_sphere(square):
         + 1.0,
     ) * (PI / 4.0)
     z_mag = 1.0 - r * r
-    planar = r * torch.sqrt(torch.clamp_min(2.0 - r * r, 0.0))
+    planar = r * M.sqrt(torch.clamp_min(2.0 - r * r, 0.0))
     signs = torch.sign(
         torch.stack([uv[..., 0], uv[..., 1], signed_distance], dim=-1)
     )
     body = torch.stack(
-        [torch.cos(phi) * planar, torch.sin(phi) * planar, z_mag], dim=-1
+        [M.cos(phi) * planar, M.sin(phi) * planar, z_mag], dim=-1
     )
     return signs * body
 
@@ -106,12 +107,12 @@ def square_to_equal_area_sphere_inverse(dir):
     """Inverse equal-area map: unit direction -> [0, 1]^2."""
     xyz = torch.abs(dir)
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
-    r = torch.sqrt(torch.clamp_min(1.0 - z, 0.0))
+    r = M.sqrt(torch.clamp_min(1.0 - z, 0.0))
     both_zero = (x == 0.0) & (y == 0.0)
     phi = torch.where(
         both_zero,
         torch.zeros_like(x),
-        torch.atan2(torch.minimum(x, y),
+        M.atan2(torch.minimum(x, y),
                     torch.clamp_min(torch.maximum(x, y), 1e-38))
         * (2.0 / PI),
     )

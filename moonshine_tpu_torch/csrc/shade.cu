@@ -1,35 +1,48 @@
-// The bounce's shading, for Hopper (sm_90a): the surface decode, the
-// environment lookups and the BSDF scatter of one bounce segment.
+// The bounce's shading, for Hopper (sm_90a): the surface decode with the
+// bounce's light draw, the environment lookups and the BSDF scatter of one
+// bounce segment.
 //
 // Replaces no pallas_call: on the TPU these are jnp, fused by XLA around
 // the reference's one-hot gathers (moonshine_tpu/core/gather.py:61
 // gather_rows, :78 shift_gather_rows, :126 weighted_gather_rows), which
 // exist so that the per-hit table fetches (shading rows, material rows,
-// atlas and env texels) run at the chip's speed next to the math that
-// consumes them. Here each stage is one kernel, one thread a lane:
+// atlas and env texels, emitter rows) run at the chip's speed next to the
+// math that consumes them. Here each stage is one kernel, one thread a
+// lane:
 //
 //   surface   moonshine_tpu/integrator/path.py:424-485 with :119-256 (the
 //             tri_shade row fetch, the two-level instance transform, the
 //             interpolation and frames, the material row or its 4-tap
 //             atlas fetch, the normal-map frame, the shading-normal
-//             selection and the emissive term with its MIS weight); a thin
-//             form for the last segment and the direct integrator's form
-//   scatter   path.py:518-623 and bsdf/materials.py:278-370 (each light
+//             selection and the emissive term with its MIS weight); in the
+//             full form then :503-573 (the max-bounce cut, the roulette,
+//             each env sample as env_draw draws it and each mesh-light
+//             sample, lights/mesh_lights.py:29-71 with core/gather.py:61's
+//             emitter-row fetch and _emissive_at, and its shadow ray into
+//             the [S * N] batch the any-hit launch takes); a thin form for
+//             the last segment and the direct integrator's form
+//   scatter   path.py:583-623 and bsdf/materials.py:278-370 (each light
 //             sample's occlusion, frame change, eval+pdf and power
 //             heuristic; the PCG draw, the BSDF sample and eval, the new
 //             ray and throughput)
 //   env_miss  path.py:371-381 with lights/envmap.py:141-206 (equal-area
 //             inverse, texel row, 4-tap bilinear, MIS weight)
 //   env_draw  lights/envmap.py:120-138 (alias draw, texel row, equal-area
-//             forward map, pdf)
+//             forward map, pdf): the direct integrator's draw
 //
-// What bounds them on this card: bytes. Each lane reads its state and one
-// 192-byte shading row (plus atlas texels or instance transforms) and
-// writes its outputs once; the arithmetic is a few hundred flops a lane,
-// below the H100's 20 flops a byte. The design keeps every intermediate
-// (corners, frames, BSDF terms, MIS weights) in registers, where the
-// plain torch version writes and reads a whole [N] or [N, 3] tensor for
-// each of ~1,750 ops a segment. The tagged union is a switch on the
+// What bounds them on this card: bytes. Each live lane reads its state and
+// one 192-byte shading row (plus atlas texels, instance transforms, env
+// texels and emitter rows) and writes its outputs once; the arithmetic is
+// a few hundred flops a lane, below the H100's 20 flops a byte. The design
+// keeps every intermediate (corners, frames, BSDF terms, light samples,
+// MIS weights) in registers, where the plain torch version writes and
+// reads a whole [N] or [N, 3] tensor for each op. What it does about the
+// bytes: a lane dead on entry reads its mask and leaves (the surface
+// clears its shadow lanes, the scatter its mask); the lane state is
+// updated in place, so a lane writes only what changes; a light sample's
+// inputs are read only where its ray was traced and not occluded; an
+// [N, 3] value moves as an 8-byte and a 4-byte access (`load3`), the
+// material row as four float4s. The tagged union is a switch on the
 // material type, not all four models and three selects.
 //
 // Numerics: each operation is the one the plain torch version runs on the
@@ -44,8 +57,9 @@
 // Constants are the plain version's Python doubles cast to float32.
 // sqrt, rsqrt, sin, cos, atan2, pow and floor are the CUDA math
 // functions torch's kernels call. So the kernels equal the plain version
-// bit for bit, dead lanes included (they read a clamped row as torch's
-// gather does), which the tests and chip_smoke.py check.
+// bit for bit on every lane they write (the direct form's dead lanes read
+// a clamped row as torch's gather does), which the tests and
+// chip_smoke.py check.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +68,6 @@
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kMaxLights = 8;
 
 // mathutil.PI and the products the plain version forms in Python doubles
 constexpr float kPi = (float)3.14159265;
@@ -94,13 +107,27 @@ __device__ __forceinline__ V3 operator/(V3 a, float s) {
   return v3(a.x / s, a.y / s, a.z / s);
 }
 
+// A lane's [N, 3] value as two accesses, an 8-byte one where it is
+// aligned: at an even lane the first two floats, at an odd one the last
+// two (torch's allocations are aligned far beyond 8 bytes)
 __device__ __forceinline__ V3 load3(const float* p, long long i) {
-  return v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]);
+  const float* q = p + 3 * i;
+  if ((reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+    const float2 a = *reinterpret_cast<const float2*>(q);
+    return v3(a.x, a.y, q[2]);
+  }
+  const float2 b = *reinterpret_cast<const float2*>(q + 1);
+  return v3(q[0], b.x, b.y);
 }
 __device__ __forceinline__ void store3(float* p, long long i, V3 v) {
-  p[3 * i] = v.x;
-  p[3 * i + 1] = v.y;
-  p[3 * i + 2] = v.z;
+  float* q = p + 3 * i;
+  if ((reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+    *reinterpret_cast<float2*>(q) = make_float2(v.x, v.y);
+    q[2] = v.z;
+  } else {
+    q[0] = v.x;
+    *reinterpret_cast<float2*>(q + 1) = make_float2(v.y, v.z);
+  }
 }
 
 // torch.clamp_min / clamp on the card: NaN passes through
@@ -574,30 +601,136 @@ __device__ __forceinline__ V3 interp(float u, float v, V3 a, V3 b, V3 c) {
   return (a * b0 + b * u) + c * v;
 }
 
+// sample_envmap (lights/envmap.py:120-138): the alias draw, the texel
+// row, the equal-area forward map and the pdf
+__device__ __forceinline__ void env_sample(const Env& e, float r0, float r1,
+                                           V3* dir, V3* rad, float* pdf) {
+  if (e.size == 1) {
+    *dir = equal_area_sphere(r0, r1);
+    *rad = rgb_at(e, 0);
+    *pdf = kUniformPdf;
+    return;
+  }
+  const long long S = e.size, count = S * S;
+  // alias_table.sample
+  const float scaled = r0 * (float)count;
+  long long idx = (long long)scaled;
+  idx = idx > count - 1 ? count - 1 : idx;
+  const float rr = scaled - floorf(scaled);
+  float ru;
+  const long long texel = coin_flip(e.select[idx], rr, &ru) ? idx
+                                                             : e.alias[idx];
+  const long long ix = texel / S;
+  const long long iy = texel - ix * S;
+  const float4 row = reinterpret_cast<const float4*>(e.rgbl)[texel];
+  const float discrete_pdf = (row.w * (float)count) * e.inv_integral;
+  const float inv_s = 1.0f / (float)S;
+  *dir = equal_area_sphere(((float)ix + ru) * inv_s, ((float)iy + r1) * inv_s);
+  *rad = v3(row.x, row.y, row.z);
+  *pdf = discrete_pdf * kInv4PiDiv;
+}
+
+struct Emitters {  // the packed emitter rows and their alias table
+  const float* rows;  // [R, 25]
+  long long num_rows;
+  const float* select;  // [count]
+  const long long* alias;
+  int count;  // max(emitters, 1)
+  int empty;  // no emitter: every sample's pdf is 0
+};
+
+// sample_mesh_lights (lights/mesh_lights.py) with _emissive_at: the
+// alias pick, the emitter row, the barycentrics, the light point and
+// normal, the direction, the solid-angle pdf and the emission
+__device__ __forceinline__ void mesh_sample(const Scene& sc, const Emitters& em,
+                                            V3 position, float r0, float r1,
+                                            V3* dir, V3* l_pos, V3* l_n,
+                                            V3* rad, float* pdf) {
+  const float scaled = r0 * (float)em.count;
+  long long idx = (long long)scaled;
+  idx = idx > em.count - 1 ? em.count - 1 : idx;
+  const float rr = scaled - floorf(scaled);
+  float rx;
+  long long slot = coin_flip(em.select[idx], rr, &rx) ? idx : em.alias[idx];
+  slot = slot < 0 ? 0 : (slot > em.num_rows - 1 ? em.num_rows - 1 : slot);
+  const float* row = em.rows + 25 * slot;
+  // square_to_triangle
+  const float s = sqrtf(cmin(1.0f - rx, 0.0f));
+  const float ba = 1.0f - s, bb = r1 * s;
+  const V3 c0 = v3(row[0], row[1], row[2]);
+  const V3 c1 = v3(row[3], row[4], row[5]);
+  const V3 c2 = v3(row[6], row[7], row[8]);
+  const float b0 = (1.0f - ba) - bb;
+  *l_pos = (c0 * b0 + c1 * ba) + c2 * bb;
+  *l_n = safe_normalize(cross(c0 - c2, c1 - c2));
+  *dir = safe_normalize(*l_pos - position);
+  // area_to_solid_angle(l_pos, position, dir, l_n) / max(weight_sum, 1e-20)
+  const V3 diff = *l_pos - position;
+  const float r2 = dot(diff, diff);
+  const float light_cos = dot(-*dir, *l_n);
+  const float a2s = light_cos > 0.0f ? r2 / cmin(light_cos, 1e-20f) : 0.0f;
+  *pdf = em.empty ? 0.0f : a2s * sc.inv_weight_sum;
+  if (sc.emissive_constant) {
+    *rad = v3(row[15], row[16], row[17]);
+  } else {  // the emissive atlas at the sample's uv
+    const float uv_u = (row[9] * b0 + row[11] * ba) + row[13] * bb;
+    const float uv_v = (row[10] * b0 + row[12] * ba) + row[14] * bb;
+    float e[3];
+    material_block<3>(sc.emissive, row + 18, uv_u, uv_v, e);
+    *rad = v3(e[0], e[1], e[2]);
+  }
+}
+
 struct Lanes {  // the surface kernel's per-lane inputs
   const int* tri;
   const float *u, *v;
   const int* inst;
   const float *o, *d;
-  const bool* active;
-  const float *throughput, *radiance, *last_pdf;
+  bool* active;  // in place: the thin form clears it, the draw applies the
+                 // cut and the roulette
+  float* throughput;  // in place: the roulette's scale
+  float* radiance;  // in place: the emission added
+  const float* last_pdf;
   const bool* last_delta;
   const long long* bounce;
 };
 
-struct SurfaceOut {
+struct SurfaceOut {  // the decoded hit, on the lanes live at the hit
   float *position, *tri_n, *fn, *fs, *ft, *w_o_ss;
   int* type;
   float *color, *metal, *alpha, *ior;
-  float* radiance;
-  bool* active;  // the thin form's: every lane dies
 };
 
+struct Draw {  // the full form's light draw (integrator.hlsl:126-151)
+  int env_samples, mesh_samples;
+  long long max_bounces;
+  int roulette;  // bounce > 3, decided on the host
+  long long* rng;  // in place
+  Env env;
+  Emitters em;
+  // the light samples [S, n] in draw order (env samples first) and their
+  // shadow rays [S * n], written where the ray is traced (lane)
+  float *dir, *rad, *pdf;
+  float *sh_o, *sh_d, *sh_t;
+  bool* sh_lane;  // every lane
+};
+
+// The surface kernel: decode the hit, pick the shading frame and add the
+// emission (integrator.hlsl:93-124); in the full form then the
+// max-bounce cut, the roulette and every NEE light sample with its shadow
+// ray (:126-151). A lane dead at the hit only clears its shadow lanes (the
+// direct form still decodes every lane, as its caller reads them all).
 template <int kMode, bool kTwoLevel>
 __global__ void __launch_bounds__(kBlock)
-    surface_kernel(Scene sc, Lanes in, SurfaceOut out, long long n) {
+    surface_kernel(Scene sc, Lanes in, SurfaceOut out, Draw dr, long long n) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
+  const bool active = in.active[i];
+  const int n_samples = kMode == kFull ? dr.env_samples + dr.mesh_samples : 0;
+  if (kMode != kDirect && !active) {
+    for (int k = 0; k < n_samples; ++k) dr.sh_lane[k * n + i] = false;
+    return;
+  }
   long long tri = in.tri[i];
   tri = tri < 0 ? 0 : (tri > sc.num_tris - 1 ? sc.num_tris - 1 : tri);
   const float* row = sc.tri_shade + 48 * tri;
@@ -615,7 +748,13 @@ __global__ void __launch_bounds__(kBlock)
   const bool sampled = row[25] > 0.5f;
   float mrow[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) mrow[k] = row[32 + k];
+  for (int k = 0; k < 4; ++k) {  // the material row: 16-byte aligned
+    const float4 q = reinterpret_cast<const float4*>(row + 32)[k];
+    mrow[4 * k] = q.x;
+    mrow[4 * k + 1] = q.y;
+    mrow[4 * k + 2] = q.z;
+    mrow[4 * k + 3] = q.w;
+  }
 
   float det_sign = 1.0f;
   if (kTwoLevel) {  // _inst_world
@@ -659,10 +798,9 @@ __global__ void __launch_bounds__(kBlock)
     emissive = v3(e[0], e[1], e[2]);
   }
   const V3 w_o = -load3(in.d, i);
-  const bool active = in.active[i];
   V3 rad = load3(in.radiance, i);
 
-  Frame frame;
+  int type = 0;
   if (kMode != kThin) {
     // _tangent_bitangent
     const float dt02u = uvs[0] - uvs[4], dt02v = uvs[1] - uvs[5];
@@ -702,7 +840,7 @@ __global__ void __launch_bounds__(kBlock)
       nrg0 = blk[5];
       nrg1 = blk[6];
     }
-    const int type = (int)mrow[0];
+    type = (int)mrow[0];
     const float alpha = cmin(rough * rough, 1e-3f);
 
     // the shading-normal selection (integrator.hlsl:93-104)
@@ -719,7 +857,7 @@ __global__ void __launch_bounds__(kBlock)
     if (kMode != kDirect) sgn = dot(tri_f.n, w_o) > 0.0f ? 1.0f : -1.0f;
     const bool vtx_ok = sgn * dot(w_o, vtx_f.n) > 0.0f;
     const bool tex_ok = textured && sgn * dot(w_o, tex_f.n) > 0.0f;
-    frame = tex_ok ? tex_f : (vtx_ok ? vtx_f : tri_f);
+    const Frame frame = tex_ok ? tex_f : (vtx_ok ? vtx_f : tri_f);
     store3(out.position, i, position);
     store3(out.tri_n, i, tri_n);
     store3(out.fn, i, frame.n);
@@ -733,19 +871,19 @@ __global__ void __launch_bounds__(kBlock)
     out.ior[i] = mrow[5];
   }
 
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
   if (kMode == kDirect) {
-    store3(out.radiance, i, rad + (active ? emissive : v3(0.0f, 0.0f, 0.0f)));
+    store3(in.radiance, i, rad + (active ? emissive : zero));
     return;
   }
 
   // the emissive term (integrator.hlsl:109-124)
-  const V3 thr = load3(in.throughput, i);
+  V3 thr = load3(in.throughput, i);
   const long long bounce = *in.bounce;
   const bool emit_plain =
       !sampled || in.last_delta[i] || bounce == 0 || sc.mesh_samples == 0;
   const bool emit_front = dot(w_o, tri_n) > 0.0f;
-  const V3 zero = v3(0.0f, 0.0f, 0.0f);
-  rad = rad + (active && emit_plain && emit_front ? thr * emissive : zero);
+  rad = rad + (emit_plain && emit_front ? thr * emissive : zero);
   if (sc.mesh_samples > 0) {
     // area_to_solid_angle(position, o, d, tri_n) / max(weight_sum, 1e-20)
     const V3 diff = position - load3(in.o, i);
@@ -755,46 +893,108 @@ __global__ void __launch_bounds__(kBlock)
     const float light_pdf = a2s * sc.inv_weight_sum;
     const float w = power2(in.last_pdf[i] * 1.0f,
                            light_pdf * (float)sc.mesh_samples);
-    rad = rad + (active && !emit_plain && light_pdf > 0.0f
-                     ? (thr * emissive) * w
-                     : zero);
+    rad = rad + (!emit_plain && light_pdf > 0.0f ? (thr * emissive) * w
+                                                 : zero);
   }
-  store3(out.radiance, i, rad);
-  if (kMode == kThin) out.active[i] = false;
+  store3(in.radiance, i, rad);
+  if (kMode == kThin) {  // the max-bounce cut kills every lane here
+    in.active[i] = false;
+    return;
+  }
+
+  // the termination (integrator.hlsl:126-135)
+  bool alive = bounce < dr.max_bounces + 1;
+  unsigned state = (unsigned)dr.rng[i];
+  const float rr = next_float(&state);
+  if (dr.roulette) {
+    // luminance, then clamp_max(., 0.95): NaN passes
+    const float lum = (0.2126f * thr.x + 0.7152f * thr.y) + 0.0722f * thr.z;
+    const float p = isnan(lum) ? lum : fminf(lum, 0.95f);
+    alive = alive && !(rr > p);
+    if (alive) {
+      thr = thr / cmin(p, 1e-20f);
+      store3(in.throughput, i, thr);
+    }
+  }
+  if (!alive) {
+    in.active[i] = false;
+    for (int k = 0; k < n_samples; ++k) dr.sh_lane[k * n + i] = false;
+    return;
+  }
+
+  // the NEE draws (integrator.hlsl:139-151): env samples, then mesh ones
+  const bool nee = !(type == kMirror || type == kGlass);
+  for (int k = 0; k < n_samples; ++k) {
+    const float r0 = next_float(&state);
+    const float r1 = next_float(&state);
+    const long long j = k * n + i;
+    if (!nee) {
+      dr.sh_lane[j] = false;
+      continue;
+    }
+    V3 l_dir, l_rad, s_o, s_d;
+    float l_pdf, s_t;
+    if (k < dr.env_samples) {
+      env_sample(dr.env, r0, r1, &l_dir, &l_rad, &l_pdf);
+      s_o = offset_along_normal(position, face_forward(tri_n, l_dir));
+      s_d = l_dir;
+      s_t = 1.0e12f;  // INF_T
+    } else {
+      V3 l_pos, l_n;
+      mesh_sample(sc, dr.em, position, r0, r1, &l_dir, &l_pos, &l_n, &l_rad,
+                  &l_pdf);
+      // the two-ended shadow segment (light.hlsl:149-154)
+      const V3 off_light = offset_along_normal(l_pos, l_n);
+      s_o = offset_along_normal(position, face_forward(tri_n, l_dir));
+      const V3 seg = off_light - s_o;
+      s_t = norm(seg);
+      s_d = seg / cmin(s_t, 1e-20f);
+    }
+    const bool lane = l_pdf > 0.0f;
+    dr.sh_lane[j] = lane;
+    if (!lane) continue;
+    store3(dr.dir, j, l_dir);
+    store3(dr.rad, j, l_rad);
+    dr.pdf[j] = l_pdf;
+    store3(dr.sh_o, j, s_o);
+    store3(dr.sh_d, j, s_d);
+    dr.sh_t[j] = s_t;
+  }
+  dr.rng[i] = (long long)state;
 }
 
-struct Lights {  // the NEE samples of one bounce, in the plain version's order
-  const float* dir[kMaxLights];
-  const float* rad[kMaxLights];
-  const float* pdf[kMaxLights];
-  const bool* lane[kMaxLights];
-  const bool* occluded[kMaxLights];
-  float n[kMaxLights];  // the sample count of the light's kind
-  float inv_n[kMaxLights];  // float32(1 / n): x / n on the card
-  int count;
+struct Lights {  // a bounce's NEE samples [S, n] and their shadow answers
+  const float *dir, *rad, *pdf;
+  const bool *lane, *occluded;
+  int env_samples, mesh_samples;
 };
 
 struct ScatterIn {
   const int* type;
   const float *color, *metal, *alpha, *ior;
   const float *fn, *fs, *ft, *w_o_ss, *position, *tri_n;
-  const float *o, *d, *throughput, *radiance;
-  const long long* rng;
-  const bool* active;
+  const bool* active;  // the lanes live after the cut and the roulette
 };
 
-struct ScatterOut {
+struct State {  // the lane state, updated in place
   bool* active;
   float *o, *d, *throughput, *radiance, *last_pdf;
   bool* last_delta;
   long long* rng;
 };
 
+// The scatter kernel: weight each traced, unoccluded light sample by the
+// power heuristic and add it (integrator.hlsl:139-151), then draw the BSDF
+// sample and continue the path (:153-163). A lane dead before it writes
+// its mask alone; a lane whose path ends writes no ray or throughput.
 __global__ void __launch_bounds__(kBlock)
-    scatter_kernel(ScatterIn in, Lights L, int do_scatter, ScatterOut out,
-                   long long n) {
+    scatter_kernel(ScatterIn in, Lights L, State st, long long n) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
+  if (!in.active[i]) {
+    st.active[i] = false;
+    return;
+  }
   Mat m;
   m.type = in.type[i];
   m.color = load3(in.color, i);
@@ -803,46 +1003,56 @@ __global__ void __launch_bounds__(kBlock)
   m.ior = in.ior[i];
   const Frame f{load3(in.fn, i), load3(in.fs, i), load3(in.ft, i)};
   const V3 wo = load3(in.w_o_ss, i);
-  const V3 thr = load3(in.throughput, i);
-  V3 rad = load3(in.radiance, i);
+  const V3 thr = load3(st.throughput, i);
+  V3 rad = load3(st.radiance, i);
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
 
-  for (int k = 0; k < L.count; ++k) {
-    const float l_pdf = L.occluded[k][i] ? 0.0f : L.pdf[k][i];
-    const V3 wi = to_frame(f, load3(L.dir[k], i));
-    float scatter_pdf;
-    const V3 brdf = eval_pdf_bsdf(m, wi, wo, &scatter_pdf);
-    const float mis = power2(l_pdf * L.n[k], scatter_pdf * 1.0f);
-    const V3 contrib = (load3(L.rad[k], i) * brdf) *
-                       (fabsf(wi.z) * mis / cmin(l_pdf, 1e-30f));
-    const bool ok = L.lane[k][i] && l_pdf > 0.0f && scatter_pdf > 0.0f;
-    rad = rad + (ok ? (thr * contrib) * L.inv_n[k] : zero);
-  }
-  if (!do_scatter) {  // a bounce's samples past kMaxLights: a later launch
-    store3(out.radiance, i, rad);
-    return;
+  const int count = L.env_samples + L.mesh_samples;
+  for (int k = 0; k < count; ++k) {
+    const long long j = k * n + i;
+    // a sample neither traced nor seen adds a zero (ok is false)
+    bool ok = L.lane[j] && !L.occluded[j];
+    const float l_pdf = ok ? L.pdf[j] : 0.0f;
+    ok = ok && l_pdf > 0.0f;
+    V3 add = zero;
+    if (ok) {
+      const float n_k = (float)(k < L.env_samples ? L.env_samples
+                                                  : L.mesh_samples);
+      const V3 wi = to_frame(f, load3(L.dir, j));
+      float scatter_pdf;
+      const V3 brdf = eval_pdf_bsdf(m, wi, wo, &scatter_pdf);
+      const float mis = power2(l_pdf * n_k, scatter_pdf * 1.0f);
+      const V3 contrib = (load3(L.rad, j) * brdf) *
+                         (fabsf(wi.z) * mis / cmin(l_pdf, 1e-30f));
+      // x / n_samples: x * float32(1 / n_samples)
+      if (scatter_pdf > 0.0f) add = (thr * contrib) * (1.0f / n_k);
+    }
+    rad = rad + add;
   }
 
   // the scatter (integrator.hlsl:153-163)
-  unsigned state = (unsigned)in.rng[i];
+  unsigned state = (unsigned)st.rng[i];
   const float sx = next_float(&state);
   const float sy = next_float(&state);
   float pdf;
   const V3 wi = sample_bsdf(m, wo, sx, sy, &pdf);
-  const bool active = in.active[i] && pdf > 0.0f;
-  const V3 new_d = normalize(to_world(f, wi));
-  const V3 new_o = offset_along_normal(load3(in.position, i),
-                                       face_forward(load3(in.tri_n, i), new_d));
-  const V3 fv = eval_bsdf(m, wi, wo);
-  const V3 thr_mul = fv * (fabsf(wi.z) / cmin(pdf, 1e-30f));
-  out.active[i] = active;
-  store3(out.o, i, active ? new_o : load3(in.o, i));
-  store3(out.d, i, active ? new_d : load3(in.d, i));
-  store3(out.throughput, i, active ? thr * thr_mul : thr);
-  store3(out.radiance, i, rad);
-  out.last_pdf[i] = pdf;
-  out.last_delta[i] = m.type == kMirror || m.type == kGlass;
-  out.rng[i] = (long long)state;
+  const bool go_on = pdf > 0.0f;
+  if (go_on) {
+    const V3 new_d = normalize(to_world(f, wi));
+    const V3 new_o = offset_along_normal(load3(in.position, i),
+                                         face_forward(load3(in.tri_n, i),
+                                                      new_d));
+    const V3 fv = eval_bsdf(m, wi, wo);
+    const V3 thr_mul = fv * (fabsf(wi.z) / cmin(pdf, 1e-30f));
+    store3(st.o, i, new_o);
+    store3(st.d, i, new_d);
+    store3(st.throughput, i, thr * thr_mul);
+  }
+  st.active[i] = go_on;
+  store3(st.radiance, i, rad);
+  st.last_pdf[i] = pdf;
+  st.last_delta[i] = m.type == kMirror || m.type == kGlass;
+  st.rng[i] = (long long)state;
 }
 
 struct MissIn {
@@ -902,31 +1112,12 @@ __global__ void __launch_bounds__(kBlock)
                     float* pdf, long long n) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
-  const float r0 = rand2[2 * i], r1 = rand2[2 * i + 1];
-  if (e.size == 1) {
-    store3(dir, i, equal_area_sphere(r0, r1));
-    store3(rad, i, rgb_at(e, 0));
-    pdf[i] = kUniformPdf;
-    return;
-  }
-  const long long S = e.size, count = S * S;
-  // alias_table.sample
-  const float scaled = r0 * (float)count;
-  long long idx = (long long)scaled;
-  idx = idx > count - 1 ? count - 1 : idx;
-  const float rr = scaled - floorf(scaled);
-  float ru;
-  const long long texel = coin_flip(e.select[idx], rr, &ru) ? idx
-                                                             : e.alias[idx];
-  const long long ix = texel / S;
-  const long long iy = texel - ix * S;
-  const float4 row = reinterpret_cast<const float4*>(e.rgbl)[texel];
-  const float discrete_pdf = (row.w * (float)count) * e.inv_integral;
-  const float inv_s = 1.0f / (float)S;
-  store3(dir, i,
-         equal_area_sphere(((float)ix + ru) * inv_s, ((float)iy + r1) * inv_s));
-  store3(rad, i, v3(row.x, row.y, row.z));
-  pdf[i] = discrete_pdf * kInv4PiDiv;
+  V3 l_dir, l_rad;
+  float l_pdf;
+  env_sample(e, rand2[2 * i], rand2[2 * i + 1], &l_dir, &l_rad, &l_pdf);
+  store3(dir, i, l_dir);
+  store3(rad, i, l_rad);
+  pdf[i] = l_pdf;
 }
 
 unsigned blocks(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
@@ -940,19 +1131,27 @@ Env env_of(const float* rgbl, const float* select, const long long* alias,
 
 extern "C" {
 
-// The largest number of NEE samples a bounce may pass to msn_shade_scatter.
-int msn_shade_max_lights() { return kMaxLights; }
-
 // The surface kernel. mode: 0 full, 1 thin (last segment), 2 direct;
 // two_level: the hits carry instances (inst, inst_tf, inst_inv). Scene:
-// tri_shade float32 [T, 48]; inst_tf [I, 13]; inst_inv [I, 12]; the two
-// atlas planes bf16 [rows, 8] with their row stride; flags; the mesh-light
-// sample count and 1 / max(weight_sum, 1e-20) in float32. Lanes: hit tri
-// int32, u, v, inst int32; o, d [n, 3]; active bool; throughput,
-// radiance [n, 3]; last_pdf; last_delta bool; bounce an int64 device
-// scalar (the direct form reads none of o, throughput, last_pdf,
-// last_delta, bounce). Outputs as SurfaceOut (the thin form writes
-// radiance and active only; the direct form all but active).
+// tri_shade float32 [T, 48] (16-byte aligned); inst_tf [I, 13]; inst_inv
+// [I, 12]; the two atlas planes bf16 [rows, 8] with their row stride;
+// flags; the mesh-light sample count and 1 / max(weight_sum, 1e-20) in
+// float32. Lanes: hit tri int32, u, v, inst int32; o, d [n, 3]; active
+// bool; throughput, radiance [n, 3]; last_pdf; last_delta bool; bounce an
+// int64 device scalar (the direct form reads none of o, throughput,
+// last_pdf, last_delta, bounce). In place: radiance (the emission added;
+// the direct form on every lane, the others on the lanes active at the
+// hit), active (the thin form clears it; the draw's cut and roulette),
+// throughput (the roulette). Outputs as SurfaceOut, on the lanes active
+// at the hit (every lane in the direct form; none in the thin form).
+// The draw (the full form's; the others ignore its arguments): env and
+// mesh sample counts, max_bounces, roulette, rng int64 [n] (in place);
+// the env map (rgbl float32 [S*S, 4],
+// 16-byte aligned, select, alias int64, S, 1 / max(integral, 1e-30)); the
+// emitters (rows float32 [R, 25], select, alias int64, max(count, 1),
+// whether there are none); outputs: the samples' dir, radiance [S, n, 3]
+// and pdf [S, n], the shadow rays' origin, direction [S * n, 3] and t_max
+// (written where the ray is traced), and their lanes bool [S * n].
 int msn_shade_surface(int mode, int two_level, const float* tri_shade,
                       long long num_tris, const float* inst_tf,
                       const float* inst_inv, long long num_inst,
@@ -962,14 +1161,22 @@ int msn_shade_surface(int mode, int two_level, const float* tri_shade,
                       int emissive_constant, int normals_flat,
                       int mesh_samples, float inv_weight_sum, const int* tri,
                       const float* u, const float* v, const int* inst,
-                      const float* o, const float* d, const bool* active,
-                      const float* throughput, const float* radiance,
+                      const float* o, const float* d, bool* active,
+                      float* throughput, float* radiance,
                       const float* last_pdf, const bool* last_delta,
                       const long long* bounce, long long n, float* position,
                       float* tri_n, float* fn, float* fs, float* ft,
                       float* w_o_ss, int* type, float* color, float* metal,
-                      float* alpha, float* ior, float* radiance_out,
-                      bool* active_out, void* stream) {
+                      float* alpha, float* ior, int env_samples,
+                      long long max_bounces, int roulette, long long* rng,
+                      const float* env_rgbl, const float* env_select,
+                      const long long* env_alias, int env_size,
+                      float env_inv_integral, const float* emitter_rows,
+                      long long emitter_rows_n, const float* emitter_select,
+                      const long long* emitter_alias, int emitter_count,
+                      int emitters_empty, float* l_dir, float* l_rad,
+                      float* l_pdf, float* sh_o, float* sh_d, float* sh_t,
+                      bool* sh_lane, void* stream) {
   if (n <= 0) return 0;
   Scene sc{tri_shade,
            num_tris,
@@ -988,11 +1195,30 @@ int msn_shade_surface(int mode, int two_level, const float* tri_shade,
   Lanes in{tri, u, v, inst, o, d, active, throughput, radiance, last_pdf,
            last_delta, bounce};
   SurfaceOut out{position, tri_n, fn, fs, ft, w_o_ss, type, color, metal,
-                 alpha, ior, radiance_out, active_out};
+                 alpha, ior};
+  Draw dr{};
+  if (mode == kFull) {
+    dr.env_samples = env_samples;
+    dr.mesh_samples = mesh_samples;
+    dr.max_bounces = max_bounces;
+    dr.roulette = roulette;
+    dr.rng = rng;
+    dr.env = env_of(env_rgbl, env_select, env_alias, env_size,
+                    env_inv_integral);
+    dr.em = Emitters{emitter_rows, emitter_rows_n, emitter_select,
+                     emitter_alias, emitter_count, emitters_empty};
+    dr.dir = l_dir;
+    dr.rad = l_rad;
+    dr.pdf = l_pdf;
+    dr.sh_o = sh_o;
+    dr.sh_d = sh_d;
+    dr.sh_t = sh_t;
+    dr.sh_lane = sh_lane;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = blocks(n);
 #define MSN_SURFACE(M, T) \
-  surface_kernel<M, T><<<g, kBlock, 0, s>>>(sc, in, out, n)
+  surface_kernel<M, T><<<g, kBlock, 0, s>>>(sc, in, out, dr, n)
   if (two_level) {
     if (mode == kFull) MSN_SURFACE(kFull, true);
     else if (mode == kThin) MSN_SURFACE(kThin, true);
@@ -1008,44 +1234,32 @@ int msn_shade_surface(int mode, int two_level, const float* tri_shade,
 
 // The scatter kernel. Lanes: the material (type int32, color [n, 3],
 // metalness, alpha, ior), the shading frame's n, s, t and w_o_ss [n, 3],
-// position and tri_n [n, 3], o, d, throughput, radiance [n, 3], rng int64,
-// active bool. lights: `count` NEE samples, each five device pointers in
-// `ptrs` (dir [n, 3], radiance [n, 3], pdf, lane bool, occluded bool) and
-// its kind's sample count in `counts`; do_scatter 0 adds the samples to
-// the radiance and writes radiance_out alone (the wrapper's launches for
-// a bounce's samples past the first kMaxLights). Outputs: active, o, d,
-// throughput, radiance, last_pdf, last_delta, rng.
+// position and tri_n [n, 3], active bool (the lanes live after the cut
+// and the roulette). The light samples: dir, radiance [S, n, 3], pdf [S,
+// n], lane and occluded bool [S, n], S = env_samples + mesh_samples (env
+// ones first; each weighed by its kind's count). The lane state, in
+// place: active bool, o, d, throughput, radiance [n, 3], last_pdf,
+// last_delta bool, rng int64 (a lane dead before the launch writes its
+// active alone; a lane whose path ends writes no o, d or throughput).
 int msn_shade_scatter(const int* type, const float* color, const float* metal,
                       const float* alpha, const float* ior, const float* fn,
                       const float* fs, const float* ft, const float* w_o_ss,
                       const float* position, const float* tri_n,
-                      const float* o, const float* d, const float* throughput,
-                      const float* radiance, const long long* rng,
-                      const bool* active, int count, const void* const* ptrs,
-                      const int* counts, int do_scatter, long long n,
-                      bool* active_out,
-                      float* o_out, float* d_out, float* throughput_out,
-                      float* radiance_out, float* last_pdf_out,
-                      bool* last_delta_out, long long* rng_out, void* stream) {
-  if (count < 0 || count > kMaxLights) return (int)cudaErrorInvalidValue;
+                      const bool* active, const float* l_dir,
+                      const float* l_rad, const float* l_pdf,
+                      const bool* lane, const bool* occluded, int env_samples,
+                      int mesh_samples, long long n, bool* st_active,
+                      float* o, float* d, float* throughput, float* radiance,
+                      float* last_pdf, bool* last_delta, long long* rng,
+                      void* stream) {
+  if (env_samples < 0 || mesh_samples < 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  Lights L{};
-  L.count = count;
-  for (int k = 0; k < count; ++k) {
-    L.dir[k] = static_cast<const float*>(ptrs[5 * k]);
-    L.rad[k] = static_cast<const float*>(ptrs[5 * k + 1]);
-    L.pdf[k] = static_cast<const float*>(ptrs[5 * k + 2]);
-    L.lane[k] = static_cast<const bool*>(ptrs[5 * k + 3]);
-    L.occluded[k] = static_cast<const bool*>(ptrs[5 * k + 4]);
-    L.n[k] = (float)counts[k];
-    L.inv_n[k] = 1.0f / (float)counts[k];
-  }
   ScatterIn in{type, color, metal, alpha, ior, fn, fs, ft, w_o_ss,
-               position, tri_n, o, d, throughput, radiance, rng, active};
-  ScatterOut out{active_out, o_out, d_out, throughput_out, radiance_out,
-                 last_pdf_out, last_delta_out, rng_out};
+               position, tri_n, active};
+  Lights L{l_dir, l_rad, l_pdf, lane, occluded, env_samples, mesh_samples};
+  State st{st_active, o, d, throughput, radiance, last_pdf, last_delta, rng};
   scatter_kernel<<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, L, do_scatter, out, n);
+      in, L, st, n);
   return (int)cudaGetLastError();
 }
 

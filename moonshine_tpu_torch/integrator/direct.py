@@ -18,8 +18,8 @@ from ..core.frame import cos_theta
 from ..core.mathutil import INF_T, face_forward, norm, offset_along_normal
 from ..lights.mesh_lights import sample_mesh_lights
 from . import shade
-from .path import _any_hit, _closest, _emissive_at
-from .shade import _masked, power_heuristic
+from .path import _any_hit, _closest
+from .shade import _emissive_at, _masked, power_heuristic
 
 
 @dataclass(frozen=True)

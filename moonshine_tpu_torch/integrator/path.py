@@ -33,11 +33,11 @@ the CPU (and inside graphs.eager()) the same functions eagerly. A
 segment reads nothing on the host; the loop reads the live count
 between segments where it needs it.
 
-A segment's shading (the env miss, the surface decode, the env draw and
-the light weighting with the BSDF scatter) is integrator/shade.py: a
-kernel of csrc/shade.cu each on the card, the plain torch version on the
-CPU. The termination, the mesh-light draw, the shadow batch and the
-resort stay torch ops.
+A segment's shading is integrator/shade.py: the env miss; the surface
+decode with the termination and every NEE light draw, which writes the
+shadow batch; the light weighting with the BSDF scatter. Each is a
+kernel of csrc/shade.cu on the card (working in place on the lane
+state), the plain torch version on the CPU. The resort stays torch ops.
 """
 
 from __future__ import annotations
@@ -50,20 +50,8 @@ import torch
 from torch.profiler import record_function
 
 from ..accel import packet, tlas as tlas_mod, traverse, treelet
-from ..bsdf import materials as B
-from ..core import rng as R
-from ..core.mathutil import (
-    INF_T,
-    face_forward,
-    luminance,
-    norm,
-    offset_along_normal,
-)
-from ..lights.mesh_lights import sample_mesh_lights
-from ..scene import textures as TX
-from ..scene.textures import sample_material_block
+from ..core.mathutil import INF_T
 from . import graphs, shade
-from .shade import _interp
 
 
 @dataclass(frozen=True)
@@ -80,17 +68,6 @@ class PathConfig:
     # None = auto (_resolve_resort): on for HBM-class scenes up to 600k
     # lanes, on for VMEM-class scenes that hold a mirror or glass
     resort_bounces: bool | None = None
-
-
-def _emissive_at(scene, light_row, bary):
-    """Emitted radiance at a light sample from its packed emitter row."""
-    if scene.mat_atlas.emissive_constant:
-        return light_row[:, 15:18]
-    n = light_row.shape[0]
-    uv = _interp(bary[..., 0], bary[..., 1], light_row[:, 9:15].reshape(n, 3, 2))
-    block = sample_material_block(scene.mat_atlas.emissive,
-                                  light_row[:, 18:22], uv)
-    return block[:, TX.EMISSIVE]
 
 
 # Opt-in treelet-scheduled traversal for HBM-class scenes (the reference's
@@ -191,8 +168,9 @@ def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
 
 
 # the profiler ranges a bounce opens around its stages, in order
-# (render/profile_frame.py splits a sample's kernel time by them); the
-# direct integrator opens the same ones
+# (render/profile_frame.py splits a sample's kernel time by them); a path
+# draws its light samples inside "surface", the direct integrator in
+# "nee_draw"
 STAGES = ("traversal", "env", "surface", "nee_draw", "any_hit", "scatter",
           "resort")
 
@@ -208,8 +186,10 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
     emissive/miss accumulation, so NEE, roulette and scatter are skipped.
     resort=True: the state is coherence-sorted, so traversal skips its
     own sort. Each stage runs inside a profiler range (STAGES); the
-    miss, the surface decode, the env draw and the scatter are kernels of
-    csrc/shade.cu (integrator/shade.py)."""
+    miss, the surface decode with the light draw, and the scatter are
+    kernels of csrc/shade.cu (integrator/shade.py), which on the card
+    update the state's radiance, throughput, rng, o, d and masks in
+    place."""
     if roulette is None:
         roulette = bounce > 3
     active = st["active"]
@@ -222,90 +202,46 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
 
     with record_function("traversal"):
         hit = _closest(scene, o, d, INF_T, active, presorted=resort)
-    # ---- miss: environment radiance (integrator.hlsl:166-180)
+    # ---- miss: environment radiance (integrator.hlsl:166-180), into the
+    # state's radiance on the card
     with record_function("env"):
         radiance = shade.env_miss(scene.env, cfg.env_samples_per_bounce,
                                   bounce, d, active, hit.tri, throughput,
-                                  st["radiance"], last_pdf, last_delta)
+                                  st["radiance"], last_pdf, last_delta,
+                                  out=st["radiance"])
     active = active & hit.is_hit
 
-    # ---- decode the surface and add its emission (integrator.hlsl:93-124)
+    # ---- decode the surface and add its emission (integrator.hlsl:93-124);
+    # then the termination and the NEE draws (:126-151)
     with record_function("surface"):
+        draw = None if last else shade.DrawIn(
+            scene.env, cfg.env_samples_per_bounce, cfg.max_bounces, roulette,
+            rng)
         surf = shade.surface(scene, cfg.mesh_samples_per_bounce, bounce, hit,
                              o, d, active, throughput, radiance, last_pdf,
-                             last_delta, shade.THIN if last else shade.FULL)
+                             last_delta, shade.THIN if last else shade.FULL,
+                             draw)
     if last:
         # the max-bounce cut kills every lane here
         return dict(st, active=surf.active, radiance=surf.radiance,
                     rays=rays)
 
-    with record_function("nee_draw"):
-        # ---- termination (integrator.hlsl:126-135)
-        active = active & (bounce < cfg.max_bounces + 1)
-        rng, rr_rand = R.next_float(rng)
-        if roulette:
-            p_survive = torch.clamp_max(luminance(throughput), 0.95)
-            active = active & ~(rr_rand > p_survive)
-            throughput = torch.where(
-                active[..., None],
-                throughput / torch.clamp_min(p_survive, 1e-20)[..., None],
-                throughput)
-
-        nee_active = active & ~B.is_delta(surf.mat.type)
-        position, tri_n = surf.position, surf.tri_n
-
-        # ---- NEE (integrator.hlsl:139-151): draw every light sample,
-        # trace all shadow rays as one any-hit batch, then weight
-        shadow = []  # (origin, dir, tmax, lane, n_samples, l_dir, l_rad,
-        #             l_pdf)
-        for _ in range(cfg.env_samples_per_bounce):
-            rng, r2 = R.next_float2(rng)
-            l_dir, l_rad, l_pdf = shade.env_draw(scene.env, r2)
-            shadow_o = offset_along_normal(position,
-                                           face_forward(tri_n, l_dir))
-            shadow.append((shadow_o, l_dir, torch.full_like(l_pdf, INF_T),
-                           nee_active & (l_pdf > 0.0),
-                           cfg.env_samples_per_bounce, l_dir, l_rad, l_pdf))
-        for _ in range(cfg.mesh_samples_per_bounce):
-            rng, r2 = R.next_float2(rng)
-            l_dir, l_pos, l_n, _tri, l_bary, l_pdf, l_row = (
-                sample_mesh_lights(scene, position, r2))
-            l_rad = _emissive_at(scene, l_row, l_bary)
-            # two-ended shadow segment (light.hlsl:149-154)
-            off_light = offset_along_normal(l_pos, l_n)
-            off_shade = offset_along_normal(position,
-                                            face_forward(tri_n, l_dir))
-            seg = off_light - off_shade
-            seg_len = norm(seg)[..., 0]
-            seg_dir = seg / torch.clamp_min(seg_len, 1e-20)[..., None]
-            shadow.append((off_shade, seg_dir, seg_len,
-                           nee_active & (l_pdf > 0.0),
-                           cfg.mesh_samples_per_bounce, l_dir, l_rad, l_pdf))
-
-    lights = []
-    if shadow:
+    lights = surf.lights
+    if surf.shadow is not None:
         with record_function("any_hit"):
             # shadow rays inherit the (possibly resorted) lane order
-            occ_all = _any_hit(
-                scene,
-                torch.cat([b[0] for b in shadow]),
-                torch.cat([b[1] for b in shadow]),
-                torch.cat([b[2] for b in shadow]),
-                torch.cat([b[3] for b in shadow]),
+            occluded = _any_hit(
+                scene, *surf.shadow,
                 presorted=resort and not (_shadow_compact()
-                                            and scene.has_delta),
+                                          and scene.has_delta),
             )
-        n = position.shape[0]
-        for i, (_, _, _, lane, n_samples, l_dir, l_rad, l_pdf) in enumerate(
-                shadow):
-            rays = rays + lane.sum()
-            lights.append(shade.Light(l_dir, l_rad, l_pdf, lane,
-                                      occ_all[i * n:(i + 1) * n], n_samples))
+        rays = rays + surf.shadow.lane.sum()
+        lights = lights._replace(occluded=occluded.view(lights.lane.shape))
 
     # ---- weight the light samples and scatter (integrator.hlsl:139-163)
     with record_function("scatter"):
-        out = shade.scatter(surf, o, d, throughput, surf.radiance, rng,
-                            active, lights)
+        out = shade.scatter(surf, o, d, surf.throughput, surf.radiance,
+                            surf.rng, surf.active, lights, state=st)
     return dict(st, **out, rays=rays)
 
 

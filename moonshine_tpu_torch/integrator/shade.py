@@ -1,9 +1,9 @@
-"""The bounce's shading: the surface decode, the environment lookups and
-the BSDF scatter of one bounce segment, each a kernel of csrc/shade.cu
-(the reference's bounce as XLA fuses it around its gathers,
-moonshine_tpu/integrator/path.py:371-623, and the role of its
-core/gather.py: each per-hit table fetch next to the math that consumes
-it).
+"""The bounce's shading: the surface decode with the bounce's light draw,
+the environment lookups and the BSDF scatter of one bounce segment, each
+a kernel of csrc/shade.cu (the reference's bounce as XLA fuses it around
+its gathers, moonshine_tpu/integrator/path.py:371-623, and the role of
+its core/gather.py: each per-hit table fetch next to the math that
+consumes it).
 
 `surface`, `scatter`, `env_miss` and `env_draw` launch their kernel for
 CUDA tensors, on the tensors' card and its current stream (so a CUDA
@@ -11,17 +11,22 @@ graph captures them), reading the bounce index from device memory; for
 CPU tensors they run their plain version (`*_plain`), the integrator's
 torch code moved behind one function each with the kernel's inputs and
 outputs. There is no fallback: a failed build or launch raises. The
-kernels equal the plain versions bit for bit on the card. Each wrapper
-adds one to LAUNCHES[its name] where it launches (into a capture's tally
-while a graph is captured, as accel/packet.py's wrappers do).
+kernels update the lane state in place and leave dead lanes, and equal
+the plain versions bit for bit on the card on every lane they write (the
+wrappers' docstrings say which). Each wrapper adds one to LAUNCHES[its
+name] where it launches (into a capture's tally while a graph is
+captured, as accel/packet.py's wrappers do).
 
-The plain versions' helpers (`_decode_hit`, `_decode_material`,
-`_inst_world`, ...) port the reference's of the same names.
+The full surface form with a `DrawIn` also ends the bounce's termination
+and draws its NEE light samples (`_draw_plain`): the max-bounce cut, the
+roulette, each env and mesh-light sample (`Lights`) and its shadow ray
+into the any-hit batch (`Shadow`). The plain versions' helpers
+(`_decode_hit`, `_decode_material`, `_inst_world`, `_emissive_at`, ...)
+port the reference's of the same names.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -29,12 +34,16 @@ import torch
 
 from ..accel import native, packet
 from ..bsdf import materials as B
+from ..core import mathutil as M
 from ..core import rng as R
 from ..core.frame import Frame, cos_theta
 from ..core.mathutil import (
+    INF_T,
     cross,
     dot,
     face_forward,
+    luminance,
+    norm,
     normalize,
     offset_along_normal,
     safe_normalize,
@@ -44,7 +53,7 @@ from ..lights.envmap import (
     miss_radiance_and_pdf,
     sample_envmap,
 )
-from ..lights.mesh_lights import area_to_solid_angle
+from ..lights.mesh_lights import area_to_solid_angle, sample_mesh_lights
 from ..scene import textures as TX
 from ..scene.textures import sample_material_block
 
@@ -61,11 +70,51 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+class DrawIn(NamedTuple):
+    """What the full form needs to draw a bounce's light samples."""
+
+    env: object  # lights.envmap.EnvMap
+    env_samples: int  # env samples a bounce (drawn first)
+    max_bounces: int
+    roulette: bool  # bounce > 3, decided on the host
+    rng: torch.Tensor  # [N] int64 PCG states
+
+
+class Lights(NamedTuple):
+    """A bounce's S NEE samples, env ones first (S = env + mesh samples
+    a bounce), and their shadow rays' answers."""
+
+    dir: torch.Tensor  # [S, N, 3] world-space direction to the light
+    radiance: torch.Tensor  # [S, N, 3]
+    pdf: torch.Tensor  # [S, N] solid-angle pdf before occlusion
+    lane: torch.Tensor  # [S, N] bool: the shadow ray is traced
+    occluded: torch.Tensor | None  # [S, N] bool, once traced
+    env_samples: int  # the first samples, of the env map; then the
+    mesh_samples: int  # mesh lights' (S = env_samples + mesh_samples)
+
+    def n_samples(self, k: int) -> int:
+        """The samples a bounce draws of sample k's kind."""
+        return self.env_samples if k < self.env_samples else self.mesh_samples
+
+
+class Shadow(NamedTuple):
+    """A bounce's shadow rays, [S * N] in the samples' order: the any-hit
+    batch as `_any_hit` takes it."""
+
+    o: torch.Tensor  # [S * N, 3]
+    d: torch.Tensor  # [S * N, 3]
+    t_max: torch.Tensor  # [S * N]
+    lane: torch.Tensor  # [S * N] bool
+
+
 class Surface(NamedTuple):
     """The decoded hit: position, the geometric normal, the shading
     frame, w_o in it, the material, the radiance with the hit's emission
     added, and the lanes live after the segment (the thin form: none; it
-    leaves the others None)."""
+    leaves the others None). The full form's also holds its draw's
+    throughput after the roulette, the advanced rng, the light samples
+    and their shadow rays (None when a bounce draws none); `active` is
+    then the lanes live after the cut and the roulette."""
 
     position: torch.Tensor | None  # [N, 3]
     tri_n: torch.Tensor | None  # [N, 3]
@@ -74,17 +123,10 @@ class Surface(NamedTuple):
     mat: B.MaterialLanes | None
     radiance: torch.Tensor  # [N, 3]
     active: torch.Tensor  # [N] bool
-
-
-class Light(NamedTuple):
-    """One NEE sample of a bounce, with its shadow ray's answer."""
-
-    dir: torch.Tensor  # [N, 3] world-space direction to the light
-    radiance: torch.Tensor  # [N, 3]
-    pdf: torch.Tensor  # [N] solid-angle pdf before occlusion
-    lane: torch.Tensor  # [N] bool: the shadow ray was traced
-    occluded: torch.Tensor  # [N] bool
-    n_samples: int  # the samples a bounce draws of this light's kind
+    throughput: torch.Tensor | None = None  # [N, 3]
+    rng: torch.Tensor | None = None  # [N] int64
+    lights: Lights | None = None
+    shadow: Shadow | None = None
 
 
 # ---- the plain versions' helpers (reference path.py:95-256)
@@ -138,12 +180,26 @@ def _inst_world(scene, inst, corners, nrms):
     k = torch.clamp(inst.to(torch.int64), 0, scene.inst_tf.shape[0] - 1)
     tf = scene.inst_tf[k]  # [N, 13]
     lin = tf[:, :9].reshape(-1, 3, 3)
-    corners_w = torch.einsum("nij,nkj->nki", lin, corners) + tf[:, None, 9:12]
+    corners_w = _rows_times(lin, corners) + tf[:, None, 9:12]
     nrms_w = None
     if nrms is not None:
         nrm_m = scene.tlas.inst_inv[k][:, :9].reshape(-1, 3, 3)
-        nrms_w = safe_normalize(torch.einsum("nji,nkj->nki", nrm_m, nrms))
+        nrms_w = safe_normalize(_rows_times(nrm_m, nrms, transposed=True))
     return corners_w, nrms_w, tf[:, 12]
+
+
+def _rows_times(m, c, transposed: bool = False):
+    """[N, K, 3]: each of c's K vectors times m [N, 3, 3] (or its
+    transpose). On the card the einsum (cuBLAS's batched product, which
+    the surface kernel reproduces); on the CPU the products summed as
+    `dot` sums them, since the einsum there is MKL's, whose order
+    depends on the host."""
+    if m.device.type == "cuda":
+        return torch.einsum("nji,nkj->nki" if transposed else "nij,nkj->nki",
+                            m, c)
+    if transposed:
+        m = m.transpose(1, 2)
+    return torch.sum(m[:, None] * c[:, :, None], dim=-1)
 
 
 def _decode_hit(scene, tri, bary_u, bary_v, inst=None):
@@ -205,6 +261,18 @@ def _decode_emissive(scene, mat_row, uv):
     return block[:, TX.EMISSIVE]
 
 
+def _emissive_at(scene, light_row, bary):
+    """Emitted radiance at a light sample from its packed emitter row
+    (reference path.py:256)."""
+    if scene.mat_atlas.emissive_constant:
+        return light_row[:, 15:18]
+    n = light_row.shape[0]
+    uv = _interp(bary[..., 0], bary[..., 1], light_row[:, 9:15].reshape(n, 3, 2))
+    block = sample_material_block(scene.mat_atlas.emissive,
+                                  light_row[:, 18:22], uv)
+    return block[:, TX.EMISSIVE]
+
+
 def _decode_material(scene, mat_row, uv):
     """(MaterialLanes, emissive, tangent-space normal rg); constant
     planes read straight from the packed material row."""
@@ -233,7 +301,7 @@ def _decode_material(scene, mat_row, uv):
 def _texture_frame(normal_rg, vtx_frame):
     """Normal-mapped shading frame (material.hlsl:489-517)."""
     rg = normal_rg * 2.0 - 1.0
-    z = torch.sqrt(torch.clamp(1.0 - torch.sum(rg * rg, dim=-1), 0.0, 1.0))
+    z = M.sqrt(torch.clamp(1.0 - torch.sum(rg * rg, dim=-1), 0.0, 1.0))
     n_ts = torch.cat([rg, z[..., None]], dim=-1)
     n_ws = normalize(vtx_frame.frame_to_world(n_ts))
     return Frame(n=n_ws, s=vtx_frame.s, t=vtx_frame.t).reorthogonalize()
@@ -243,7 +311,7 @@ def _texture_frame(normal_rg, vtx_frame):
 
 def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
                   throughput, radiance, last_pdf, last_delta,
-                  mode: str = FULL) -> Surface:
+                  mode: str = FULL, draw: DrawIn | None = None) -> Surface:
     """Decode each lane's hit (masked lanes read clamped junk rows), pick
     its shading frame and add its emission (integrator.hlsl:93-124;
     reference path.py:424-485). THIN: the last segment's decode and
@@ -251,7 +319,8 @@ def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
     integrator's (integrator.hlsl:199-215): the normal-mapped frame
     always, picked without the front-face sign, and the emission of every
     hit lane; it reads none of o, throughput, last_pdf, last_delta and
-    bounce. `bounce` is an int or a device scalar."""
+    bounce. `bounce` is an int or a device scalar. FULL then also draws
+    the bounce's light samples (`_draw_plain`; `draw` is required)."""
     tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
     w_o_ws = -d
     frame = w_o_ss = mat = None
@@ -317,28 +386,81 @@ def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
         # the max-bounce cut kills every lane here
         return Surface(None, None, None, None, None, radiance,
                        torch.zeros_like(active))
-    return Surface(position, tri_n, frame, w_o_ss, mat, radiance, active)
+    surf = Surface(position, tri_n, frame, w_o_ss, mat, radiance, active)
+    return _draw_plain(scene, mesh_samples, bounce, surf, throughput, draw)
+
+
+def _draw_plain(scene, mesh_samples: int, bounce, surf: Surface,
+                throughput, draw: DrawIn) -> Surface:
+    """The max-bounce cut and the roulette (integrator.hlsl:126-135),
+    then every NEE light sample of the bounce with its shadow ray
+    (:139-151; reference path.py:503-573): env samples through
+    sample_envmap, mesh ones through sample_mesh_lights and _emissive_at
+    with the two-ended shadow segment (light.hlsl:149-154)."""
+    active = surf.active & (bounce < draw.max_bounces + 1)
+    rng, rr_rand = R.next_float(draw.rng)
+    if draw.roulette:
+        p_survive = torch.clamp_max(luminance(throughput), 0.95)
+        active = active & ~(rr_rand > p_survive)
+        throughput = torch.where(
+            active[..., None],
+            throughput / torch.clamp_min(p_survive, 1e-20)[..., None],
+            throughput)
+
+    nee_active = active & ~B.is_delta(surf.mat.type)
+    position, tri_n = surf.position, surf.tri_n
+    samples = []  # (shadow o, d, t_max, lane, light dir, radiance, pdf)
+    for _ in range(draw.env_samples):
+        rng, r2 = R.next_float2(rng)
+        l_dir, l_rad, l_pdf = sample_envmap(draw.env, r2)
+        shadow_o = offset_along_normal(position, face_forward(tri_n, l_dir))
+        samples.append((shadow_o, l_dir, torch.full_like(l_pdf, INF_T),
+                        nee_active & (l_pdf > 0.0), l_dir, l_rad, l_pdf))
+    for _ in range(mesh_samples):
+        rng, r2 = R.next_float2(rng)
+        l_dir, l_pos, l_n, _tri, l_bary, l_pdf, l_row = (
+            sample_mesh_lights(scene, position, r2))
+        l_rad = _emissive_at(scene, l_row, l_bary)
+        off_light = offset_along_normal(l_pos, l_n)
+        off_shade = offset_along_normal(position, face_forward(tri_n, l_dir))
+        seg = off_light - off_shade
+        seg_len = norm(seg)[..., 0]
+        seg_dir = seg / torch.clamp_min(seg_len, 1e-20)[..., None]
+        samples.append((off_shade, seg_dir, seg_len,
+                        nee_active & (l_pdf > 0.0), l_dir, l_rad, l_pdf))
+    lights = shadow = None
+    if samples:
+        n = position.shape[0]
+        cat = lambda j: torch.cat([x[j] for x in samples])
+        stack = lambda j: torch.stack([x[j] for x in samples])
+        shadow = Shadow(cat(0), cat(1), cat(2), cat(3))
+        lights = Lights(stack(4), stack(5), stack(6),
+                        shadow.lane.view(len(samples), n), None,
+                        draw.env_samples, mesh_samples)
+    return surf._replace(active=active, throughput=throughput, rng=rng,
+                         lights=lights, shadow=shadow)
 
 
 def scatter_plain(surf: Surface, o, d, throughput, radiance, rng, active,
-                  lights) -> dict:
-    """Weight each NEE sample (`lights`, Light tuples in draw order) by
-    the power heuristic and add it (integrator.hlsl:139-151), then draw
-    the BSDF sample and continue the path (:153-163; reference
+                  lights: Lights | None, state: dict) -> dict:
+    """Weight each NEE sample (`lights`, in draw order; None: none) by the
+    power heuristic and add it (integrator.hlsl:139-151), then draw the
+    BSDF sample and continue the path (:153-163; reference
     path.py:518-623). Returns the lane state's new active, o, d,
-    throughput, radiance, last_pdf, last_delta and rng."""
+    throughput, radiance, last_pdf, last_delta and rng (`state`, the
+    kernel's buffers to write into, is not read here)."""
     mat, frame, w_o_ss = surf.mat, surf.frame, surf.w_o_ss
     is_delta = B.is_delta(mat.type)
-    for light in lights:
-        l_pdf = torch.where(light.occluded, 0.0, light.pdf)
-        w_i_ss = frame.world_to_frame(light.dir)
+    for k in range(0 if lights is None else lights.pdf.shape[0]):
+        l_pdf = torch.where(lights.occluded[k], 0.0, lights.pdf[k])
+        w_i_ss = frame.world_to_frame(lights.dir[k])
         brdf, scatter_pdf = B.eval_pdf_bsdf(mat, w_i_ss, w_o_ss)
-        n_samples = light.n_samples
+        n_samples = lights.n_samples(k)
         mis = power_heuristic(n_samples, l_pdf, 1.0, scatter_pdf)
-        contrib = light.radiance * brdf * (
+        contrib = lights.radiance[k] * brdf * (
             torch.abs(cos_theta(w_i_ss)) * mis
             / torch.clamp_min(l_pdf, 1e-30))[..., None]
-        ok = light.lane & (l_pdf > 0.0) & (scatter_pdf > 0.0)
+        ok = lights.lane[k] & (l_pdf > 0.0) & (scatter_pdf > 0.0)
         radiance = radiance + _masked(ok, throughput * contrib / n_samples)
 
     # ---- scatter (integrator.hlsl:153-163)
@@ -365,11 +487,12 @@ def scatter_plain(surf: Surface, o, d, throughput, radiance, rng, active,
 
 
 def env_miss_plain(env, env_samples: int, bounce, d, active, tri,
-                   throughput, radiance, last_pdf, last_delta):
+                   throughput, radiance, last_pdf, last_delta, out=None):
     """Environment radiance of the lanes that missed (`active` and no hit,
     tri < 0), MIS-weighted against the env draw where the last bounce
     could have drawn it (integrator.hlsl:166-180; reference
-    path.py:424-436). Returns the radiance."""
+    path.py:424-436). Returns the radiance (a new tensor: `out`, the
+    kernel's buffer, is not used here)."""
     miss = active & ~(tri >= 0)
     env_plain = last_delta | (bounce == 0) | (env_samples == 0)
     if env_samples > 0:
@@ -434,33 +557,64 @@ def _launch(key: str, fn, device, *args) -> None:
 
 def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
             throughput, radiance, last_pdf, last_delta,
-            mode: str = FULL) -> Surface:
+            mode: str = FULL, draw: DrawIn | None = None) -> Surface:
     """surface_plain's result: the csrc/shade.cu surface kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. On the card the kernel
+    works in place: it adds the emission into `radiance` (the thin and
+    full forms on the lanes active at the hit), the thin form clears
+    `active`, and the full form's draw (`draw`, required there) applies
+    the cut and the roulette to `active` and `throughput` and advances
+    `draw.rng`; the returned Surface holds
+    those tensors. The decoded hit is written on the lanes active at the
+    hit (the direct form: every lane), a light sample and its shadow ray
+    where the ray is traced, the shadow lanes everywhere."""
+    if mode == FULL and draw is None:
+        raise ValueError("the full form draws the bounce's light samples: "
+                         "it needs a DrawIn")
     if _device_kind(d) == "cpu":
         return surface_plain(scene, mesh_samples, bounce, hit, o, d, active,
                              throughput, radiance, last_pdf, last_delta,
-                             mode)
+                             mode, draw)
     lib = native.shade_lib()
     n, dev = d.shape[0], d.device
-    f32, keep = torch.float32, []
+    f32, b8, keep = torch.float32, torch.bool, []
     two_level = hit.inst is not None and scene.tlas is not None
-    vec = lambda: torch.empty((n, 3), dtype=f32, device=dev)
-    lane = lambda dt=f32: torch.empty(n, dtype=dt, device=dev)
-    rad_out = vec()
-    if mode == THIN:
-        outs = [None] * 11
-        act_out = lane(torch.bool)
-    else:
+    vec = lambda *lead: torch.empty((*lead, n, 3), dtype=f32, device=dev)
+    lane = lambda dt=f32, *lead: torch.empty((*lead, n), dtype=dt,
+                                             device=dev)
+    outs = [None] * 11
+    if mode != THIN:
         outs = [vec() for _ in range(6)] + [lane(torch.int32), vec(),
                                             lane(), lane(), lane()]
-        act_out = None
+    draw_on = mode == FULL
+    if scene.tri_shade.data_ptr() % 16:
+        raise ValueError("the surface kernel reads material rows as float4: "
+                         "tri_shade must be 16-byte aligned")
     atlas = scene.mat_atlas
     bsdf, em = atlas.bsdf.data, atlas.emissive.data
     inst_tf = inst_inv = None
     if two_level:
         inst_tf, inst_inv = scene.inst_tf, scene.tlas.inst_inv
     reads_state = mode != DIRECT
+    n_samples = draw.env_samples + mesh_samples if draw_on else 0
+    samples = [None] * 7
+    env_args = (None, None, None, 0, 0.0)
+    em_args = (None, 0, None, None, 0, 0)
+    if draw_on:
+        if scene.emitters.rows.shape[0] == 0:
+            raise ValueError("the light draw needs an emitter row")
+        samples = [vec(n_samples), vec(n_samples), lane(f32, n_samples),
+                   vec(n_samples), vec(n_samples), lane(f32, n_samples),
+                   lane(b8, n_samples)]
+        env = draw.env
+        env_args = (_env_args(keep, env)[0], _ptr(keep, env.select, f32),
+                    _ptr(keep, env.alias, torch.int64), env.size,
+                    _reciprocal(env.integral, 1e-30))
+        emitters = scene.emitters
+        em_args = (_ptr(keep, emitters.rows, f32), emitters.rows.shape[0],
+                   _ptr(keep, emitters.select, f32),
+                   _ptr(keep, emitters.alias, torch.int64),
+                   max(emitters.count, 1), int(emitters.count == 0))
     _launch(
         "surface", lib.surface, dev, _MODE_CODES[mode], int(two_level),
         _ptr(keep, scene.tri_shade, f32), scene.num_tris,
@@ -475,77 +629,90 @@ def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
         _ptr(keep, hit.v, f32),
         _ptr(keep, hit.inst if two_level else None, torch.int32),
         _ptr(keep, o if reads_state else None, f32), _ptr(keep, d, f32),
-        _ptr(keep, active, torch.bool),
-        _ptr(keep, throughput if reads_state else None, f32),
-        _ptr(keep, radiance, f32),
+        _inplace(active, b8),
+        _inplace(throughput, f32) if reads_state else None,
+        _inplace(radiance, f32),
         _ptr(keep, last_pdf if reads_state else None, f32),
         _ptr(keep, last_delta if reads_state else None, torch.bool),
         _ptr(keep, _bounce_on(bounce, dev) if reads_state else None,
              torch.int64),
         n, *(None if x is None else x.data_ptr() for x in outs),
-        rad_out.data_ptr(), None if act_out is None else act_out.data_ptr())
+        draw.env_samples if draw_on else 0,
+        draw.max_bounces if draw_on else 0,
+        int(draw_on and draw.roulette),
+        _inplace(draw.rng, torch.int64) if draw_on else None,
+        *env_args, *em_args,
+        *(None if x is None else x.data_ptr() for x in samples))
     if mode == THIN:
-        return Surface(None, None, None, None, None, rad_out, act_out)
+        return Surface(None, None, None, None, None, radiance, active)
     position, tri_n, fn, fs, ft, w_o_ss, mtype, color, metal, alpha, ior = \
         outs
     mat = B.MaterialLanes(type=mtype, color=color, metalness=metal,
                           alpha=alpha, ior=ior)
-    return Surface(position, tri_n, Frame(n=fn, s=fs, t=ft), w_o_ss, mat,
-                   rad_out, active)
+    surf = Surface(position, tri_n, Frame(n=fn, s=fs, t=ft), w_o_ss, mat,
+                   radiance, active)
+    if not draw_on:  # the direct form
+        return surf
+    lights = shadow = None
+    if n_samples:
+        l_dir, l_rad, l_pdf, sh_o, sh_d, sh_t, sh_lane = samples
+        lights = Lights(l_dir, l_rad, l_pdf, sh_lane, None,
+                        draw.env_samples, mesh_samples)
+        shadow = Shadow(sh_o.view(-1, 3), sh_d.view(-1, 3), sh_t.view(-1),
+                        sh_lane.view(-1))
+    return surf._replace(throughput=throughput, rng=draw.rng, lights=lights,
+                         shadow=shadow)
+
+
+def _inplace(x, dtype):
+    """x's device pointer for a kernel that writes x in place: x must be
+    contiguous, of `dtype`."""
+    if x.dtype != dtype or not x.is_contiguous():
+        raise TypeError(f"shading kernel updates in place a contiguous "
+                        f"{dtype} tensor, got {x.dtype} (contiguous: "
+                        f"{x.is_contiguous()})")
+    return x.data_ptr()
 
 
 def scatter(surf: Surface, o, d, throughput, radiance, rng, active,
-            lights) -> dict:
+            lights: Lights | None, state: dict) -> dict:
     """scatter_plain's result: the csrc/shade.cu scatter kernel for CUDA
-    tensors, the plain version for CPU tensors. A launch weighs at most
-    `max_lights` NEE samples; a bounce with more weighs the rest first,
-    in order, in launches that add to the radiance alone."""
+    tensors, the plain version for CPU tensors. On the card the kernel
+    updates o, d, throughput, radiance and rng in place and writes the
+    new active, last_pdf and last_delta into `state`'s tensors of those
+    names: a lane inactive on entry writes its active
+    alone (its light lanes are clear, as the draw leaves them), a lane
+    whose path ends no ray or throughput."""
     if _device_kind(d) == "cpu":
         return scatter_plain(surf, o, d, throughput, radiance, rng, active,
-                             lights)
+                             lights, state)
     lib = native.shade_lib()
     n, dev = d.shape[0], d.device
-    f32, b8 = torch.float32, torch.bool
+    f32, b8, keep = torch.float32, torch.bool, []
     mat, frame = surf.mat, surf.frame
-    k = lib.max_lights
-    chunks = [lights[i:i + k] for i in range(0, len(lights), k)] or [[]]
-    for j, chunk in enumerate(chunks):
-        keep, ptrs = [], []
-        for light in chunk:
-            ptrs += [_ptr(keep, light.dir, f32),
-                     _ptr(keep, light.radiance, f32),
-                     _ptr(keep, light.pdf, f32), _ptr(keep, light.lane, b8),
-                     _ptr(keep, light.occluded, b8)]
-        c_ptrs = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
-        c_counts = (ctypes.c_int * max(len(chunk), 1))(
-            *(light.n_samples for light in chunk))
-        last = j == len(chunks) - 1
-        out = dict(radiance=torch.empty_like(radiance))
-        if last:
-            out = dict(active=torch.empty(n, dtype=b8, device=dev),
-                       o=torch.empty_like(o), d=torch.empty_like(d),
-                       throughput=torch.empty_like(throughput),
-                       radiance=out["radiance"],
-                       last_pdf=torch.empty(n, dtype=f32, device=dev),
-                       last_delta=torch.empty(n, dtype=b8, device=dev),
-                       rng=torch.empty_like(rng))
-        outs = [out.get(name) for name in (
-            "active", "o", "d", "throughput", "radiance", "last_pdf",
-            "last_delta", "rng")]
-        _launch(
-            "scatter", lib.scatter, dev, _ptr(keep, mat.type, torch.int32),
-            _ptr(keep, mat.color, f32), _ptr(keep, mat.metalness, f32),
-            _ptr(keep, mat.alpha, f32), _ptr(keep, mat.ior, f32),
-            _ptr(keep, frame.n, f32), _ptr(keep, frame.s, f32),
-            _ptr(keep, frame.t, f32), _ptr(keep, surf.w_o_ss, f32),
-            _ptr(keep, surf.position, f32), _ptr(keep, surf.tri_n, f32),
-            _ptr(keep, o, f32), _ptr(keep, d, f32),
-            _ptr(keep, throughput, f32), _ptr(keep, radiance, f32),
-            _ptr(keep, rng, torch.int64), _ptr(keep, active, b8),
-            len(chunk), c_ptrs, c_counts, int(last), n,
-            *(None if x is None else x.data_ptr() for x in outs))
-        radiance = out["radiance"]
-    return out
+    env_samples = mesh_samples = 0
+    light_ptrs = [None] * 5
+    if lights is not None:
+        env_samples, mesh_samples = lights.env_samples, lights.mesh_samples
+        light_ptrs = [_ptr(keep, lights.dir, f32),
+                      _ptr(keep, lights.radiance, f32),
+                      _ptr(keep, lights.pdf, f32), _ptr(keep, lights.lane, b8),
+                      _ptr(keep, lights.occluded, b8)]
+    _launch(
+        "scatter", lib.scatter, dev, _ptr(keep, mat.type, torch.int32),
+        _ptr(keep, mat.color, f32), _ptr(keep, mat.metalness, f32),
+        _ptr(keep, mat.alpha, f32), _ptr(keep, mat.ior, f32),
+        _ptr(keep, frame.n, f32), _ptr(keep, frame.s, f32),
+        _ptr(keep, frame.t, f32), _ptr(keep, surf.w_o_ss, f32),
+        _ptr(keep, surf.position, f32), _ptr(keep, surf.tri_n, f32),
+        _ptr(keep, active, b8), *light_ptrs, env_samples, mesh_samples, n,
+        _inplace(state["active"], b8), _inplace(o, f32), _inplace(d, f32),
+        _inplace(throughput, f32), _inplace(radiance, f32),
+        _inplace(state["last_pdf"], f32), _inplace(state["last_delta"], b8),
+        _inplace(rng, torch.int64))
+    return dict(active=state["active"], o=o, d=d, throughput=throughput,
+                radiance=radiance, last_pdf=state["last_pdf"],
+                last_delta=state["last_delta"], rng=rng)
 
 
 def _env_args(keep, env):
@@ -557,15 +724,17 @@ def _env_args(keep, env):
 
 
 def env_miss(env, env_samples: int, bounce, d, active, tri, throughput,
-             radiance, last_pdf, last_delta):
+             radiance, last_pdf, last_delta, out=None):
     """env_miss_plain's result: the csrc/shade.cu miss kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors (written into `out` where given, which may be `radiance`
+    itself), the plain version for CPU tensors."""
     if _device_kind(d) == "cpu":
         return env_miss_plain(env, env_samples, bounce, d, active, tri,
                               throughput, radiance, last_pdf, last_delta)
     lib = native.shade_lib()
     f32, keep = torch.float32, []
-    out = torch.empty_like(radiance)
+    if out is None:
+        out = torch.empty_like(radiance)
     rgbl, size, inv_integral = _env_args(keep, env)
     _launch("env_miss", lib.env_miss, d.device, rgbl, size, inv_integral,
             env_samples, _ptr(keep, d, f32), _ptr(keep, active, torch.bool),
@@ -573,7 +742,7 @@ def env_miss(env, env_samples: int, bounce, d, active, tri, throughput,
             _ptr(keep, radiance, f32), _ptr(keep, last_pdf, f32),
             _ptr(keep, last_delta, torch.bool),
             _ptr(keep, _bounce_on(bounce, d.device), torch.int64),
-            d.shape[0], out.data_ptr())
+            d.shape[0], _inplace(out, f32))
     return out
 
 

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..core.mappings import square_to_gaussian, square_to_uniform_disk_concentric
+from ..core import mathutil as M
 from ..core.mathutil import cross, normalize
 from ..scene.types import Lens
 
@@ -51,7 +52,7 @@ def generate_rays(lens: LensArrays, width, height, uv, aperture_rand2):
     v_axis = cross(w, u_axis)
 
     aspect = float(np.float32(width) / np.float32(height))
-    h = torch.tan(lens.vfov / 2.0)
+    h = M.tan(lens.vfov / 2.0)
     viewport_h = 2.0 * h * lens.focus_distance
     viewport_w = aspect * viewport_h
 

@@ -6,6 +6,7 @@
     python -m moonshine_tpu_torch.scripts.compare_traverse [--against DIR]
     python -m moonshine_tpu_torch.scripts.compare_treelet [--against DIR ...]
     python -m moonshine_tpu_torch.scripts.compare_tlas [--against DIR ...]
+    python -m moonshine_tpu_torch.scripts.compare_shade [--against DIR ...]
 
 `cuda_ms` is their kernel timer (CUDA events around many launches);
 `shadow_batch` builds the any-hit launch that the 1080p frame times;

@@ -279,11 +279,12 @@ def test_trace_paths_steps_read_nothing_on_the_host(guarded):
 @pytest.mark.parametrize("name", ["flagship", "two_level"])
 def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
     """The shading kernels' plain versions (integrator/shade.py: the env
-    miss and draw, the surface decode in its three forms and the
-    scatter), which stand in for the launches a graph captures, read
-    nothing on the host: each runs inside a guarded step on a device
-    bounce index, on the flagship (a textured atlas, every material) and
-    a two-level scene, and gives what it gives outside the guard."""
+    miss and draw, the surface decode in its three forms, the full one
+    with the bounce's light draw, and the scatter), which stand in for
+    the launches a graph captures, read nothing on the host: each runs
+    inside a guarded step on a device bounce index, on the flagship (a
+    textured atlas, every material) and a two-level scene, and gives what
+    it gives outside the guard."""
     from moonshine_tpu_torch.integrator import shade as S
 
     scene, lens = SCENES[name]()
@@ -303,22 +304,29 @@ def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
         rad = S.env_miss_plain(scene.env, 1, bounce, d, st["active"],
                                hit.tri, thr, st["radiance"], st["last_pdf"],
                                last_delta)
-        surf = {mode: S.surface_plain(scene, 1, bounce, hit, o, d, active,
-                                      thr, rad, st["last_pdf"], last_delta,
-                                      mode)
-                for mode in (S.FULL, S.THIN, S.DIRECT)}
-        l_dir, l_rad, l_pdf = S.env_draw_plain(scene.env, r2)
-        light = S.Light(l_dir, l_rad, l_pdf, active & (l_pdf > 0.0),
-                        l_pdf > 1.0, 1)
-        out.update(rad=rad, surf=surf, scatter=S.scatter_plain(
-            surf[S.FULL], o, d, thr, surf[S.FULL].radiance, rng, active,
-            [light, light._replace(n_samples=2)]))
+        surf = {mode: S.surface_plain(
+            scene, 1, bounce, hit, o, d, active, thr, rad, st["last_pdf"],
+            last_delta, mode,
+            S.DrawIn(scene.env, 2, 4, True, rng) if mode == S.FULL else None)
+            for mode in (S.FULL, S.THIN, S.DIRECT)}
+        full = surf[S.FULL]
+        lights = full.lights._replace(occluded=full.lights.pdf > 1.0)
+        out.update(rad=rad, surf=surf,
+                   env_draw=S.env_draw_plain(scene.env, r2),
+                   scatter=S.scatter_plain(full, o, d, full.throughput,
+                                           full.radiance, full.rng,
+                                           full.active, lights, {}))
 
     guarded_out, free_out = {}, {}
     steps.run("shade", lambda: shading(guarded_out))
     shading(free_out)
     assert ("shade" in guarded["steps"]) and guarded["reads"] == 0
     assert torch.equal(guarded_out["rad"], free_out["rad"])
+    for got, want in zip(guarded_out["env_draw"], free_out["env_draw"]):
+        assert torch.equal(got, want)
+    for k in ("o", "d", "t_max", "lane"):
+        assert torch.equal(getattr(guarded_out["surf"][S.FULL].shadow, k),
+                           getattr(free_out["surf"][S.FULL].shadow, k))
     for k in guarded_out["scatter"]:
         assert torch.equal(guarded_out["scatter"][k], free_out["scatter"][k])
     assert int(guarded_out["scatter"]["active"].sum()) > 0

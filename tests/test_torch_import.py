@@ -18,7 +18,8 @@ SLICE_MODULES = ["scripts/probe_bitcast.py", "io/exr.py", "io/png.py",
                  "io/dds.py", "integrator/direct.py", "parallel/__init__.py",
                  "parallel/sharding.py", "engine/__init__.py",
                  "engine/engine.py", "render/viewer.py",
-                 "scripts/time_jpeg.py", "scripts/time_sharded.py"]
+                 "scripts/time_jpeg.py", "scripts/time_sharded.py",
+                 "scripts/compare_shade.py"]
 BLOCKED = "sys.modules['jax'] = None\nsys.modules['PIL'] = None\n"
 
 

@@ -24,10 +24,13 @@ Engine frames, which capture anew after each edit. render_sharded,
 its shards stepped together, equals the same shards run in turn bit for
 bit on cuda:0 x4 and across cards, and replays from its second call.
 The shading kernels (csrc/shade.cu: surface in its full, thin and direct
-forms, scatter, env miss and env draw) equal their plain versions bit for
-bit on the flagship (every material, a textured atlas), the room
-(constant atlas) and two-level scenes (mirroring instances, the tie
-scene), dead and missed lanes included, with env maps of size 1 and 32."""
+forms, the full one with the bounce's light draw, scatter, env miss and
+env draw) equal their plain versions bit for bit on the flagship (every
+material, a textured atlas), the room (constant atlas), two-level scenes
+(mirroring instances, the tie scene) and light panels with a textured
+emission or none sampled, with env maps of size 1 and 32; the kernels
+work in place and leave dead lanes, so the outputs they skip are held
+on the lanes that are live."""
 
 import numpy as np
 import pytest
@@ -1114,18 +1117,26 @@ def _shade_lanes(scene, two_level, n, seed, device):
         last_delta=put(rs.rand(n) < 0.2))
 
 
-def _assert_surface(got, want, what, exact=True):
-    """Every output of the surface kernel equal to the plain version's,
-    bit for bit, or (exact=False) the float ones within 1e-5 relative."""
+def _assert_surface(got, want, what, live, exact=True):
+    """The surface kernel's outputs against the plain version's: the
+    radiance and the mask on every lane (the radiance as values: a lane
+    the kernel leaves adds no +0), the decoded hit on the `live` lanes
+    (the kernel writes it there alone), bit for bit, or (exact=False) the
+    float ones within 1e-5 relative."""
+    same = (got.radiance == want.radiance) | (
+        torch.isnan(got.radiance) & torch.isnan(want.radiance))
+    assert bool(same.all()), f"{what} radiance"
+    _assert_bits(got.active, want.active, f"{what} active")
     pairs = [(getattr(got, k), getattr(want, k), k) for k in (
-        "position", "tri_n", "w_o_ss", "radiance", "active")
-        if getattr(want, k) is not None]
+        "position", "tri_n", "w_o_ss") if getattr(want, k) is not None]
     if want.frame is not None:
         pairs += [(getattr(got.frame, k), getattr(want.frame, k), k)
                   for k in ("n", "s", "t")]
         pairs += [(getattr(got.mat, k), getattr(want.mat, k), k)
                   for k in want.mat._fields]
+    pairs.append((got.radiance, want.radiance, "radiance"))
     for g, w, name in pairs:
+        g, w = g[live], w[live]
         if exact or not w.dtype.is_floating_point:
             _assert_bits(g, w, f"{what} {name}")
         else:
@@ -1133,17 +1144,35 @@ def _assert_surface(got, want, what, exact=True):
                                        msg=f"{what} {name}")
 
 
+def _surface_both(args, draw=None):
+    """(kernel's Surface, plain version's) on the same inputs: the kernel
+    on copies of what it updates in place (active, throughput, radiance
+    and the draw's rng)."""
+    args = list(args)
+    kernel_args = list(args)
+    for j in (6, 7, 8):  # active, throughput, radiance
+        if kernel_args[j] is not None:
+            kernel_args[j] = kernel_args[j].clone()
+    kernel_draw = None if draw is None else draw._replace(
+        rng=draw.rng.clone())
+    return (shade.surface(*kernel_args, draw=kernel_draw),
+            shade.surface_plain(*args, draw=draw))
+
+
 @pytest.mark.parametrize("kind", ["flagship", "room", "instanced", "ties"])
 @pytest.mark.parametrize("n", [1, 4099])
 def test_shade_surface_matches_plain(cuda, kind, n):
     """The surface kernel in its three forms against surface_plain on the
-    same lanes, every output bit for bit: the bounce's (bounce 0 and 3,
-    mesh samples 1 and 0), the last segment's and the direct
-    integrator's. One two-level lane is held within 1e-5 instead: torch
-    takes an einsum of a batch of one through an unbatched matrix product
-    whose cuBLAS kernel rounds the instance transform otherwise than the
-    batched one the kernel reproduces (4099 lanes and the 1080p frame's,
-    chip_smoke.py `shade`, are bit for bit)."""
+    same lanes, bit for bit: the bounce's (bounce 0 and 3, mesh samples 1
+    and 0, with a draw of one env sample and no roulette), the last
+    segment's and the direct integrator's; the decoded
+    hit on the lanes active at the hit (every lane in the direct form),
+    the radiance and the mask everywhere. One two-level lane is held
+    within 1e-5 instead: torch takes an einsum of a batch of one through
+    an unbatched matrix product whose cuBLAS kernel rounds the instance
+    transform otherwise than the batched one the kernel reproduces (4099
+    lanes and the 1080p frame's, chip_smoke.py `shade`, are bit for
+    bit)."""
     scene, two_level = _shade_scene(kind, cuda)
     lanes = _shade_lanes(scene, two_level, n, 7, cuda)
     shade.reset_launch_counts()
@@ -1155,22 +1184,104 @@ def test_shade_surface_matches_plain(cuda, kind, n):
                     lanes["d"], lanes["active"], lanes["throughput"],
                     lanes["radiance"], lanes["last_pdf"],
                     lanes["last_delta"], mode)
-            _assert_surface(shade.surface(*args), shade.surface_plain(*args),
-                            f"{kind} {mode} bounce {bounce}",
+            live = (torch.ones_like(lanes["active"]) if mode == shade.DIRECT
+                    else lanes["active"])
+            draw = None
+            if mode == shade.FULL:
+                rng = torch.from_numpy(np.random.RandomState(bounce).randint(
+                    0, 2**32, n, dtype=np.int64)).to(cuda)
+                draw = shade.DrawIn(scene.env, 1, 4, False, rng)
+            _assert_surface(*_surface_both(args, draw), f"{kind} {mode} "
+                            f"bounce {bounce}", live,
                             exact=not (two_level and n == 1))
             calls += 1
     assert shade.LAUNCHES["surface"] == calls
 
 
-def _shade_lights(surf, env, n, seed, device, counts):
-    """Seeded NEE samples for the scatter kernel: per sample count in
-    `counts`, a draw from the env kernel and a random one, with lanes and
-    occlusion at random."""
+def _light_scene(name, device):
+    from moonshine_tpu_torch.scene import types
+    from moonshine_tpu_torch.scene.world import World
+
+    from torch_light_world import light_world
+
+    return light_world(types, World, name).build(device), False
+
+
+@pytest.mark.parametrize("kind", ["flagship", "room", "instanced",
+                                  "textured", "no_emitters"])
+@pytest.mark.parametrize("counts,roulette", [((1, 1), True),
+                                             ((2, 1), False),
+                                             ((0, 2), True), ((0, 0), True)])
+def test_shade_surface_draw_matches_plain(cuda, kind, counts, roulette):
+    """The full form with the bounce's light draw (the cut, the roulette,
+    each env and mesh sample and its shadow ray) against surface_plain
+    with the same draw, 4099 lanes: every material and a textured BSDF
+    atlas (the flagship), a constant atlas (the room), two levels (the
+    instanced grid), a textured emission and a scene without emitters
+    (the light panels, torch_light_world.py); env and mesh samples 1 and
+    2; a third of the lanes dead and a sixth missed, lanes whose sample
+    pdf is 0. Bit for bit: the mask, throughput and shadow lanes on every
+    lane, the PCG state on the lanes live after the roulette, each light
+    sample and shadow ray where the ray is traced."""
+    if kind in ("textured", "no_emitters"):
+        scene, two_level = _light_scene(kind, cuda)
+    else:
+        scene, two_level = _shade_scene(kind, cuda)
+    n = 4099
+    lanes = _shade_lanes(scene, two_level, n, 23, cuda)
+    env_samples, mesh_samples = counts
+    rs = np.random.RandomState(29)
+    rng = torch.from_numpy(rs.randint(0, 2**32, n, dtype=np.int64)).to(cuda)
+    b = torch.full((), 4 if roulette else 2, dtype=torch.int64, device=cuda)
+    args = (scene, mesh_samples, b, lanes["hit"], lanes["o"], lanes["d"],
+            lanes["active"], lanes["throughput"], lanes["radiance"],
+            lanes["last_pdf"], lanes["last_delta"], shade.FULL)
+    draw = shade.DrawIn(scene.env, env_samples, 4, roulette, rng)
+    shade.reset_launch_counts()
+    got, want = _surface_both(args, draw)
+    assert shade.LAUNCHES["surface"] == 1
+    _assert_surface(got, want, f"{kind} draw", lanes["active"])
+    _assert_bits(got.throughput, want.throughput, "throughput")
+    alive = want.active
+    if roulette:
+        assert 0 < int(alive.sum()) < int(lanes["active"].sum())
+    _assert_bits(got.rng[alive], want.rng[alive], "rng")
+    if not env_samples + mesh_samples:
+        assert got.shadow is None and want.shadow is None
+        return
+    assert (got.lights.env_samples, got.lights.mesh_samples) == counts
+    _assert_bits(got.shadow.lane, want.shadow.lane, "shadow lanes")
+    traced = want.shadow.lane
+    for k in ("o", "d", "t_max"):
+        _assert_bits(getattr(got.shadow, k)[traced],
+                     getattr(want.shadow, k)[traced], f"shadow {k}")
+    traced = want.lights.lane
+    for k in ("dir", "radiance", "pdf"):
+        _assert_bits(getattr(got.lights, k)[traced],
+                     getattr(want.lights, k)[traced], f"light {k}")
+    # lanes whose mesh sample has pdf 0 (a point beside or behind the
+    # light; every lane without emitters) trace no ray for it
+    drawn = alive & ~torch.isin(want.mat.type, torch.tensor(
+        [0, 2], device=cuda))
+    if mesh_samples:
+        zero = (want.lights.pdf[env_samples:] == 0.0) & drawn
+        assert bool(zero.any()) and not bool((zero & traced[
+            env_samples:]).any())
+    if kind == "no_emitters" and mesh_samples:
+        assert not bool(traced[env_samples:].any())
+
+
+def _shade_lights(n, seed, device, counts, live):
+    """Seeded NEE samples for the scatter kernel, `counts` (env, mesh)
+    of them: env draws and random ones alternately, with lanes (among the
+    `live` ones, as the draw traces them) and occlusion at random."""
     rs = np.random.RandomState(seed)
     f32 = np.float32
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
-    lights = []
-    for k, count in enumerate(counts):
+    env = _env("map", device)
+    dirs, rads, pdfs = [], [], []
+    s = sum(counts)
+    for k in range(s):
         if k % 2 == 0:
             l_dir, l_rad, l_pdf = shade.env_draw(env, put(rs.rand(n, 2)
                                                           .astype(f32)))
@@ -1181,10 +1292,15 @@ def _shade_lights(surf, env, n, seed, device, counts):
             pdf[rs.rand(n) < 0.1] = 0.0
             l_dir, l_rad, l_pdf = put(d), put(rs.rand(n, 3).astype(f32)), \
                 put(pdf)
-        lights.append(shade.Light(l_dir, l_rad, l_pdf,
-                                  put(rs.rand(n) > 0.3) & (l_pdf > 0.0),
-                                  put(rs.rand(n) < 0.3), count))
-    return lights
+        dirs.append(l_dir)
+        rads.append(l_rad)
+        pdfs.append(l_pdf)
+    if not s:
+        return None
+    pdf = torch.stack(pdfs)
+    return shade.Lights(torch.stack(dirs), torch.stack(rads), pdf,
+                        put(rs.rand(s, n) > 0.3) & (pdf > 0.0) & live,
+                        put(rs.rand(s, n) < 0.3), *counts)
 
 
 def _env(kind, device):
@@ -1201,38 +1317,58 @@ def _env(kind, device):
 
 
 @pytest.mark.parametrize("mat_type", [None, 0, 1, 2, 3])
-@pytest.mark.parametrize("counts", [(1, 1), (2, 1, 2), (), (5,) * 10])
+@pytest.mark.parametrize("counts", [(1, 1), (2, 1), (0, 0), (3, 2),
+                                    (4, 6)])
 def test_shade_scatter_matches_plain(cuda, mat_type, counts):
-    """The scatter kernel against scatter_plain bit for bit (active, o,
-    d, throughput, radiance, last_pdf, last_delta, rng) on the
+    """The scatter kernel against scatter_plain bit for bit on the
     flagship's decoded lanes, as they are (None: every material) and with
     every lane's material set to glass, Lambert, mirror or PBR; with no
-    light sample, one env and one mesh sample, sample counts of 2, and
-    ten samples (two launches: one weighs the first eight)."""
+    light sample, one env and one mesh sample, sample counts of 2, five
+    samples, and ten (4 env, 6 mesh: each weighted by its kind's count,
+    all in one launch). The kernel updates the state in place (on copies here):
+    active, o, d and throughput are held on every lane, the radiance on
+    every lane as values, last_pdf, last_delta and rng on the lanes live
+    on entry (a dead lane writes its mask alone)."""
     scene, _ = _shade_scene("flagship", cuda)
     n = 4099
     lanes = _shade_lanes(scene, False, n, 11, cuda)
+    rng = torch.from_numpy(np.random.RandomState(7).randint(
+        0, 2**32, n, dtype=np.int64)).to(cuda)
     surf = shade.surface(scene, 1, 2, lanes["hit"], lanes["o"], lanes["d"],
-                         lanes["active"], lanes["throughput"],
-                         lanes["radiance"], lanes["last_pdf"],
-                         lanes["last_delta"])
+                         lanes["active"].clone(), lanes["throughput"],
+                         lanes["radiance"].clone(), lanes["last_pdf"],
+                         lanes["last_delta"], shade.FULL,
+                         shade.DrawIn(scene.env, 0, 4, False, rng))
     if mat_type is not None:
         surf = surf._replace(mat=surf.mat._replace(
             type=torch.full_like(surf.mat.type, mat_type)))
-    assert set(surf.mat.type.tolist()) >= ({0, 1, 2, 3} if mat_type is None
-                                           else {mat_type})
+    live = lanes["active"]
+    assert set(surf.mat.type[live].tolist()) >= (
+        {0, 1, 2, 3} if mat_type is None else {mat_type})
     rs = np.random.RandomState(5)
     rng = torch.from_numpy(rs.randint(0, 2**32, n, dtype=np.int64)).to(cuda)
-    lights = _shade_lights(surf, _env("map", cuda), n, 13, cuda, counts)
+    lights = _shade_lights(n, 13, cuda, counts, live)
     args = (surf, lanes["o"], lanes["d"], lanes["throughput"],
-            surf.radiance, rng, surf.active, lights)
+            surf.radiance, rng, live, lights)
+    state = dict(active=torch.ones_like(live),
+                 last_pdf=torch.zeros(n, device=cuda),
+                 last_delta=torch.zeros_like(live))
     shade.reset_launch_counts()
-    got, want = shade.scatter(*args), shade.scatter_plain(*args)
-    assert shade.LAUNCHES["scatter"] == (2 if len(counts) > 8 else 1)
+    got = shade.scatter(surf, *(x.clone() for x in args[1:6]), live, lights,
+                        state=state)
+    want = shade.scatter_plain(*args, state={})
+    assert shade.LAUNCHES["scatter"] == 1
     assert list(got) == list(want)
     for k in want:
-        _assert_bits(got[k], want[k], f"scatter {k}")
+        g, w = got[k], want[k]
+        if k == "radiance":
+            assert bool((g == w).all()), "scatter radiance"
+            g, w = g[live], w[live]
+        elif k in ("last_pdf", "last_delta", "rng"):
+            g, w = g[live], w[live]
+        _assert_bits(g, w, f"scatter {k}")
     assert bool(got["active"].any())
+    assert got["active"] is state["active"]
 
 
 @pytest.mark.parametrize("env_kind", ["constant", "map"])
@@ -1251,8 +1387,14 @@ def test_shade_env_kernels_match_plain(cuda, env_kind):
                     lanes["hit"].tri, lanes["throughput"],
                     lanes["radiance"], lanes["last_pdf"],
                     lanes["last_delta"])
-            _assert_bits(shade.env_miss(*args), shade.env_miss_plain(*args),
+            want = shade.env_miss_plain(*args)
+            _assert_bits(shade.env_miss(*args), want,
                          f"env_miss {env_samples} {bounce}")
+            # into the radiance itself, as the path calls it
+            rad = lanes["radiance"].clone()
+            got = shade.env_miss(*args[:7], rad, *args[8:], out=rad)
+            assert got is rad
+            _assert_bits(got, want, f"env_miss in place {env_samples}")
     rs = np.random.RandomState(19)
     rand2 = rs.rand(n, 2).astype(np.float32)
     rand2[:3] = [[0, 0], [np.float32(1 - 2**-24), 0.5],
@@ -1262,5 +1404,5 @@ def test_shade_env_kernels_match_plain(cuda, env_kind):
                                shade.env_draw_plain(env, rand2),
                                ("dir", "radiance", "pdf")):
         _assert_bits(got, want.contiguous(), f"env_draw {name}")
-    assert shade.LAUNCHES["env_miss"] == 6
+    assert shade.LAUNCHES["env_miss"] == 12
     assert shade.LAUNCHES["env_draw"] == 1

@@ -24,6 +24,7 @@ lanes by GGX's condition (`_close_glossy`). The masks (live lanes,
 shading-frame picks, scatter validity) agree exactly on every lane.
 """
 
+import json
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -54,6 +55,7 @@ from moonshine_tpu_torch.scene.world import scene_from_arrays
 
 from test_torch_scene import jax_scene_arrays
 from test_torch_tlas import jax_tlas_arrays, jax_world, two_level
+from torch_light_world import LIGHTS, light_world
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 N = 2048
@@ -183,11 +185,19 @@ def _ref_surface(js, mesh_samples, bounce, lanes, mode):
 
 
 def _surface(ps, mesh_samples, bounce, lanes, mode):
+    """The port's surface on `lanes`; the full form with a draw of no
+    env sample, no roulette and no cut, which leaves the decode, the
+    emission and the mask as they are."""
     t = lambda k: torch.from_numpy(lanes[k])
+    draw = None
+    if mode == shade.FULL:
+        rng = np.random.RandomState(bounce).randint(0, 2**32, len(lanes["d"]))
+        draw = shade.DrawIn(ps.env, 0, bounce + 1, False,
+                            torch.from_numpy(rng.astype(np.int64)))
     return shade.surface(ps, mesh_samples, torch.tensor(bounce),
                          _port_hit(lanes), t("o"), t("d"), t("active"),
                          t("throughput"), t("radiance"), t("last_pdf"),
-                         t("last_delta"), mode)
+                         t("last_delta"), mode, draw)
 
 
 @pytest.mark.parametrize("name", ["flagship", "room", "room_constant",
@@ -259,13 +269,11 @@ def _ref_scatter(mat, frame, w_o_ss, position, tri_n, o, d, thr, rad, rng,
                 rng=rng)
 
 
-@pytest.mark.parametrize("mat_type", [JB.GLASS, JB.LAMBERT, JB.MIRROR,
-                                      JB.STANDARD_PBR])
-def test_scatter_matches_reference(mat_type):
-    """scatter_plain against the reference on seeded lanes of one
-    material type: random frames, w_o, colours, metalness, roughness and
-    ior; an env sample and two mesh samples (sample counts 1 and 2) with
-    random lanes and occlusion."""
+def scatter_case(mat_type):
+    """test_scatter_matches_reference's seeded lanes of one material
+    type: (material fields, the frame's n, s, t, w_o in it, the light
+    samples as (dir, radiance, pdf, lane, occluded, count), the lane
+    state)."""
     rs = np.random.RandomState(31 + mat_type)
     f32 = np.float32
     n = N
@@ -297,17 +305,30 @@ def test_scatter_matches_reference(mat_type):
                  thr=rs.rand(n, 3).astype(f32), rad=rs.rand(n, 3).astype(f32),
                  rng=rs.randint(0, 2**32, n).astype(np.uint32),
                  active=rs.rand(n) > 0.2)
+    return fields, (nrm, s, t), wo, lights, state
+
+
+@pytest.mark.parametrize("mat_type", [JB.GLASS, JB.LAMBERT, JB.MIRROR,
+                                      JB.STANDARD_PBR])
+def test_scatter_matches_reference(mat_type):
+    """scatter_plain against the reference on seeded lanes of one
+    material type: random frames, w_o, colours, metalness, roughness and
+    ior; an env sample and two mesh samples (sample counts 1 and 2) with
+    random lanes and occlusion."""
+    fields, (nrm, s, t), wo, lights, state = scatter_case(mat_type)
+    n = N
     P = torch.from_numpy
     surf = shade.Surface(
         position=P(state["position"]), tri_n=P(state["tri_n"]),
         frame=PFrame(n=P(nrm), s=P(s), t=P(t)), w_o_ss=P(wo),
         mat=PB.MaterialLanes(**{k: P(v) for k, v in fields.items()}),
         radiance=P(state["rad"]), active=P(state["active"]))
+    stack = lambda j: P(np.stack([light[j] for light in lights]))
     got = shade.scatter(surf, P(state["o"]), P(state["d"]), P(state["thr"]),
                         surf.radiance, P(state["rng"].astype(np.int64)),
                         surf.active,
-                        [shade.Light(P(a), P(b), P(c), P(e), P(f), g)
-                         for a, b, c, e, f, g in lights])
+                        shade.Lights(stack(0), stack(1), stack(2), stack(3),
+                                     stack(4), 1, 2), state={})
     J = jnp.asarray
     want = _ref_scatter(
         JB.MaterialLanes(**{k: J(v) for k, v in fields.items()}),
@@ -342,6 +363,128 @@ def _close_glossy(got, want, alpha, what):
     assert (err <= 1e-5 + rtol * np.abs(want)).all(), what
     lanes = np.isclose(got, want, **TOL)
     assert (lanes.all(1) if lanes.ndim == 2 else lanes).mean() >= 0.98, what
+
+
+# ---- the bounce's light draw (the full form with a draw)
+
+@pytest.fixture(scope="module")
+def light_scenes():
+    """name -> (JAX DeviceScene, the port's scene on its arrays): the
+    light panels' emission constant, textured, or not sampled
+    (torch_light_world.py)."""
+    from moonshine_tpu.scene import types as JTy
+    from moonshine_tpu.scene.world import World
+
+    out = {}
+    for name in LIGHTS:
+        js = light_world(JTy, World, name).build()
+        out[name] = js, scene_from_arrays(*jax_scene_arrays(js), "cpu")
+    return out
+
+
+def _ref_draw(js, bounce, max_bounces, env_samples, mesh_samples, lanes):
+    """The reference's termination and NEE draws (path.py:503-573) on
+    numpy lanes: (active, throughput, rng, per sample (shadow o, d,
+    t_max, lane, light dir, radiance, pdf))."""
+    from moonshine_tpu.core.mathutil import luminance as j_luminance
+    from moonshine_tpu.lights.mesh_lights import sample_mesh_lights
+
+    J = jnp.asarray
+    active = J(lanes["active"]) & (bounce < max_bounces + 1)
+    throughput = J(lanes["throughput"])
+    position, tri_n = J(lanes["position"]), J(lanes["tri_n"])
+    rng, rr_rand = JR.next_float(J(lanes["rng"]))
+    do_rr = bounce > 3
+    p_survive = jnp.minimum(0.95, j_luminance(throughput))
+    active = active & ~(do_rr & (rr_rand > p_survive))
+    throughput = jnp.where((do_rr & active)[..., None],
+                           throughput / jnp.maximum(p_survive, 1e-20)[
+                               ..., None], throughput)
+    nee_active = active & ~JB.is_delta(J(lanes["type"]))
+    samples = []
+    for _ in range(env_samples):
+        rng, r2 = JR.next_float2(rng)
+        l_dir, l_rad, l_pdf = JE.sample_envmap(js.env, r2)
+        shadow_o = j_offset(position, j_face_forward(tri_n, l_dir))
+        samples.append((shadow_o, l_dir, jnp.full_like(l_pdf, 1.0e12),
+                        nee_active & (l_pdf > 0.0), l_dir, l_rad, l_pdf))
+    for _ in range(mesh_samples):
+        rng, r2 = JR.next_float2(rng)
+        l_dir, l_pos, l_n, _, l_bary, l_pdf, l_row = sample_mesh_lights(
+            js, position, r2)
+        l_rad = JP._emissive_at(js, l_row, l_bary)
+        off_light = j_offset(l_pos, l_n)
+        off_shade = j_offset(position, j_face_forward(tri_n, l_dir))
+        seg = off_light - off_shade
+        seg_len = jnp.linalg.norm(seg, axis=-1)
+        samples.append((off_shade, seg / jnp.maximum(seg_len, 1e-20)[
+            ..., None], seg_len, nee_active & (l_pdf > 0.0), l_dir, l_rad,
+            l_pdf))
+    return active, throughput, rng, samples
+
+
+@pytest.mark.parametrize("counts", [(1, 1), (2, 1), (1, 2), (0, 2),
+                                    (2, 0)])
+@pytest.mark.parametrize("roulette", [False, True])
+@pytest.mark.parametrize("name", ["constant", "textured", "no_emitters"])
+def test_draw_matches_reference(light_scenes, name, roulette, counts):
+    """The full form's draw (_draw_plain: the cut, the roulette, each env
+    and mesh light sample and its shadow ray) against the reference's
+    on seeded lanes of the panels' scene (bounce 4 with the roulette, 2
+    without; max_bounces 4): masks and PCG states exactly, the rest to
+    TOL; the shadow batch in the samples' order (env first), each
+    sample's lanes the reference's. The scene without emitters gives
+    every mesh sample pdf 0 and no shadow ray."""
+    js, ps = light_scenes[name]
+    assert ps.mat_atlas.emissive_constant == (name != "textured")
+    assert (ps.emitters.count == 0) == (name == "no_emitters")
+    env_samples, mesh_samples = counts
+    n = N
+    rs = np.random.RandomState(61)
+    f32 = np.float32
+    lanes = _lanes(ps.num_tris, 0, n, 67)
+    # shading points on the floor, below the panels, and random normals
+    position = np.stack([rs.rand(n) * 6 - 3, rs.rand(n) * 6 - 3,
+                         rs.rand(n) * 0.5], 1).astype(f32)
+    tri_n = rs.randn(n, 3).astype(f32)
+    tri_n /= np.linalg.norm(tri_n, axis=1, keepdims=True)
+    lanes.update(position=position, tri_n=tri_n,
+                 type=rs.randint(0, 4, n).astype(np.int32),
+                 rng=rs.randint(0, 2**32, n).astype(np.uint32))
+    bounce = 4 if roulette else 2
+    P = torch.from_numpy
+    surf = shade.Surface(P(position), P(tri_n), None, None,
+                         PB.MaterialLanes(P(lanes["type"]), None, None, None,
+                                          None), None, P(lanes["active"]))
+    got = shade._draw_plain(
+        ps, mesh_samples, torch.tensor(bounce), surf, P(lanes["throughput"]),
+        shade.DrawIn(ps.env, env_samples, 4, roulette,
+                     P(lanes["rng"].astype(np.int64))))
+    active, throughput, rng, samples = _ref_draw(
+        js, bounce, 4, env_samples, mesh_samples, lanes)
+    what = f"{name} roulette {roulette} samples {counts}"
+    _close(got.active, active, f"{what} active")
+    _close(got.throughput, throughput, f"{what} throughput")
+    _close(got.rng, np.asarray(rng).astype(np.int64), f"{what} rng")
+    if roulette:
+        assert 0 < int(got.active.sum()) < int(P(lanes["active"]).sum())
+    s = len(samples)
+    assert (got.shadow is None) == (s == 0) == (got.lights is None)
+    if not s:
+        return
+    assert [got.lights.n_samples(k) for k in range(s)] == (
+        [env_samples] * env_samples + [mesh_samples] * mesh_samples)
+    for j, key in enumerate(("o", "d", "t_max", "lane")):
+        want = np.concatenate([np.asarray(x[j]) for x in samples])
+        _close(getattr(got.shadow, key), want, f"{what} shadow {key}")
+    for j, key in enumerate(("dir", "radiance", "pdf"), start=4):
+        want = np.stack([np.asarray(x[j]) for x in samples])
+        _close(getattr(got.lights, key), want, f"{what} light {key}")
+    assert torch.equal(got.lights.lane.reshape(-1), got.shadow.lane)
+    traced = got.lights.lane[env_samples:]
+    assert bool(traced.any()) == (mesh_samples > 0 and name != "no_emitters")
+    if name == "no_emitters":
+        assert not bool(got.lights.pdf[env_samples:].any())
 
 
 def _envs():
@@ -403,24 +546,32 @@ def test_env_matches_reference(env_kind):
         _close(got, want, f"draw {what}")
 
 
-# ---- the render against the integrator as it was
+# ---- the render held bit for bit
 
-# The same renders by the integrator as it stood before its shading
-# moved behind integrator/shade.py: the images and ray counts
-BEFORE = Path(__file__).parent / "torch_fixtures" / "render_before_shade.npz"
+# The scenes' arrays (the JAX builds bridged by jax_scene_arrays and
+# jax_tlas_arrays, committed so that the JAX build of the host does not
+# enter the check) and the images and ray counts the port renders from
+# them (recorded from the repository's root with `PYTHONPATH=. python
+# tests/test_torch_shade.py --record`)
+INPUTS = Path(__file__).parent / "torch_fixtures" / "render_inputs.npz"
+IMAGES = Path(__file__).parent / "torch_fixtures" / "render_images.npz"
+RENDERS = [("flagship", True), ("flagship", False), ("instanced", True)]
 
 
-@pytest.mark.parametrize("name,unroll", [("flagship", True),
-                                         ("flagship", False),
-                                         ("instanced", True)])
-def test_render_bit_for_bit_as_before(scenes, name, unroll):
-    """A 32x32 x 2 spp render (every segment kind: bounce 0, the deep and
-    roulette ones, the thin last one or the looped form's) equals, bit for
-    bit with its ray count, the same render by the integrator as it was
-    before the shading moved behind integrator/shade.py (BEFORE)."""
+def _committed_scene(name):
+    """The port's scene on the committed arrays of `name`."""
+    with np.load(INPUTS) as z:
+        arrays = {k.split("/", 1)[1]: z[k] for k in z.files
+                  if k.startswith(name + "/")}
+        statics = json.loads(str(z[name + ".statics"]))
+    return scene_from_arrays(arrays, statics, "cpu")
+
+
+def _render(name, unroll):
+    """(image, rays) of a 32x32 x 2 spp render of a committed scene."""
     from moonshine_tpu_torch.scene.types import Lens
 
-    _, scene = scenes[name]
+    scene = _committed_scene(name)
     if name == "flagship":
         from moonshine_tpu_torch.scene import procedural
 
@@ -432,11 +583,58 @@ def test_render_bit_for_bit_as_before(scenes, name, unroll):
     la = LensArrays.from_lens(lens, "cpu")
     cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
                      mesh_samples_per_bounce=1, unroll=unroll)
-    img, rays = RR.render_spp(scene, la, 32, 32, 3, 2, cfg)
-    key = f"{name}_{'unrolled' if unroll else 'looped'}"
-    with np.load(BEFORE) as before:
+    return RR.render_spp(scene, la, 32, 32, 3, 2, cfg)
+
+
+def _key(name, unroll):
+    return f"{name}_{'unrolled' if unroll else 'looped'}"
+
+
+@pytest.mark.parametrize("name,unroll", RENDERS)
+def test_render_bit_for_bit_as_before(name, unroll):
+    """A 32x32 x 2 spp render (every segment kind: bounce 0, the deep and
+    roulette ones, the thin last one or the looped form's) of a committed
+    scene equals, bit for bit with its ray count, the recorded render
+    (IMAGES). The inputs are committed arrays and the port's CPU float32
+    functions round as on any host (core/mathutil.py), so the check holds
+    on every host."""
+    img, rays = _render(name, unroll)
+    key = _key(name, unroll)
+    with np.load(IMAGES) as before:
         want, want_rays = before[key], int(before[f"{key}_rays"])
     np.testing.assert_array_equal(img.numpy().view(np.int32),
                                   want.view(np.int32))
     assert int(rays) == want_rays
     assert float(img.mean()) > 0.0
+
+
+def _record():
+    """Write INPUTS from the JAX builds and IMAGES from this tree."""
+    from __graft_entry__ import _flagship_scene
+
+    out = {}
+    built = {
+        "flagship": jax_scene_arrays(_flagship_scene()[0]),
+        "instanced": jax_tlas_arrays(two_level(
+            jax_world(n=6, mirrored=True, hidden=4).build)),
+    }
+    for name, (arrays, statics) in built.items():
+        out.update({f"{name}/{k}": v for k, v in arrays.items()})
+        out[f"{name}.statics"] = np.asarray(json.dumps(statics))
+    np.savez_compressed(INPUTS, **out)
+    images = {}
+    for name, unroll in RENDERS:
+        img, rays = _render(name, unroll)
+        images[_key(name, unroll)] = img.numpy()
+        images[_key(name, unroll) + "_rays"] = np.asarray(int(rays))
+    np.savez_compressed(IMAGES, **images)
+
+
+if __name__ == "__main__":
+    import sys
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    if "--record" in sys.argv:
+        _record()

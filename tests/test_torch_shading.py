@@ -7,6 +7,8 @@ Inputs come from numpy seeds; both sides read the same scene tables
 atol 1e-6: the frameworks' transcendental functions and fused multiply-
 adds differ in the last bits, and GGX / Fresnel terms amplify that."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,9 +51,9 @@ def flagship():
     return js, scene_from_arrays(*jax_scene_arrays(js), "cpu")
 
 
-@pytest.mark.parametrize("mat_type", [JB.GLASS, JB.LAMBERT, JB.MIRROR,
-                                      JB.STANDARD_PBR])
-def test_bsdf(mat_type):
+def bsdf_case(mat_type):
+    """test_bsdf's seeded lanes of one material type: (material fields,
+    w_i, w_o, the sampling squares)."""
     rs = np.random.RandomState(mat_type)
     f32 = np.float32
     fields = dict(
@@ -61,13 +63,20 @@ def test_bsdf(mat_type):
         alpha=np.maximum(rs.rand(N).astype(f32) ** 2, f32(1e-3)),
         ior=(1.2 + 0.6 * rs.rand(N)).astype(f32),
     )
-    jm = JB.MaterialLanes(**{k: jnp.asarray(v) for k, v in fields.items()})
-    pm = PB.MaterialLanes(**{k: torch.from_numpy(v) for k, v in fields.items()})
     # mostly upper-hemisphere directions, a quarter from below
     w_o = _dirs(rs, N, upper=1.0)
     w_o[: N // 4, 2] *= -1
     w_i = _dirs(rs, N)
     sq = rs.rand(N, 2).astype(f32)
+    return fields, w_i, w_o, sq
+
+
+@pytest.mark.parametrize("mat_type", [JB.GLASS, JB.LAMBERT, JB.MIRROR,
+                                      JB.STANDARD_PBR])
+def test_bsdf(mat_type):
+    fields, w_i, w_o, sq = bsdf_case(mat_type)
+    jm = JB.MaterialLanes(**{k: jnp.asarray(v) for k, v in fields.items()})
+    pm = PB.MaterialLanes(**{k: torch.from_numpy(v) for k, v in fields.items()})
     J = lambda x: jnp.asarray(x)
     P = torch.from_numpy
 
@@ -155,3 +164,48 @@ def test_material_block_fetch(flagship):
     want = JT.sample_material_block(js.mat_atlas.bsdf, jnp.asarray(rects),
                                     jnp.asarray(uv))
     _close(got, want)
+
+
+@pytest.mark.parametrize("name", ["sqrt", "sin", "cos", "log", "tan", "acos",
+                                  "atan2", "pow", "cross"])
+def test_cpu_functions_round_as_on_every_host(name):
+    """The port's float32 functions on CPU tensors (core/mathutil.py)
+    give the value that does not depend on the host: sqrt the correctly
+    rounded root (numpy's IEEE one, on seeded, tiny, huge, zero and
+    negative inputs), the others the float64 value rounded once (Python's
+    math in float64, rounded by numpy), cross
+    each product rounded as numpy's float32 arithmetic rounds it; on
+    lane counts on both sides of the vector loops' widths."""
+    from moonshine_tpu_torch.core import mathutil as M
+
+    rs = np.random.RandomState(71)
+    f32 = np.float32
+    x = np.concatenate([rs.rand(4099) * 4, rs.randn(64) * 1e30,
+                        rs.rand(64) * 1e-38, [0.0, -0.0, 1.0, 4.0]]).astype(
+                            f32)
+    t = torch.from_numpy
+    if name == "sqrt":
+        got = M.sqrt(t(np.abs(x))).numpy()
+        np.testing.assert_array_equal(got, np.sqrt(np.abs(x)))
+        assert np.isnan(M.sqrt(t(f32([-1.0]))).numpy()).all()
+        return
+    if name == "cross":
+        a, b = rs.randn(2, 4099, 3).astype(f32)
+        want = np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], -1)
+        np.testing.assert_array_equal(M.cross(t(a), t(b)).numpy(), want)
+        return
+    x = x[:4099] + f32(0.01)
+    if name == "acos":
+        x = x / f32(4.2)
+    args = {"atan2": (x - 2, x), "pow": (x, 5)}.get(name, (x,))
+    got = getattr(M, name)(*(t(a) if isinstance(a, np.ndarray) else a
+                             for a in args)).numpy()
+    # the expected value from outside torch: Python's libm in float64
+    fn = getattr(math, name)
+    cols = [a.astype(np.float64) if isinstance(a, np.ndarray)
+            else np.full(x.shape, a, np.float64) for a in args]
+    ref = np.array([fn(*v) for v in zip(*cols)]).astype(f32)
+    np.testing.assert_array_equal(got, ref)
+    assert got.dtype == np.float32
