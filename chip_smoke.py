@@ -9,7 +9,7 @@ script exits non-zero without the result line. Phases:
   device          the card's name and power limit (nvidia-smi)
   build           nvcc builds csrc/traverse.cu, csrc/treelet.cu,
                   csrc/vpacket.cu, csrc/vpu.cu, csrc/bitcast.cu,
-                  csrc/tlas.cu and csrc/shade.cu into
+                  csrc/tlas.cu, csrc/shade.cu and csrc/sort.cu into
                   build/, one process each, started together; prints each
                   kernel's registers, shared memory and spills (ptxas)
   scenes          flagship, room_184k (SAH, 24-wide / 24-slot) and
@@ -27,12 +27,14 @@ script exits non-zero without the result line. Phases:
                   committed golden image
   room_184k       render_spp of room_184k, 512x512, 2 spp (fused path)
   room_1080p      room_184k, 1920x1080 x 2 spp through render_spp (the
-                  staged path, resort on), packet kernels and the shading
+                  staged path, resort on), packet kernels, the shading
                   kernels (a surface and env-miss launch a segment, a
-                  scatter and env-draw launch a shadow batch)
+                  scatter launch a shadow batch) and the lane sort (the
+                  camera rays' two sorted dispatches with their inverse
+                  moves, a resort before each later segment)
   treelet_1080p   the same frame with MSN_TREELETS=1 on the treelet build,
-                  treelet kernels (a phase-1 launch per walk launch); its
-                  image against room_1080p's
+                  treelet kernels (a phase-1 launch, a sort and an inverse
+                  move per walk launch); its image against room_1080p's
   staged_vs_fused room_184k 512x512 x 1 spp through both paths
   timings         each kernel at the largest shape of the 1080p main path
                   (2,073,600 closest-hit rays, 4,147,200 shadow rays): the
@@ -142,6 +144,24 @@ script exits non-zero without the result line. Phases:
                   replayed through the kernel and its plain version, every
                   output bit for bit, both timed, with the bound from the
                   bytes and operations of those inputs
+  sort            the lane sort of csrc/sort.cu (core/sortutil.py): each
+                  site's first call in an eager 1080p sample (the resort
+                  and the packet sorts of room_1080p at 2,073,600 lanes,
+                  the shadow batch's at 4,147,200, treelet_1080p's)
+                  replayed through the kernels and the plain version:
+                  the coherence key from its inputs, the permutation
+                  against torch.argsort(key, stable=True) and every moved
+                  column bit for bit; each
+                  timed beside the argsort alone, the plain version, the
+                  parent's argsort + gathers + copy back and the bound;
+                  the whole resort against the parent's; the inverse move
+                  the same way; then room_1080p and an offline_720p sample
+                  with the plain versions patched in against the kernels'
+                  run (image, rays, launches)
+  shadow_compact  room_1080p with MSN_SHADOW_COMPACT=1 (each resorted
+                  segment's shadow batch sorted inside the any-hit
+                  dispatch) as graph replays against the default: image,
+                  rays and the traversal and shading launches bit for bit
   graphs          the bounce loop as CUDA graph replays (every phase above
                   runs them; the recorded runs use the eager loop) against
                   the eager loop (integrator/graphs.py eager()) on
@@ -150,7 +170,8 @@ script exits non-zero without the result line. Phases:
                   rays and launches bit for bit; each way ms/spp,
                   kernels, graph replays, host dispatches and reads, the
                   device's idle share (render/profile_frame.py `profile`)
-                  and peak memory
+                  and peak memory; one more eager sample split by the
+                  stage ranges (integrator/path.py STAGES)
   capi            build/libmoonshine_tpu_torch.so built with g++ and loaded
                   with ctypes here: native/test_shim.cpp's scene through
                   Msn* calls on the card (engine on cuda, traversal
@@ -233,6 +254,17 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                  "moonshine_tpu/lights/envmap.py:134 sample_envmap on the "
                  "direct integrator's path (core/gather.py:61 gather_rows; "
                  "jnp, no pallas_call)"),
+    "coherence_key": ("moonshine_tpu_torch/csrc/sort.cu",
+                      "moonshine_tpu/accel/packet.py:651 _sort_key and "
+                      "integrator/path.py:638-647 _resort_state's key (jnp, "
+                      "no pallas_call)"),
+    "sort_lanes": ("moonshine_tpu_torch/csrc/sort.cu",
+                   "moonshine_tpu/core/sortutil.py:22 sort_lanes (jnp "
+                   "lax.sort, no pallas_call)"),
+    "unsort_lanes": ("moonshine_tpu_torch/csrc/sort.cu",
+                     "moonshine_tpu/accel/packet.py:690 _sorted_dispatch's "
+                     "inverse sort_lanes by the lane iota (jnp lax.sort, no "
+                     "pallas_call)"),
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
@@ -268,6 +300,25 @@ def env(**values):
 
 def say(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def _counted():
+    from moonshine_tpu_torch.accel import packet, tlas, treelet
+    from moonshine_tpu_torch.core import sortutil
+    from moonshine_tpu_torch.integrator import shade
+
+    return (packet, treelet, tlas, shade, sortutil)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    for m in _counted():
+        m.reset_launch_counts()
+
+
+def read_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {k: v for m in _counted() for k, v in m.LAUNCHES.items()}
 
 
 def cuda_ms(fn, reps):
@@ -470,8 +521,6 @@ def render_1080p(name, scene, lens, cfg, resort, spp=2):
     which sort inside each dispatch); returns (image, stats, launches)."""
     import torch
 
-    from moonshine_tpu_torch.accel import packet, tlas, treelet
-    from moonshine_tpu_torch.integrator import shade
     from moonshine_tpu_torch.render.renderer import render_spp
 
     h, w = HD
@@ -479,14 +528,12 @@ def render_1080p(name, scene, lens, cfg, resort, spp=2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
-    for m in (packet, treelet, tlas, shade):
-        m.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     acc, rays = render_spp(scene, lens, h, w, 0, spp, cfg, stats=stats)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {**packet.LAUNCHES, **treelet.LAUNCHES, **tlas.LAUNCHES,
-                **shade.LAUNCHES}
+    launches = read_counts()
     rays = int(rays)
     img = (acc / spp).cpu().numpy()
     say(name, f"{w}x{h} x {spp} spp: {rays} rays in {dt:.4f} s = "
@@ -591,6 +638,7 @@ def time_kernels(scenes, timings, errs):
     import torch
 
     from moonshine_tpu_torch.accel import native, packet, treelet, vpacket
+    from moonshine_tpu_torch.core import sortutil
     from moonshine_tpu_torch.render.renderer import _sample_rays
     from moonshine_tpu_torch.scripts import shadow_batch
 
@@ -650,8 +698,8 @@ def time_kernels(scenes, timings, errs):
                     wb, *a, ah)
                 plain = lambda c=False, a=srt, ah=any_hit: \
                     treelet._dispatch_plain(wb, *a, ah, count_visits=c)
-                unsort = lambda x, p=perm: torch.empty_like(x).index_copy_(
-                    0, p, x)
+                unsort = lambda x, p=perm: sortutil.unsort_lanes_plain(
+                    p, [x])[0]
                 fk = treelet.any_hit_treelet if any_hit else \
                     treelet.closest_hit_treelet
                 ms_wrap = cuda_ms(lambda: fk(wb, ro, rd, tm, act), 5)
@@ -2537,6 +2585,360 @@ def shade_phase(cells, timings, errs):
                 errs[name] = worst
 
 
+# integer operations a lane and digit pass of the sort kernels (the
+# digit, the match, the popcounts, the rank), over the card's int32 rate:
+# 64 INT32 lanes an SM x 132 SMs x 1.98 GHz
+SORT_OPS_PER_LANE_PASS = 12
+PEAK_INT32 = 64 * 132 * 1.98e9
+
+
+def record_sorts(render):
+    """The first sort_lanes call of each (bits, lanes) and the first
+    unsort_lanes call of each lane count in render() (run on the eager
+    loop, where the wrappers are called at every launch): their inputs
+    cloned, as {("sort", bits, n): (key, arrays, rows, out shapes),
+    ("unsort", n): (perm, arrays)}."""
+    from moonshine_tpu_torch.core import sortutil
+    from moonshine_tpu_torch.integrator import graphs
+
+    rec = {}
+    real = sortutil.sort_lanes, sortutil.unsort_lanes
+
+    def sort(key, arrays, bits, out=None, rows=None):
+        rec.setdefault(("sort", bits, key.shape[0]), (
+            key.clone(), [a.clone() for a in arrays], rows,
+            None if out is None else [o.shape for o in out]))
+        return real[0](key, arrays, bits, out=out, rows=rows)
+
+    def unsort(perm, arrays):
+        rec.setdefault(("unsort", perm.shape[0]), (
+            perm.clone(), [a.clone() for a in arrays]))
+        return real[1](perm, arrays)
+
+    sortutil.sort_lanes, sortutil.unsort_lanes = sort, unsort
+    try:
+        with graphs.eager():
+            render()
+    finally:
+        sortutil.sort_lanes, sortutil.unsort_lanes = real
+    return rec
+
+
+def _bits_equal(a, b):
+    """a and b equal bit for bit (floats compared as their words)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return bool((a == b).all())
+
+
+def sort_bound(n, arrays, rows, passes):
+    """(bound ms, by, detail) of one sort_lanes call (`passes` digit
+    passes, `native.sort_lib().passes`; 0: an unsort_lanes call): the key
+    read and the permutation
+    written once (an unsort reads the permutation), each array's moved
+    rows read and written once; the passes' integer operations over the
+    int32 rate."""
+    row = lambda a: (a.shape[1] if a.ndim == 2 else 1) * a.element_size()
+    moved = sum(row(a) * r for a, r in zip(arrays, rows))
+    nbytes = n * (8 if passes else 4) + 2 * moved
+    ops = n * passes * SORT_OPS_PER_LANE_PASS
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32 * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, (
+        f"{nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms, {passes} passes, "
+        f"{ops / 1e6:.1f} M int ops -> {t_ops:.4f} ms")
+
+
+def sort_phase(scenes, offline_cell, cfg, timings, errs):
+    """The lane sort (csrc/sort.cu) at the main path's shapes: one eager
+    1080p sample of room_1080p (the resort and the packet dispatch's
+    sorts: 2,073,600 camera rays, the 4,147,200-lane shadow batch) and
+    of treelet_1080p (the treelet dispatch's sort) recorded, and each
+    site's first call replayed through the kernels and through the plain
+    version on the same inputs: the coherence key from the lanes it was
+    made of, the permutation against torch.argsort(key, stable=True) and
+    every moved column bit for bit;
+    each timed beside the argsort alone (the one PyTorch call that
+    computes the permutation), the plain version, the parent's form
+    (argsort, a gather of every lane array, and for the resort the copy
+    back into the loop's buffers) and the bound; the whole resort (key,
+    sort, moves) against the parent's. The inverse (unsort_lanes) the
+    same way. Then room_1080p and one offline_720p sample rendered with
+    the plain versions patched into core/sortutil.py (graphs captured
+    anew) against the kernels' render: image and rays bit for bit, every
+    other kernel's launches equal; one more sample of each way timed."""
+    import torch
+
+    from moonshine_tpu_torch.accel import native, packet, treelet
+    from moonshine_tpu_torch.core import sortutil
+    from moonshine_tpu_torch.integrator import graphs, path
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.renderer import render_sample, render_spp
+
+    h, w = HD
+    room, room_lens = scenes["room_184k/default"]
+    rec = record_sorts(lambda: render_spp(room, room_lens, h, w, 0, 1, cfg))
+    tree, tree_lens = scenes["room_184k/treelet"]
+    with env(MSN_TREELETS="1"):
+        rec.update(record_sorts(lambda: render_spp(tree, tree_lens, h, w, 0,
+                                                   1, cfg)))
+    k_tree = treelet.key_bits(tree.wide)
+    sites = {"resort": ("sort", path.RESORT_BITS, h * w),
+             "packet closest hit": ("sort", packet.SORT_KEY_BITS, h * w),
+             "packet shadow batch": ("sort", packet.SORT_KEY_BITS,
+                                     2 * h * w),
+             "treelet closest hit": ("sort", k_tree, h * w)}
+    missing = [k for k, v in sites.items() if v not in rec]
+    if missing or ("unsort", h * w) not in rec:
+        raise AssertionError(f"no recorded call for {missing}: recorded "
+                             f"{sorted(rec)}")
+    lane_names = [k for k in path._init_state(
+        torch.zeros(1, 3), torch.zeros(1, 3), torch.zeros(1)) if k != "rays"]
+
+    def key_inputs(site, arrays):
+        """(o, d, bounds, cells, keywords) the site's key came from."""
+        if site == "resort":
+            st = dict(zip(lane_names, arrays))
+            return (st["o"], st["d"], room.wide.bounds, path.RESORT_CELLS,
+                    dict(active=st["active"]))
+        if site.startswith("packet"):
+            return (arrays[0], arrays[1], room.wide.bounds,
+                    packet.SORT_CELLS, dict(active=arrays[3]))
+        return (arrays[0], arrays[1], tree.wide.bounds, packet.SORT_CELLS,
+                dict(major=arrays[4]))
+
+    for site, key_ in sites.items():
+        key, arrays, rows, out_shapes = rec[key_]
+        n, bits = key.shape[0], key_[1]
+        o, d, bounds, cells, kw = key_inputs(site, arrays)
+        got_key = sortutil.coherence_key(o, d, bounds, cells, **kw)
+        want_key = sortutil.coherence_key_plain(o, d, bounds, cells, **kw)
+        ok = _bits_equal(got_key, key) and _bits_equal(want_key, key)
+        key_ms = cuda_ms(lambda: sortutil.coherence_key(o, d, bounds, cells,
+                                                        **kw), 20)
+        key_plain_ms = cuda_ms(lambda: sortutil.coherence_key_plain(
+            o, d, bounds, cells, **kw), 20)
+        # a dead lane's key needs its mask alone: o and d of live lanes
+        live = (int(kw["active"].sum()) if "active" in kw else n)
+        key_bytes = n * (4 + (1 if "active" in kw else 4)) + live * 24
+        key_bound = key_bytes / PEAK_BYTES * 1e3
+        say("sort", f"{site}: coherence key kernel = plain = the recorded "
+            f"key bit for bit: {ok}; kernel {key_ms:.4f} ms, plain torch "
+            f"{key_plain_ms:.4f} ms, bound {key_bound:.4f} ms by bytes "
+            f"({key_bytes / 1e6:.2f} MB: the mask or major key read, o and "
+            f"d of the {live} live lanes, the key written)")
+        if not ok:
+            raise AssertionError(f"{site}: the coherence key differs")
+        if site == "resort":
+            timings["coherence_key"] = dict(
+                ms=key_ms, plain_ms=key_plain_ms, bound_ms=key_bound,
+                bound_by="bytes")
+            errs["coherence_key"] = 0.0
+        rows = rows or [a.shape[0] for a in arrays]
+        fresh = lambda: (None if out_shapes is None else [
+            torch.zeros(sh, dtype=a.dtype, device=a.device)
+            for sh, a in zip(out_shapes, arrays)])
+        out_k, out_p = fresh(), fresh()
+        perm, got = sortutil.sort_lanes(key, arrays, bits, out=out_k,
+                                        rows=rows)
+        want_perm, want = sortutil.sort_lanes_plain(key, arrays, bits,
+                                                    out=out_p, rows=rows)
+        lib_perm = torch.argsort(key, stable=True)
+        ok = (_bits_equal(perm, lib_perm.int())
+              and _bits_equal(perm, want_perm)
+              and all(_bits_equal(g, w_) for g, w_ in zip(got, want)))
+        live = int((key != sortutil.DEAD_KEY).sum())
+        say("sort", f"{site}: {n} lanes ({live} live keys, bits {bits}, "
+            f"{len(arrays)} arrays, rows {rows}): permutation = "
+            f"torch.argsort(key, stable=True) and every moved column = "
+            f"the plain version bit for bit: {ok}")
+        if not ok:
+            raise AssertionError(f"{site}: the sort kernels differ")
+        out_t = fresh()
+        ms = cuda_ms(lambda: sortutil.sort_lanes(key, arrays, bits,
+                                                 out=out_t, rows=rows), 20)
+        lib_ms = cuda_ms(lambda: torch.argsort(key, stable=True), 20)
+        plain_ms = cuda_ms(lambda: sortutil.sort_lanes_plain(
+            key, arrays, bits, out=out_t, rows=rows), 5)
+        statics = [torch.empty_like(a) for a in arrays]
+
+        def parent():  # argsort, a gather an array (the resort's copied
+            p = torch.argsort(key, stable=True)  # back into its buffers)
+            for a, st in zip(arrays, statics):
+                if site == "resort":
+                    st.copy_(a[p])
+                else:
+                    a[p]
+
+        parent_ms = cuda_ms(parent, 5)
+        b_ms, b_by, detail = sort_bound(n, arrays, rows,
+                                        native.sort_lib().passes(bits))
+        say("sort", f"{site}: kernels {ms:.4f} ms, torch.argsort alone "
+            f"{lib_ms:.4f} ms, plain version (argsort + gathers) "
+            f"{plain_ms:.4f} ms, the parent's form (argsort, gathers"
+            + (", copy back" if site == "resort" else "")
+            + f") {parent_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+            f"({detail})")
+        if site == "resort":
+            timings["sort_lanes"] = dict(ms=ms, plain_ms=plain_ms,
+                                         bound_ms=b_ms, bound_by=b_by,
+                                         library_ms=lib_ms)
+            errs["sort_lanes"] = 0.0
+            # the whole resort, the key included, into the other buffers
+            st = dict(zip(lane_names, arrays))
+            st["rays"] = torch.zeros((), dtype=torch.int64,
+                                     device=key.device)
+            dst = {k: (v if k == "rays" else torch.empty_like(v))
+                   for k, v in st.items()}
+            width = min(rows)
+            whole = cuda_ms(lambda: path._resort_state(
+                room, st, out=dst, prefix=n, width=width), 20)
+
+            def parent_whole():
+                k_ = sortutil.coherence_key_plain(
+                    st["o"], st["d"], room.wide.bounds, path.RESORT_CELLS,
+                    st["active"])
+                p = torch.argsort(k_, stable=True)
+                for name in lane_names:
+                    dst[name].copy_(st[name][p])
+
+            parent_whole_ms = cuda_ms(parent_whole, 5)
+            wb_ms = b_ms + key_bound
+            say("sort", f"the whole resort at {n} lanes (width {width}): "
+                f"key + sort + moves {whole:.4f} ms against the parent's "
+                f"key + argsort + gathers + copy back {parent_whole_ms:.4f}"
+                f" ms; bound with the key's ({key_bytes / 1e6:.1f} MB) "
+                f"{wb_ms:.4f} ms")
+
+    perm, arrays = rec[("unsort", h * w)]
+    got = sortutil.unsort_lanes(perm, arrays)
+    want = sortutil.unsort_lanes_plain(perm, arrays)
+    ok = all(_bits_equal(g, w_) for g, w_ in zip(got, want))
+    say("sort", f"unsort_lanes on {h * w} lanes ({len(arrays)} arrays): "
+        f"kernel = plain (index_copy_) bit for bit: {ok}")
+    if not ok:
+        raise AssertionError("unsort_lanes differs from its plain version")
+    ms = cuda_ms(lambda: sortutil.unsort_lanes(perm, arrays), 20)
+    plain_ms = cuda_ms(lambda: sortutil.unsort_lanes_plain(perm, arrays), 20)
+    b_ms, b_by, detail = sort_bound(h * w, arrays, [h * w] * len(arrays),
+                                    0)
+    say("sort", f"unsort_lanes: kernel {ms:.4f} ms, plain (an index_copy_ "
+        f"an array) {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({detail}); no single PyTorch call moves several arrays by one "
+        f"permutation, so no library time")
+    timings["unsort_lanes"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+    errs["unsort_lanes"] = 0.0
+
+    # the plain versions patched in: the same renders
+    o_scene, o_lens, opts = offline_cell
+    o_cfg = PathConfig(max_bounces=opts.max_bounces,
+                       env_samples_per_bounce=opts.env_samples,
+                       mesh_samples_per_bounce=opts.mesh_samples)
+    cells = {"room_1080p": lambda i: render_spp(room, room_lens, h, w, i, 1,
+                                                cfg),
+             "offline_720p": lambda i: render_sample(
+                 o_scene, o_lens, opts.height, opts.width, i, o_cfg)}
+    names = ("coherence_key", "sort_lanes", "unsort_lanes")
+    real = {k: getattr(sortutil, k) for k in names}
+    for name, sample in cells.items():
+        runs = {}
+        for form in ("kernels", "plain"):
+            if form == "plain":
+                for k in names:
+                    setattr(sortutil, k, getattr(sortutil, f"{k}_plain"))
+            try:
+                graphs.clear()
+                sample(1)  # the warm-up: its captures
+                reset_counts()
+                img, rays = sample(0)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                ms = host_ms(lambda: sample(2))
+                runs[form] = (img, int(rays), counts, ms)
+            finally:
+                for k in names:
+                    setattr(sortutil, k, real[k])
+                graphs.clear()
+        (ik, rk, ck, mk), (ip, rp, cp, mp) = runs["kernels"], runs["plain"]
+        same = (bool(torch.equal(ik, ip)) and rk == rp
+                and {k: v for k, v in ck.items() if k not in names}
+                == {k: v for k, v in cp.items() if k not in names})
+        say("sort", f"{name} with the plain key, sort and moves patched in: "
+            f"image, rays ({rk}) and launches equal the kernels' run: "
+            f"{same}; sort launches (key, sort, inverse) "
+            + " + ".join(str(ck[k]) for k in names) + " (kernels) against "
+            + " + ".join(str(cp[k]) for k in names) + f" (plain); a sample "
+            f"as graph replays {mk:.2f} ms (kernels) against {mp:.2f} ms "
+            f"(plain)")
+        if not same or ck["sort_lanes"] == 0 or any(cp[k] for k in names):
+            raise AssertionError(f"{name}: the plain sort's render differs")
+
+
+def shadow_compact_phase(room, lens, cfg):
+    """room_1080p (1920x1080 x 1 spp, the staged path, as graph replays)
+    with MSN_SHADOW_COMPACT=1, which sorts each resorted segment's shadow
+    batch inside the any-hit dispatch (packet._sorted), against the
+    default: image and rays bit for bit, the traversal and shading
+    launches equal, more sorts."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.render.renderer import render_spp
+
+    if not room.has_delta:
+        raise AssertionError("room_184k holds no mirror or glass: "
+                             "MSN_SHADOW_COMPACT would change nothing")
+    runs = {}
+    for flag in ("0", "1"):
+        with env(MSN_SHADOW_COMPACT=flag):
+            render_spp(room, lens, HD[0], HD[1], 1, 1, cfg)  # captures
+            reset_counts()
+            graphs.reset_counts()
+            t0 = time.perf_counter()
+            img, rays = render_spp(room, lens, HD[0], HD[1], 0, 1, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[flag] = (img, int(rays), read_counts(),
+                          graphs.COUNTS["replays"])
+        say("shadow_compact", f"MSN_SHADOW_COMPACT={flag}: {ms:.2f} ms/spp,"
+            f" {runs[flag][1]} rays, {runs[flag][3]} graph replays, "
+            f"launches {runs[flag][2]}")
+    (i0, r0, c0, _), (i1, r1, c1, replays) = runs["0"], runs["1"]
+    sorts = ("coherence_key", "sort_lanes", "unsort_lanes")
+    same_image = bool(torch.equal(i0, i1)) and r0 == r1
+    same = same_image and ({k: v for k, v in c0.items() if k not in sorts}
+                           == {k: v for k, v in c1.items() if k not in sorts})
+    say("shadow_compact", f"image and rays equal the default's: "
+        f"{same_image}; and the traversal / shading launches: {same}; "
+        f"sorts {c0['sort_lanes']} -> {c1['sort_lanes']}, unsorts "
+        f"{c0['unsort_lanes']} -> {c1['unsort_lanes']}")
+    if not same or replays == 0 or c1["unsort_lanes"] <= c0["unsort_lanes"]:
+        raise AssertionError("MSN_SHADOW_COMPACT=1 differs from the default "
+                             "or sorted no shadow batch as graph replays")
+
+
+def say_stages(tag, name, prof):
+    """One line: a profiled sample's kernel ms by stage range
+    (integrator/path.py STAGES), their sum and what lies outside them."""
+    from moonshine_tpu_torch.integrator import path
+
+    staged = {k: prof[k]["kernel_ms"] for k in path.STAGES}
+    total = sum(staged.values())
+    say(tag, f"{name} stage split (eager, kernel ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in staged.items())
+        + f"; stages {total:.3f} of {prof['kernel_ms']:.3f} ms of kernels "
+        f"({total / max(prof['kernel_ms'], 1e-9):.2%}), outside "
+        f"{prof['kernel_ms'] - total:.3f} ms; resort calls "
+        f"{prof['resort']['calls']}")
+    return staged
+
+
 def graphs_phase(cells):
     """Each cell's sample (`cells`: name -> sample(i), which renders
     sample i and returns (image, rays or None)) on the eager loop
@@ -2549,14 +2951,14 @@ def graphs_phase(cells):
     `profile`): ms/spp, kernels, graph replays, host dispatches and
     reads, kernel time and the device's idle share; last, what stays
     reserved once the allocator's cache of freed blocks is emptied (the
-    graphs' pool and static buffers stay)."""
+    graphs' pool and static buffers stay). On the eager loop one more
+    sample is profiled with the stage ranges (integrator/path.py STAGES):
+    each stage's kernel time, their sum against the sample's."""
     import torch
 
-    from moonshine_tpu_torch.accel import packet, tlas, treelet
-    from moonshine_tpu_torch.integrator import graphs, shade
+    from moonshine_tpu_torch.integrator import graphs, path
     from moonshine_tpu_torch.render.profile_frame import profile
 
-    modules = (packet, treelet, tlas, shade)
     for name, sample in cells.items():
         rows = {}
         for mode in ("eager", "graphs"):
@@ -2567,16 +2969,17 @@ def graphs_phase(cells):
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
                 sample(1)
-                for m in modules:
-                    m.reset_launch_counts()
+                reset_counts()
                 img, rays = sample(0)
                 torch.cuda.synchronize()
-                counts = {k: v for m in modules for k, v in m.LAUNCHES.items()
-                          if v}
+                counts = {k: v for k, v in read_counts().items() if v}
                 peak = (torch.cuda.max_memory_allocated() / 2**20,
                         torch.cuda.max_memory_reserved() / 2**20)
                 prof = profile(lambda: sample(2))
                 prof.pop("by_name_us")
+                if mode == "eager":
+                    say_stages("graphs", name, profile(lambda: sample(2),
+                                                       marks=path.STAGES))
                 torch.cuda.empty_cache()  # the cache of freed blocks
                 held = torch.cuda.memory_reserved() / 2**20
             rows[mode] = (img, rays, counts, peak, prof)
@@ -2980,11 +3383,17 @@ def main():
                 or counts["treelet_pending"]
                 or counts["surface"] != segs or counts["env_miss"] != segs
                 or counts["scatter"] != counts["any_hit"]
-                or counts["env_draw"]):
+                or counts["env_draw"]
+                # each sample: the camera rays' two sorted dispatches and
+                # a resort before each later segment
+                or counts["unsort_lanes"] != 2 * 2
+                or counts["sort_lanes"] != counts["unsort_lanes"] + segs - 2
+                or counts["coherence_key"] != counts["sort_lanes"]):
             raise AssertionError(f"room_1080p launches {counts}, segments "
                                  f"{segs}")
         launches.update({k: counts[k] for k in (
-            "closest_hit", "any_hit", "surface", "scatter", "env_miss")})
+            "closest_hit", "any_hit", "surface", "scatter", "env_miss",
+            "coherence_key", "sort_lanes", "unsort_lanes")})
 
     with phase("treelet_1080p"):
         with env(MSN_TREELETS="1"):
@@ -2995,6 +3404,9 @@ def main():
                 or counts["treelet_any_hit"] == 0
                 or counts["treelet_pending"] != counts["treelet_closest_hit"]
                 + counts["treelet_any_hit"]
+                or counts["sort_lanes"] != counts["treelet_pending"]
+                or counts["unsort_lanes"] != counts["treelet_pending"]
+                or counts["coherence_key"] != counts["treelet_pending"]
                 or counts["closest_hit"] or counts["any_hit"]):
             raise AssertionError(f"treelet_1080p launches {counts}, "
                                  f"segments {stats['segments']}")
@@ -3069,6 +3481,14 @@ def main():
         shade_phase({"room_1080p": (*scenes["room_184k/default"], cfg),
                      "instanced_1080p": (*instanced, cfg)}, timings, errs)
 
+    # this slice: the lane sort at the 1080p shapes, the renders with its
+    # plain version, and the shadow batch's sort on the card
+    with phase("sort"):
+        sort_phase(scenes, offline_cell, cfg, timings, errs)
+
+    with phase("shadow_compact"):
+        shadow_compact_phase(*scenes["room_184k/default"], cfg)
+
     with phase("graphs"):
         graphs_phase(graph_cells(scenes, offline_cell, instanced, cfg, dev))
         del offline_cell, instanced
@@ -3079,7 +3499,7 @@ def main():
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
-         **timings[k], "library_ms": None}
+         "library_ms": None, **timings[k]}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,8 @@
 walk of csrc/tlas.cu, which share csrc/visit.cuh; traverse.cu and
 vpacket.cu also share the group walk of csrc/group_walk.cuh), the
 arithmetic microbenchmarks (csrc/vpu.cu), the quantised-row decode
-probe (csrc/bitcast.cu) and the bounce's shading (csrc/shade.cu);
+probe (csrc/bitcast.cu), the bounce's shading (csrc/shade.cu) and the
+lane sort (csrc/sort.cu);
 csrc/tlas.cu is built twice, the second time with its visit counters
 (`tlas_count`).
 
@@ -34,7 +35,8 @@ CSRC = _ROOT / "moonshine_tpu_torch" / "csrc"
 SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
            "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
            "bitcast": CSRC / "bitcast.cu", "tlas": CSRC / "tlas.cu",
-           "tlas_count": CSRC / "tlas.cu", "shade": CSRC / "shade.cu"}
+           "tlas_count": CSRC / "tlas.cu", "shade": CSRC / "shade.cu",
+           "sort": CSRC / "sort.cu"}
 # a library's own flags: tlas_count is the two-level walk that counts its
 # visits (accel/tlas.py walk_visits), never the timed build
 EXTRA_FLAGS = {"tlas_count": ["-DMSN_TLAS_COUNT"]}
@@ -194,9 +196,33 @@ class ShadeLib(NativeLib):
                                    _P])
 
 
+class SortLib(NativeLib):
+    """sort.cu's entry points: the coherence key (`key`), the permutation
+    (`sort`, with the int32 words of workspace it takes, `work_ints`, in
+    `passes` digit passes) and the move of lane arrays by it (`move`, at
+    most `max_cols` arrays a launch)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        ints = ctypes.POINTER(_I)
+        longs = ctypes.POINTER(_L)
+        self.key = self._fn("msn_coherence_key",
+                            [_P] * 6 + [_I, _I, _I, _P, _P])
+        self.sort = self._fn("msn_sort_lanes", [_P, _I, _I, _P, _P, _P])
+        self.move = self._fn("msn_move_lanes",
+                             [longs, longs, ints, ints, ints, ints, _I, _P,
+                              _I, _I, _P])
+        work = self._lib.msn_sort_work_ints
+        work.argtypes, work.restype = [_I, _I], _L
+        self.work_ints = work
+        self.passes = self._fn("msn_sort_passes", [_I])
+        self.max_cols = int(self._fn("msn_sort_max_cols", [])())
+
+
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
             "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib,
-            "tlas": TlasLib, "tlas_count": TlasLib, "shade": ShadeLib}
+            "tlas": TlasLib, "tlas_count": TlasLib, "shade": ShadeLib,
+            "sort": SortLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -355,3 +381,8 @@ def tlas_count_lib() -> TlasLib:
 def shade_lib() -> ShadeLib:
     """The bounce's shading kernels (csrc/shade.cu)."""
     return _lib("shade")
+
+
+def sort_lib() -> SortLib:
+    """The lane sort and move kernels (csrc/sort.cu)."""
+    return _lib("sort")

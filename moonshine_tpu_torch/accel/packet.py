@@ -26,14 +26,14 @@ With count_visits=True they also return what the traversal touched
 
 from __future__ import annotations
 
-import contextlib
 import numbers
-import threading
 from typing import NamedTuple
 
 import torch
 
+from ..core import sortutil
 from . import native
+from .launch import call_on, count_launch
 from .wide import WideBVH
 
 _NEG = -1.0e30
@@ -58,16 +58,9 @@ VMEM_SCENE_BUDGET_BYTES = 10 * 1024 * 1024
 GROUPS_PER_BLOCK = 64
 SHARED_BYTES_MAX = 232_448
 
-# Kernel launches per kernel, for showing that a run went through them.
-# A wrapper adds one exactly where it launches; callers reset to 0. A
-# wrapper called while its thread captures a CUDA graph launches nothing:
-# its count goes to the capture's tally, which each replay of the graph
-# adds (integrator/graphs.py).
+# Kernel launches per kernel, for showing that a run went through them
+# (counted as accel/launch.py says).
 LAUNCHES = {"closest_hit": 0, "any_hit": 0}
-# the Engine's pick launches from another thread while a frame does
-# (engine/engine.py), so the counts add under a lock
-_COUNT_LOCK = threading.Lock()
-_CAPTURE = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -443,19 +436,17 @@ def any_hit_plain(wbvh: WideBVH, ray_o, ray_d, t_max,
                            count_visits)
 
 
+# the coherence key's cells a side (4^3 cells x 8 octants) and bits
+SORT_CELLS = 4
+SORT_KEY_BITS = sortutil.key_bits(SORT_CELLS)
+
+
 def sort_key(wbvh: WideBVH, ray_o, ray_d, active=None):
     """Coherence key (the reference's _sort_key): 4^3 origin cells x 8
-    direction octants, dead lanes keyed 1 << 20 so they sort last."""
-    lo = wbvh.bounds[0]
-    inv_ext = 1.0 / torch.clamp_min(wbvh.bounds[1] - lo, 1e-20)
-    cell = torch.clamp(((ray_o - lo) * inv_ext * 4.0).to(torch.int32), 0, 3)
-    octant = ((ray_d[:, 0] > 0).to(torch.int32) * 4
-              + (ray_d[:, 1] > 0).to(torch.int32) * 2
-              + (ray_d[:, 2] > 0).to(torch.int32))
-    key = ((cell[:, 0] * 4 + cell[:, 1]) * 4 + cell[:, 2]) * 8 + octant
-    if active is not None:
-        key = torch.where(active, key, 1 << 20)
-    return key
+    direction octants, dead lanes keyed 1 << 20 so they sort last
+    (sortutil.coherence_key: a kernel on the card)."""
+    return sortutil.coherence_key(ray_o, ray_d, wbvh.bounds, SORT_CELLS,
+                                  active)
 
 
 # --- CUDA wrappers ---
@@ -491,46 +482,6 @@ def _launch_args(lib, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):
     return args, keep
 
 
-def _call_on(fn, device, *args) -> int:
-    """fn(*args, stream): a C entry point called with `device` made the
-    thread's current CUDA device and given that device's current stream.
-    The entry points launch on the calling thread's current device (and
-    a null stream means that device's), so a caller on another card's
-    tensors launches on the right one."""
-    with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
-
-
-def count_launch(counts: dict, key: str) -> None:
-    tally = getattr(_CAPTURE, "tally", None)
-    if tally is not None:  # captured, not launched: counted at each replay
-        tally.append((counts, key))
-        return
-    with _COUNT_LOCK:
-        counts[key] += 1
-
-
-@contextlib.contextmanager
-def launch_tally():
-    """The launches that this thread's wrappers make inside the block, as
-    a list of (counts, key), instead of counting them: for a CUDA graph
-    capture, whose kernels launch only when it is replayed."""
-    tally = []
-    _CAPTURE.tally = tally
-    try:
-        yield tally
-    finally:
-        _CAPTURE.tally = None
-
-
-def count_replay(tally) -> None:
-    """Add a captured graph's launches (its `launch_tally`) to the counts:
-    one replay launches each of them once."""
-    with _COUNT_LOCK:
-        for counts, key in tally:
-            counts[key] += 1
-
-
 def _device_kind(ray_o) -> str:
     kind = ray_o.device.type
     if kind not in ("cpu", "cuda"):
@@ -562,7 +513,7 @@ def _launch(lib, counts: dict, key: str, wbvh, ray_o, ray_d, t_max,
             next_ray = torch.empty(1, dtype=torch.int32, device=dev)
             args += [layout.top_rows, layout.stack_depth,
                      next_ray.data_ptr()]
-        rc = _call_on(fn, dev, *args, *(x.data_ptr() for x in out))
+        rc = call_on(fn, dev, *args, *(x.data_ptr() for x in out))
         if rc != 0:
             raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
         count_launch(counts, key)
@@ -592,19 +543,20 @@ def any_hit_packet(wbvh: WideBVH, ray_o, ray_d, t_max,
 
 
 def _sorted(fn, wbvh: WideBVH, ray_o, ray_d, t_max, active_in):
-    """fn on coherence-sorted rays (stable sort), results back in lane
-    order. Each lane's result does not depend on its neighbours, so the
-    sort changes speed only."""
-    n = ray_o.shape[0]
-    perm = torch.argsort(sort_key(wbvh, ray_o, ray_d, active_in),
-                         stable=True)
-    t_lanes = _t_max_lanes(t_max, n, ray_o.device)
-    out = fn(wbvh, ray_o[perm], ray_d[perm], t_lanes[perm],
-             None if active_in is None else active_in[perm])
-    unsort = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
+    """fn on coherence-sorted rays, results back in lane order: one
+    stable sort that moves the rays, t_max and the mask, and one move of
+    the results back (core/sortutil.py: kernels on the card). Each lane's
+    result does not depend on its neighbours, so the sort changes speed
+    only."""
+    t_lanes = _t_max_lanes(t_max, ray_o.shape[0], ray_o.device)
+    lanes = [ray_o, ray_d, t_lanes] + ([] if active_in is None
+                                       else [active_in])
+    perm, moved = sortutil.sort_lanes(
+        sort_key(wbvh, ray_o, ray_d, active_in), lanes, SORT_KEY_BITS)
+    out = fn(wbvh, *moved[:3], moved[3] if active_in is not None else None)
     if isinstance(out, Hit):
-        return Hit(*(unsort(x) for x in out))
-    return unsort(out)
+        return Hit(*sortutil.unsort_lanes(perm, list(out)))
+    return sortutil.unsort_lanes(perm, [out])[0]
 
 
 def closest_hit_packet_hbm(wbvh: WideBVH, ray_o, ray_d, t_max,

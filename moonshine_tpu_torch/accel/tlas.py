@@ -50,9 +50,8 @@ import numpy as np
 import torch
 
 from . import lbvh, native
-from .packet import (
-    _call_on, _check_rays, _device_kind, _t_max_lanes, count_launch,
-)
+from .launch import call_on, count_launch
+from .packet import _check_rays, _device_kind, _t_max_lanes
 from .traverse import _aabb_hit, _safe_inv, _tri_intersect
 
 BLAS_LEAF = 4  # triangles a BLAS leaf (the reference's traverse.py bundle)
@@ -611,7 +610,7 @@ def _launch(t: TLAS, ray_o, ray_d, t_max, active_in, any_hit: bool,
         fn, key = lib.closest_hit, "tlas_closest_hit"
     if n:
         next_ray = torch.empty(1, dtype=torch.int32, device=dev)
-        rc = _call_on(fn, dev, *args, next_ray.data_ptr(),
+        rc = call_on(fn, dev, *args, next_ray.data_ptr(),
                       *(x.data_ptr() for x in out))
         if rc != 0:
             raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")

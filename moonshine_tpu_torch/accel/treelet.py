@@ -12,7 +12,9 @@ then runs in three steps:
      (`_pending_masks_plain`) for CPU tensors.
   2. One stable sort of the rays by `nearest * MAX_KEYED + sort_key`
      (packet.sort_key: 4^3 origin cells x 8 octants, the reference's
-     `_subkey`).
+     `_subkey`), which moves the rays, their pending words and nearest
+     treelets along (core/sortutil.py: kernels of csrc/sort.cu for CUDA
+     tensors).
   3. One launch of the CUDA kernel of csrc/treelet.cu on the sorted
      rays (CUDA tensors), or `_dispatch_plain` (CPU tensors): each ray
      walks its own pending treelets, its nearest first and then the rest
@@ -39,26 +41,26 @@ from __future__ import annotations
 
 import torch
 
+from ..core import sortutil
 from . import native
+from .launch import call_on, count_launch
 from .packet import (
     _NEG,
+    SORT_CELLS,
     Hit,
     _check_launch,
     _check_rays,
     _device_kind,
     _plain_result,
-    _call_on,
     _plain_state,
     _t_max_lanes,
     _visits,
     _walk,
-    count_launch,
-    sort_key,
 )
 from .wide import LEAF_CAP, WIDTH, WideBVH
 
 _INF = 3.0e37
-MAX_KEYED = 512  # subkey space: 4^3 origin cells x 8 octants
+MAX_KEYED = SORT_CELLS ** 3 * 8  # subkey space: 4^3 origin cells x 8
 # lanes per phase-1 chunk: its [chunk, 32] float32 temporaries stay at
 # 128 MB each, under 1 GB in all
 PENDING_CHUNK = 1 << 20
@@ -111,7 +113,7 @@ def _pending_kernel(lib, wbvh: WideBVH, o, d, tmax_vec):
     pend = torch.empty((N, -(-K // 32)), dtype=torch.int32, device=o.device)
     nearest = torch.empty(N, dtype=torch.int32, device=o.device)
     if N:
-        rc = _call_on(lib.pending, o.device, t_lo.data_ptr(),
+        rc = call_on(lib.pending, o.device, t_lo.data_ptr(),
                       t_hi.data_ptr(), K, o.data_ptr(), d.data_ptr(),
                       tmax_vec.data_ptr(), N, pend.data_ptr(),
                       nearest.data_ptr())
@@ -254,7 +256,7 @@ def _dispatch_kernel(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
     if any_hit:
         occ = torch.empty(n, dtype=torch.bool, device=dev)
         if n:
-            rc = _call_on(lib.any_hit, dev, *args, occ.data_ptr())
+            rc = call_on(lib.any_hit, dev, *args, occ.data_ptr())
             if rc != 0:
                 raise RuntimeError(f"treelet any-hit kernel launch failed: "
                                    f"cudaError {rc}")
@@ -265,7 +267,7 @@ def _dispatch_kernel(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     if n:
-        rc = _call_on(lib.closest_hit, dev, *args, t.data_ptr(),
+        rc = call_on(lib.closest_hit, dev, *args, t.data_ptr(),
                       tri.data_ptr(), u.data_ptr(), v.data_ptr())
         if rc != 0:
             raise RuntimeError(f"treelet closest-hit kernel launch failed: "
@@ -274,17 +276,26 @@ def _dispatch_kernel(wbvh: WideBVH, o_s, d_s, t_s, pend_s, first_s,
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
+def key_bits(wbvh: WideBVH) -> int:
+    """Bits of the dispatch's sort key, nearest * MAX_KEYED + sort_key:
+    nearest lies in [0, K] (K: no pending treelet), so every key lies
+    below (K + 1) * MAX_KEYED."""
+    return ((wbvh.t_roots.shape[0] + 1) * MAX_KEYED - 1).bit_length()
+
+
 def _sort_lanes(wbvh: WideBVH, ray_o, ray_d, t_eff, plain: bool = False):
-    """Phase 1 (its plain version with plain=True) and the sort: (perm,
-    (o, d, t_eff, pend, nearest) in the sorted lane order the kernel
-    takes)."""
+    """Phase 1 and the sort (their plain versions with plain=True): (perm
+    int32, (o, d, t_eff, pend, nearest) in the sorted lane order the
+    kernel takes)."""
     phase1 = _pending_masks_plain if plain else _pending_masks
     pend, nearest = phase1(wbvh, ray_o, ray_d, t_eff)
-    # int32 keys (K * 512 stays far below 2^31) sort faster than int64
-    key = nearest * MAX_KEYED + sort_key(wbvh, ray_o, ray_d)
-    perm = torch.argsort(key, stable=True)
-    return perm, (ray_o[perm], ray_d[perm], t_eff[perm], pend[perm],
-                  nearest[perm])
+    key_of, sort = ((sortutil.coherence_key_plain, sortutil.sort_lanes_plain)
+                    if plain else (sortutil.coherence_key,
+                                   sortutil.sort_lanes))
+    key = key_of(ray_o, ray_d, wbvh.bounds, SORT_CELLS, major=nearest)
+    perm, lanes = sort(key, [ray_o, ray_d, t_eff, pend, nearest],
+                       key_bits(wbvh))
+    return perm, tuple(lanes)
 
 
 def _run(wbvh: WideBVH, ray_o, ray_d, t_max, active_in, any_hit: bool,
@@ -307,11 +318,11 @@ def _run(wbvh: WideBVH, ray_o, ray_d, t_max, active_in, any_hit: bool,
             out, visits = out
     else:
         out = _dispatch_kernel(wbvh, *sorted_lanes, any_hit)
-    unsort = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
+    unsort = sortutil.unsort_lanes_plain if plain else sortutil.unsort_lanes
     if any_hit:
-        res = unsort(out)
+        res = unsort(perm, [out])[0]
     else:
-        t, tri, u, v = (unsort(x) for x in out)
+        t, tri, u, v = unsort(perm, list(out))
         res = Hit(t=torch.where(tri >= 0, t, t_caller), tri=tri, u=u, v=v)
     return (res, visits) if count_visits else res
 

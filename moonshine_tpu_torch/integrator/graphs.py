@@ -29,7 +29,7 @@ MAX_RUN_SHAPES newer ones (and as many as the last sharded render's mesh
 needs, `keep_room`) push it out.
 
 Launch counts: a wrapper called during a capture launches nothing, so
-its count goes to the capture's tally (`packet.launch_tally`), which
+its count goes to the capture's tally (`launch.launch_tally`), which
 each replay adds.
 """
 
@@ -42,7 +42,7 @@ import weakref
 
 import torch
 
-from ..accel import packet
+from ..accel import launch
 
 # run shapes kept (the least recently used goes first); each holds its
 # static buffers and its graphs' memory pool
@@ -112,7 +112,7 @@ class Steps:
                 return
             graph, tally = hit
             graph.replay()
-            packet.count_replay(tally)
+            launch.count_replay(tally)
             count("replays")
 
     def _capture(self, fn):
@@ -121,7 +121,7 @@ class Steps:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
         graph = torch.cuda.CUDAGraph()
-        with packet.launch_tally() as tally:
+        with launch.launch_tally() as tally:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
                 fn()

@@ -37,7 +37,9 @@ A segment's shading is integrator/shade.py: the env miss; the surface
 decode with the termination and every NEE light draw, which writes the
 shadow batch; the light weighting with the BSDF scatter. Each is a
 kernel of csrc/shade.cu on the card (working in place on the lane
-state), the plain torch version on the CPU. The resort stays torch ops.
+state), the plain torch version on the CPU. The resort's key, its sort
+and the move of every lane array are core/sortutil.py's (kernels of
+csrc/sort.cu on the card).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import torch
 from torch.profiler import record_function
 
 from ..accel import packet, tlas as tlas_mod, traverse, treelet
+from ..core import sortutil
 from ..core.mathutil import INF_T
 from . import graphs, shade
 
@@ -167,12 +170,15 @@ def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
     return mode == "vmem" and scene.has_delta
 
 
-# the profiler ranges a bounce opens around its stages, in order
-# (render/profile_frame.py splits a sample's kernel time by them); a path
-# draws its light samples inside "surface", the direct integrator in
-# "nee_draw"
-STAGES = ("traversal", "env", "surface", "nee_draw", "any_hit", "scatter",
-          "resort")
+# the profiler ranges a sample opens around its stages, in order
+# (render/profile_frame.py splits a sample's kernel time by them): the
+# camera rays (render/renderer.py), a bounce's stages (a path draws its
+# light samples inside "surface", the direct integrator in "nee_draw"),
+# the copy of a bounce's outputs into the state's buffers (`_store`), the
+# resort with its moves, the ray and live counts, and the sample's
+# accumulation (renderer.py)
+STAGES = ("camera", "traversal", "env", "surface", "nee_draw", "any_hit",
+          "scatter", "store", "resort", "live_count", "accumulate")
 
 
 def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
@@ -198,7 +204,8 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
     last_pdf = st["last_pdf"]
     last_delta = st["last_delta"]
     rng = st["rng"]
-    rays = st["rays"] + active.sum()
+    with record_function("live_count"):
+        rays = st["rays"] + active.sum()
 
     with record_function("traversal"):
         hit = _closest(scene, o, d, INF_T, active, presorted=resort)
@@ -209,7 +216,7 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
                                   bounce, d, active, hit.tri, throughput,
                                   st["radiance"], last_pdf, last_delta,
                                   out=st["radiance"])
-    active = active & hit.is_hit
+        active = active & hit.is_hit
 
     # ---- decode the surface and add its emission (integrator.hlsl:93-124);
     # then the termination and the NEE draws (:126-151)
@@ -235,7 +242,8 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
                 presorted=resort and not (_shadow_compact()
                                           and scene.has_delta),
             )
-        rays = rays + surf.shadow.lane.sum()
+        with record_function("live_count"):
+            rays = rays + surf.shadow.lane.sum()
         lights = lights._replace(occluded=occluded.view(lights.lane.shape))
 
     # ---- weight the light samples and scatter (integrator.hlsl:139-163)
@@ -245,25 +253,47 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
     return dict(st, **out, rays=rays)
 
 
-def _resort_state(scene, st: dict) -> dict:
-    """Reorder every lane array of the state by ray coherence: 8^3 origin
-    cells x direction octant, dead lanes keyed 1 << 20 so they form the
-    tail (a stable sort). Lanes keep their RNG streams and pixel ids. A
-    scene without a wide tree keeps the state as it is."""
+# the resort key's cells a side (8^3 cells x 8 octants) and bits
+RESORT_CELLS = 8
+RESORT_BITS = sortutil.key_bits(RESORT_CELLS)
+# the lane arrays a dead lane still needs behind the live prefix: radiance
+# and pix (the trace's radiance in pixel order), active (the live count,
+# the next key) and rng (trace_paths returns it)
+_TAIL = ("active", "radiance", "rng", "pix")
+
+
+def _resort_state(scene, st: dict, out: dict | None = None,
+                  prefix: int | None = None,
+                  width: int | None = None) -> dict:
+    """Reorder every lane array of the state by ray coherence (8^3
+    origin cells x direction octant, dead lanes keyed 1 << 20 so they
+    form the tail) with one stable sort that moves them all
+    (core/sortutil.py: kernels on the card). Lanes keep their RNG
+    streams and pixel ids. A scene without a wide tree keeps the state as
+    it is.
+
+    With `out` (the loop's other buffers) the sorted state goes there and
+    is returned: only the first `prefix` lanes are sorted (every lane
+    past them is dead, keyed 1 << 20 at the last resort, so a stable sort
+    of the whole state leaves them where they lie), and of those only
+    the first `width` (the next bounce's lanes, every live one among
+    them) are written for each array but the tail's (`_TAIL`), which is
+    written whole."""
     if scene.wide is None:
         return st
-    o, d, active = st["o"], st["d"], st["active"]
-    lo = scene.wide.bounds[0]
-    inv_ext = 1.0 / torch.clamp_min(scene.wide.bounds[1] - lo, 1e-20)
-    cell = torch.clamp(((o - lo) * inv_ext * 8.0).to(torch.int32), 0, 7)
-    octant = ((d[:, 0] > 0).to(torch.int32) * 4
-              + (d[:, 1] > 0).to(torch.int32) * 2
-              + (d[:, 2] > 0).to(torch.int32))
-    key = ((cell[:, 0] * 8 + cell[:, 1]) * 8 + cell[:, 2]) * 8 + octant
-    key = torch.where(active, key, 1 << 20)
-    perm = torch.argsort(key, stable=True)
-    n = o.shape[0]
-    return {k: (v[perm] if _is_lane(v, n) else v) for k, v in st.items()}
+    n = st["pix"].shape[0]
+    prefix = n if prefix is None else prefix
+    names = [k for k, v in st.items() if _is_lane(v, n)]
+    key = sortutil.coherence_key(st["o"][:prefix], st["d"][:prefix],
+                                 scene.wide.bounds, RESORT_CELLS,
+                                 st["active"][:prefix])
+    rows = None
+    if out is not None and width is not None:
+        rows = [n if k in _TAIL else width for k in names]
+    _, moved = sortutil.sort_lanes(
+        key, [st[k] for k in names], RESORT_BITS,
+        out=None if out is None else [out[k] for k in names], rows=rows)
+    return {**(st if out is None else out), **dict(zip(names, moved))}
 
 
 def _is_lane(v, n: int) -> bool:
@@ -297,8 +327,10 @@ def _bounce_shrunk(scene, cfg: PathConfig, bounce, st: dict, last: bool,
     unchanged; their RNG stops advancing, which nothing observes."""
     n = st["o"].shape[0]
     head = {k: (v[:width] if _is_lane(v, n) else v) for k, v in st.items()}
-    _store(head, _bounce_body(scene, cfg, bounce, head, last=last,
-                              resort=True, roulette=roulette))
+    out = _bounce_body(scene, cfg, bounce, head, last=last, resort=True,
+                       roulette=roulette)
+    with record_function("store"):
+        _store(head, out)
     return st
 
 
@@ -325,9 +357,15 @@ def _init_state(ray_o, ray_d, rng_state) -> dict:
 class _Trace:
     """The bounce loop of one run shape (scene, lane count, cfg and form)
     over static state: the lane arrays, the device bounce index and the
-    live count. Each segment is one step of `steps` (graphs.Steps),
+    live count. With `resort` the lane arrays have two sets of buffers,
+    `bufs`: a resorted segment moves the state from the current set into
+    the other (`_resort_state` with out=) and runs there, so no copy goes
+    back; `cur` (host-side, reset by `run`) says which set holds the
+    state, `st`. Each segment is one step of `steps` (graphs.Steps),
     keyed by what its body does: (last, roulette, presorted) for a body
-    over all lanes, or the prefix width for a resorted one. Between
+    over all lanes, or for a resorted one its prefix width, last and
+    roulette, then the set it reads and the lanes it sorts (the last
+    segment's width: past it every lane is dead). Between
     segments the loop reads the live count, one device-to-host read that
     serves both the looped form's stop and the prefix width (the
     reference's lax.cond, path.py:687-711 there); the unrolled form
@@ -343,9 +381,12 @@ class _Trace:
         self.cfg, self.resort = cfg, resort
         self.unroll, self.sort_first = unroll, sort_first
         rays = torch.empty((n, 3), dtype=torch.float32, device=device)
-        self.st = _init_state(rays, torch.empty_like(rays),
-                              torch.empty(n, dtype=torch.int64,
-                                          device=device))
+        st = _init_state(rays, torch.empty_like(rays),
+                         torch.empty(n, dtype=torch.int64, device=device))
+        # the camera rays' set first; the second shares the ray count
+        self.bufs = [st] + ([{k: (v if k == "rays" else torch.empty_like(v))
+                              for k, v in st.items()}] if resort else [])
+        self.cur = 0
         self.bounce = torch.empty((), dtype=torch.int64, device=device)
         self.live = torch.empty_like(self.bounce)
         # the live count on the host: on a card a pinned copy, made
@@ -359,10 +400,15 @@ class _Trace:
         # held by a caller from loading the buffers to reading them
         self.lock = threading.Lock()
 
+    @property
+    def st(self) -> dict:
+        """The set of buffers that holds the state."""
+        return self.bufs[self.cur]
+
     def reset(self) -> None:
         """The state of fresh camera rays, whose o, d and rng the caller
-        wrote (a step's work)."""
-        st = self.st
+        wrote into the first set, `bufs[0]` (a step's work)."""
+        st = self.bufs[0]
         n = st["pix"].shape[0]
         st["active"].fill_(True)
         st["throughput"].fill_(1.0)
@@ -383,8 +429,10 @@ class _Trace:
         which sorts them inside traversal. Where a segment needs the live
         count, the generator enqueues its copy to the host, yields this
         trace and takes the count back (`live_count()`) from `send`."""
+        self.cur = 0
         n = self.st["pix"].shape[0]
         n_segments = self.cfg.max_bounces + 2
+        prefix = n  # the lanes that may be live: every one past is dead
         for bounce in range(n_segments):
             shrink = self.resort and bounce > 0
             live = n  # reset made every lane live
@@ -399,34 +447,48 @@ class _Trace:
                 return bounce
             last = self.unroll and bounce == n_segments - 1
             roulette = bounce > 3
+            src = self.cur
             if shrink:
                 width = _prefix_width(n, live)
                 self.steps.run(
-                    ("resorted", width, last, roulette),
-                    lambda: self._resorted(scene, width, last, roulette))
+                    ("resorted", width, last, roulette, src, prefix),
+                    lambda: self._resorted(scene, src, prefix, width, last,
+                                           roulette))
+                self.cur, prefix = 1 - src, width
             else:
                 presorted = self.resort and not self.sort_first
+                # only the camera rays' segment runs over all lanes when
+                # the loop resorts: a body always reads the first set
                 self.steps.run(
                     ("body", last, roulette, presorted),
                     lambda: self._body(scene, last, roulette, presorted))
+                prefix = n
         return n_segments
 
     def _body(self, scene, last, roulette, presorted) -> None:
-        _store(self.st, _bounce_body(scene, self.cfg, self.bounce, self.st,
-                                     last=last, resort=presorted,
-                                     roulette=roulette))
-        self._advance()
+        st = self.st
+        out = _bounce_body(scene, self.cfg, self.bounce, st, last=last,
+                           resort=presorted, roulette=roulette)
+        with record_function("store"):
+            _store(st, out)
+        with record_function("live_count"):
+            self._advance(st)
 
-    def _resorted(self, scene, width, last, roulette) -> None:
+    def _resorted(self, scene, src, prefix, width, last, roulette) -> None:
+        """Resort the first `prefix` lanes of set `src` into the other
+        set, then a bounce over its first `width` lanes there."""
+        st = self.bufs[1 - src]
         with record_function("resort"):
-            st = _resort_state(scene, self.st)
-        _store(self.st, _bounce_shrunk(scene, self.cfg, self.bounce, st,
-                                       last, width, roulette))
-        self._advance()
+            _resort_state(scene, self.bufs[src], out=st, prefix=prefix,
+                          width=width)
+        _bounce_shrunk(scene, self.cfg, self.bounce, st, last, width,
+                       roulette)
+        with record_function("live_count"):
+            self._advance(st)
 
-    def _advance(self) -> None:
+    def _advance(self, st: dict) -> None:
         self.bounce += 1
-        self.live.copy_(self.st["active"].sum())
+        self.live.copy_(st["active"].sum())
 
     def live_count(self) -> int:
         """The live count whose copy `run` enqueued before it yielded,
@@ -492,7 +554,7 @@ def _trace_rays(scene, ray_o, ray_d, rng_state, cfg: PathConfig,
     tr = graphs.run_shape(key, lambda: _new_trace(scene, cfg, n, staged),
                           scene)
     with tr.lock:
-        _store(tr.st, dict(o=ray_o, d=ray_d, rng=rng_state))
+        _store(tr.bufs[0], dict(o=ray_o, d=ray_d, rng=rng_state))
         tr.steps.run("reset", tr.reset)
         segments = run_alone(tr.run(scene))
         radiance = tr.radiance()

@@ -15,7 +15,7 @@ kernels update the lane state in place and leave dead lanes, and equal
 the plain versions bit for bit on the card on every lane they write (the
 wrappers' docstrings say which). Each wrapper adds one to LAUNCHES[its
 name] where it launches (into a capture's tally while a graph is
-captured, as accel/packet.py's wrappers do).
+captured: accel/launch.py).
 
 The full surface form with a `DrawIn` also ends the bounce's termination
 and draws its NEE light samples (`_draw_plain`): the max-bounce cut, the
@@ -32,7 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..accel import native, packet
+from ..accel import native
+from ..accel.launch import call_on, count_launch
 from ..bsdf import materials as B
 from ..core import mathutil as M
 from ..core import rng as R
@@ -549,10 +550,10 @@ def _reciprocal(x: float, floor: float) -> float:
 
 
 def _launch(key: str, fn, device, *args) -> None:
-    rc = packet._call_on(fn, device, *args)
+    rc = call_on(fn, device, *args)
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
-    packet.count_launch(LAUNCHES, key)
+    count_launch(LAUNCHES, key)
 
 
 def surface(scene, mesh_samples: int, bounce, hit, o, d, active,

@@ -15,12 +15,13 @@ card, the unprofiled wall, the kernel count, the graph replays, the
 host's dispatches and reads, the summed kernel time, the device busy
 time (union of kernel intervals) over the profiled wall, the traversal
 kernels' time (packet, treelet or two-level), the treelet phase-1
-kernel's time, the shading kernels' time (csrc/shade.cu), the five
-kernels that took longest, and the same sample on the eager loop
-(graphs.eager(): its wall, kernels and idle share, and its time split
-by the bounce's stages, integrator/path.py STAGES: each stage's calls,
-host time and the time of the kernels it launched, which a graph
-replay runs without calling Python). --config direct profiles
+kernel's time, the shading kernels' time (csrc/shade.cu), the lane
+sort's (csrc/sort.cu), the five kernels that took longest, and the same
+sample on the eager loop (graphs.eager(): its wall, kernels and idle
+share, and its time split by the sample's stages, integrator/path.py
+STAGES: each stage's calls, host time and the time of the kernels it
+launched, which a graph replay runs without calling Python; the stages'
+sum and its share of the kernel time). --config direct profiles
 trace_direct on room_184k's camera rays instead (eager: it runs no
 graphs), split by the same stages. With --mesh it profiles one
 `render_sharded` call of SP samples (one a sample shard; --one-card
@@ -242,9 +243,22 @@ def main(argv=None) -> dict:
             "wall_ms_unprofiled", "kernels", "host_dispatches", "kernel_ms",
             "idle_share")},
         "stages": {k: eager[k] for k in path.STAGES},
+        **_stage_sum(eager),
     }
     print(json.dumps(out), flush=True)
     return out
+
+
+def _stage_sum(prof) -> dict:
+    """The kernel ms inside the stage ranges (integrator/path.py STAGES)
+    of a profile made with them as marks, and its share of the sample's
+    kernel ms: what no range holds is the rest."""
+    from ..integrator import path
+
+    staged = sum(prof[k]["kernel_ms"] for k in path.STAGES)
+    return {"stages_kernel_ms": staged,
+            "stages_share": staged / prof["kernel_ms"]
+            if prof["kernel_ms"] else 0.0}
 
 
 def _kinds(by_name) -> dict:
@@ -256,7 +270,10 @@ def _kinds(by_name) -> dict:
                                "tlas_kernel"),
             "treelet_phase1_ms": ms("pending_kernel"),
             "shade_ms": ms("surface_kernel", "scatter_kernel",
-                           "env_miss_kernel", "env_draw_kernel")}
+                           "env_miss_kernel", "env_draw_kernel"),
+            "sort_ms": ms("coherence_key_kernel", "radix_hist_kernel",
+                          "radix_scan_kernel", "radix_rank_kernel",
+                          "lane_move_kernel")}
 
 
 def _profile_direct(args, scene, lens, smi) -> dict:
@@ -278,7 +295,7 @@ def _profile_direct(args, scene, lens, smi) -> dict:
            "triangles": scene.num_tris,
            **{k: v for k, v in prof.items() if k not in path.STAGES},
            **_kinds(by_name), "top": [[k[:80], v / 1e3] for k, v in top],
-           "stages": {k: prof[k] for k in path.STAGES}}
+           "stages": {k: prof[k] for k in path.STAGES}, **_stage_sum(prof)}
     print(json.dumps(out), flush=True)
     return out
 

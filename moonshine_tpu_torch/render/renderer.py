@@ -14,6 +14,7 @@ the sample index a device scalar.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..core import rng as R
 from ..integrator import graphs, path
@@ -98,25 +99,29 @@ class _Frame:
 
     def raygen(self) -> None:
         """The step before a trace: this sample's camera rays and RNG in
-        the trace's buffers, its state reset."""
-        rays = [_sample_rays(self.lens, self.height, self.width,
-                             self.sample + s, self.flip_image,
-                             self.acc.device, self.y0, self.bh)[:3]
-                for s in range(self.nbatch)]
-        st = self.trace.st
-        for k, parts in zip(("o", "d", "rng"), zip(*rays)):
-            st[k].copy_(parts[0] if self.nbatch == 1 else torch.cat(parts))
-        self.trace.reset()
+        the trace's first set of buffers, its state reset."""
+        with record_function("camera"):
+            rays = [_sample_rays(self.lens, self.height, self.width,
+                                 self.sample + s, self.flip_image,
+                                 self.acc.device, self.y0, self.bh)[:3]
+                    for s in range(self.nbatch)]
+            st = self.trace.bufs[0]
+            for k, parts in zip(("o", "d", "rng"), zip(*rays)):
+                st[k].copy_(parts[0] if self.nbatch == 1
+                            else torch.cat(parts))
+            self.trace.reset()
 
     def accumulate(self) -> None:
-        """The step after a trace: its radiance, summed over the batch's
-        samples, into acc; the next sample index."""
-        radiance = self.trace.radiance()
-        if self.nbatch > 1:
-            radiance = radiance.reshape(self.nbatch, -1, 3).sum(dim=0)
-        self.acc += self.unpack(radiance)
-        self.rays += self.trace.st["rays"]
-        self.sample += self.nbatch
+        """The step after a trace: its radiance (from the set of buffers
+        that holds its state, a step of its own for each), summed over the
+        batch's samples, into acc; the next sample index."""
+        with record_function("accumulate"):
+            radiance = self.trace.radiance()
+            if self.nbatch > 1:
+                radiance = radiance.reshape(self.nbatch, -1, 3).sum(dim=0)
+            self.acc += self.unpack(radiance)
+            self.rays += self.trace.st["rays"]
+            self.sample += self.nbatch
 
     def run(self, scene, lens: LensArrays, start: int, groups: int):
         """`groups` batches of samples from `start` on, as a generator
@@ -126,16 +131,17 @@ class _Frame:
         segments). The lens may lie on another device."""
         steps = self.trace.steps
         with self.trace.lock:
-            for dst, src in zip(self.lens, lens):
-                dst.copy_(src)
-            self.sample.fill_(start)
-            self.acc.zero_()
-            self.rays.zero_()
+            with record_function("camera"):
+                for dst, src in zip(self.lens, lens):
+                    dst.copy_(src)
+                self.sample.fill_(start)
+                self.acc.zero_()
+                self.rays.zero_()
             segments = 0
             for _ in range(groups):
                 steps.run("raygen", self.raygen)
                 segments += yield from self.trace.run(scene)
-                steps.run("accumulate", self.accumulate)
+                steps.run(("accumulate", self.trace.cur), self.accumulate)
             return self.acc.clone(), self.rays.clone(), segments
 
 

@@ -352,9 +352,9 @@ def earlier_scatter(lib, args):
 
 
 def native_call(fn, dev, *args):
-    from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.accel.launch import call_on
 
-    return packet._call_on(fn, dev, *args)
+    return call_on(fn, dev, *args)
 
 
 def cells(dev):

@@ -89,7 +89,7 @@ def launcher(lib, t, ro, rd, tm, act, any_hit):
     """A call of `lib`'s kernel on these rays (its own signature)."""
     import torch
 
-    from moonshine_tpu_torch.accel import packet, tlas
+    from moonshine_tpu_torch.accel import launch, tlas
 
     if lib.records:
         return lambda: tlas._launch(t, ro, rd, tm, act, any_hit, lib=lib)
@@ -107,7 +107,7 @@ def launcher(lib, t, ro, rd, tm, act, any_hit):
                     torch.empty_like(tt), torch.empty_like(tt),
                     torch.empty(n, dtype=torch.int32, device=dev))
         fn = lib.any_hit if any_hit else lib.closest_hit
-        rc = packet._call_on(fn, dev, *args, *(x.data_ptr() for x in outs))
+        rc = launch.call_on(fn, dev, *args, *(x.data_ptr() for x in outs))
         if rc != 0:
             raise RuntimeError(f"tlas launch failed: cudaError {rc}")
         return outs[0] if any_hit else tlas.TlasHit(*outs)

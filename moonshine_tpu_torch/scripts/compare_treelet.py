@@ -37,7 +37,7 @@ def _walk_launcher(lib, wb, srt, any_hit):
     """The walk of `lib` on the sorted lanes `srt`."""
     import torch
 
-    from moonshine_tpu_torch.accel import packet, treelet
+    from moonshine_tpu_torch.accel import launch, packet, treelet
 
     if lib.pending is not None:
         return lambda: treelet._dispatch_kernel(wb, *srt, any_hit, lib=lib)
@@ -57,7 +57,7 @@ def _walk_launcher(lib, wb, srt, any_hit):
             outs = (tt, torch.empty(n, dtype=torch.int32, device=dev),
                     torch.empty_like(tt), torch.empty_like(tt))
         fn = lib.any_hit if any_hit else lib.closest_hit
-        rc = packet._call_on(fn, dev, *args, *(x.data_ptr() for x in outs))
+        rc = launch.call_on(fn, dev, *args, *(x.data_ptr() for x in outs))
         if rc != 0:
             raise RuntimeError(f"walk launch failed: cudaError {rc}")
         return outs[0] if any_hit else packet.Hit(*outs)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from moonshine_tpu_torch.accel import launch as PL
 from moonshine_tpu_torch.accel import packet as PP
 from moonshine_tpu_torch.accel import treelet as PT
 from moonshine_tpu_torch.accel import wide as PW
@@ -189,7 +190,7 @@ def test_steps_read_nothing_on_the_host(guarded, monkeypatch, name, resort,
     reads = guarded["reads"]
     assert np.isfinite(img.numpy()).all() and int(rays) > 0
     steps = guarded["steps"]
-    assert steps[0] == "raygen" and steps[-1] == "accumulate"
+    assert steps[0] == "raygen" and steps[-1][0] == "accumulate"
     bodies = [k for k in steps if k[0] in ("body", "resorted")]
     segments = stats["segments"]
     assert len(bodies) == segments
@@ -207,6 +208,50 @@ def test_steps_read_nothing_on_the_host(guarded, monkeypatch, name, resort,
     # needs it: the looped form's stop, the resorted prefix's width
     shrink = stats["resort"] and size * size >= P._SHRINK_MIN
     assert reads == (min(segments, 5) if not unroll else 5 if shrink else 0)
+
+
+@pytest.mark.parametrize("unroll", [True, False])
+def test_resorted_steps_sort_into_the_other_buffers(guarded, monkeypatch,
+                                                    unroll):
+    """Each resorted segment (the flagship, 64x64 = 4096 lanes, so deep
+    bounces run on a prefix) sorts the state once, through
+    core/sortutil.py, straight into the trace's other set of buffers:
+    over the last segment's width (every lane past it dead), each array's
+    first `width` lanes and the tail arrays whole. Its step reads nothing
+    on the host; the image is the one without the resort."""
+    from moonshine_tpu_torch.core import sortutil as SU
+
+    scene, lens = _port(procedural.flagship_scene)
+    calls = []
+    sort_lanes = SU.sort_lanes
+
+    def spy(key, arrays, bits, out=None, rows=None):
+        calls.append((key.shape[0], bits, out, rows))
+        return sort_lanes(key, arrays, bits, out=out, rows=rows)
+
+    monkeypatch.setattr(SU, "sort_lanes", spy)
+    imgs = []
+    for resort in (True, False):
+        cfg = PathConfig(**CFG, unroll=unroll, resort_bounces=resort)
+        imgs.append(RR.render_spp(scene, lens, 64, 64, 2, 1, cfg)[0])
+    assert torch.equal(imgs[0], imgs[1])
+    resorted = [k for k in guarded["steps"] if k[0] == "resorted"]
+    assert len(resorted) == len(calls) >= 4
+    trace = next(iter(graphs._SHAPES.values()))[0].trace
+    names = [k for k in trace.bufs[0] if k != "rays"]
+    prefix, src = 4096, 0
+    for (_, width, _, _, key_src, key_prefix), (n, bits, out, rows) in zip(
+            resorted, calls):
+        assert (key_src, key_prefix, n) == (src, prefix, prefix)
+        assert bits == P.RESORT_BITS
+        assert all(o is trace.bufs[1 - src][k] for k, o in zip(names, out))
+        assert rows == [4096 if k in P._TAIL else width for k in names]
+        prefix, src = width, 1 - src
+    assert prefix < 4096  # the deep bounces ran on a prefix
+    # the resorted render's accumulation reads the set its last segment
+    # wrote
+    assert next(k for k in guarded["steps"]
+                if k[0] == "accumulate") == ("accumulate", src)
 
 
 def test_staged_and_sharded_steps_read_nothing_on_the_host(guarded,
@@ -394,14 +439,14 @@ def test_steps_replay_by_key_and_count_launches():
     steps.run("a", lambda: calls.append(2))
     assert calls == [1, 2] and not steps.capture
     counts = {"k": 0}
-    with PP.launch_tally() as tally:
-        PP.count_launch(counts, "k")
-        PP.count_launch(counts, "k")
+    with PL.launch_tally() as tally:
+        PL.count_launch(counts, "k")
+        PL.count_launch(counts, "k")
     assert counts["k"] == 0 and len(tally) == 2
-    PP.count_replay(tally)
-    PP.count_replay(tally)
+    PL.count_replay(tally)
+    PL.count_replay(tally)
     assert counts["k"] == 4
-    PP.count_launch(counts, "k")
+    PL.count_launch(counts, "k")
     assert counts["k"] == 5
 
 

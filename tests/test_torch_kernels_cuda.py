@@ -30,13 +30,19 @@ material, a textured atlas), the room (constant atlas), two-level scenes
 (mirroring instances, the tie scene) and light panels with a textured
 emission or none sampled, with env maps of size 1 and 32; the kernels
 work in place and leave dead lanes, so the outputs they skip are held
-on the lanes that are live."""
+on the lanes that are live. The lane sort (csrc/sort.cu) gives
+torch.argsort(key, stable=True) bit for bit and moves every column as
+its plain version does (below one tile, ragged, many tiles, every key
+dead, the treelet's three passes), inside a CUDA graph too; its inverse
+move and the coherence key kernel equal their plain versions."""
 
 import numpy as np
 import pytest
 import torch
 
-from moonshine_tpu_torch.accel import native, packet, tlas, treelet, vpacket
+from moonshine_tpu_torch.accel import (
+    launch, native, packet, tlas, treelet, vpacket,
+)
 from moonshine_tpu_torch.integrator import shade
 from moonshine_tpu_torch.accel.wide import build_wide
 from moonshine_tpu_torch.scripts import cuda_ms, probe_bitcast, profile_vpu
@@ -1406,3 +1412,135 @@ def test_shade_env_kernels_match_plain(cuda, env_kind):
         _assert_bits(got, want.contiguous(), f"env_draw {name}")
     assert shade.LAUNCHES["env_miss"] == 12
     assert shade.LAUNCHES["env_draw"] == 1
+
+
+# --- the lane sort (csrc/sort.cu) ---
+
+def _sort_case(device, n, case, seed):
+    """(key int32 [n], bits, columns) of a sort case: `ties` (six keys and
+    dead ones), `dead` (every key dead), `resort` / `packet` (each site's
+    range, a share dead), `treelet` ((K + 1) x 512 keys, K = 379, none
+    dead: three passes); columns of every kind the sites move (bool,
+    int32, int64, float32 [N] and [N, 3], the treelet's [N, 12] int32
+    pending words)."""
+    from moonshine_tpu_torch.core import sortutil
+
+    rs = np.random.RandomState(seed)
+    bits, live, dead = {"ties": (12, 6, 0.3), "dead": (9, 1, 1.0),
+                        "resort": (12, 4096, 0.4), "packet": (9, 512, 0.2),
+                        "treelet": (18, 380 * 512, 0.0)}[case]
+    key = rs.randint(0, live, n).astype(np.int32)
+    key[rs.rand(n) < dead] = sortutil.DEAD_KEY
+    cols = [rs.rand(n) > 0.5, rs.randint(-2**31, 2**31 - 1, n).astype(np.int32),
+            rs.randint(-2**62, 2**62, n).astype(np.int64),
+            rs.randn(n).astype(np.float32),
+            rs.randn(n, 3).astype(np.float32),
+            rs.randint(-2**31, 2**31 - 1, (n, 12)).astype(np.int32)]
+    return (torch.from_numpy(key).to(device), bits,
+            [torch.from_numpy(c).to(device) for c in cols])
+
+
+@pytest.mark.parametrize("case", ["ties", "dead", "resort", "packet",
+                                  "treelet"])
+@pytest.mark.parametrize("n", [1, 100, 4096, 4097, 70001])
+def test_sort_lanes_matches_argsort(cuda, case, n):
+    """The sort kernels' permutation equals torch.argsort(key,
+    stable=True) bit for bit (below one tile, one tile, ragged, many
+    tiles), every moved column equals its plain move, and unsort_lanes
+    (one move launch) puts them back."""
+    from moonshine_tpu_torch.core import sortutil
+
+    key, bits, cols = _sort_case(cuda, n, case, n + len(case))
+    sortutil.reset_launch_counts()
+    perm, moved = sortutil.sort_lanes(key, cols, bits)
+    want_perm, want = sortutil.sort_lanes_plain(key, cols, bits)
+    assert torch.equal(perm, torch.argsort(key, stable=True).int())
+    _assert_bits(perm, want_perm, f"{case} perm")
+    for j, (g, w) in enumerate(zip(moved, want)):
+        _assert_bits(g, w, f"{case} column {j}")
+    back = sortutil.unsort_lanes(perm, moved)
+    for j, (g, w) in enumerate(zip(back, cols)):
+        _assert_bits(g, w, f"{case} unsorted column {j}")
+    for g, w in zip(back, sortutil.unsort_lanes_plain(perm, moved)):
+        _assert_bits(g, w, f"{case} unsort against its plain version")
+    assert sortutil.LAUNCHES == {"coherence_key": 0, "sort_lanes": 1,
+                                 "unsort_lanes": 1}
+
+
+def test_sort_lanes_rows_out_and_empty(cuda):
+    """`rows` and `out` as the resort uses them (each array's first rows
+    by the permutation, the tail arrays past the key's lanes where they
+    lie, nothing else of `out` written), and an empty key."""
+    from moonshine_tpu_torch.core import sortutil
+
+    key, bits, cols = _sort_case(cuda, 9000, "resort", 3)
+    longer = [torch.cat([c, c[:1000]]) for c in cols]  # 10,000 lanes
+    rows = [6000, 10000, 9000, 2000, 10000, 0]
+    for plain in (False, True):
+        out = [torch.zeros_like(c) for c in longer]
+        fn = sortutil.sort_lanes_plain if plain else sortutil.sort_lanes
+        perm, got = fn(key, longer, bits, out=out, rows=rows)
+        assert all(g is o for g, o in zip(got, out))
+        if not plain:
+            kernel = [g.clone() for g in got]
+    for j, (g, w) in enumerate(zip(kernel, got)):
+        _assert_bits(g, w, f"rows/out column {j}")
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    perm, got = sortutil.sort_lanes(empty, [c[:0] for c in cols], bits)
+    assert perm.shape == (0,) and all(g.shape[0] == 0 for g in got)
+
+
+def test_sort_lanes_replays_in_a_graph(cuda):
+    """The sort and move captured in a CUDA graph (no host read, no sync,
+    the workspace from the graph's pool) and replayed on new keys in the
+    captured buffer: the permutation of those keys."""
+    from moonshine_tpu_torch.core import sortutil
+
+    key, bits, cols = _sort_case(cuda, 50000, "packet", 9)
+    static = key.clone()
+    sortutil.sort_lanes(static, cols, bits)  # the build, outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with launch.launch_tally() as tally:
+        with torch.cuda.graph(graph):
+            perm, moved = sortutil.sort_lanes(static, cols, bits)
+    assert len(tally) == 1
+    for seed in (1, 2):
+        new, _, _ = _sort_case(cuda, 50000, "packet", seed)
+        static.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_perm, want = sortutil.sort_lanes_plain(new, cols, bits)
+        _assert_bits(perm, want_perm, "replayed perm")
+        for g, w in zip(moved, want):
+            _assert_bits(g, w, "replayed column")
+
+
+@pytest.mark.parametrize("cells", [4, 8])
+@pytest.mark.parametrize("n", [1, 4099])
+def test_coherence_key_matches_plain(cuda, cells, n):
+    """The coherence key kernel against coherence_key_plain bit for bit:
+    origins inside and far outside the box (cells past the int32 range
+    saturate), a flat axis, zero and NaN components, with and without
+    the mask and the major key."""
+    from moonshine_tpu_torch.core import sortutil
+
+    rs = np.random.RandomState(n + cells)
+    bounds = torch.tensor([[-1.5, 0.0, 2.0], [3.0, 4.5, 2.0]],
+                          device=cuda)
+    o = (rs.randn(n, 3) * 4).astype(np.float32)
+    o[rs.rand(n, 3) < 0.05] = 3e38
+    o[rs.rand(n, 3) < 0.02] = np.nan
+    d = rs.randn(n, 3).astype(np.float32)
+    d[rs.rand(n, 3) < 0.1] = 0.0
+    d[rs.rand(n, 3) < 0.02] = np.nan
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    active = torch.from_numpy(rs.rand(n) > 0.3).to(cuda)
+    major = torch.from_numpy(rs.randint(0, 380, n).astype(np.int32)).to(cuda)
+    sortutil.reset_launch_counts()
+    for kw in ({}, {"active": active}, {"major": major},
+               {"active": active, "major": major}):
+        got = sortutil.coherence_key(o, d, bounds, cells, **kw)
+        want = sortutil.coherence_key_plain(o, d, bounds, cells, **kw)
+        _assert_bits(got, want, f"coherence key {sorted(kw)}")
+    assert sortutil.LAUNCHES["coherence_key"] == 4

@@ -13,6 +13,7 @@ tests/test_torch_render.py holds: >= 99% of pixels within 1e-3 (abs +
 rel) and means within 1e-3 relative. Two trees of one scene agree to the
 same bar (only equal-t ties may send a lane elsewhere)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -83,8 +84,6 @@ def test_bounce_shrunk_runs_on_the_live_prefix(monkeypatch):
 def test_resort_state_matches_reference():
     """The port's resort orders lanes as the reference's does (8^3 cells x
     octant, dead lanes last, stable)."""
-    import jax.numpy as jnp
-
     from moonshine_tpu.integrator import path as JP_path
 
     scene, _ = _port(_room)
@@ -106,6 +105,82 @@ def test_resort_state_matches_reference():
         o=torch.from_numpy(o), d=torch.from_numpy(d),
         active=torch.from_numpy(active), pix=torch.arange(n)))
     np.testing.assert_array_equal(got["pix"].numpy(), np.asarray(want["pix"]))
+
+
+def _full_state(scene, n, seed, dead_past=None, live=0.7):
+    """Every column of a lane state (numpy, the port's dtypes), seeded:
+    a `live` share of the lanes live, none past `dead_past`."""
+    rs = np.random.RandomState(seed)
+    lo, hi = (scene.wide.bounds.numpy()[0], scene.wide.bounds.numpy()[1])
+    active = rs.rand(n) < live
+    if dead_past is not None:
+        active[dead_past:] = False
+    return dict(
+        active=active, o=(lo + rs.rand(n, 3) * (hi - lo)).astype(np.float32),
+        d=rs.randn(n, 3).astype(np.float32),
+        throughput=rs.rand(n, 3).astype(np.float32),
+        radiance=rs.rand(n, 3).astype(np.float32),
+        last_pdf=rs.rand(n).astype(np.float32),
+        last_delta=rs.rand(n) > 0.5,
+        rng=rs.randint(0, 2**32, n).astype(np.int64),
+        rays=np.int64(12345), pix=rs.permutation(n).astype(np.int64))
+
+
+def test_resort_state_moves_every_column_as_reference():
+    """Every column of the state (17 scalars a lane: the mask, ray,
+    throughput, radiance, pdf, delta flag, RNG state and pixel id) moved
+    as the reference's one multi-operand sort moves it, bit for bit; the
+    ray count stays."""
+    from moonshine_tpu.integrator import path as JP_path
+
+    scene, _ = _port(_room)
+    st = _full_state(scene, 4096, 5)
+
+    class JaxScene:
+        wide = scene.wide._replace(bounds=jnp.asarray(
+            scene.wide.bounds.numpy()))
+
+    jax_dtypes = dict(rng=np.uint32, pix=np.int32, rays=np.float32)
+    want = JP_path._resort_state(JaxScene, {
+        k: jnp.asarray(v.astype(jax_dtypes.get(k, v.dtype)))
+        for k, v in st.items()})
+    got = P._resort_state(scene, {k: torch.from_numpy(np.asarray(v))
+                                  for k, v in st.items()})
+    assert set(got) == set(st)
+    for k in st:
+        assert got[k].dtype == torch.from_numpy(np.asarray(st[k])).dtype
+        np.testing.assert_array_equal(got[k].numpy(),
+                                      np.asarray(want[k]).astype(
+                                          np.asarray(st[k]).dtype), k)
+
+
+@pytest.mark.parametrize("prefix,width", [(4096, 4096), (4096, 1024),
+                                          (2048, 1024), (2048, 2048)])
+def test_resort_into_the_other_buffers(prefix, width):
+    """The loop's resort (out=, prefix, width): sorting only the first
+    `prefix` lanes, every lane past them dead, gives the full resort's
+    order; each array's first `width` lanes and the tail arrays whole
+    (_TAIL) land in `out`, nothing else of it is written."""
+    scene, _ = _port(_room)
+    n = 4096
+    st = {k: torch.from_numpy(np.asarray(v)) for k, v in _full_state(
+        scene, n, 6, dead_past=prefix, live=0.9 * width / prefix).items()}
+    live = int(st["active"].sum())
+    assert live <= width
+    want = P._resort_state(scene, st)
+    out = {k: (v if k == "rays" else torch.full_like(v, 7))
+           for k, v in st.items()}
+    before = {k: v.clone() for k, v in out.items()}
+    got = P._resort_state(scene, st, out=out, prefix=prefix, width=width)
+    assert all(got[k] is out[k] for k in st)
+    assert got["rays"] is st["rays"]
+    for k, v in want.items():
+        if k == "rays":
+            continue
+        rows = n if k in P._TAIL else width
+        assert torch.equal(got[k][:rows], v[:rows]), k
+        assert torch.equal(got[k][rows:], before[k][rows:]), k
+    assert not got["active"][live:].any()
 
 
 def test_resort_matches_reference():

@@ -265,7 +265,7 @@ def test_skip_beyond_t_best_keeps_the_hits(n_tris, seed, max_rows):
     o_t, d_t, act = _t(o, d, active)
     t_eff = torch.where(act, torch.tensor(1e12), torch.tensor(-1e30))
     perm, srt = PT._sort_lanes(pw, o_t, d_t, t_eff)
-    unsort = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
+    unsort = lambda x: torch.empty_like(x).index_copy_(0, perm.long(), x)
     unbounded = pw._replace(t_lo=torch.full_like(pw.t_lo, -np.inf),
                             t_hi=torch.full_like(pw.t_hi, np.inf))
     h, v = PT._dispatch_plain(pw, *srt, False, count_visits=True)
