@@ -151,10 +151,14 @@ script exits non-zero without the result line. Phases:
                   replayed through the kernels and the plain version:
                   the coherence key from its inputs, the permutation
                   against torch.argsort(key, stable=True) and every moved
-                  column bit for bit; each
+                  column bit for bit (the recording and the helpers are
+                  scripts/compare_sort.py's); each
                   timed beside the argsort alone, the plain version, the
                   parent's argsort + gathers + copy back and the bound;
-                  the whole resort against the parent's; the inverse move
+                  the permutation passes and the move also apart, beside
+                  their bounds (the move's by bytes and by 32-byte
+                  sectors); the whole resort against the parent's; the
+                  inverse move
                   the same way; then room_1080p and an offline_720p sample
                   with the plain versions patched in against the kernels'
                   run (image, rays, launches)
@@ -179,7 +183,8 @@ script exits non-zero without the result line. Phases:
                   bit for bit, the EXR round trip); then the port's copy
                   of that C++ host as a subprocess, "shim ok"
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]} (each entry also names
+the CUDA kernels its wrapper launches, `cuda_kernels`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -265,6 +270,23 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                      "moonshine_tpu/accel/packet.py:690 _sorted_dispatch's "
                      "inverse sort_lanes by the lane iota (jnp lax.sort, no "
                      "pallas_call)"),
+}
+# the __global__ functions each wrapper of the kernels line launches
+CUDA_KERNELS = {
+    "closest_hit": ["traverse_kernel"], "any_hit": ["traverse_kernel"],
+    "treelet_closest_hit": ["treelet_kernel"],
+    "treelet_any_hit": ["treelet_kernel"],
+    "treelet_pending": ["pending_kernel"],
+    "v_closest_hit": ["traverse_kernel"], "v_any_hit": ["traverse_kernel"],
+    "vpu_slab": ["slab_kernel"], "vpu_alu": ["alu_kernel"],
+    "bitcast": ["bitcast_kernel"], "tlas_closest_hit": ["tlas_kernel"],
+    "tlas_any_hit": ["tlas_kernel"], "surface": ["surface_kernel"],
+    "scatter": ["scatter_kernel"], "env_miss": ["env_miss_kernel"],
+    "env_draw": ["env_draw_kernel"],
+    "coherence_key": ["coherence_key_kernel"],
+    "sort_lanes": ["radix_upsweep_kernel", "radix_onesweep_kernel",
+                   "lane_move_kernel"],
+    "unsort_lanes": ["lane_move_kernel"],
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
@@ -2585,88 +2607,21 @@ def shade_phase(cells, timings, errs):
                 errs[name] = worst
 
 
-# integer operations a lane and digit pass of the sort kernels (the
-# digit, the match, the popcounts, the rank), over the card's int32 rate:
-# 64 INT32 lanes an SM x 132 SMs x 1.98 GHz
-SORT_OPS_PER_LANE_PASS = 12
-PEAK_INT32 = 64 * 132 * 1.98e9
-
-
-def record_sorts(render):
-    """The first sort_lanes call of each (bits, lanes) and the first
-    unsort_lanes call of each lane count in render() (run on the eager
-    loop, where the wrappers are called at every launch): their inputs
-    cloned, as {("sort", bits, n): (key, arrays, rows, out shapes),
-    ("unsort", n): (perm, arrays)}."""
-    from moonshine_tpu_torch.core import sortutil
-    from moonshine_tpu_torch.integrator import graphs
-
-    rec = {}
-    real = sortutil.sort_lanes, sortutil.unsort_lanes
-
-    def sort(key, arrays, bits, out=None, rows=None):
-        rec.setdefault(("sort", bits, key.shape[0]), (
-            key.clone(), [a.clone() for a in arrays], rows,
-            None if out is None else [o.shape for o in out]))
-        return real[0](key, arrays, bits, out=out, rows=rows)
-
-    def unsort(perm, arrays):
-        rec.setdefault(("unsort", perm.shape[0]), (
-            perm.clone(), [a.clone() for a in arrays]))
-        return real[1](perm, arrays)
-
-    sortutil.sort_lanes, sortutil.unsort_lanes = sort, unsort
-    try:
-        with graphs.eager():
-            render()
-    finally:
-        sortutil.sort_lanes, sortutil.unsort_lanes = real
-    return rec
-
-
-def _bits_equal(a, b):
-    """a and b equal bit for bit (floats compared as their words)."""
-    import torch
-
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if a.dtype == torch.float32:
-        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
-            torch.int32)
-    return bool((a == b).all())
-
-
-def sort_bound(n, arrays, rows, passes):
-    """(bound ms, by, detail) of one sort_lanes call (`passes` digit
-    passes, `native.sort_lib().passes`; 0: an unsort_lanes call): the key
-    read and the permutation
-    written once (an unsort reads the permutation), each array's moved
-    rows read and written once; the passes' integer operations over the
-    int32 rate."""
-    row = lambda a: (a.shape[1] if a.ndim == 2 else 1) * a.element_size()
-    moved = sum(row(a) * r for a, r in zip(arrays, rows))
-    nbytes = n * (8 if passes else 4) + 2 * moved
-    ops = n * passes * SORT_OPS_PER_LANE_PASS
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32 * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_bytes, t_ops), by, (
-        f"{nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms, {passes} passes, "
-        f"{ops / 1e6:.1f} M int ops -> {t_ops:.4f} ms")
-
-
 def sort_phase(scenes, offline_cell, cfg, timings, errs):
     """The lane sort (csrc/sort.cu) at the main path's shapes: one eager
     1080p sample of room_1080p (the resort and the packet dispatch's
     sorts: 2,073,600 camera rays, the 4,147,200-lane shadow batch) and
-    of treelet_1080p (the treelet dispatch's sort) recorded, and each
-    site's first call replayed through the kernels and through the plain
-    version on the same inputs: the coherence key from the lanes it was
-    made of, the permutation against torch.argsort(key, stable=True) and
-    every moved column bit for bit;
-    each timed beside the argsort alone (the one PyTorch call that
-    computes the permutation), the plain version, the parent's form
-    (argsort, a gather of every lane array, and for the resort the copy
-    back into the loop's buffers) and the bound; the whole resort (key,
+    of treelet_1080p (the treelet dispatch's sort) recorded
+    (scripts/compare_sort.py `site_calls`), and each site's first call
+    replayed through the kernels and through the plain version on the
+    same inputs: the coherence key from the lanes it was made of, the
+    permutation against torch.argsort(key, stable=True) and every moved
+    column bit for bit; each timed beside the argsort alone (the one
+    PyTorch call that computes the permutation), the plain version, the
+    parent's form (argsort, a gather of every lane array, and for the
+    resort the copy back into the loop's buffers) and the bound; the
+    permutation passes and the move timed apart, beside their own bounds
+    (the move's also counted in 32-byte sectors); the whole resort (key,
     sort, moves) against the parent's. The inverse (unsort_lanes) the
     same way. Then room_1080p and one offline_720p sample rendered with
     the plain versions patched into core/sortutil.py (graphs captured
@@ -2674,51 +2629,28 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
     other kernel's launches equal; one more sample of each way timed."""
     import torch
 
-    from moonshine_tpu_torch.accel import native, packet, treelet
+    from moonshine_tpu_torch.accel import native
     from moonshine_tpu_torch.core import sortutil
     from moonshine_tpu_torch.integrator import graphs, path
     from moonshine_tpu_torch.integrator.path import PathConfig
     from moonshine_tpu_torch.render.renderer import render_sample, render_spp
+    from moonshine_tpu_torch.scripts import compare_sort as cs
 
     h, w = HD
     room, room_lens = scenes["room_184k/default"]
-    rec = record_sorts(lambda: render_spp(room, room_lens, h, w, 0, 1, cfg))
     tree, tree_lens = scenes["room_184k/treelet"]
-    with env(MSN_TREELETS="1"):
-        rec.update(record_sorts(lambda: render_spp(tree, tree_lens, h, w, 0,
-                                                   1, cfg)))
-    k_tree = treelet.key_bits(tree.wide)
-    sites = {"resort": ("sort", path.RESORT_BITS, h * w),
-             "packet closest hit": ("sort", packet.SORT_KEY_BITS, h * w),
-             "packet shadow batch": ("sort", packet.SORT_KEY_BITS,
-                                     2 * h * w),
-             "treelet closest hit": ("sort", k_tree, h * w)}
-    missing = [k for k, v in sites.items() if v not in rec]
-    if missing or ("unsort", h * w) not in rec:
-        raise AssertionError(f"no recorded call for {missing}: recorded "
-                             f"{sorted(rec)}")
+    calls = cs.site_calls(room, room_lens, tree, tree_lens, cfg)
+    lib = native.sort_lib()
     lane_names = [k for k in path._init_state(
         torch.zeros(1, 3), torch.zeros(1, 3), torch.zeros(1)) if k != "rays"]
 
-    def key_inputs(site, arrays):
-        """(o, d, bounds, cells, keywords) the site's key came from."""
-        if site == "resort":
-            st = dict(zip(lane_names, arrays))
-            return (st["o"], st["d"], room.wide.bounds, path.RESORT_CELLS,
-                    dict(active=st["active"]))
-        if site.startswith("packet"):
-            return (arrays[0], arrays[1], room.wide.bounds,
-                    packet.SORT_CELLS, dict(active=arrays[3]))
-        return (arrays[0], arrays[1], tree.wide.bounds, packet.SORT_CELLS,
-                dict(major=arrays[4]))
-
-    for site, key_ in sites.items():
-        key, arrays, rows, out_shapes = rec[key_]
-        n, bits = key.shape[0], key_[1]
-        o, d, bounds, cells, kw = key_inputs(site, arrays)
+    for site in cs.SITES:
+        bits, (key, arrays, rows, out_shapes) = calls[site]
+        n = key.shape[0]
+        o, d, bounds, cells, kw = cs.key_inputs(site, arrays, room, tree)
         got_key = sortutil.coherence_key(o, d, bounds, cells, **kw)
         want_key = sortutil.coherence_key_plain(o, d, bounds, cells, **kw)
-        ok = _bits_equal(got_key, key) and _bits_equal(want_key, key)
+        ok = cs.bits_equal(got_key, key) and cs.bits_equal(want_key, key)
         key_ms = cuda_ms(lambda: sortutil.coherence_key(o, d, bounds, cells,
                                                         **kw), 20)
         key_plain_ms = cuda_ms(lambda: sortutil.coherence_key_plain(
@@ -2749,9 +2681,9 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
         want_perm, want = sortutil.sort_lanes_plain(key, arrays, bits,
                                                     out=out_p, rows=rows)
         lib_perm = torch.argsort(key, stable=True)
-        ok = (_bits_equal(perm, lib_perm.int())
-              and _bits_equal(perm, want_perm)
-              and all(_bits_equal(g, w_) for g, w_ in zip(got, want)))
+        ok = (cs.bits_equal(perm, lib_perm.int())
+              and cs.bits_equal(perm, want_perm)
+              and all(cs.bits_equal(g, w_) for g, w_ in zip(got, want)))
         live = int((key != sortutil.DEAD_KEY).sum())
         say("sort", f"{site}: {n} lanes ({live} live keys, bits {bits}, "
             f"{len(arrays)} arrays, rows {rows}): permutation = "
@@ -2776,14 +2708,32 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
                     a[p]
 
         parent_ms = cuda_ms(parent, 5)
-        b_ms, b_by, detail = sort_bound(n, arrays, rows,
-                                        native.sort_lib().passes(bits))
+        b = cs.bounds(n, arrays, rows, lib.passes(bits))
+        b_ms, b_by, detail = b["sort"]
         say("sort", f"{site}: kernels {ms:.4f} ms, torch.argsort alone "
             f"{lib_ms:.4f} ms, plain version (argsort + gathers) "
             f"{plain_ms:.4f} ms, the parent's form (argsort, gathers"
             + (", copy back" if site == "resort" else "")
             + f") {parent_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
             f"({detail})")
+        # the two parts apart: the permutation passes and the move
+        p_run, p_perm = cs.passes_of(lib, key, bits)
+        m_run, m_out = cs.move_of(lib, lib_perm.int(), arrays, rows,
+                                  out_shapes, False)
+        p_run()
+        m_run()
+        ok = cs.bits_equal(p_perm, lib_perm.int()) and all(
+            cs.bits_equal(g, w_) for g, w_ in zip(m_out, want))
+        passes_ms, move_ms = cuda_ms(p_run, 20), cuda_ms(m_run, 20)
+        say("sort", f"{site}: the permutation passes alone {passes_ms:.4f} "
+            f"ms (bound {b['perm'][0]:.4f} ms by {b['perm'][1]}: "
+            f"{b['perm'][2]}), the move alone {move_ms:.4f} ms (bound "
+            f"{b['move'][0]:.4f} ms by bytes: {b['move'][2]}; by 32-byte "
+            f"sectors {b['move_sectors'][0]:.4f} ms: "
+            f"{b['move_sectors'][2]}), each = torch.argsort and the plain "
+            f"moves bit for bit: {ok}")
+        if not ok:
+            raise AssertionError(f"{site}: the passes or the move differ")
         if site == "resort":
             timings["sort_lanes"] = dict(ms=ms, plain_ms=plain_ms,
                                          bound_ms=b_ms, bound_by=b_by,
@@ -2815,22 +2765,23 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
                 f" ms; bound with the key's ({key_bytes / 1e6:.1f} MB) "
                 f"{wb_ms:.4f} ms")
 
-    perm, arrays = rec[("unsort", h * w)]
+    _, (perm, arrays) = calls["unsort"]
     got = sortutil.unsort_lanes(perm, arrays)
     want = sortutil.unsort_lanes_plain(perm, arrays)
-    ok = all(_bits_equal(g, w_) for g, w_ in zip(got, want))
+    ok = all(cs.bits_equal(g, w_) for g, w_ in zip(got, want))
     say("sort", f"unsort_lanes on {h * w} lanes ({len(arrays)} arrays): "
         f"kernel = plain (index_copy_) bit for bit: {ok}")
     if not ok:
         raise AssertionError("unsort_lanes differs from its plain version")
     ms = cuda_ms(lambda: sortutil.unsort_lanes(perm, arrays), 20)
     plain_ms = cuda_ms(lambda: sortutil.unsort_lanes_plain(perm, arrays), 20)
-    b_ms, b_by, detail = sort_bound(h * w, arrays, [h * w] * len(arrays),
-                                    0)
+    b = cs.bounds(h * w, arrays, [h * w] * len(arrays), 0)
+    b_ms, b_by, detail = b["sort"]
     say("sort", f"unsort_lanes: kernel {ms:.4f} ms, plain (an index_copy_ "
         f"an array) {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-        f"({detail}); no single PyTorch call moves several arrays by one "
-        f"permutation, so no library time")
+        f"({detail}; by 32-byte sectors {b['move_sectors'][0]:.4f} ms); no "
+        f"single PyTorch call moves several arrays by one permutation, so "
+        f"no library time")
     timings["unsort_lanes"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by)
     errs["unsort_lanes"] = 0.0
@@ -3498,8 +3449,8 @@ def main():
 
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": errs[k],
-         "library_ms": None, **timings[k]}
+         "cuda_kernels": CUDA_KERNELS[k], "launches": launches[k],
+         "max_abs_err": errs[k], "library_ms": None, **timings[k]}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,17 +7,22 @@ keys, `torch.argsort(key, stable=True)`) and each array in that order;
 scatter: the reference's second sort by the lane iota). For CUDA tensors
 both launch the kernels of csrc/sort.cu on the tensors' card and its
 current stream (so a CUDA graph captures them): a stable LSD radix sort
-over the few digits the key's range needs, then one launch that moves
-every array. For CPU tensors they run their plain versions (`*_plain`:
-an argsort and a gather or `index_copy_` per array). There is no
-fallback: a kernel that does not build or launch raises. Each wrapper
-adds one to LAUNCHES[its name] where it launches (into a capture's tally
-while a graph is captured: accel/launch.py).
+over the few digits the key's range needs (one memset, one launch that
+counts every pass's digits, then one launch a pass: one pass for the
+packet key, two for the resort's and the treelet dispatch's), then one
+launch that moves every array, one array after another. For CPU tensors
+they run their plain versions (`*_plain`: an argsort and a gather or
+`index_copy_` per array). There is no fallback: a kernel that does not
+build or launch raises. Each wrapper adds one to LAUNCHES[its name]
+where it launches (into a capture's tally while a graph is captured:
+accel/launch.py).
 
 The key's range is the caller's to state: `bits` says every key lies in
-[0, 2^bits) or is a dead lane's key, 1 << 20 at every site (any key past
-the range sorts as one value after it on the card, so the dead key must
-be the only such value; none is negative). The sites and their keys,
+[0, 2^bits) or is a dead lane's key, 1 << 20 at every site. Any key past
+the range, a negative one too, sorts as one value after it
+(`mapped_key`), on the card and in the plain version, so where the dead
+key is the only such value the order is the stable argsort of the key
+itself. The sites and their keys,
 each a `coherence_key` (a lane's origin cell in the scene's box and its
 direction's octant; one kernel of csrc/sort.cu on the card): the
 per-bounce state resort (integrator/path.py: 8^3 cells), the traversal
@@ -119,13 +124,20 @@ def coherence_key_plain(o, d, bounds, cells: int, active=None, major=None):
     return key
 
 
+def mapped_key(key, bits: int):
+    """The key as the sort orders it: itself in [0, 2^bits), 2^bits for
+    any other key (a dead lane's, a negative one)."""
+    live = 1 << bits
+    return torch.where((key >= 0) & (key < live), key, live)
+
+
 def sort_lanes_plain(key, arrays, bits: int, out=None, rows=None):
     """sort_lanes in torch ops (the kernels' reference): the stable
-    argsort and a gather per array."""
+    argsort of the mapped key and a gather per array."""
     _check(key, arrays, bits, out)
     n = key.shape[0]
     rows = _rows(arrays, rows, n)
-    perm = torch.argsort(key, stable=True)
+    perm = torch.argsort(mapped_key(key, bits), stable=True)
     result = []
     for j, (a, r) in enumerate(zip(arrays, rows)):
         moved = a[perm[:min(r, n)]]
@@ -240,9 +252,9 @@ def coherence_key(o, d, bounds, cells: int, active=None, major=None):
 
 def sort_lanes(key, arrays, bits: int, out=None, rows=None):
     """(perm int32 [N], the arrays in perm's order): the stable order of
-    the int32 key [N], every key in [0, 2^bits) or a dead key (module
-    docstring; `out` and `rows` too). The csrc/sort.cu kernels for CUDA
-    tensors, sort_lanes_plain for CPU tensors."""
+    the int32 key [N] mapped by `mapped_key` (module docstring; `out` and
+    `rows` too). The csrc/sort.cu kernels for CUDA tensors,
+    sort_lanes_plain for CPU tensors."""
     if _device_kind(key) == "cpu":
         return sort_lanes_plain(key, arrays, bits, out, rows)
     _check(key, arrays, bits, out)

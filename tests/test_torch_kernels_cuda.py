@@ -1490,13 +1490,64 @@ def test_sort_lanes_rows_out_and_empty(cuda):
     assert perm.shape == (0,) and all(g.shape[0] == 0 for g in got)
 
 
-def test_sort_lanes_replays_in_a_graph(cuda):
-    """The sort and move captured in a CUDA graph (no host read, no sync,
-    the workspace from the graph's pool) and replayed on new keys in the
-    captured buffer: the permutation of those keys."""
+def _wild_keys(device, n, bits, seed):
+    """int32 keys of every kind for a `bits`-bit sort: in range (a few
+    distinct values, so digits tie), the dead key, negative ones, 2^bits
+    itself and keys past it up to the int32 maximum."""
     from moonshine_tpu_torch.core import sortutil
 
-    key, bits, cols = _sort_case(cuda, 50000, "packet", 9)
+    rs = np.random.RandomState(seed)
+    live = 1 << bits
+    key = rs.randint(0, live, n).astype(np.int64)
+    key[rs.rand(n) < 0.5] = rs.randint(0, min(live, 7))
+    kind = rs.rand(n)
+    key[kind < 0.15] = sortutil.DEAD_KEY
+    key[(kind >= 0.15) & (kind < 0.2)] = -rs.randint(1, 2**31)
+    key[(kind >= 0.2) & (kind < 0.22)] = live
+    key[(kind >= 0.22) & (kind < 0.25)] = rs.randint(live, 2**31 - 1)
+    return torch.from_numpy(key.astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("bits", [0, 7, 9, 10, 12, 18, 20, 21, 30])
+@pytest.mark.parametrize("n", [4095, 8193, 1_000_003, 2_073_600])
+def test_sort_lanes_every_digit_plan(cuda, bits, n):
+    """Every digit plan: one pass up to 10 bits (the packet key's 9 bits in
+    one pass of 513 buckets, 10 bits in one of 1025), two up to 20 (the
+    resort's 12, a treelet key's 18), three above (21, 30), and the plans
+    of 8-bit digits (7 bits in one pass, 9 and 12 in two, 18 in three);
+    sizes whose tiles make long look-back chains and odd tails; keys of
+    every kind (`_wild_keys`). The permutation equals torch.argsort of
+    the mapped key bit for bit (keys past the range sort as one value
+    after it), and the plain version's; two columns move as their plain
+    moves do."""
+    from moonshine_tpu_torch.core import sortutil
+
+    key = _wild_keys(cuda, n, bits, n + bits)
+    rs = np.random.RandomState(bits)
+    cols = [torch.from_numpy(rs.randn(n, 3).astype(np.float32)).to(cuda),
+            torch.from_numpy(rs.rand(n) > 0.5).to(cuda)]
+    perm, moved = sortutil.sort_lanes(key, cols, bits)
+    mapped = sortutil.mapped_key(key, bits)
+    assert int(mapped.max()) <= 1 << bits and int(mapped.min()) >= 0
+    assert torch.equal(perm, torch.argsort(mapped, stable=True).int())
+    want_perm, want = sortutil.sort_lanes_plain(key, cols, bits)
+    _assert_bits(perm, want_perm, f"bits {bits} perm")
+    for j, (g, w) in enumerate(zip(moved, want)):
+        _assert_bits(g, w, f"bits {bits} column {j}")
+
+
+@pytest.mark.parametrize("case", ["packet", "treelet"])
+def test_sort_lanes_replays_in_a_graph(cuda, case):
+    """The sort and move captured in a CUDA graph (no host read, no sync,
+    the workspace from the graph's pool) and replayed on new keys in the
+    captured buffer, several times and on keys of other kinds (every key
+    dead, keys past the range): the permutation of those keys each time,
+    so the look-back flags and tile counters are reset by the graph
+    itself (one pass for the packet key, two for the treelet's)."""
+    from moonshine_tpu_torch.core import sortutil
+
+    n = 50000
+    key, bits, cols = _sort_case(cuda, n, case, 9)
     static = key.clone()
     sortutil.sort_lanes(static, cols, bits)  # the build, outside
     torch.cuda.synchronize()
@@ -1505,8 +1556,10 @@ def test_sort_lanes_replays_in_a_graph(cuda):
         with torch.cuda.graph(graph):
             perm, moved = sortutil.sort_lanes(static, cols, bits)
     assert len(tally) == 1
-    for seed in (1, 2):
-        new, _, _ = _sort_case(cuda, 50000, "packet", seed)
+    fresh = [_sort_case(cuda, n, case, seed)[0] for seed in (1, 2, 3)]
+    fresh += [_sort_case(cuda, n, "dead", 4)[0], _wild_keys(cuda, n, bits, 5),
+              _sort_case(cuda, n, case, 1)[0]]
+    for new in fresh:
         static.copy_(new)
         graph.replay()
         torch.cuda.synchronize()

@@ -196,6 +196,33 @@ def test_unsort_lanes_inverts_the_sort(n):
         assert torch.equal(c, g)
 
 
+@pytest.mark.parametrize("bits", [0, 9, 12, 18])
+def test_keys_past_the_range_sort_as_one_value(bits):
+    """A key past [0, 2^bits), a negative one too, sorts as one value after
+    every key in it, in lane order (the card's order too), and moves
+    its lanes along; keys in range keep their stable argsort order."""
+    rs = np.random.RandomState(bits)
+    n = 5000
+    live = 1 << bits
+    key = rs.randint(0, live, n).astype(np.int32)
+    wild = rs.rand(n)
+    key[wild < 0.1] = DEAD
+    key[(wild >= 0.1) & (wild < 0.2)] = -rs.randint(1, 2**31 - 1)
+    key[(wild >= 0.2) & (wild < 0.25)] = 2**31 - 1
+    key[(wild >= 0.25) & (wild < 0.3)] = live
+    col = rs.randn(n, 3).astype(np.float32)
+    perm, (got,) = S.sort_lanes(torch.from_numpy(key),
+                                [torch.from_numpy(col)], bits)
+    inside = (key >= 0) & (key < live)
+    want = np.concatenate([np.flatnonzero(inside)[np.argsort(
+        key[inside], kind="stable")], np.flatnonzero(~inside)])
+    np.testing.assert_array_equal(perm.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), col[want])
+    np.testing.assert_array_equal(
+        S.mapped_key(torch.from_numpy(key), bits).numpy(),
+        np.where(inside, key, live))
+
+
 def test_sort_refuses_other_devices():
     key = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
