@@ -166,16 +166,23 @@ script exits non-zero without the result line. Phases:
                   segment's shadow batch sorted inside the any-hit
                   dispatch) as graph replays against the default: image,
                   rays and the traversal and shading launches bit for bit
-  graphs          the bounce loop as CUDA graph replays (every phase above
+  graphs          the IF node's set kernel (csrc/graph_cond.cu, under
+                  graphs.cond / choose) held against its plain version
+                  (sel == value) and timed: a skipped IF node, a skipped
+                  segment guard and a host read of the live count; then
+                  the bounce loop as CUDA graph replays (every phase above
                   runs them; the recorded runs use the eager loop) against
                   the eager loop (integrator/graphs.py eager()) on
                   room_184k (512x512), room_1080p, one offline_720p
                   sample, engine_720p frames and instanced_1080p: image,
-                  rays and launches bit for bit; each way ms/spp,
-                  kernels, graph replays, host dispatches and reads, the
-                  device's idle share (render/profile_frame.py `profile`)
-                  and peak memory; one more eager sample split by the
-                  stage ranges (integrator/path.py STAGES)
+                  rays and launches bit for bit; each way the conds,
+                  reads and replays of a sample (0 reads for the unrolled
+                  cells, at most ceil(segments / LOOP_BLOCK) + 1 for the
+                  looped ones), ms/spp, kernels, graph replays, host
+                  dispatches and reads, the device's idle share
+                  (render/profile_frame.py `profile`) and peak memory;
+                  one more eager sample split by the stage ranges
+                  (integrator/path.py STAGES)
   capi            build/libmoonshine_tpu_torch.so built with g++ and loaded
                   with ctypes here: native/test_shim.cpp's scene through
                   Msn* calls on the card (engine on cuda, traversal
@@ -270,6 +277,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                      "moonshine_tpu/accel/packet.py:690 _sorted_dispatch's "
                      "inverse sort_lanes by the lane iota (jnp lax.sort, no "
                      "pallas_call)"),
+    "graph_if": ("moonshine_tpu_torch/csrc/graph_cond.cu",
+                 "moonshine_tpu/integrator/path.py:706 _bounce_shrunk's "
+                 "lax.cond and :802 trace_paths' while_loop cond (XLA "
+                 "control flow, no pallas_call)"),
 }
 # the __global__ functions each wrapper of the kernels line launches
 CUDA_KERNELS = {
@@ -287,6 +298,7 @@ CUDA_KERNELS = {
     "sort_lanes": ["radix_upsweep_kernel", "radix_onesweep_kernel",
                    "lane_move_kernel"],
     "unsort_lanes": ["lane_move_kernel"],
+    "graph_if": ["set_if_kernel"],
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
@@ -1595,44 +1607,6 @@ def hold_recorded(tag, rec, per_kind=4):
     return seen
 
 
-def engine_from_world(world, dev):
-    """An Engine holding `world` entered through its handles: a mesh per
-    mesh, a StandardPBR material per material from solid or raw
-    textures (Lambert as metalness 0, roughness 1; a mirror as
-    metalness 1, roughness 0; glass as a white dielectric with its ior:
-    the Engine, like hydra, exposes StandardPBR only), an instance per
-    instance, a white background."""
-    from moonshine_tpu_torch.engine import Engine
-    from moonshine_tpu_torch.scene.types import Glass, Lambert, Mirror
-
-    e = Engine(device=dev)
-    tex = lambda v: (e.create_raw_texture(v)
-                     if isinstance(v, np.ndarray) and v.ndim == 3
-                     else e.create_solid_texture(v))
-    for m in world.meshes:
-        e.create_mesh(m.positions, m.indices, m.normals, m.texcoords,
-                      m.indexed_attributes)
-    for info in world.materials:
-        v = info.variant
-        if isinstance(v, Lambert):
-            c, metal, rough, ior = v.color, 0.0, 1.0, 1.5
-        elif isinstance(v, Mirror):
-            c, metal, rough, ior = (1.0, 1.0, 1.0), 1.0, 0.0, 1.5
-        elif isinstance(v, Glass):
-            c, metal, rough, ior = (1.0, 1.0, 1.0), 0.0, 0.0, v.ior
-        else:
-            c, metal, rough, ior = v.color, v.metalness, v.roughness, v.ior
-        e.create_material(color=tex(c), metalness=tex(metal),
-                          roughness=tex(rough), emissive=tex(info.emissive),
-                          ior=ior)
-    for inst in world.instances:
-        e.create_instance(inst.transform,
-                          [(g.mesh, g.material, g.sampled)
-                           for g in inst.geometries], inst.visible)
-    e.set_background(None)
-    return e
-
-
 def jpeg_phase(dev):
     """The committed JPEG fixtures against their PIL goldens, the decode
     of a 2048x2048 texture timed on this host, and the Cornell glb with a
@@ -1698,9 +1672,11 @@ def engine_phase(room_world, room_lens, dev, launches_out):
     import torch
 
     from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator import path
     from moonshine_tpu_torch.render.camera import LensArrays
     from moonshine_tpu_torch.scene.types import translate
     from moonshine_tpu_torch.scene.world import scene_from_arrays
+    from moonshine_tpu_torch.scripts.compare_loop import engine_from_world
 
     h, w = ENGINE_HW
     e = engine_from_world(room_world, dev)
@@ -1785,7 +1761,10 @@ def engine_phase(room_world, room_lens, dev, launches_out):
     if mat_scene.wide is not refit.wide:
         raise AssertionError("the material edit rebuilt the tree")
 
-    # wait=False: how long the call blocks against when its frame is done
+    # a frame on the edited scene (its first: the scene's graphs are
+    # captured), then wait=False on a replayed frame: how long the call
+    # blocks against when its frame is done
+    e.render(sensor, lens)
     e.reset_sensor(sensor)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1795,7 +1774,9 @@ def engine_phase(room_world, room_lens, dev, launches_out):
     drained = time.perf_counter() - t0
     say("engine", f"render(wait=False) returned after {call_s * 1e3:.2f} ms, "
         f"its frame done on the device at {drained * 1e3:.2f} ms: the "
-        f"looped bounce loop reads whether a lane lives once a segment")
+        f"looped bounce loop reads the live count once a block of "
+        f"{path.LOOP_BLOCK} segments, so the call returns once the last "
+        f"block is queued")
 
     # a pick from a second thread during a frame
     started, done = threading.Event(), threading.Event()
@@ -1805,13 +1786,12 @@ def engine_phase(room_world, room_lens, dev, launches_out):
         e.render(sensor, lens)
         done.set()
 
-    frame_s = e.metrics["last_frame_seconds"]
     th = threading.Thread(target=frame)
     th.start()
     if not started.wait(timeout=60):
         raise AssertionError("the frame's thread did not start")
-    # into the frame: a quarter of the last frame's time
-    time.sleep(min(0.05, frame_s / 4))
+    # into the frame: a quarter of the replayed wait=False frame's time
+    time.sleep(min(0.05, drained / 4))
     t0 = time.perf_counter()
     hit = e.pick(lens, w, h, w // 2, 5 * h // 6)  # the floor
     pick_ms = (time.perf_counter() - t0) * 1e3
@@ -2023,6 +2003,7 @@ def viewer_phase(world, lens, dev):
 
     from moonshine_tpu_torch.io.png import decode_png
     from moonshine_tpu_torch.render.viewer import Viewer, tonemap
+    from moonshine_tpu_torch.scripts.compare_loop import engine_from_world
 
     v = Viewer(engine_from_world(world, dev), lens, 256, 256)
     th = threading.Thread(target=lambda: v.run_web(
@@ -2890,78 +2871,242 @@ def say_stages(tag, name, prof):
     return staged
 
 
-def graphs_phase(cells):
+def graph_if_phase(dev, timings, errs):
+    """The IF node's set kernel (csrc/graph_cond.cu, behind graphs.cond /
+    choose) against its plain version, `sel == value` in torch: one graph
+    of an IF node for each (sel, value) pair, int64 and bool, whose body
+    writes 1 into the pair's flag, replayed; the flags must equal the
+    plain version's. Then times, each from CUDA events over 50 replays
+    after one: a skipped IF node (a graph of 64 whose predicates are
+    false, per node: `ms`); the eager form of a branch, the predicate
+    read on the host (`plain_ms`, per read, host clock); a guard of the
+    looped form, as integrator/path.py builds it (two terms in the set
+    kernel, and the node), skipped and taken with a one-kernel body,
+    against that kernel inline; and a read of the live count as the loop
+    makes it (a pinned copy, an event, its wait) after a one-kernel
+    replay, against the replay alone. The bound: the 8 bytes of sel read
+    over the HBM rate."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import graphs
+
+    big = 1 << 40
+    pairs = [(v, k) for v in (-big, -1, 0, 1, 2, 7, big)
+             for k in (0, 1, 2, big)]
+    sels = [torch.tensor(v, dtype=torch.int64, device=dev) for v, _ in pairs]
+    sels += [torch.tensor(b, device=dev) for b in (True, False, True)]
+    values = [k for _, k in pairs] + [1, 1, 0]
+    flags = torch.zeros(len(values), dtype=torch.int64, device=dev)
+
+    def step():
+        for i, (sel, value) in enumerate(zip(sels, values)):
+            graphs.choose(sel, {value: lambda i=i: flags[i:i + 1].fill_(1)})
+
+    steps = graphs.Steps(dev)
+    steps.run("pairs", step)  # the eager run, then the capture
+    flags.zero_()
+    steps.run("pairs", step)
+    plain = torch.stack([(s == v).to(torch.int64)
+                         for s, v in zip(sels, values)])
+    torch.cuda.synchronize()
+    err = float((flags - plain).abs().max())
+    errs["graph_if"] = err
+    say("graphs", f"graph_if: {len(values)} IF nodes (int64 and bool "
+        f"selectors) against sel == value: max abs err {err}")
+    if err != 0 or int(flags.sum()) != int(plain.sum()):
+        raise AssertionError("an IF node took the wrong branch")
+
+    def events_ms(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    x = torch.zeros(1, device=dev)
+    live = torch.zeros((), dtype=torch.int64, device=dev)
+    bounce = torch.zeros_like(live)
+    n_if = 64
+
+    def skipped():
+        for _ in range(n_if):
+            graphs.cond(false, lambda: x.add_(1.0))
+
+    def guards():
+        for _ in range(n_if):
+            graphs.cond(((live, ">", 0), (bounce, "<", 1026)),
+                        lambda: x.add_(1.0))
+
+    def inline():
+        for _ in range(n_if):
+            x.add_(1.0)
+
+    one = graphs.Steps(dev)
+    for key, fn in (("skipped", skipped), ("guards", guards),
+                    ("inline", inline), ("kernel", lambda: x.add_(1.0))):
+        one.run(key, fn)
+    if_ms = events_ms(lambda: one.run("skipped", skipped)) / n_if
+    live.fill_(0)
+    guard_ms = events_ms(lambda: one.run("guards", guards)) / n_if
+    live.fill_(1)
+    taken_ms = events_ms(lambda: one.run("guards", guards)) / n_if
+    inline_ms = events_ms(lambda: one.run("inline", inline)) / n_if
+    read_ms = host_ms(lambda: [false.item() for _ in range(50)]) / 50
+    host = torch.empty((), dtype=torch.int64, pin_memory=True)
+    landed = torch.cuda.Event()
+
+    def replay_read():
+        one.run("kernel", lambda: x.add_(1.0))
+        host.copy_(live, non_blocking=True)
+        landed.record()
+        landed.synchronize()
+        int(host)
+
+    t_replay = min(host_ms(lambda: [one.run("kernel", lambda: x.add_(1.0))
+                                    for _ in range(50)]) for _ in range(3))
+    t_read = min(host_ms(lambda: [replay_read() for _ in range(50)])
+                 for _ in range(3))
+    bound = 8 / PEAK_BYTES * 1e3
+    timings["graph_if"] = dict(ms=if_ms, plain_ms=read_ms, bound_ms=bound,
+                               bound_by="bytes")
+    say("graphs", f"graph_if: a skipped IF node {if_ms * 1e3:.2f} us (a "
+        f"replay of {n_if}), the eager branch's host read of its "
+        f"predicate {read_ms * 1e3:.2f} us; a segment guard (two terms) "
+        f"skipped {guard_ms * 1e3:.2f} us, taken with a one-kernel body "
+        f"{taken_ms * 1e3:.2f} us against the kernel inline "
+        f"{inline_ms * 1e3:.2f} us; a one-kernel replay "
+        f"{t_replay / 50 * 1e3:.2f} us on the host clock, with a read of "
+        f"the live count after it {t_read / 50 * 1e3:.2f} us (the read "
+        f"{(t_read - t_replay) / 50 * 1e3:.2f} us); bound {bound:.3g} ms "
+        f"(8 bytes)")
+
+
+def graphs_phase(cells) -> int:
     """Each cell's sample (`cells`: name -> sample(i), which renders
     sample i and returns (image, rays or None)) on the eager loop
     (graphs.eager()) and as graph replays, each from a clear cache: a
     warm-up sample (for the graphs, their captures), then sample 0 with
-    the launch counts set to 0 just before and read just after, held
-    bit for bit against the other mode's (image, rays, launches), with
-    the device memory's peaks (allocated and reserved, from the warm-up
-    on); then sample 2 timed and profiled (render/profile_frame.py
-    `profile`): ms/spp, kernels, graph replays, host dispatches and
-    reads, kernel time and the device's idle share; last, what stays
-    reserved once the allocator's cache of freed blocks is emptied (the
-    graphs' pool and static buffers stay). On the eager loop one more
-    sample is profiled with the stage ranges (integrator/path.py STAGES):
-    each stage's kernel time, their sum against the sample's."""
+    the launch counts and graphs.COUNTS set to 0 just before and read
+    just after, held bit for bit against the other mode's (image, rays,
+    launches), with the device memory's peaks (allocated and reserved,
+    from the warm-up on), the sample's conds (device-side choices read
+    eagerly; IF nodes in the graphs), reads of the live count and
+    replays, and its segments (renderer._sample_sum's); as graph replays
+    the unrolled cells read the host 0 times, the looped ones (max
+    bounces 1024) at most ceil(segments / LOOP_BLOCK) + 1 times. Then
+    sample 2 timed and profiled (render/profile_frame.py `profile`):
+    ms/spp, kernels, graph replays, host dispatches and reads, kernel
+    time and the device's idle share; last, what stays reserved once the
+    allocator's cache of freed blocks is emptied (the graphs' pools and
+    static buffers stay). On the eager loop one more sample is profiled
+    with the stage ranges (integrator/path.py STAGES): each stage's
+    kernel time, their sum against the sample's. Returns room_1080p's IF
+    node launches a sample as graph replays."""
     import torch
 
     from moonshine_tpu_torch.integrator import graphs, path
+    from moonshine_tpu_torch.render import renderer
     from moonshine_tpu_torch.render.profile_frame import profile
 
-    for name, sample in cells.items():
-        rows = {}
-        for mode in ("eager", "graphs"):
-            with (graphs.eager() if mode == "eager"
-                  else contextlib.nullcontext()):
-                graphs.clear()
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-                sample(1)
-                reset_counts()
-                img, rays = sample(0)
-                torch.cuda.synchronize()
-                counts = {k: v for k, v in read_counts().items() if v}
-                peak = (torch.cuda.max_memory_allocated() / 2**20,
-                        torch.cuda.max_memory_reserved() / 2**20)
-                prof = profile(lambda: sample(2))
-                prof.pop("by_name_us")
-                if mode == "eager":
-                    say_stages("graphs", name, profile(lambda: sample(2),
-                                                       marks=path.STAGES))
-                torch.cuda.empty_cache()  # the cache of freed blocks
-                held = torch.cuda.memory_reserved() / 2**20
-            rows[mode] = (img, rays, counts, peak, prof)
-            say("graphs", f"{name} {mode}: {prof['wall_ms_unprofiled']:.2f}"
-                f" ms/spp ({prof['wall_ms_profiled']:.2f} profiled), "
-                f"{prof['kernels']} kernels in {prof['replays']} graph "
-                f"replays and {prof['host_dispatches']} host dispatches, "
-                f"{prof['host_reads']} host reads, kernel time "
-                f"{prof['kernel_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms,"
-                f" device idle {prof['idle_share']:.1%}; peak device memory "
-                f"{peak[0]:.1f} MiB allocated, {peak[1]:.1f} MiB reserved, "
-                f"{held:.1f} MiB reserved after empty_cache; launches a "
-                f"sample {counts}")
-        (ei, er, ec, _, ep), (gi, gr, gc, _, gp) = rows["eager"], \
-            rows["graphs"]
-        same_rays = (er is None and gr is None) or int(er) == int(gr)
-        same = bool(torch.equal(torch.as_tensor(ei), torch.as_tensor(gi))
-                    and same_rays and ec == gc)
-        say("graphs", f"{name}: replays equal the eager loop bit for bit "
-            f"(image, rays, launches): {same}; ms/spp "
-            f"{ep['wall_ms_unprofiled']:.2f} -> {gp['wall_ms_unprofiled']:.2f}"
-            f", host dispatches a sample {ep['host_dispatches']} -> "
-            f"{gp['host_dispatches']}")
-        if not same or not np.isfinite(np.asarray(torch.as_tensor(
-                gi).cpu())).all():
-            raise AssertionError(f"{name}: graph replays differ from the "
-                                 "eager loop")
-        if gp["replays"] == 0 or ep["replays"] != 0:
-            raise AssertionError(f"{name}: the graphs did not replay, or "
-                                 "the eager loop did")
+    segs = []
+    sample_sum = renderer._sample_sum
+
+    def recorded(*args, **kwargs):  # the segments, a device count
+        out = sample_sum(*args, **kwargs)
+        segs.append(out[2])
+        return out
+
+    renderer._sample_sum = recorded
+    if_launches = 0
+    try:
+        for name, sample in cells.items():
+            rows = {}
+            for mode in ("eager", "graphs"):
+                with (graphs.eager() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    graphs.clear()
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    sample(1)
+                    reset_counts()
+                    graphs.reset_launch_counts()
+                    graphs.reset_counts()
+                    segs.clear()
+                    img, rays = sample(0)
+                    torch.cuda.synchronize()
+                    counts = {k: v for k, v in read_counts().items() if v}
+                    ifs = graphs.LAUNCHES["graph_if"]
+                    loop = dict(graphs.COUNTS)
+                    segments = sum(int(s) for s in segs)
+                    peak = (torch.cuda.max_memory_allocated() / 2**20,
+                            torch.cuda.max_memory_reserved() / 2**20)
+                    prof = profile(lambda: sample(2))
+                    prof.pop("by_name_us")
+                    if mode == "eager":
+                        say_stages("graphs", name, profile(
+                            lambda: sample(2), marks=path.STAGES))
+                    torch.cuda.empty_cache()  # the cache of freed blocks
+                    held = torch.cuda.memory_reserved() / 2**20
+                rows[mode] = (img, rays, counts, peak, prof)
+                say("graphs", f"{name} {mode}: sample 0: {segments} "
+                    f"segments, {loop['conds']} conds, {loop['reads']} "
+                    f"reads, {loop['replays']} replays, {loop['captures']} "
+                    f"captures, {ifs} IF nodes run; sample 2: "
+                    f"{prof['wall_ms_unprofiled']:.2f}"
+                    f" ms/spp ({prof['wall_ms_profiled']:.2f} profiled), "
+                    f"{prof['kernels']} kernels in {prof['replays']} graph "
+                    f"replays and {prof['host_dispatches']} host "
+                    f"dispatches, {prof['host_reads']} host reads, kernel "
+                    f"time {prof['kernel_ms']:.2f} ms, busy "
+                    f"{prof['busy_ms']:.2f} ms, device idle "
+                    f"{prof['idle_share']:.1%}; peak device memory "
+                    f"{peak[0]:.1f} MiB allocated, {peak[1]:.1f} MiB "
+                    f"reserved, {held:.1f} MiB reserved after empty_cache; "
+                    f"launches a sample {counts}")
+                if mode == "graphs":
+                    limit = (0 if name in ("room_184k", "room_1080p",
+                                           "instanced_1080p")
+                             else -(-segments // path.LOOP_BLOCK) + 1)
+                    if loop["reads"] > limit or loop["conds"] or \
+                            loop["captures"]:
+                        raise AssertionError(
+                            f"{name}: {loop} a replayed sample of "
+                            f"{segments} segments (at most {limit} reads)")
+                    if name == "room_1080p":
+                        if_launches = ifs
+            (ei, er, ec, _, ep), (gi, gr, gc, _, gp) = rows["eager"], \
+                rows["graphs"]
+            same_rays = (er is None and gr is None) or int(er) == int(gr)
+            same = bool(torch.equal(torch.as_tensor(ei),
+                                    torch.as_tensor(gi))
+                        and same_rays and ec == gc)
+            say("graphs", f"{name}: replays equal the eager loop bit for "
+                f"bit (image, rays, launches): {same}; ms/spp "
+                f"{ep['wall_ms_unprofiled']:.2f} -> "
+                f"{gp['wall_ms_unprofiled']:.2f}, host dispatches a "
+                f"sample {ep['host_dispatches']} -> "
+                f"{gp['host_dispatches']}, host reads "
+                f"{ep['host_reads']} -> {gp['host_reads']}")
+            if not same or not np.isfinite(np.asarray(torch.as_tensor(
+                    gi).cpu())).all():
+                raise AssertionError(f"{name}: graph replays differ from "
+                                     "the eager loop")
+            if gp["replays"] == 0 or ep["replays"] != 0:
+                raise AssertionError(f"{name}: the graphs did not replay, "
+                                     "or the eager loop did")
+    finally:
+        renderer._sample_sum = sample_sum
     graphs.clear()
+    if if_launches == 0:
+        raise AssertionError("room_1080p ran no IF node as graph replays")
+    return if_launches
 
 
 def graph_cells(scenes, offline_cell, instanced, cfg, dev):
@@ -2975,6 +3120,7 @@ def graph_cells(scenes, offline_cell, instanced, cfg, dev):
     from moonshine_tpu_torch.integrator.path import PathConfig
     from moonshine_tpu_torch.render.renderer import render_sample, render_spp
     from moonshine_tpu_torch.scene import procedural
+    from moonshine_tpu_torch.scripts.compare_loop import engine_from_world
 
     def staged(scene, lens):
         return lambda i: render_spp(scene, lens, HD[0], HD[1], i, 1, cfg)
@@ -3441,7 +3587,9 @@ def main():
         shadow_compact_phase(*scenes["room_184k/default"], cfg)
 
     with phase("graphs"):
-        graphs_phase(graph_cells(scenes, offline_cell, instanced, cfg, dev))
+        graph_if_phase(dev, timings, errs)
+        launches["graph_if"] = graphs_phase(
+            graph_cells(scenes, offline_cell, instanced, cfg, dev))
         del offline_cell, instanced
 
     with phase("capi"):

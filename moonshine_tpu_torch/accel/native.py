@@ -3,8 +3,9 @@
 walk of csrc/tlas.cu, which share csrc/visit.cuh; traverse.cu and
 vpacket.cu also share the group walk of csrc/group_walk.cuh), the
 arithmetic microbenchmarks (csrc/vpu.cu), the quantised-row decode
-probe (csrc/bitcast.cu), the bounce's shading (csrc/shade.cu) and the
-lane sort (csrc/sort.cu);
+probe (csrc/bitcast.cu), the bounce's shading (csrc/shade.cu), the
+lane sort (csrc/sort.cu) and the graphs' conditional nodes
+(csrc/graph_cond.cu);
 csrc/tlas.cu is built twice, the second time with its visit counters
 (`tlas_count`).
 
@@ -36,7 +37,7 @@ SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
            "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
            "bitcast": CSRC / "bitcast.cu", "tlas": CSRC / "tlas.cu",
            "tlas_count": CSRC / "tlas.cu", "shade": CSRC / "shade.cu",
-           "sort": CSRC / "sort.cu"}
+           "sort": CSRC / "sort.cu", "graph_cond": CSRC / "graph_cond.cu"}
 # a library's own flags: tlas_count is the two-level walk that counts its
 # visits (accel/tlas.py walk_visits), never the timed build
 EXTRA_FLAGS = {"tlas_count": ["-DMSN_TLAS_COUNT"]}
@@ -219,10 +220,30 @@ class SortLib(NativeLib):
         self.max_cols = int(self._fn("msn_sort_max_cols", [])())
 
 
+class GraphCondLib(NativeLib):
+    """graph_cond.cu's entry points: an IF node on one or two terms
+    begun on a capturing stream, its body captured on a child stream
+    (`if_begin`), the body's capture ended (`if_end`), a child stream
+    made (`stream`), the runtime's and driver's versions and an error's
+    text."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.if_begin = self._fn("msn_if_begin", [_P, _P, _P, _I, _I, _L,
+                                                  _P, _I, _I, _L, _P])
+        self.if_end = self._fn("msn_if_end", [_P])
+        self.stream = self._fn("msn_cond_stream", [ctypes.POINTER(_P)])
+        self.versions = self._fn("msn_cond_versions",
+                                 [ctypes.POINTER(_I), ctypes.POINTER(_I)])
+        error = self._lib.msn_cond_error
+        error.argtypes, error.restype = [_I], ctypes.c_char_p
+        self.error = lambda err: error(err).decode()
+
+
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
             "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib,
             "tlas": TlasLib, "tlas_count": TlasLib, "shade": ShadeLib,
-            "sort": SortLib}
+            "sort": SortLib, "graph_cond": GraphCondLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -386,3 +407,8 @@ def shade_lib() -> ShadeLib:
 def sort_lib() -> SortLib:
     """The lane sort and move kernels (csrc/sort.cu)."""
     return _lib("sort")
+
+
+def graph_cond_lib() -> GraphCondLib:
+    """The graphs' conditional nodes (csrc/graph_cond.cu)."""
+    return _lib("graph_cond")

@@ -33,7 +33,7 @@ import torch
 
 from ..core import sortutil
 from . import native
-from .launch import call_on, count_launch
+from .launch import Counts, call_on, count_launch
 from .wide import WideBVH
 
 _NEG = -1.0e30
@@ -60,7 +60,7 @@ SHARED_BYTES_MAX = 232_448
 
 # Kernel launches per kernel, for showing that a run went through them
 # (counted as accel/launch.py says).
-LAUNCHES = {"closest_hit": 0, "any_hit": 0}
+LAUNCHES = Counts({"closest_hit": 0, "any_hit": 0})
 
 
 def reset_launch_counts() -> None:

@@ -50,14 +50,14 @@ import numpy as np
 import torch
 
 from . import lbvh, native
-from .launch import call_on, count_launch
+from .launch import Counts, call_on, count_launch
 from .packet import _check_rays, _device_kind, _t_max_lanes
 from .traverse import _aabb_hit, _safe_inv, _tri_intersect
 
 BLAS_LEAF = 4  # triangles a BLAS leaf (the reference's traverse.py bundle)
 
 # Kernel launches, as packet.LAUNCHES: one where a wrapper launches.
-LAUNCHES = {"tlas_closest_hit": 0, "tlas_any_hit": 0}
+LAUNCHES = Counts({"tlas_closest_hit": 0, "tlas_any_hit": 0})
 
 
 def reset_launch_counts() -> None:

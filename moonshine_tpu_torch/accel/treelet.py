@@ -43,7 +43,7 @@ import torch
 
 from ..core import sortutil
 from . import native
-from .launch import call_on, count_launch
+from .launch import Counts, call_on, count_launch
 from .packet import (
     _NEG,
     SORT_CELLS,
@@ -65,8 +65,8 @@ MAX_KEYED = SORT_CELLS ** 3 * 8  # subkey space: 4^3 origin cells x 8
 # 128 MB each, under 1 GB in all
 PENDING_CHUNK = 1 << 20
 
-LAUNCHES = {"treelet_pending": 0, "treelet_closest_hit": 0,
-            "treelet_any_hit": 0}
+LAUNCHES = Counts({"treelet_pending": 0, "treelet_closest_hit": 0,
+                   "treelet_any_hit": 0})
 
 
 def reset_launch_counts() -> None:

@@ -45,10 +45,11 @@ import ctypes
 import torch
 
 from ..accel import native
-from ..accel.launch import call_on, count_launch
+from ..accel.launch import Counts, call_on, count_launch
 
 # Kernel launches per wrapper (see the module docstring)
-LAUNCHES = {"coherence_key": 0, "sort_lanes": 0, "unsort_lanes": 0}
+LAUNCHES = Counts({"coherence_key": 0, "sort_lanes": 0,
+                   "unsort_lanes": 0})
 DEAD_KEY = 1 << 20  # the sites' key of a dead lane
 _MAX_BITS = 30
 

@@ -18,11 +18,13 @@ other threads (the viewer's HTTP handlers) stay responsive. On a CUDA
 device a pick runs on a stream of its own, which waits for the scene's
 upload but not for the frames queued on the default stream.
 
-`render(..., wait=False)` returns without reading the frame back; the
-bounce loop still reads its live count on the host once a segment, when
-max_bounces + 2 > 10 (its looped form) or with the per-bounce resort,
-so the call returns when the frame's last segment is queued, not when
-it is dispatched. On a card each segment is a CUDA graph replay
+`render(..., wait=False)` returns without reading the frame back. The
+bounce loop chooses its live prefixes and its stop on the device (CUDA
+graph IF nodes, integrator/graphs.py); its looped form (max_bounces + 2
+> 10, the default's 1024) still reads the live count on the host once a
+block of path.LOOP_BLOCK segments, so the call returns when the frame's
+last block is queued, a few reads before its end; the unrolled form
+reads nothing, and the call returns once the frame is queued. On a card each segment is a CUDA graph replay
 (integrator/graphs.py), captured under the frame lock at a frame's
 first use; a scene edit gives new graphs. Captures run in the
 thread-local error mode, so a pick during a capture is neither captured
@@ -319,8 +321,11 @@ class Engine:
 
         wait=True blocks until the frame is on the host and returns it
         (get_sensor_data). wait=False returns None without reading the
-        frame back (see the module docstring for what still reads the
-        device); its rays are counted at the next waited frame."""
+        frame back: with the looped bounce loop (the default max_bounces)
+        it waits for the live count of each block of path.LOOP_BLOCK
+        segments but the last, with the unrolled one for nothing (the
+        module docstring); its rays are counted at the next waited
+        frame."""
         with self._render_lock:
             with self._lock:
                 scene = self._ensure_scene()

@@ -4,9 +4,10 @@ renderer.py:80-103, `render_sample` under one `jax.jit`) and of its staged
 path's one donated dispatch a bounce (integrator/path.py:715-727).
 
 A run shape (a scene, a lane count, a PathConfig, a frame's rows) owns
-static buffers and a `Steps`. A step (camera rays, one bounce segment,
-the accumulation of a sample) is a function that reads and writes those
-buffers in place and reads nothing on the host. On a CUDA device a step
+static buffers and a `Steps`. A step (a whole sample of the unrolled
+form; or the camera rays, a block of the looped form's segments, the
+accumulation) is a function that reads and writes those buffers in
+place and reads nothing on the host. On a CUDA device a step
 runs eagerly at its first use (the warm-up: it builds the kernels and
 does the step's work), is then captured as a `torch.cuda.CUDAGraph`, and
 is replayed from then on. All the graphs of one run shape share one
@@ -31,6 +32,27 @@ needs, `keep_room`) push it out.
 Launch counts: a wrapper called during a capture launches nothing, so
 its count goes to the capture's tally (`launch.launch_tally`), which
 each replay adds.
+
+Device-side control (`cond`, `choose`): the reference's `lax.cond`
+inside its compiled loop. Captured, a branch is a CUDA graph IF node
+(csrc/graph_cond.cu) on a device predicate of one or two terms, each a
+0-d tensor compared with a constant, evaluated by the node's one set
+kernel; its body is recorded on a child stream; the host reads nothing
+at a replay. A body may hold only kernels, memsets, device-to-device
+copies and nested branches (CUDA's rule), and writes only static
+buffers: a branch that did not run leaves them as they were. Before a
+step with branches is captured, a throwaway capture in the relaxed error
+mode runs every branch inline (nothing runs on the device), so each is
+captured warm: its kernels built, its wrappers' per-device caches
+filled. Bodies allocate from a pool of the run shape's own
+(`torch.cuda.MemPool`), reused across its graphs as the graphs' pool is.
+The set kernel adds one to the body's entry of a device log when the
+body runs, and the body's launch tally is counted from that log when the
+counts are read (launch.settle). Eagerly (the CPU, `eager()`, a step's
+first run) a branch reads its predicate on the host: COUNTS["conds"]. A
+card whose runtime or driver has no conditional nodes (CUDA < 12.4)
+raises at the first capture of a branch: the loop never falls back to
+host reads.
 """
 
 from __future__ import annotations
@@ -40,9 +62,11 @@ import contextlib
 import threading
 import weakref
 
+import ctypes
+
 import torch
 
-from ..accel import launch
+from ..accel import launch, native
 
 # run shapes kept (the least recently used goes first); each holds its
 # static buffers and its graphs' memory pool
@@ -53,10 +77,16 @@ MAX_RUN_SHAPES = 8
 _mesh_room = 0
 
 # host-side tallies, for tools and tests to read: graph captures and
-# replays (Steps), live-count reads (path._Trace.live_count) and scene
-# copies to another device (parallel/sharding.py `scene_on`)
-COUNTS = {"captures": 0, "replays": 0, "reads": 0, "copies": 0}
+# replays (Steps), device reads of the bounce loop (path._Trace.live_count
+# and the reads of its segment count), predicates of `cond` and `choose`
+# read eagerly, and scene copies to another device (parallel/sharding.py
+# `scene_on`)
+COUNTS = {"captures": 0, "replays": 0, "reads": 0, "conds": 0,
+          "copies": 0}
 _COUNTS_LOCK = threading.Lock()
+# the launches of csrc/graph_cond.cu's set_if_kernel: one an IF node each
+# time the graph or body that holds the node runs
+LAUNCHES = launch.Counts({"graph_if": 0})
 
 _MODE = threading.local()
 # key -> (run shape, finalizers that drop it with its scene's tensors)
@@ -74,6 +104,11 @@ def reset_counts() -> None:
     with _COUNTS_LOCK:
         for k in COUNTS:
             COUNTS[k] = 0
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 @contextlib.contextmanager
@@ -96,8 +131,9 @@ class Steps:
     def __init__(self, device, capture: bool = True):
         self.device = torch.device(device)
         self.capture = capture and self.device.type == "cuda"
-        self._graphs: dict = {}  # step key -> (CUDAGraph, launch tally)
+        self._graphs: dict = {}  # step key -> _Graph
         self._pool = None
+        self._body_pool = None  # the conditional bodies' allocations
         self._stream = None
 
     def run(self, key, fn) -> None:
@@ -110,23 +146,203 @@ class Steps:
             if hit is None:
                 self._graphs[key] = self._capture(fn)
                 return
-            graph, tally = hit
-            graph.replay()
-            launch.count_replay(tally)
-            count("replays")
+            hit.replay()
 
     def _capture(self, fn):
+        before = _conds_read()
         fn()  # the warm-up: builds the kernels, and does this step's work
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with launch.launch_tally() as tally:
+        log = None
+        if _conds_read() != before:  # the step branches on the device
+            warm = _Capture(self, warm=True)
+            with _capturing(warm), launch.launch_tally():
+                with torch.cuda.graph(torch.cuda.CUDAGraph(), pool=self._pool,
+                                      stream=self._stream,
+                                      capture_error_mode="relaxed"):
+                    fn()
+            log = torch.zeros(warm.bodies, dtype=torch.int64,
+                              device=self.device)
+            if self._body_pool is None:
+                self._body_pool = torch.cuda.MemPool()
+        graph, cap = torch.cuda.CUDAGraph(), _Capture(self, log=log)
+        with _capturing(cap), launch.launch_tally() as tally:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
                 fn()
         count("captures")
-        return graph, tuple(tally)
+        bodies = None if log is None else launch.Bodies(log,
+                                                        cap.tallies)
+        return _Graph(graph, tuple(tally), bodies)
+
+
+class _Graph:
+    """A captured step: its graph, its launch tally and its conditional
+    bodies' (launch.Bodies, or None)."""
+
+    def __init__(self, graph, tally, bodies):
+        self.graph, self.tally, self.bodies = graph, tally, bodies
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launch.count_replay(self.tally)
+        if self.bodies is not None:
+            launch.count_bodies(self.bodies)
+        count("replays")
+
+
+def _conds_read() -> int:
+    return getattr(_MODE, "conds", 0)
+
+
+@contextlib.contextmanager
+def _capturing(cap):
+    _MODE.capture = cap
+    try:
+        yield
+    finally:
+        _MODE.capture = None
+
+
+# a term's comparison: its code in csrc/graph_cond.cu, and eagerly
+_OPS = {"==": (0, lambda x, v: x == v), ">": (1, lambda x, v: x > v),
+        "<": (2, lambda x, v: x < v)}
+
+
+def _read_choice(index):
+    """The value of a branch's 0-d index, or of each of a tuple of them,
+    read on the host (an eager branch's one read)."""
+    if torch.is_tensor(index):
+        return int(index.item())
+    return tuple(int(t.item()) for t in index)
+
+
+def cond(pred, fn) -> None:
+    """fn() where `pred` holds, else nothing: the reference's lax.cond
+    with an empty false branch. pred is a 0-d bool tensor or a tuple of
+    one or two terms (t, op, value), t a 0-d int64 or bool tensor on the
+    step's device, op "==", ">" or "<", all of which must hold (the
+    module's docstring says how it is captured)."""
+    terms = ((pred, "==", 1),) if torch.is_tensor(pred) else tuple(pred)
+    cap = getattr(_MODE, "capture", None)
+    if cap is not None:
+        cap.body(terms, fn)
+        return
+    _MODE.conds = _conds_read() + 1
+    count("conds")
+    values = _read_choice(tuple(t for t, _, _ in terms))
+    if all(_OPS[op][1](x, v) for x, (_, op, v) in zip(values, terms)):
+        fn()
+
+
+def choose(index, branches: dict) -> None:
+    """branches[key]() for key the value of `index` (a 0-d int64 or bool
+    tensor on the step's device, or a tuple of one or two, keyed by
+    tuples), nothing where no key matches: a nested lax.cond's
+    branches. Captured, one IF node a branch on index == key; eagerly one
+    read of the index."""
+    cap = getattr(_MODE, "capture", None)
+    if cap is not None:
+        for key, fn in branches.items():
+            if torch.is_tensor(index):
+                cap.body(((index, "==", int(key)),), fn)
+            else:
+                cap.body(tuple((t, "==", int(k))
+                               for t, k in zip(index, key)), fn)
+        return
+    _MODE.conds = _conds_read() + 1
+    count("conds")
+    fn = branches.get(_read_choice(index))
+    if fn is not None:
+        fn()
+
+
+class _Capture:
+    """What a capture records besides its graph: with `warm` (the
+    throwaway relaxed capture) every branch runs inline and is counted in
+    `bodies`; else each branch is an IF node whose body, b, adds one to
+    log[b] each time it runs (the node's set kernel does) and has its own
+    launch tally, tallies[b]."""
+
+    def __init__(self, steps: Steps, warm: bool = False, log=None):
+        self.steps, self.warm, self.log = steps, warm, log
+        self.bodies, self.tallies, self.depth = 0, [], 0
+
+    def body(self, terms, fn) -> None:
+        b = self.bodies
+        self.bodies += 1
+        if self.warm:
+            fn()
+            return
+        if not 1 <= len(terms) <= 2 or any(
+                t.dtype not in (torch.bool, torch.int64) or t.dim()
+                for t, _, _ in terms):
+            raise TypeError("a branch holds on one or two terms, each a 0-d "
+                            "bool or int64 tensor")
+        args = []
+        for t, op, value in terms + ((None, "==", 0),) * (2 - len(terms)):
+            args += [None if t is None else t.data_ptr(),
+                     1 if t is None else t.element_size(), _OPS[op][0],
+                     int(value)]
+        dev = self.steps.device
+        lib = _cond_lib()
+        outer = torch.cuda.current_stream(dev)
+        child = _child_stream(dev, self.depth)
+        log = self.log.data_ptr() + b * self.log.element_size()
+        _check(lib, lib.if_begin(outer.cuda_stream, child.cuda_stream,
+                                 *args, log))
+        launch.count_launch(LAUNCHES, "graph_if")  # the enclosing tally
+        self.tallies.append(())
+        pool = (torch.cuda.use_mem_pool(self.steps._body_pool, dev)
+                if self.depth == 0 else contextlib.nullcontext())
+        self.depth += 1
+        try:
+            with torch.cuda.stream(child), pool, \
+                    launch.launch_tally() as tally:
+                fn()
+        finally:
+            self.depth -= 1
+            err = lib.if_end(child.cuda_stream)
+        _check(lib, err)
+        self.tallies[b] = tuple(tally)
+
+
+_CHILDREN: dict = {}  # (device index, depth) -> the bodies' stream
+_CHILDREN_LOCK = threading.Lock()
+
+
+def _cond_lib():
+    """csrc/graph_cond.cu's library; raises where the runtime or driver
+    has no conditional nodes."""
+    lib = native.graph_cond_lib()
+    runtime, driver = ctypes.c_int(), ctypes.c_int()
+    _check(lib, lib.versions(ctypes.byref(runtime), ctypes.byref(driver)))
+    if min(runtime.value, driver.value) < 12040:
+        raise RuntimeError(
+            f"CUDA graph conditional nodes need CUDA 12.4: runtime "
+            f"{runtime.value}, driver {driver.value}")
+    return lib
+
+
+def _child_stream(device, depth: int):
+    """The stream that captures bodies at this nesting depth on device:
+    made once, never the capture's own."""
+    key = (device.index, depth)
+    with _CHILDREN_LOCK:
+        stream = _CHILDREN.get(key)
+        if stream is None:
+            lib, ptr = native.graph_cond_lib(), ctypes.c_void_p()
+            with torch.cuda.device(device):
+                _check(lib, lib.stream(ctypes.byref(ptr)))
+            stream = torch.cuda.ExternalStream(ptr.value, device=device)
+            _CHILDREN[key] = stream
+    return stream
+
+
+def _check(lib, err: int) -> None:
+    if err:
+        raise RuntimeError(f"CUDA graph conditional node: {lib.error(err)}")
 
 
 def fingerprint(x):

@@ -27,11 +27,13 @@ both move lanes, never change a lane's result, and radiance returns to
 pixel order at the end. `trace_paths_staged` is the reference's staged
 API for very large frames (renderer.MAX_LANES).
 
-The loop (`_Trace`) keeps its state in static buffers and runs each
-segment as a step of graphs.Steps: on a CUDA device a graph replay, on
-the CPU (and inside graphs.eager()) the same functions eagerly. A
-segment reads nothing on the host; the loop reads the live count
-between segments where it needs it.
+The loop (`_Trace`) keeps its state in static buffers and runs as steps
+of graphs.Steps: on a CUDA device graph replays, on the CPU (and inside
+graphs.eager()) the same functions eagerly. What the reference decides
+on the device stays there (graphs.cond / choose: IF nodes of the
+graphs): the live prefix's width and the looped form's stop. The
+unrolled form reads nothing on the host; the looped form reads the live
+count once a block of LOOP_BLOCK segments.
 
 A segment's shading is integrator/shade.py: the env miss; the surface
 decode with the termination and every NEE light draw, which writes the
@@ -311,6 +313,19 @@ def _prefix_width(n: int, live: int) -> int:
     return n // 4 if live <= n // 4 else (n // 2 if live <= n // 2 else n)
 
 
+def _widths(n: int) -> tuple:
+    """The live prefix's widths for n lanes, by index: n/4, n/2, n."""
+    return n // 4, n // 2, n
+
+
+def _width_index(live, bounds, out=None):
+    """`_prefix_width`'s choice on the device: the index into _widths(n)
+    of the live count `live` (a 0-d int64 tensor), with `bounds` the
+    int64 tensor [n // 4, n // 2] (n >= _SHRINK_MIN); into `out`, a 0-d
+    int64 tensor, if given."""
+    return torch.bucketize(live, bounds, out=out)
+
+
 def _store(dst: dict, src: dict) -> None:
     """Copy src's values into dst's tensors in place (skipping any that
     already is dst's): a step leaves its results in static buffers."""
@@ -354,41 +369,62 @@ def _init_state(ray_o, ray_d, rng_state) -> dict:
     )
 
 
+# the looped form's segments a block: a block is one replay, after which
+# the host reads the live count once to decide whether to replay the
+# next; each segment of a block runs under the reference's while_loop
+# cond on the device, so a block that overruns the stop runs no more
+# segments. Even and >= 4, so every block after the first has the same
+# roulette and buffer sets at each position (one graph replays for all).
+# 16 by measurement (scripts/compare_loop.py --blocks on an H100 80GB
+# HBM3 at 700 W, PERF.md §6): offline_720p ran the same at 8, 16 and 32,
+# engine_720p fastest at 16; a skipped guard costs ~5 us of the card's
+# time, a read ~29 us of the host's.
+LOOP_BLOCK = 16
+
+
 class _Trace:
     """The bounce loop of one run shape (scene, lane count, cfg and form)
-    over static state: the lane arrays, the device bounce index and the
-    live count. With `resort` the lane arrays have two sets of buffers,
-    `bufs`: a resorted segment moves the state from the current set into
-    the other (`_resort_state` with out=) and runs there, so no copy goes
-    back; `cur` (host-side, reset by `run`) says which set holds the
-    state, `st`. Each segment is one step of `steps` (graphs.Steps),
-    keyed by what its body does: (last, roulette, presorted) for a body
-    over all lanes, or for a resorted one its prefix width, last and
-    roulette, then the set it reads and the lanes it sorts (the last
-    segment's width: past it every lane is dead). Between
-    segments the loop reads the live count, one device-to-host read that
-    serves both the looped form's stop and the prefix width (the
-    reference's lax.cond, path.py:687-711 there); the unrolled form
-    without resort reads nothing.
+    over static state: the lane arrays, the device bounce index (the
+    segments run), the live count and the segments' widths. With
+    `resort` the lane arrays have two sets of buffers, `bufs`: a resorted
+    segment moves the state from one set into the other
+    (`_resort_state` with out=) and runs there, so no copy goes back; the
+    segment at position p > 0 reads set (p - 1) % 2, so the set that
+    holds the state after S segments is (S - 1) % 2 (`with_state`).
 
-    `run` is resumable at that read: it enqueues the count's copy to the
-    host and yields this trace, and the caller sends back `live_count()`
+    The segment's choices follow the reference's device-side control: a
+    resorted segment's width (`_prefix_width` of the live count, its
+    nested lax.cond) and the prefix it sorts (the last segment's width)
+    are chosen on the device among the (prefix, width) pairs with width <=
+    prefix (`graphs.choose`); the looped form runs each segment after the
+    first under the while_loop's cond, live > 0 and bounce < max_bounces +
+    2 (`graphs.cond`, both terms in the node's one set kernel). The
+    unrolled form is one step and reads nothing on the host. The looped
+    form runs blocks of LOOP_BLOCK segments, one step each, and reads the
+    live count once after a block: `run` enqueues its copy to the host,
+    yields this trace, and the caller sends back `live_count()`
     (`run_alone` does so at once; parallel/sharding.py first enqueues
-    every other shard's segment)."""
+    every other shard's block)."""
 
     def __init__(self, n: int, device, cfg: PathConfig, resort: bool,
                  unroll: bool, sort_first: bool, capture: bool):
-        self.cfg, self.resort = cfg, resort
+        self.cfg, self.resort, self.n = cfg, resort, n
         self.unroll, self.sort_first = unroll, sort_first
+        self.n_segments = cfg.max_bounces + 2
         rays = torch.empty((n, 3), dtype=torch.float32, device=device)
         st = _init_state(rays, torch.empty_like(rays),
                          torch.empty(n, dtype=torch.int64, device=device))
         # the camera rays' set first; the second shares the ray count
         self.bufs = [st] + ([{k: (v if k == "rays" else torch.empty_like(v))
                               for k, v in st.items()}] if resort else [])
-        self.cur = 0
         self.bounce = torch.empty((), dtype=torch.int64, device=device)
         self.live = torch.empty_like(self.bounce)
+        # the index into _widths(n) of each segment's width, by the
+        # parity of its position (a segment's prefix is the last one's),
+        # and the live counts that bound the choice
+        self.widx = torch.empty(2, dtype=torch.int64, device=device)
+        self.bounds = torch.tensor([n // 4, n // 2], dtype=torch.int64,
+                                   device=device)
         # the live count on the host: on a card a pinned copy, made
         # without blocking, and an event that says when it has landed
         self._live_host, self._landed = self.live, None
@@ -397,76 +433,98 @@ class _Trace:
                                           pin_memory=True)
             self._landed = torch.cuda.Event()
         self.steps = graphs.Steps(device, capture)
+        self.out = None  # trace_paths' radiance and rng (_trace_rays)
         # held by a caller from loading the buffers to reading them
         self.lock = threading.Lock()
-
-    @property
-    def st(self) -> dict:
-        """The set of buffers that holds the state."""
-        return self.bufs[self.cur]
 
     def reset(self) -> None:
         """The state of fresh camera rays, whose o, d and rng the caller
         wrote into the first set, `bufs[0]` (a step's work)."""
         st = self.bufs[0]
-        n = st["pix"].shape[0]
         st["active"].fill_(True)
         st["throughput"].fill_(1.0)
         st["radiance"].zero_()
         st["last_pdf"].fill_(1.0)
         st["last_delta"].zero_()
         st["rays"].zero_()
-        torch.arange(n, out=st["pix"])
+        torch.arange(self.n, out=st["pix"])
         self.bounce.zero_()
+        self.widx.fill_(2)  # the first segment runs over every lane
 
     def run(self, scene):
         """The segments of one trace from the state `reset` made, as a
-        generator whose value is the segments run. The unrolled form runs
-        all max_bounces + 2, the last one thin; the looped form stops as
-        soon as no lane is live. With `resort` every segment after the
-        first runs on a resorted state over its live prefix; the first
-        traces the camera rays in their own order unless `sort_first`,
-        which sorts them inside traversal. Where a segment needs the live
-        count, the generator enqueues its copy to the host, yields this
-        trace and takes the count back (`live_count()`) from `send`."""
-        self.cur = 0
-        n = self.st["pix"].shape[0]
-        n_segments = self.cfg.max_bounces + 2
-        prefix = n  # the lanes that may be live: every one past is dead
-        for bounce in range(n_segments):
-            shrink = self.resort and bounce > 0
-            live = n  # reset made every lane live
-            if bounce > 0 and (not self.unroll
-                               or (shrink and n >= _SHRINK_MIN)):
+        generator. The unrolled form runs all max_bounces + 2, the last
+        one thin, as one step; the looped form runs blocks of LOOP_BLOCK
+        until no lane is live or the cap is reached, and between blocks
+        enqueues the live count's copy to the host, yields this trace
+        and takes the count back (`live_count()`) from `send`. With
+        `resort` every segment after the first runs on a resorted state
+        over its live prefix; the first traces the camera rays in their
+        own order unless `sort_first`, which sorts them inside
+        traversal. The segments run are the device's `bounce`."""
+        if self.unroll:
+            self.steps.run("unrolled", lambda: self.unrolled(scene))
+            return
+        for start in range(0, self.n_segments, LOOP_BLOCK):
+            if start:
                 if self._landed is not None:
                     self._live_host.copy_(self.live, non_blocking=True)
                     self._landed.record(
                         torch.cuda.current_stream(self.live.device))
-                live = yield self
-            if not self.unroll and live == 0:
-                return bounce
-            last = self.unroll and bounce == n_segments - 1
-            roulette = bounce > 3
-            src = self.cur
-            if shrink:
-                width = _prefix_width(n, live)
-                self.steps.run(
-                    ("resorted", width, last, roulette, src, prefix),
-                    lambda: self._resorted(scene, src, prefix, width, last,
-                                           roulette))
-                self.cur, prefix = 1 - src, width
-            else:
-                presorted = self.resort and not self.sort_first
-                # only the camera rays' segment runs over all lanes when
-                # the loop resorts: a body always reads the first set
-                self.steps.run(
-                    ("body", last, roulette, presorted),
-                    lambda: self._body(scene, last, roulette, presorted))
-                prefix = n
-        return n_segments
+                if (yield self) == 0:
+                    return
+            first = min(start, LOOP_BLOCK)  # later blocks share a step
+            self.steps.run(("block", first),
+                           lambda: self._block(scene, first))
+
+    def unrolled(self, scene) -> None:
+        """Every segment of the unrolled form (a step's work)."""
+        for pos in range(self.n_segments):
+            self._segment(scene, pos, pos == self.n_segments - 1)
+
+    def _block(self, scene, first: int) -> None:
+        """LOOP_BLOCK segments of the looped form from position `first`
+        (0 or LOOP_BLOCK; a later block replays the latter's step), each
+        after the first position under the loop's cond; the first block
+        holds no position past the cap."""
+        go = ((self.live, ">", 0), (self.bounce, "<", self.n_segments))
+        stop = first + LOOP_BLOCK if first else min(LOOP_BLOCK,
+                                                     self.n_segments)
+        for pos in range(first, stop):
+            if pos == 0:  # every lane is live after reset
+                self._segment(scene, 0, False)
+                continue
+            graphs.cond(go, lambda pos=pos: self._segment(scene, pos, False))
+
+    def _segment(self, scene, pos: int, last: bool) -> None:
+        """The segment at position pos: its roulette (bounce > 3, the one
+        branch on the bounce taken on the host) and under `resort` the
+        set it reads follow pos; the resorted widths are chosen on the
+        device (graphs.choose) among _widths(n) where n >= _SHRINK_MIN."""
+        roulette = pos > 3
+        if not (self.resort and pos > 0):
+            # only the camera rays' segment runs over all lanes when the
+            # loop resorts: it reads the first set
+            self._body(scene, last, roulette,
+                       self.resort and not self.sort_first)
+            return
+        src, n = (pos - 1) % 2, self.n
+        if n < _SHRINK_MIN:
+            self._resorted(scene, src, n, n, last, roulette)
+            return
+        widths = _widths(n)
+        prev, w = self.widx[(pos - 1) % 2], self.widx[pos % 2]
+        _width_index(self.live, self.bounds, out=w)
+        # a branch a (prefix, width) pair, width <= prefix; the prefix is
+        # the last segment's width, all lanes after the camera rays'
+        prefixes = (2,) if pos == 1 else (0, 1, 2)
+        graphs.choose((prev, w), {
+            (p, k): (lambda p=p, k=k: self._resorted(
+                scene, src, widths[p], widths[k], last, roulette))
+            for p in prefixes for k in range(p + 1)})
 
     def _body(self, scene, last, roulette, presorted) -> None:
-        st = self.st
+        st = self.bufs[0]
         out = _bounce_body(scene, self.cfg, self.bounce, st, last=last,
                            resort=presorted, roulette=roulette)
         with record_function("store"):
@@ -488,23 +546,37 @@ class _Trace:
 
     def _advance(self, st: dict) -> None:
         self.bounce += 1
-        self.live.copy_(st["active"].sum())
+        torch.sum(st["active"], dim=0, out=self.live)
 
     def live_count(self) -> int:
         """The live count whose copy `run` enqueued before it yielded,
-        once the copy has landed: the segment's one host read."""
+        once the copy has landed: a block's one host read."""
         if self._landed is not None:
             self._landed.synchronize()
         graphs.count("reads")
         return int(self._live_host)
 
-    def radiance(self) -> torch.Tensor:
-        """Radiance in pixel order (the lanes moved under `resort`)."""
-        radiance = self.st["radiance"]
+    def with_state(self, fn) -> None:
+        """fn(i) for the set of buffers, bufs[i], that holds the state
+        after `run` (inside a step): set 0 without the resort, the
+        unrolled form's last set, else the parity of the device's segment
+        count, chosen on the device."""
         if not self.resort:
-            return radiance
-        return torch.empty_like(radiance).index_copy_(0, self.st["pix"],
-                                                      radiance)
+            fn(0)
+        elif self.unroll:
+            fn((self.n_segments - 1) % 2)
+        else:
+            graphs.choose(torch.remainder(self.bounce, 2),
+                          {1: lambda: fn(0), 0: lambda: fn(1)})
+
+    def radiance(self, i: int) -> torch.Tensor:
+        """Radiance of set i in pixel order (the lanes moved under
+        `resort`)."""
+        st = self.bufs[i]
+        if not self.resort:
+            return st["radiance"]
+        return torch.empty_like(st["radiance"]).index_copy_(
+            0, st["pix"], st["radiance"])
 
 
 def run_alone(steps):
@@ -555,13 +627,24 @@ def _trace_rays(scene, ray_o, ray_d, rng_state, cfg: PathConfig,
                           scene)
     with tr.lock:
         _store(tr.bufs[0], dict(o=ray_o, d=ray_d, rng=rng_state))
+        if tr.out is None:  # static: the finish step writes them
+            tr.out = dict(radiance=torch.empty_like(tr.bufs[0]["radiance"]),
+                          rng=torch.empty_like(tr.bufs[0]["rng"]))
+        out = tr.out
+
+        def finish():
+            tr.with_state(lambda i: _store(out, dict(
+                radiance=tr.radiance(i), rng=tr.bufs[i]["rng"])))
+
         tr.steps.run("reset", tr.reset)
-        segments = run_alone(tr.run(scene))
-        radiance = tr.radiance()
-        if radiance is tr.st["radiance"]:
-            radiance = radiance.clone()
-        return (radiance, tr.st["rng"].clone(), tr.st["rays"].clone(),
-                segments)
+        run_alone(tr.run(scene))
+        tr.steps.run("finish", finish)
+        segments = tr.n_segments
+        if not tr.unroll:  # the looped form's count is the device's
+            graphs.count("reads")
+            segments = int(tr.bounce)
+        return (out["radiance"].clone(), out["rng"].clone(),
+                tr.bufs[0]["rays"].clone(), segments)
 
 
 def trace_paths(scene, ray_o, ray_d, rng_state, cfg: PathConfig):

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..accel import native
-from ..accel.launch import call_on, count_launch
+from ..accel.launch import Counts, call_on, count_launch
 from ..bsdf import materials as B
 from ..core import mathutil as M
 from ..core import rng as R
@@ -63,7 +63,8 @@ from ..scene.textures import sample_material_block
 FULL, THIN, DIRECT = "full", "thin", "direct"
 _MODE_CODES = {FULL: 0, THIN: 1, DIRECT: 2}
 
-LAUNCHES = {"surface": 0, "scatter": 0, "env_miss": 0, "env_draw": 0}
+LAUNCHES = Counts({"surface": 0, "scatter": 0, "env_miss": 0,
+                   "env_draw": 0})
 
 
 def reset_launch_counts() -> None:

@@ -16,10 +16,13 @@ One thread steps every shard together, as the reference's one program
 runs every device at once. A shard is a resumable frame
 (render/renderer.py `_Frame.run`) on its own device, run under that
 device and on a CUDA stream that no other shard of its card uses
-(`_stream`). In rounds, each live shard enqueues its next segment (graph
-replays on a card) and the copy of its live count to the host; then the
-thread waits on each copy and feeds the count back. So no card waits for another's host read, and the
-shards on one card overlap. A shard whose loop ends leaves the rounds.
+(`_stream`). In rounds, each live shard enqueues its steps up to its
+next read (graph replays on a card: a block of the looped form's
+segments) and the copy of its live count to the host; then the thread
+waits on each copy and feeds the count back. A shard whose form reads
+nothing enqueues its whole run in the first round. So no card waits for
+another's host read, and the shards on one card overlap. A shard whose
+loop ends leaves the rounds.
 There is no thread a shard: that made four cards 6x slower, the threads
 contending for the GIL at every torch call of the eager loop (PERF.md,
 section 6). A step, capture or replay that fails raises from render_sharded.
@@ -184,11 +187,13 @@ def _current(device, stream=None):
 
 def _step_together(shards) -> list:
     """Run the shards ((device, stream, a frame's resumable run), each)
-    to their ends in rounds: each live shard's next step enqueued under
-    its device and stream, then each one's live count read and sent
-    back. Returns each shard's value in order. A shard that raises
-    raises here, and the others are closed, which releases their
-    frames' locks."""
+    to their ends in rounds: each live shard's next steps enqueued under
+    its device and stream up to its next read of a live count (a block
+    of the looped form), then each one's live count read and sent back.
+    A shard that reads nothing (the unrolled form, whose choices are the
+    device's) enqueues all its samples in the first round. Returns each
+    shard's value in order. A shard that raises raises here, and the
+    others are closed, which releases their frames' locks."""
     out = [None] * len(shards)
     counts = dict.fromkeys(range(len(shards)))  # live shard -> its count
     try:

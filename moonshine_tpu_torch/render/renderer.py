@@ -77,10 +77,13 @@ class _Frame:
     """One frame shape's run: camera rays of `nbatch` samples of rows
     [y0, y0 + bh) (sample-major on the lane axis) through one bounce loop
     (path._Trace), summed over samples into `acc` in pixel order. The
-    lens, the first sample index, `acc` and the ray count are static
-    buffers, so the camera-ray step and the accumulation are graph steps
-    too; `run` loads the lens and the index and replays, resumable at
-    each read of the live count (path._Trace.run)."""
+    lens, the first sample index, `acc`, the ray and segment counts are
+    static buffers, so the camera-ray step and the accumulation are graph
+    steps too; `run` loads the lens and the index and replays. Where the
+    trace reads nothing on the host (its unrolled form) a group's camera
+    rays, trace and accumulation are one step, one replay; the looped
+    form's run is resumable at each read of the live count
+    (path._Trace.run)."""
 
     def __init__(self, scene, lens: LensArrays, cfg: PathConfig,
                  height: int, width: int, y0: int, bh: int, nbatch: int,
@@ -95,6 +98,7 @@ class _Frame:
         self.acc = torch.zeros((bh, width, 3), dtype=torch.float32,
                                device=dev)
         self.rays = torch.zeros((), dtype=torch.int64, device=dev)
+        self.segments = torch.zeros_like(self.rays)
         self.unpack = _pixel_coords(bh, width, dev)[2]
 
     def raygen(self) -> None:
@@ -113,22 +117,34 @@ class _Frame:
 
     def accumulate(self) -> None:
         """The step after a trace: its radiance (from the set of buffers
-        that holds its state, a step of its own for each), summed over the
-        batch's samples, into acc; the next sample index."""
+        that holds its state, `with_state`), summed over the batch's
+        samples, into acc; its rays and segments; the next sample
+        index."""
         with record_function("accumulate"):
-            radiance = self.trace.radiance()
-            if self.nbatch > 1:
-                radiance = radiance.reshape(self.nbatch, -1, 3).sum(dim=0)
-            self.acc += self.unpack(radiance)
-            self.rays += self.trace.st["rays"]
+            self.trace.with_state(self._add)
+            self.rays += self.trace.bufs[0]["rays"]
+            self.segments += self.trace.bounce
             self.sample += self.nbatch
+
+    def _add(self, i: int) -> None:
+        radiance = self.trace.radiance(i)
+        if self.nbatch > 1:
+            radiance = radiance.reshape(self.nbatch, -1, 3).sum(dim=0)
+        self.acc += self.unpack(radiance)
+
+    def _group(self, scene) -> None:
+        """A group's camera rays, unrolled trace and accumulation (one
+        step)."""
+        self.raygen()
+        self.trace.unrolled(scene)
+        self.accumulate()
 
     def run(self, scene, lens: LensArrays, start: int, groups: int):
         """`groups` batches of samples from `start` on, as a generator
         that yields the trace at each read of its live count (driven by
         path.run_alone, or with other shards by parallel/sharding.py) and
         whose value is (sum of radiance [bh, W, 3], rays int64 scalar,
-        segments). The lens may lie on another device."""
+        segments int64 scalar). The lens may lie on another device."""
         steps = self.trace.steps
         with self.trace.lock:
             with record_function("camera"):
@@ -137,12 +153,15 @@ class _Frame:
                 self.sample.fill_(start)
                 self.acc.zero_()
                 self.rays.zero_()
-            segments = 0
+                self.segments.zero_()
             for _ in range(groups):
+                if self.trace.unroll:
+                    steps.run("group", lambda: self._group(scene))
+                    continue
                 steps.run("raygen", self.raygen)
-                segments += yield from self.trace.run(scene)
-                steps.run(("accumulate", self.trace.cur), self.accumulate)
-            return self.acc.clone(), self.rays.clone(), segments
+                yield from self.trace.run(scene)
+                steps.run("accumulate", self.accumulate)
+            return self.acc.clone(), self.rays.clone(), self.segments.clone()
 
 
 def _frame(scene, lens: LensArrays, cfg: PathConfig, height: int,
@@ -163,9 +182,9 @@ def _sample_sum(scene, lens: LensArrays, height: int, width: int,
                 y0: int = 0, band_h: int | None = None, nbatch: int = 1,
                 staged: bool = False):
     """_Frame.run of the cached frame shape: (radiance summed over
-    groups x nbatch samples from `start` on [band_h, W, 3], rays int64
-    scalar, segments). staged: each batch through trace_paths_staged's
-    form, else trace_paths'."""
+    groups x nbatch samples from `start` on [band_h, W, 3], rays and
+    segments int64 scalars). staged: each batch through
+    trace_paths_staged's form, else trace_paths'."""
     bh = height if band_h is None else band_h
     frame = _frame(scene, lens, cfg, height, width, y0, bh, nbatch,
                    flip_image, staged)
@@ -193,8 +212,7 @@ def _render_spp_staged(scene, lens: LensArrays, height: int, width: int,
     lanes = height * width
     if batch is None:
         batch = max(1, min(spp, STAGE_TARGET_LANES // lanes))
-    acc = rays_acc = None
-    segments = 0
+    acc = rays_acc = segments = None
     s = 0
     while s < spp:  # the full batches, then the rest as one batch
         b = min(batch, spp - s)
@@ -204,7 +222,7 @@ def _render_spp_staged(scene, lens: LensArrays, height: int, width: int,
                                       flip_image, nbatch=b, staged=True)
         acc = part if acc is None else acc + part
         rays_acc = rays if rays_acc is None else rays_acc + rays
-        segments += seg
+        segments = seg if segments is None else segments + seg
         s += groups * b
     if acc is None:
         acc = torch.zeros((height, width, 3), dtype=torch.float32,
@@ -212,7 +230,7 @@ def _render_spp_staged(scene, lens: LensArrays, height: int, width: int,
         rays_acc = torch.zeros((), dtype=torch.int64, device=scene.device)
     if stats is not None:
         stats.update(path="staged", resort=_resolve_resort(scene, cfg),
-                     segments=segments)
+                     segments=_segments(segments))
     return acc, rays_acc
 
 
@@ -232,8 +250,16 @@ def render_spp(scene, lens: LensArrays, height: int, width: int,
     if stats is not None:
         stats.update(path="fused",
                      resort=_resolve_resort(scene, cfg, height * width),
-                     segments=segments)
+                     segments=_segments(segments))
     return acc, rays
+
+
+def _segments(segments) -> int:
+    """The segments run, read from the device for a caller's stats."""
+    if segments is None:
+        return 0
+    graphs.count("reads")
+    return int(segments)
 
 
 def render(scene, lens, height: int, width: int, spp: int, cfg: PathConfig,
@@ -245,12 +271,12 @@ def render(scene, lens, height: int, width: int, spp: int, cfg: PathConfig,
                    else LensArrays.from_lens(lens, scene.device))
     if sensor is None:
         sensor = Sensor.create(height, width, scene.device)
-    total_rays = 0
+    total_rays = torch.zeros((), dtype=torch.int64, device=scene.device)
     for s in range(spp):
         img, rays = render_sample(scene, lens_arrays, height, width,
                                   sensor.sample_count, cfg, flip_image)
         sensor = accumulate(sensor, img, 1)
-        total_rays += int(rays)
+        total_rays += rays
         if progress is not None:
             progress(s + 1, spp)
-    return sensor, total_rays
+    return sensor, int(total_rays)  # the rays read once, at the end

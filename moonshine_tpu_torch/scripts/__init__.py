@@ -8,6 +8,8 @@
     python -m moonshine_tpu_torch.scripts.compare_tlas [--against DIR ...]
     python -m moonshine_tpu_torch.scripts.compare_shade [--against DIR ...]
     python -m moonshine_tpu_torch.scripts.compare_sort [--against DIR ...]
+    python -m moonshine_tpu_torch.scripts.compare_loop [--against DIR ...]
+        [--blocks 4,8,16,32]
 
 `cuda_ms` is their kernel timer (CUDA events around many launches);
 `shadow_batch` builds the any-hit launch that the 1080p frame times;

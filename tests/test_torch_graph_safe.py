@@ -1,14 +1,18 @@
 """The graphed bounce loop on the CPU (integrator/graphs.py,
 integrator/path.py `_Trace`, render/renderer.py `_Frame`).
 
-On a card each step of the loop (camera rays, a bounce segment, the
-accumulation) is captured once as a CUDA graph and replayed, so a step
-must not read the host: a capture would freeze what it read. Here the
-steps run eagerly, each inside `no_host_reads`, which makes every way a
-tensor reaches the host (`bool`, `int`, `float`, `index`, `item`,
-`tolist`, `cpu`, `numpy`) raise, and `torch.tensor` / `torch.as_tensor`
-of host data too (on a card, a host-to-device copy). The loop's own
-reads between steps are counted: one a segment at most.
+On a card each step of the loop (camera rays, the unrolled form's
+segments or a block of the looped form's, the accumulation) is captured
+once as a CUDA graph and replayed, so a step must not read the host: a
+capture would freeze what it read. Here the steps run eagerly, each
+inside `no_host_reads`, which makes every way a tensor reaches the host
+(`bool`, `int`, `float`, `index`, `item`, `tolist`, `cpu`, `numpy`)
+raise, and `torch.tensor` / `torch.as_tensor` of host data too (on a
+card, a host-to-device copy). A device-side choice (graphs.cond /
+choose, on a card an IF node of the graph) reads its predicate here and
+is counted apart (`conds`). The loop's own reads between steps are
+counted: none in the unrolled form, one a block of the looped form's
+segments at most.
 
 Tolerances: the sample index as a tensor or an int gives the same RNG
 states bit for bit, and both the JAX package's. Against the JAX render
@@ -99,10 +103,15 @@ def allowed(fn):
 
 @pytest.fixture
 def guarded(monkeypatch):
-    """Every step runs inside no_host_reads; returns the step keys run and
-    a count of the loop's host reads between steps (Tensor.__int__)."""
+    """Every step runs inside no_host_reads; returns the step keys run, a
+    count of the loop's host reads between steps (Tensor.__int__), the
+    device-side choices' reads (`conds`, allowed inside a step: on a card
+    an IF node) and the segments run, as ("body", last, roulette,
+    presorted) or ("resorted", width, last, roulette, src, prefix)."""
     run, to_int = graphs.Steps.run, torch.Tensor.__int__
-    seen = {"steps": [], "reads": 0}
+    body, resorted = P._Trace._body, P._Trace._resorted
+    read_choice = graphs._read_choice
+    seen = {"steps": [], "reads": 0, "conds": 0, "segments": []}
 
     def guarded_run(self, key, fn):
         seen["steps"].append(key)
@@ -113,8 +122,24 @@ def guarded(monkeypatch):
         seen["reads"] += 1
         return to_int(self)
 
+    def counted_choice(index):
+        seen["conds"] += 1
+        return allowed(read_choice)(index)
+
+    def seen_body(self, scene, last, roulette, presorted):
+        seen["segments"].append(("body", last, roulette, presorted))
+        body(self, scene, last, roulette, presorted)
+
+    def seen_resorted(self, scene, src, prefix, width, last, roulette):
+        seen["segments"].append(("resorted", width, last, roulette, src,
+                                 prefix))
+        resorted(self, scene, src, prefix, width, last, roulette)
+
     monkeypatch.setattr(graphs.Steps, "run", guarded_run)
     monkeypatch.setattr(torch.Tensor, "__int__", counted_int)
+    monkeypatch.setattr(graphs, "_read_choice", counted_choice)
+    monkeypatch.setattr(P._Trace, "_body", seen_body)
+    monkeypatch.setattr(P._Trace, "_resorted", seen_resorted)
     graphs.clear()
     yield seen
     graphs.clear()
@@ -170,14 +195,29 @@ CASES = [(name, resort, unroll) for name in ("flagship", "room")
     (name, False, False) for name in ("treelet", "two_level")]
 
 
+def _looped_reads(segments: int, n_segments: int) -> tuple:
+    """(blocks replayed, live-count reads) of the looped form that ran
+    `segments` of at most n_segments: a read after each block whose
+    successor would start below the cap."""
+    k = P.LOOP_BLOCK
+    blocks = -(-segments // k)
+    return blocks, blocks - 1 + (blocks * k < n_segments)
+
+
 @pytest.mark.parametrize("name,resort,unroll", CASES)
 def test_steps_read_nothing_on_the_host(guarded, monkeypatch, name, resort,
                                         unroll):
     """1 spp (64x64 = 4096 lanes for the flagship with the resort, whose
     bounces then run on a prefix; 32x32 else): no step reads the host,
-    each body class runs (bounce 0, 1-3, >= 4, the thin last segment),
-    and the loop reads the host at most once a segment. The treelet
-    walk's plain version (on the card a kernel launch) may read."""
+    each segment class runs (bounce 0, 1-3, >= 4, the thin last
+    segment), the unrolled form's sample is one step that reads nothing
+    and the looped form's segments run in blocks of LOOP_BLOCK, a read of
+    the live count between blocks; past that the host reads the segment
+    count once, for the stats. The choices made on the device are read
+    here as conds: a width a resorted segment (where the lanes reach
+    _SHRINK_MIN), a guard a looped position after the first, the looped
+    resorted accumulation's buffer set. The treelet walk's plain version
+    (on the card a kernel launch) may read."""
     scene, lens = SCENES[name]()
     _dispatch(monkeypatch, name)
     monkeypatch.setattr(PT, "_dispatch_plain", allowed(PT._dispatch_plain))
@@ -189,25 +229,32 @@ def test_steps_read_nothing_on_the_host(guarded, monkeypatch, name, resort,
                               stats=stats)
     reads = guarded["reads"]
     assert np.isfinite(img.numpy()).all() and int(rays) > 0
-    steps = guarded["steps"]
-    assert steps[0] == "raygen" and steps[-1][0] == "accumulate"
-    bodies = [k for k in steps if k[0] in ("body", "resorted")]
+    segs = guarded["segments"]
     segments = stats["segments"]
-    assert len(bodies) == segments
+    assert len(segs) == segments
     # the looped form stops when no lane is live: here after bounce 4
     assert segments == 6 or (not unroll and segments == 5)
-    for bounce, key in enumerate(bodies):
-        # ("body", last, roulette, presorted) or ("resorted", width, last,
-        # roulette)
+    for bounce, key in enumerate(segs):
         last, roulette = key[1:3] if key[0] == "body" else key[2:4]
         assert key[0] == ("resorted" if stats["resort"] and bounce
                           else "body")
         assert roulette == (bounce > 3)
         assert last == (unroll and bounce == 5)
-    # one host read before each segment after the first, where the form
-    # needs it: the looped form's stop, the resorted prefix's width
     shrink = stats["resort"] and size * size >= P._SHRINK_MIN
-    assert reads == (min(segments, 5) if not unroll else 5 if shrink else 0)
+    conds = (segments - 1) * shrink
+    if unroll:
+        assert guarded["steps"] == ["group"] and reads == 1
+    else:
+        blocks, live_reads = _looped_reads(segments, 6)
+        assert guarded["steps"] == (["raygen", ("block", 0)]
+                                    + [("block", P.LOOP_BLOCK)]
+                                    * (blocks - 1) + ["accumulate"])
+        assert reads == live_reads + 1
+        # a guard a position after the first (the first block holds none
+        # past the cap), the accumulation's buffer set under the resort
+        conds += (min(P.LOOP_BLOCK, 6) - 1 + (blocks - 1) * P.LOOP_BLOCK
+                  + stats["resort"])
+    assert guarded["conds"] == conds
 
 
 @pytest.mark.parametrize("unroll", [True, False])
@@ -222,20 +269,23 @@ def test_resorted_steps_sort_into_the_other_buffers(guarded, monkeypatch,
     from moonshine_tpu_torch.core import sortutil as SU
 
     scene, lens = _port(procedural.flagship_scene)
-    calls = []
+    calls, added = [], []
     sort_lanes = SU.sort_lanes
+    add = RR._Frame._add
 
     def spy(key, arrays, bits, out=None, rows=None):
         calls.append((key.shape[0], bits, out, rows))
         return sort_lanes(key, arrays, bits, out=out, rows=rows)
 
     monkeypatch.setattr(SU, "sort_lanes", spy)
+    monkeypatch.setattr(RR._Frame, "_add",
+                        lambda self, i: added.append(i) or add(self, i))
     imgs = []
     for resort in (True, False):
         cfg = PathConfig(**CFG, unroll=unroll, resort_bounces=resort)
         imgs.append(RR.render_spp(scene, lens, 64, 64, 2, 1, cfg)[0])
     assert torch.equal(imgs[0], imgs[1])
-    resorted = [k for k in guarded["steps"] if k[0] == "resorted"]
+    resorted = [k for k in guarded["segments"] if k[0] == "resorted"]
     assert len(resorted) == len(calls) >= 4
     trace = next(iter(graphs._SHAPES.values()))[0].trace
     names = [k for k in trace.bufs[0] if k != "rays"]
@@ -249,9 +299,8 @@ def test_resorted_steps_sort_into_the_other_buffers(guarded, monkeypatch,
         prefix, src = width, 1 - src
     assert prefix < 4096  # the deep bounces ran on a prefix
     # the resorted render's accumulation reads the set its last segment
-    # wrote
-    assert next(k for k in guarded["steps"]
-                if k[0] == "accumulate") == ("accumulate", src)
+    # wrote (then the render without the resort reads its one set)
+    assert added == [src, 0]
 
 
 def test_staged_and_sharded_steps_read_nothing_on_the_host(guarded,
@@ -269,7 +318,7 @@ def test_staged_and_sharded_steps_read_nothing_on_the_host(guarded,
     band, _ = RR.render_sample(scene, lens, 32, 32, 0, cfg, y0=8, band_h=8)
     mesh = mesh_from_spec("2,2", "cpu")
     sharded, _ = render_sharded(scene, lens, 32, 32, 2, cfg, mesh)
-    assert ("body", False, False, False) in guarded["steps"]
+    assert ("body", False, False, False) in guarded["segments"]
     fused, _ = RR.render_spp(scene, lens, 32, 32, 0, 2, cfg)
     assert torch.equal(staged, fused)
     assert torch.equal(band, RR.render_sample(scene, lens, 32, 32, 0,
@@ -282,14 +331,16 @@ def test_stepped_shards_read_each_live_count_once(guarded, monkeypatch,
                                                   unroll):
     """render_sharded steps its four shards (the small room, 32x32 x 4
     spp on a 2x2 CPU mesh, resort on) together: no step reads the host,
-    and the rounds read each shard's live count once a segment where its
-    form needs it (every segment after the first looped; the resorted
-    prefix's width unrolled, none below _SHRINK_MIN lanes), exactly as
-    often as the shards run alone, and the image is theirs."""
+    and the rounds read each shard's live count once a block where its
+    form needs it (the looped form, here LOOP_BLOCK + 4 segments deep;
+    the unrolled form reads none), exactly as often as the shards run
+    alone, and the image is theirs."""
     scene, lens = _port(_room)
     monkeypatch.setattr(PP, "VMEM_SCENE_BUDGET_BYTES", 0)
     monkeypatch.setattr(P, "_SHRINK_MIN", 64)
-    cfg = PathConfig(**CFG, unroll=unroll, resort_bounces=True)
+    cfg = PathConfig(**dict(CFG, max_bounces=4 if unroll
+                            else P.LOOP_BLOCK + 2),
+                     unroll=unroll, resort_bounces=True)
     mesh = mesh_from_spec("2,2", "cpu")
     before = guarded["reads"]
     for si in range(2):
@@ -297,8 +348,9 @@ def test_stepped_shards_read_each_live_count_once(guarded, monkeypatch,
             RR._sample_sum(scene, lens, 32, 32, si * 2, 2, cfg, True,
                            y0=di * 16, band_h=16)
     alone_reads, before = guarded["reads"] - before, guarded["reads"]
-    # unrolled: 5 reads a sample, 2 samples a shard
-    assert alone_reads == 40 or (not unroll and alone_reads > 0)
+    # the unrolled form reads nothing (five reads a sample before its
+    # widths were chosen on the device)
+    assert alone_reads == 0 if unroll else alone_reads > 0
     img, _ = render_sharded(scene, lens, 32, 32, 4, cfg, mesh)
     assert guarded["reads"] - before == alone_reads
     fused, _ = RR.render_spp(scene, lens, 32, 32, 0, 4, cfg)

@@ -20,7 +20,10 @@ hidden instances and on a scene of exact equal-t ties
 bounce loop as CUDA graph replays (integrator/graphs.py) equals the eager
 loop bit for bit (image, rays, launch counts): the fused flagship, a
 staged 1080p batch, the looped offline form, a two-level scene, and
-Engine frames, which capture anew after each edit. render_sharded,
+Engine frames, which capture anew after each edit; its device-side
+control (graphs.cond / choose as IF nodes): nested bodies, a trace that
+takes all three live-prefix widths and reads nothing, looped blocks that
+overrun the stop. render_sharded,
 its shards stepped together, equals the same shards run in turn bit for
 bit on cuda:0 x4 and across cards, and replays from its second call.
 The shading kernels (csrc/shade.cu: surface in its full, thin and direct
@@ -936,6 +939,159 @@ def test_graphs_instanced_equal_eager(cuda, monkeypatch):
         scene, la, 512, 512, 0, 2, PathConfig(**CFG4)))
     _assert_same_render(out)
     assert out[1][1]["tlas_closest_hit"] > 0
+
+
+def test_graphs_conditional_bodies(cuda):
+    """graphs.cond / choose under capture (IF nodes, csrc/graph_cond.cu):
+    nested bodies that allocate, write static buffers and launch (a
+    stand-in wrapper's count), replayed over every combination of their
+    predicates with other allocations live between replays, equal the
+    eager step; the launches counted are the bodies' that ran (read from
+    the device log when the counts are read), and no replay touches
+    memory outside the graph's."""
+    from moonshine_tpu_torch.integrator import graphs
+
+    x = torch.zeros(1 << 16, device=cuda)
+    sel = torch.zeros((), dtype=torch.int64, device=cuda)
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    counts = launch.Counts({"outer": 0, "inner": 0, "step": 0})
+
+    def inner():
+        launch.count_launch(counts, "inner")
+        x.add_(torch.full_like(x, 10.0))
+
+    def step():
+        launch.count_launch(counts, "step")
+        x.add_(1.0)
+        graphs.choose(sel, {
+            0: lambda: x.mul_(3.0),
+            2: lambda: (launch.count_launch(counts, "outer"),
+                        x.copy_(x * 2.0 + 1.0),
+                        graphs.cond(flag, inner))})
+
+    def want(s, f):
+        y = 1.0
+        if s == 0:
+            y *= 3.0
+        elif s == 2:
+            y = y * 2.0 + 1.0 + (10.0 if f else 0.0)
+        return y
+
+    steps = graphs.Steps(cuda)
+    graphs.reset_counts()
+    steps.run("step", step)  # eager, the warm captures, the capture
+    assert graphs.COUNTS["captures"] == 1 and graphs.COUNTS["conds"] >= 1
+    others = [torch.full((1 << 18,), 7.0, device=cuda) for _ in range(8)]
+    expected = dict(counts)
+    for s_, f in [(0, False), (1, True), (2, False), (2, True), (0, True)]:
+        x.zero_()
+        sel.fill_(s_)
+        flag.fill_(f)
+        steps.run("step", step)
+        torch.cuda.synchronize()
+        assert torch.equal(x, torch.full_like(x, want(s_, f)))
+        expected["step"] += 1
+        expected["outer"] += s_ == 2
+        expected["inner"] += s_ == 2 and f
+    assert dict(counts) == expected
+    assert all(bool((t == 7.0).all()) for t in others)
+    assert graphs.COUNTS["reads"] == 0
+
+
+def _three_widths(dev, n=4096, seed=7):
+    """(scene, o, d, rng): a Lambert sphere of albedo 0.5 under a white
+    sky and n rays: 40% from its centre (they live until the roulette
+    after bounce 3 takes most), 30% at it from outside (they leave after
+    one bounce), 30% away from it (they miss), so a resorted trace runs
+    its segments over n, then n/2, then n/4 lanes."""
+    from moonshine_tpu_torch.core import rng as R
+    from moonshine_tpu_torch.scene import procedural
+    from moonshine_tpu_torch.scene.types import (
+        Geometry, Instance, Lambert, MaterialInfo,
+    )
+    from moonshine_tpu_torch.scene.world import World
+
+    w = World()
+    mesh = w.add_mesh(procedural.icosphere_mesh(2, with_normals=False))
+    mat = w.add_material(MaterialInfo(variant=Lambert(color=(0.5, 0.5,
+                                                             0.5))))
+    w.add_instance(Instance(transform=np.eye(3, 4, dtype=np.float32),
+                            geometries=[Geometry(mesh, mat)]))
+    w.set_background(None)
+    rs = np.random.RandomState(seed)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.zeros((n, 3), np.float32)
+    a, b = int(0.4 * n), int(0.7 * n)
+    o[a:] = [0, -3, 0]
+    aim = np.float32([0, 3, 0]) + rs.uniform(-0.3, 0.3, (b - a, 3)
+                                             ).astype(np.float32)
+    d[a:b] = aim / np.linalg.norm(aim, axis=1, keepdims=True)
+    d[b:] = [0, -1, 0]
+    rng = R.seed(0, torch.arange(n), torch.zeros(n, dtype=torch.int64))
+    return (w.build(dev), torch.from_numpy(o).to(dev),
+            torch.from_numpy(d).to(dev), rng.to(dev))
+
+
+def test_graphs_all_widths_read_nothing(cuda, monkeypatch):
+    """trace_paths over 4096 lanes whose resorted segments run over n,
+    then n/2, then n/4 lanes (`_three_widths`; each width and each
+    prefix chosen on the device), unrolled: replays equal the eager loop
+    bit for bit (radiance, RNG, rays, segments, launches) and read the
+    host 0 times a trace."""
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.integrator import path as P
+    from moonshine_tpu_torch.integrator.path import PathConfig, trace_paths
+
+    scene, o, d, rng = _three_widths(cuda)
+    widths = []
+    resorted = P._Trace._resorted
+    monkeypatch.setattr(
+        P._Trace, "_resorted",
+        lambda self, *a: widths.append(a[3]) or resorted(self, *a))
+    cfg = PathConfig(**CFG4, resort_bounces=True)
+    out = _eager_and_replayed(monkeypatch,
+                              lambda: trace_paths(scene, o, d, rng, cfg))
+    _assert_same_render(out)
+    assert set(widths[:5]) == {4096, 2048, 1024}  # the eager loop's five
+    trace_paths(scene, o, d, rng, cfg)  # captures
+    graphs.reset_counts()
+    trace_paths(scene, o, d, rng, cfg)
+    torch.cuda.synchronize()
+    assert graphs.COUNTS["reads"] == 0 and graphs.COUNTS["conds"] == 0
+    assert graphs.COUNTS["replays"] == 3  # reset, the trace, finish
+
+
+def test_graphs_looped_block_overruns_the_stop(cuda, monkeypatch):
+    """The looped form stopped by the cap inside a block (max_bounces
+    LOOP_BLOCK + 1: the second block's guards fail after its third
+    segment) and stopped by the last lane dying inside one (max_bounces
+    1024), the room at 320x240 with the resort off and on: replays equal
+    the eager loop bit for bit, and each sample reads the live count at
+    most ceil(segments / LOOP_BLOCK) + 1 times."""
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.integrator import path as P
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.renderer import render_spp
+
+    scene, la = _room_cuda(cuda, grid=6, subdivisions=4)
+    for bounces in (P.LOOP_BLOCK + 1, 1024):
+        for resort in (False, True):
+            cfg = PathConfig(max_bounces=bounces, unroll=False,
+                             resort_bounces=resort)
+            stats = {}
+            out = _eager_and_replayed(monkeypatch, lambda: render_spp(
+                scene, la, 240, 320, 4, 1, cfg, stats=stats))
+            _assert_same_render(out)
+            render_spp(scene, la, 240, 320, 4, 1, cfg)  # captures
+            graphs.reset_counts()
+            render_spp(scene, la, 240, 320, 4, 1, cfg, stats=stats)
+            segments = stats["segments"]
+            if bounces < 1024:
+                assert segments == bounces + 2
+            # the stats' segment count is one read more
+            assert graphs.COUNTS["reads"] - 1 <= \
+                -(-segments // P.LOOP_BLOCK) + 1
 
 
 def _engine_of(world, dev):

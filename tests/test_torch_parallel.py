@@ -110,9 +110,11 @@ class TestSharded:
         current (`_current`, with the shard's stream for its steps), and
         the shards step in rounds: each live shard's step, then each
         one's read of its live count, the next round's steps as many as
-        the reads. The image is the same bit for bit as without the
+        the reads (the looped form, LOOP_BLOCK + 4 segments deep, reads
+        once a block). The image is the same bit for bit as without the
         hooks."""
         scene, lens, cfg = setup
+        cfg = replace(cfg, max_bounces=P.LOOP_BLOCK + 2)
         mesh = make_mesh(CPU8, sp=2)
         want, rays_want = render_sharded(scene, lens_arrays(lens), 16, 16, 4,
                                          cfg, mesh)
@@ -138,7 +140,7 @@ class TestSharded:
         kinds = "".join(k[0] for k, _ in log if k != "setup")
         rounds = kinds.replace("rs", "r s").split()
         assert rounds[0].startswith("s" * len(devices))
-        assert len(rounds) > 2  # the looped form reads every segment
+        assert len(rounds) > 2  # the looped form reads once a block
         for now, nxt in zip(rounds, rounds[1:] + [""]):
             steps, reads = now.count("s"), now.count("r")
             assert now == "s" * steps + "r" * reads and reads <= steps
@@ -410,7 +412,8 @@ def test_shard_streams_are_distinct_and_kept(monkeypatch):
 def test_counts_read_each_live_count_and_copy(setup, monkeypatch):
     """graphs.COUNTS over a sharded call: one read for each live-count
     read of the rounds, no capture or replay on the CPU, no copy for a
-    mesh of the scene's own device."""
+    mesh of the scene's own device; the looped blocks' device-side
+    choices read eagerly here (conds), none of them a read."""
     scene, lens, cfg = setup
     reads = []
     real = P._Trace.live_count
@@ -418,10 +421,13 @@ def test_counts_read_each_live_count_and_copy(setup, monkeypatch):
                         lambda tr: reads.append(1) or real(tr))
     graphs.reset_counts()
     render_sharded(scene, lens_arrays(lens), 16, 16, 4,
-                   replace(cfg, unroll=False), make_mesh(CPU8[:4], sp=2))
+                   replace(cfg, unroll=False, max_bounces=P.LOOP_BLOCK + 2),
+                   make_mesh(CPU8[:4], sp=2))
+    conds = graphs.COUNTS["conds"]
     assert graphs.COUNTS == {"captures": 0, "replays": 0,
-                             "reads": len(reads), "copies": 0}
-    assert len(reads) > 0
+                             "reads": len(reads), "conds": conds,
+                             "copies": 0}
+    assert len(reads) > 0 and conds > 0
 
 
 def test_a_failing_shard_raises(setup, monkeypatch):
