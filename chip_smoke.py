@@ -9,9 +9,10 @@ script exits non-zero without the result line. Phases:
   device          the card's name and power limit (nvidia-smi)
   build           nvcc builds csrc/traverse.cu, csrc/treelet.cu,
                   csrc/vpacket.cu, csrc/vpu.cu, csrc/bitcast.cu,
-                  csrc/tlas.cu, csrc/shade.cu and csrc/sort.cu into
-                  build/, one process each, started together; prints each
-                  kernel's registers, shared memory and spills (ptxas)
+                  csrc/tlas.cu, csrc/shade.cu, csrc/sort.cu,
+                  csrc/graph_cond.cu and csrc/frame.cu into build/, one
+                  process each, started together; prints each kernel's
+                  registers, shared memory and spills (ptxas)
   scenes          flagship, room_184k (SAH, 24-wide / 24-slot) and
                   room_184k as the treelet build (MSN_WIDE=8
                   MSN_LEAF_CAP=8): builder, layout, row bytes against the
@@ -29,9 +30,11 @@ script exits non-zero without the result line. Phases:
   room_1080p      room_184k, 1920x1080 x 2 spp through render_spp (the
                   staged path, resort on), packet kernels, the shading
                   kernels (a surface and env-miss launch a segment, a
-                  scatter launch a shadow batch) and the lane sort (the
+                  scatter launch a shadow batch; every full surface
+                  launch and scatter counting), the lane sort (the
                   camera rays' two sorted dispatches with their inverse
-                  moves, a resort before each later segment)
+                  moves, a resort before each later segment) and a
+                  sample's camera rays and accumulation (one launch each)
   treelet_1080p   the same frame with MSN_TREELETS=1 on the treelet build,
                   treelet kernels (a phase-1 launch, a sort and an inverse
                   move per walk launch); its image against room_1080p's
@@ -183,6 +186,21 @@ script exits non-zero without the result line. Phases:
                   (render/profile_frame.py `profile`) and peak memory;
                   one more eager sample split by the stage ranges
                   (integrator/path.py STAGES)
+  frame           the kernels of csrc/frame.cu against their plain
+                  versions bit for bit at room_1080p's 2,073,600 lanes,
+                  offline_720p's 921,600, a 540-row band and 1024x576 x 3
+                  samples a batch (tiled): the camera rays with the fresh
+                  lane state (every buffer and scalar), the accumulation
+                  (with the resort's pix), each timed beside its plain
+                  version and its byte bound; the counts folded into the
+                  surface and scatter kernels on room_1080p's first
+                  launches, exactly against the plain versions and the
+                  masks' torch sums, the kernels timed with and without
+                  them beside the torch reductions they replace and
+                  torch.count_nonzero; the eager stage split of
+                  room_1080p and offline_720p (the camera range one
+                  raygen launch a sample, the live_count range no
+                  reduction)
   capi            build/libmoonshine_tpu_torch.so built with g++ and loaded
                   with ctypes here: native/test_shim.cpp's scene through
                   Msn* calls on the card (engine on cuda, traversal
@@ -281,6 +299,18 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                  "moonshine_tpu/integrator/path.py:706 _bounce_shrunk's "
                  "lax.cond and :802 trace_paths' while_loop cond (XLA "
                  "control flow, no pallas_call)"),
+    "raygen": ("moonshine_tpu_torch/csrc/frame.cu",
+               "moonshine_tpu/render/renderer.py:126 _sample_rays and :141 "
+               "_sample_rays_batched with integrator/path.py:655 "
+               "_init_state (jnp, no pallas_call)"),
+    "accumulate": ("moonshine_tpu_torch/csrc/frame.cu",
+                   "moonshine_tpu/render/renderer.py:158 _staged_accum with "
+                   "integrator/path.py:731 _staged_finish's scatter by pix "
+                   "(jnp, no pallas_call)"),
+    "counts": ("moonshine_tpu_torch/csrc/shade.cu",
+               "moonshine_tpu/integrator/path.py:400 jnp.sum(active), :580 "
+               "jnp.sum(lane) and :687 the live count (jnp, no "
+               "pallas_call)"),
 }
 # the __global__ functions each wrapper of the kernels line launches
 CUDA_KERNELS = {
@@ -299,6 +329,9 @@ CUDA_KERNELS = {
                    "lane_move_kernel"],
     "unsort_lanes": ["lane_move_kernel"],
     "graph_if": ["set_if_kernel"],
+    "raygen": ["raygen_kernel"],
+    "accumulate": ["pix_scatter_kernel", "accumulate_kernel"],
+    "counts": ["surface_kernel", "scatter_kernel"],
 }
 OFFLINE_SPP = 4  # the CLI's default is 16; cut to bound the run's time
 ENGINE_HW = (720, 1280)  # the engine phase's frame (the offline CLI's size)
@@ -340,8 +373,9 @@ def _counted():
     from moonshine_tpu_torch.accel import packet, tlas, treelet
     from moonshine_tpu_torch.core import sortutil
     from moonshine_tpu_torch.integrator import shade
+    from moonshine_tpu_torch.render import frame_kernels
 
-    return (packet, treelet, tlas, shade, sortutil)
+    return (packet, treelet, tlas, shade, sortutil, frame_kernels)
 
 
 def reset_counts():
@@ -1853,7 +1887,8 @@ def direct_phase(scene, lens, launches_out):
         f"{rays / dt / 1e6:.3f} Mrays/s, launches {counts}, shading "
         f"launches {shaded}, image mean {img.mean():.6f}")
     if (counts["closest_hit"] != 1 or counts["any_hit"] != 2
-            or shaded != dict(surface=1, scatter=0, env_miss=1, env_draw=1)
+            or shaded != dict(surface=1, scatter=0, env_miss=1, env_draw=1,
+                              counts=0)
             or not np.isfinite(img).all()):
         raise AssertionError("trace_direct failed")
     launches_out["direct"] = counts
@@ -2140,7 +2175,10 @@ def tlas_phase(dev, cfg, timings, errs, launches):
 
     img, stats, counts = render_1080p("instanced_1080p", scene, la, cfg,
                                       resort=False)
-    shading = ("surface", "scatter", "env_miss", "env_draw")
+    # the shading kernels, the counts they fold in and a sample's camera
+    # rays and accumulation; no other kernel runs on a two-level scene
+    shading = ("surface", "scatter", "env_miss", "env_draw", "counts",
+               "raygen", "accumulate")
     if (counts["tlas_closest_hit"] != stats["segments"]
             or counts["tlas_any_hit"] == 0
             or counts["surface"] != stats["segments"]
@@ -2987,7 +3025,7 @@ def graph_if_phase(dev, timings, errs):
         f"(8 bytes)")
 
 
-def graphs_phase(cells) -> int:
+def graphs_phase(cells, stage_profiles) -> int:
     """Each cell's sample (`cells`: name -> sample(i), which renders
     sample i and returns (image, rays or None)) on the eager loop
     (graphs.eager()) and as graph replays, each from a clear cache: a
@@ -3006,8 +3044,9 @@ def graphs_phase(cells) -> int:
     allocator's cache of freed blocks is emptied (the graphs' pools and
     static buffers stay). On the eager loop one more sample is profiled
     with the stage ranges (integrator/path.py STAGES): each stage's
-    kernel time, their sum against the sample's. Returns room_1080p's IF
-    node launches a sample as graph replays."""
+    kernel time, their sum against the sample's (kept in
+    `stage_profiles` by cell). Returns room_1080p's IF node launches a
+    sample as graph replays."""
     import torch
 
     from moonshine_tpu_torch.integrator import graphs, path
@@ -3050,8 +3089,9 @@ def graphs_phase(cells) -> int:
                     prof = profile(lambda: sample(2))
                     prof.pop("by_name_us")
                     if mode == "eager":
-                        say_stages("graphs", name, profile(
-                            lambda: sample(2), marks=path.STAGES))
+                        stage_profiles[name] = profile(
+                            lambda: sample(2), marks=path.STAGES)
+                        say_stages("graphs", name, stage_profiles[name])
                     torch.cuda.empty_cache()  # the cache of freed blocks
                     held = torch.cuda.memory_reserved() / 2**20
                 rows[mode] = (img, rays, counts, peak, prof)
@@ -3107,6 +3147,202 @@ def graphs_phase(cells) -> int:
     if if_launches == 0:
         raise AssertionError("room_1080p ran no IF node as graph replays")
     return if_launches
+
+
+# the shapes the frame phase holds the camera rays and the accumulation
+# at: (height, width, y0, bh, nbatch, the resort's pix)
+FRAME_SHAPES = {"room_1080p": (1080, 1920, 0, 1080, 1, True),
+                "offline_720p": (720, 1280, 0, 720, 1, False),
+                "band_540": (1080, 1920, 540, 540, 1, True),
+                "1024x576x3": (576, 1024, 0, 576, 3, True)}
+RAYGEN_LANE_BYTES = 70  # o 12, d 12, rng 8, active 1, throughput 12,
+# radiance 12, last_pdf 4, last_delta 1, pix 8: written once a lane
+RAYGEN_LANE_FLOPS = 100  # float ops a lane (a transcendental counts one)
+
+
+def frame_phase(scenes, stage_profiles, cfg, timings, errs):
+    """The kernels of csrc/frame.cu (render/frame_kernels.py) at the main
+    path's shapes (FRAME_SHAPES: room_1080p's 2,073,600 lanes,
+    offline_720p's 921,600, a 540-row band of the 1080p frame, 1024x576
+    x 3 samples a batch, tiled): the raygen kernel into a trace's buffers
+    (filled with junk first) against its plain version (the camera rays
+    of each sample and _Trace.reset), every buffer and scalar bit for bit;
+    the accumulation against its plain version on seeded radiance and a
+    seeded permutation for pix, bit for bit; each timed beside its plain
+    version and its bound (bytes: raygen's 70 a lane written; the
+    accumulation's radiance and pix read, acc read and written). Then the
+    counts folded into the shading kernels: room_1080p's first full
+    surface launch and first scatter recorded (scripts/compare_shade.py)
+    and replayed with their counters, each count against the plain
+    version's and the torch sum of the kernel's own mask, exactly; each
+    kernel timed with and without its counter (cold L2), beside the
+    torch reductions they replace and torch.count_nonzero on the same
+    masks. Last, the eager stage split (`stage_profiles`, the graphs
+    phase's) of room_1080p and offline_720p: the camera range holds one
+    raygen launch a sample besides scalar fills, the live_count range no
+    reduction."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import path, shade
+    from moonshine_tpu_torch.render import frame_kernels as FK
+    from moonshine_tpu_torch.scripts import compare_shade as CS
+
+    room, lens = scenes["room_184k/default"]
+    dev = room.device
+    sample = torch.tensor(3, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    for name, (h, w, y0, bh, nb, pix) in FRAME_SHAPES.items():
+        n = nb * bh * w
+        traces = [path._Trace(n, dev, cfg, resort=True, unroll=True,
+                              sort_first=False, capture=False)
+                  for _ in range(2)]
+        for tr in traces:
+            for v in tr.bufs[0].values():
+                v.fill_(7)
+            for v in (tr.bounce, tr.widx, tr.live):
+                v.fill_(7)
+        FK.raygen(lens, sample, h, w, y0, bh, nb, True, traces[0])
+        FK.raygen_plain(lens, sample, h, w, y0, bh, nb, True, traces[1])
+        pairs = [(k, traces[0].bufs[0][k], traces[1].bufs[0][k])
+                 for k in traces[0].bufs[0]]
+        pairs += [(k, getattr(traces[0], k), getattr(traces[1], k))
+                  for k in ("bounce", "widx", "live")]
+        bad = [k for k, a, b in pairs if not torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b)]
+        ms = cuda_ms(lambda: FK.raygen(lens, sample, h, w, y0, bh, nb, True,
+                                       traces[0]), 20)
+        plain_ms = cuda_ms(lambda: FK.raygen_plain(
+            lens, sample, h, w, y0, bh, nb, True, traces[1]), 3)
+        nbytes, flops = n * RAYGEN_LANE_BYTES, n * RAYGEN_LANE_FLOPS
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FP32 * 1e3
+        say("frame", f"raygen {name} ({w}x{h} rows {y0}-{y0 + bh} x {nb}, "
+            f"{n} lanes): kernel = plain bit for bit {not bad} {bad}; "
+            f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms by bytes ({nbytes / 1e6:.1f} MB "
+            f"-> {t_bytes:.4f} ms; {flops / 1e9:.3f} GFLOP -> "
+            f"{t_ops:.4f} ms); no PyTorch call computes it")
+        if bad:
+            raise AssertionError(f"raygen {name}: the kernel differs from "
+                                 "its plain version")
+        if name == "room_1080p":
+            timings["raygen"] = dict(ms=ms, plain_ms=plain_ms,
+                                     bound_ms=max(t_bytes, t_ops),
+                                     bound_by="bytes")
+            errs["raygen"] = 0.0
+
+        gen.manual_seed(n)
+        acc = torch.rand((bh, w, 3), generator=gen, device=dev)
+        rad = torch.rand((n, 3), generator=gen, device=dev) * torch.exp(
+            torch.randn((n, 1), generator=gen, device=dev) * 4)
+        order = (torch.randperm(n, generator=gen, device=dev) if pix
+                 else None)
+        got, want = acc.clone(), acc.clone()
+        FK.accumulate(got, rad, order, nb)
+        FK.accumulate_plain(want, rad, order, nb)
+        same = bool(torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)))
+        ms = cuda_ms(lambda: FK.accumulate(got, rad, order, nb), 20)
+        plain_ms = cuda_ms(lambda: FK.accumulate_plain(want, rad, order,
+                                                       nb), 5)
+        nbytes = n * 12 + (n * 8 if pix else 0) + bh * w * 24
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = (n + 0.0) / PEAK_FP32 * 3e3  # an add a value
+        say("frame", f"accumulate {name} ({n} lanes, {nb} a batch, pix "
+            f"{pix}): kernel = plain bit for bit {same}; kernel {ms:.4f} ms"
+            f", plain torch {plain_ms:.4f} ms, bound {t_bytes:.4f} ms by "
+            f"bytes ({nbytes / 1e6:.1f} MB; {t_ops:.5f} ms of adds); no "
+            f"PyTorch call computes it")
+        if not same:
+            raise AssertionError(f"accumulate {name}: the kernel differs "
+                                 "from its plain version")
+        if name == "room_1080p":
+            timings["accumulate"] = dict(ms=ms, plain_ms=plain_ms,
+                                         bound_ms=max(t_bytes, t_ops),
+                                         bound_by="bytes")
+            errs["accumulate"] = 0.0
+        del traces, acc, rad, order, got, want
+
+    # the counts, on room_1080p's first full surface launch and scatter
+    rec = CS.record_sample(room, lens, cfg)
+    counted, without, masks = {}, {}, []
+    for key, counter, mask_of in (
+            ("surface/full", "rays", lambda out: out.shadow.lane),
+            ("scatter", "live", lambda out: out["active"])):
+        name, args, kw = rec[key]
+        if counter not in kw:
+            raise AssertionError(f"{key} was called without its counter")
+        kernel, plain = getattr(shade, name), getattr(shade, f"{name}_plain")
+        mine = CS.clone(kw)
+        mine[counter].zero_()
+        out = kernel(*CS.fresh(name, args), **mine)
+        ref = CS.clone(kw)
+        ref[counter].zero_()
+        plain(*CS.fresh(name, args), **ref)
+        summed = int(mask_of(out).sum())
+        say("frame", f"counts: {key}, a mask of {mask_of(out).numel()}: "
+            f"kernel's {counter} {int(mine[counter])}, plain version's "
+            f"{int(ref[counter])}, torch sum of the kernel's mask {summed}")
+        if not int(mine[counter]) == int(ref[counter]) == summed:
+            raise AssertionError(f"{key}: the folded count differs")
+        masks.append(mask_of(out))
+        work = CS.fresh(name, args)
+        bare = {k: v for k, v in kw.items() if k != counter}
+        rounds = {"with": [], "without": []}
+        for _ in range(3):
+            rounds["with"].append(CS.time_inplace(CS.call(
+                kernel, work, CS.clone(kw)), work, args, 10))
+            rounds["without"].append(CS.time_inplace(CS.call(
+                kernel, work, bare), work, args, 10))
+        counted[key], without[key] = min(rounds["with"]), min(
+            rounds["without"])
+        say("frame", f"counts: {key} kernel with its counter "
+            f"{counted[key]:.4f} ms, without {without[key]:.4f} ms (rounds "
+            f"{rounds})")
+    # the first reduction summed the lanes live at the segment's start: a
+    # mask of as many lanes (the surface's, live at the hit)
+    masks.insert(0, rec["surface/full"][1][6])
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    live = torch.zeros_like(rays)
+
+    def plain_counts():  # the torch reductions the kernels replace
+        r = rays + masks[0].sum()
+        r = r + masks[1].sum()
+        torch.sum(masks[2], dim=0, out=live)
+        return r
+
+    plain_ms = cuda_ms(plain_counts, 20)
+    library_ms = cuda_ms(lambda: [torch.count_nonzero(m) for m in masks], 20)
+    cost = sum(counted.values()) - sum(without.values())
+    nbytes = sum(m.numel() for m in masks)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    say("frame", f"counts of a segment: in the kernels {cost:.4f} ms (with "
+        f"- without), plain torch reductions {plain_ms:.4f} ms, "
+        f"torch.count_nonzero {library_ms:.4f} ms, bound {t_bytes:.5f} ms by"
+        f" bytes (the masks, {nbytes / 1e6:.2f} MB)")
+    timings["counts"] = dict(ms=cost, plain_ms=plain_ms, bound_ms=t_bytes,
+                             bound_by="bytes", library_ms=library_ms)
+    errs["counts"] = 0.0
+    del rec
+
+    for cell in ("room_1080p", "offline_720p"):
+        prof = stage_profiles[cell]
+        say_stages("frame", cell, prof)
+        camera = prof["camera"]["kernels"]
+        raygen = sum(v for k, v in camera.items() if "raygen_kernel" in k)
+        others = [k for k in camera if "raygen_kernel" not in k
+                  and "FillFunctor" not in k]
+        reductions = [k for k in prof["live_count"]["kernels"]
+                      if "reduce" in k.lower()]
+        say("frame", f"{cell}: camera range kernels {camera}; live_count "
+            f"range kernels {prof['live_count']['kernels']}; accumulate "
+            f"range kernels {prof['accumulate']['kernels']}")
+        if raygen != 1 or others or reductions:
+            raise AssertionError(f"{cell}: the camera range holds {raygen} "
+                                 f"raygen launches and {others}, the "
+                                 f"live_count range reductions "
+                                 f"{reductions}")
 
 
 def graph_cells(scenes, offline_cell, instanced, cfg, dev):
@@ -3485,12 +3721,17 @@ def main():
                 # a resort before each later segment
                 or counts["unsort_lanes"] != 2 * 2
                 or counts["sort_lanes"] != counts["unsort_lanes"] + segs - 2
-                or counts["coherence_key"] != counts["sort_lanes"]):
+                or counts["coherence_key"] != counts["sort_lanes"]
+                # a sample's camera rays and accumulation one launch each;
+                # every full surface launch and scatter counts
+                or counts["raygen"] != 2 or counts["accumulate"] != 2
+                or counts["counts"] != 2 * counts["scatter"]):
             raise AssertionError(f"room_1080p launches {counts}, segments "
                                  f"{segs}")
         launches.update({k: counts[k] for k in (
             "closest_hit", "any_hit", "surface", "scatter", "env_miss",
-            "coherence_key", "sort_lanes", "unsort_lanes")})
+            "coherence_key", "sort_lanes", "unsort_lanes", "raygen",
+            "accumulate", "counts")})
 
     with phase("treelet_1080p"):
         with env(MSN_TREELETS="1"):
@@ -3586,11 +3827,17 @@ def main():
     with phase("shadow_compact"):
         shadow_compact_phase(*scenes["room_184k/default"], cfg)
 
+    stage_profiles = {}
     with phase("graphs"):
         graph_if_phase(dev, timings, errs)
         launches["graph_if"] = graphs_phase(
-            graph_cells(scenes, offline_cell, instanced, cfg, dev))
+            graph_cells(scenes, offline_cell, instanced, cfg, dev),
+            stage_profiles)
         del offline_cell, instanced
+
+    # this slice: a sample's camera rays, accumulation and counts
+    with phase("frame"):
+        frame_phase(scenes, stage_profiles, cfg, timings, errs)
 
     with phase("capi"):
         capi_phase(dev)

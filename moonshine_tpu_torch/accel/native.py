@@ -4,8 +4,9 @@ walk of csrc/tlas.cu, which share csrc/visit.cuh; traverse.cu and
 vpacket.cu also share the group walk of csrc/group_walk.cuh), the
 arithmetic microbenchmarks (csrc/vpu.cu), the quantised-row decode
 probe (csrc/bitcast.cu), the bounce's shading (csrc/shade.cu), the
-lane sort (csrc/sort.cu) and the graphs' conditional nodes
-(csrc/graph_cond.cu);
+lane sort (csrc/sort.cu), the graphs' conditional nodes
+(csrc/graph_cond.cu) and a sample's camera rays and accumulation
+(csrc/frame.cu);
 csrc/tlas.cu is built twice, the second time with its visit counters
 (`tlas_count`).
 
@@ -37,7 +38,8 @@ SOURCES = {"traverse": CSRC / "traverse.cu", "treelet": CSRC / "treelet.cu",
            "vpacket": CSRC / "vpacket.cu", "vpu": CSRC / "vpu.cu",
            "bitcast": CSRC / "bitcast.cu", "tlas": CSRC / "tlas.cu",
            "tlas_count": CSRC / "tlas.cu", "shade": CSRC / "shade.cu",
-           "sort": CSRC / "sort.cu", "graph_cond": CSRC / "graph_cond.cu"}
+           "sort": CSRC / "sort.cu", "graph_cond": CSRC / "graph_cond.cu",
+           "frame": CSRC / "frame.cu"}
 # a library's own flags: tlas_count is the two-level walk that counts its
 # visits (accel/tlas.py walk_visits), never the timed build
 EXTRA_FLAGS = {"tlas_count": ["-DMSN_TLAS_COUNT"]}
@@ -177,8 +179,9 @@ class TlasLib(NativeLib):
 
 class ShadeLib(NativeLib):
     """shade.cu's entry points: the surface (with the bounce's light
-    draw), scatter, env miss and env draw kernels
-    (integrator/shade.py)."""
+    draw; it counts the shadow rays it sets into a device scalar),
+    scatter (it counts the lanes it leaves live), env miss and env draw
+    kernels (integrator/shade.py)."""
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -187,9 +190,9 @@ class ShadeLib(NativeLib):
             [_I, _I, _P, _L, _P, _P, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I,
              _I, _F] + [_P] * 12 + [_L] + [_P] * 11
             + [_I, _L, _I, _P, _P, _P, _P, _I, _F, _P, _L, _P, _P, _I,
-               _I] + [_P] * 8)
+               _I] + [_P] * 9)
         self.scatter = self._fn(
-            "msn_shade_scatter", [_P] * 17 + [_I, _I, _L] + [_P] * 9)
+            "msn_shade_scatter", [_P] * 17 + [_I, _I, _L] + [_P] * 10)
         self.env_miss = self._fn(
             "msn_shade_env_miss", [_P, _I, _F, _I] + [_P] * 8 + [_L, _P, _P])
         self.env_draw = self._fn(
@@ -240,10 +243,23 @@ class GraphCondLib(NativeLib):
         self.error = lambda err: error(err).decode()
 
 
+class FrameLib(NativeLib):
+    """frame.cu's entry points: the camera rays with the fresh lane
+    state (`raygen`) and the sample's accumulation (`accumulate`)
+    (render/frame_kernels.py)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.raygen = self._fn("msn_frame_raygen",
+                               [_P] * 7 + [_I] * 6 + [_F] + [_P] * 14)
+        self.accumulate = self._fn("msn_frame_accumulate",
+                                   [_P, _P, _I, _I, _I, _P, _P, _P])
+
+
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,
             "vpacket": VPacketLib, "vpu": VpuLib, "bitcast": BitcastLib,
             "tlas": TlasLib, "tlas_count": TlasLib, "shade": ShadeLib,
-            "sort": SortLib, "graph_cond": GraphCondLib}
+            "sort": SortLib, "graph_cond": GraphCondLib, "frame": FrameLib}
 _LOADED: dict[str, NativeLib] = {}
 
 
@@ -412,3 +428,8 @@ def sort_lib() -> SortLib:
 def graph_cond_lib() -> GraphCondLib:
     """The graphs' conditional nodes (csrc/graph_cond.cu)."""
     return _lib("graph_cond")
+
+
+def frame_lib() -> FrameLib:
+    """A sample's camera rays and accumulation (csrc/frame.cu)."""
+    return _lib("frame")

@@ -30,6 +30,12 @@
 //   env_draw  lights/envmap.py:120-138 (alias draw, texel row, equal-area
 //             forward map, pdf): the direct integrator's draw
 //
+// The bounce loop's counts ride on the kernels that write the masks
+// (path.py:580 jnp.sum(lane), the shadow rays traced, and :687 the live
+// count; :400's lanes traced are the last live count): the full surface
+// form adds the shadow rays it sets to a device scalar, the scatter the
+// lanes it leaves live, each block once (a warp sum, then one atomic).
+//
 // What bounds them on this card: bytes. Each live lane reads its state and
 // one 192-byte shading row (plus atlas texels, instance transforms, env
 // texels and emitter rows) and writes its outputs once; the arithmetic is
@@ -713,23 +719,42 @@ struct Draw {  // the full form's light draw (integrator.hlsl:126-151)
   float *dir, *rad, *pdf;
   float *sh_o, *sh_d, *sh_t;
   bool* sh_lane;  // every lane
+  long long* rays;  // the shadow rays traced are added here (or null)
 };
 
-// The surface kernel: decode the hit, pick the shading frame and add the
-// emission (integrator.hlsl:93-124); in the full form then the
+// Adds the block's values of v into *total: a warp sum, then one atomic a
+// block (every thread of the block calls it). Integer adds: the total does
+// not depend on the order.
+__device__ __forceinline__ void count_into(long long* total, int v) {
+  __shared__ int warp_sums[kBlock / 32];
+  v = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < kBlock / 32; ++w) sum += warp_sums[w];
+    if (sum != 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(total),
+                (unsigned long long)sum);
+  }
+}
+
+// The surface kernel's lane i: decode the hit, pick the shading frame and
+// add the emission (integrator.hlsl:93-124); in the full form then the
 // max-bounce cut, the roulette and every NEE light sample with its shadow
 // ray (:126-151). A lane dead at the hit only clears its shadow lanes (the
 // direct form still decodes every lane, as its caller reads them all).
+// Returns the shadow rays it sets.
 template <int kMode, bool kTwoLevel>
-__global__ void __launch_bounds__(kBlock)
-    surface_kernel(Scene sc, Lanes in, SurfaceOut out, Draw dr, long long n) {
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
+__device__ __forceinline__ int surface_lane(const Scene& sc, const Lanes& in,
+                                            const SurfaceOut& out,
+                                            const Draw& dr, long long n,
+                                            long long i) {
   const bool active = in.active[i];
   const int n_samples = kMode == kFull ? dr.env_samples + dr.mesh_samples : 0;
   if (kMode != kDirect && !active) {
     for (int k = 0; k < n_samples; ++k) dr.sh_lane[k * n + i] = false;
-    return;
+    return 0;
   }
   long long tri = in.tri[i];
   tri = tri < 0 ? 0 : (tri > sc.num_tris - 1 ? sc.num_tris - 1 : tri);
@@ -874,7 +899,7 @@ __global__ void __launch_bounds__(kBlock)
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   if (kMode == kDirect) {
     store3(in.radiance, i, rad + (active ? emissive : zero));
-    return;
+    return 0;
   }
 
   // the emissive term (integrator.hlsl:109-124)
@@ -899,7 +924,7 @@ __global__ void __launch_bounds__(kBlock)
   store3(in.radiance, i, rad);
   if (kMode == kThin) {  // the max-bounce cut kills every lane here
     in.active[i] = false;
-    return;
+    return 0;
   }
 
   // the termination (integrator.hlsl:126-135)
@@ -919,11 +944,12 @@ __global__ void __launch_bounds__(kBlock)
   if (!alive) {
     in.active[i] = false;
     for (int k = 0; k < n_samples; ++k) dr.sh_lane[k * n + i] = false;
-    return;
+    return 0;
   }
 
   // the NEE draws (integrator.hlsl:139-151): env samples, then mesh ones
   const bool nee = !(type == kMirror || type == kGlass);
+  int traced = 0;
   for (int k = 0; k < n_samples; ++k) {
     const float r0 = next_float(&state);
     const float r1 = next_float(&state);
@@ -953,6 +979,7 @@ __global__ void __launch_bounds__(kBlock)
     const bool lane = l_pdf > 0.0f;
     dr.sh_lane[j] = lane;
     if (!lane) continue;
+    ++traced;
     store3(dr.dir, j, l_dir);
     store3(dr.rad, j, l_rad);
     dr.pdf[j] = l_pdf;
@@ -961,6 +988,18 @@ __global__ void __launch_bounds__(kBlock)
     dr.sh_t[j] = s_t;
   }
   dr.rng[i] = (long long)state;
+  return traced;
+}
+
+// The surface kernel, one thread a lane (surface_lane); the full form adds
+// the shadow rays its lanes set into *dr.rays where that is given.
+template <int kMode, bool kTwoLevel>
+__global__ void __launch_bounds__(kBlock)
+    surface_kernel(Scene sc, Lanes in, SurfaceOut out, Draw dr, long long n) {
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const int traced =
+      i < n ? surface_lane<kMode, kTwoLevel>(sc, in, out, dr, n, i) : 0;
+  if (kMode == kFull && dr.rays != nullptr) count_into(dr.rays, traced);
 }
 
 struct Lights {  // a bounce's NEE samples [S, n] and their shadow answers
@@ -981,19 +1020,21 @@ struct State {  // the lane state, updated in place
   float *o, *d, *throughput, *radiance, *last_pdf;
   bool* last_delta;
   long long* rng;
+  long long* live;  // the lanes left live are added here (or null)
 };
 
-// The scatter kernel: weight each traced, unoccluded light sample by the
-// power heuristic and add it (integrator.hlsl:139-151), then draw the BSDF
-// sample and continue the path (:153-163). A lane dead before it writes
-// its mask alone; a lane whose path ends writes no ray or throughput.
-__global__ void __launch_bounds__(kBlock)
-    scatter_kernel(ScatterIn in, Lights L, State st, long long n) {
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
+// The scatter kernel's lane i: weight each traced, unoccluded light sample
+// by the power heuristic and add it (integrator.hlsl:139-151), then draw
+// the BSDF sample and continue the path (:153-163). A lane dead before it
+// writes its mask alone; a lane whose path ends writes no ray or
+// throughput. Returns whether the lane is left live.
+__device__ __forceinline__ bool scatter_lane(const ScatterIn& in,
+                                             const Lights& L,
+                                             const State& st, long long n,
+                                             long long i) {
   if (!in.active[i]) {
     st.active[i] = false;
-    return;
+    return false;
   }
   Mat m;
   m.type = in.type[i];
@@ -1053,6 +1094,16 @@ __global__ void __launch_bounds__(kBlock)
   st.last_pdf[i] = pdf;
   st.last_delta[i] = m.type == kMirror || m.type == kGlass;
   st.rng[i] = (long long)state;
+  return go_on;
+}
+
+// The scatter kernel, one thread a lane (scatter_lane); it adds the lanes
+// it leaves live into *st.live where that is given.
+__global__ void __launch_bounds__(kBlock)
+    scatter_kernel(ScatterIn in, Lights L, State st, long long n) {
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const bool live = i < n && scatter_lane(in, L, st, n, i);
+  if (st.live != nullptr) count_into(st.live, live ? 1 : 0);
 }
 
 struct MissIn {
@@ -1151,7 +1202,9 @@ extern "C" {
 // emitters (rows float32 [R, 25], select, alias int64, max(count, 1),
 // whether there are none); outputs: the samples' dir, radiance [S, n, 3]
 // and pdf [S, n], the shadow rays' origin, direction [S * n, 3] and t_max
-// (written where the ray is traced), and their lanes bool [S * n].
+// (written where the ray is traced), and their lanes bool [S * n]; rays an
+// int64 device scalar the shadow rays set are added to (null: not
+// counted).
 int msn_shade_surface(int mode, int two_level, const float* tri_shade,
                       long long num_tris, const float* inst_tf,
                       const float* inst_inv, long long num_inst,
@@ -1176,7 +1229,7 @@ int msn_shade_surface(int mode, int two_level, const float* tri_shade,
                       const long long* emitter_alias, int emitter_count,
                       int emitters_empty, float* l_dir, float* l_rad,
                       float* l_pdf, float* sh_o, float* sh_d, float* sh_t,
-                      bool* sh_lane, void* stream) {
+                      bool* sh_lane, long long* rays, void* stream) {
   if (n <= 0) return 0;
   Scene sc{tri_shade,
            num_tris,
@@ -1214,6 +1267,7 @@ int msn_shade_surface(int mode, int two_level, const float* tri_shade,
     dr.sh_d = sh_d;
     dr.sh_t = sh_t;
     dr.sh_lane = sh_lane;
+    dr.rays = rays;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = blocks(n);
@@ -1240,7 +1294,9 @@ int msn_shade_surface(int mode, int two_level, const float* tri_shade,
 // ones first; each weighed by its kind's count). The lane state, in
 // place: active bool, o, d, throughput, radiance [n, 3], last_pdf,
 // last_delta bool, rng int64 (a lane dead before the launch writes its
-// active alone; a lane whose path ends writes no o, d or throughput).
+// active alone; a lane whose path ends writes no o, d or throughput); live
+// an int64 device scalar the lanes left live are added to (null: not
+// counted).
 int msn_shade_scatter(const int* type, const float* color, const float* metal,
                       const float* alpha, const float* ior, const float* fn,
                       const float* fs, const float* ft, const float* w_o_ss,
@@ -1251,13 +1307,14 @@ int msn_shade_scatter(const int* type, const float* color, const float* metal,
                       int mesh_samples, long long n, bool* st_active,
                       float* o, float* d, float* throughput, float* radiance,
                       float* last_pdf, bool* last_delta, long long* rng,
-                      void* stream) {
+                      long long* live, void* stream) {
   if (env_samples < 0 || mesh_samples < 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   ScatterIn in{type, color, metal, alpha, ior, fn, fs, ft, w_o_ss,
                position, tri_n, active};
   Lights L{l_dir, l_rad, l_pdf, lane, occluded, env_samples, mesh_samples};
-  State st{st_active, o, d, throughput, radiance, last_pdf, last_delta, rng};
+  State st{st_active, o, d, throughput, radiance, last_pdf, last_delta, rng,
+           live};
   scatter_kernel<<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       in, L, st, n);
   return (int)cudaGetLastError();

@@ -185,7 +185,7 @@ STAGES = ("camera", "traversal", "env", "surface", "nee_draw", "any_hit",
 
 def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
                  last: bool = False, resort: bool = False,
-                 roulette: bool | None = None) -> dict:
+                 roulette: bool | None = None, live=None) -> dict:
     """One bounce over the whole lane batch. `bounce` is an int or a
     device scalar (the graphed loop's, so that one graph serves many
     bounces); `roulette` is whether bounce > 3, the one branch on it taken
@@ -197,7 +197,16 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
     miss, the surface decode with the light draw, and the scatter are
     kernels of csrc/shade.cu (integrator/shade.py), which on the card
     update the state's radiance, throughput, rng, o, d and masks in
-    place."""
+    place.
+
+    The counts (the reference's jnp.sum at path.py:400, :580, :687):
+    `live` is an int64 device scalar holding the lanes live at the
+    segment's start (the trace's; None, a state run by hand: summed here
+    from its mask). The segment traces those lanes, so st["rays"] (in
+    place) gains `live`; then `live` is zeroed and recounted by the
+    kernels that write the masks: the surface adds the shadow rays it
+    sets to st["rays"], the scatter the lanes it leaves live to `live`;
+    the last segment leaves none."""
     if roulette is None:
         roulette = bounce > 3
     active = st["active"]
@@ -206,8 +215,12 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
     last_pdf = st["last_pdf"]
     last_delta = st["last_delta"]
     rng = st["rng"]
+    if live is None:
+        live = active.sum()
     with record_function("live_count"):
-        rays = st["rays"] + active.sum()
+        rays = st["rays"]
+        rays += live
+        live.zero_()
 
     with record_function("traversal"):
         hit = _closest(scene, o, d, INF_T, active, presorted=resort)
@@ -229,7 +242,7 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
         surf = shade.surface(scene, cfg.mesh_samples_per_bounce, bounce, hit,
                              o, d, active, throughput, radiance, last_pdf,
                              last_delta, shade.THIN if last else shade.FULL,
-                             draw)
+                             draw, rays=rays)
     if last:
         # the max-bounce cut kills every lane here
         return dict(st, active=surf.active, radiance=surf.radiance,
@@ -244,14 +257,13 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
                 presorted=resort and not (_shadow_compact()
                                           and scene.has_delta),
             )
-        with record_function("live_count"):
-            rays = rays + surf.shadow.lane.sum()
         lights = lights._replace(occluded=occluded.view(lights.lane.shape))
 
     # ---- weight the light samples and scatter (integrator.hlsl:139-163)
     with record_function("scatter"):
         out = shade.scatter(surf, o, d, surf.throughput, surf.radiance,
-                            surf.rng, surf.active, lights, state=st)
+                            surf.rng, surf.active, lights, state=st,
+                            live=live)
     return dict(st, **out, rays=rays)
 
 
@@ -335,15 +347,16 @@ def _store(dst: dict, src: dict) -> None:
 
 
 def _bounce_shrunk(scene, cfg: PathConfig, bounce, st: dict, last: bool,
-                   width: int, roulette: bool = False) -> dict:
+                   width: int, roulette: bool = False, live=None) -> dict:
     """A bounce over the first `width` lanes of a resorted state (live
     lanes first; `_prefix_width` of the live count), written into that
     prefix of `st` in place. Dead lanes' state is final, so the image is
-    unchanged; their RNG stops advancing, which nothing observes."""
+    unchanged; their RNG stops advancing, which nothing observes. Every
+    live lane lies in the prefix, so its counts are the state's."""
     n = st["o"].shape[0]
     head = {k: (v[:width] if _is_lane(v, n) else v) for k, v in st.items()}
     out = _bounce_body(scene, cfg, bounce, head, last=last, resort=True,
-                       roulette=roulette)
+                       roulette=roulette, live=live)
     with record_function("store"):
         _store(head, out)
     return st
@@ -418,6 +431,8 @@ class _Trace:
         self.bufs = [st] + ([{k: (v if k == "rays" else torch.empty_like(v))
                               for k, v in st.items()}] if resort else [])
         self.bounce = torch.empty((), dtype=torch.int64, device=device)
+        # the lanes live after the last segment (n after reset), recounted
+        # by each segment's kernels (_bounce_body)
         self.live = torch.empty_like(self.bounce)
         # the index into _widths(n) of each segment's width, by the
         # parity of its position (a segment's prefix is the last one's),
@@ -439,7 +454,9 @@ class _Trace:
 
     def reset(self) -> None:
         """The state of fresh camera rays, whose o, d and rng the caller
-        wrote into the first set, `bufs[0]` (a step's work)."""
+        wrote into the first set, `bufs[0]` (a step's work; on the card a
+        frame's camera rays write all of it in one kernel,
+        render/frame_kernels.py)."""
         st = self.bufs[0]
         st["active"].fill_(True)
         st["throughput"].fill_(1.0)
@@ -450,6 +467,7 @@ class _Trace:
         torch.arange(self.n, out=st["pix"])
         self.bounce.zero_()
         self.widx.fill_(2)  # the first segment runs over every lane
+        self.live.fill_(self.n)
 
     def run(self, scene):
         """The segments of one trace from the state `reset` made, as a
@@ -526,11 +544,12 @@ class _Trace:
     def _body(self, scene, last, roulette, presorted) -> None:
         st = self.bufs[0]
         out = _bounce_body(scene, self.cfg, self.bounce, st, last=last,
-                           resort=presorted, roulette=roulette)
+                           resort=presorted, roulette=roulette,
+                           live=self.live)
         with record_function("store"):
             _store(st, out)
         with record_function("live_count"):
-            self._advance(st)
+            self.bounce += 1
 
     def _resorted(self, scene, src, prefix, width, last, roulette) -> None:
         """Resort the first `prefix` lanes of set `src` into the other
@@ -540,13 +559,9 @@ class _Trace:
             _resort_state(scene, self.bufs[src], out=st, prefix=prefix,
                           width=width)
         _bounce_shrunk(scene, self.cfg, self.bounce, st, last, width,
-                       roulette)
+                       roulette, live=self.live)
         with record_function("live_count"):
-            self._advance(st)
-
-    def _advance(self, st: dict) -> None:
-        self.bounce += 1
-        torch.sum(st["active"], dim=0, out=self.live)
+            self.bounce += 1
 
     def live_count(self) -> int:
         """The live count whose copy `run` enqueued before it yielded,

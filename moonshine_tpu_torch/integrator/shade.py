@@ -15,7 +15,14 @@ kernels update the lane state in place and leave dead lanes, and equal
 the plain versions bit for bit on the card on every lane they write (the
 wrappers' docstrings say which). Each wrapper adds one to LAUNCHES[its
 name] where it launches (into a capture's tally while a graph is
-captured: accel/launch.py).
+captured: accel/launch.py), and to LAUNCHES["counts"] where that launch
+also counts.
+
+The bounce loop's counts (the reference's jnp.sum at path.py:400, :580,
+:687) ride on these kernels: the full surface form adds the shadow rays
+it sets to `rays`, the scatter the lanes it leaves live to `live`, each
+an int64 device scalar (the plain versions add torch's sums of the same
+masks; integer sums, so both are exact).
 
 The full surface form with a `DrawIn` also ends the bounce's termination
 and draws its NEE light samples (`_draw_plain`): the max-bounce cut, the
@@ -64,7 +71,7 @@ FULL, THIN, DIRECT = "full", "thin", "direct"
 _MODE_CODES = {FULL: 0, THIN: 1, DIRECT: 2}
 
 LAUNCHES = Counts({"surface": 0, "scatter": 0, "env_miss": 0,
-                   "env_draw": 0})
+                   "env_draw": 0, "counts": 0})
 
 
 def reset_launch_counts() -> None:
@@ -313,7 +320,8 @@ def _texture_frame(normal_rg, vtx_frame):
 
 def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
                   throughput, radiance, last_pdf, last_delta,
-                  mode: str = FULL, draw: DrawIn | None = None) -> Surface:
+                  mode: str = FULL, draw: DrawIn | None = None,
+                  rays=None) -> Surface:
     """Decode each lane's hit (masked lanes read clamped junk rows), pick
     its shading frame and add its emission (integrator.hlsl:93-124;
     reference path.py:424-485). THIN: the last segment's decode and
@@ -322,7 +330,8 @@ def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
     always, picked without the front-face sign, and the emission of every
     hit lane; it reads none of o, throughput, last_pdf, last_delta and
     bounce. `bounce` is an int or a device scalar. FULL then also draws
-    the bounce's light samples (`_draw_plain`; `draw` is required)."""
+    the bounce's light samples (`_draw_plain`; `draw` is required) and
+    adds the shadow rays it sets to `rays` where given."""
     tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
     w_o_ws = -d
     frame = w_o_ss = mat = None
@@ -389,7 +398,10 @@ def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
         return Surface(None, None, None, None, None, radiance,
                        torch.zeros_like(active))
     surf = Surface(position, tri_n, frame, w_o_ss, mat, radiance, active)
-    return _draw_plain(scene, mesh_samples, bounce, surf, throughput, draw)
+    surf = _draw_plain(scene, mesh_samples, bounce, surf, throughput, draw)
+    if rays is not None and surf.shadow is not None:
+        rays += surf.shadow.lane.sum()
+    return surf
 
 
 def _draw_plain(scene, mesh_samples: int, bounce, surf: Surface,
@@ -444,13 +456,14 @@ def _draw_plain(scene, mesh_samples: int, bounce, surf: Surface,
 
 
 def scatter_plain(surf: Surface, o, d, throughput, radiance, rng, active,
-                  lights: Lights | None, state: dict) -> dict:
+                  lights: Lights | None, state: dict, live=None) -> dict:
     """Weight each NEE sample (`lights`, in draw order; None: none) by the
     power heuristic and add it (integrator.hlsl:139-151), then draw the
     BSDF sample and continue the path (:153-163; reference
     path.py:518-623). Returns the lane state's new active, o, d,
     throughput, radiance, last_pdf, last_delta and rng (`state`, the
-    kernel's buffers to write into, is not read here)."""
+    kernel's buffers to write into, is not read here), and adds the lanes
+    it leaves live to `live` where given."""
     mat, frame, w_o_ss = surf.mat, surf.frame, surf.w_o_ss
     is_delta = B.is_delta(mat.type)
     for k in range(0 if lights is None else lights.pdf.shape[0]):
@@ -476,6 +489,8 @@ def scatter_plain(surf: Surface, o, d, throughput, radiance, rng, active,
     thr_mul = f * (torch.abs(cos_theta(w_i_ss))
                    / torch.clamp_min(pdf, 1e-30))[..., None]
     act = active[..., None]
+    if live is not None:
+        live += active.sum()
     return dict(
         active=active,
         o=torch.where(act, new_o, o),
@@ -559,7 +574,8 @@ def _launch(key: str, fn, device, *args) -> None:
 
 def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
             throughput, radiance, last_pdf, last_delta,
-            mode: str = FULL, draw: DrawIn | None = None) -> Surface:
+            mode: str = FULL, draw: DrawIn | None = None,
+            rays=None) -> Surface:
     """surface_plain's result: the csrc/shade.cu surface kernel for CUDA
     tensors, the plain version for CPU tensors. On the card the kernel
     works in place: it adds the emission into `radiance` (the thin and
@@ -569,14 +585,16 @@ def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
     `draw.rng`; the returned Surface holds
     those tensors. The decoded hit is written on the lanes active at the
     hit (the direct form: every lane), a light sample and its shadow ray
-    where the ray is traced, the shadow lanes everywhere."""
+    where the ray is traced, the shadow lanes everywhere. The full form
+    adds the shadow rays it sets to `rays` (an int64 device scalar) where
+    given."""
     if mode == FULL and draw is None:
         raise ValueError("the full form draws the bounce's light samples: "
                          "it needs a DrawIn")
     if _device_kind(d) == "cpu":
         return surface_plain(scene, mesh_samples, bounce, hit, o, d, active,
                              throughput, radiance, last_pdf, last_delta,
-                             mode, draw)
+                             mode, draw, rays)
     lib = native.shade_lib()
     n, dev = d.shape[0], d.device
     f32, b8, keep = torch.float32, torch.bool, []
@@ -589,6 +607,7 @@ def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
         outs = [vec() for _ in range(6)] + [lane(torch.int32), vec(),
                                             lane(), lane(), lane()]
     draw_on = mode == FULL
+    counted = draw_on and rays is not None
     if scene.tri_shade.data_ptr() % 16:
         raise ValueError("the surface kernel reads material rows as float4: "
                          "tri_shade must be 16-byte aligned")
@@ -644,7 +663,10 @@ def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
         int(draw_on and draw.roulette),
         _inplace(draw.rng, torch.int64) if draw_on else None,
         *env_args, *em_args,
-        *(None if x is None else x.data_ptr() for x in samples))
+        *(None if x is None else x.data_ptr() for x in samples),
+        _inplace(rays, torch.int64) if counted else None)
+    if counted:
+        count_launch(LAUNCHES, "counts")
     if mode == THIN:
         return Surface(None, None, None, None, None, radiance, active)
     position, tri_n, fn, fs, ft, w_o_ss, mtype, color, metal, alpha, ior = \
@@ -677,17 +699,18 @@ def _inplace(x, dtype):
 
 
 def scatter(surf: Surface, o, d, throughput, radiance, rng, active,
-            lights: Lights | None, state: dict) -> dict:
+            lights: Lights | None, state: dict, live=None) -> dict:
     """scatter_plain's result: the csrc/shade.cu scatter kernel for CUDA
     tensors, the plain version for CPU tensors. On the card the kernel
     updates o, d, throughput, radiance and rng in place and writes the
     new active, last_pdf and last_delta into `state`'s tensors of those
     names: a lane inactive on entry writes its active
     alone (its light lanes are clear, as the draw leaves them), a lane
-    whose path ends no ray or throughput."""
+    whose path ends no ray or throughput. It adds the lanes it leaves live
+    to `live` (an int64 device scalar) where given."""
     if _device_kind(d) == "cpu":
         return scatter_plain(surf, o, d, throughput, radiance, rng, active,
-                             lights, state)
+                             lights, state, live)
     lib = native.shade_lib()
     n, dev = d.shape[0], d.device
     f32, b8, keep = torch.float32, torch.bool, []
@@ -711,7 +734,10 @@ def scatter(surf: Surface, o, d, throughput, radiance, rng, active,
         _inplace(state["active"], b8), _inplace(o, f32), _inplace(d, f32),
         _inplace(throughput, f32), _inplace(radiance, f32),
         _inplace(state["last_pdf"], f32), _inplace(state["last_delta"], b8),
-        _inplace(rng, torch.int64))
+        _inplace(rng, torch.int64),
+        None if live is None else _inplace(live, torch.int64))
+    if live is not None:
+        count_launch(LAUNCHES, "counts")
     return dict(active=state["active"], o=o, d=d, throughput=throughput,
                 radiance=radiance, last_pdf=state["last_pdf"],
                 last_delta=state["last_delta"], rng=rng)

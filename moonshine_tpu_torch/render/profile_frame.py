@@ -55,9 +55,10 @@ def _trace_events(prof) -> list[dict]:
             return json.load(f)["traceEvents"]
 
 
-def _annotated(events, name) -> tuple[int, float, float]:
-    """(calls, host us, kernel us) of the ranges `name` marks: the
-    kernels whose launches fall inside them, by correlation id."""
+def _annotated(events, name) -> tuple[int, float, float, dict]:
+    """(calls, host us, kernel us, {kernel name: launches}) of the ranges
+    `name` marks: the kernels whose launches fall inside them, by
+    correlation id."""
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("name") == name and e.get("cat") == "user_annotation"
              and "dur" in e]
@@ -65,9 +66,13 @@ def _annotated(events, name) -> tuple[int, float, float]:
             if e.get("cat") == "cuda_runtime"
             and any(a <= e["ts"] <= b for a, b in spans)}
     corr.discard(None)
-    kernel_us = sum(e["dur"] for e in events if e.get("cat") == "kernel"
-                    and e.get("args", {}).get("correlation") in corr)
-    return len(spans), sum(b - a for a, b in spans), kernel_us
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in corr]
+    names: dict[str, int] = {}
+    for e in kernels:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    return (len(spans), sum(b - a for a, b in spans),
+            sum(e["dur"] for e in kernels), names)
 
 
 def _merged(spans) -> list:
@@ -138,8 +143,8 @@ def profile(fn, marks=()) -> dict:
     each device's busy share and the overlap of its streams
     (`_by_device`), kernel time by name (us), and for each name in
     `marks` (a range that fn's callees open with record_function) its
-    calls, host ms and kernel ms. CPU activity is traced only when there
-    are marks."""
+    calls, host ms, kernel ms and kernels launched by name. CPU activity
+    is traced only when there are marks."""
     import torch
 
     def synchronize():  # every card: fn may run a mesh
@@ -176,9 +181,9 @@ def profile(fn, marks=()) -> dict:
         "by_name_us": by_name,
     }
     for name in marks:
-        calls, host_us, kernel_us = _annotated(events, name)
+        calls, host_us, kernel_us, names = _annotated(events, name)
         out[name] = {"calls": calls, "host_ms": host_us / 1e3,
-                     "kernel_ms": kernel_us / 1e3}
+                     "kernel_ms": kernel_us / 1e3, "kernels": names}
     return out
 
 

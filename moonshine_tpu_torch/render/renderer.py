@@ -8,7 +8,8 @@ frames above MAX_LANES pixels to the staged per-bounce path
 are keyed by (sample, x, y), so any lane order, banding or batching gives
 the same image. Each runs through a cached `_Frame`: camera rays, the
 bounce loop and the accumulation as graph steps (integrator/graphs.py),
-the sample index a device scalar.
+the sample index a device scalar; the camera rays and the accumulation
+are kernels of csrc/frame.cu on the card (render/frame_kernels.py).
 """
 
 from __future__ import annotations
@@ -16,16 +17,11 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from ..core import rng as R
 from ..integrator import graphs, path
 from ..integrator.path import PathConfig, _new_trace, _resolve_resort
-from .camera import LensArrays, generate_rays, pixel_uv
+from . import frame_kernels as FK
+from .camera import LensArrays
 from .sensor import Sensor, accumulate
-
-# Lanes are ordered tile-major in 64x128-pixel tiles when the image is a
-# multiple of the tile, scanline otherwise (the reference's order; it
-# keeps each traversal batch's rays spatially compact).
-TILE_H, TILE_W = 64, 128
 
 # Frames above this many pixels run through the staged path (the
 # reference's switch, renderer.py:77 there), samples batched onto the lane
@@ -34,43 +30,15 @@ MAX_LANES = 512 * 1024
 STAGE_TARGET_LANES = 2 * 1024 * 1024
 
 
-def _pixel_coords(height: int, width: int, device):
-    """(py, px, unpack): int64 pixel rows/cols per lane and
-    `unpack(flat [N, C]) -> [height, width, C]`."""
-    ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.int64, device=device),
-        torch.arange(width, dtype=torch.int64, device=device),
-        indexing="ij")
-    if height % TILE_H or width % TILE_W:
-        return (ys.reshape(-1), xs.reshape(-1),
-                lambda flat: flat.reshape(height, width, -1))
-    ty, tx = height // TILE_H, width // TILE_W
-
-    def tiled(a):
-        return a.reshape(ty, TILE_H, tx, TILE_W).permute(0, 2, 1, 3).reshape(-1)
-
-    def unpack(flat):
-        return (flat.reshape(ty, tx, TILE_H, TILE_W, -1)
-                .permute(0, 2, 1, 3, 4).reshape(height, width, -1))
-
-    return tiled(ys), tiled(xs), unpack
-
-
 def _sample_rays(lens: LensArrays, height: int, width: int,
-                 sample_index: int, flip_image: bool, device, y0: int = 0,
+                 sample_index, flip_image: bool, device, y0: int = 0,
                  band_h: int | None = None):
     """Camera rays and per-lane RNG for one sample (the raygen stage) of
-    rows [y0, y0 + band_h), in the lane order of _pixel_coords. Returns
-    (o, d, rng, unpack)."""
-    bh = height if band_h is None else band_h
-    py, px, unpack = _pixel_coords(bh, width, device)
-    py = py + y0  # absolute pixel rows
-    rng = R.seed(sample_index, px, py)
-    rng, jitter = R.next_float2(rng)
-    uv = pixel_uv(px, py, width, height, jitter, flip_image)
-    rng, ap = R.next_float2(rng)
-    o, d = generate_rays(lens, width, height, uv, ap)
-    return o, d, rng, unpack
+    rows [y0, y0 + band_h), in the lane order of frame_kernels'
+    _pixel_coords (the raygen kernel on a CUDA device). Returns (o, d,
+    rng, unpack)."""
+    return FK.sample_rays(lens, height, width, sample_index, flip_image,
+                          device, y0, band_h)
 
 
 class _Frame:
@@ -99,21 +67,15 @@ class _Frame:
                                device=dev)
         self.rays = torch.zeros((), dtype=torch.int64, device=dev)
         self.segments = torch.zeros_like(self.rays)
-        self.unpack = _pixel_coords(bh, width, dev)[2]
 
     def raygen(self) -> None:
         """The step before a trace: this sample's camera rays and RNG in
-        the trace's first set of buffers, its state reset."""
+        the trace's first set of buffers, its state reset (one kernel on
+        the card)."""
         with record_function("camera"):
-            rays = [_sample_rays(self.lens, self.height, self.width,
-                                 self.sample + s, self.flip_image,
-                                 self.acc.device, self.y0, self.bh)[:3]
-                    for s in range(self.nbatch)]
-            st = self.trace.bufs[0]
-            for k, parts in zip(("o", "d", "rng"), zip(*rays)):
-                st[k].copy_(parts[0] if self.nbatch == 1
-                            else torch.cat(parts))
-            self.trace.reset()
+            FK.raygen(self.lens, self.sample, self.height, self.width,
+                      self.y0, self.bh, self.nbatch, self.flip_image,
+                      self.trace)
 
     def accumulate(self) -> None:
         """The step after a trace: its radiance (from the set of buffers
@@ -127,10 +89,9 @@ class _Frame:
             self.sample += self.nbatch
 
     def _add(self, i: int) -> None:
-        radiance = self.trace.radiance(i)
-        if self.nbatch > 1:
-            radiance = radiance.reshape(self.nbatch, -1, 3).sum(dim=0)
-        self.acc += self.unpack(radiance)
+        st = self.trace.bufs[i]
+        FK.accumulate(self.acc, st["radiance"],
+                      st["pix"] if self.trace.resort else None, self.nbatch)
 
     def _group(self, scene) -> None:
         """A group's camera rays, unrolled trace and accumulation (one
@@ -151,6 +112,7 @@ class _Frame:
                 for dst, src in zip(self.lens, lens):
                     dst.copy_(src)
                 self.sample.fill_(start)
+            with record_function("accumulate"):
                 self.acc.zero_()
                 self.rays.zero_()
                 self.segments.zero_()

@@ -21,8 +21,9 @@ conds, replays); one more sample under torch.profiler
 (render/profile_frame.py `profile`: kernels, graph replays, host
 dispatches and reads, kernel time, the device's idle share) and another
 for its device operations (`device_ops`: kernels, copies and fills,
-their time and busy time); and a digest of the image of sample 0, which
-must agree across checkouts.
+their time and busy time); and a digest of the image of sample 0 and its
+ray count (the Engine's frame: its image), which must agree across
+checkouts.
 
 Each checkout, this one and each `--against DIR` (an earlier commit
 unpacked by `git archive` into a gitignored directory), runs in a
@@ -93,7 +94,8 @@ def engine_from_world(world, dev):
 
 
 def cell(name: str, dev):
-    """sample(i) of the named cell: renders sample i, returns its image."""
+    """sample(i) of the named cell: renders sample i, returns (its image,
+    its ray count or None)."""
     from moonshine_tpu_torch.integrator.path import PathConfig
     from moonshine_tpu_torch.render.camera import LensArrays
     from moonshine_tpu_torch.render.renderer import render_spp
@@ -101,8 +103,7 @@ def cell(name: str, dev):
     from moonshine_tpu_torch.scripts.compare_sort import offline_cell
 
     if name == "offline_720p":
-        sample = offline_cell(dev)
-        return lambda i: sample(i)[0]
+        return offline_cell(dev)
     if name == "engine_720p":
         world, lens = procedural.room_scene(grid=6, subdivisions=4)
         e = engine_from_world(world, dev)
@@ -110,7 +111,7 @@ def cell(name: str, dev):
 
         def frame(_):
             e.reset_sensor(sensor)
-            return e.render(sensor, handle)
+            return e.render(sensor, handle), None
         return frame
     world, lens = (procedural.instanced_scene() if name == "instanced_1080p"
                    else procedural.room_scene(grid=6, subdivisions=4))
@@ -118,7 +119,7 @@ def cell(name: str, dev):
     cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
                      mesh_samples_per_bounce=1)
     h, w = (512, 512) if name == "room_184k" else (1080, 1920)
-    return lambda i: render_spp(scene, lens, h, w, i, 1, cfg)[0]
+    return lambda i: render_spp(scene, lens, h, w, i, 1, cfg)
 
 
 def device_ops(fn) -> dict:
@@ -158,10 +159,11 @@ def measure(sample, samples: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     sample(1)  # the warm-up: the captures
     graphs.reset_counts()
-    img = sample(0)
+    img, rays = sample(0)
     torch.cuda.synchronize()
     counts = dict(graphs.COUNTS)
     img = np.ascontiguousarray(np.asarray(torch.as_tensor(img).cpu()))
+    rays = None if rays is None else int(rays)
     ms = []
     for i in range(samples):
         torch.cuda.synchronize()
@@ -181,8 +183,9 @@ def measure(sample, samples: int) -> dict:
             "kernels": prof["kernels"], "profile_replays": prof["replays"],
             "dispatches": prof["host_dispatches"],
             "host_reads": prof["host_reads"], "kernel_ms": prof["kernel_ms"],
-            "idle_share": prof["idle_share"], **ops,
-            "image": hashlib.sha256(img.tobytes()).hexdigest()[:16]}
+            "idle_share": prof["idle_share"], **ops, "rays": rays,
+            "image": hashlib.sha256(img.tobytes() + str(rays).encode()
+                                    ).hexdigest()[:16]}
 
 
 def run_cells(names, samples: int) -> list:

@@ -1753,3 +1753,198 @@ def test_coherence_key_matches_plain(cuda, cells, n):
         want = sortutil.coherence_key_plain(o, d, bounds, cells, **kw)
         _assert_bits(got, want, f"coherence key {sorted(kw)}")
     assert sortutil.LAUNCHES["coherence_key"] == 4
+
+
+# --- a sample's camera rays, accumulation and counts (csrc/frame.cu,
+# render/frame_kernels.py; the counts in csrc/shade.cu) ---
+
+# (height, width, y0, bh, nbatch), flipped, aperture: scanline, tiled
+# (128x256), a scanline band and a tiled band below the first row, three
+# samples a batch tiled, and a ragged lane count (37 x 53 x 2 lanes)
+FRAME_CASES = {"scanline": ((48, 80, 0, 48, 1), True, 0.25),
+               "tiled": ((128, 256, 0, 128, 1), False, 0.25),
+               "band": ((96, 80, 32, 40, 1), True, 0.0),
+               "tiled_band": ((128, 128, 64, 64, 1), False, 0.0),
+               "batch3": ((64, 128, 0, 64, 3), True, 0.25),
+               "ragged": ((61, 53, 24, 37, 2), False, 0.1)}
+
+
+def _frame_lens(aperture, device, seed=0):
+    from moonshine_tpu_torch.render.camera import LensArrays
+
+    rs = np.random.RandomState(seed)
+    f32 = lambda x: torch.tensor(np.float32(x), device=device)
+    return LensArrays(
+        origin=f32(rs.randn(3) * 2), forward=f32(rs.randn(3)),
+        up=f32([0.1, 0.2, 1.0] + rs.randn(3) * 0.05),
+        vfov=f32(0.5 + rs.rand()), aperture=f32(aperture),
+        focus_distance=f32(1.0 + 3 * rs.rand()))
+
+
+def _frame_trace(n, device):
+    from moonshine_tpu_torch.integrator import path as P
+
+    return P._Trace(n, device, P.PathConfig(), resort=True, unroll=True,
+                    sort_first=False, capture=False)
+
+
+@pytest.mark.parametrize("case", sorted(FRAME_CASES))
+def test_raygen_kernel_equals_plain(cuda, case):
+    """The raygen kernel (one launch) against its plain version (the
+    camera rays of each sample, torch.cat, _Trace.reset) bit for bit:
+    o, d, rng and every buffer and scalar reset writes, each trace's
+    buffers filled with junk first; and sample_rays' kernel into fresh
+    tensors against sample_rays_plain."""
+    from moonshine_tpu_torch.render import frame_kernels as FK
+
+    (h, w, y0, bh, nb), flip, aperture = FRAME_CASES[case]
+    lens = _frame_lens(aperture, cuda, seed=len(case))
+    sample = torch.tensor(2**32 - 2, dtype=torch.int64, device=cuda)
+    traces = [_frame_trace(nb * bh * w, cuda) for _ in range(2)]
+    for tr in traces:
+        for st in tr.bufs:
+            for v in st.values():
+                v.copy_(torch.randint(0, 2, v.shape, device=cuda)
+                        .to(v.dtype))
+        tr.bounce.fill_(7), tr.widx.fill_(0), tr.live.fill_(-1)
+    FK.reset_launch_counts()
+    FK.raygen(lens, sample, h, w, y0, bh, nb, flip, traces[0])
+    assert FK.LAUNCHES["raygen"] == 1
+    FK.raygen_plain(lens, sample, h, w, y0, bh, nb, flip, traces[1])
+    got, want = traces[0], traces[1]
+    for k in got.bufs[0]:
+        _assert_bits(got.bufs[0][k], want.bufs[0][k], f"raygen {k}")
+    for k in ("bounce", "widx", "live"):
+        _assert_bits(getattr(got, k), getattr(want, k), f"raygen {k}")
+    if nb == 1:
+        mine = FK.sample_rays(lens, h, w, 9, flip, cuda, y0, bh)
+        plain = FK.sample_rays_plain(lens, h, w, 9, flip, cuda, y0, bh)
+        for k, a, b in zip(("o", "d", "rng"), mine, plain):
+            _assert_bits(a, b, f"sample_rays {k}")
+        assert FK.LAUNCHES["raygen"] == 2
+
+
+@pytest.mark.parametrize("pix", [False, True])
+@pytest.mark.parametrize("shape", [(48, 80, 1), (48, 80, 3), (128, 256, 1),
+                                   (128, 256, 3), (37, 53, 2)])
+def test_accumulate_kernel_equals_plain(cuda, shape, pix):
+    """The accumulation (one launch; with pix and several samples a
+    batch, a scatter first) against its plain version (index_copy_ by
+    pix, the batch summed left to right, the tile un-permute, acc +=)
+    bit for bit, on seeded radiance of every magnitude."""
+    from moonshine_tpu_torch.render import frame_kernels as FK
+
+    h, w, nb = shape
+    n = nb * h * w
+    rs = np.random.RandomState(n)
+    acc = torch.from_numpy(rs.rand(h, w, 3).astype(np.float32)).to(cuda)
+    rad = torch.from_numpy((rs.rand(n, 3) * 10.0 ** rs.randint(
+        -6, 6, (n, 1))).astype(np.float32)).to(cuda)
+    order = (torch.from_numpy(rs.permutation(n)).to(cuda) if pix else None)
+    got, want = acc.clone(), acc.clone()
+    FK.reset_launch_counts()
+    FK.accumulate(got, rad, order, nb)
+    FK.accumulate_plain(want, rad, order, nb)
+    assert FK.LAUNCHES["accumulate"] == 1
+    _assert_bits(got, want, f"accumulate {shape} pix {pix}")
+
+
+def test_frame_replays_a_new_lens_and_sample(cuda, monkeypatch):
+    """A frame's captured steps read the lens and the sample index on the
+    device: render_spp of the flagship at 64x64 with a second lens and
+    another first sample replays (no capture) and equals the eager loop
+    on them bit for bit, in the unrolled and the looped form."""
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    world, lens = procedural.flagship_scene()
+    scene = world.build(cuda)
+    first = LensArrays.from_lens(lens, cuda)
+    moved = first._replace(origin=first.origin + 0.3,
+                           aperture=torch.tensor(0.05, device=cuda))
+    for unroll in (True, False):
+        cfg = PathConfig(**CFG4, unroll=unroll)
+        with graphs.eager():
+            want = render_spp(scene, moved, 64, 64, 11, 2, cfg)
+        graphs.clear()
+        render_spp(scene, first, 64, 64, 0, 2, cfg)  # captures
+        graphs.reset_counts()
+        got = render_spp(scene, moved, 64, 64, 11, 2, cfg)
+        torch.cuda.synchronize()
+        assert graphs.COUNTS["captures"] == 0 and graphs.COUNTS["replays"]
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    graphs.clear()
+
+
+@pytest.mark.parametrize("form", ["unrolled", "looped", "resorted",
+                                  "two_level"])
+def test_counts_equal_torch_sums(cuda, monkeypatch, form):
+    """The counts the kernels fold in (the surface's shadow rays into the
+    ray count, the scatter's live lanes) after every segment of a traced
+    sample on the eager loop: the live count equals the sum of the
+    state's mask, the rays the lanes live at each segment's start plus
+    the shadow rays set, as torch sums them; in the unrolled and looped
+    forms, resorted over live prefixes (64x64 lanes), and two-level.
+    Then the same sample as graph replays gives the same rays."""
+    import os
+
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.integrator import path as P
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render.camera import LensArrays
+    from moonshine_tpu_torch.render.renderer import render_spp
+    from moonshine_tpu_torch.scene import procedural
+
+    if form == "two_level":
+        world, lens = procedural.instanced_scene(grid=(5, 4),
+                                                 subdivisions=2)
+        os.environ["MSN_FORCE_TLAS"] = "1"
+        try:
+            scene = world.build(cuda)
+        finally:
+            del os.environ["MSN_FORCE_TLAS"]
+        assert scene.tlas is not None
+    else:
+        world, lens = procedural.flagship_scene()
+        scene = world.build(cuda)
+    la = LensArrays.from_lens(lens, cuda)
+    cfg = PathConfig(**dict(CFG4, max_bounces=12 if form == "looped" else 4),
+                     unroll=form != "looped",
+                     resort_bounces=form == "resorted")
+    expect, seen = {"rays": 0}, []
+    body, surface = P._bounce_body, shade.surface
+
+    def counted_surface(*args, **kw):
+        surf = surface(*args, **kw)
+        if surf.shadow is not None:
+            expect["rays"] += int(surf.shadow.lane.sum())
+        return surf
+
+    def counted_body(scene, cfg, bounce, st, **kw):
+        expect["rays"] += int(st["active"].sum())
+        out = body(scene, cfg, bounce, st, **kw)
+        seen.append((int(kw["live"]), int(out["rays"]),
+                     int(out["active"].sum()), expect["rays"],
+                     st["o"].shape[0]))
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(P, "_bounce_body", counted_body)
+        m.setattr(shade, "surface", counted_surface)
+        with graphs.eager():
+            graphs.clear()
+            img, rays = render_spp(scene, la, 64, 64, 3, 1, cfg)
+    assert len(seen) >= 4
+    for live, n_rays, want_live, want_rays, _ in seen:
+        assert (live, n_rays) == (want_live, want_rays)
+    assert int(rays) == seen[-1][1]
+    if form == "resorted":
+        assert min(s[4] for s in seen) < 4096  # a live prefix ran
+    graphs.clear()
+    render_spp(scene, la, 64, 64, 3, 1, cfg)
+    again = render_spp(scene, la, 64, 64, 3, 1, cfg)
+    assert torch.equal(again[0], img) and int(again[1]) == int(rays)
+    graphs.clear()
