@@ -146,14 +146,17 @@ script exits non-zero without the result line. Phases:
                   recorded, each kernel's first launch (2,073,600 lanes)
                   replayed through the kernel and its plain version, every
                   output bit for bit, both timed, with the bound from the
-                  bytes and operations of those inputs
+                  bytes and operations of those inputs; the env miss also
+                  at live shares of 10% and 1% of its launch
   sort            the lane sort of csrc/sort.cu (core/sortutil.py): each
                   site's first call in an eager 1080p sample (the resort
                   and the packet sorts of room_1080p at 2,073,600 lanes,
                   the shadow batch's at 4,147,200, treelet_1080p's)
                   replayed through the kernels and the plain version:
-                  the coherence key from its inputs, the permutation
-                  against torch.argsort(key, stable=True) and every moved
+                  the coherence key that the sort's first kernel makes
+                  from its inputs against coherence_key_plain, the
+                  permutation against torch.argsort(key, stable=True) and
+                  every moved
                   column bit for bit (the recording and the helpers are
                   scripts/compare_sort.py's); each
                   timed beside the argsort alone, the plain version, the
@@ -200,7 +203,7 @@ script exits non-zero without the result line. Phases:
                   torch.count_nonzero; the eager stage split of
                   room_1080p and offline_720p (the camera range one
                   raygen launch a sample, the live_count range no
-                  reduction)
+                  reduction, the env range the miss kernel alone)
   capi            build/libmoonshine_tpu_torch.so built with g++ and loaded
                   with ctypes here: native/test_shim.cpp's scene through
                   Msn* calls on the card (engine on cuda, traversal
@@ -284,13 +287,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                  "moonshine_tpu/lights/envmap.py:134 sample_envmap on the "
                  "direct integrator's path (core/gather.py:61 gather_rows; "
                  "jnp, no pallas_call)"),
-    "coherence_key": ("moonshine_tpu_torch/csrc/sort.cu",
-                      "moonshine_tpu/accel/packet.py:651 _sort_key and "
-                      "integrator/path.py:638-647 _resort_state's key (jnp, "
-                      "no pallas_call)"),
     "sort_lanes": ("moonshine_tpu_torch/csrc/sort.cu",
                    "moonshine_tpu/core/sortutil.py:22 sort_lanes (jnp "
-                   "lax.sort, no pallas_call)"),
+                   "lax.sort, no pallas_call) with its keys, "
+                   "accel/packet.py:651 _sort_key and integrator/path.py:"
+                   "638-647 _resort_state's key (jnp), made in its first "
+                   "kernel"),
     "unsort_lanes": ("moonshine_tpu_torch/csrc/sort.cu",
                      "moonshine_tpu/accel/packet.py:690 _sorted_dispatch's "
                      "inverse sort_lanes by the lane iota (jnp lax.sort, no "
@@ -324,7 +326,6 @@ CUDA_KERNELS = {
     "tlas_any_hit": ["tlas_kernel"], "surface": ["surface_kernel"],
     "scatter": ["scatter_kernel"], "env_miss": ["env_miss_kernel"],
     "env_draw": ["env_draw_kernel"],
-    "coherence_key": ["coherence_key_kernel"],
     "sort_lanes": ["radix_upsweep_kernel", "radix_onesweep_kernel",
                    "lane_move_kernel"],
     "unsort_lanes": ["lane_move_kernel"],
@@ -2316,8 +2317,7 @@ SHADE_OPS = {
     "scatter_draw": (53, 22, 2, 58),  # a live lane: PCG draw, sample_bsdf
     "scatter_ray": (83, 55, 54, 173),  # a lane that goes on: the new
     # ray, eval_bsdf, the throughput
-    "env_miss": (63, 6), "env_miss_mis": (20, 17),  # a missing lane, by
-    # env size > 1 and == 1; the MIS weight where env samples are drawn
+    # the env miss's: scripts/compare_shade.py MISS_OPS
     "env_draw": (41, 27),  # every lane, by env size > 1 and == 1
 }
 # The kernels' earlier forms (every lane computed and written, the
@@ -2352,26 +2352,6 @@ def _atlas_taps(plane, rect, uv):
     taps = torch.cat([base + k for k in (0, 1, plane.width,
                                          plane.width + 1)])
     return torch.clamp(taps, 0, plane.data.shape[0] - 1)
-
-
-def _env_taps(env, d):
-    """The env texels the miss reads at directions d: the bilinear's four
-    taps and miss_radiance_and_pdf's texel (lights/envmap.py)."""
-    import torch
-
-    from moonshine_tpu_torch.core.mappings import (
-        square_to_equal_area_sphere_inverse)
-
-    S = env.size
-    uv = square_to_equal_area_sphere_inverse(d)
-    idx = torch.clamp((uv * S).to(torch.int64), 0, S - 1)
-    xi0 = torch.clamp(torch.floor(uv[:, 0] * S - 0.5).to(torch.int64),
-                      0, S - 1)
-    yi0 = torch.clamp(torch.floor(uv[:, 1] * S - 0.5).to(torch.int64),
-                      0, S - 1)
-    xi1, yi1 = torch.clamp(xi0 + 1, 0, S - 1), torch.clamp(yi0 + 1, 0, S - 1)
-    return torch.cat([idx[:, 0] * S + idx[:, 1], xi0 * S + yi0,
-                      xi1 * S + yi0, xi0 * S + yi1, xi1 * S + yi1])
 
 
 def _alias_bytes(select, alias, count, rand, row_bytes):
@@ -2501,7 +2481,7 @@ def shade_work(key, args, out):
     import torch
 
     count = lambda mask: int(mask.sum())
-    name = key.split("/")[0]
+    name = key.split("/")[0].split()[0]
     if name == "surface":
         return _surface_work(args, out)
     if name == "scatter":
@@ -2534,21 +2514,9 @@ def shade_work(key, args, out):
         flops += ops_of(go, SHADE_OPS["scatter_ray"])
         return nb, flops
     if name == "env_miss":
-        env, samples, _, d, active, tri, thr, rad, lp, ld = args[:10]
-        n = active.shape[0]
-        miss = active & ~(tri >= 0)
-        n_miss = count(miss)
-        nb = n * (1 + 12 + 12) + count(active) * 4
-        nb += n_miss * (12 + 12 + 1 + (4 if samples > 0 else 0))
-        k = 0 if env.size > 1 else 1
-        flops = n_miss * (SHADE_OPS["env_miss"][k]
-                          + (SHADE_OPS["env_miss_mis"][k] if samples > 0
-                             else 0))
-        if env.size == 1:
-            nb += 16 if n_miss else 0
-        else:
-            nb += _distinct(_env_taps(env, d[miss])) * 16
-        return nb, flops
+        from moonshine_tpu_torch.scripts.compare_shade import miss_work
+
+        return miss_work(args)
     env, rand2 = args
     n = rand2.shape[0]
     nb = n * (8 + 28)
@@ -2569,10 +2537,12 @@ def shade_phase(cells, timings, errs):
     for bit on the lanes the kernel writes it (`held`), both timed (the
     kernel's in-place inputs restored before each launch), with the bound
     from the bytes and operations of these inputs and the earlier form's
-    recorded time beside. The env draw, on the direct integrator's path since the
-    surface draws a bounce's samples, runs on 2,073,600 seeded uniforms.
-    The kernels line takes room_1080p's full surface form and its other
-    kernels."""
+    recorded time beside. The env miss also runs at live shares of 10%
+    and 1% of its launch's lanes (a seeded subset of its mask), where
+    only a lane that missed works. The env draw, on the direct
+    integrator's path since the surface draws a bounce's samples, runs on
+    2,073,600 seeded uniforms. The kernels line takes room_1080p's full
+    surface form and its other kernels, the env miss at its full share."""
     import torch
 
     from moonshine_tpu_torch.integrator import shade
@@ -2590,6 +2560,12 @@ def shade_phase(cells, timings, errs):
         rand2 = torch.from_numpy(np.random.RandomState(5).rand(n, 2).astype(
             np.float32)).to(scene.device)
         rec["env_draw"] = ("env_draw", (scene.env, rand2), {})
+        # the env miss also at live shares of 10% and 1% of its recorded
+        # launch's lanes (seeded), as the deep segments launch it
+        name, args, kw = rec["env_miss"]
+        for share in CS.SHARES[1:]:
+            rec[f"env_miss {share:.0%} live"] = (name, CS.thinned(args, share),
+                                                 kw)
         for key in sorted(rec):
             name, args, kw = rec[key]
             kernel = getattr(shade, name)
@@ -2604,7 +2580,9 @@ def shade_phase(cells, timings, errs):
             t_bytes, t_ops = nb / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
             by = "operations" if t_ops >= t_bytes else "bytes"
             before = EARLIER_MS.get((cell, key))
-            say("shade", f"{cell} {key} on {n} lanes: kernel "
+            lanes = (f"{n} lanes ({int(args[4].sum())} live)"
+                     if name == "env_miss" else f"{n} lanes")
+            say("shade", f"{cell} {key} on {lanes}: kernel "
                 + ("= plain bit for bit (" + ", ".join(CS.outputs(want))
                    + ")" if not diffs else "differs: " + "; ".join(diffs))
                 + f"; kernel {ms:.4f} ms"
@@ -2664,40 +2642,37 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
         torch.zeros(1, 3), torch.zeros(1, 3), torch.zeros(1)) if k != "rays"]
 
     for site in cs.SITES:
-        bits, (key, arrays, rows, out_shapes) = calls[site]
+        bits, (key_in, arrays, rows, out_shapes) = calls[site]
+        if not isinstance(key_in, sortutil.KeyIn):
+            raise AssertionError(f"{site} sorted a key, not its inputs")
+        key = sortutil.coherence_key_plain(*key_in)  # on the card
         n = key.shape[0]
-        o, d, bounds, cells, kw = cs.key_inputs(site, arrays, room, tree)
-        got_key = sortutil.coherence_key(o, d, bounds, cells, **kw)
-        want_key = sortutil.coherence_key_plain(o, d, bounds, cells, **kw)
-        ok = cs.bits_equal(got_key, key) and cs.bits_equal(want_key, key)
-        key_ms = cuda_ms(lambda: sortutil.coherence_key(o, d, bounds, cells,
-                                                        **kw), 20)
+        # the key the sort's first kernel makes, and its permutation
+        k_run, k_perm, made = cs.keyed_of(lib, key_in, bits)
+        k_run()
+        ok = (cs.bits_equal(made, key) and cs.bits_equal(
+            k_perm, torch.argsort(key, stable=True).int()))
         key_plain_ms = cuda_ms(lambda: sortutil.coherence_key_plain(
-            o, d, bounds, cells, **kw), 20)
-        # a dead lane's key needs its mask alone: o and d of live lanes
-        live = (int(kw["active"].sum()) if "active" in kw else n)
-        key_bytes = n * (4 + (1 if "active" in kw else 4)) + live * 24
-        key_bound = key_bytes / PEAK_BYTES * 1e3
-        say("sort", f"{site}: coherence key kernel = plain = the recorded "
-            f"key bit for bit: {ok}; kernel {key_ms:.4f} ms, plain torch "
-            f"{key_plain_ms:.4f} ms, bound {key_bound:.4f} ms by bytes "
-            f"({key_bytes / 1e6:.2f} MB: the mask or major key read, o and "
-            f"d of the {live} live lanes, the key written)")
+            *key_in), 20)
+        keyed_ms = cuda_ms(k_run, 20)
+        key_bytes = cs.key_in_bytes(key_in)
+        b = cs.bounds(n, [], [], lib.passes(bits), key_bytes)
+        say("sort", f"{site}: the coherence key made in the sort's first "
+            f"kernel = plain bit for bit, and its permutation = "
+            f"torch.argsort of the plain key: {ok}; key + passes "
+            f"{keyed_ms:.4f} ms, the plain key alone {key_plain_ms:.4f} ms;"
+            f" bound {b['key_perm'][0]:.4f} ms by {b['key_perm'][1]} "
+            f"({b['key_perm'][2]})")
         if not ok:
             raise AssertionError(f"{site}: the coherence key differs")
-        if site == "resort":
-            timings["coherence_key"] = dict(
-                ms=key_ms, plain_ms=key_plain_ms, bound_ms=key_bound,
-                bound_by="bytes")
-            errs["coherence_key"] = 0.0
         rows = rows or [a.shape[0] for a in arrays]
         fresh = lambda: (None if out_shapes is None else [
             torch.zeros(sh, dtype=a.dtype, device=a.device)
             for sh, a in zip(out_shapes, arrays)])
         out_k, out_p = fresh(), fresh()
-        perm, got = sortutil.sort_lanes(key, arrays, bits, out=out_k,
+        perm, got = sortutil.sort_lanes(key_in, arrays, bits, out=out_k,
                                         rows=rows)
-        want_perm, want = sortutil.sort_lanes_plain(key, arrays, bits,
+        want_perm, want = sortutil.sort_lanes_plain(key_in, arrays, bits,
                                                     out=out_p, rows=rows)
         lib_perm = torch.argsort(key, stable=True)
         ok = (cs.bits_equal(perm, lib_perm.int())
@@ -2711,11 +2686,11 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
         if not ok:
             raise AssertionError(f"{site}: the sort kernels differ")
         out_t = fresh()
-        ms = cuda_ms(lambda: sortutil.sort_lanes(key, arrays, bits,
+        ms = cuda_ms(lambda: sortutil.sort_lanes(key_in, arrays, bits,
                                                  out=out_t, rows=rows), 20)
         lib_ms = cuda_ms(lambda: torch.argsort(key, stable=True), 20)
         plain_ms = cuda_ms(lambda: sortutil.sort_lanes_plain(
-            key, arrays, bits, out=out_t, rows=rows), 5)
+            key_in, arrays, bits, out=out_t, rows=rows), 5)
         statics = [torch.empty_like(a) for a in arrays]
 
         def parent():  # argsort, a gather an array (the resort's copied
@@ -2727,10 +2702,11 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
                     a[p]
 
         parent_ms = cuda_ms(parent, 5)
-        b = cs.bounds(n, arrays, rows, lib.passes(bits))
+        b = cs.bounds(n, arrays, rows, lib.passes(bits), key_bytes)
         b_ms, b_by, detail = b["sort"]
-        say("sort", f"{site}: kernels {ms:.4f} ms, torch.argsort alone "
-            f"{lib_ms:.4f} ms, plain version (argsort + gathers) "
+        say("sort", f"{site}: kernels (the key made in the first) {ms:.4f} "
+            f"ms, torch.argsort alone {lib_ms:.4f} ms, plain version (the "
+            f"key, argsort + gathers) "
             f"{plain_ms:.4f} ms, the parent's form (argsort, gathers"
             + (", copy back" if site == "resort" else "")
             + f") {parent_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
@@ -2777,12 +2753,11 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
                     dst[name].copy_(st[name][p])
 
             parent_whole_ms = cuda_ms(parent_whole, 5)
-            wb_ms = b_ms + key_bound
             say("sort", f"the whole resort at {n} lanes (width {width}): "
-                f"key + sort + moves {whole:.4f} ms against the parent's "
+                f"key + sort + moves {whole:.4f} ms against the torch form, "
                 f"key + argsort + gathers + copy back {parent_whole_ms:.4f}"
-                f" ms; bound with the key's ({key_bytes / 1e6:.1f} MB) "
-                f"{wb_ms:.4f} ms")
+                f" ms; bound (the key's inputs {key_bytes / 1e6:.1f} MB) "
+                f"{b_ms:.4f} ms")
 
     _, (perm, arrays) = calls["unsort"]
     got = sortutil.unsort_lanes(perm, arrays)
@@ -2814,7 +2789,7 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
                                                 cfg),
              "offline_720p": lambda i: render_sample(
                  o_scene, o_lens, opts.height, opts.width, i, o_cfg)}
-    names = ("coherence_key", "sort_lanes", "unsort_lanes")
+    names = ("sort_lanes", "unsort_lanes")
     real = {k: getattr(sortutil, k) for k in names}
     for name, sample in cells.items():
         runs = {}
@@ -2841,7 +2816,7 @@ def sort_phase(scenes, offline_cell, cfg, timings, errs):
                 == {k: v for k, v in cp.items() if k not in names})
         say("sort", f"{name} with the plain key, sort and moves patched in: "
             f"image, rays ({rk}) and launches equal the kernels' run: "
-            f"{same}; sort launches (key, sort, inverse) "
+            f"{same}; sort launches (sort, inverse) "
             + " + ".join(str(ck[k]) for k in names) + " (kernels) against "
             + " + ".join(str(cp[k]) for k in names) + f" (plain); a sample "
             f"as graph replays {mk:.2f} ms (kernels) against {mp:.2f} ms "
@@ -2880,7 +2855,7 @@ def shadow_compact_phase(room, lens, cfg):
             f" {runs[flag][1]} rays, {runs[flag][3]} graph replays, "
             f"launches {runs[flag][2]}")
     (i0, r0, c0, _), (i1, r1, c1, replays) = runs["0"], runs["1"]
-    sorts = ("coherence_key", "sort_lanes", "unsort_lanes")
+    sorts = ("sort_lanes", "unsort_lanes")
     same_image = bool(torch.equal(i0, i1)) and r0 == r1
     same = same_image and ({k: v for k, v in c0.items() if k not in sorts}
                            == {k: v for k, v in c1.items() if k not in sorts})
@@ -3180,7 +3155,7 @@ def frame_phase(scenes, stage_profiles, cfg, timings, errs):
     masks. Last, the eager stage split (`stage_profiles`, the graphs
     phase's) of room_1080p and offline_720p: the camera range holds one
     raygen launch a sample besides scalar fills, the live_count range no
-    reduction."""
+    reduction, the env range the miss kernel alone."""
     import torch
 
     from moonshine_tpu_torch.integrator import path, shade
@@ -3335,14 +3310,19 @@ def frame_phase(scenes, stage_profiles, cfg, timings, errs):
                   and "FillFunctor" not in k]
         reductions = [k for k in prof["live_count"]["kernels"]
                       if "reduce" in k.lower()]
+        # the miss's mask is the kernel's: no torch op in the env range
+        env_others = [k for k in prof["env"]["kernels"]
+                      if "env_miss_kernel" not in k]
         say("frame", f"{cell}: camera range kernels {camera}; live_count "
             f"range kernels {prof['live_count']['kernels']}; accumulate "
-            f"range kernels {prof['accumulate']['kernels']}")
-        if raygen != 1 or others or reductions:
+            f"range kernels {prof['accumulate']['kernels']}; env range "
+            f"kernels {prof['env']['kernels']}")
+        if raygen != 1 or others or reductions or env_others:
             raise AssertionError(f"{cell}: the camera range holds {raygen} "
                                  f"raygen launches and {others}, the "
                                  f"live_count range reductions "
-                                 f"{reductions}")
+                                 f"{reductions}, the env range "
+                                 f"{env_others}")
 
 
 def graph_cells(scenes, offline_cell, instanced, cfg, dev):
@@ -3721,7 +3701,6 @@ def main():
                 # a resort before each later segment
                 or counts["unsort_lanes"] != 2 * 2
                 or counts["sort_lanes"] != counts["unsort_lanes"] + segs - 2
-                or counts["coherence_key"] != counts["sort_lanes"]
                 # a sample's camera rays and accumulation one launch each;
                 # every full surface launch and scatter counts
                 or counts["raygen"] != 2 or counts["accumulate"] != 2
@@ -3730,7 +3709,7 @@ def main():
                                  f"{segs}")
         launches.update({k: counts[k] for k in (
             "closest_hit", "any_hit", "surface", "scatter", "env_miss",
-            "coherence_key", "sort_lanes", "unsort_lanes", "raygen",
+            "sort_lanes", "unsort_lanes", "raygen",
             "accumulate", "counts")})
 
     with phase("treelet_1080p"):
@@ -3744,7 +3723,6 @@ def main():
                 + counts["treelet_any_hit"]
                 or counts["sort_lanes"] != counts["treelet_pending"]
                 or counts["unsort_lanes"] != counts["treelet_pending"]
-                or counts["coherence_key"] != counts["treelet_pending"]
                 or counts["closest_hit"] or counts["any_hit"]):
             raise AssertionError(f"treelet_1080p launches {counts}, "
                                  f"segments {stats['segments']}")

@@ -194,25 +194,35 @@ class ShadeLib(NativeLib):
         self.scatter = self._fn(
             "msn_shade_scatter", [_P] * 17 + [_I, _I, _L] + [_P] * 10)
         self.env_miss = self._fn(
-            "msn_shade_env_miss", [_P, _I, _F, _I] + [_P] * 8 + [_L, _P, _P])
+            "msn_shade_env_miss", [_P, _I, _F, _I] + [_P] * 6 + [_L, _P, _P,
+                                                               _P])
         self.env_draw = self._fn(
             "msn_shade_env_draw", [_P, _P, _P, _I, _F, _P, _L, _P, _P, _P,
                                    _P])
 
 
 class SortLib(NativeLib):
-    """sort.cu's entry points: the coherence key (`key`), the permutation
-    (`sort`, with the int32 words of workspace it takes, `work_ints`, in
-    `passes` digit passes) and the move of lane arrays by it (`move`, at
-    most `max_cols` arrays a launch)."""
+    """sort.cu's entry points: the permutation of a key (`sort`) or of the
+    lanes' coherence keys made from their inputs in its first kernel
+    (`sort_keyed`, which leaves the keys at `key_at` in its workspace;
+    None in a source before that design), with the int32 words of
+    workspace either takes (`work_ints`) in `passes` digit passes; the
+    move of lane arrays by a permutation (`move`, at most `max_cols`
+    arrays a launch)."""
 
     def __init__(self, *args):
         super().__init__(*args)
         ints = ctypes.POINTER(_I)
         longs = ctypes.POINTER(_L)
-        self.key = self._fn("msn_coherence_key",
-                            [_P] * 6 + [_I, _I, _I, _P, _P])
         self.sort = self._fn("msn_sort_lanes", [_P, _I, _I, _P, _P, _P])
+        self.sort_keyed = self.key_at = None
+        if self._has("msn_sort_keyed"):
+            self.sort_keyed = self._fn("msn_sort_keyed",
+                                       [_P] * 5 + [_I, _I, _I, _I, _P, _P,
+                                                   _P])
+            key_at = self._lib.msn_sort_key_at
+            key_at.argtypes, key_at.restype = [_I, _I], _L
+            self.key_at = key_at
         self.move = self._fn("msn_move_lanes",
                              [longs, longs, ints, ints, ints, ints, _I, _P,
                               _I, _I, _P])

@@ -442,11 +442,11 @@ SORT_KEY_BITS = sortutil.key_bits(SORT_CELLS)
 
 
 def sort_key(wbvh: WideBVH, ray_o, ray_d, active=None):
-    """Coherence key (the reference's _sort_key): 4^3 origin cells x 8
-    direction octants, dead lanes keyed 1 << 20 so they sort last
-    (sortutil.coherence_key: a kernel on the card)."""
-    return sortutil.coherence_key(ray_o, ray_d, wbvh.bounds, SORT_CELLS,
-                                  active)
+    """The inputs of the coherence key (the reference's _sort_key): 4^3
+    origin cells x 8 direction octants, dead lanes keyed 1 << 20 so they
+    sort last (sortutil.sort_lanes makes the key: inside its first kernel
+    on the card)."""
+    return sortutil.KeyIn(ray_o, ray_d, wbvh.bounds, SORT_CELLS, active)
 
 
 # --- CUDA wrappers ---

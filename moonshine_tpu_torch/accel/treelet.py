@@ -11,10 +11,11 @@ then runs in three steps:
      csrc/treelet.cu for CUDA tensors, torch ops
      (`_pending_masks_plain`) for CPU tensors.
   2. One stable sort of the rays by `nearest * MAX_KEYED + sort_key`
-     (packet.sort_key: 4^3 origin cells x 8 octants, the reference's
-     `_subkey`), which moves the rays, their pending words and nearest
-     treelets along (core/sortutil.py: kernels of csrc/sort.cu for CUDA
-     tensors).
+     (the coherence key, 4^3 origin cells x 8 octants, the reference's
+     `_subkey`; the sort makes it from the rays and `nearest`), which
+     moves the rays, their pending words and nearest treelets along
+     (core/sortutil.py: kernels of csrc/sort.cu for CUDA tensors, the
+     first of which makes the keys).
   3. One launch of the CUDA kernel of csrc/treelet.cu on the sorted
      rays (CUDA tensors), or `_dispatch_plain` (CPU tensors): each ray
      walks its own pending treelets, its nearest first and then the rest
@@ -289,10 +290,8 @@ def _sort_lanes(wbvh: WideBVH, ray_o, ray_d, t_eff, plain: bool = False):
     kernel takes)."""
     phase1 = _pending_masks_plain if plain else _pending_masks
     pend, nearest = phase1(wbvh, ray_o, ray_d, t_eff)
-    key_of, sort = ((sortutil.coherence_key_plain, sortutil.sort_lanes_plain)
-                    if plain else (sortutil.coherence_key,
-                                   sortutil.sort_lanes))
-    key = key_of(ray_o, ray_d, wbvh.bounds, SORT_CELLS, major=nearest)
+    sort = sortutil.sort_lanes_plain if plain else sortutil.sort_lanes
+    key = sortutil.KeyIn(ray_o, ray_d, wbvh.bounds, SORT_CELLS, major=nearest)
     perm, lanes = sort(key, [ray_o, ray_d, t_eff, pend, nearest],
                        key_bits(wbvh))
     return perm, tuple(lanes)

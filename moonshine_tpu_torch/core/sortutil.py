@@ -8,7 +8,8 @@ scatter: the reference's second sort by the lane iota). For CUDA tensors
 both launch the kernels of csrc/sort.cu on the tensors' card and its
 current stream (so a CUDA graph captures them): a stable LSD radix sort
 over the few digits the key's range needs (one memset, one launch that
-counts every pass's digits, then one launch a pass: one pass for the
+counts every pass's digits, making the keys first where their inputs are
+given, then one launch a pass: one pass for the
 packet key, two for the resort's and the treelet dispatch's), then one
 launch that moves every array, one array after another. For CPU tensors
 they run their plain versions (`*_plain`: an argsort and a gather or
@@ -17,17 +18,20 @@ build or launch raises. Each wrapper adds one to LAUNCHES[its name]
 where it launches (into a capture's tally while a graph is captured:
 accel/launch.py).
 
-The key's range is the caller's to state: `bits` says every key lies in
-[0, 2^bits) or is a dead lane's key, 1 << 20 at every site. Any key past
-the range, a negative one too, sorts as one value after it
-(`mapped_key`), on the card and in the plain version, so where the dead
-key is the only such value the order is the stable argsort of the key
-itself. The sites and their keys,
-each a `coherence_key` (a lane's origin cell in the scene's box and its
-direction's octant; one kernel of csrc/sort.cu on the card): the
-per-bounce state resort (integrator/path.py: 8^3 cells), the traversal
-dispatch's coherence sort (accel/packet.py: 4^3 cells) and the treelet
-dispatch's (accel/treelet.py: 4^3 cells after the nearest treelet).
+The key is an int32 tensor or, as every site gives it, the key's inputs
+(`KeyIn`: a lane's origin cell in the scene's box and its direction's
+octant, `coherence_key_plain`'s arguments). Given its inputs, the card's
+first sort kernel makes each lane's key itself, so no key is written and
+read back by a launch of its own; the plain version makes it with
+`coherence_key_plain` first. The key's range is the caller's to state:
+`bits` says every key lies in [0, 2^bits) or is a dead lane's key, 1 <<
+20 at every site. Any key past the range, a negative one too, sorts as
+one value after it (`mapped_key`), on the card and in the plain version,
+so where the dead key is the only such value the order is the stable
+argsort of the key itself. The sites and their keys: the per-bounce
+state resort (integrator/path.py: 8^3 cells), the traversal dispatch's
+coherence sort (accel/packet.py: 4^3 cells) and the treelet dispatch's
+(accel/treelet.py: 4^3 cells after the nearest treelet).
 
 Arrays are [N] or [N, K] tensors of any dtype (bool, int32, int64,
 float32 at the sites). `rows` (one int an array, default its length)
@@ -41,6 +45,7 @@ buffers); they must not overlap the inputs.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -48,10 +53,25 @@ from ..accel import native
 from ..accel.launch import Counts, call_on, count_launch
 
 # Kernel launches per wrapper (see the module docstring)
-LAUNCHES = Counts({"coherence_key": 0, "sort_lanes": 0,
-                   "unsort_lanes": 0})
+LAUNCHES = Counts({"sort_lanes": 0, "unsort_lanes": 0})
 DEAD_KEY = 1 << 20  # the sites' key of a dead lane
 _MAX_BITS = 30
+
+
+class KeyIn(NamedTuple):
+    """The inputs of the lanes' coherence key (`coherence_key_plain`):
+    each lane's origin cell among `cells`^3 of the box `bounds` ([2, 3]:
+    lower and upper corner), clamped into it, times 8 direction octants
+    (x, y, z positive: 4, 2, 1), in [0, 2^key_bits(cells)); plus major x
+    cells^3 x 8 where `major` (int32 [N]) is given; DEAD_KEY where
+    `active` (bool [N]) is False. o and d float32 [N, 3]."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    bounds: torch.Tensor
+    cells: int
+    active: torch.Tensor | None = None
+    major: torch.Tensor | None = None
 
 
 def reset_launch_counts() -> None:
@@ -70,13 +90,37 @@ def _rows(arrays, rows, n: int) -> list:
     return rows
 
 
+def _check_key_in(k: KeyIn) -> None:
+    n, dev = k.o.shape[0], k.o.device
+    for name, x, dtype, shape in (("o", k.o, torch.float32, (n, 3)),
+                                  ("d", k.d, torch.float32, (n, 3)),
+                                  ("bounds", k.bounds, torch.float32, (2, 3)),
+                                  ("active", k.active, torch.bool, (n,)),
+                                  ("major", k.major, torch.int32, (n,))):
+        if x is not None and (x.dtype != dtype or tuple(x.shape) != shape
+                              or x.device != dev):
+            raise ValueError(f"{name} must be {dtype} {list(shape)} on the "
+                             f"rays' device")
+    if k.cells < 1:
+        raise ValueError(f"cells must be positive, got {k.cells}")
+
+
+def _lanes_of(key):
+    """(lanes, device) of a key tensor or KeyIn."""
+    x = key.o if isinstance(key, KeyIn) else key
+    return x.shape[0], x.device
+
+
 def _check(key, arrays, bits: int, out):
-    if key.ndim != 1:
+    if isinstance(key, KeyIn):
+        _check_key_in(key)
+    elif key.ndim != 1:
         raise ValueError(f"the key must be [N], got {tuple(key.shape)}")
     if not 0 <= bits <= _MAX_BITS:
         raise ValueError(f"bits must lie in [0, {_MAX_BITS}], got {bits}")
+    device = _lanes_of(key)[1]
     for a in arrays:
-        if a.device != key.device or a.ndim not in (1, 2):
+        if a.device != device or a.ndim not in (1, 2):
             raise ValueError("each array must be [N] or [N, K] on the key's "
                              "device")
     if out is not None:
@@ -90,10 +134,11 @@ def _check(key, arrays, bits: int, out):
 
 
 def _device_kind(x) -> str:
-    kind = x.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"no lane sort for device {x.device}")
-    return kind
+    """"cpu" or "cuda": the kind of x's device (x a tensor or a device)."""
+    device = x if isinstance(x, torch.device) else x.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no lane sort for device {device}")
+    return device.type
 
 
 def key_bits(cells: int) -> int:
@@ -105,10 +150,11 @@ def key_bits(cells: int) -> int:
 # --- plain torch versions ---
 
 def coherence_key_plain(o, d, bounds, cells: int, active=None, major=None):
-    """coherence_key in torch ops (the kernel's reference). A cell
-    coordinate past the int32 range (a flat box's axis, an origin far
-    outside it) saturates and NaN goes to 0 before the cast, as the
-    reference's cast and the card's do (x86's gives INT_MIN)."""
+    """The coherence key (int32 [N]) of `KeyIn`'s inputs in torch ops: the
+    reference of the key that the card's sort makes. A cell coordinate
+    past the int32 range (a flat box's axis, an origin far outside it)
+    saturates and NaN goes to 0 before the cast, as the reference's cast
+    and the card's do (x86's gives INT_MIN)."""
     lo = bounds[0]
     inv_ext = 1.0 / torch.clamp_min(bounds[1] - lo, 1e-20)
     x = (o - lo) * inv_ext * float(cells)
@@ -132,10 +178,17 @@ def mapped_key(key, bits: int):
     return torch.where((key >= 0) & (key < live), key, live)
 
 
+def key_tensor(key):
+    """The int32 key [N] itself, or coherence_key_plain of a KeyIn."""
+    return coherence_key_plain(*key) if isinstance(key, KeyIn) else key
+
+
 def sort_lanes_plain(key, arrays, bits: int, out=None, rows=None):
-    """sort_lanes in torch ops (the kernels' reference): the stable
-    argsort of the mapped key and a gather per array."""
+    """sort_lanes in torch ops (the kernels' reference): the key made by
+    coherence_key_plain where its inputs are given, the stable argsort of
+    the mapped key and a gather per array."""
     _check(key, arrays, bits, out)
+    key = key_tensor(key)
     n = key.shape[0]
     rows = _rows(arrays, rows, n)
     perm = torch.argsort(mapped_key(key, bits), stable=True)
@@ -211,57 +264,41 @@ def _contiguous_out(out, arrays, rows):
             raise ValueError("an out tensor overlaps an input array")
 
 
-def coherence_key(o, d, bounds, cells: int, active=None, major=None):
-    """The coherence key of each lane (int32 [N]): its origin's cell among
-    `cells`^3 of the box `bounds` ([2, 3]: lower and upper corner),
-    clamped into it, times 8 direction octants (x, y, z positive: 4, 2,
-    1), in [0, 2^key_bits(cells)); plus major x cells^3 x 8 where `major`
-    (int32 [N]) is given; DEAD_KEY where `active` (bool [N]) is False.
-    The csrc/sort.cu kernel for CUDA tensors (the box's lower corner and
-    inverse extent as torch forms them), coherence_key_plain for CPU
-    tensors."""
-    if _device_kind(o) == "cpu":
-        return coherence_key_plain(o, d, bounds, cells, active, major)
-    n, dev = o.shape[0], o.device
-    for name, x, dtype, shape in (("o", o, torch.float32, (n, 3)),
-                                  ("d", d, torch.float32, (n, 3)),
-                                  ("bounds", bounds, torch.float32, (2, 3)),
-                                  ("active", active, torch.bool, (n,)),
-                                  ("major", major, torch.int32, (n,))):
-        if x is not None and (x.dtype != dtype or tuple(x.shape) != shape
-                              or x.device != dev):
-            raise ValueError(f"{name} must be {dtype} {list(shape)} on the "
-                             f"rays' device")
-    if n >= 2**31:
-        raise ValueError("too many lanes for one launch")
-    lo = bounds[0].contiguous()
-    inv_ext = 1.0 / torch.clamp_min(bounds[1] - lo, 1e-20)
-    keep = [x.contiguous() if x is not None else None
-            for x in (o, d, active, major)]
-    key = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
+def _permutation(lib, key, n: int, bits: int):
+    """perm int32 [n]: one launch of lib's permutation kernels on a key
+    tensor or, through its first kernel, a KeyIn's lanes."""
+    dev = key.o.device if isinstance(key, KeyIn) else key.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    work = torch.empty(lib.work_ints(n, bits), dtype=torch.int32,
+                       device=dev)
+    if isinstance(key, KeyIn):
+        keep = [None if x is None else x.contiguous()
+                for x in (key.o, key.d, key.active, key.major, key.bounds)]
         ptr = lambda x: None if x is None else x.data_ptr()
-        rc = call_on(native.sort_lib().key, dev, *map(ptr, keep),
-                             lo.data_ptr(), inv_ext.data_ptr(), n, cells,
-                             DEAD_KEY, key.data_ptr())
-        if rc != 0:
-            raise RuntimeError(f"coherence key kernel launch failed: "
-                               f"cudaError {rc}")
-        count_launch(LAUNCHES, "coherence_key")
-    return key
+        rc = call_on(lib.sort_keyed, dev, *map(ptr, keep), key.cells,
+                     DEAD_KEY, n, bits, work.data_ptr(), perm.data_ptr())
+    else:
+        if key.dtype != torch.int32:
+            raise TypeError(f"the sort kernel takes int32 keys, got "
+                            f"{key.dtype}")
+        key = key.contiguous()
+        rc = call_on(lib.sort, dev, key.data_ptr(), n, bits,
+                     work.data_ptr(), perm.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"sort kernel launch failed: cudaError {rc}")
+    return perm
 
 
 def sort_lanes(key, arrays, bits: int, out=None, rows=None):
     """(perm int32 [N], the arrays in perm's order): the stable order of
-    the int32 key [N] mapped by `mapped_key` (module docstring; `out` and
-    `rows` too). The csrc/sort.cu kernels for CUDA tensors,
-    sort_lanes_plain for CPU tensors."""
-    if _device_kind(key) == "cpu":
+    the int32 key [N], or of the coherence keys of a KeyIn's lanes,
+    mapped by `mapped_key` (module docstring; `out` and `rows` too). The
+    csrc/sort.cu kernels for CUDA tensors (given a KeyIn, the first one
+    makes the keys), sort_lanes_plain for CPU tensors."""
+    n, dev = _lanes_of(key)
+    if _device_kind(dev) == "cpu":
         return sort_lanes_plain(key, arrays, bits, out, rows)
     _check(key, arrays, bits, out)
-    if key.dtype != torch.int32:
-        raise TypeError(f"the sort kernel takes int32 keys, got {key.dtype}")
-    n, dev = key.shape[0], key.device
     if n >= 2**31:
         raise ValueError("too many lanes for one sort")
     rows = _rows(arrays, rows, n)
@@ -272,15 +309,10 @@ def sort_lanes(key, arrays, bits: int, out=None, rows=None):
     else:
         _contiguous_out(out, arrays, rows)
     lib = native.sort_lib()
-    key = key.contiguous()
-    perm = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        work = torch.empty(lib.work_ints(n, bits), dtype=torch.int32,
-                           device=dev)
-        rc = call_on(lib.sort, dev, key.data_ptr(), n, bits,
-                             work.data_ptr(), perm.data_ptr())
-        if rc != 0:
-            raise RuntimeError(f"sort kernel launch failed: cudaError {rc}")
+        perm = _permutation(lib, key, n, bits)
+    else:
+        perm = torch.empty(0, dtype=torch.int32, device=dev)
     if arrays:
         _move(lib, perm, n, arrays, out, [min(r, n) for r in rows], rows,
               scatter=False)

@@ -26,7 +26,10 @@
 //             heuristic; the PCG draw, the BSDF sample and eval, the new
 //             ray and throughput)
 //   env_miss  path.py:371-381 with lights/envmap.py:141-206 (equal-area
-//             inverse, texel row, 4-tap bilinear, MIS weight)
+//             inverse, texel row, 4-tap bilinear, MIS weight) and the
+//             mask that follows (path.py:402-421, active & is_hit), in
+//             place: only a lane that missed reads more than its mask and
+//             tri, or writes
 //   env_draw  lights/envmap.py:120-138 (alias draw, texel row, equal-area
 //             forward map, pdf): the direct integrator's draw
 //
@@ -44,7 +47,8 @@
 // MIS weights) in registers, where the plain torch version writes and
 // reads a whole [N] or [N, 3] tensor for each op. What it does about the
 // bytes: a lane dead on entry reads its mask and leaves (the surface
-// clears its shadow lanes, the scatter its mask); the lane state is
+// clears its shadow lanes, the scatter its mask; the miss writes nothing,
+// and there a live lane that hit leaves after its tri); the lane state is
 // updated in place, so a lane writes only what changes; a light sample's
 // inputs are read only where its ray was traced and not occluded; an
 // [N, 3] value moves as an 8-byte and a 4-byte access (`load3`), the
@@ -1108,24 +1112,28 @@ __global__ void __launch_bounds__(kBlock)
 
 struct MissIn {
   const float* d;
-  const bool* active;
   const int* tri;
-  const float *throughput, *radiance, *last_pdf;
+  const float *throughput, *last_pdf;
   const bool* last_delta;
   const long long* bounce;
 };
 
+// The miss, in place on the lane state: a dead lane reads its mask and
+// leaves, a live lane that hit reads its tri and leaves (its mask stays
+// set); a lane that missed adds the environment's radiance (plain, or
+// MIS-weighted against the env draw) into its radiance and clears its
+// mask, the reference's `active = active & hit.is_hit`. A lane that did
+// not miss writes nothing.
 __global__ void __launch_bounds__(kBlock)
-    env_miss_kernel(Env e, int env_samples, MissIn in, float* radiance_out,
-                    long long n) {
+    env_miss_kernel(Env e, int env_samples, MissIn in, bool* active,
+                    float* radiance, long long n) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n || !active[i] || in.tri[i] >= 0) return;
   const V3 d = load3(in.d, i);
-  const bool miss = in.active[i] && !(in.tri[i] >= 0);
   const bool env_plain =
       in.last_delta[i] || *in.bounce == 0 || env_samples == 0;
   const V3 thr = load3(in.throughput, i);
-  V3 rad = load3(in.radiance, i);
+  V3 rad = load3(radiance, i);
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   V3 env_rad;
   if (e.size == 1) {
@@ -1142,7 +1150,7 @@ __global__ void __launch_bounds__(kBlock)
       const float pdf_e =
           ((tx.w * (float)(S * S)) * e.inv_integral) * kInv4PiDiv;
       const float w = power2(in.last_pdf[i] * 1.0f, pdf_e * (float)env_samples);
-      rad = rad + (miss && !env_plain && pdf_e > 0.0f
+      rad = rad + (!env_plain && pdf_e > 0.0f
                        ? (thr * v3(tx.x, tx.y, tx.z)) * w
                        : zero);
     }
@@ -1150,12 +1158,11 @@ __global__ void __launch_bounds__(kBlock)
   if (e.size == 1 && env_samples > 0) {
     const float w = power2(in.last_pdf[i] * 1.0f,
                            kUniformPdf * (float)env_samples);
-    rad = rad + (miss && !env_plain && kUniformPdf > 0.0f
-                     ? (thr * env_rad) * w
-                     : zero);
+    rad = rad + (!env_plain && kUniformPdf > 0.0f ? (thr * env_rad) * w
+                                                  : zero);
   }
-  store3(radiance_out, i,
-         rad + (miss && env_plain ? thr * env_rad : zero));
+  store3(radiance, i, rad + (env_plain ? thr * env_rad : zero));
+  active[i] = false;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -1320,22 +1327,23 @@ int msn_shade_scatter(const int* type, const float* color, const float* metal,
   return (int)cudaGetLastError();
 }
 
-// The miss: env rgbl float32 [S*S, 4] (16-byte aligned), S, 1 /
-// max(integral, 1e-30) in float32, the env sample count; lanes d [n, 3],
-// active bool, hit tri int32, throughput, radiance [n, 3], last_pdf,
-// last_delta bool, bounce an int64 device scalar; radiance_out [n, 3].
+// The miss, in place: env rgbl float32 [S*S, 4] (16-byte aligned), S,
+// 1 / max(integral, 1e-30) in float32, the env sample count; lanes d
+// [n, 3], hit tri int32, throughput [n, 3], last_pdf, last_delta bool,
+// bounce an int64 device scalar; the state's active bool [n] and
+// radiance [n, 3], which a lane that missed (live, tri < 0) updates (its
+// env radiance added, its mask cleared) and no other lane writes.
 int msn_shade_env_miss(const float* rgbl, int size, float inv_integral,
-                       int env_samples, const float* d, const bool* active,
-                       const int* tri, const float* throughput,
-                       const float* radiance, const float* last_pdf,
+                       int env_samples, const float* d, const int* tri,
+                       const float* throughput, const float* last_pdf,
                        const bool* last_delta, const long long* bounce,
-                       long long n, float* radiance_out, void* stream) {
+                       long long n, bool* active, float* radiance,
+                       void* stream) {
   if (n <= 0) return 0;
-  MissIn in{d, active, tri, throughput, radiance, last_pdf, last_delta,
-            bounce};
+  MissIn in{d, tri, throughput, last_pdf, last_delta, bounce};
   env_miss_kernel<<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       env_of(rgbl, nullptr, nullptr, size, inv_integral), env_samples, in,
-      radiance_out, n);
+      active, radiance, n);
   return (int)cudaGetLastError();
 }
 

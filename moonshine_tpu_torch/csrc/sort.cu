@@ -27,7 +27,10 @@
 //   radix_upsweep_kernel  reads the keys once and counts every pass's
 //            digits (a block's counts in shared memory, __match_any_sync
 //            adding a group of equal digits at once), added into each
-//            pass's global histogram.
+//            pass's global histogram. At the sites (msn_sort_keyed) it
+//            reads no key: it computes each lane's coherence key from the
+//            lane's mask, origin and direction (`coherence_key`), writes
+//            it into the workspace for the first pass and counts it.
 //   radix_onesweep_kernel  a pass, a block of 512 threads a tile of 8192
 //            lanes, the tile taken from an atomic counter in the order
 //            blocks start, so a tile waits only on tiles already running.
@@ -65,9 +68,11 @@
 // rows from there to `rows_total` are copied where they lie (the lanes
 // past a sorted prefix).
 //
-// The sites' keys come from coherence_key_kernel: a lane's origin cell
-// in the scene's box (4^3 or 8^3 cells) and its direction's octant, in
-// one launch where the plain version takes a dozen torch operations.
+// The sites' keys are made inside the upsweep: a lane's origin cell in
+// the scene's box (4^3 or 8^3 cells) and its direction's octant, where
+// the plain version takes a dozen torch operations and, before, a launch
+// of its own wrote the key that the upsweep then read back. A dead lane
+// reads its mask byte alone.
 //
 // What bounds it on this card: bytes, and for the move the L2's sectors.
 // The move reads and writes each row once (the resort's 70 bytes a lane
@@ -75,7 +80,10 @@
 // sectors it spans, read from (or merged into) L2. The passes read the
 // key (twice: the upsweep and the first pass) and write the permutation,
 // plus 8 bytes a lane between passes; the counting is a few integer
-// operations a lane and pass. Nothing is held across launches but the
+// operations a lane and pass. At the sites the upsweep reads the key's
+// inputs in place of the key (the mask, and o and d of a live lane, an
+// 8-byte and a 4-byte access a row as csrc/shade.cu's load3) and writes
+// the key once for the first pass. Nothing is held across launches but the
 // counts and states, which the memset resets; every launch goes on the
 // caller's stream and the workspace comes from the caller
 // (msn_sort_work_ints), so a CUDA graph captures the whole sort and
@@ -86,7 +94,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // a block of the key and move kernels
+constexpr int kThreads = 256;  // a block of the move kernel
 constexpr int kSweepThreads = 512;  // a onesweep block: 16 warps
 constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kRounds = 16;  // 32-lane rounds a warp walks in a tile
@@ -153,10 +161,11 @@ int groups_for(int n) { return (tiles_for(n) + kGroup - 1) / kGroup; }
 // the tile counters and the tiles' and groups' look-back states, a pass
 // after another (the memset's); each pass's tile counts (tiles x buckets)
 // and group totals (groups x buckets); the keys and permutation between
-// passes (two sets for three passes).
+// passes (two sets for three passes); the key the upsweep makes from its
+// inputs.
 struct Layout {
   long long hist, counters, states, group_states, zeroed,
-      counts[kMaxPasses], totals[kMaxPasses], keys[2], perms[2], ints;
+      counts[kMaxPasses], totals[kMaxPasses], keys[2], perms[2], key, ints;
 };
 
 Layout layout_for(int n, const Plan& p) {
@@ -178,7 +187,8 @@ Layout layout_for(int n, const Plan& p) {
     l.perms[j] = at + n;
     at += 2LL * n;
   }
-  l.ints = at;
+  l.key = at;  // the key the upsweep makes (msn_sort_keyed)
+  l.ints = at + n;
   return l;
 }
 
@@ -259,22 +269,147 @@ __device__ void block_exclusive_scan(const int* v, int* out, int len,
   __syncthreads();
 }
 
+// The inputs of the sites' coherence key: o and d float32 [n, 3], the
+// scene box's corners `bounds` float32 [2, 3], `cells` a side; active
+// (bool [n]) and major (int32 [n]) may be null; a dead lane's key.
+struct KeySrc {
+  const float* o;
+  const float* d;
+  const bool* active;
+  const int* major;
+  const float* bounds;
+  int cells;
+  int dead;
+};
+
+// Row i of an [n, 3] float32 array as an 8-byte and a 4-byte access
+// (csrc/shade.cu's load3): rows alternate between 8-byte-aligned starts
+// and starts 4 bytes past one.
+__device__ __forceinline__ void load_row3(const float* p, long long i,
+                                          float v[3]) {
+  const float* q = p + 3 * i;
+  if ((reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+    const float2 a = *reinterpret_cast<const float2*>(q);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = q[2];
+  } else {
+    const float2 b = *reinterpret_cast<const float2*>(q + 1);
+    v[0] = q[0];
+    v[1] = b.x;
+    v[2] = b.y;
+  }
+}
+
+// The box's lower corner and inverse extent as the plain version's torch
+// ops form them: 1.0 / clamp_min(hi - lo, 1e-20), where torch's clamp
+// keeps a NaN and its 1.0 / x is a correctly rounded reciprocal.
+__device__ __forceinline__ void box_of(const float* bounds, float lo[3],
+                                       float inv_ext[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    lo[c] = bounds[c];
+    const float ext = __fsub_rn(bounds[3 + c], lo[c]);
+    inv_ext[c] = __fdiv_rn(1.0f, ext < 1e-20f ? 1e-20f : ext);
+  }
+}
+
+// The coherence key of a live lane from its origin and direction, as the
+// plain version's torch ops form it (each operation rounded once:
+// -fmad=false): C^3 origin cells, the origin's cell along each axis
+// floor(((o - lo) * inv_ext) * C) clamped to [0, C) (the float-to-int
+// conversion truncates and saturates, NaN to 0, as torch's cast on the
+// card), times 8 direction octants.
+__device__ __forceinline__ int coherence_key(const float o[3],
+                                             const float d[3], int cells,
+                                             const float lo[3],
+                                             const float inv_ext[3]) {
+  const float scale = static_cast<float>(cells);
+  int k = 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float x =
+        __fmul_rn(__fmul_rn(__fsub_rn(o[c], lo[c]), inv_ext[c]), scale);
+    const int cell = min(max(__float2int_rz(x), 0), cells - 1);
+    k = k * cells + cell;
+  }
+  return k * 8 + (d[0] > 0.0f) * 4 + (d[1] > 0.0f) * 2 + (d[2] > 0.0f);
+}
+
+// The keys of lanes i[0..kAhead) (each below n) from `src`, into k: a lane
+// whose mask is clear (on[a] false) gets `dead` and reads nothing more; a
+// live lane's key is coherence_key plus major x C^3 x 8 where major is
+// given. Every live lane's rows are loaded before any key is formed, so
+// their loads are in flight together.
+template <int kAhead>
+__device__ __forceinline__ void keys_of(const KeySrc& s, const long long* i,
+                                        const bool* on, const float lo[3],
+                                        const float inv_ext[3], int* k) {
+  float o[kAhead][3], d[kAhead][3];
+  int major[kAhead];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    if (on[a]) {
+      load_row3(s.o, i[a], o[a]);
+      load_row3(s.d, i[a], d[a]);
+      major[a] = s.major ? s.major[i[a]] : 0;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    k[a] = on[a] ? coherence_key(o[a], d[a], s.cells, lo, inv_ext) +
+                       major[a] * (s.cells * s.cells * s.cells * 8)
+                 : s.dead;
+  }
+}
+
 // Every pass's digit counts of the mapped keys, added into hist (zeroed
-// before: the memset).
+// before: the memset). kKeyed: the keys are made here from `src`
+// (`keys_of`) and written into key_out for the first pass; else read
+// from `keys`.
+template <bool kKeyed>
 __global__ void __launch_bounds__(kHistThreads)
-    radix_upsweep_kernel(const int* __restrict__ keys, int n, int live,
+    radix_upsweep_kernel(const int* __restrict__ keys, const KeySrc src,
+                         int* __restrict__ key_out, int n, int live,
                          const Plan plan, int* __restrict__ hist) {
   __shared__ int counts[kMaxPasses * kMaxBuckets];
   for (int i = threadIdx.x; i < plan.total; i += kHistThreads) counts[i] = 0;
+  float lo[3] = {}, inv_ext[3] = {};
+  if constexpr (kKeyed) box_of(src.bounds, lo, inv_ext);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   for (long long base = static_cast<long long>(blockIdx.x) * kHistChunk;
        base < n; base += static_cast<long long>(gridDim.x) * kHistChunk) {
     int k[kHistItems];
+    long long at[kHistItems];
 #pragma unroll
     for (int j = 0; j < kHistItems; ++j) {
-      const long long i = base + j * kHistThreads + threadIdx.x;
-      k[j] = i < n ? mapped(keys[i], live) : -1;
+      at[j] = base + j * kHistThreads + threadIdx.x;
+    }
+    if constexpr (kKeyed) {
+      // every lane's mask first, then the live lanes' rows, half the
+      // items at a time (registers), then the keys, written for the
+      // first pass
+      bool on[kHistItems];
+#pragma unroll
+      for (int j = 0; j < kHistItems; ++j) {
+        on[j] = at[j] < n && (src.active == nullptr || src.active[at[j]]);
+      }
+      constexpr int kAhead = kHistItems / 2;
+#pragma unroll
+      for (int h = 0; h < kHistItems; h += kAhead) {
+        keys_of<kAhead>(src, at + h, on + h, lo, inv_ext, k + h);
+      }
+#pragma unroll
+      for (int j = 0; j < kHistItems; ++j) {
+        if (at[j] < n) key_out[at[j]] = k[j];
+        k[j] = at[j] < n ? mapped(k[j], live) : -1;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kHistItems; ++j) {
+        k[j] = at[j] < n ? mapped(keys[at[j]], live) : -1;
+      }
     }
 #pragma unroll
     for (int j = 0; j < kHistItems; ++j) {
@@ -593,70 +728,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The coherence key of lane i, as the plain version's torch ops form it
-// (each operation rounded once: -fmad=false): C^3 origin cells, the
-// origin's cell along each axis floor(((o - lo) * inv_ext) * C) clamped
-// to [0, C) (the float-to-int conversion truncates and saturates, NaN to
-// 0, as torch's cast on the card), times 8 direction octants; plus
-// major[i] x C^3 x 8 where given; a lane whose mask is clear gets `dead`.
-__global__ void __launch_bounds__(kThreads)
-    coherence_key_kernel(const float* __restrict__ o,
-                         const float* __restrict__ d,
-                         const bool* __restrict__ active,
-                         const int* __restrict__ major,
-                         const float* __restrict__ lo,
-                         const float* __restrict__ inv_ext, int n, int cells,
-                         int dead, int* __restrict__ key) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= n) return;
-  if (active && !active[i]) {
-    key[i] = dead;
-    return;
-  }
-  const float scale = static_cast<float>(cells);
-  int k = 0;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float x =
-        __fmul_rn(__fmul_rn(__fsub_rn(o[3 * i + c], lo[c]), inv_ext[c]),
-                  scale);
-    const int cell = min(max(__float2int_rz(x), 0), cells - 1);
-    k = k * cells + cell;
-  }
-  k = k * 8 + (d[3 * i] > 0.0f) * 4 + (d[3 * i + 1] > 0.0f) * 2 +
-      (d[3 * i + 2] > 0.0f);
-  if (major) k += major[i] * (cells * cells * cells * 8);
-  key[i] = k;
-}
-
-}  // namespace
-
-extern "C" {
-
-// The most columns a move takes.
-int msn_sort_max_cols() { return kMaxCols; }
-
-// Digit passes for keys of `bits` bits.
-int msn_sort_passes(int bits) { return plan_for(bits).passes; }
-
-// int32 words of workspace msn_sort_lanes takes for n keys of `bits` bits.
-long long msn_sort_work_ints(int n, int bits) {
-  return layout_for(n, plan_for(bits)).ints;
-}
-
-// perm[0..n): the stable order of key[0..n) (int32; keys in [0, 2^bits),
-// any other key sorting as one value after them), bits in [0, 30],
-// n > 0; `work` holds msn_sort_work_ints(n, bits) int32 words. One
-// memset, then radix_upsweep_kernel and a radix_onesweep_kernel a pass,
-// on `stream`; allocates nothing, reads nothing back; returns
-// cudaGetLastError().
-int msn_sort_lanes(const int* key, int n, int bits, int* work, int* perm,
-                   void* stream) {
+// The permutation of msn_sort_lanes (src null: the keys in `key`) or of
+// msn_sort_keyed (the keys made from *src by the upsweep, into the
+// workspace's key), on stream s.
+int sort_permutation(const int* key, const KeySrc* src, int n, int bits,
+                     int* work, int* perm, cudaStream_t s) {
   if (n <= 0 || bits < 0 || bits > 30) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan plan = plan_for(bits);
   const Layout l = layout_for(n, plan);
   const int tiles = tiles_for(n);
@@ -675,12 +754,19 @@ int msn_sort_lanes(const int* key, int n, int bits, int* work, int* perm,
   const long long chunks = (n + kHistChunk - 1) / kHistChunk;
   const int hist_blocks =
       static_cast<int>(chunks < 2LL * sms ? chunks : 2LL * sms);
-  radix_upsweep_kernel<<<hist_blocks, kHistThreads, 0, s>>>(key, n, live,
-                                                            plan, hist);
+  const int* keys_in = key;
+  if (src) {
+    int* made = work + l.key;
+    radix_upsweep_kernel<true><<<hist_blocks, kHistThreads, 0, s>>>(
+        nullptr, *src, made, n, live, plan, hist);
+    keys_in = made;
+  } else {
+    radix_upsweep_kernel<false><<<hist_blocks, kHistThreads, 0, s>>>(
+        key, KeySrc{}, nullptr, n, live, plan, hist);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int* keys_in = key;
   const int* perm_in = nullptr;
   for (int pass = 0; pass < plan.passes; ++pass) {
     const bool last = pass == plan.passes - 1;
@@ -711,20 +797,52 @@ int msn_sort_lanes(const int* key, int n, int bits, int* work, int* perm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// key[0..n): the coherence key of each lane (coherence_key_kernel) from
-// o and d (float32 [n, 3]), the scene box's lower corner lo and inverse
-// extent inv_ext (float32 [3]); active (bool [n]) and major (int32 [n])
-// may be null. Returns cudaGetLastError().
-int msn_coherence_key(const float* o, const float* d, const bool* active,
-                      const int* major, const float* lo,
-                      const float* inv_ext, int n, int cells, int dead,
-                      int* key, void* stream) {
-  if (n > 0) {
-    coherence_key_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        o, d, active, major, lo, inv_ext, n, cells, dead, key);
-  }
-  return static_cast<int>(cudaGetLastError());
+}  // namespace
+
+extern "C" {
+
+// The most columns a move takes.
+int msn_sort_max_cols() { return kMaxCols; }
+
+// Digit passes for keys of `bits` bits.
+int msn_sort_passes(int bits) { return plan_for(bits).passes; }
+
+// int32 words of workspace msn_sort_lanes and msn_sort_keyed take for n
+// keys of `bits` bits.
+long long msn_sort_work_ints(int n, int bits) {
+  return layout_for(n, plan_for(bits)).ints;
+}
+
+// perm[0..n): the stable order of key[0..n) (int32; keys in [0, 2^bits),
+// any other key sorting as one value after them), bits in [0, 30],
+// n > 0; `work` holds msn_sort_work_ints(n, bits) int32 words. One
+// memset, then radix_upsweep_kernel and a radix_onesweep_kernel a pass,
+// on `stream`; allocates nothing, reads nothing back; returns
+// cudaGetLastError().
+int msn_sort_lanes(const int* key, int n, int bits, int* work, int* perm,
+                   void* stream) {
+  return sort_permutation(key, nullptr, n, bits, work, perm,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// msn_sort_lanes of the lanes' coherence keys, which the upsweep makes
+// (coherence_key) and writes at msn_sort_key_at(n, bits) in `work`: o and
+// d float32 [n, 3], bounds float32 [2, 3] (the scene box's corners),
+// `cells` a side, active (bool [n]) and major (int32 [n]) null or given,
+// `dead` the key of a lane whose mask is clear.
+int msn_sort_keyed(const float* o, const float* d, const bool* active,
+                   const int* major, const float* bounds, int cells,
+                   int dead, int n, int bits, int* work, int* perm,
+                   void* stream) {
+  if (cells <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const KeySrc src{o, d, active, major, bounds, cells, dead};
+  return sort_permutation(nullptr, &src, n, bits, work, perm,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Where msn_sort_keyed leaves the keys in its workspace (int32 words).
+long long msn_sort_key_at(int n, int bits) {
+  return layout_for(n, plan_for(bits)).key;
 }
 
 // One launch moving ncols (<= msn_sort_max_cols()) lane arrays by perm

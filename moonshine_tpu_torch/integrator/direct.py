@@ -39,12 +39,12 @@ def trace_direct(scene, ray_o, ray_d, rng_state, cfg: DirectConfig):
 
     with record_function("traversal"):
         hit = _closest(scene, ray_o, ray_d, INF_T, None)
-    active = hit.is_hit
     dev, f32 = ray_o.device, torch.float32
     with record_function("env"):
         # the env miss as a path's first segment without env samples:
-        # every lane live, unit throughput, radiance from 0
-        radiance = shade.env_miss(
+        # every lane live, unit throughput, radiance from 0; the lanes
+        # that missed leave the mask, which is then the hits'
+        radiance, active = shade.env_miss(
             scene.env, 0, 0, ray_d,
             torch.ones(n, dtype=torch.bool, device=dev), hit.tri,
             torch.ones((n, 3), dtype=f32, device=dev),

@@ -227,11 +227,12 @@ def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,
     # ---- miss: environment radiance (integrator.hlsl:166-180), into the
     # state's radiance on the card
     with record_function("env"):
-        radiance = shade.env_miss(scene.env, cfg.env_samples_per_bounce,
-                                  bounce, d, active, hit.tri, throughput,
-                                  st["radiance"], last_pdf, last_delta,
-                                  out=st["radiance"])
-        active = active & hit.is_hit
+        # the lanes that missed add the env radiance and leave: active
+        # becomes the reference's active & is_hit (on the card in place on
+        # the state's radiance and mask; nothing reads the mask of before)
+        radiance, active = shade.env_miss(
+            scene.env, cfg.env_samples_per_bounce, bounce, d, active,
+            hit.tri, throughput, st["radiance"], last_pdf, last_delta)
 
     # ---- decode the surface and add its emission (integrator.hlsl:93-124);
     # then the termination and the NEE draws (:126-151)
@@ -298,9 +299,9 @@ def _resort_state(scene, st: dict, out: dict | None = None,
     n = st["pix"].shape[0]
     prefix = n if prefix is None else prefix
     names = [k for k, v in st.items() if _is_lane(v, n)]
-    key = sortutil.coherence_key(st["o"][:prefix], st["d"][:prefix],
-                                 scene.wide.bounds, RESORT_CELLS,
-                                 st["active"][:prefix])
+    key = sortutil.KeyIn(st["o"][:prefix], st["d"][:prefix],
+                         scene.wide.bounds, RESORT_CELLS,
+                         st["active"][:prefix])
     rows = None
     if out is not None and width is not None:
         rows = [n if k in _TAIL else width for k in names]

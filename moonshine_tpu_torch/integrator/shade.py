@@ -504,22 +504,25 @@ def scatter_plain(surf: Surface, o, d, throughput, radiance, rng, active,
 
 
 def env_miss_plain(env, env_samples: int, bounce, d, active, tri,
-                   throughput, radiance, last_pdf, last_delta, out=None):
+                   throughput, radiance, last_pdf, last_delta):
     """Environment radiance of the lanes that missed (`active` and no hit,
     tri < 0), MIS-weighted against the env draw where the last bounce
     could have drawn it (integrator.hlsl:166-180; reference
-    path.py:424-436). Returns the radiance (a new tensor: `out`, the
-    kernel's buffer, is not used here)."""
+    path.py:402-436). Returns (radiance, active): new tensors, the
+    radiance of every other lane as it was and the mask without the lanes
+    that missed (the reference's active & is_hit)."""
     miss = active & ~(tri >= 0)
     env_plain = last_delta | (bounce == 0) | (env_samples == 0)
+    lit = radiance
     if env_samples > 0:
         env_rad, rad_e, pdf_e = miss_radiance_and_pdf(env, d)
         w = power_heuristic(1.0, last_pdf, env_samples, pdf_e)
-        radiance = radiance + _masked(miss & ~env_plain & (pdf_e > 0.0),
-                                      throughput * rad_e * w[..., None])
+        lit = lit + _masked(miss & ~env_plain & (pdf_e > 0.0),
+                            throughput * rad_e * w[..., None])
     else:
         env_rad = envmap_incoming_radiance(env, d)
-    return radiance + _masked(miss & env_plain, throughput * env_rad)
+    lit = lit + _masked(miss & env_plain, throughput * env_rad)
+    return torch.where(miss[..., None], lit, radiance), active & ~miss
 
 
 def env_draw_plain(env, rand2):
@@ -752,26 +755,24 @@ def _env_args(keep, env):
 
 
 def env_miss(env, env_samples: int, bounce, d, active, tri, throughput,
-             radiance, last_pdf, last_delta, out=None):
-    """env_miss_plain's result: the csrc/shade.cu miss kernel for CUDA
-    tensors (written into `out` where given, which may be `radiance`
-    itself), the plain version for CPU tensors."""
+             radiance, last_pdf, last_delta):
+    """env_miss_plain's (radiance, active): the csrc/shade.cu miss kernel
+    for CUDA tensors, in place on `radiance` and `active` (a lane that
+    missed adds its env radiance and clears its mask bit; no other lane
+    is written), which it returns; the plain version for CPU tensors."""
     if _device_kind(d) == "cpu":
         return env_miss_plain(env, env_samples, bounce, d, active, tri,
                               throughput, radiance, last_pdf, last_delta)
     lib = native.shade_lib()
     f32, keep = torch.float32, []
-    if out is None:
-        out = torch.empty_like(radiance)
     rgbl, size, inv_integral = _env_args(keep, env)
     _launch("env_miss", lib.env_miss, d.device, rgbl, size, inv_integral,
-            env_samples, _ptr(keep, d, f32), _ptr(keep, active, torch.bool),
-            _ptr(keep, tri, torch.int32), _ptr(keep, throughput, f32),
-            _ptr(keep, radiance, f32), _ptr(keep, last_pdf, f32),
+            env_samples, _ptr(keep, d, f32), _ptr(keep, tri, torch.int32),
+            _ptr(keep, throughput, f32), _ptr(keep, last_pdf, f32),
             _ptr(keep, last_delta, torch.bool),
             _ptr(keep, _bounce_on(bounce, d.device), torch.int64),
-            d.shape[0], _inplace(out, f32))
-    return out
+            d.shape[0], _inplace(active, torch.bool), _inplace(radiance, f32))
+    return radiance, active
 
 
 def env_draw(env, rand2):

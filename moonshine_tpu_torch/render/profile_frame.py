@@ -16,8 +16,9 @@ host's dispatches and reads, the summed kernel time, the device busy
 time (union of kernel intervals) over the profiled wall, the traversal
 kernels' time (packet, treelet or two-level), the treelet phase-1
 kernel's time, the shading kernels' time (csrc/shade.cu), the lane
-sort's (csrc/sort.cu: the coherence key, the permutation passes and the
-move apart), the five kernels that took longest, and the same
+sort's (csrc/sort.cu: the permutation passes, whose first kernel makes
+the sites' coherence keys, and the move apart), the five kernels that
+took longest, and the same
 sample on the eager loop (graphs.eager(): its wall, kernels and idle
 share, and its time split by the sample's stages, integrator/path.py
 STAGES: each stage's calls, host time and the time of the kernels it
@@ -270,7 +271,8 @@ def _stage_sum(prof) -> dict:
 def _kinds(by_name) -> dict:
     """Kernel time (ms) of the traversal kernels (packet, treelet or
     two-level), treelet phase 1, the shading kernels and the lane sort's
-    key, permutation passes (every `radix_` kernel) and move."""
+    permutation passes (every `radix_` kernel, the upsweep that makes the
+    sites' keys among them) and move."""
     ms = lambda *keys: sum(v for k, v in by_name.items()
                            if any(key in k for key in keys)) / 1e3
     return {"traversal_ms": ms("traverse_kernel", "treelet_kernel",
@@ -278,7 +280,6 @@ def _kinds(by_name) -> dict:
             "treelet_phase1_ms": ms("pending_kernel"),
             "shade_ms": ms("surface_kernel", "scatter_kernel",
                            "env_miss_kernel", "env_draw_kernel"),
-            "sort_key_ms": ms("coherence_key_kernel"),
             "sort_perm_ms": ms("radix_"),
             "sort_move_ms": ms("lane_move_kernel")}
 

@@ -19,9 +19,11 @@ For each cell, from a clear graph cache: the peak device memory
 synchronisations (ms a sample); graphs.COUNTS over one sample (reads,
 conds, replays); one more sample under torch.profiler
 (render/profile_frame.py `profile`: kernels, graph replays, host
-dispatches and reads, kernel time, the device's idle share) and another
+dispatches and reads, kernel time, the device's idle share), another
 for its device operations (`device_ops`: kernels, copies and fills,
-their time and busy time); and a digest of the image of sample 0 and its
+their time and busy time) and one on the eager loop for its kernel ms
+and kernels by stage range (integrator/path.py STAGES); and a digest of
+the image of sample 0 and its
 ray count (the Engine's frame: its image), which must agree across
 checkouts.
 
@@ -150,7 +152,7 @@ def measure(sample, samples: int) -> dict:
     import numpy as np
     import torch
 
-    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.integrator import graphs, path
     from moonshine_tpu_torch.render.profile_frame import profile
 
     graphs.clear()
@@ -176,6 +178,8 @@ def measure(sample, samples: int) -> dict:
     prof = profile(lambda: sample(2))
     prof.pop("by_name_us")
     ops = device_ops(lambda: sample(2))
+    with graphs.eager():  # the eager loop's kernel ms by stage range
+        eager = profile(lambda: sample(2), marks=path.STAGES)
     graphs.clear()
     return {"ms": ms, "reads": counts["reads"],
             "conds": counts.get("conds", 0), "replays": counts["replays"],
@@ -183,7 +187,12 @@ def measure(sample, samples: int) -> dict:
             "kernels": prof["kernels"], "profile_replays": prof["replays"],
             "dispatches": prof["host_dispatches"],
             "host_reads": prof["host_reads"], "kernel_ms": prof["kernel_ms"],
-            "idle_share": prof["idle_share"], **ops, "rays": rays,
+            "idle_share": prof["idle_share"], **ops,
+            "eager_kernels": eager["kernels"],
+            "eager_kernel_ms": eager["kernel_ms"],
+            "stages": {k: eager[k]["kernel_ms"] for k in path.STAGES},
+            "stage_kernels": {k: sum(eager[k]["kernels"].values())
+                              for k in path.STAGES}, "rays": rays,
             "image": hashlib.sha256(img.tobytes() + str(rays).encode()
                                     ).hexdigest()[:16]}
 
@@ -291,7 +300,8 @@ def main(argv=None) -> int:
                         "reads", "conds", "replays", "dispatches",
                         "host_reads", "kernels", "kernel_ms", "ops",
                         "ops_ms", "ops_busy_ms", "idle_share",
-                        "peak_mib")}}
+                        "peak_mib", "eager_kernels", "eager_kernel_ms",
+                        "stages", "stage_kernels")}}
             for label, rows in by.items()}
         summary[name]["same_image"] = len(digests) == 1
     if args.blocks:

@@ -2,7 +2,7 @@
 their plain versions and, optionally, another checkout's kernels:
 
     python -m moonshine_tpu_torch.scripts.compare_shade [--rounds N]
-        [--against DIR ...]
+        [--against DIR ...] [--kernels surface,scatter,env_miss]
 
 One eager sample of room_1080p (room_scene(grid=6, subdivisions=4) at
 1920x1080, one env and one mesh-light sample a bounce) and of
@@ -18,8 +18,18 @@ takes the earlier signatures (surface writing every output of every lane
 without the draw; scatter reading each light sample through a pointer
 array): it is built beside this one and timed on the same inputs in
 alternated rounds, its decode held bit for bit against this checkout's on
-the live lanes and its scatter against the plain version. Prints one line
-per measurement, then one JSON line; exits 1 if an output differs.
+the live lanes and its scatter against the plain version. The env miss
+runs at live shares of 100%, 10% and 1% of its recorded launch's lanes
+(`thinned`), held bit for bit against its plain version on every lane
+(radiance and mask), beside its bound (`miss_bound`), and so does its
+launch at segment OFFLINE_SEGMENT of one offline_720p sample
+(compare_sort.offline_cell: every lane launched, few live); an earlier
+checkout's miss is the one that reads every lane and writes every
+lane's radiance into a fresh tensor (its radiance held to the plain
+version's). `--kernels` picks which of the three run (an earlier
+checkout whose surface and scatter already take this one's signatures
+runs with env_miss alone). Prints one line per measurement, then one
+JSON line; exits 1 if an output differs.
 
 `recording`, `held`, `clone` and `time_inplace` serve chip_smoke.py's
 `shade` phase too.
@@ -35,6 +45,7 @@ import subprocess
 import sys
 
 from moonshine_tpu_torch.accel import native
+from moonshine_tpu_torch.scripts.compare_sort import offline_cell
 
 HD = (1080, 1920)
 REPS = 10
@@ -42,6 +53,16 @@ REPS = 10
 # card's L2 (50 MB on an H100)
 L2_FLUSH_BYTES = 256 << 20
 NAMES = ("surface", "scatter", "env_miss", "env_draw")
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
+PEAK_FP32 = 67e12  # H100 SXM float32 outside the tensor cores
+# float operations of a lane that missed, counted from csrc/shade.cu's
+# source, by env size > 1 and == 1; and the MIS weight's where env
+# samples are drawn
+MISS_OPS, MISS_MIS_OPS = (63, 6), (20, 17)
+SHARES = (1.0, 0.1, 0.01)  # the env miss's live shares (`thinned`)
+# the offline_720p segment whose env miss is timed as recorded (mostly
+# dead: the resort is off past 600k lanes, so every lane is launched)
+OFFLINE_SEGMENT = 30
 
 
 def clone(x):
@@ -90,21 +111,23 @@ def key_of(name, args) -> str:
 
 
 @contextlib.contextmanager
-def recording():
-    """The first call of each shading wrapper (integrator/shade.py) inside
-    the block, its arguments cloned before the call (the kernels and the
-    loop's static buffers change them in place), on the eager loop, where
-    the wrappers are called. Yields {key: (name, args, kwargs)}; the
-    scene (the surface's first argument) and env maps are the caller's."""
+def recording(nth: int = 0):
+    """The `nth` call (0: the first) of each shading wrapper
+    (integrator/shade.py) inside the block, its arguments cloned before
+    the call (the kernels and the loop's static buffers change them in
+    place), on the eager loop, where the wrappers are called. Yields
+    {key: (name, args, kwargs)}; the scene (the surface's first
+    argument) and env maps are the caller's."""
     from moonshine_tpu_torch.integrator import graphs, shade
 
-    rec = {}
+    rec, calls = {}, {}
     real = {k: getattr(shade, k) for k in NAMES}
 
     def wrap(name):
         def call(*args, **kw):
             key = key_of(name, args)
-            if key not in rec:
+            calls[key] = calls.get(key, -1) + 1
+            if calls[key] == nth:
                 rec[key] = (name, fresh(name, args), clone(kw))
             return real[name](*args, **kw)
         return call
@@ -142,6 +165,8 @@ def outputs(out) -> dict:
             got.update({f"shadow.{k}": getattr(out.shadow, k)
                         for k in out.shadow._fields})
         return {k: v for k, v in got.items() if v is not None}
+    if len(out) == 2:  # the env miss
+        return dict(zip(("radiance", "active"), out))
     return dict(zip(("dir", "radiance", "pdf"), out))
 
 
@@ -212,6 +237,71 @@ def call(fn, args, kw):
     return lambda: fn(*args, **kw)
 
 
+def env_taps(env, d):
+    """The env texels the miss reads at directions d: the bilinear's four
+    taps and miss_radiance_and_pdf's texel (lights/envmap.py)."""
+    import torch
+
+    from moonshine_tpu_torch.core.mappings import (
+        square_to_equal_area_sphere_inverse)
+
+    S = env.size
+    uv = square_to_equal_area_sphere_inverse(d)
+    idx = torch.clamp((uv * S).to(torch.int64), 0, S - 1)
+    xi0 = torch.clamp(torch.floor(uv[:, 0] * S - 0.5).to(torch.int64),
+                      0, S - 1)
+    yi0 = torch.clamp(torch.floor(uv[:, 1] * S - 0.5).to(torch.int64),
+                      0, S - 1)
+    xi1, yi1 = torch.clamp(xi0 + 1, 0, S - 1), torch.clamp(yi0 + 1, 0, S - 1)
+    return torch.cat([idx[:, 0] * S + idx[:, 1], xi0 * S + yi0,
+                      xi1 * S + yi0, xi0 * S + yi1, xi1 * S + yi1])
+
+
+def miss_work(args):
+    """(bytes, float operations) the env miss must move and do for a
+    call's arguments: every lane its mask, a live lane its tri; a lane
+    that missed its d, throughput, last_delta (last_pdf where env samples
+    are drawn) and radiance read, its radiance and mask written; each
+    distinct env texel those lanes reach (16 bytes); MISS_OPS on them."""
+    import torch
+
+    env, samples, _, d, active, tri = args[:6]
+    miss = active & ~(tri >= 0)
+    n, n_miss = active.shape[0], int(miss.sum())
+    nb = n + int(active.sum()) * 4
+    nb += n_miss * (12 + 12 + 1 + 24 + 1 + (4 if samples > 0 else 0))
+    k = 0 if env.size > 1 else 1
+    flops = n_miss * (MISS_OPS[k] + (MISS_MIS_OPS[k] if samples > 0 else 0))
+    if env.size == 1:
+        nb += 16 if n_miss else 0
+    else:
+        nb += int(torch.unique(env_taps(env, d[miss])).numel()) * 16
+    return nb, flops
+
+
+def miss_bound(args) -> tuple:
+    """(ms, "bytes" or "operations", detail): the env miss's least time
+    on this card's published rates (miss_work)."""
+    nb, flops = miss_work(args)
+    t_bytes, t_ops = nb / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, (f"{nb / 1e6:.3f} MB -> {t_bytes:.5f} "
+                                     f"ms, {flops / 1e6:.2f} MFLOP -> "
+                                     f"{t_ops:.5f} ms")
+
+
+def thinned(args, share: float, seed: int = 7):
+    """A recorded env miss's arguments with its mask cut to a seeded
+    `share` of its live lanes (the deep segments' launches)."""
+    import numpy as np
+    import torch
+
+    active = args[4]
+    draw = torch.from_numpy(np.random.RandomState(seed).rand(
+        active.shape[0])).to(active.device)
+    return args[:4] + (active & (draw < share),) + args[5:]
+
+
 def time_inplace(fn, work, pristine, reps: int) -> float:
     """Mean device time in ms of fn over `reps` launches, each timed by
     CUDA events after `work`'s tensors were restored from `pristine`'s
@@ -260,6 +350,7 @@ EARLIER = {  # entry point: its argument types in the earlier shade.cu
                           _L, _I, _I, _I, _I, _F] + [_P] * 12 + [_L]
     + [_P] * 14,
     "msn_shade_scatter": [_P] * 17 + [_I, _P, _P, _I, _L] + [_P] * 9,
+    "msn_shade_env_miss": [_P, _I, _F, _I] + [_P] * 8 + [_L, _P, _P],
 }
 
 
@@ -351,6 +442,75 @@ def earlier_scatter(lib, args):
     return run
 
 
+def earlier_env_miss(lib, args):
+    """A call of the earlier env miss kernel (every lane read and its
+    radiance written into a fresh tensor, the mask left to torch) on a
+    recorded miss's inputs; returns {"radiance": its output}."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import shade
+
+    env, samples, bounce, d, active, tri, thr, rad, last_pdf, last_delta = \
+        args[:10]
+    fn = lib._fn("msn_shade_env_miss", EARLIER["msn_shade_env_miss"])
+    keep = []
+    rgbl, size, inv_integral = shade._env_args(keep, env)
+    bounce = shade._bounce_on(bounce, d.device)
+
+    def run():
+        out = torch.empty_like(rad)
+        rc = native_call(fn, d.device, rgbl, size, inv_integral, samples,
+                         *(x.data_ptr() for x in (d, active, tri, thr, rad,
+                                                  last_pdf, last_delta,
+                                                  bounce)),
+                         d.shape[0], out.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"earlier env miss launch failed: {rc}")
+        return {"radiance": out}
+
+    return run
+
+
+def time_miss(label, rargs, against, rounds, bad, result) -> None:
+    """The env miss on a recorded call's arguments: this checkout's kernel
+    held to its plain version (radiance and mask on every lane) and each
+    earlier checkout's radiance to the plain version's, all timed in
+    alternated rounds (cold L2), beside its bound; one line, and the
+    numbers into result["cells"][label]."""
+    import torch
+
+    from moonshine_tpu_torch.integrator import shade
+
+    work = fresh("env_miss", rargs)
+    got = shade.env_miss(*fresh("env_miss", rargs))
+    want = shade.env_miss_plain(*rargs)
+    diffs, _ = compare("env_miss", rargs, got, want)
+    runs = {"this": (call(shade.env_miss, work, {}), work)}
+    for name, lib in against.items():
+        early = earlier_env_miss(lib, rargs)
+        if not torch.equal(early()["radiance"], want[0]):
+            diffs.append(f"{name} radiance")
+        runs[name] = (early, None)
+    ms = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, (fn, w) in runs.items():
+            ms[name].append(time_inplace(fn, w, rargs, REPS) if w is not None
+                            else time_inplace(fn, [], [], REPS))
+    bound, by, detail = miss_bound(rargs)
+    n, live = rargs[4].shape[0], int(rargs[4].sum())
+    miss = int((rargs[4] & (rargs[5] < 0)).sum())
+    print(f"{label} on {n} lanes, {live} live, {miss} missed: " + ", ".join(
+        f"{name} {min(x):.4f} ms (rounds {', '.join(f'{y:.4f}' for y in x)})"
+        for name, x in ms.items())
+        + f"; bound {bound:.5f} ms by {by} ({detail})"
+        + ("; outputs held bit for bit" if not diffs else
+           "; DIFFER: " + "; ".join(diffs)), flush=True)
+    if diffs:
+        bad.append(f"{label}: " + "; ".join(diffs))
+    result["cells"][f"{label} {live} live"] = {
+        "ms": ms, "n": n, "live": live, "missed": miss, "bound_ms": bound}
+
+
 def native_call(fn, dev, *args):
     from moonshine_tpu_torch.accel.launch import call_on
 
@@ -401,7 +561,13 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--against", action="append", default=[],
                     help="an earlier checkout whose shade.cu runs beside")
+    ap.add_argument("--kernels", default="surface,scatter,env_miss",
+                    help="which of surface, scatter and env_miss to run")
     args = ap.parse_args(argv)
+    kinds = set(args.kernels.split(","))
+    if not kinds <= {"surface", "scatter", "env_miss"}:
+        raise ValueError(f"--kernels takes surface, scatter, env_miss: "
+                         f"{args.kernels}")
     if not torch.cuda.is_available():
         raise RuntimeError("compare_shade needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -420,6 +586,8 @@ def main(argv=None) -> int:
         rec = record_sample(scene, lens, cfg)
         result["cells"][cell] = {}
         for key in ("surface/full", "scatter"):
+            if key.split("/")[0] not in kinds:
+                continue
             name, rargs, kw = rec[key]
             work = fresh(name, rargs)
             got = getattr(shade, name)(*fresh(name, rargs), **clone(kw))
@@ -461,6 +629,20 @@ def main(argv=None) -> int:
                 + ("; outputs held bit for bit" if not diffs else
                    "; DIFFER: " + "; ".join(diffs)), flush=True)
             result["cells"][cell][key] = {"ms": ms, "n": n}
+        # the env miss at its live shares, beside its bound
+        if "env_miss" in kinds:
+            for share in SHARES:
+                time_miss(f"{cell} env_miss", thinned(rec["env_miss"][1],
+                                                      share),
+                          against, args.rounds, bad, result)
+    if "env_miss" in kinds:  # a mostly dead segment of the looped form
+        with recording(OFFLINE_SEGMENT) as rec:
+            offline_cell(dev)(0)
+        if "env_miss" not in rec:
+            raise AssertionError(f"offline_720p's sample ran fewer than "
+                                 f"{OFFLINE_SEGMENT + 1} segments")
+        time_miss(f"offline_720p env_miss (segment {OFFLINE_SEGMENT})",
+                  rec["env_miss"][1], against, args.rounds, bad, result)
     result["mismatch"] = bad
     print(json.dumps(result), flush=True)
     return 1 if bad else 0

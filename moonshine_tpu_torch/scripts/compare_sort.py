@@ -11,32 +11,39 @@ packet dispatch's sorts of the 2,073,600 camera rays and of the
 4,147,200-lane shadow batch, and the dispatch's inverse move) and of
 treelet_1080p (that scene built MSN_WIDE=8 MSN_LEAF_CAP=8 and dispatched
 with MSN_TREELETS=1: the treelet dispatch's sort) is recorded
-(`record_sorts`): each site's first call with its inputs. At each site
-the key (coherence_key, from the lanes it was made of), the permutation
-passes (msn_sort_lanes alone) and the move (msn_move_lanes alone) are
-held bit for bit against the recorded key, torch.argsort(key,
-stable=True) and the plain moves, and timed apart, each launch after a
-256 MiB write (a cold L2; compare_shade.time_inplace), beside
-torch.argsort and their bounds (`bounds`). Each `--against DIR` is
-another checkout (an earlier commit unpacked by `git archive` into a
-gitignored directory) whose sort.cu has the same entry points: it is
-built beside this one, and its passes and move run on the same inputs in
-alternated rounds, held bit for bit against this checkout's. Then
-room_1080p and offline_720p (the offline CLI's scene as the smoke renders
-it in process: room_184k untextured with a seeded sky, 1280x720,
+(`record_sorts`): each site's first call with its inputs, the key's
+inputs (a sortutil.KeyIn) among them. At each site the key and its
+permutation (`keyed_of`: msn_sort_keyed, whose first kernel makes the
+keys), the permutation passes alone on the plain key (msn_sort_lanes)
+and the move (msn_move_lanes alone) are held bit for bit against
+coherence_key_plain's key, torch.argsort(key, stable=True) and the plain
+moves, and timed apart, each launch after a 256 MiB write (a cold L2;
+compare_shade.time_inplace), beside torch.argsort and their bounds
+(`bounds`). Each `--against DIR` is another checkout (an earlier commit
+unpacked by `git archive` into a gitignored directory) whose sort.cu is
+built beside this one: its passes and move run on the same inputs in
+alternated rounds, held bit for bit against this checkout's, and its
+key and permutation too, where its sort.cu predates msn_sort_keyed as
+the key kernel (msn_coherence_key, after the box's corner and inverse
+extent in torch ops, as its wrapper made them) and then the passes.
+Then room_1080p and offline_720p (the offline CLI's scene as the smoke
+renders it in process: room_184k untextured with a seeded sky, 1280x720,
 max_bounces 1024) are sampled as graph replays with each build's library
-in turn, `--samples` timed samples a round, their images held bit for
-bit. Prints one line per measurement, then one JSON line; exits 1 if an
-output differs.
+that has msn_sort_keyed in turn (the others are timed whole by
+scripts/compare_loop.py, a process a checkout), `--samples` timed
+samples a round, their images held bit for bit. Prints one line per
+measurement, then one JSON line; exits 1 if an output differs.
 
-`record_sorts`, `site_calls`, `key_inputs`, `bits_equal`, `bounds`,
-`passes_of` and `move_of` serve chip_smoke.py's `sort` phase too.
+`record_sorts`, `site_calls`, `bits_equal`, `key_in_bytes`, `bounds`,
+`keyed_of`, `passes_of` and `move_of` serve chip_smoke.py's `sort` phase
+too.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -59,6 +66,9 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 SECTOR = 32  # bytes: the unit in which L2 and device memory move data
 SITES = ("resort", "packet closest hit", "packet shadow batch",
          "treelet closest hit")
+# msn_coherence_key's argument types in a sort.cu before msn_sort_keyed
+EARLIER_KEY = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+               + [ctypes.c_void_p] * 2)
 
 
 @contextlib.contextmanager
@@ -75,12 +85,22 @@ def _env(**values):
                 os.environ[k] = v
 
 
+def _cloned_key(key):
+    """A copy of a key tensor or of a KeyIn's tensors."""
+    from moonshine_tpu_torch.core import sortutil
+
+    if not isinstance(key, sortutil.KeyIn):
+        return key.clone()
+    return sortutil.KeyIn(*(x.clone() if hasattr(x, "clone") else x
+                            for x in key))
+
+
 def record_sorts(render):
     """The first sort_lanes call of each (bits, lanes) and the first
     unsort_lanes call of each lane count in render() (run on the eager
     loop, where the wrappers are called at every launch): their inputs
-    cloned, as {("sort", bits, n): (key, arrays, rows, out shapes),
-    ("unsort", n): (perm, arrays)}."""
+    cloned, as {("sort", bits, n): (key or KeyIn, arrays, rows, out
+    shapes), ("unsort", n): (perm, arrays)}."""
     from moonshine_tpu_torch.core import sortutil
     from moonshine_tpu_torch.integrator import graphs
 
@@ -88,8 +108,8 @@ def record_sorts(render):
     real = sortutil.sort_lanes, sortutil.unsort_lanes
 
     def sort(key, arrays, bits, out=None, rows=None):
-        rec.setdefault(("sort", bits, key.shape[0]), (
-            key.clone(), [a.clone() for a in arrays], rows,
+        rec.setdefault(("sort", bits, sortutil._lanes_of(key)[0]), (
+            _cloned_key(key), [a.clone() for a in arrays], rows,
             None if out is None else [o.shape for o in out]))
         return real[0](key, arrays, bits, out=out, rows=rows)
 
@@ -134,27 +154,6 @@ def site_calls(room, room_lens, tree, tree_lens, cfg) -> dict:
             for site, k in keys.items()}
 
 
-def key_inputs(site, arrays, room, tree):
-    """(o, d, bounds, cells, keywords) that the site's key came from."""
-    import torch
-
-    from moonshine_tpu_torch.accel import packet
-    from moonshine_tpu_torch.integrator import path
-
-    if site == "resort":
-        names = [k for k in path._init_state(
-            torch.zeros(1, 3), torch.zeros(1, 3), torch.zeros(1))
-            if k != "rays"]
-        st = dict(zip(names, arrays))
-        return (st["o"], st["d"], room.wide.bounds, path.RESORT_CELLS,
-                dict(active=st["active"]))
-    if site.startswith("packet"):
-        return (arrays[0], arrays[1], room.wide.bounds, packet.SORT_CELLS,
-                dict(active=arrays[3]))
-    return (arrays[0], arrays[1], tree.wide.bounds, packet.SORT_CELLS,
-            dict(major=arrays[4]))
-
-
 def bits_equal(a, b):
     """a and b equal bit for bit (floats compared as their words)."""
     import torch
@@ -179,15 +178,28 @@ def sectors_per_row(row: int) -> float:
                for i in range(period)) / period
 
 
-def bounds(n, arrays, rows, passes) -> dict:
+def key_in_bytes(key_in) -> int:
+    """The bytes a KeyIn's keys need read: the mask or major key of every
+    lane, o and d of each live lane (a dead lane's key is its mask's)."""
+    n = key_in.o.shape[0]
+    live = n if key_in.active is None else int(key_in.active.sum())
+    return (n * ((key_in.active is not None) + 4 * (key_in.major is not None))
+            + live * 24)
+
+
+def bounds(n, arrays, rows, passes, key_bytes=None) -> dict:
     """The least times of one sort_lanes call (`passes` digit passes,
     `native.sort_lib().passes(bits)`) or, with passes = 0, of one
     unsort_lanes call, on the card's published rates:
-    "sort": the whole call: the key read and the permutation written once
-    (an unsort reads the permutation), each array's moved rows read and
-    written once, and the passes' integer operations;
+    "sort": the whole call: the key read (`key_bytes`, its inputs', where
+    given) and the permutation written once (an unsort reads the
+    permutation), each array's moved rows read and written once, and the
+    passes' integer operations;
     "perm": the permutation alone (the key read, the permutation written,
     the operations);
+    "key_perm" (with key_bytes): the key made from its inputs and its
+    permutation (the inputs read, the permutation written, the
+    operations);
     "move": the move alone (the permutation read, the rows read and
     written once), by bytes;
     "move_sectors": the move counted in 32-byte sectors: every row on the
@@ -209,7 +221,8 @@ def bounds(n, arrays, rows, passes) -> dict:
                  f"{nbytes / 1e6:.2f} MB ({what}) -> {t:.4f} ms, {passes} "
                  f"passes, {ops / 1e6:.1f} M int ops -> {t_ops:.4f} ms"))
 
-    out = {"sort": by(n * (8 if passes else 4) + 2 * moved,
+    key_read = (4 * n if key_bytes is None else key_bytes) if passes else 0
+    out = {"sort": by(key_read + 4 * n + 2 * moved,
                       "key, permutation, rows each way")}
     move = n * 4 + 2 * moved
     out["move"] = (ms(move), "bytes", f"{move / 1e6:.2f} MB (permutation, "
@@ -221,6 +234,9 @@ def bounds(n, arrays, rows, passes) -> dict:
         f"sectors) -> {ms(sect):.4f} ms"))
     if passes:
         out["perm"] = by(n * 8, "key, permutation")
+    if passes and key_bytes is not None:
+        out["key_perm"] = by(key_bytes + 4 * n,
+                             "the key's inputs, permutation")
     return out
 
 
@@ -272,6 +288,46 @@ def passes_of(lib, key, bits):
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     return (lambda: _call(lib, "sort", dev, key.data_ptr(), n, bits,
                           work.data_ptr(), perm.data_ptr())), perm
+
+
+def keyed_of(lib, key_in, bits):
+    """(run, perm, key): run() makes key_in's coherence keys and their
+    permutation with lib's kernels into perm: one msn_sort_keyed, which
+    leaves the keys in its workspace (`key`, a view of it), where lib has
+    it; else the earlier form, the box's lower corner and inverse extent
+    in torch ops (its wrapper's), msn_coherence_key into `key`, then
+    msn_sort_lanes. The workspace and key are allocated once, outside."""
+    import torch
+
+    from moonshine_tpu_torch.accel.launch import call_on
+    from moonshine_tpu_torch.core import sortutil
+
+    n, dev = key_in.o.shape[0], key_in.o.device
+    work = torch.empty(lib.work_ints(n, bits), dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    lanes = [ptr(x) for x in (key_in.o, key_in.d, key_in.active,
+                              key_in.major)]
+    if lib.sort_keyed is not None:
+        at = lib.key_at(n, bits)
+        return (lambda: _call(lib, "sort_keyed", dev, *lanes,
+                              key_in.bounds.data_ptr(), key_in.cells,
+                              sortutil.DEAD_KEY, n, bits, work.data_ptr(),
+                              perm.data_ptr())), perm, work[at:at + n]
+    key_fn = lib._fn("msn_coherence_key", EARLIER_KEY)
+    key = torch.empty(n, dtype=torch.int32, device=dev)
+
+    def run():
+        lo = key_in.bounds[0].contiguous()
+        inv_ext = 1.0 / torch.clamp_min(key_in.bounds[1] - lo, 1e-20)
+        rc = call_on(key_fn, dev, *lanes, lo.data_ptr(), inv_ext.data_ptr(),
+                     n, key_in.cells, sortutil.DEAD_KEY, key.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"msn_coherence_key launch failed: {rc}")
+        _call(lib, "sort", dev, key.data_ptr(), n, bits, work.data_ptr(),
+              perm.data_ptr())
+
+    return run, perm, key
 
 
 def move_of(lib, perm, arrays, rows, out_shapes, scatter):
@@ -354,6 +410,7 @@ def time_samples(samples: dict, libs: dict, rounds: int, count: int):
 
     own = native._LOADED.get("sort")
     out, bad, first = {}, [], {}
+    libs = {k: v for k, v in libs.items() if v.sort_keyed is not None}
     try:
         for cell, sample in samples.items():
             out[cell] = {label: [] for label in libs}
@@ -420,19 +477,15 @@ def main(argv=None) -> int:
             perm, arrays = call
             n, rows, out_shapes, key = perm.shape[0], None, None, None
         else:
-            key, arrays, rows, out_shapes = call
+            key_in, arrays, rows, out_shapes = call
+            key = sortutil.key_tensor(key_in)  # the plain version's
             n = key.shape[0]
         rows = rows or [a.shape[0] for a in arrays]
         row = {"n": n, "bits": bits, "arrays": len(arrays), "rows": rows}
         diffs = []
         if not scatter:
-            o, d, bnd, c, kw = key_inputs(site, arrays, room, tree)
-            got_key = sortutil.coherence_key(o, d, bnd, c, **kw)
-            want_key = sortutil.coherence_key_plain(o, d, bnd, c, **kw)
-            if not (bits_equal(got_key, key) and bits_equal(want_key, key)):
-                diffs.append("coherence key")
-            row["key_ms"] = cold_ms(
-                lambda: sortutil.coherence_key(o, d, bnd, c, **kw))
+            row["key_plain_ms"] = cold_ms(
+                lambda: sortutil.key_tensor(key_in))
             lib_perm = torch.argsort(key, stable=True).int()
             row["argsort_ms"] = cold_ms(
                 lambda: torch.argsort(key, stable=True))
@@ -450,24 +503,32 @@ def main(argv=None) -> int:
                 p_run()
                 if not bits_equal(perm, lib_perm):
                     diffs.append(f"{label} permutation")
-                launches = sort_launches(p_run)
+                k_run, k_perm, made = keyed_of(lib, key_in, bits)
+                k_run()
+                if not (bits_equal(k_perm, lib_perm)
+                        and bits_equal(made, key)):
+                    diffs.append(f"{label} key or its permutation")
+                launches = sort_launches(k_run)
             m_run, outs = move_of(lib, perm if scatter else lib_perm, arrays,
                                   rows, out_shapes, scatter)
             m_run()
             if not all(bits_equal(g, w_) for g, w_ in zip(outs, want)):
                 diffs.append(f"{label} move")
-            runs[label] = (None if scatter else p_run, m_run,
+            runs[label] = (None if scatter else (p_run, k_run), m_run,
                            None if scatter else launches)
-        ms = {label: {"passes": [], "move": []} for label in libs}
+        ms = {label: {"passes": [], "key_passes": [], "move": []}
+              for label in libs}
         for r in range(args.rounds):
             order = list(libs) if r % 2 == 0 else list(libs)[::-1]
             for label in order:
-                p_run, m_run, _ = runs[label]
-                if p_run is not None:
-                    ms[label]["passes"].append(cold_ms(p_run))
+                p_runs, m_run, _ = runs[label]
+                if p_runs is not None:
+                    ms[label]["passes"].append(cold_ms(p_runs[0]))
+                    ms[label]["key_passes"].append(cold_ms(p_runs[1]))
                 ms[label]["move"].append(cold_ms(m_run))
         passes = 0 if scatter else own.passes(bits)
-        b = bounds(n, arrays, rows, passes)
+        b = bounds(n, arrays, rows, passes,
+                   None if scatter else key_in_bytes(key_in))
         row.update(ms=ms, bounds={k: v[:2] for k, v in b.items()},
                    launches={k: v[2] for k, v in runs.items()})
         result["sites"][site] = row
@@ -478,17 +539,20 @@ def main(argv=None) -> int:
         print(head + ("; outputs held bit for bit" if not diffs else
                       "; DIFFER: " + "; ".join(diffs)), flush=True)
         if not scatter:
-            print(f"  key {row['key_ms']:.4f} ms; torch.argsort "
-                  f"{row['argsort_ms']:.4f} ms; permutation bound "
-                  f"{b['perm'][0]:.4f} ms by {b['perm'][1]} "
-                  f"({b['perm'][2]})", flush=True)
+            print(f"  the plain key {row['key_plain_ms']:.4f} ms; "
+                  f"torch.argsort {row['argsort_ms']:.4f} ms; permutation "
+                  f"bound {b['perm'][0]:.4f} ms by {b['perm'][1]} "
+                  f"({b['perm'][2]}); key and permutation bound "
+                  f"{b['key_perm'][0]:.4f} ms by {b['key_perm'][1]} "
+                  f"({b['key_perm'][2]})", flush=True)
         for label in libs:
             parts = ([] if scatter else
-                     [f"passes {fmt(ms[label]['passes'])}"])
+                     [f"key + passes {fmt(ms[label]['key_passes'])}",
+                      f"passes alone {fmt(ms[label]['passes'])}"])
             parts.append(f"move {fmt(ms[label]['move'])}")
             if not scatter:
                 lc = runs[label][2]
-                parts.append(f"passes launch {lc['kernels']} kernels "
+                parts.append(f"key + passes launch {lc['kernels']} kernels "
                              f"and {lc['memsets']} memsets: "
                              + ", ".join(f"{k} {v} us" for k, v in lc["us"]))
             print(f"  {label}: " + "; ".join(parts), flush=True)

@@ -274,7 +274,8 @@ def test_resorted_steps_sort_into_the_other_buffers(guarded, monkeypatch,
     add = RR._Frame._add
 
     def spy(key, arrays, bits, out=None, rows=None):
-        calls.append((key.shape[0], bits, out, rows))
+        assert isinstance(key, SU.KeyIn)  # the key's inputs, not a key
+        calls.append((key.o.shape[0], bits, out, rows))
         return sort_lanes(key, arrays, bits, out=out, rows=rows)
 
     monkeypatch.setattr(SU, "sort_lanes", spy)
@@ -398,9 +399,9 @@ def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
     steps = graphs.Steps("cpu")
 
     def shading(out):
-        rad = S.env_miss_plain(scene.env, 1, bounce, d, st["active"],
-                               hit.tri, thr, st["radiance"], st["last_pdf"],
-                               last_delta)
+        rad, after_miss = S.env_miss_plain(
+            scene.env, 1, bounce, d, st["active"], hit.tri, thr,
+            st["radiance"], st["last_pdf"], last_delta)
         surf = {mode: S.surface_plain(
             scene, 1, bounce, hit, o, d, active, thr, rad, st["last_pdf"],
             last_delta, mode,
@@ -408,7 +409,7 @@ def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
             for mode in (S.FULL, S.THIN, S.DIRECT)}
         full = surf[S.FULL]
         lights = full.lights._replace(occluded=full.lights.pdf > 1.0)
-        out.update(rad=rad, surf=surf,
+        out.update(rad=rad, after_miss=after_miss, surf=surf,
                    env_draw=S.env_draw_plain(scene.env, r2),
                    scatter=S.scatter_plain(full, o, d, full.throughput,
                                            full.radiance, full.rng,
@@ -419,6 +420,8 @@ def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
     shading(free_out)
     assert ("shade" in guarded["steps"]) and guarded["reads"] == 0
     assert torch.equal(guarded_out["rad"], free_out["rad"])
+    assert torch.equal(guarded_out["after_miss"], active)
+    assert torch.equal(free_out["after_miss"], active)
     for got, want in zip(guarded_out["env_draw"], free_out["env_draw"]):
         assert torch.equal(got, want)
     for k in ("o", "d", "t_max", "lane"):

@@ -33,11 +33,15 @@ material, a textured atlas), the room (constant atlas), two-level scenes
 (mirroring instances, the tie scene) and light panels with a textured
 emission or none sampled, with env maps of size 1 and 32; the kernels
 work in place and leave dead lanes, so the outputs they skip are held
-on the lanes that are live. The lane sort (csrc/sort.cu) gives
+on the lanes that are live (the env miss writes only the lanes that
+missed: every lane's radiance and mask are held, at live shares of
+100%, 10% and 1%). The lane sort (csrc/sort.cu) gives
 torch.argsort(key, stable=True) bit for bit and moves every column as
 its plain version does (below one tile, ragged, many tiles, every key
 dead, the treelet's three passes), inside a CUDA graph too; its inverse
-move and the coherence key kernel equal their plain versions."""
+move equals its plain version, and the coherence keys that its first
+kernel makes from the lanes' inputs equal coherence_key_plain's, their
+sort at full, 1%-live and all-dead batches too."""
 
 import numpy as np
 import pytest
@@ -1536,27 +1540,42 @@ def test_shade_scatter_matches_plain(cuda, mat_type, counts):
 @pytest.mark.parametrize("env_kind", ["constant", "map"])
 def test_shade_env_kernels_match_plain(cuda, env_kind):
     """The env miss kernel against env_miss_plain (env samples 0, 1 and
-    2; bounce 0 and 2) and the env draw kernel against env_draw_plain
-    (rand 0, near 1 and seeded), bit for bit, at env size 1 and 32."""
+    2; bounce 0 and 2; live shares of 100%, 10% and 1%, a sixth of the
+    lanes missed), in place on the radiance and the mask as the loop
+    calls it: every lane's radiance and mask bit for bit, the lanes it
+    does not write too (their radiance as it was, -0.0 kept), and the
+    env draw kernel against env_draw_plain (rand 0, near 1 and seeded),
+    bit for bit, at env size 1 and 32."""
     env = _env(env_kind, cuda)
     scene, _ = _shade_scene("room", cuda)
     n = 4099
     lanes = _shade_lanes(scene, False, n, 17, cuda)
+    rs = np.random.RandomState(23)
+    draw = torch.from_numpy(rs.rand(n)).to(cuda)
+    radiance = lanes["radiance"].clone()
+    radiance[torch.from_numpy(rs.rand(n) < 0.05).to(cuda)] = -0.0
     shade.reset_launch_counts()
-    for env_samples in (0, 1, 2):
-        for bounce in (0, 2):
-            args = (env, env_samples, bounce, lanes["d"], lanes["active"],
-                    lanes["hit"].tri, lanes["throughput"],
-                    lanes["radiance"], lanes["last_pdf"],
-                    lanes["last_delta"])
-            want = shade.env_miss_plain(*args)
-            _assert_bits(shade.env_miss(*args), want,
-                         f"env_miss {env_samples} {bounce}")
-            # into the radiance itself, as the path calls it
-            rad = lanes["radiance"].clone()
-            got = shade.env_miss(*args[:7], rad, *args[8:], out=rad)
-            assert got is rad
-            _assert_bits(got, want, f"env_miss in place {env_samples}")
+    for share in (1.0, 0.1, 0.01):
+        active = draw < share
+        missed = active & (lanes["hit"].tri < 0)
+        assert int(missed.sum()) > 0 and int((active & ~missed).sum()) > 0
+        for env_samples in (0, 1, 2):
+            for bounce in (0, 2):
+                args = (env, env_samples, bounce, lanes["d"], active,
+                        lanes["hit"].tri, lanes["throughput"], radiance,
+                        lanes["last_pdf"], lanes["last_delta"])
+                want_rad, want_active = shade.env_miss_plain(*args)
+                rad, act = radiance.clone(), active.clone()
+                got = shade.env_miss(*args[:4], act, *args[5:7], rad,
+                                     *args[8:])
+                assert got[0] is rad and got[1] is act
+                what = f"env_miss {share} {env_samples} {bounce}"
+                _assert_bits(rad, want_rad, f"{what} radiance")
+                _assert_bits(act, want_active, f"{what} mask")
+                _assert_bits(rad[~missed], radiance[~missed],
+                             f"{what} radiance of the lanes left")
+                assert torch.equal(act, active & (lanes["hit"].tri >= 0))
+    assert shade.LAUNCHES["env_miss"] == 18
     rs = np.random.RandomState(19)
     rand2 = rs.rand(n, 2).astype(np.float32)
     rand2[:3] = [[0, 0], [np.float32(1 - 2**-24), 0.5],
@@ -1566,7 +1585,6 @@ def test_shade_env_kernels_match_plain(cuda, env_kind):
                                shade.env_draw_plain(env, rand2),
                                ("dir", "radiance", "pdf")):
         _assert_bits(got, want.contiguous(), f"env_draw {name}")
-    assert shade.LAUNCHES["env_miss"] == 12
     assert shade.LAUNCHES["env_draw"] == 1
 
 
@@ -1619,8 +1637,7 @@ def test_sort_lanes_matches_argsort(cuda, case, n):
         _assert_bits(g, w, f"{case} unsorted column {j}")
     for g, w in zip(back, sortutil.unsort_lanes_plain(perm, moved)):
         _assert_bits(g, w, f"{case} unsort against its plain version")
-    assert sortutil.LAUNCHES == {"coherence_key": 0, "sort_lanes": 1,
-                                 "unsort_lanes": 1}
+    assert sortutil.LAUNCHES == {"sort_lanes": 1, "unsort_lanes": 1}
 
 
 def test_sort_lanes_rows_out_and_empty(cuda):
@@ -1725,34 +1742,106 @@ def test_sort_lanes_replays_in_a_graph(cuda, case):
             _assert_bits(g, w, "replayed column")
 
 
+def _key_lanes(device, n, seed, live_share=0.7, wild=True):
+    """(o, d, active, major) for coherence keys: origins inside and (wild)
+    far outside the box (cells past the int32 range saturate), zero and
+    (wild) NaN components; `live_share` of the lanes live; major keys of
+    380 treelets."""
+    rs = np.random.RandomState(seed)
+    o = (rs.randn(n, 3) * 4).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d[rs.rand(n, 3) < 0.1] = 0.0
+    if wild:
+        o[rs.rand(n, 3) < 0.05] = 3e38
+        o[rs.rand(n, 3) < 0.02] = np.nan
+        d[rs.rand(n, 3) < 0.02] = np.nan
+    put = lambda x: torch.from_numpy(x).to(device)
+    return (put(o), put(d), put(rs.rand(n) < live_share),
+            put(rs.randint(0, 380, n).astype(np.int32)))
+
+
+_KEY_BOUNDS = [[-1.5, 0.0, 2.0], [3.0, 4.5, 2.0]]  # a flat z axis
+
+
 @pytest.mark.parametrize("cells", [4, 8])
 @pytest.mark.parametrize("n", [1, 4099])
 def test_coherence_key_matches_plain(cuda, cells, n):
-    """The coherence key kernel against coherence_key_plain bit for bit:
-    origins inside and far outside the box (cells past the int32 range
-    saturate), a flat axis, zero and NaN components, with and without
-    the mask and the major key."""
+    """The coherence key that the sort's first kernel makes from the
+    lanes' inputs (compare_sort.keyed_of reads it back from the
+    workspace) against coherence_key_plain bit for bit: origins inside
+    and far outside the box (cells past the int32 range saturate), a
+    flat axis, zero and NaN components, with and without the mask and
+    the major key; its permutation is torch.argsort of the plain key."""
     from moonshine_tpu_torch.core import sortutil
+    from moonshine_tpu_torch.scripts.compare_sort import keyed_of
 
-    rs = np.random.RandomState(n + cells)
-    bounds = torch.tensor([[-1.5, 0.0, 2.0], [3.0, 4.5, 2.0]],
-                          device=cuda)
-    o = (rs.randn(n, 3) * 4).astype(np.float32)
-    o[rs.rand(n, 3) < 0.05] = 3e38
-    o[rs.rand(n, 3) < 0.02] = np.nan
-    d = rs.randn(n, 3).astype(np.float32)
-    d[rs.rand(n, 3) < 0.1] = 0.0
-    d[rs.rand(n, 3) < 0.02] = np.nan
-    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
-    active = torch.from_numpy(rs.rand(n) > 0.3).to(cuda)
-    major = torch.from_numpy(rs.randint(0, 380, n).astype(np.int32)).to(cuda)
-    sortutil.reset_launch_counts()
+    bounds = torch.tensor(_KEY_BOUNDS, device=cuda)
+    o, d, active, major = _key_lanes(cuda, n, n + cells)
     for kw in ({}, {"active": active}, {"major": major},
                {"active": active, "major": major}):
-        got = sortutil.coherence_key(o, d, bounds, cells, **kw)
+        bits = ((380 if "major" in kw else 1) * cells ** 3 * 8
+                - 1).bit_length()
+        run, perm, got = keyed_of(native.sort_lib(), sortutil.KeyIn(
+            o, d, bounds, cells, **kw), bits)
+        run()
         want = sortutil.coherence_key_plain(o, d, bounds, cells, **kw)
         _assert_bits(got, want, f"coherence key {sorted(kw)}")
-    assert sortutil.LAUNCHES["coherence_key"] == 4
+        _assert_bits(perm, torch.argsort(sortutil.mapped_key(want, bits),
+                                         stable=True).int(),
+                     f"keyed permutation {sorted(kw)}")
+
+
+@pytest.mark.parametrize("share", [1.0, 0.01, 0.0])
+@pytest.mark.parametrize("n", [4097, 1_000_003])
+def test_sort_lanes_by_key_inputs(cuda, share, n):
+    """sort_lanes given the key's inputs, as every site calls it (the
+    resort's 8^3 cells with its mask and prefix rows; the packet
+    dispatch's 4^3 with its mask; the treelet dispatch's 4^3 after the
+    major key), on full, 1%-live and all-dead batches: the permutation
+    equals torch.argsort(coherence_key_plain(...), stable=True) and
+    every moved column sort_lanes_plain's, bit for bit; then the same
+    sort captured in a CUDA graph and replayed on fresh lanes in the
+    captured buffers."""
+    from moonshine_tpu_torch.core import sortutil
+
+    bounds = torch.tensor(_KEY_BOUNDS, device=cuda)
+    o, d, active, major = _key_lanes(cuda, n, n, share, wild=False)
+    cols = _sort_case(cuda, n, "resort", 3)[2]
+    for cells, kw, bits in (
+            (8, {"active": active}, sortutil.key_bits(8)),
+            (4, {"active": active}, sortutil.key_bits(4)),
+            (4, {"major": major}, (380 * 512 - 1).bit_length())):
+        key_in = sortutil.KeyIn(o, d, bounds, cells, **kw)
+        want_key = sortutil.coherence_key_plain(o, d, bounds, cells, **kw)
+        perm, moved = sortutil.sort_lanes(key_in, cols, bits)
+        _assert_bits(perm, torch.argsort(want_key, stable=True).int(),
+                     f"{cells} {sorted(kw)} perm")
+        want_perm, want = sortutil.sort_lanes_plain(key_in, cols, bits)
+        _assert_bits(perm, want_perm, "against the plain version")
+        for j, (g, w) in enumerate(zip(moved, want)):
+            _assert_bits(g, w, f"{cells} {sorted(kw)} column {j}")
+    # the resort's form: `rows` and `out`, inside a graph
+    rows = [n // 2, n, n, n // 4, n, n // 3]
+    static = [x.clone() for x in (o, d, active)]
+    key_in = sortutil.KeyIn(*static[:2], bounds, 8, static[2])
+    out = [torch.zeros_like(c) for c in cols]
+    sortutil.sort_lanes(key_in, cols, 12, out=out, rows=rows)  # the build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with launch.launch_tally() as tally:
+        with torch.cuda.graph(graph):
+            sortutil.sort_lanes(key_in, cols, 12, out=out, rows=rows)
+    assert len(tally) == 1
+    for seed in (1, 2):
+        fresh = _key_lanes(cuda, n, seed, share, wild=False)[:3]
+        for x, y in zip(static, fresh):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_out = [torch.zeros_like(c) for c in cols]
+        sortutil.sort_lanes_plain(key_in, cols, 12, out=want_out, rows=rows)
+        for j, (g, w) in enumerate(zip(out, want_out)):
+            _assert_bits(g, w, f"replayed column {j}")
 
 
 # --- a sample's camera rays, accumulation and counts (csrc/frame.cu,

@@ -517,11 +517,13 @@ def test_env_matches_reference(env_kind):
     thr, rad = J(lanes["throughput"]), J(lanes["radiance"])
     for env_samples in (0, 1):
         for bounce in (0, 2):
-            got = shade.env_miss(pe, env_samples, bounce, P(lanes["d"]),
-                                 P(lanes["active"]), P(lanes["tri"]),
-                                 P(lanes["throughput"]),
-                                 P(lanes["radiance"]), P(lanes["last_pdf"]),
-                                 P(lanes["last_delta"]))
+            got, mask = shade.env_miss(
+                pe, env_samples, bounce, P(lanes["d"]), P(lanes["active"]),
+                P(lanes["tri"]), P(lanes["throughput"]),
+                P(lanes["radiance"]), P(lanes["last_pdf"]),
+                P(lanes["last_delta"]))
+            _close(mask, J(lanes["active"]) & (J(lanes["tri"]) >= 0),
+                   f"miss mask {env_samples} {bounce}")
             env_plain = ((env_samples == 0) | (bounce == 0)
                          | J(lanes["last_delta"]))
             want = rad
@@ -544,6 +546,57 @@ def test_env_matches_reference(env_kind):
                                JE.sample_envmap(je, J(rand2)),
                                ("dir", "radiance", "pdf")):
         _close(got, want, f"draw {what}")
+
+
+@pytest.mark.parametrize("bounce", [0, 2])
+@pytest.mark.parametrize("env_samples", [0, 1])
+@pytest.mark.parametrize("env_kind", ["constant", "map"])
+def test_env_miss_in_place_matches_reference(env_kind, env_samples, bounce):
+    """The miss as the loop calls it (integrator/shade.py env_miss, which
+    on the card works in place on the state's radiance and mask) on a
+    batch of dead, hit and missed lanes, against the reference's miss
+    and the mask it leaves (moonshine_tpu/integrator/path.py:402-421:
+    the env radiance added on active & ~is_hit, then active = active &
+    is_hit); the radiance of every lane that did not miss stays as it
+    was, bit for bit (-0.0 too), as the kernel, which does not write it,
+    leaves it."""
+    je, pe = _envs()[env_kind]
+    rs = np.random.RandomState(47 + env_samples + 2 * bounce)
+    n = 512
+    lanes = _lanes(10, 0, n, 53)
+    lanes["tri"][rs.rand(n) < 0.3] = -1
+    lanes["active"] = rs.rand(n) < 0.7
+    lanes["radiance"][rs.rand(n) < 0.1] = -0.0
+    kinds = lanes["active"] & (lanes["tri"] < 0), lanes["active"] & (
+        lanes["tri"] >= 0), ~lanes["active"]
+    assert all(k.sum() > 20 for k in kinds)
+    J, P = jnp.asarray, torch.from_numpy
+    got, mask = shade.env_miss(
+        pe, env_samples, bounce, P(lanes["d"]), P(lanes["active"]),
+        P(lanes["tri"]), P(lanes["throughput"]), P(lanes["radiance"]),
+        P(lanes["last_pdf"]), P(lanes["last_delta"]))
+    # the reference's miss (path.py:402-421)
+    d, active = J(lanes["d"]), J(lanes["active"])
+    is_hit = J(lanes["tri"]) >= 0
+    miss = active & ~is_hit
+    thr, rad = J(lanes["throughput"]), J(lanes["radiance"])
+    env_plain = (env_samples == 0) | (bounce == 0) | J(lanes["last_delta"])
+    want = rad
+    if env_samples > 0:
+        env_rad, rad_e, pdf_e = JE.miss_radiance_and_pdf(je, d)
+        w = JP.power_heuristic(1.0, J(lanes["last_pdf"]), env_samples, pdf_e)
+        want = want + jnp.where((miss & ~env_plain & (pdf_e > 0.0))[..., None],
+                                thr * rad_e * w[..., None], 0.0)
+    else:
+        env_rad = JE.envmap_incoming_radiance(je, d)
+    want = want + jnp.where((miss & env_plain)[..., None], thr * env_rad,
+                            0.0)
+    _close(got, want, f"radiance {env_kind} {env_samples} {bounce}")
+    _close(mask, active & is_hit, "the mask after the miss")
+    kept = ~kinds[0]
+    np.testing.assert_array_equal(got.numpy()[kept].view(np.int32),
+                                  lanes["radiance"][kept].view(np.int32))
+    assert (got.numpy()[kinds[0]] != lanes["radiance"][kinds[0]]).any()
 
 
 # ---- the render held bit for bit

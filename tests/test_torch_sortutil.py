@@ -87,16 +87,17 @@ def _site_keys(site, n, seed):
     d = torch.from_numpy(rs.randn(n, 3).astype(np.float32))
     active = torch.from_numpy(rs.rand(n) > 0.3)
     if site == "resort":
-        return (S.coherence_key(o, d, scene.wide.bounds, P.RESORT_CELLS,
-                                active), P.RESORT_BITS)
+        return (S.coherence_key_plain(o, d, scene.wide.bounds,
+                                      P.RESORT_CELLS, active), P.RESORT_BITS)
     if site == "packet":
-        return PP.sort_key(scene.wide, o, d, active), PP.SORT_KEY_BITS
+        return (S.key_tensor(PP.sort_key(scene.wide, o, d, active)),
+                PP.SORT_KEY_BITS)
     k = 379  # treelet_1080p's treelet count
     nearest = torch.from_numpy(rs.randint(0, k + 1, n).astype(np.int32))
     wbvh = scene.wide._replace(t_roots=torch.zeros(k, dtype=torch.int32))
-    key = nearest * PT.MAX_KEYED + PP.sort_key(wbvh, o, d)
-    assert torch.equal(key, S.coherence_key(o, d, wbvh.bounds, PP.SORT_CELLS,
-                                            major=nearest))
+    key = nearest * PT.MAX_KEYED + S.key_tensor(PP.sort_key(wbvh, o, d))
+    assert torch.equal(key, S.coherence_key_plain(
+        o, d, wbvh.bounds, PP.SORT_CELLS, major=nearest))
     return key, PT.key_bits(wbvh)
 
 
@@ -113,15 +114,82 @@ def test_site_keys_sort_as_the_reference(site):
     _against_reference(k, _columns(rs, k.shape[0]), bits)
 
 
+def _reference_key(cells, bounds, o, d, active=None):
+    """The reference's coherence key of numpy lanes: accel/packet.py
+    `_sort_key` for 4^3 cells (`_subkey`, the treelet dispatch's, without
+    a mask), integrator/path.py `_resort_state`'s for 8^3."""
+    from moonshine_tpu.accel import packet as JP
+
+    oj, dj = jnp.asarray(o), jnp.asarray(d)
+    act = None if active is None else jnp.asarray(active)
+    if cells == 4:
+        tree = types.SimpleNamespace(bounds=jnp.asarray(bounds))
+        return np.asarray(JP._sort_key(tree, oj, dj, act))
+    lo = jnp.asarray(bounds[0])
+    inv_ext = 1.0 / jnp.maximum(jnp.asarray(bounds[1]) - lo, 1e-20)
+    cell = jnp.clip(((oj - lo) * inv_ext * 8.0).astype(jnp.int32), 0, 7)
+    octant = ((dj[:, 0] > 0).astype(jnp.int32) * 4
+              + (dj[:, 1] > 0).astype(jnp.int32) * 2
+              + (dj[:, 2] > 0).astype(jnp.int32))
+    key = ((cell[:, 0] * 8 + cell[:, 1]) * 8 + cell[:, 2]) * 8 + octant
+    return np.asarray(key if act is None else jnp.where(act, key, DEAD))
+
+
+@pytest.mark.parametrize("live_share", [0.0, 0.01, 0.7])
+@pytest.mark.parametrize("site", ["resort", "packet", "treelet"])
+def test_sort_lanes_by_key_inputs_matches_reference(site, live_share):
+    """sort_lanes given the key's inputs (a KeyIn, as every site passes
+    them) against the reference's sort_lanes of the reference's key, at
+    each site's cells (the resort's 8^3 with its mask, the packet
+    dispatch's 4^3 with its mask, the treelet dispatch's 4^3 after the
+    nearest treelet), on an all-dead, a 1%-live and a mostly live batch
+    (the treelet key has no mask: its share is of lanes with no pending
+    treelet)."""
+    rs = np.random.RandomState(int(live_share * 100) + len(site))
+    n = 4097
+    bounds = np.array([[-1.5, 0.0, 2.0], [3.0, 4.5, 6.0]], np.float32)
+    o = (bounds[0] - 1 + rs.rand(n, 3) * 7).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d[rs.rand(n, 3) < 0.1] = 0.0
+    live = rs.rand(n) < live_share
+    cells = P.RESORT_CELLS if site == "resort" else PP.SORT_CELLS
+    T = torch.from_numpy
+    if site == "treelet":
+        k = 379
+        nearest = np.where(live, rs.randint(0, k, n), k).astype(np.int32)
+        wbvh = types.SimpleNamespace(t_roots=torch.zeros(k))
+        key_in = S.KeyIn(T(o), T(d), T(bounds), cells, major=T(nearest))
+        want_key = nearest * PT.MAX_KEYED + _reference_key(cells, bounds,
+                                                           o, d)
+        bits = PT.key_bits(wbvh)
+    else:
+        key_in = S.KeyIn(T(o), T(d), T(bounds), cells, T(live))
+        want_key = _reference_key(cells, bounds, o, d, live)
+        bits = P.RESORT_BITS if site == "resort" else PP.SORT_KEY_BITS
+    cols = _columns(rs, n)
+    small = [c for c in cols if c.dtype != np.int64]
+    want_sorted, want = JS.sort_lanes(jnp.asarray(want_key),
+                                      [jnp.asarray(c) for c in small])
+    perm, got = S.sort_lanes(key_in, [T(c) for c in cols], bits)
+    order = np.argsort(want_key, kind="stable")
+    np.testing.assert_array_equal(perm.numpy(), order)
+    np.testing.assert_array_equal(want_key[order], np.asarray(want_sorted))
+    want = iter(want)
+    for c, g in zip(cols, got):
+        w = c[order] if c.dtype == np.int64 else np.asarray(next(want))
+        np.testing.assert_array_equal(g.numpy(), w)
+    np.testing.assert_array_equal(S.key_tensor(key_in).numpy(), want_key)
+    plain_perm, _ = S.sort_lanes_plain(key_in, [], bits)
+    assert torch.equal(plain_perm, perm)
+
+
 @pytest.mark.parametrize("cells", [4, 8])
 def test_coherence_key_matches_reference(cells):
-    """coherence_key's plain version against the reference's key
+    """coherence_key_plain (the card's sort makes the same key) against the reference's key
     expressions (accel/packet.py `_sort_key` for 4^3 cells; the resort's,
     integrator/path.py, for 8^3) bit for bit, on origins inside and
     outside the box and directions with zero components; with `major`
     as the treelet dispatch forms its key."""
-    from moonshine_tpu.accel import packet as JP
-
     rs = np.random.RandomState(cells)
     n = 4099
     bounds = np.array([[-1.5, 0.0, 2.0], [3.0, 4.5, 2.0]], np.float32)
@@ -130,32 +198,18 @@ def test_coherence_key_matches_reference(cells):
     d[rs.rand(n, 3) < 0.1] = 0.0
     active = rs.rand(n) > 0.3
     major = rs.randint(0, 40, n).astype(np.int32)
-    got = S.coherence_key(torch.from_numpy(o), torch.from_numpy(d),
-                          torch.from_numpy(bounds), cells,
-                          torch.from_numpy(active)).numpy()
-    lo = jnp.asarray(bounds[0])
-    inv_ext = 1.0 / jnp.maximum(jnp.asarray(bounds[1]) - lo, 1e-20)
-    if cells == 4:
-        tree = types.SimpleNamespace(bounds=jnp.asarray(bounds))
-        want = np.asarray(JP._sort_key(tree, jnp.asarray(o), jnp.asarray(d),
-                                       jnp.asarray(active)))
-    else:  # moonshine_tpu/integrator/path.py _resort_state's key
-        cell = jnp.clip(((jnp.asarray(o) - lo) * inv_ext * 8.0).astype(
-            jnp.int32), 0, 7)
-        dj = jnp.asarray(d)
-        octant = ((dj[:, 0] > 0).astype(jnp.int32) * 4
-                  + (dj[:, 1] > 0).astype(jnp.int32) * 2
-                  + (dj[:, 2] > 0).astype(jnp.int32))
-        key = ((cell[:, 0] * 8 + cell[:, 1]) * 8 + cell[:, 2]) * 8 + octant
-        want = np.asarray(jnp.where(jnp.asarray(active), key, DEAD))
+    got = S.coherence_key_plain(torch.from_numpy(o), torch.from_numpy(d),
+                                torch.from_numpy(bounds), cells,
+                                torch.from_numpy(active)).numpy()
+    want = _reference_key(cells, bounds, o, d, active)
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32 and got.max() == DEAD
     assert got[active].max() < 1 << S.key_bits(cells)
-    with_major = S.coherence_key(torch.from_numpy(o), torch.from_numpy(d),
-                                 torch.from_numpy(bounds), cells,
-                                 major=torch.from_numpy(major)).numpy()
-    no_mask = S.coherence_key(torch.from_numpy(o), torch.from_numpy(d),
-                              torch.from_numpy(bounds), cells).numpy()
+    with_major = S.coherence_key_plain(
+        torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(bounds),
+        cells, major=torch.from_numpy(major)).numpy()
+    no_mask = S.coherence_key_plain(torch.from_numpy(o), torch.from_numpy(d),
+                                    torch.from_numpy(bounds), cells).numpy()
     np.testing.assert_array_equal(
         with_major, major * cells ** 3 * 8 + no_mask)
 
