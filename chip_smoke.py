@@ -3135,31 +3135,89 @@ RAYGEN_LANE_BYTES = 70  # o 12, d 12, rng 8, active 1, throughput 12,
 RAYGEN_LANE_FLOPS = 100  # float ops a lane (a transcendental counts one)
 
 
-def frame_phase(scenes, stage_profiles, cfg, timings, errs):
+def accumulate_check(label, acc, rad, pix, nb):
+    """The accumulation kernel on acc [bh, W, 4] against its plain version
+    bit for bit, with a tally (the frame's rays, segments and sample
+    index, added in the same launch); each timed beside the bound (bytes:
+    radiance and pix read, three floats of acc read and written) and, at
+    one sample a batch, one `index_add_` over each lane's composed pixel
+    index into a [bh, W, 3] accumulator (the index made outside the
+    timing). Returns the kernels line's row."""
+    import torch
+
+    from moonshine_tpu_torch.render import frame_kernels as FK
+    from moonshine_tpu_torch.scripts import compare_frame as CF
+
+    bh, w = acc.shape[0], acc.shape[1]
+    n, dev = rad.shape[0], acc.device
+    scalar = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+    tallies = [FK.Tally(rays=scalar(11), trace_rays=scalar(7 * n),
+                        segments=scalar(3), bounce=scalar(4),
+                        sample=scalar(2**32 + 5)) for _ in range(2)]
+    got, want = acc.clone(), acc.clone()
+    FK.accumulate(got, rad, pix, nb, tallies[0])
+    FK.accumulate_plain(want, rad, pix, nb, tallies[1])
+    same = CF.bits_equal(got, want) and all(
+        int(a) == int(b) for a, b in zip(*tallies))
+    library, lib_note = None, ""
+    if nb == 1:  # one add a pixel: index_add_'s atomics give the same bits
+        acc3 = acc[..., :3].contiguous()
+        library = CF.library_call(acc3, rad, CF.pixel_index(bh, w, pix,
+                                                            dev))
+        library()
+        lib_note = (f" (its sum = plain bit for bit "
+                    f"{CF.bits_equal(acc3, want[..., :3])})")
+    ms = cuda_ms(lambda: FK.accumulate(got, rad, pix, nb), 20)
+    plain_ms = cuda_ms(lambda: FK.accumulate_plain(want, rad, pix, nb), 5)
+    library_ms = None if library is None else cuda_ms(library, 20)
+    nbytes = CF.accumulate_bytes(n, bh, w, pix is not None)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (n + 0.0) / PEAK_FP32 * 3e3  # an add a value
+    say("frame", f"accumulate {label} ({n} lanes, {nb} a batch): kernel = "
+        f"plain bit for bit (acc and the tally's adds) {same}; kernel "
+        f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound {t_bytes:.4f} "
+        f"ms by bytes ({nbytes / 1e6:.1f} MB; {t_ops:.5f} ms of adds), "
+        + (f"index_add_ {library_ms:.4f} ms{lib_note}" if nb == 1 else
+           "no one PyTorch call sums several samples a pixel in order"))
+    if not same:
+        raise AssertionError(f"accumulate {label}: the kernel differs from "
+                             "its plain version")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes", library_ms=library_ms)
+
+
+def frame_phase(scenes, offline_cell, stage_profiles, cfg, timings, errs):
     """The kernels of csrc/frame.cu (render/frame_kernels.py) at the main
     path's shapes (FRAME_SHAPES: room_1080p's 2,073,600 lanes,
     offline_720p's 921,600, a 540-row band of the 1080p frame, 1024x576
     x 3 samples a batch, tiled): the raygen kernel into a trace's buffers
     (filled with junk first) against its plain version (the camera rays
     of each sample and _Trace.reset), every buffer and scalar bit for bit;
-    the accumulation against its plain version on seeded radiance and a
-    seeded permutation for pix, bit for bit; each timed beside its plain
-    version and its bound (bytes: raygen's 70 a lane written; the
-    accumulation's radiance and pix read, acc read and written). Then the
-    counts folded into the shading kernels: room_1080p's first full
-    surface launch and first scatter recorded (scripts/compare_shade.py)
-    and replayed with their counters, each count against the plain
-    version's and the torch sum of the kernel's own mask, exactly; each
-    kernel timed with and without its counter (cold L2), beside the
-    torch reductions they replace and torch.count_nonzero on the same
+    the accumulation (`accumulate_check`) against its plain version on
+    seeded radiance and a seeded permutation for pix, and on room_1080p's
+    own radiance and pix (scripts/compare_frame.py `record_accumulate`:
+    the pix of its last resort), bit for bit with the tally's adds; each
+    timed beside its plain version, its bound and, at one sample a batch,
+    `index_add_`. Then the counts folded into the shading kernels:
+    room_1080p's first full surface launch and first scatter and
+    offline_720p's at segment OFFLINE_SEGMENT recorded
+    (scripts/compare_shade.py) and replayed with their counters, each
+    count against the plain version's and the torch sum of the kernel's
+    own mask, and against 0 with every lane dead, exactly; each kernel
+    timed with and without its counter (cold L2), beside the torch
+    reductions they replace and torch.count_nonzero on room_1080p's
     masks. Last, the eager stage split (`stage_profiles`, the graphs
     phase's) of room_1080p and offline_720p: the camera range holds one
-    raygen launch a sample besides scalar fills, the live_count range no
-    reduction, the env range the miss kernel alone."""
+    raygen launch a sample besides scalar fills, the accumulate range one
+    accumulation, the live_count range no reduction, the env range the
+    miss kernel alone."""
     import torch
 
-    from moonshine_tpu_torch.integrator import path, shade
+    from moonshine_tpu_torch.integrator import path
+    from moonshine_tpu_torch.integrator.path import PathConfig
     from moonshine_tpu_torch.render import frame_kernels as FK
+    from moonshine_tpu_torch.render.renderer import render_sample
+    from moonshine_tpu_torch.scripts import compare_frame as CF
     from moonshine_tpu_torch.scripts import compare_shade as CS
 
     room, lens = scenes["room_184k/default"]
@@ -3208,76 +3266,66 @@ def frame_phase(scenes, stage_profiles, cfg, timings, errs):
             errs["raygen"] = 0.0
 
         gen.manual_seed(n)
-        acc = torch.rand((bh, w, 3), generator=gen, device=dev)
+        acc = torch.rand((bh, w, 4), generator=gen, device=dev)
         rad = torch.rand((n, 3), generator=gen, device=dev) * torch.exp(
             torch.randn((n, 1), generator=gen, device=dev) * 4)
         order = (torch.randperm(n, generator=gen, device=dev) if pix
                  else None)
-        got, want = acc.clone(), acc.clone()
-        FK.accumulate(got, rad, order, nb)
-        FK.accumulate_plain(want, rad, order, nb)
-        same = bool(torch.equal(got.view(torch.int32),
-                                want.view(torch.int32)))
-        ms = cuda_ms(lambda: FK.accumulate(got, rad, order, nb), 20)
-        plain_ms = cuda_ms(lambda: FK.accumulate_plain(want, rad, order,
-                                                       nb), 5)
-        nbytes = n * 12 + (n * 8 if pix else 0) + bh * w * 24
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = (n + 0.0) / PEAK_FP32 * 3e3  # an add a value
-        say("frame", f"accumulate {name} ({n} lanes, {nb} a batch, pix "
-            f"{pix}): kernel = plain bit for bit {same}; kernel {ms:.4f} ms"
-            f", plain torch {plain_ms:.4f} ms, bound {t_bytes:.4f} ms by "
-            f"bytes ({nbytes / 1e6:.1f} MB; {t_ops:.5f} ms of adds); no "
-            f"PyTorch call computes it")
-        if not same:
-            raise AssertionError(f"accumulate {name}: the kernel differs "
-                                 "from its plain version")
+        row = accumulate_check(f"{name} (seeded pix)" if pix else name,
+                               acc, rad, order, nb)
         if name == "room_1080p":
-            timings["accumulate"] = dict(ms=ms, plain_ms=plain_ms,
-                                         bound_ms=max(t_bytes, t_ops),
-                                         bound_by="bytes")
+            timings["accumulate"] = row
             errs["accumulate"] = 0.0
-        del traces, acc, rad, order, got, want
+        del traces, acc, rad, order
 
-    # the counts, on room_1080p's first full surface launch and scatter
-    rec = CS.record_sample(room, lens, cfg)
-    counted, without, masks = {}, {}, []
-    for key, counter, mask_of in (
-            ("surface/full", "rays", lambda out: out.shadow.lane),
-            ("scatter", "live", lambda out: out["active"])):
-        name, args, kw = rec[key]
-        if counter not in kw:
-            raise AssertionError(f"{key} was called without its counter")
-        kernel, plain = getattr(shade, name), getattr(shade, f"{name}_plain")
-        mine = CS.clone(kw)
-        mine[counter].zero_()
-        out = kernel(*CS.fresh(name, args), **mine)
-        ref = CS.clone(kw)
-        ref[counter].zero_()
-        plain(*CS.fresh(name, args), **ref)
-        summed = int(mask_of(out).sum())
-        say("frame", f"counts: {key}, a mask of {mask_of(out).numel()}: "
-            f"kernel's {counter} {int(mine[counter])}, plain version's "
-            f"{int(ref[counter])}, torch sum of the kernel's mask {summed}")
-        if not int(mine[counter]) == int(ref[counter]) == summed:
-            raise AssertionError(f"{key}: the folded count differs")
-        masks.append(mask_of(out))
-        work = CS.fresh(name, args)
-        bare = {k: v for k, v in kw.items() if k != counter}
-        rounds = {"with": [], "without": []}
-        for _ in range(3):
-            rounds["with"].append(CS.time_inplace(CS.call(
-                kernel, work, CS.clone(kw)), work, args, 10))
-            rounds["without"].append(CS.time_inplace(CS.call(
-                kernel, work, bare), work, args, 10))
-        counted[key], without[key] = min(rounds["with"]), min(
-            rounds["without"])
-        say("frame", f"counts: {key} kernel with its counter "
-            f"{counted[key]:.4f} ms, without {without[key]:.4f} ms (rounds "
-            f"{rounds})")
-    # the first reduction summed the lanes live at the segment's start: a
-    # mask of as many lanes (the surface's, live at the hit)
-    masks.insert(0, rec["surface/full"][1][6])
+    # room_1080p's own accumulation: the pix of its last resort
+    shape, rad, order, nb = CF.record_accumulate(room, lens, cfg)
+    gen.manual_seed(1)
+    accumulate_check("room_1080p (its own pix)", torch.rand(
+        shape, generator=gen, device=dev), rad, order, nb)
+    del rad, order
+
+    # the counts, at room_1080p's first full surface launch and scatter
+    # and at offline_720p's segment OFFLINE_SEGMENT (every lane launched,
+    # few live)
+    o_scene, o_lens, opts = offline_cell
+    o_cfg = PathConfig(max_bounces=opts.max_bounces,
+                       env_samples_per_bounce=opts.env_samples,
+                       mesh_samples_per_bounce=opts.mesh_samples)
+    launches = {"room_1080p": CS.record_sample(room, lens, cfg)}
+    with CS.recording(CS.OFFLINE_SEGMENT) as rec:
+        render_sample(o_scene, o_lens, opts.height, opts.width, 0, o_cfg)
+    if "scatter" not in rec:
+        raise AssertionError(f"offline_720p's sample ran fewer than "
+                             f"{CS.OFFLINE_SEGMENT + 1} segments")
+    launches[f"offline_720p segment {CS.OFFLINE_SEGMENT}"] = rec
+    costs, masks = {}, []
+    for cell, rec in launches.items():
+        costs[cell] = 0.0
+        for key, counter, _, at in CF.COUNTED:
+            name, args, kw = rec[key]
+            if counter not in kw:
+                raise AssertionError(f"{cell} {key} was called without its "
+                                     "counter")
+            got, plain, summed, mask = CF.count_of(key, args, kw)
+            dead = CF.count_of(key, args, kw, dead=True)[:3]
+            say("frame", f"counts: {cell} {key}, a mask of {mask.numel()}: "
+                f"kernel's {counter} {got}, plain version's {plain}, torch "
+                f"sum of the kernel's mask {summed}; every lane dead "
+                f"(kernel, plain, sum) {dead}")
+            if not got == plain == summed or dead != (0, 0, 0):
+                raise AssertionError(f"{cell} {key}: the folded count "
+                                     "differs")
+            w, wo = CF.time_counts(key, args, kw, 3)
+            costs[cell] += w - wo
+            say("frame", f"counts: {cell} {key} kernel with its counter "
+                f"{w:.4f} ms, without {wo:.4f} ms (min of 3 rounds, cold "
+                f"L2)")
+            if cell == "room_1080p":
+                if key == "surface/full":  # lanes live at the segment's start
+                    masks.append(args[at])
+                masks.append(mask)
+    del launches, rec
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     live = torch.zeros_like(rays)
 
@@ -3289,17 +3337,18 @@ def frame_phase(scenes, stage_profiles, cfg, timings, errs):
 
     plain_ms = cuda_ms(plain_counts, 20)
     library_ms = cuda_ms(lambda: [torch.count_nonzero(m) for m in masks], 20)
-    cost = sum(counted.values()) - sum(without.values())
+    cost = costs["room_1080p"]
     nbytes = sum(m.numel() for m in masks)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    say("frame", f"counts of a segment: in the kernels {cost:.4f} ms (with "
-        f"- without), plain torch reductions {plain_ms:.4f} ms, "
+    say("frame", "counts of a segment: in the kernels (with - without) "
+        + ", ".join(f"{c} {v:.4f} ms" for c, v in costs.items())
+        + f"; at room_1080p plain torch reductions {plain_ms:.4f} ms, "
         f"torch.count_nonzero {library_ms:.4f} ms, bound {t_bytes:.5f} ms by"
         f" bytes (the masks, {nbytes / 1e6:.2f} MB)")
     timings["counts"] = dict(ms=cost, plain_ms=plain_ms, bound_ms=t_bytes,
                              bound_by="bytes", library_ms=library_ms)
     errs["counts"] = 0.0
-    del rec
+    del masks
 
     for cell in ("room_1080p", "offline_720p"):
         prof = stage_profiles[cell]
@@ -3313,16 +3362,24 @@ def frame_phase(scenes, stage_profiles, cfg, timings, errs):
         # the miss's mask is the kernel's: no torch op in the env range
         env_others = [k for k in prof["env"]["kernels"]
                       if "env_miss_kernel" not in k]
+        # the accumulation with the frame's counts: one kernel a sample
+        accum = prof["accumulate"]["kernels"]
+        summed = sum(v for k, v in accum.items() if "accumulate_kernel" in k)
+        accum_others = [k for k in accum if "accumulate_kernel" not in k
+                        and "FillFunctor" not in k]
         say("frame", f"{cell}: camera range kernels {camera}; live_count "
             f"range kernels {prof['live_count']['kernels']}; accumulate "
-            f"range kernels {prof['accumulate']['kernels']}; env range "
-            f"kernels {prof['env']['kernels']}")
-        if raygen != 1 or others or reductions or env_others:
+            f"range kernels {accum}; env range kernels "
+            f"{prof['env']['kernels']}")
+        if (raygen != 1 or others or reductions or env_others or summed != 1
+                or accum_others):
             raise AssertionError(f"{cell}: the camera range holds {raygen} "
                                  f"raygen launches and {others}, the "
                                  f"live_count range reductions "
                                  f"{reductions}, the env range "
-                                 f"{env_others}")
+                                 f"{env_others}, the accumulate range "
+                                 f"{summed} accumulations and "
+                                 f"{accum_others}")
 
 
 def graph_cells(scenes, offline_cell, instanced, cfg, dev):
@@ -3811,11 +3868,13 @@ def main():
         launches["graph_if"] = graphs_phase(
             graph_cells(scenes, offline_cell, instanced, cfg, dev),
             stage_profiles)
-        del offline_cell, instanced
+        del instanced
 
-    # this slice: a sample's camera rays, accumulation and counts
+    # a sample's camera rays, accumulation and counts
     with phase("frame"):
-        frame_phase(scenes, stage_profiles, cfg, timings, errs)
+        frame_phase(scenes, offline_cell, stage_profiles, cfg, timings,
+                    errs)
+        del offline_cell
 
     with phase("capi"):
         capi_phase(dev)

@@ -263,7 +263,7 @@ class FrameLib(NativeLib):
         self.raygen = self._fn("msn_frame_raygen",
                                [_P] * 7 + [_I] * 6 + [_F] + [_P] * 14)
         self.accumulate = self._fn("msn_frame_accumulate",
-                                   [_P, _P, _I, _I, _I, _P, _P, _P])
+                                   [_P, _P, _I, _I, _I] + [_P] * 8)
 
 
 _CLASSES = {"traverse": TraverseLib, "treelet": TreeletLib,

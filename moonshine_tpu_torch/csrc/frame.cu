@@ -23,10 +23,15 @@
 // one thread a lane keeps every intermediate in registers, and thread 0 of
 // each block forms the lens constants once into shared memory. accumulate
 // reads each lane's radiance (and pix) once and each pixel of acc once,
-// and writes acc once; with several samples a batch and the lanes moved by
-// the resort it first scatters the radiance into pixel order (one more
-// write and read of it), so that each pixel's sum runs in one thread in
-// the batch's order.
+// and writes acc once. With the lanes moved by the resort its accesses to
+// acc are scattered, so they, not the bytes, bound it: acc is held 4
+// floats a pixel, so a lane reads and writes its pixel as one 16-byte
+// access each (two transactions, where three floats took six). With
+// several samples a batch it first scatters the radiance into pixel order
+// (one more write and read of it), so that each pixel's sum runs in one
+// thread in the batch's order. Its launch also adds the frame's ray and
+// segment counts and steps its sample index (thread 0), which were three
+// torch launches.
 //
 // Numerics: each operation is the one the plain torch version runs on the
 // card, in its order, built with -fmad=false: a division by a Python
@@ -235,53 +240,88 @@ __global__ void __launch_bounds__(kBlock)
 
 // ---- accumulate
 
-// The offset in acc [bh, width, 3] of pixel lane q (renderer's unpack)
+// The frame's int64 device scalars the accumulation adds to (thread 0 of
+// the launch; all null where the caller keeps none): rays += trace_rays,
+// segments += bounce, sample += nbatch (renderer._Frame's counts)
+struct Tally {
+  long long* rays;
+  const long long* trace_rays;
+  long long* segments;
+  const long long* bounce;
+  long long* sample;
+};
+
+// The pixel of pixel lane q (renderer's unpack): its row-major index in
+// acc [bh, width, 4]
 template <bool kTiled>
-__device__ __forceinline__ long long pixel_at(long long q, int width) {
-  if (!kTiled) return 3 * q;
-  const long long per_tile = (long long)kTileH * kTileW;
-  const long long t = q / per_tile, r = q - t * per_tile;
-  const long long tiles_x = width / kTileW;
-  const long long ty = t / tiles_x;
-  const long long x = (t - ty * tiles_x) * kTileW + r % kTileW;
-  const long long y = ty * kTileH + r / kTileW;
-  return 3 * (y * width + x);
+__device__ __forceinline__ int pixel_at(int q, int width) {
+  if (!kTiled) return q;
+  const int t = q / (kTileH * kTileW), r = q % (kTileH * kTileW);
+  const int tiles_x = width / kTileW;
+  const int ty = t / tiles_x;
+  const int x = (t - ty * tiles_x) * kTileW + r % kTileW;
+  const int y = ty * kTileH + r / kTileW;
+  return y * width + x;
 }
 
-// into[pix[j]] = radiance[j]: the radiance in pixel-lane order
+// into[pix[j]] = (radiance[j], 0): the radiance in pixel-lane order, a
+// 16-byte row a lane
 __global__ void __launch_bounds__(kBlock)
     pix_scatter_kernel(const float* radiance, const long long* pix,
-                       float* into, long long n) {
-  const long long j = (long long)blockIdx.x * kBlock + threadIdx.x;
+                       float4* into, int n) {
+  const int j = blockIdx.x * kBlock + threadIdx.x;
   if (j >= n) return;
-  const long long q = pix[j];
-  into[3 * q] = radiance[3 * j];
-  into[3 * q + 1] = radiance[3 * j + 1];
-  into[3 * q + 2] = radiance[3 * j + 2];
+  into[pix[j]] = make_float4(radiance[3 * j], radiance[3 * j + 1],
+                             radiance[3 * j + 2], 0.0f);
+}
+
+// The accumulation's reads of a lane's pixel lane and radiance row, each
+// read once: evict-first (ld.global.cs), so that they pass through the L2
+// without evicting acc's sectors, which a random pix reaches twice (two
+// pixels a 32-byte sector) at random times
+__device__ __forceinline__ long long lane_pix(const long long* pix, int t) {
+  return __ldcs(pix + t);
+}
+__device__ __forceinline__ V3 lane_row(const float* src, int i) {
+  const float* p = src + 3 * (long long)i;
+  return v3(__ldcs(p), __ldcs(p + 1), __ldcs(p + 2));
+}
+__device__ __forceinline__ V3 lane_row(const float4* src, int i) {
+  const float4 r = __ldcs(src + i);
+  return v3(r.x, r.y, r.z);
+}
+
+// acc's pixel p += s, its 4th float as it was: one 16-byte load and one
+// 16-byte store
+__device__ __forceinline__ void add_at(float4* acc, int p, V3 s) {
+  float4* a = acc + p;
+  float4 v = *a;
+  v.x = v.x + s.x;
+  v.y = v.y + s.y;
+  v.z = v.z + s.z;
+  *a = v;
 }
 
 // kByPix (one sample a batch, lanes moved): thread j adds lane j's
 // radiance at its pixel pix[j]. Else thread q sums pixel lane q over the
 // batch's samples, src[q] + src[band + q] + ... left to right, and adds
-// the sum at its pixel.
-template <bool kTiled, bool kByPix>
+// the sum at its pixel. Either way one 16-byte load and one 16-byte store
+// of acc a lane (its 4th float written back as it was read).
+template <bool kTiled, bool kByPix, typename Src>
 __global__ void __launch_bounds__(kBlock)
-    accumulate_kernel(const float* src, const long long* pix, int nbatch,
-                      long long band, int width, float* acc) {
-  const long long t = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (t >= band) return;
-  const long long q = kByPix ? pix[t] : t;
-  float sx = src[3 * t], sy = src[3 * t + 1], sz = src[3 * t + 2];
-  for (int b = 1; b < nbatch; ++b) {
-    const float* p = src + 3 * (b * band + t);
-    sx = sx + p[0];
-    sy = sy + p[1];
-    sz = sz + p[2];
+    accumulate_kernel(const Src* src, const long long* pix, int nbatch,
+                      int band, int width, float4* acc, Tally tally) {
+  const int t = blockIdx.x * kBlock + threadIdx.x;
+  if (t == 0 && tally.rays != nullptr) {
+    *tally.rays += *tally.trace_rays;
+    *tally.segments += *tally.bounce;
+    *tally.sample += nbatch;
   }
-  float* a = acc + pixel_at<kTiled>(q, width);
-  a[0] = a[0] + sx;
-  a[1] = a[1] + sy;
-  a[2] = a[2] + sz;
+  if (t >= band) return;
+  const int q = kByPix ? (int)lane_pix(pix, t) : t;
+  V3 s = lane_row(src, t);
+  for (int b = 1; b < nbatch; ++b) s = s + lane_row(src, b * band + t);
+  add_at(acc, pixel_at<kTiled>(q, width), s);
 }
 
 unsigned blocks(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
@@ -334,34 +374,53 @@ int msn_frame_raygen(const float* origin, const float* forward,
   return (int)cudaGetLastError();
 }
 
-// acc [bh, width, 3] += the radiance [nbatch * bh * width, 3] of a trace,
-// summed over its nbatch samples left to right; pix int64 (null: the lanes
-// in their own order) the pixel lane of each lane (the resort's); scratch
-// [n, 3] float32, used when nbatch > 1 and pix is given.
+// acc [bh, width, 4] (16-byte aligned; its 4th float unused) += the
+// radiance [nbatch * bh * width, 3] of a trace, summed over its nbatch
+// samples left to right; pix int64 (null: the lanes in their own order)
+// the pixel lane of each lane (the resort's); scratch [n, 4] float32
+// (16-byte aligned), non-null: the radiance scattered into pixel-lane
+// order first and summed from there, null with pix: each lane added at
+// its pixel (nbatch 1 only). The int64 device scalars rays, segments and
+// sample (all null, or none) take trace_rays, bounce and nbatch in the
+// same launch.
 int msn_frame_accumulate(const float* radiance, const long long* pix,
                          int nbatch, int bh, int width, float* scratch,
-                         float* acc, void* stream) {
+                         float* acc, long long* rays,
+                         const long long* trace_rays, long long* segments,
+                         const long long* bounce, long long* sample,
+                         void* stream) {
   if (bh <= 0 || width <= 0 || nbatch <= 0) return (int)cudaErrorInvalidValue;
   const long long band = (long long)bh * width;
+  if (4 * band * nbatch > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (pix != nullptr && scratch == nullptr && nbatch != 1)
+    return (int)cudaErrorInvalidValue;
+  const Tally tally{rays, trace_rays, segments, bounce, sample};
+  if ((rays == nullptr) != (trace_rays == nullptr) ||
+      (rays == nullptr) != (segments == nullptr) ||
+      (rays == nullptr) != (bounce == nullptr) ||
+      (rays == nullptr) != (sample == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = blocks(band);
   const bool t = tiled(bh, width);
-  const float* src = radiance;
-  if (pix != nullptr && nbatch > 1) {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  float4* acc4 = reinterpret_cast<float4*>(acc);
+  const int b = (int)band;
+#define MSN_ACC(T, P, SRC, PIX)                                    \
+  accumulate_kernel<T, P><<<g, kBlock, 0, s>>>(SRC, PIX, nbatch, b,    \
+                                               width, acc4, tally)
+  if (pix != nullptr && scratch != nullptr) {
+    float4* into = reinterpret_cast<float4*>(scratch);
     pix_scatter_kernel<<<blocks(band * nbatch), kBlock, 0, s>>>(
-        radiance, pix, scratch, band * nbatch);
-    src = scratch;
-  }
-#define MSN_ACC(T, P)                                                  \
-  accumulate_kernel<T, P><<<g, kBlock, 0, s>>>(src, P ? pix : nullptr, \
-                                               nbatch, band, width, acc)
-  if (pix != nullptr && nbatch == 1) {
-    if (t) MSN_ACC(true, true);
-    else MSN_ACC(false, true);
+        radiance, pix, into, (int)(band * nbatch));
+    const float4* src = into;
+    if (t) MSN_ACC(true, false, src, nullptr);
+    else MSN_ACC(false, false, src, nullptr);
+  } else if (pix != nullptr) {
+    if (t) MSN_ACC(true, true, radiance, pix);
+    else MSN_ACC(false, true, radiance, pix);
   } else {
-    if (t) MSN_ACC(true, false);
-    else MSN_ACC(false, false);
+    if (t) MSN_ACC(true, false, radiance, nullptr);
+    else MSN_ACC(false, false, radiance, nullptr);
   }
 #undef MSN_ACC
   return (int)cudaGetLastError();

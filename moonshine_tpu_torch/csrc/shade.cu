@@ -37,7 +37,8 @@
 // (path.py:580 jnp.sum(lane), the shadow rays traced, and :687 the live
 // count; :400's lanes traced are the last live count): the full surface
 // form adds the shadow rays it sets to a device scalar, the scatter the
-// lanes it leaves live, each block once (a warp sum, then one atomic).
+// lanes it leaves live, each warp once where its sum is not 0 (a warp
+// sum, then one atomic; a block barrier cost three times as much).
 //
 // What bounds them on this card: bytes. Each live lane reads its state and
 // one 192-byte shading row (plus atlas texels, instance transforms, env
@@ -726,21 +727,15 @@ struct Draw {  // the full form's light draw (integrator.hlsl:126-151)
   long long* rays;  // the shadow rays traced are added here (or null)
 };
 
-// Adds the block's values of v into *total: a warp sum, then one atomic a
-// block (every thread of the block calls it). Integer adds: the total does
-// not depend on the order.
+// Adds the warp's values of v into *total: a warp sum, then one atomic a
+// warp where the sum is not 0 (every thread of the warp calls it; no
+// barrier, so a warp leaves as soon as its own lanes are done). Integer
+// adds: the total does not depend on the order.
 __device__ __forceinline__ void count_into(long long* total, int v) {
-  __shared__ int warp_sums[kBlock / 32];
   v = __reduce_add_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int sum = 0;
-    for (int w = 0; w < kBlock / 32; ++w) sum += warp_sums[w];
-    if (sum != 0)
-      atomicAdd(reinterpret_cast<unsigned long long*>(total),
-                (unsigned long long)sum);
-  }
+  if ((threadIdx.x & 31) == 0 && v != 0)
+    atomicAdd(reinterpret_cast<unsigned long long*>(total),
+              (unsigned long long)v);
 }
 
 // The surface kernel's lane i: decode the hit, pick the shading frame and

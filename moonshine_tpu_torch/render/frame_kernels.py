@@ -18,6 +18,8 @@ accel/launch.py).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -105,18 +107,33 @@ def raygen_plain(lens: LensArrays, sample, height: int, width: int,
     trace.reset()
 
 
-def accumulate_plain(acc, radiance, pix, nbatch: int) -> None:
-    """acc [bh, W, 3] += a trace's radiance [nbatch * bh * W, 3] summed
-    over its nbatch samples (sample-major), left to right; `pix` (the
-    resort's, or None for lanes in their own order) the pixel lane of
-    each lane."""
+class Tally(NamedTuple):
+    """A frame's int64 device scalars that the accumulation adds to:
+    rays += trace_rays, segments += bounce, sample += nbatch."""
+    rays: torch.Tensor
+    trace_rays: torch.Tensor
+    segments: torch.Tensor
+    bounce: torch.Tensor
+    sample: torch.Tensor
+
+
+def accumulate_plain(acc, radiance, pix, nbatch: int,
+                     tally: Tally | None = None) -> None:
+    """acc [bh, W, 4] (the 4th float unused) += a trace's radiance
+    [nbatch * bh * W, 3] summed over its nbatch samples (sample-major),
+    left to right; `pix` (the resort's, or None for lanes in their own
+    order) the pixel lane of each lane. With a `tally`, its counts too."""
     if pix is not None:
         radiance = torch.empty_like(radiance).index_copy_(0, pix, radiance)
     parts = radiance.reshape(nbatch, -1, 3)
     total = parts[0]
     for b in range(1, nbatch):
         total = total + parts[b]
-    acc += _unpack(acc.shape[0], acc.shape[1])(total)
+    acc[..., :3] += _unpack(acc.shape[0], acc.shape[1])(total)
+    if tally is not None:
+        tally.rays.add_(tally.trace_rays)
+        tally.segments.add_(tally.bounce)
+        tally.sample.add_(nbatch)
 
 
 # ---- the wrappers
@@ -203,22 +220,36 @@ def sample_rays(lens: LensArrays, height: int, width: int, sample_index,
     return o, d, rng, _unpack(bh, width)
 
 
-def accumulate(acc, radiance, pix, nbatch: int) -> None:
-    """accumulate_plain's result: the csrc/frame.cu accumulation for CUDA
-    tensors (one launch; with pix and nbatch > 1 a scatter into pixel
-    order first), the plain version for CPU tensors."""
-    if acc.device.type == "cpu":
-        return accumulate_plain(acc, radiance, pix, nbatch)
+def _accumulate_launch(acc, radiance, pix, nbatch: int, scratch,
+                       tally: Tally | None) -> None:
     bh, width = acc.shape[0], acc.shape[1]
+    if acc.shape != (bh, width, 4) or acc.data_ptr() % 16:
+        raise ValueError(f"acc {tuple(acc.shape)} is not a 16-byte aligned "
+                         f"[bh, W, 4]")
     if radiance.shape != (nbatch * bh * width, 3):
         raise ValueError(f"radiance {tuple(radiance.shape)} is not "
                          f"[nbatch * bh * width, 3]")
-    f32 = torch.float32
+    i64 = torch.int64
+    if tally is not None and any(x.device != acc.device for x in tally):
+        raise ValueError("the tally lies on another device than acc")
+    _launch("accumulate", native.frame_lib().accumulate, acc.device,
+            _ptr(radiance, torch.float32),
+            None if pix is None else _ptr(pix, i64), nbatch, bh, width,
+            None if scratch is None else scratch.data_ptr(),
+            _ptr(acc, torch.float32),
+            *([None] * 5 if tally is None else [_ptr(x, i64) for x in tally]))
+
+
+def accumulate(acc, radiance, pix, nbatch: int,
+               tally: Tally | None = None) -> None:
+    """accumulate_plain's result: the csrc/frame.cu accumulation for CUDA
+    tensors (one launch, the tally's adds in it; with pix and nbatch > 1
+    a scatter into pixel order first), the plain version for CPU
+    tensors."""
+    if acc.device.type == "cpu":
+        return accumulate_plain(acc, radiance, pix, nbatch, tally)
     scratch = None
     if pix is not None and nbatch > 1:
-        scratch = torch.empty_like(radiance)
-    _launch("accumulate", native.frame_lib().accumulate, acc.device,
-            _ptr(radiance, f32),
-            None if pix is None else _ptr(pix, torch.int64), nbatch, bh,
-            width, None if scratch is None else scratch.data_ptr(),
-            _ptr(acc, f32))
+        scratch = torch.empty((radiance.shape[0], 4), dtype=torch.float32,
+                              device=acc.device)
+    _accumulate_launch(acc, radiance, pix, nbatch, scratch, tally)

@@ -63,10 +63,16 @@ class _Frame:
         self.lens = LensArrays(*(torch.empty_like(x, device=dev)
                                  for x in lens))
         self.sample = torch.zeros((), dtype=torch.int64, device=dev)
-        self.acc = torch.zeros((bh, width, 3), dtype=torch.float32,
+        # 4 floats a pixel (the 4th unused), so that the accumulation
+        # reads and writes a pixel as one 16-byte access
+        self.acc = torch.zeros((bh, width, 4), dtype=torch.float32,
                                device=dev)
         self.rays = torch.zeros((), dtype=torch.int64, device=dev)
         self.segments = torch.zeros_like(self.rays)
+        self.tally = FK.Tally(rays=self.rays,
+                              trace_rays=self.trace.bufs[0]["rays"],
+                              segments=self.segments,
+                              bounce=self.trace.bounce, sample=self.sample)
 
     def raygen(self) -> None:
         """The step before a trace: this sample's camera rays and RNG in
@@ -81,17 +87,15 @@ class _Frame:
         """The step after a trace: its radiance (from the set of buffers
         that holds its state, `with_state`), summed over the batch's
         samples, into acc; its rays and segments; the next sample
-        index."""
+        index (one kernel on the card)."""
         with record_function("accumulate"):
             self.trace.with_state(self._add)
-            self.rays += self.trace.bufs[0]["rays"]
-            self.segments += self.trace.bounce
-            self.sample += self.nbatch
 
     def _add(self, i: int) -> None:
         st = self.trace.bufs[i]
         FK.accumulate(self.acc, st["radiance"],
-                      st["pix"] if self.trace.resort else None, self.nbatch)
+                      st["pix"] if self.trace.resort else None, self.nbatch,
+                      self.tally)
 
     def _group(self, scene) -> None:
         """A group's camera rays, unrolled trace and accumulation (one
@@ -123,7 +127,9 @@ class _Frame:
                 steps.run("raygen", self.raygen)
                 yield from self.trace.run(scene)
                 steps.run("accumulate", self.accumulate)
-            return self.acc.clone(), self.rays.clone(), self.segments.clone()
+            return (self.acc[..., :3].clone(
+                memory_format=torch.contiguous_format), self.rays.clone(),
+                self.segments.clone())
 
 
 def _frame(scene, lens: LensArrays, cfg: PathConfig, height: int,

@@ -8,6 +8,8 @@
     python -m moonshine_tpu_torch.scripts.compare_tlas [--against DIR ...]
     python -m moonshine_tpu_torch.scripts.compare_shade [--against DIR ...]
     python -m moonshine_tpu_torch.scripts.compare_sort [--against DIR ...]
+    python -m moonshine_tpu_torch.scripts.compare_frame [--against DIR ...]
+        [--accumulate-forms] [--count-forms]
     python -m moonshine_tpu_torch.scripts.compare_loop [--against DIR ...]
         [--blocks 4,8,16,32]
 

@@ -112,26 +112,44 @@ def test_raygen_plain_matches_reference(case):
 @pytest.mark.parametrize("nbatch", [1, 3])
 @pytest.mark.parametrize("hw", [(48, 80), (128, 256)])
 def test_accumulate_plain_matches_reference(hw, nbatch):
-    """acc += a trace's radiance under the resort's lane order (pix a
-    seeded permutation), summed over its samples, against the
+    """acc [h, w, 4] += a trace's radiance under the resort's lane order
+    (pix a seeded permutation), summed over its samples, against the
     reference's scatter by pix (_staged_finish) and _staged_accum, bit
-    for bit; and without pix against the same radiance in lane order."""
+    for bit on the first three floats of each pixel, the fourth as it
+    was; and without pix against the same radiance in lane order. The
+    tally: the frame's rays plus the trace's, as _staged_accum adds
+    them, its segments plus the trace's bounce count, its sample index
+    plus nbatch."""
+    from moonshine_tpu.integrator import path as JP
+
     h, w = hw
     n = nbatch * h * w
     rs = np.random.RandomState(11)
-    acc0 = rs.rand(h, w, 3).astype(np.float32)
+    acc0 = rs.rand(h, w, 4).astype(np.float32)
     rad = (rs.rand(n, 3) * 10.0 ** rs.randint(-3, 3, (n, 1))).astype(
         np.float32)
     pix = rs.permutation(n)
-    ordered = np.asarray(jnp.zeros_like(rad).at[pix].set(rad))
-    for lanes, p in ((rad, pix), (ordered, None)):
-        want, _ = JR._staged_accum(jnp.asarray(acc0), jnp.float32(0.0),
-                                   jnp.asarray(ordered), jnp.float32(0.0),
-                                   h, w)
+    trace_rays, rays0 = 7 * n + 5, 123456
+    ordered, _, j_rays = JP._staged_finish(
+        {"radiance": jnp.asarray(rad), "pix": jnp.asarray(pix),
+         "rng": jnp.zeros(n, jnp.uint32), "rays": jnp.int32(trace_rays)},
+        resort=True)
+    for lanes, p in ((rad, pix), (np.array(ordered), None)):
+        want, want_rays = JR._staged_accum(
+            jnp.asarray(acc0[..., :3]), jnp.int32(rays0), ordered, j_rays,
+            h, w)
         acc = torch.from_numpy(acc0.copy())
+        i64 = lambda v: torch.tensor(v, dtype=torch.int64)
+        tally = FK.Tally(rays=i64(rays0), trace_rays=i64(trace_rays),
+                         segments=i64(40), bounce=i64(6), sample=i64(9))
         FK.accumulate(acc, torch.from_numpy(lanes),
-                      None if p is None else torch.from_numpy(p), nbatch)
-        np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+                      None if p is None else torch.from_numpy(p), nbatch,
+                      tally)
+        np.testing.assert_array_equal(acc[..., :3].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(acc[..., 3].numpy(), acc0[..., 3])
+        assert int(tally.rays) == int(want_rays)
+        assert (int(tally.segments), int(tally.sample)) == (46, 9 + nbatch)
+        assert (int(tally.trace_rays), int(tally.bounce)) == (trace_rays, 6)
 
 
 CFG = dict(max_bounces=4, env_samples_per_bounce=1,

@@ -1915,27 +1915,49 @@ def test_raygen_kernel_equals_plain(cuda, case):
 
 @pytest.mark.parametrize("pix", [False, True])
 @pytest.mark.parametrize("shape", [(48, 80, 1), (48, 80, 3), (128, 256, 1),
-                                   (128, 256, 3), (37, 53, 2)])
+                                   (128, 256, 3), (37, 53, 2), (40, 80, 1)])
 def test_accumulate_kernel_equals_plain(cuda, shape, pix):
     """The accumulation (one launch; with pix and several samples a
     batch, a scatter first) against its plain version (index_copy_ by
     pix, the batch summed left to right, the tile un-permute, acc +=)
-    bit for bit, on seeded radiance of every magnitude."""
+    bit for bit, on seeded radiance of every magnitude (subnormal sums
+    too), scanline and tiled, one and three samples a batch, a band's 40
+    rows: acc [h, w, 4], its 4th float (NaN here) as it was; the
+    tally's adds (rays, segments, the sample index) in the same launch.
+    At one sample a batch with pix, the entry point's two-pass form (a
+    scratch given) gives the same bits."""
     from moonshine_tpu_torch.render import frame_kernels as FK
 
     h, w, nb = shape
     n = nb * h * w
     rs = np.random.RandomState(n)
-    acc = torch.from_numpy(rs.rand(h, w, 3).astype(np.float32)).to(cuda)
-    rad = torch.from_numpy((rs.rand(n, 3) * 10.0 ** rs.randint(
-        -6, 6, (n, 1))).astype(np.float32)).to(cuda)
+    acc = rs.rand(h, w, 4)
+    rad = rs.rand(n, 3) * 10.0 ** rs.randint(-6, 6, (n, 1))
+    acc[::3] *= -1e-39  # subnormal sums, which an add must not flush
+    rad[::5] *= 1e-39 * np.where(rs.rand(n // 5 + (n % 5 > 0), 1) < 0.5,
+                                 -1.0, 1.0)
+    acc = torch.from_numpy(acc.astype(np.float32)).to(cuda)
+    acc[..., 3] = float("nan")
+    rad = torch.from_numpy(rad.astype(np.float32)).to(cuda)
     order = (torch.from_numpy(rs.permutation(n)).to(cuda) if pix else None)
     got, want = acc.clone(), acc.clone()
+    i64 = lambda v: torch.tensor(v, dtype=torch.int64, device=cuda)
+    tallies = [FK.Tally(rays=i64(5), trace_rays=i64(n * 3), segments=i64(2),
+                        bounce=i64(4), sample=i64(2**33 + 1))
+               for _ in range(2)]
     FK.reset_launch_counts()
-    FK.accumulate(got, rad, order, nb)
-    FK.accumulate_plain(want, rad, order, nb)
+    FK.accumulate(got, rad, order, nb, tallies[0])
+    FK.accumulate_plain(want, rad, order, nb, tallies[1])
     assert FK.LAUNCHES["accumulate"] == 1
     _assert_bits(got, want, f"accumulate {shape} pix {pix}")
+    for a, b in zip(*tallies):
+        assert int(a) == int(b)
+    assert int(tallies[0].sample) == 2**33 + 1 + nb
+    if pix and nb == 1:
+        two = acc.clone()
+        FK._accumulate_launch(two, rad, order, 1, torch.empty(
+            (n, 4), device=cuda), None)
+        _assert_bits(two, want, f"two-pass accumulate {shape}")
 
 
 def test_frame_replays_a_new_lens_and_sample(cuda, monkeypatch):
@@ -2037,3 +2059,59 @@ def test_counts_equal_torch_sums(cuda, monkeypatch, form):
     again = render_spp(scene, la, 64, 64, 3, 1, cfg)
     assert torch.equal(again[0], img) and int(again[1]) == int(rays)
     graphs.clear()
+
+
+@pytest.mark.parametrize("lanes", ["dead", "last_one", "seeded"])
+def test_counts_exact_on_partial_blocks(cuda, lanes):
+    """The counts the full surface kernel (its shadow rays) and the
+    scatter (the lanes it leaves live) fold in, on 4099 lanes (the last
+    block partial): every lane dead, one live lane (the last, in the
+    partial block) and a seeded third dead with hit and missed lanes;
+    each count equals the plain version's and the torch sum of the
+    kernel's own mask, exactly."""
+    scene, _ = _shade_scene("flagship", cuda)
+    n = 4099
+    lane = _shade_lanes(scene, False, n, 31, cuda)
+    hit, active = lane["hit"], lane["active"]
+    if lanes != "seeded":
+        active = torch.zeros_like(active)
+    if lanes == "last_one":
+        hit = hit._replace(tri=hit.tri.clone())
+        hit.tri[-1] = 1
+        active[-1] = True
+    rs = np.random.RandomState(3)
+    rng = torch.from_numpy(rs.randint(0, 2**32, n, dtype=np.int64)).to(cuda)
+    b = torch.full((), 2, dtype=torch.int64, device=cuda)
+    args = (scene, 1, b, hit, lane["o"], lane["d"], active,
+            lane["throughput"], lane["radiance"], lane["last_pdf"],
+            lane["last_delta"], shade.FULL)
+    rays = [torch.zeros((), dtype=torch.int64, device=cuda)
+            for _ in range(2)]
+    shade.reset_launch_counts()
+    kargs = list(args)
+    for j in (6, 7, 8):
+        kargs[j] = kargs[j].clone()
+    surf = shade.surface(*kargs, draw=shade.DrawIn(
+        scene.env, 1, 4, False, rng.clone()), rays=rays[0])
+    want = shade.surface_plain(*args, draw=shade.DrawIn(
+        scene.env, 1, 4, False, rng.clone()), rays=rays[1])
+    traced = int(surf.shadow.lane.sum())
+    assert int(rays[0]) == int(rays[1]) == traced
+    assert (traced == 0) == (lanes == "dead")
+    lights = _shade_lights(n, 13, cuda, (1, 1), surf.active)
+    live = [torch.zeros((), dtype=torch.int64, device=cuda)
+            for _ in range(2)]
+    outs = []
+    for fn, counter in ((shade.scatter, live[0]),
+                        (shade.scatter_plain, live[1])):
+        state = dict(active=torch.ones_like(active),
+                     last_pdf=torch.zeros(n, device=cuda),
+                     last_delta=torch.zeros_like(active))
+        outs.append(fn(surf, lane["o"].clone(), lane["d"].clone(),
+                       lane["throughput"].clone(), surf.radiance.clone(),
+                       rng.clone(), surf.active, lights,
+                       state=state if fn is shade.scatter else {},
+                       live=counter))
+    assert int(live[0]) == int(live[1]) == int(outs[0]["active"].sum())
+    assert int(want.active.sum()) == int(surf.active.sum())
+    assert shade.LAUNCHES["counts"] == 2
