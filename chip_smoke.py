@@ -45,7 +45,9 @@ script exits non-zero without the result line. Phases:
                   and treelet kernels bit for bit) and timed beside it, its
                   bound from the plain version's visit counts; the treelet
                   dispatch's phase-1 kernel against its torch version (bit
-                  for bit, both timed, with the torch version's traffic),
+                  for bit, both timed, with the torch version's traffic;
+                  also at treelet_1080p's bounce-3 closest hit, recorded;
+                  the all-pairs bound and the culled work's beside it),
                   the whole treelet wrappers and the walk's shape (block,
                   stack bound, root visits skipped); the packet kernels'
                   launch layout (G, R, block, shared bytes) and three
@@ -172,10 +174,14 @@ script exits non-zero without the result line. Phases:
                   segment's shadow batch sorted inside the any-hit
                   dispatch) as graph replays against the default: image,
                   rays and the traversal and shading launches bit for bit
-  graphs          the IF node's set kernel (csrc/graph_cond.cu, under
-                  graphs.cond / choose) held against its plain version
-                  (sel == value) and timed: a skipped IF node, a skipped
-                  segment guard and a host read of the live count; then
+  graphs          the conditional nodes' set kernel (csrc/graph_cond.cu,
+                  under graphs.cond / choose) held against its plain
+                  version (sel == value; a six-branch SWITCH node at
+                  every (prev, w) pair) and the loop's tail (graphs.loop)
+                  against the eager loop, and timed: a skipped IF node,
+                  a six-branch switch matching none, a segment guard in
+                  the earlier form and folded into the tail, and a host
+                  read of the live count; then
                   the bounce loop as CUDA graph replays (every phase above
                   runs them; the recorded runs use the eager loop) against
                   the eager loop (integrator/graphs.py eager()) on
@@ -301,6 +307,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                  "moonshine_tpu/integrator/path.py:706 _bounce_shrunk's "
                  "lax.cond and :802 trace_paths' while_loop cond (XLA "
                  "control flow, no pallas_call)"),
+    "graph_tail": ("moonshine_tpu_torch/csrc/graph_cond.cu",
+                   "moonshine_tpu/integrator/path.py:816 trace_paths' "
+                   "while_loop body's bounce + 1 and :802 its cond (XLA "
+                   "control flow, no pallas_call)"),
     "raygen": ("moonshine_tpu_torch/csrc/frame.cu",
                "moonshine_tpu/render/renderer.py:126 _sample_rays and :141 "
                "_sample_rays_batched with integrator/path.py:655 "
@@ -329,7 +339,7 @@ CUDA_KERNELS = {
     "sort_lanes": ["radix_upsweep_kernel", "radix_onesweep_kernel",
                    "lane_move_kernel"],
     "unsort_lanes": ["lane_move_kernel"],
-    "graph_if": ["set_if_kernel"],
+    "graph_if": ["set_case_kernel"], "graph_tail": ["tail_kernel"],
     "raygen": ["raygen_kernel"],
     "accumulate": ["pix_scatter_kernel", "accumulate_kernel"],
     "counts": ["surface_kernel", "scatter_kernel"],
@@ -659,39 +669,41 @@ def phase1_bytes(n, k):
 
 def time_pending(wb, o, d, t_eff, label):
     """Treelet phase 1 on one launch's lanes: the kernel against its torch
-    version bit for bit, both timed; the bound counts each ray's o, d and
-    t_max read and its words and nearest treelet written once, the boxes
-    read once, and a child box test (packet.FLOPS_PER_NODE_SLOT) per live
-    (ray, treelet) pair plus an entry max and compare per pending pair.
-    Returns the timings entry."""
-    from moonshine_tpu_torch.accel import packet, treelet
+    version bit for bit, both timed; two bounds
+    (compare_treelet.pending_bounds), each counting each ray's o, d and
+    t_max read and its words and nearest treelet written once and the
+    boxes read once: the row's, every live (ray, treelet) pair's box test
+    (packet.FLOPS_PER_NODE_SLOT) plus an entry max and compare per
+    pending pair, and the culled work's, a union test per live ray and
+    word and a box test per treelet of each word the ray enters, plus
+    the same per pending pair. Returns the timings entry (the all-pairs
+    bound)."""
+    from moonshine_tpu_torch.accel import treelet
+    from moonshine_tpu_torch.scripts.compare_treelet import pending_bounds
 
     got = treelet._pending_masks(wb, o, d, t_eff)
     want = treelet._pending_masks_plain(wb, o, d, t_eff)
     assert_same(f"treelet_pending on {label}", got, want)
-    pend = got[0]
-    k, k32 = wb.t_roots.shape[0], pend.shape[1]
-    live = int((t_eff > 0.0).sum())
-    pairs = sum(int(((pend >> b) & 1).sum()) for b in range(32))
+    b = pending_bounds(wb, o, d, t_eff, got[0], PEAK_BYTES, PEAK_FP32)
     ms = cuda_ms(lambda: treelet._pending_masks(wb, o, d, t_eff), 20)
     plain_ms = cuda_ms(lambda: treelet._pending_masks_plain(wb, o, d, t_eff),
                        3)
-    m = o.shape[0]
-    nbytes = m * (12 + 12 + 4 + 4 * k32 + 4) + k * 24
-    flops = live * k * packet.FLOPS_PER_NODE_SLOT + 2 * pairs
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
+    m, k = o.shape[0], b["k"]
     nb = phase1_bytes(m, k)
+    (bound, by), (culled, culled_by) = b["all_pairs"], b["culled"]
     say("timings", f"treelet_pending on {label}: kernel = plain bit for bit "
         f"(words, nearest); kernel {ms:.4f} ms, torch version {plain_ms:.2f} "
         f"ms (moving ~{nb / 1e9:.2f} GB by its tensor ops = "
-        f"{nb / plain_ms / 1e9:.3f} TB/s); bound {max(t_bytes, t_ops):.4f} ms "
-        f"by {by} ({live} live of {m} lanes x K {k}, {pairs} pending pairs; "
-        f"{nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP "
-        f"-> {t_ops:.4f} ms); no single PyTorch call does it, so no library "
-        f"time")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by=by)
+        f"{nb / plain_ms / 1e9:.3f} TB/s); all-pairs bound {bound:.4f} ms "
+        f"by {by} ({b['live']} live of {m} lanes x K {k}, {b['pairs']} "
+        f"pending pairs; {b['bytes'] / 1e6:.2f} MB, "
+        f"{b['all_pairs_flops'] / 1e9:.3f} GFLOP), culled bound "
+        f"{culled:.4f} ms by {culled_by} ({b['entered_words']} words "
+        f"entered, {b['culled_flops'] / 1e9:.3f} GFLOP); kernel at "
+        f"{bound / ms:.1%} of the all-pairs bound, {culled / ms:.1%} of the "
+        f"culled one; no single PyTorch call does it, so no library time")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                culled_bound_ms=culled)
 
 
 def time_kernels(scenes, timings, errs):
@@ -839,6 +851,17 @@ def time_kernels(scenes, timings, errs):
                 f"{ms:.4f} ms, plain torch {plain_ms:.2f} ms, bound "
                 f"{b_ms:.4f} ms by {b_by} ({detail}); no single PyTorch "
                 f"call traverses a BVH, so no library time")
+        if tree == "treelet":  # phase 1 at a deep bounce's launch too
+            from moonshine_tpu_torch.integrator.path import PathConfig
+            from moonshine_tpu_torch.scripts import compare_treelet
+
+            cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
+                             mesh_samples_per_bounce=1)
+            _, do, dd, dt = compare_treelet.deep_launch(
+                compare_treelet.record_launches(scene, lens, cfg))
+            deep = time_pending(wb, do, dd, dt, f"{do.shape[0]} lanes of "
+                                "treelet_1080p's bounce-3 closest hit")
+            timings["treelet_pending"]["deep_ms"] = deep["ms"]
 
 
 def assert_same(name, got, *wants):
@@ -2885,20 +2908,33 @@ def say_stages(tag, name, prof):
 
 
 def graph_if_phase(dev, timings, errs):
-    """The IF node's set kernel (csrc/graph_cond.cu, behind graphs.cond /
-    choose) against its plain version, `sel == value` in torch: one graph
-    of an IF node for each (sel, value) pair, int64 and bool, whose body
-    writes 1 into the pair's flag, replayed; the flags must equal the
-    plain version's. Then times, each from CUDA events over 50 replays
-    after one: a skipped IF node (a graph of 64 whose predicates are
-    false, per node: `ms`); the eager form of a branch, the predicate
-    read on the host (`plain_ms`, per read, host clock); a guard of the
-    looped form, as integrator/path.py builds it (two terms in the set
-    kernel, and the node), skipped and taken with a one-kernel body,
-    against that kernel inline; and a read of the live count as the loop
-    makes it (a pinned copy, an event, its wait) after a one-kernel
-    replay, against the replay alone. The bound: the 8 bytes of sel read
-    over the HBM rate."""
+    """The conditional nodes' kernels (csrc/graph_cond.cu, behind
+    graphs.cond / choose / loop) against their plain versions. The set
+    kernel: one graph of a one-branch SWITCH node for each (sel, value)
+    pair, int64 and bool, whose body writes 1 into the pair's flag, and
+    one of a six-branch switch on a (prev, w) pair (the resorted
+    segment's width choice) replayed at every pair of -1..3, replayed;
+    the flags must equal `sel == value` in torch. The loop's tail: a
+    graphs.loop of 16 steps (as the looped form's block: each step sets
+    the live count from a schedule, the tail counts it and sets the next
+    guard), replayed on schedules whose live count reaches 0 mid-block,
+    whose cap stops it, and that run every step, against the eager loop
+    (graphs.eager()): writes, counter, live count and launch counts.
+    Then times, each from CUDA events over 50 replays after one: a
+    skipped IF node (a graph of 64 whose predicates are false, per node:
+    the set kernel's `ms`); a six-branch switch that matches none against
+    six skipped IF nodes; the eager form of a branch, the predicate read
+    on the host (`plain_ms`, per read, host clock); the looped form's
+    segment guard and count per segment: the earlier form (a set kernel
+    with two terms, the IF node, the count's add in its body) against the
+    folded one (the IF node and the tail kernel: the tail's `ms`), both
+    taken with that body alone and skipped, against the eager form (the
+    add and a host read of the guard: the tail's `plain_ms`); and a read
+    of the live count as the loop makes it (a pinned copy, an event, its
+    wait) after a one-kernel replay, against the replay alone. Bounds:
+    the 8 bytes of sel read over the HBM rate (the set kernel); the
+    counter read and written and the live count read, 24 bytes (the
+    tail)."""
     import torch
 
     from moonshine_tpu_torch.integrator import graphs
@@ -2923,11 +2959,33 @@ def graph_if_phase(dev, timings, errs):
                          for s, v in zip(sels, values)])
     torch.cuda.synchronize()
     err = float((flags - plain).abs().max())
-    errs["graph_if"] = err
-    say("graphs", f"graph_if: {len(values)} IF nodes (int64 and bool "
-        f"selectors) against sel == value: max abs err {err}")
-    if err != 0 or int(flags.sum()) != int(plain.sum()):
-        raise AssertionError("an IF node took the wrong branch")
+    # the six-branch switch at every (prev, w) pair, none matching too
+    prev, w = (torch.zeros((), dtype=torch.int64, device=dev)
+               for _ in range(2))
+    keys = [(p, k) for p in range(3) for k in range(p + 1)]
+    ran = torch.zeros(len(keys), dtype=torch.int64, device=dev)
+    six = {key: (lambda i=i: ran[i:i + 1].add_(1))
+           for i, key in enumerate(keys)}
+    steps.run("six", lambda: graphs.choose((prev, w), six))
+    switch_err = 0.0
+    for p in range(-1, 4):
+        for k in range(-1, 4):
+            prev.fill_(p)
+            w.fill_(k)
+            ran.zero_()
+            steps.run("six", lambda: graphs.choose((prev, w), six))
+            want = torch.tensor([int(key == (p, k)) for key in keys],
+                                device=dev)
+            switch_err = max(switch_err, float((ran - want).abs().max()))
+    errs["graph_if"] = max(err, switch_err)
+    say("graphs", f"graph_if: {len(values)} one-branch switches (int64 "
+        f"and bool selectors) against sel == value: max abs err {err}; a "
+        f"six-branch switch at each of 25 (prev, w) pairs (19 with no "
+        f"branch): max abs err {switch_err}")
+    if err != 0 or switch_err != 0 or int(flags.sum()) != int(plain.sum()):
+        raise AssertionError("a conditional node took the wrong branch")
+
+    errs["graph_tail"] = folded_guard_check(dev)
 
     def events_ms(fn, reps=50):
         fn()
@@ -2945,32 +3003,53 @@ def graph_if_phase(dev, timings, errs):
     x = torch.zeros(1, device=dev)
     live = torch.zeros((), dtype=torch.int64, device=dev)
     bounce = torch.zeros_like(live)
+    nomatch = torch.full((), 9, dtype=torch.int64, device=dev)
     n_if = 64
+    go = ((live, ">", 0), (bounce, "<", 1 << 40))
 
     def skipped():
         for _ in range(n_if):
             graphs.cond(false, lambda: x.add_(1.0))
 
-    def guards():
+    def switches():
         for _ in range(n_if):
-            graphs.cond(((live, ">", 0), (bounce, "<", 1026)),
-                        lambda: x.add_(1.0))
+            graphs.choose(nomatch, {i: lambda: x.add_(1.0)
+                                    for i in range(6)})
+
+    def guards():  # the earlier form: a set kernel and an IF node a step
+        for _ in range(n_if):
+            graphs.cond(go, lambda: bounce.add_(1))
+
+    def folded():  # the loop's: the IF node and the tail a step
+        graphs.loop(go, [lambda: None] * n_if, bounce,
+                    lambda: bounce.add_(1))
 
     def inline():
         for _ in range(n_if):
             x.add_(1.0)
 
+    def eager_steps():  # the eager form: the guard read, the add
+        graphs.loop(go, [lambda: None] * n_if, bounce,
+                    lambda: bounce.add_(1))
+
     one = graphs.Steps(dev)
-    for key, fn in (("skipped", skipped), ("guards", guards),
+    live.fill_(1)
+    for key, fn in (("skipped", skipped), ("switches", switches),
+                    ("guards", guards), ("folded", folded),
                     ("inline", inline), ("kernel", lambda: x.add_(1.0))):
         one.run(key, fn)
     if_ms = events_ms(lambda: one.run("skipped", skipped)) / n_if
+    switch_ms = events_ms(lambda: one.run("switches", switches)) / n_if
     live.fill_(0)
     guard_ms = events_ms(lambda: one.run("guards", guards)) / n_if
+    folded_skip_ms = events_ms(lambda: one.run("folded", folded)) / n_if
     live.fill_(1)
     taken_ms = events_ms(lambda: one.run("guards", guards)) / n_if
+    folded_ms = events_ms(lambda: one.run("folded", folded)) / n_if
     inline_ms = events_ms(lambda: one.run("inline", inline)) / n_if
     read_ms = host_ms(lambda: [false.item() for _ in range(50)]) / 50
+    with graphs.eager():
+        eager_ms = host_ms(eager_steps) / n_if
     host = torch.empty((), dtype=torch.int64, pin_memory=True)
     landed = torch.cuda.Event()
 
@@ -2987,20 +3066,99 @@ def graph_if_phase(dev, timings, errs):
                  for _ in range(3))
     bound = 8 / PEAK_BYTES * 1e3
     timings["graph_if"] = dict(ms=if_ms, plain_ms=read_ms, bound_ms=bound,
-                               bound_by="bytes")
+                               bound_by="bytes", switch6_ms=switch_ms)
+    timings["graph_tail"] = dict(ms=folded_ms, plain_ms=eager_ms,
+                                 bound_ms=24 / PEAK_BYTES * 1e3,
+                                 bound_by="bytes", guard_ms=taken_ms,
+                                 skipped_ms=folded_skip_ms)
     say("graphs", f"graph_if: a skipped IF node {if_ms * 1e3:.2f} us (a "
-        f"replay of {n_if}), the eager branch's host read of its "
-        f"predicate {read_ms * 1e3:.2f} us; a segment guard (two terms) "
-        f"skipped {guard_ms * 1e3:.2f} us, taken with a one-kernel body "
-        f"{taken_ms * 1e3:.2f} us against the kernel inline "
+        f"replay of {n_if}), a six-branch switch that matches none "
+        f"{switch_ms * 1e3:.2f} us (six IF nodes: "
+        f"{6 * if_ms * 1e3:.2f} us), the eager branch's host read of its "
+        f"predicate {read_ms * 1e3:.2f} us; a looped segment's guard and "
+        f"count, the earlier form (set kernel, IF node, add) taken "
+        f"{taken_ms * 1e3:.2f} us and skipped {guard_ms * 1e3:.2f} us, "
+        f"folded (IF node, tail kernel) taken {folded_ms * 1e3:.2f} us "
+        f"and skipped {folded_skip_ms * 1e3:.2f} us, eager (host read, "
+        f"add) {eager_ms * 1e3:.2f} us, one kernel inline "
         f"{inline_ms * 1e3:.2f} us; a one-kernel replay "
         f"{t_replay / 50 * 1e3:.2f} us on the host clock, with a read of "
         f"the live count after it {t_read / 50 * 1e3:.2f} us (the read "
-        f"{(t_read - t_replay) / 50 * 1e3:.2f} us); bound {bound:.3g} ms "
-        f"(8 bytes)")
+        f"{(t_read - t_replay) / 50 * 1e3:.2f} us); bounds {bound:.3g} ms "
+        f"(8 bytes), tail {24 / PEAK_BYTES * 1e3:.3g} ms (24 bytes)")
 
 
-def graphs_phase(cells, stage_profiles) -> int:
+def folded_guard_check(dev) -> float:
+    """graphs.loop of 16 steps, as the looped form's block, captured and
+    replayed against the eager loop on schedules of the live count: it
+    reaches 0 after the fifth step (a later step would make lanes live
+    again), the cap stops it after the twelfth, every step runs; two
+    replays of each, alternated. Returns the max abs difference of the
+    steps' writes (0), raising where the counter, the live count or the
+    launch counts differ, or a replay launched more than the loop's one
+    set kernel and a tail a step that ran."""
+    import torch
+
+    from moonshine_tpu_torch.accel import launch
+    from moonshine_tpu_torch.integrator import graphs
+
+    n, cap = 16, 12
+    live = torch.zeros((), dtype=torch.int64, device=dev)
+    bounce = torch.zeros_like(live)
+    sched = torch.zeros(n, dtype=torch.int64, device=dev)
+    x = torch.zeros(n, device=dev)
+    counts = launch.Counts({"step": 0})
+    schedules = {"stop at 5": [5, 4, 3, 2, 0] + [9] * (n - 5),
+                 "cap": [1] * n, "all": [2] * n}
+
+    def step(i):
+        launch.count_launch(counts, "step")
+        live.copy_(sched[i])
+        x[i:i + 1].add_(float(i + 1))
+
+    def block(c):
+        graphs.loop(((live, ">", 0), (bounce, "<", c)),
+                    [lambda i=i: step(i) for i in range(n)], bounce,
+                    lambda: bounce.add_(1), guard_first=True)
+
+    def run(name, fn):
+        sched.copy_(torch.tensor(schedules[name], device=dev))
+        live.fill_(7)
+        bounce.zero_()
+        x.zero_()
+        counts["step"] = 0
+        graphs.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return (x.clone(), int(bounce), int(live), counts["step"],
+                graphs.LAUNCHES["graph_if"], graphs.LAUNCHES["graph_tail"])
+
+    caps = {"stop at 5": cap, "cap": cap, "all": 1 << 40}
+    with graphs.eager():
+        want = {name: run(name, lambda c=c: block(c))
+                for name, c in caps.items()}
+    steps = graphs.Steps(dev)
+    for name, c in caps.items():  # the eager run, the warm, the capture
+        run(name, lambda c=c, name=name: steps.run(name, lambda: block(c)))
+    err = 0.0
+    for name in ["stop at 5", "cap", "all", "stop at 5", "cap", "all"]:
+        got = run(name, lambda c=caps[name], name=name: steps.run(
+            name, lambda: block(c)))
+        err = max(err, float((got[0] - want[name][0]).abs().max()))
+        if got[1:4] != want[name][1:4] or got[4] != 1 or got[5] != got[3]:
+            raise AssertionError(f"folded guard on {name}: {got[1:]} "
+                                 f"against the eager {want[name][1:]}")
+    ran = {k: v[1] for k, v in want.items()}
+    say("graphs", f"graph_tail: a loop of {n} steps replayed against the "
+        f"eager loop (steps run {ran}): writes, counter, live count and "
+        f"launches equal, one set kernel and a tail a step run a replay; "
+        f"max abs err {err}")
+    if ran != {"stop at 5": 5, "cap": cap, "all": n} or err != 0:
+        raise AssertionError("the folded guards ran the wrong steps")
+    return err
+
+
+def graphs_phase(cells, stage_profiles) -> dict:
     """Each cell's sample (`cells`: name -> sample(i), which renders
     sample i and returns (image, rays or None)) on the eager loop
     (graphs.eager()) and as graph replays, each from a clear cache: a
@@ -3020,8 +3178,14 @@ def graphs_phase(cells, stage_profiles) -> int:
     static buffers stay). On the eager loop one more sample is profiled
     with the stage ranges (integrator/path.py STAGES): each stage's
     kernel time, their sum against the sample's (kept in
-    `stage_profiles` by cell). Returns room_1080p's IF node launches a
-    sample as graph replays."""
+    `stage_profiles` by cell). As graph replays the set kernels
+    (graphs.LAUNCHES "graph_if") a sample are at most 6 on room_1080p
+    (one SWITCH node a resorted segment) and at most one a block on the
+    looped cells (each block's first guard; the first block has none)
+    plus one for the resorted state's buffer set, and the looped cells
+    run one loop tail ("graph_tail") a segment, the unrolled ones none.
+    Returns {"graph_if": room_1080p's set kernels a sample, "graph_tail":
+    offline_720p's tails}."""
     import torch
 
     from moonshine_tpu_torch.integrator import graphs, path
@@ -3037,7 +3201,7 @@ def graphs_phase(cells, stage_profiles) -> int:
         return out
 
     renderer._sample_sum = recorded
-    if_launches = 0
+    cond_launches = {}
     try:
         for name, sample in cells.items():
             rows = {}
@@ -3057,6 +3221,7 @@ def graphs_phase(cells, stage_profiles) -> int:
                     torch.cuda.synchronize()
                     counts = {k: v for k, v in read_counts().items() if v}
                     ifs = graphs.LAUNCHES["graph_if"]
+                    tails = graphs.LAUNCHES["graph_tail"]
                     loop = dict(graphs.COUNTS)
                     segments = sum(int(s) for s in segs)
                     peak = (torch.cuda.max_memory_allocated() / 2**20,
@@ -3073,7 +3238,8 @@ def graphs_phase(cells, stage_profiles) -> int:
                 say("graphs", f"{name} {mode}: sample 0: {segments} "
                     f"segments, {loop['conds']} conds, {loop['reads']} "
                     f"reads, {loop['replays']} replays, {loop['captures']} "
-                    f"captures, {ifs} IF nodes run; sample 2: "
+                    f"captures, {ifs} set kernels and {tails} loop tails "
+                    f"run; sample 2: "
                     f"{prof['wall_ms_unprofiled']:.2f}"
                     f" ms/spp ({prof['wall_ms_profiled']:.2f} profiled), "
                     f"{prof['kernels']} kernels in {prof['replays']} graph "
@@ -3094,8 +3260,17 @@ def graphs_phase(cells, stage_profiles) -> int:
                         raise AssertionError(
                             f"{name}: {loop} a replayed sample of "
                             f"{segments} segments (at most {limit} reads)")
-                    if name == "room_1080p":
-                        if_launches = ifs
+                    looped = name in ("offline_720p", "engine_720p")
+                    blocks = -(-segments // path.LOOP_BLOCK)
+                    if ((name == "room_1080p" and not 0 < ifs <= 6)
+                            or (looped and (ifs > blocks or tails
+                                            != segments))
+                            or (not looped and tails)):
+                        raise AssertionError(
+                            f"{name}: {ifs} set kernels and {tails} tails "
+                            f"in a replayed sample of {segments} segments")
+                    cond_launches[name] = {"graph_if": ifs,
+                                           "graph_tail": tails}
             (ei, er, ec, _, ep), (gi, gr, gc, _, gp) = rows["eager"], \
                 rows["graphs"]
             same_rays = (er is None and gr is None) or int(er) == int(gr)
@@ -3119,9 +3294,10 @@ def graphs_phase(cells, stage_profiles) -> int:
     finally:
         renderer._sample_sum = sample_sum
     graphs.clear()
-    if if_launches == 0:
-        raise AssertionError("room_1080p ran no IF node as graph replays")
-    return if_launches
+    say("graphs", f"conditional-node kernels a replayed sample: "
+        f"{cond_launches}")
+    return {"graph_if": cond_launches["room_1080p"]["graph_if"],
+            "graph_tail": cond_launches["offline_720p"]["graph_tail"]}
 
 
 # the shapes the frame phase holds the camera rays and the accumulation
@@ -3865,9 +4041,9 @@ def main():
     stage_profiles = {}
     with phase("graphs"):
         graph_if_phase(dev, timings, errs)
-        launches["graph_if"] = graphs_phase(
+        launches.update(graphs_phase(
             graph_cells(scenes, offline_cell, instanced, cfg, dev),
-            stage_profiles)
+            stage_profiles))
         del instanced
 
     # a sample's camera rays, accumulation and counts

@@ -234,17 +234,26 @@ class SortLib(NativeLib):
 
 
 class GraphCondLib(NativeLib):
-    """graph_cond.cu's entry points: an IF node on one or two terms
-    begun on a capturing stream, its body captured on a child stream
-    (`if_begin`), the body's capture ended (`if_end`), a child stream
-    made (`stream`), the runtime's and driver's versions and an error's
-    text."""
+    """graph_cond.cu's entry points: a conditional node (IF or SWITCH)
+    with its set kernel begun on a capturing stream (`cond_begin`), a
+    handle reset to 0 at each launch (`guard`) and an IF node on it
+    (`if_on`), the segment's tail that counts it and sets the next guard
+    (`tail`), a body's capture begun and ended on a child stream
+    (`body_begin`, `body_end`), a child stream made (`stream`), the
+    runtime's and driver's versions and an error's text."""
 
     def __init__(self, *args):
         super().__init__(*args)
-        self.if_begin = self._fn("msn_if_begin", [_P, _P, _P, _I, _I, _L,
-                                                  _P, _I, _I, _L, _P])
-        self.if_end = self._fn("msn_if_end", [_P])
+        self.cond_begin = self._fn("msn_cond_begin",
+                                   [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P,
+                                    _I, _P, _P])
+        self.guard = self._fn("msn_guard", [_P, _P])
+        self.if_on = self._fn("msn_if_on", [_P, ctypes.c_ulonglong, _P])
+        self.tail = self._fn("msn_tail", [_P, _P, ctypes.c_ulonglong, _I,
+                                          _P, _I, _I, _L, _P, _I, _I, _L,
+                                          _P])
+        self.body_begin = self._fn("msn_body_begin", [_P, _P])
+        self.body_end = self._fn("msn_body_end", [_P])
         self.stream = self._fn("msn_cond_stream", [ctypes.POINTER(_P)])
         self.versions = self._fn("msn_cond_versions",
                                  [ctypes.POINTER(_I), ctypes.POINTER(_I)])

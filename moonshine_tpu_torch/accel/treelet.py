@@ -173,6 +173,42 @@ def _pending_masks_plain(wbvh: WideBVH, o, d, tmax_vec):
     return pend, nearest
 
 
+def word_unions(t_lo, t_hi):
+    """The union box of each 32-treelet word that phase 1's kernel makes
+    and tests a ray against before the word's boxes: per axis the least
+    of min(lo, hi) and the greatest of max(lo, hi) over the word's
+    treelets ([ceil(K/32), 3] each). The slab test takes a box's planes
+    in either order, so an inverted box (an empty treelet's, lo 0, hi -1)
+    counts as the box between its planes and is not left out."""
+    K = t_lo.shape[0]
+    pad = -(-K // 32) * 32 - K
+    lo, hi = torch.minimum(t_lo, t_hi), torch.maximum(t_lo, t_hi)
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=float("-inf"))
+    return (lo.reshape(-1, 32, 3).amin(dim=1),
+            hi.reshape(-1, 32, 3).amax(dim=1))
+
+
+def entered_words(wbvh: WideBVH, o, d, tmax_vec):
+    """[N, ceil(K/32)] bool: the words whose union box (`word_unions`)
+    the ray enters, by phase 1's own test (the plain version run on the
+    unions as boxes); a dead ray enters none. Phase 1's kernel tests a
+    word's 32 boxes only there, so its words equal the plain version's
+    where every ray that enters a box enters its word's union."""
+    lo, hi = word_unions(wbvh.t_lo, wbvh.t_hi)
+    unions = wbvh._replace(t_roots=torch.zeros(lo.shape[0], dtype=torch.int32,
+                                               device=lo.device),
+                           t_lo=lo, t_hi=hi)
+    pend, _ = _pending_masks_plain(unions, o, d, tmax_vec)
+    return pending_bits(pend, lo.shape[0])
+
+
+def pending_bits(pend, k: int):
+    """[N, k] bool: bit j of each row's words, j < k."""
+    j = torch.arange(k, device=pend.device)
+    return ((pend[:, j >> 5] >> (j & 31)) & 1) == 1
+
+
 def _pending_bit(pend, tid: int):
     return ((pend[:, tid >> 5] >> (tid & 31)) & 1) == 1
 

@@ -27,11 +27,25 @@
 // Phase 1. Bound by operations: ~25 per (ray, treelet) pair against ~80
 // bytes a ray. One thread per ray; a block stages the boxes of up to
 // kTileWords * 32 treelets in shared memory (two float4s each, read by all
-// threads at once), keeps each 32-bit word in a register while it tests the
-// word's treelets, parks the words in shared memory and writes the block's
-// rows out together. Dead lanes test no box. The nearest treelet is a
-// sequential strict-< scan over k = 0..K-1 from (3e37, K): the first
-// minimum, as the plain version's per-word argmin and strict `better`.
+// threads at once) and makes each 32-treelet word's union box from them;
+// keeps each 32-bit word in a register while it tests the word's
+// treelets, parks the words in shared memory and writes the block's rows
+// out together. Two cuts of the work, neither of which changes an output:
+//  - a ray tests a word's union first and, where it misses it, none of
+//    the word's 32 boxes (the word is 0). Treelet ids follow the plan's
+//    depth-first order, so a word's treelets are neighbours in space and
+//    a ray misses most words. Exact: the union is per axis the least and
+//    greatest of the word's planes, and the rounding of (b - o) * inv is
+//    monotone in b, so a ray that enters a box enters the union (the
+//    argument of the walk's node-root skip below);
+//  - the block's live rays are packed onto its first threads (a ballot a
+//    warp and the warps' counts in order), so a warp holds live rays or
+//    none, and warps with none test nothing; each writes its words and
+//    nearest treelet into its own row, dead rows get 0 and K.
+// The nearest treelet is a sequential strict-< scan over k = 0..K-1 from
+// (3e37, K): the first minimum, as the plain version's per-word argmin
+// and strict `better`; a skipped word holds no hit, so the scan is the
+// same.
 //
 // The walk. Bound on this card, as traverse.cu, by dependent row loads,
 // issue slots and warp divergence. One thread per ray (lane groups lost on
@@ -57,6 +71,7 @@
 //    copy into each block's shared memory cost more than it saved.
 
 #include <atomic>
+#include <cmath>
 
 #include "visit.cuh"
 
@@ -89,39 +104,95 @@ __device__ __forceinline__ void slab(float lx, float ly, float lz, float hx,
   tf = fminf(fminf(fmaxf(a0, b0), fmaxf(a1, b1)), fmaxf(a2, b2));
 }
 
+// The union box of each 32-treelet word of the tile: per axis the least
+// of min(lo, hi) and the greatest of max(lo, hi) over the word's treelets
+// (the slab test takes a box's two planes in either order, so an inverted
+// box counts as the box between them). Warp w makes words w, w + 4, ...
+__device__ __forceinline__ void word_unions(const float4* boxes, int nw,
+                                            int nk, float4* unions) {
+  const int lane = threadIdx.x & 31;
+  for (int wl = threadIdx.x >> 5; wl < nw; wl += kPendBlock / 32) {
+    const int j = 32 * wl + lane;
+    float lo[3] = {INFINITY, INFINITY, INFINITY};
+    float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+    if (j < nk) {
+      const float4 p = boxes[2 * j];
+      const float4 q = boxes[2 * j + 1];
+      const float a[3] = {p.x, p.y, p.z}, b[3] = {p.w, q.x, q.y};
+      for (int c = 0; c < 3; ++c) {
+        lo[c] = fminf(a[c], b[c]);
+        hi[c] = fmaxf(a[c], b[c]);
+      }
+    }
+    for (int s = 16; s > 0; s >>= 1) {
+      for (int c = 0; c < 3; ++c) {
+        lo[c] = fminf(lo[c], __shfl_xor_sync(0xffffffffu, lo[c], s));
+        hi[c] = fmaxf(hi[c], __shfl_xor_sync(0xffffffffu, hi[c], s));
+      }
+    }
+    if (lane == 0) {
+      unions[2 * wl] = make_float4(lo[0], lo[1], lo[2], hi[0]);
+      unions[2 * wl + 1] = make_float4(hi[1], hi[2], 0.0f, 0.0f);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kPendBlock) pending_kernel(
     const float* __restrict__ t_lo, const float* __restrict__ t_hi, int k,
     int k32, const float* __restrict__ ray_o,
     const float* __restrict__ ray_d, const float* __restrict__ t_eff, int n,
     int32_t* __restrict__ pend, int32_t* __restrict__ nearest) {
   __shared__ float4 boxes[2 * 32 * kTileWords];
+  __shared__ float4 unions[2 * kTileWords];
   __shared__ uint32_t words[kPendBlock * (kTileWords + 1)];
+  __shared__ int packed[kPendBlock];  // the block's live rows, in order
+  __shared__ int near_of[kPendBlock];
+  __shared__ int warp_live[kPendBlock / 32];
   const int base = blockIdx.x * kPendBlock;
   const int rows = min(kPendBlock, n - base);
-  const int i = base + threadIdx.x;
-  const float tmax = i < n ? t_eff[i] : 0.0f;
-  const bool live = tmax > 0.0f;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const bool live = t < rows && t_eff[base + t] > 0.0f;
+  // pack the live rows onto the first threads: a ballot a warp, then the
+  // warps' counts summed in order
+  const unsigned vote = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) warp_live[t >> 5] = __popc(vote);
+  __syncthreads();
+  int before = 0, n_live = 0;
+  for (int w = 0; w < kPendBlock / 32; ++w) {
+    before += w < (t >> 5) ? warp_live[w] : 0;
+    n_live += warp_live[w];
+  }
+  if (live) packed[before + __popc(vote & ((1u << lane) - 1u))] = t;
+  __syncthreads();
+  // thread t < n_live tests the ray of row r; the other threads none
+  const bool busy = t < n_live;
+  const int r = busy ? packed[t] : t;
   float o[3] = {0.0f, 0.0f, 0.0f}, inv[3] = {0.0f, 0.0f, 0.0f};
-  if (live) {
+  float tmax = 0.0f;
+  if (busy) {
+    const size_t i = base + r;
+    tmax = t_eff[i];
     for (int c = 0; c < 3; ++c) {
-      o[c] = ray_o[3 * (size_t)i + c];
-      inv[c] = safe_inv(ray_d[3 * (size_t)i + c]);
+      o[c] = ray_o[3 * i + c];
+      inv[c] = safe_inv(ray_d[3 * i + c]);
     }
   }
-  const bool block_live = __syncthreads_or(live);
   float best_t = kFar;
   int best_k = k;
   for (int w0 = 0; w0 < k32; w0 += kTileWords) {
     const int nw = min(kTileWords, k32 - w0);
     const int k0 = 32 * w0;
     const int nk = min(32 * nw, k - k0);
-    if (block_live) {
-      for (int j = threadIdx.x; j < nk; j += kPendBlock) {
+    if (n_live > 0) {
+      for (int j = t; j < nk; j += kPendBlock) {
         const float* lo = t_lo + 3 * (size_t)(k0 + j);
         const float* hi = t_hi + 3 * (size_t)(k0 + j);
         boxes[2 * j] = make_float4(lo[0], lo[1], lo[2], hi[0]);
         boxes[2 * j + 1] = make_float4(hi[1], hi[2], 0.0f, 0.0f);
       }
+      __syncthreads();
+      word_unions(boxes, nw, nk, unions);
       __syncthreads();
     }
     for (int wl = 0; wl < nw; ++wl) {
@@ -142,28 +213,42 @@ __global__ void __launch_bounds__(kPendBlock) pending_kernel(
           }
         }
       };
+      bool enters = false;
+      if (busy) {  // the word's union first: a ray that misses it misses
+        // each of its boxes, as (b - o) * inv rounds monotonically in b
+        const float4 p = unions[2 * wl];
+        const float4 q = unions[2 * wl + 1];
+        float tn, tf;
+        slab(p.x, p.y, p.z, p.w, q.x, q.y, o, inv, tn, tf);
+        enters = tn <= tf && tf >= 0.0f && tn <= tmax;
+      }
       // unrolled, so that b and the box offsets are constants
-      if (live && kb + 32 <= nk) {
+      if (enters && kb + 32 <= nk) {
 #pragma unroll
         for (int b = 0; b < 32; ++b) test(b);
-      } else if (live) {  // the last, partial word
+      } else if (enters) {  // the last, partial word
 #pragma unroll
         for (int b = 0; b < 32; ++b) {
           if (kb + b < nk) test(b);
         }
       }
-      words[threadIdx.x * (kTileWords + 1) + wl] = bits;
+      // a packed thread fills its ray's row, a dead row's own thread 0
+      if (busy) words[r * (kTileWords + 1) + wl] = bits;
+      if (!live) words[t * (kTileWords + 1) + wl] = 0u;
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < rows * nw; e += kPendBlock) {
-      const int r = e / nw;
-      const int c = e - r * nw;
-      pend[(size_t)(base + r) * k32 + w0 + c] =
-          (int32_t)words[r * (kTileWords + 1) + c];
+    for (int e = t; e < rows * nw; e += kPendBlock) {
+      const int rr = e / nw;
+      const int c = e - rr * nw;
+      pend[(size_t)(base + rr) * k32 + w0 + c] =
+          (int32_t)words[rr * (kTileWords + 1) + c];
     }
     __syncthreads();
   }
-  if (i < n) nearest[i] = best_k;
+  if (busy) near_of[r] = best_k;
+  if (!live) near_of[t] = k;
+  __syncthreads();
+  if (t < rows) nearest[base + t] = near_of[t];
 }
 
 // A child slot's test: occupied, and the reference treelet kernel's hit.

@@ -33,25 +33,30 @@ Launch counts: a wrapper called during a capture launches nothing, so
 its count goes to the capture's tally (`launch.launch_tally`), which
 each replay adds.
 
-Device-side control (`cond`, `choose`): the reference's `lax.cond`
-inside its compiled loop. Captured, a branch is a CUDA graph IF node
-(csrc/graph_cond.cu) on a device predicate of one or two terms, each a
-0-d tensor compared with a constant, evaluated by the node's one set
-kernel; its body is recorded on a child stream; the host reads nothing
-at a replay. A body may hold only kernels, memsets, device-to-device
-copies and nested branches (CUDA's rule), and writes only static
-buffers: a branch that did not run leaves them as they were. Before a
-step with branches is captured, a throwaway capture in the relaxed error
-mode runs every branch inline (nothing runs on the device), so each is
-captured warm: its kernels built, its wrappers' per-device caches
-filled. Bodies allocate from a pool of the run shape's own
-(`torch.cuda.MemPool`), reused across its graphs as the graphs' pool is.
-The set kernel adds one to the body's entry of a device log when the
-body runs, and the body's launch tally is counted from that log when the
-counts are read (launch.settle). Eagerly (the CPU, `eager()`, a step's
-first run) a branch reads its predicate on the host: COUNTS["conds"]. A
-card whose runtime or driver has no conditional nodes (CUDA < 12.4)
-raises at the first capture of a branch: the loop never falls back to
+Device-side control (`cond`, `choose`, `loop`): the reference's
+`lax.cond` and `while_loop` inside its compiled loop. Captured, a
+branch is a CUDA graph conditional node (csrc/graph_cond.cu) on a device
+predicate of one or two terms, each a 0-d tensor compared with a
+constant: `cond` an IF node, `choose` one SWITCH node for all its
+branches, each with one set kernel that evaluates the predicate; a
+`loop` step's guard is an IF node set by the step before it (its tail
+kernel counts the step and sets the next guard), so only a loop's first
+guard has a set kernel. Bodies are recorded on a child stream; the host
+reads nothing at a replay. A body may hold only kernels, memsets,
+device-to-device copies and nested branches (CUDA's rule), and writes
+only static buffers: a branch that did not run leaves them as they
+were. Before a step with branches is captured, a throwaway capture in
+the relaxed error mode runs every branch inline (nothing runs on the
+device), so each is captured warm: its kernels built, its wrappers'
+per-device caches filled. Bodies allocate from a pool of the run shape's
+own (`torch.cuda.MemPool`), reused across its graphs as the graphs' pool
+is. The set kernel (or the tail) adds one to the body's entry of a
+device log when the body runs, and the body's launch tally is counted
+from that log when the counts are read (launch.settle). Eagerly (the
+CPU, `eager()`, a step's first run) a branch reads its predicate on the
+host: COUNTS["conds"]. A card whose toolkit, runtime or driver has no
+SWITCH nodes (CUDA < 12.8) raises: csrc/graph_cond.cu does not build,
+or the first capture of a branch raises; the loop never falls back to
 host reads.
 """
 
@@ -84,9 +89,10 @@ _mesh_room = 0
 COUNTS = {"captures": 0, "replays": 0, "reads": 0, "conds": 0,
           "copies": 0}
 _COUNTS_LOCK = threading.Lock()
-# the launches of csrc/graph_cond.cu's set_if_kernel: one an IF node each
-# time the graph or body that holds the node runs
-LAUNCHES = launch.Counts({"graph_if": 0})
+# the launches of csrc/graph_cond.cu's kernels each time the graph or body
+# that holds them runs: the set kernel, one a conditional node that is not
+# a loop's folded guard, and the loop's tail, one a step
+LAUNCHES = launch.Counts({"graph_if": 0, "graph_tail": 0})
 
 _MODE = threading.local()
 # key -> (run shape, finalizers that drop it with its scene's tensors)
@@ -212,10 +218,25 @@ _OPS = {"==": (0, lambda x, v: x == v), ">": (1, lambda x, v: x > v),
 
 def _read_choice(index):
     """The value of a branch's 0-d index, or of each of a tuple of them,
-    read on the host (an eager branch's one read)."""
+    read on the host (an eager branch's one read, counted in conds)."""
+    _MODE.conds = _conds_read() + 1
+    count("conds")
     if torch.is_tensor(index):
         return int(index.item())
     return tuple(int(t.item()) for t in index)
+
+
+def _terms(pred):
+    """A predicate as its terms: a 0-d bool tensor, or a tuple of one or
+    two (t, op, value)."""
+    return ((pred, "==", 1),) if torch.is_tensor(pred) else tuple(pred)
+
+
+def _holds(terms) -> bool:
+    """Whether every term holds, read on the host (an eager branch's one
+    read)."""
+    values = _read_choice(tuple(t for t, _, _ in terms))
+    return all(_OPS[op][1](x, v) for x, (_, op, v) in zip(values, terms))
 
 
 def cond(pred, fn) -> None:
@@ -224,15 +245,13 @@ def cond(pred, fn) -> None:
     one or two terms (t, op, value), t a 0-d int64 or bool tensor on the
     step's device, op "==", ">" or "<", all of which must hold (the
     module's docstring says how it is captured)."""
-    terms = ((pred, "==", 1),) if torch.is_tensor(pred) else tuple(pred)
+    terms = _terms(pred)
     cap = getattr(_MODE, "capture", None)
     if cap is not None:
-        cap.body(terms, fn)
+        cap.branch(0, tuple((t, op) for t, op, _ in terms),
+                   [tuple(v for _, _, v in terms)], [fn])
         return
-    _MODE.conds = _conds_read() + 1
-    count("conds")
-    values = _read_choice(tuple(t for t, _, _ in terms))
-    if all(_OPS[op][1](x, v) for x, (_, op, v) in zip(values, terms)):
+    if _holds(terms):
         fn()
 
 
@@ -240,62 +259,171 @@ def choose(index, branches: dict) -> None:
     """branches[key]() for key the value of `index` (a 0-d int64 or bool
     tensor on the step's device, or a tuple of one or two, keyed by
     tuples), nothing where no key matches: a nested lax.cond's
-    branches. Captured, one IF node a branch on index == key; eagerly one
-    read of the index."""
+    branches. Captured, one SWITCH node whose bodies are the branches in
+    the dict's order; eagerly one read of the index."""
     cap = getattr(_MODE, "capture", None)
     if cap is not None:
-        for key, fn in branches.items():
-            if torch.is_tensor(index):
-                cap.body(((index, "==", int(key)),), fn)
-            else:
-                cap.body(tuple((t, "==", int(k))
-                               for t, k in zip(index, key)), fn)
+        sels = (index,) if torch.is_tensor(index) else tuple(index)
+        keys = [(key,) if torch.is_tensor(index) else tuple(key)
+                for key in branches]
+        cap.branch(1, tuple((t, "==") for t in sels),
+                   [tuple(int(k) for k in key) for key in keys],
+                   list(branches.values()))
         return
-    _MODE.conds = _conds_read() + 1
-    count("conds")
     fn = branches.get(_read_choice(index))
     if fn is not None:
         fn()
 
 
+def loop(pred, fns, counter, advance, guard_first: bool = True) -> None:
+    """The reference's while_loop over the steps `fns`: fns[i]() and then
+    advance(), which adds one to `counter` (a 0-d int64 tensor), for each
+    i in turn while `pred` (as cond's) holds; once it fails no later step
+    runs. With guard_first False the first step runs unguarded. Eagerly
+    each guard is read on the host. Captured, each guarded step is an IF
+    node; a step ends with the tail kernel, which adds one to `counter`
+    and sets the next step's guard from `pred`, so that only the first
+    guard has a set kernel and a step that did not run leaves every later
+    guard unset (0), and advance() is not called."""
+    terms = _terms(pred)
+    cap = getattr(_MODE, "capture", None)
+    if cap is not None:
+        cap.loop(terms, fns, counter, advance, guard_first)
+        return
+    for i, fn in enumerate(fns):
+        # a step that did not run leaves the counter and the terms as they
+        # were, so no later guard holds (the captured form's unset guards)
+        if (i or guard_first) and not _holds(terms):
+            continue
+        fn()
+        advance()
+
+
+def _args(terms):
+    """The ctypes arguments of up to two terms, each (t, op) or (t, op,
+    value); an absent second term has a null tensor."""
+    if not 1 <= len(terms) <= 2 or any(
+            t.dtype not in (torch.bool, torch.int64) or t.dim()
+            for t, *_ in terms):
+        raise TypeError("a branch holds on one or two terms, each a 0-d "
+                        "bool or int64 tensor")
+    out = []
+    for t, op, *value in terms + ((None, "==", 0),) * (2 - len(terms)):
+        out.append(([None if t is None else t.data_ptr(),
+                     1 if t is None else t.element_size(), _OPS[op][0]],
+                    [int(v) for v in value]))
+    return out
+
+
 class _Capture:
     """What a capture records besides its graph: with `warm` (the
     throwaway relaxed capture) every branch runs inline and is counted in
-    `bodies`; else each branch is an IF node whose body, b, adds one to
-    log[b] each time it runs (the node's set kernel does) and has its own
-    launch tally, tallies[b]."""
+    `bodies`; else each branch is a conditional node's body, b, which
+    adds one to log[b] each time it runs (the node's set kernel, or the
+    loop's tail before it, does) and has its own launch tally,
+    tallies[b]."""
 
     def __init__(self, steps: Steps, warm: bool = False, log=None):
         self.steps, self.warm, self.log = steps, warm, log
         self.bodies, self.tallies, self.depth = 0, [], 0
+        self._next = None  # the guard that the last loop tail set
 
-    def body(self, terms, fn) -> None:
+    def _reserve(self, n: int = 1) -> int:
+        """n consecutive body numbers: the first."""
         b = self.bodies
-        self.bodies += 1
+        self.bodies += n
+        self.tallies += [()] * n
+        return b
+
+    def _log_at(self, b: int) -> int:
+        return self.log.data_ptr() + b * self.log.element_size()
+
+    def branch(self, kind: int, terms, cases, fns) -> None:
+        """A conditional node (kind 0 IF, 1 SWITCH) on `terms`, each (t,
+        op), whose body i runs fns[i]() where the terms hold against
+        cases[i], the first such i."""
+        b = self._reserve(len(fns))
         if self.warm:
-            fn()
+            for fn in fns:
+                fn()
             return
-        if not 1 <= len(terms) <= 2 or any(
-                t.dtype not in (torch.bool, torch.int64) or t.dim()
-                for t, _, _ in terms):
-            raise TypeError("a branch holds on one or two terms, each a 0-d "
-                            "bool or int64 tensor")
-        args = []
-        for t, op, value in terms + ((None, "==", 0),) * (2 - len(terms)):
-            args += [None if t is None else t.data_ptr(),
-                     1 if t is None else t.element_size(), _OPS[op][0],
-                     int(value)]
-        dev = self.steps.device
         lib = _cond_lib()
-        outer = torch.cuda.current_stream(dev)
-        child = _child_stream(dev, self.depth)
-        log = self.log.data_ptr() + b * self.log.element_size()
-        _check(lib, lib.if_begin(outer.cuda_stream, child.cuda_stream,
-                                 *args, log))
+        (a, _), (bt, _) = _args(terms)
+        values = [(ctypes.c_longlong * len(cases))(
+            *(c[j] if j < len(terms) else 0 for c in cases))
+            for j in range(2)]
+        outer = torch.cuda.current_stream(self.steps.device)
+        graphs = (ctypes.c_void_p * len(fns))()
+        _check(lib, lib.cond_begin(outer.cuda_stream, kind, *a, *bt,
+                                   *values, len(fns), self._log_at(b),
+                                   graphs))
         launch.count_launch(LAUNCHES, "graph_if")  # the enclosing tally
-        self.tallies.append(())
+        for i, fn in enumerate(fns):
+            self._body(graphs[i], b + i, fn)
+
+    def loop(self, terms, fns, counter, advance, guard_first) -> None:
+        """graphs.loop's steps, captured: each guarded step an IF node,
+        the first on a set kernel, each later one on the handle that the
+        tail of the step before it sets."""
+        if self.warm:
+            for i, fn in enumerate(fns):
+                if i or guard_first:
+                    self._reserve()
+                fn()
+                advance()
+            return
+        if counter.dtype != torch.int64 or counter.dim():
+            raise TypeError("a loop counts in a 0-d int64 tensor")
+        lib = _cond_lib()
+        dev = self.steps.device
+        outer = torch.cuda.current_stream(dev)
+        args = _args(terms)
+        guard = None  # (handle, body number) that the last tail sets
+        for i, fn in enumerate(fns):
+            if not (i or guard_first):
+                self._step(lib, outer, fn, counter, args, len(fns) > 1)
+                guard = self._next
+                continue
+            step = (lambda fn=fn, then=i + 1 < len(fns): self._step(
+                lib, outer, fn, counter, args, then))
+            if guard is None:  # the loop's first guard: a set kernel
+                self.branch(0, tuple((t, op) for t, op, _ in terms),
+                            [tuple(v for _, _, v in terms)], [step])
+            else:
+                handle, b = guard
+                body = ctypes.c_void_p()
+                _check(lib, lib.if_on(outer.cuda_stream, handle,
+                                      ctypes.byref(body)))
+                self._body(body, b, step)
+            guard = self._next
+
+    def _step(self, lib, outer, fn, counter, args, then) -> None:
+        """A loop step, fn() and its tail on the current stream; with
+        `then` the tail also sets the next step's guard, a handle made
+        now in the graph `outer` captures into, whose body number is
+        reserved now (`_next`)."""
+        fn()
+        handle, b = ctypes.c_ulonglong(0), None
+        if then:
+            _check(lib, lib.guard(outer.cuda_stream, ctypes.byref(handle)))
+            b = self._reserve()
+        (a, av), (bt, bv) = args
+        _check(lib, lib.tail(
+            torch.cuda.current_stream(self.steps.device).cuda_stream,
+            counter.data_ptr(), handle.value, int(then), *a, *av, *bt, *bv,
+            None if b is None else self._log_at(b)))
+        launch.count_launch(LAUNCHES, "graph_tail")
+        self._next = (handle.value, b)
+
+    def _body(self, graph, b: int, fn) -> None:
+        """Body b, fn() captured into `graph` on this depth's child
+        stream, with its own launch tally."""
+        lib = _cond_lib()
+        dev = self.steps.device
+        child = _child_stream(dev, self.depth)
         pool = (torch.cuda.use_mem_pool(self.steps._body_pool, dev)
                 if self.depth == 0 else contextlib.nullcontext())
+        _check(lib, lib.body_begin(child.cuda_stream, graph))
         self.depth += 1
         try:
             with torch.cuda.stream(child), pool, \
@@ -303,7 +431,7 @@ class _Capture:
                 fn()
         finally:
             self.depth -= 1
-            err = lib.if_end(child.cuda_stream)
+            err = lib.body_end(child.cuda_stream)
         _check(lib, err)
         self.tallies[b] = tuple(tally)
 
@@ -314,13 +442,13 @@ _CHILDREN_LOCK = threading.Lock()
 
 def _cond_lib():
     """csrc/graph_cond.cu's library; raises where the runtime or driver
-    has no conditional nodes."""
+    has no SWITCH nodes."""
     lib = native.graph_cond_lib()
     runtime, driver = ctypes.c_int(), ctypes.c_int()
     _check(lib, lib.versions(ctypes.byref(runtime), ctypes.byref(driver)))
-    if min(runtime.value, driver.value) < 12040:
+    if min(runtime.value, driver.value) < 12080:
         raise RuntimeError(
-            f"CUDA graph conditional nodes need CUDA 12.4: runtime "
+            f"CUDA graph SWITCH nodes need CUDA 12.8: runtime "
             f"{runtime.value}, driver {driver.value}")
     return lib
 

@@ -30,8 +30,8 @@ API for very large frames (renderer.MAX_LANES).
 The loop (`_Trace`) keeps its state in static buffers and runs as steps
 of graphs.Steps: on a CUDA device graph replays, on the CPU (and inside
 graphs.eager()) the same functions eagerly. What the reference decides
-on the device stays there (graphs.cond / choose: IF nodes of the
-graphs): the live prefix's width and the looped form's stop. The
+on the device stays there (graphs.choose / loop: conditional nodes of
+the graphs): the live prefix's width and the looped form's stop. The
 unrolled form reads nothing on the host; the looped form reads the live
 count once a block of LOOP_BLOCK segments.
 
@@ -410,9 +410,11 @@ class _Trace:
     resorted segment's width (`_prefix_width` of the live count, its
     nested lax.cond) and the prefix it sorts (the last segment's width)
     are chosen on the device among the (prefix, width) pairs with width <=
-    prefix (`graphs.choose`); the looped form runs each segment after the
-    first under the while_loop's cond, live > 0 and bounce < max_bounces +
-    2 (`graphs.cond`, both terms in the node's one set kernel). The
+    prefix (`graphs.choose`, one SWITCH node); the looped form runs each
+    segment after the first under the while_loop's cond, live > 0 and
+    bounce < max_bounces + 2 (`graphs.loop`: a block's first guard is set
+    by a set kernel, each later one by the tail of the segment before it,
+    which also counts that segment). The
     unrolled form is one step and reads nothing on the host. The looped
     form runs blocks of LOOP_BLOCK segments, one step each, and reads the
     live count once after a block: `run` enqueues its copy to the host,
@@ -500,20 +502,28 @@ class _Trace:
         """Every segment of the unrolled form (a step's work)."""
         for pos in range(self.n_segments):
             self._segment(scene, pos, pos == self.n_segments - 1)
+            self._advance()
+
+    def _advance(self) -> None:
+        """A segment's tail: the device's segment count += 1 (under
+        capture the looped form's tail kernel does it, graphs.loop)."""
+        with record_function("live_count"):
+            self.bounce += 1
 
     def _block(self, scene, first: int) -> None:
         """LOOP_BLOCK segments of the looped form from position `first`
         (0 or LOOP_BLOCK; a later block replays the latter's step), each
-        after the first position under the loop's cond; the first block
-        holds no position past the cap."""
+        after the first position under the loop's cond, each followed by
+        its tail (`_advance`); the first block holds no position past the
+        cap."""
         go = ((self.live, ">", 0), (self.bounce, "<", self.n_segments))
         stop = first + LOOP_BLOCK if first else min(LOOP_BLOCK,
                                                      self.n_segments)
-        for pos in range(first, stop):
-            if pos == 0:  # every lane is live after reset
-                self._segment(scene, 0, False)
-                continue
-            graphs.cond(go, lambda pos=pos: self._segment(scene, pos, False))
+        # every lane is live after reset: the first block's first
+        # segment runs unguarded
+        graphs.loop(go, [lambda pos=pos: self._segment(scene, pos, False)
+                         for pos in range(first, stop)],
+                    self.bounce, self._advance, guard_first=first > 0)
 
     def _segment(self, scene, pos: int, last: bool) -> None:
         """The segment at position pos: its roulette (bounce > 3, the one
@@ -549,8 +559,6 @@ class _Trace:
                            live=self.live)
         with record_function("store"):
             _store(st, out)
-        with record_function("live_count"):
-            self.bounce += 1
 
     def _resorted(self, scene, src, prefix, width, last, roulette) -> None:
         """Resort the first `prefix` lanes of set `src` into the other
@@ -561,8 +569,6 @@ class _Trace:
                           width=width)
         _bounce_shrunk(scene, self.cfg, self.bounce, st, last, width,
                        roulette, live=self.live)
-        with record_function("live_count"):
-            self.bounce += 1
 
     def live_count(self) -> int:
         """The live count whose copy `run` enqueued before it yielded,

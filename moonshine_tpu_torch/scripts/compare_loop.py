@@ -12,12 +12,16 @@ bounce, max_bounces 4; the fused and the staged path), offline_720p
 constant materials and the seeded sky of scripts.skybox, 1280x720,
 max_bounces 1024: the looped form), engine_720p (room_184k through the Engine's handles at 1280x720,
 its defaults: max_bounces 1024, NEE off; a sensor reset before each
-frame) and instanced_1080p (procedural.instanced_scene(), two-level).
+frame), instanced_1080p (procedural.instanced_scene(), two-level) and
+treelet_1080p (room_1080p's frame on room_184k built 8-wide / 8-slot,
+MSN_WIDE=8 MSN_LEAF_CAP=8, dispatched with MSN_TREELETS=1: the treelet
+kernels).
 For each cell, from a clear graph cache: the peak device memory
 (allocated and reserved) over a warm-up sample (the captures) and
 `--samples` timed ones, each timed on the host clock between
 synchronisations (ms a sample); graphs.COUNTS over one sample (reads,
-conds, replays); one more sample under torch.profiler
+conds, replays) and the launches of csrc/graph_cond.cu's kernels in it
+(graphs.LAUNCHES: set kernels, loop tails); one more sample under torch.profiler
 (render/profile_frame.py `profile`: kernels, graph replays, host
 dispatches and reads, kernel time, the device's idle share), another
 for its device operations (`device_ops`: kernels, copies and fills,
@@ -51,7 +55,7 @@ import time
 HERE = pathlib.Path(__file__).resolve()
 CHECKOUT = HERE.parents[2]
 CELLS = ("room_184k", "room_1080p", "offline_720p", "engine_720p",
-         "instanced_1080p")
+         "instanced_1080p", "treelet_1080p")
 LOOPED = ("offline_720p", "engine_720p")
 
 
@@ -115,11 +119,23 @@ def cell(name: str, dev):
             e.reset_sensor(sensor)
             return e.render(sensor, handle), None
         return frame
+    cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
+                     mesh_samples_per_bounce=1)
+    if name == "treelet_1080p":
+        from moonshine_tpu_torch.scripts.compare_traverse import _room
+
+        scene, lens = _room(8, 8)
+
+        def treelets(i):  # the switch is read at each dispatch
+            os.environ["MSN_TREELETS"] = "1"
+            try:
+                return render_spp(scene, lens, 1080, 1920, i, 1, cfg)
+            finally:
+                os.environ.pop("MSN_TREELETS", None)
+        return treelets
     world, lens = (procedural.instanced_scene() if name == "instanced_1080p"
                    else procedural.room_scene(grid=6, subdivisions=4))
     scene, lens = world.build(dev), LensArrays.from_lens(lens, dev)
-    cfg = PathConfig(max_bounces=4, env_samples_per_bounce=1,
-                     mesh_samples_per_bounce=1)
     h, w = (512, 512) if name == "room_184k" else (1080, 1920)
     return lambda i: render_spp(scene, lens, h, w, i, 1, cfg)
 
@@ -161,9 +177,11 @@ def measure(sample, samples: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     sample(1)  # the warm-up: the captures
     graphs.reset_counts()
+    graphs.reset_launch_counts()
     img, rays = sample(0)
     torch.cuda.synchronize()
     counts = dict(graphs.COUNTS)
+    cond_launches = dict(graphs.LAUNCHES)
     img = np.ascontiguousarray(np.asarray(torch.as_tensor(img).cpu()))
     rays = None if rays is None else int(rays)
     ms = []
@@ -184,6 +202,7 @@ def measure(sample, samples: int) -> dict:
     return {"ms": ms, "reads": counts["reads"],
             "conds": counts.get("conds", 0), "replays": counts["replays"],
             "captures": counts["captures"], "peak_mib": peak,
+            "cond_launches": cond_launches,
             "kernels": prof["kernels"], "profile_replays": prof["replays"],
             "dispatches": prof["host_dispatches"],
             "host_reads": prof["host_reads"], "kernel_ms": prof["kernel_ms"],
@@ -301,7 +320,7 @@ def main(argv=None) -> int:
                         "host_reads", "kernels", "kernel_ms", "ops",
                         "ops_ms", "ops_busy_ms", "idle_share",
                         "peak_mib", "eager_kernels", "eager_kernel_ms",
-                        "stages", "stage_kernels")}}
+                        "stages", "stage_kernels", "cond_launches")}}
             for label, rows in by.items()}
         summary[name]["same_image"] = len(digests) == 1
     if args.blocks:

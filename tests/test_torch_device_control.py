@@ -186,3 +186,60 @@ def test_looped_blocks_match_reference(guarded, monkeypatch):
     assert runs[0] % 2 != runs[1] % 2
     steps = guarded["steps"]
     assert steps.count("reset") == steps.count("finish") == 4
+
+
+def test_choose_without_a_matching_key_runs_nothing():
+    """graphs.choose eagerly: the branch of the index's value, for every
+    (prev, w) pair of a resorted segment's width choice and an int64 and
+    a bool index; nothing where no key matches (a SWITCH node's index
+    past its bodies); one read of the index each."""
+    ran = []
+    branches = {(p, k): (lambda p=p, k=k: ran.append((p, k)))
+                for p in range(3) for k in range(p + 1)}
+    graphs.reset_counts()
+    calls = 0
+    for p in range(-1, 4):
+        for k in range(-1, 4):
+            ran.clear()
+            graphs.choose((torch.tensor(p), torch.tensor(k)), branches)
+            calls += 1
+            assert ran == ([(p, k)] if (p, k) in branches else [])
+    for value, keys in ((True, {False: 0}), (False, {True: 1}),
+                        (True, {True: 1, False: 0})):
+        ran.clear()
+        graphs.choose(torch.tensor(value),
+                      {key: (lambda v=v: ran.append(v))
+                       for key, v in keys.items()})
+        calls += 1
+        assert ran == ([int(value)] if value in keys else [])
+    ran.clear()
+    graphs.choose(torch.tensor(9, dtype=torch.int64),
+                  {0: lambda: ran.append(0), 1: lambda: ran.append(1)})
+    assert ran == [] and graphs.COUNTS["conds"] == calls + 1
+
+
+@pytest.mark.parametrize("guard_first", [False, True])
+def test_loop_stops_at_no_live_lane_and_stays_stopped(guard_first):
+    """graphs.loop eagerly, as the looped form's block runs it: each step
+    sets the live count from a schedule and then the counter advances;
+    once the live count reaches 0 (after the third step) no later step
+    runs, though a later one would make lanes live again, and the
+    counter stays at 3; a cap on the counter stops the loop as well.
+    Each guard is read once (the unguarded first step reads none)."""
+    for schedule, cap, runs in (([3, 2, 0, 5, 5, 5, 5, 5], 99, 3),
+                                ([4, 4, 4, 4, 4, 4, 4, 4], 5, 5)):
+        live = torch.tensor(7, dtype=torch.int64)
+        bounce = torch.zeros((), dtype=torch.int64)
+        ran = []
+
+        def step(i):
+            ran.append(i)
+            live.fill_(schedule[i])
+
+        graphs.reset_counts()
+        graphs.loop(((live, ">", 0), (bounce, "<", cap)),
+                    [lambda i=i: step(i) for i in range(len(schedule))],
+                    bounce, lambda: bounce.add_(1), guard_first=guard_first)
+        assert ran == list(range(runs)) and int(bounce) == runs
+        assert int(live) == schedule[runs - 1]
+        assert graphs.COUNTS["conds"] == len(schedule) - (not guard_first)

@@ -256,7 +256,7 @@ def test_bindings_take_every_parameter(monkeypatch):
     from moonshine_tpu_torch.accel import native
 
     monkeypatch.setattr(native.ctypes, "CDLL", _FakeLib)
-    checked = 0
+    checked, names = 0, set()
     for name, cls in native._CLASSES.items():
         lib = cls(native.SOURCES[name], 0.0, "")
         source = native.SOURCES[name].read_text()
@@ -272,4 +272,10 @@ def test_bindings_take_every_parameter(monkeypatch):
                       and p.strip() != "void"]
             assert len(fn.argtypes) == len(params), fn_name
             checked += 1
+            names.add(fn_name)
     assert checked >= 25
+    # the phase-1 kernel and every entry point of the graphs' conditional
+    # nodes (the SWITCH node, the folded guard, the loop's tail)
+    assert {"msn_treelet_pending", "msn_cond_begin", "msn_guard",
+            "msn_if_on", "msn_tail", "msn_body_begin", "msn_body_end",
+            "msn_cond_stream", "msn_cond_versions"} <= names

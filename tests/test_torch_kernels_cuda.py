@@ -347,16 +347,25 @@ def test_treelet_kernels_on_more_trees(cuda, case):
             treelet.any_hit_treelet_plain(w, o, d, tm, active_in=active))
 
 
-def _pending_case(device, k, n, seed):
+def _pending_case(device, k, n, seed, clustered=False, live=None):
     """A tree whose treelet plan is replaced by k seeded boxes (phase 1
     reads only the boxes): duplicates (equal entry t), inverted boxes
-    (never entered), rays inside boxes (entry 0), axis-parallel
-    directions (safe_inv clamps), dead lanes, t_max <= 0, finite and
-    1e12 t_max."""
+    (lo 0, hi -1: the slab test takes them as the box [-1, 0]^3), rays
+    inside boxes (entry 0), axis-parallel directions (safe_inv clamps),
+    dead lanes, t_max <= 0, finite and 1e12 t_max. `clustered`: each
+    32-treelet word's boxes around a centre of its own, as the plan's
+    depth-first ids make them, so a ray misses most words' unions (the
+    kernel's cull) and enters some. `live`: that share of the lanes live,
+    the dead ones scattered through every warp."""
     rs = np.random.RandomState(seed)
     w, *_ = _scene(device, n_tris=300, cap=8, width=8, n_rays=1)
-    c = rs.randn(k, 3) * 4
-    ext = rs.rand(k, 3) * 2 + 0.05
+    if clustered:
+        centre = rs.randn(-(-k // 32), 3) * 8
+        c = np.repeat(centre, 32, axis=0)[:k] + rs.randn(k, 3) * 0.8
+        ext = rs.rand(k, 3) * 0.6 + 0.05
+    else:
+        c = rs.randn(k, 3) * 4
+        ext = rs.rand(k, 3) * 2 + 0.05
     lo, hi = c - ext, c + ext
     dup = rs.rand(k) < 0.2
     src = rs.randint(0, k, k)
@@ -369,13 +378,22 @@ def _pending_case(device, k, n, seed):
     o = rs.randn(n, 3) * 5
     d = rs.randn(n, 3)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if clustered:  # half the rays aimed at a treelet, from 12 units off
+        aim = rs.rand(n) < 0.5
+        at = c[rs.randint(0, k, int(aim.sum()))]
+        o[aim] = at - d[aim] * 12.0
     axis = rs.rand(n) < 0.2
     d[axis] = np.eye(3)[rs.randint(0, 3, int(axis.sum()))] * rs.choice(
         [-1.0, 1.0], (int(axis.sum()), 1))
     d[rs.rand(n) < 0.1, 1] = 0.0
     t = np.where(rs.rand(n) < 0.5, 1e12, rs.rand(n) * 8)
-    t[rs.rand(n) < 0.2] = -1e30  # dead
-    t[rs.rand(n) < 0.05] = 0.0
+    if live is None:
+        t[rs.rand(n) < 0.2] = -1e30  # dead
+        t[rs.rand(n) < 0.05] = 0.0
+    else:
+        t = np.maximum(t, 1e-3)
+        dead = rs.rand(n) >= live
+        t[dead] = np.where(rs.rand(int(dead.sum())) < 0.9, -1e30, 0.0)
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
     return w, f(o), f(d), f(t)
 
@@ -398,6 +416,28 @@ def test_treelet_pending_matches_plain(cuda, k, n):
         assert (near < k).sum() >= 40 and (near == k).sum() >= 1000
         if k > 32:
             assert (pend < 0).any()
+
+
+@pytest.mark.parametrize("live", [1.0, 0.5, 0.1, 0.01])
+@pytest.mark.parametrize("k", [75, 379, 1100])
+def test_treelet_pending_culled_and_packed(cuda, k, live):
+    """Phase 1's cull by each word's union box and its packing of the
+    live rays, against the plain version bit for bit: clustered boxes,
+    so that each ray enters some words' unions and misses others (words
+    whose bit 31 is set among those entered), and dead lanes scattered
+    through every warp at 100%, 50%, 10% and 1% live."""
+    w, o, d, t = _pending_case(cuda, k, 20000, seed=k, clustered=True,
+                               live=live)
+    pend, near = treelet._pending_masks(w, o, d, t)
+    _assert_equal((pend, near), treelet._pending_masks_plain(w, o, d, t))
+    alive = t > 0.0
+    entered = treelet.entered_words(w, o, d, t)
+    assert entered[alive].any() and (~entered[alive]).any()
+    assert ((pend < 0) & entered).any()
+    assert not (pend[~alive] != 0).any() and (near[~alive] == k).all()
+    if live < 1.0:  # every warp of 32 lanes holds a dead lane
+        warps = (~alive)[:alive.shape[0] // 32 * 32].reshape(-1, 32)
+        assert warps.any(dim=1).float().mean() > 0.25
 
 
 def test_treelet_launch_counters(cuda):
@@ -1000,6 +1040,126 @@ def test_graphs_conditional_bodies(cuda):
     assert dict(counts) == expected
     assert all(bool((t == 7.0).all()) for t in others)
     assert graphs.COUNTS["reads"] == 0
+
+
+@pytest.mark.parametrize("kind", ["int64", "bool"])
+def test_graphs_switch_every_pair(cuda, kind):
+    """graphs.choose captured as one SWITCH node (csrc/graph_cond.cu):
+    with an int64 pair, the resorted segment's six (prev, w) branches
+    replayed at every pair of -1..3, so pairs with no branch run none;
+    with a bool index, two branches and one (False then matches none).
+    The body that ran is the only one whose flag moved and whose launch
+    counted (the device log), and each replay launched one set kernel."""
+    from moonshine_tpu_torch.integrator import graphs
+
+    if kind == "int64":
+        sel = (torch.zeros((), dtype=torch.int64, device=cuda),
+               torch.zeros((), dtype=torch.int64, device=cuda))
+        keys = [(p, k) for p in range(3) for k in range(p + 1)]
+        values = [(p, k) for p in range(-1, 4) for k in range(-1, 4)]
+    else:
+        sel = torch.zeros((), dtype=torch.bool, device=cuda)
+        keys = [True, False]
+        values = [True, False]
+    flags = torch.zeros(len(keys), dtype=torch.int64, device=cuda)
+    counts = launch.Counts({key: 0 for key in keys})
+
+    def body(i, key):
+        launch.count_launch(counts, key)
+        flags[i:i + 1].add_(1)
+
+    branches = {key: (lambda i=i, key=key: body(i, key))
+                for i, key in enumerate(keys)}
+    for table in ([branches] if kind == "int64"
+                  else [branches, {True: branches[True]}]):
+        steps = graphs.Steps(cuda)
+        steps.run("switch", lambda: graphs.choose(sel, table))
+        for value in values:
+            for t, v in zip(sel if kind == "int64" else (sel,),
+                            value if kind == "int64" else (value,)):
+                t.fill_(v)
+            flags.zero_()
+            for key in counts:
+                counts[key] = 0
+            graphs.reset_launch_counts()
+            steps.run("switch", lambda: graphs.choose(sel, table))
+            torch.cuda.synchronize()
+            hit = value if value in table else None
+            want = [int(key == hit) for key in keys]
+            assert flags.tolist() == want, (value, flags.tolist())
+            assert [counts[key] for key in keys] == want
+            assert graphs.LAUNCHES["graph_if"] == 1
+            assert graphs.LAUNCHES["graph_tail"] == 0
+
+
+@pytest.mark.parametrize("guard_first", [False, True])
+def test_graphs_folded_guard_stops_mid_block(cuda, guard_first):
+    """graphs.loop captured (csrc/graph_cond.cu): each step's tail counts
+    it and sets the next step's guard, only the first guard has a set
+    kernel. Steps that set the live count from a schedule: it reaches 0
+    mid-block (and a later step would make lanes live again), the cap
+    on the counter stops the loop, no step after the unguarded first
+    runs (none with the first guarded); the replays, two of each schedule in alternation, equal the eager loop
+    (graphs.eager()) bit for bit: the steps' writes, the counter, the
+    live count and the launch counts."""
+    from moonshine_tpu_torch.integrator import graphs
+
+    n_steps, cap = 8, 6 + int(guard_first)
+    live = torch.zeros((), dtype=torch.int64, device=cuda)
+    bounce = torch.zeros_like(live)
+    sched = torch.zeros(n_steps, dtype=torch.int64, device=cuda)
+    x = torch.zeros(n_steps, device=cuda)
+    counts = launch.Counts({"step": 0})
+
+    def step(i):
+        launch.count_launch(counts, "step")
+        live.copy_(sched[i])
+        x[i:i + 1].add_(float(i + 1))
+
+    def block():
+        graphs.loop(((live, ">", 0), (bounce, "<", cap)),
+                    [lambda i=i: step(i) for i in range(n_steps)], bounce,
+                    lambda: bounce.add_(1), guard_first=guard_first)
+
+    schedules = {"stop at 3": ([5, 4, 0, 6, 6, 6, 6, 6], 7),
+                 "cap": ([1] * n_steps, 7),
+                 "none": ([0] * n_steps, 0)}
+
+    def load(name):
+        values, live0 = schedules[name]
+        sched.copy_(torch.tensor(values, device=cuda))
+        live.fill_(live0)
+        bounce.zero_()
+        x.zero_()
+        counts["step"] = 0
+        graphs.reset_launch_counts()
+
+    def state():
+        torch.cuda.synchronize()
+        return (x.clone(), int(bounce), int(live), counts["step"],
+                graphs.LAUNCHES["graph_if"], graphs.LAUNCHES["graph_tail"])
+
+    want = {}
+    with graphs.eager():
+        for name in schedules:
+            load(name)
+            block()
+            want[name] = state()
+    steps = graphs.Steps(cuda)
+    load("stop at 3")
+    steps.run("block", block)  # the eager run, the warm and the capture
+    order = ["stop at 3", "cap", "stop at 3", "none", "cap", "none"]
+    for name in order:
+        load(name)
+        steps.run("block", block)
+        got = state()
+        x_want, b_want, l_want, n_want = want[name][:4]
+        assert torch.equal(got[0], x_want), name
+        assert got[1:4] == (b_want, l_want, n_want), name
+        assert got[4] == int(guard_first)  # the first guard's set kernel
+        assert got[5] == n_want  # a tail for every step that ran
+    assert want["stop at 3"][1] == 3 and want["cap"][1] == cap
+    assert want["none"][1] == (0 if guard_first else 1)
 
 
 def _three_widths(dev, n=4096, seed=7):

@@ -306,3 +306,80 @@ def test_one_treelet_is_the_whole_tree():
     assert torch.equal(got.tri >= 0, want.tri >= 0)
     assert torch.equal(PT.any_hit_treelet(pw, o, d, tm, active_in=act),
                        PP.any_hit_plain(pw, o, d, tm, active_in=act))
+
+
+def _union_case(seed=11, k=100, n=4096):
+    """Seeded treelet boxes and rays for phase 1's union premise: words of
+    clustered boxes (as plan_treelets' depth-first ids make them) and of
+    scattered ones, inverted boxes (lo 0, hi -1) among proper ones and one
+    word of nothing else, a partial last word; rays with axis-parallel
+    and zero direction components, rays inside boxes, t_max finite, 1e12,
+    0 and negative."""
+    rs = np.random.RandomState(seed)
+    words = -(-k // 32)
+    centre = rs.randn(words, 3) * 6
+    centre[[0, 2], 0] += 20.0  # away from the inverted boxes' [-1, 0]^3
+    spread = np.where(np.arange(words) % 2 == 0, 1.0, 6.0)[:, None]
+    c = np.repeat(centre, 32, axis=0)[:k] + rs.randn(k, 3) * np.repeat(
+        spread, 32, axis=0)[:k]
+    ext = rs.rand(k, 3) * 1.5 + 0.05
+    lo, hi = c - ext, c + ext
+    inverted = rs.rand(k) < 0.1
+    inverted[32:64] = True  # a word of inverted boxes alone
+    lo[inverted], hi[inverted] = 0.0, -1.0
+    o = rs.randn(n, 3) * 8
+    inside = rs.rand(n) < 0.1
+    o[inside] = c[rs.randint(0, k, int(inside.sum()))]
+    o[:64] = rs.uniform(-1.0, 0.0, (64, 3))  # inside the inverted boxes
+    d = rs.randn(n, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    axis = rs.rand(n) < 0.2
+    d[axis] = np.eye(3)[rs.randint(0, 3, int(axis.sum()))] * rs.choice(
+        [-1.0, 1.0], (int(axis.sum()), 1))
+    d[rs.rand(n) < 0.1, 2] = 0.0
+    t = np.where(rs.rand(n) < 0.5, 1e12, rs.rand(n) * 10)
+    t[rs.rand(n) < 0.1] = 0.0
+    t[rs.rand(n) < 0.1] = -1e30
+    f = lambda x: torch.tensor(x, dtype=torch.float32)
+    tree = PW.WideBVH(*([None] * len(PW.WideBVH._fields)))._replace(
+        t_roots=torch.arange(k, dtype=torch.int32), t_lo=f(lo), t_hi=f(hi))
+    return tree, f(o), f(d), f(t), inverted
+
+
+def test_word_unions_hold_every_entered_box():
+    """The premise of phase 1's cull (csrc/treelet.cu): a ray that enters
+    a treelet box, by phase 1's slab test, enters its word's union box
+    (`treelet.word_unions`), inverted boxes and partial words included,
+    so the words tested only where the union is entered equal the plain
+    version's; and the unions of the proper boxes alone would not do:
+    the slab test enters an inverted box (0, -1) as the box between its
+    planes, [-1, 0]^3."""
+    tree, o, d, t, inverted = _union_case()
+    k = tree.t_roots.shape[0]
+    pend, _ = PT._pending_masks_plain(tree, o, d, t)
+    hit = PT.pending_bits(pend, k)
+    entered = PT.entered_words(tree, o, d, t)
+    word_hit = torch.stack([hit[:, w:w + 32].any(dim=1)
+                            for w in range(0, k, 32)], dim=1)
+    assert not (word_hit & ~entered).any()
+    assert (entered & ~word_hit).any() and (~entered).any()
+    culled = torch.where(entered, pend, torch.zeros_like(pend))
+    assert torch.equal(culled, pend)
+    assert (t <= 0).any() and not entered[t <= 0].any()
+    # an all-inverted word: its union is [-1, 0]^3, entered from inside
+    lo, hi = PT.word_unions(tree.t_lo, tree.t_hi)
+    assert lo[1].tolist() == [-1.0] * 3 and hi[1].tolist() == [0.0] * 3
+    assert hit[:64, 32:64].any()
+    # each inverted box of a mixed word replaced by a proper one of it:
+    # the union of the word's proper boxes alone
+    mixed = [w for w in (0, 2, 3) if inverted[32 * w:32 * w + 32].any()]
+    lo_p, hi_p = tree.t_lo.clone(), tree.t_hi.clone()
+    for w in mixed:
+        ids = np.arange(32 * w, min(32 * w + 32, k))
+        first = ids[~inverted[ids]][0]
+        lo_p[ids[inverted[ids]]] = tree.t_lo[first]
+        hi_p[ids[inverted[ids]]] = tree.t_hi[first]
+    entered_p = PT.entered_words(tree._replace(t_lo=lo_p, t_hi=hi_p), o, d,
+                                 t)
+    assert mixed and any((word_hit[:, w] & ~entered_p[:, w]).any()
+                         for w in mixed)
