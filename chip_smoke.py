@@ -110,7 +110,10 @@ script exits non-zero without the result line. Phases:
                   long render(wait=False) blocks; a pick from a second
                   thread during a frame; a checkpoint round trip
   direct          trace_direct on room_184k's 1920x1080 camera rays (one env
-                  and one mesh-light sample), timed, its launches held
+                  and one mesh-light sample), timed: one closest hit, one
+                  any hit over the [S * N] shadow batch, one surface
+                  (direct form with its draw), scatter (weight-only
+                  form) and env miss launch; its traversal launches held
                   against the plain versions
   sharded         render_sharded on cuda:0 x4 (sp=2, dp=2) and on
                   mesh_from_spec("auto") against the one-device render
@@ -143,13 +146,15 @@ script exits non-zero without the result line. Phases:
                   world flattened against two-level (the reference's
                   bounds)
   shade           the shading kernels of csrc/shade.cu (surface in its
-                  full and thin forms, scatter, env miss, env draw): one
-                  eager sample of room_1080p and of instanced_1080p
-                  recorded, each kernel's first launch (2,073,600 lanes)
-                  replayed through the kernel and its plain version, every
-                  output bit for bit, both timed, with the bound from the
-                  bytes and operations of those inputs; the env miss also
-                  at live shares of 10% and 1% of its launch
+                  full and thin forms, scatter, env miss): one eager
+                  sample of room_1080p and of instanced_1080p recorded,
+                  and one trace_direct call (the surface's direct form
+                  with its draw, the scatter's weight-only form), each
+                  kernel's first launch (2,073,600 lanes) replayed
+                  through the kernel and its plain version, every output
+                  bit for bit, both timed, with the bound from the bytes
+                  and operations of those inputs; the env miss also at
+                  live shares of 10% and 1% of its launch
   sort            the lane sort of csrc/sort.cu (core/sortutil.py): each
                   site's first call in an eager 1080p sample (the resort
                   and the packet sorts of room_1080p at 2,073,600 lanes,
@@ -279,20 +284,19 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                 "moonshine_tpu/integrator/path.py:424 _bounce_body's hit "
                 "decode (_decode_hit :139, _decode_material :214, "
                 "core/gather.py:61 gather_rows, :78 shift_gather_rows) and "
-                "its light draw (:503-573, lights/mesh_lights.py:29-71; jnp, "
-                "no pallas_call)"),
+                "its light draw (:503-573, lights/mesh_lights.py:29-71, "
+                "lights/envmap.py:134 sample_envmap); the direct "
+                "integrator's decode and light draw, integrator/direct.py:"
+                "46-86 with :103-124 (jnp, no pallas_call)"),
     "scatter": ("moonshine_tpu_torch/csrc/shade.cu",
                 "moonshine_tpu/integrator/path.py:583 _bounce_body's light "
-                "weighting and scatter (bsdf/materials.py:278-370; jnp, no "
-                "pallas_call)"),
+                "weighting and scatter (bsdf/materials.py:278-370); the "
+                "direct integrator's light weighting, integrator/direct.py:"
+                "89-100 (jnp, no pallas_call)"),
     "env_miss": ("moonshine_tpu_torch/csrc/shade.cu",
                  "moonshine_tpu/lights/envmap.py:175 miss_radiance_and_pdf "
                  "with path.py:404 (core/gather.py:61, :126 "
                  "weighted_gather_rows; jnp, no pallas_call)"),
-    "env_draw": ("moonshine_tpu_torch/csrc/shade.cu",
-                 "moonshine_tpu/lights/envmap.py:134 sample_envmap on the "
-                 "direct integrator's path (core/gather.py:61 gather_rows; "
-                 "jnp, no pallas_call)"),
     "sort_lanes": ("moonshine_tpu_torch/csrc/sort.cu",
                    "moonshine_tpu/core/sortutil.py:22 sort_lanes (jnp "
                    "lax.sort, no pallas_call) with its keys, "
@@ -335,7 +339,6 @@ CUDA_KERNELS = {
     "bitcast": ["bitcast_kernel"], "tlas_closest_hit": ["tlas_kernel"],
     "tlas_any_hit": ["tlas_kernel"], "surface": ["surface_kernel"],
     "scatter": ["scatter_kernel"], "env_miss": ["env_miss_kernel"],
-    "env_draw": ["env_draw_kernel"],
     "sort_lanes": ["radix_upsweep_kernel", "radix_onesweep_kernel",
                    "lane_move_kernel"],
     "unsort_lanes": ["lane_move_kernel"],
@@ -1882,8 +1885,11 @@ def engine_phase(room_world, room_lens, dev, launches_out):
 
 def direct_phase(scene, lens, launches_out):
     """trace_direct on room_184k's 1080p camera rays (one env and one
-    mesh-light sample), timed, its launches held against the plain
-    versions."""
+    mesh-light sample), timed: one closest-hit and one any-hit launch
+    (the [S * N] shadow batch), one surface (the direct form with its
+    draw), scatter (the weight-only form) and env miss launch, the
+    surface's counting the shadow rays; its traversal launches held
+    against the plain versions."""
     import torch
 
     from moonshine_tpu_torch.accel import packet
@@ -1910,9 +1916,8 @@ def direct_phase(scene, lens, launches_out):
     say("direct", f"{w}x{h}: {dt * 1e3:.2f} ms, {rays} rays = "
         f"{rays / dt / 1e6:.3f} Mrays/s, launches {counts}, shading "
         f"launches {shaded}, image mean {img.mean():.6f}")
-    if (counts["closest_hit"] != 1 or counts["any_hit"] != 2
-            or shaded != dict(surface=1, scatter=0, env_miss=1, env_draw=1,
-                              counts=0)
+    if (counts["closest_hit"] != 1 or counts["any_hit"] != 1
+            or shaded != dict(surface=1, scatter=1, env_miss=1, counts=1)
             or not np.isfinite(img).all()):
         raise AssertionError("trace_direct failed")
     launches_out["direct"] = counts
@@ -2201,8 +2206,8 @@ def tlas_phase(dev, cfg, timings, errs, launches):
                                       resort=False)
     # the shading kernels, the counts they fold in and a sample's camera
     # rays and accumulation; no other kernel runs on a two-level scene
-    shading = ("surface", "scatter", "env_miss", "env_draw", "counts",
-               "raygen", "accumulate")
+    shading = ("surface", "scatter", "env_miss", "counts", "raygen",
+               "accumulate")
     if (counts["tlas_closest_hit"] != stats["segments"]
             or counts["tlas_any_hit"] == 0
             or counts["surface"] != stats["segments"]
@@ -2335,13 +2340,15 @@ SHADE_OPS = {
     # size > 1 and == 1
     "draw_mesh": 122,  # a mesh sample: alias pick, point, normal, pdf,
     # the two-ended segment
+    "draw_mesh_direct": 118,  # the direct form's: the one-ended ray
     "draw_mesh_atlas": 48,  # its uv and emissive fetch (textured)
+    "direct_emission": 3,  # the direct form's emission, a live lane
     "scatter_light": (74, 48, 45, 180),  # a NEE sample's weighted lane
+    "weigh_light": (71, 45, 42, 177),  # the same at unit throughput
     "scatter_draw": (53, 22, 2, 58),  # a live lane: PCG draw, sample_bsdf
     "scatter_ray": (83, 55, 54, 173),  # a lane that goes on: the new
     # ray, eval_bsdf, the throughput
     # the env miss's: scripts/compare_shade.py MISS_OPS
-    "env_draw": (41, 27),  # every lane, by env size > 1 and == 1
 }
 # The kernels' earlier forms (every lane computed and written, the
 # bounce's light draw in torch) at the same shapes, as PERF.md section 6
@@ -2392,8 +2399,8 @@ def _alias_bytes(select, alias, count, rand, row_bytes):
 
 
 def _surface_work(args, out):
-    """shade_work of the surface kernel in its path forms (full with the
-    bounce's light draw, thin)."""
+    """shade_work of the surface kernel: the path's forms (full with the
+    bounce's light draw, thin) and the direct integrator's (its draw)."""
     import torch
 
     from moonshine_tpu_torch.core import rng as R
@@ -2408,11 +2415,14 @@ def _surface_work(args, out):
     two = hit.inst is not None and scene.tlas is not None
     n_live = count(active)
     n_samples = draw.env_samples + mesh if draw is not None else 0
+    direct = mode == "direct"
     # every lane: its mask and shadow lanes; a live lane: its hit, ray
     # direction, radiance in and out, the emission's state (throughput,
-    # last_delta; last_pdf and o for the mesh-light MIS)
-    nb = n * (1 + n_samples) + n_live * (
-        12 + (4 if two else 0) + 12 + 24 + 12 + 1 + (16 if mesh > 0 else 0))
+    # last_delta; last_pdf and o for the mesh-light MIS; none in the
+    # direct form)
+    nb = n * (1 + n_samples) + n_live * (12 + (4 if two else 0) + 12 + 24)
+    if not direct:
+        nb += n_live * (12 + 1 + (16 if mesh > 0 else 0))
     if mode == "thin":
         nb += n_live  # its mask cleared
     else:
@@ -2424,10 +2434,14 @@ def _surface_work(args, out):
         row += 36 + (36 if atlas.bsdf_constant else 24)
     rows = tri[active]
     nb += _distinct(rows) * row
-    flops = n_live * (SHADE_OPS["surface_thin" if mode == "thin"
-                                else "surface"] + SHADE_OPS["emission"]
-                      + (SHADE_OPS["emission_mis"] if mesh > 0 else 0))
-    if mode != "thin" and not atlas.normals_flat:
+    if direct:
+        flops = n_live * (SHADE_OPS["surface"] + SHADE_OPS["direct_emission"]
+                          + SHADE_OPS["normal_map"])
+    else:
+        flops = n_live * (SHADE_OPS["surface_thin" if mode == "thin"
+                                    else "surface"] + SHADE_OPS["emission"]
+                          + (SHADE_OPS["emission_mis"] if mesh > 0 else 0))
+    if mode == "full" and not atlas.normals_flat:
         flops += n_live * SHADE_OPS["normal_map"]
     if two:
         inst = torch.clamp(hit.inst[active].to(torch.int64), 0,
@@ -2448,18 +2462,23 @@ def _surface_work(args, out):
             flops += n_live * SHADE_OPS["atlas_emissive"]
     if draw is None:
         return nb, flops
-    # the termination: a live lane's PCG state in and, where it stays
-    # live, out; a scaled throughput out; a killed lane's mask out
-    alive = out.active
-    n_alive = count(alive)
-    nb += n_live * 8 + n_alive * 8 + (n_live - n_alive)
-    if draw.roulette:
-        nb += n_alive * 12
-        flops += n_live * SHADE_OPS["roulette"]
-    # the draws of the lanes live after it and not on a delta material,
-    # from the same PCG streams
-    drawn = alive & ~((out.mat.type == 0) | (out.mat.type == 2))
-    state, _ = R.next_float(draw.rng)
+    if direct:
+        # every lane's PCG state in and out; the draws of every live lane
+        nb += n * 16
+        drawn, state = active, draw.rng
+    else:
+        # the termination: a live lane's PCG state in and, where it stays
+        # live, out; a scaled throughput out; a killed lane's mask out
+        alive = out.active
+        n_alive = count(alive)
+        nb += n_live * 8 + n_alive * 8 + (n_live - n_alive)
+        if draw.roulette:
+            nb += n_alive * 12
+            flops += n_live * SHADE_OPS["roulette"]
+        # the draws of the lanes live after it and not on a delta
+        # material, from the same PCG streams
+        drawn = alive & ~((out.mat.type == 0) | (out.mat.type == 2))
+        state, _ = R.next_float(draw.rng)
     env = draw.env
     em = scene.emitters
     for k in range(n_samples):
@@ -2479,7 +2498,8 @@ def _surface_work(args, out):
         taken, slot = _alias_bytes(em.select, em.alias, max(em.count, 1),
                                    r2[:, 0], 100)
         nb += taken
-        flops += count(drawn) * SHADE_OPS["draw_mesh"]
+        flops += count(drawn) * SHADE_OPS["draw_mesh_direct" if direct
+                                          else "draw_mesh"]
         if not atlas.emissive_constant:
             rows_em = em.rows[torch.clamp(slot, 0, em.rows.shape[0] - 1)]
             flops += count(drawn) * SHADE_OPS["draw_mesh_atlas"]
@@ -2507,6 +2527,27 @@ def shade_work(key, args, out):
     name = key.split("/")[0].split()[0]
     if name == "surface":
         return _surface_work(args, out)
+    if key == "scatter/weight":
+        # every lane its mask; each sample's lane on a live lane, its
+        # occlusion where traced, its pdf where seen, its direction and
+        # radiance where weighted; there the material, frame and w_o_ss
+        # (76 bytes) and the radiance in and out
+        surf, rad, live, lights = args
+        mtype = surf.mat.type.to(torch.int64)
+        nb = live.shape[0]
+        flops = 0
+        weighted = torch.zeros_like(live)
+        for k in range(lights.pdf.shape[0]):
+            lane = lights.lane[k] & live
+            seen = lane & ~lights.occluded[k]
+            need = seen & (lights.pdf[k] > 0.0)
+            nb += count(live) + count(lane) + 4 * count(seen) + 24 * count(
+                need)
+            flops += int((torch.bincount(mtype[need], minlength=4)[:4]
+                          * torch.tensor(SHADE_OPS["weigh_light"],
+                                         device=mtype.device)).sum())
+            weighted |= need
+        return nb + count(weighted) * (76 + 24), flops
     if name == "scatter":
         surf, o, d, thr, rad, rng, active, lights = args[:8]
         n = active.shape[0]
@@ -2536,21 +2577,12 @@ def shade_work(key, args, out):
         nb += count(go | weighted) * 36 + count(go) * (24 + 36)
         flops += ops_of(go, SHADE_OPS["scatter_ray"])
         return nb, flops
-    if name == "env_miss":
-        from moonshine_tpu_torch.scripts.compare_shade import miss_work
+    from moonshine_tpu_torch.scripts.compare_shade import miss_work
 
-        return miss_work(args)
-    env, rand2 = args
-    n = rand2.shape[0]
-    nb = n * (8 + 28)
-    if env.size == 1:
-        return nb + 16, n * SHADE_OPS["env_draw"][1]
-    nb += _alias_bytes(env.select, env.alias, env.size * env.size,
-                       rand2[:, 0], 16)[0]
-    return nb, n * SHADE_OPS["env_draw"][0]
+    return miss_work(args)
 
 
-def shade_phase(cells, timings, errs):
+def shade_phase(cells, timings, errs, direct_forms):
     """The shading kernels (csrc/shade.cu) at the 1080p main path's
     shapes: one eager sample of each cell (room_1080p, instanced_1080p)
     recorded (scripts/compare_shade.py `recording`), and the first launch
@@ -2562,27 +2594,32 @@ def shade_phase(cells, timings, errs):
     from the bytes and operations of these inputs and the earlier form's
     recorded time beside. The env miss also runs at live shares of 10%
     and 1% of its launch's lanes (a seeded subset of its mask), where
-    only a lane that missed works. The env draw, on the direct
-    integrator's path since the surface draws a bounce's samples, runs on
-    2,073,600 seeded uniforms. The kernels line takes room_1080p's full
-    surface form and its other kernels, the env miss at its full share."""
-    import torch
-
+    only a lane that missed works. On room_1080p's scene, one trace_direct
+    call on the 1080p camera rays (the direct_1080p cell) is recorded too
+    (`compare_shade.record_direct`): the surface's direct form with its
+    draw ("surface/direct") and the scatter's weight-only form
+    ("scatter/weight"), on 2,073,600 lanes, held and timed the same way.
+    The kernels line takes room_1080p's full surface form and its other
+    kernels, the env miss at its full share; the surface and scatter
+    entries also carry their direct forms (`direct_forms`)."""
     from moonshine_tpu_torch.integrator import shade
     from moonshine_tpu_torch.scripts import compare_shade as CS
 
     plain = {"surface": shade.surface_plain, "scatter": shade.scatter_plain,
-             "env_miss": shade.env_miss_plain,
-             "env_draw": shade.env_draw_plain}
+             "env_miss": shade.env_miss_plain, "weigh": shade.weigh_plain}
     for cell, (scene, lens, cfg) in cells.items():
         rec = CS.record_sample(scene, lens, cfg)
         if set(rec) != {"surface/full", "surface/thin", "scatter",
                         "env_miss"}:
             raise AssertionError(f"{cell}: recorded {sorted(rec)}")
         n = rec["env_miss"][1][3].shape[0]
-        rand2 = torch.from_numpy(np.random.RandomState(5).rand(n, 2).astype(
-            np.float32)).to(scene.device)
-        rec["env_draw"] = ("env_draw", (scene.env, rand2), {})
+        if cell == "room_1080p":  # the direct integrator's forms
+            direct = CS.record_direct(scene, lens)
+            if set(direct) != {"surface/direct", "scatter/weight",
+                               "env_miss"}:
+                raise AssertionError(f"direct: recorded {sorted(direct)}")
+            rec.update({k: direct[k] for k in ("surface/direct",
+                                               "scatter/weight")})
         # the env miss also at live shares of 10% and 1% of its recorded
         # launch's lanes (seeded), as the deep segments launch it
         name, args, kw = rec["env_miss"]
@@ -2619,12 +2656,15 @@ def shade_phase(cells, timings, errs):
             if diffs:
                 raise AssertionError(f"{cell} {key}: the kernel differs from "
                                      "its plain version")
+            numbers = dict(ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(t_bytes, t_ops), bound_by=by)
             if cell == "room_1080p" and key in ("surface/full", "scatter",
-                                                "env_miss", "env_draw"):
-                timings[name] = dict(ms=ms, plain_ms=plain_ms,
-                                     bound_ms=max(t_bytes, t_ops),
-                                     bound_by=by)
+                                                "env_miss"):
+                timings[name] = numbers
                 errs[name] = worst
+            if key in ("surface/direct", "scatter/weight"):
+                direct_forms[key.split("/")[0]] = dict(
+                    form=key, max_abs_err=worst, **numbers)
 
 
 def sort_phase(scenes, offline_cell, cfg, timings, errs):
@@ -3929,7 +3969,6 @@ def main():
                 or counts["treelet_pending"]
                 or counts["surface"] != segs or counts["env_miss"] != segs
                 or counts["scatter"] != counts["any_hit"]
-                or counts["env_draw"]
                 # each sample: the camera rays' two sorted dispatches and
                 # a resort before each later segment
                 or counts["unsort_lanes"] != 2 * 2
@@ -4010,8 +4049,6 @@ def main():
 
     with phase("direct"):
         direct_phase(*scenes["room_184k/default"], slice_launches)
-        # the env draw's path: a bounce's samples are the surface's now
-        launches["env_draw"] = slice_launches["direct_shading"]["env_draw"]
 
     with phase("sharded"):
         sharded_phase(*scenes["room_184k/default"], dev, slice_launches)
@@ -4027,8 +4064,10 @@ def main():
 
     # this slice: the bounce's shading kernels at the 1080p shapes
     with phase("shade"):
+        direct_forms = {}
         shade_phase({"room_1080p": (*scenes["room_184k/default"], cfg),
-                     "instanced_1080p": (*instanced, cfg)}, timings, errs)
+                     "instanced_1080p": (*instanced, cfg)}, timings, errs,
+                    direct_forms)
 
     # this slice: the lane sort at the 1080p shapes, the renders with its
     # plain version, and the shadow batch's sort on the card
@@ -4055,6 +4094,11 @@ def main():
     with phase("capi"):
         capi_phase(dev)
 
+    # the surface's and scatter's direct forms, with their launches on
+    # the direct integrator's path (the direct phase's)
+    for k, form in direct_forms.items():
+        form["launches"] = slice_launches["direct_shading"][k]
+        timings[k]["direct_form"] = form
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "cuda_kernels": CUDA_KERNELS[k], "launches": launches[k],

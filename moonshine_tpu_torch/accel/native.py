@@ -178,10 +178,11 @@ class TlasLib(NativeLib):
 
 
 class ShadeLib(NativeLib):
-    """shade.cu's entry points: the surface (with the bounce's light
-    draw; it counts the shadow rays it sets into a device scalar),
-    scatter (it counts the lanes it leaves live), env miss and env draw
-    kernels (integrator/shade.py)."""
+    """shade.cu's entry points: the surface (with the light draw of a
+    bounce or of the direct integrator; it counts the shadow rays it sets
+    into a device scalar), scatter (it counts the lanes it leaves live)
+    and env miss kernels, and the scatter kernel's weight-only form
+    (integrator/shade.py)."""
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -196,9 +197,8 @@ class ShadeLib(NativeLib):
         self.env_miss = self._fn(
             "msn_shade_env_miss", [_P, _I, _F, _I] + [_P] * 6 + [_L, _P, _P,
                                                                _P])
-        self.env_draw = self._fn(
-            "msn_shade_env_draw", [_P, _P, _P, _I, _F, _P, _L, _P, _P, _P,
-                                   _P])
+        self.weigh = self._fn(
+            "msn_shade_weigh", [_P] * 15 + [_I, _I, _L, _P, _P])
 
 
 class SortLib(NativeLib):

@@ -16,29 +16,35 @@
 //             atlas fetch, the normal-map frame, the shading-normal
 //             selection and the emissive term with its MIS weight); in the
 //             full form then :503-573 (the max-bounce cut, the roulette,
-//             each env sample as env_draw draws it and each mesh-light
-//             sample, lights/mesh_lights.py:29-71 with core/gather.py:61's
-//             emitter-row fetch and _emissive_at, and its shadow ray into
-//             the [S * N] batch the any-hit launch takes); a thin form for
-//             the last segment and the direct integrator's form
+//             each env sample, lights/envmap.py:120-138's alias draw,
+//             texel row, equal-area forward map and pdf, and each
+//             mesh-light sample, lights/mesh_lights.py:29-71 with
+//             core/gather.py:61's emitter-row fetch and _emissive_at, and
+//             its shadow ray into the [S * N] batch the any-hit launch
+//             takes); a thin form for the last segment; and the direct
+//             integrator's form, moonshine_tpu/integrator/direct.py:46-86
+//             with :103-124 (its decode and emission, then the same draws
+//             without the cut, the roulette or the delta exclusion, each
+//             mesh-light shadow ray one-ended: from the hit along the
+//             light's direction, to the light's offset point's distance)
 //   scatter   path.py:583-623 and bsdf/materials.py:278-370 (each light
 //             sample's occlusion, frame change, eval+pdf and power
 //             heuristic; the PCG draw, the BSDF sample and eval, the new
-//             ray and throughput)
+//             ray and throughput); a weight-only form, direct.py:89-100
+//             (the light samples' weighting alone, at unit throughput)
 //   env_miss  path.py:371-381 with lights/envmap.py:141-206 (equal-area
 //             inverse, texel row, 4-tap bilinear, MIS weight) and the
 //             mask that follows (path.py:402-421, active & is_hit), in
 //             place: only a lane that missed reads more than its mask and
 //             tri, or writes
-//   env_draw  lights/envmap.py:120-138 (alias draw, texel row, equal-area
-//             forward map, pdf): the direct integrator's draw
 //
 // The bounce loop's counts ride on the kernels that write the masks
 // (path.py:580 jnp.sum(lane), the shadow rays traced, and :687 the live
-// count; :400's lanes traced are the last live count): the full surface
-// form adds the shadow rays it sets to a device scalar, the scatter the
-// lanes it leaves live, each warp once where its sum is not 0 (a warp
-// sum, then one atomic; a block barrier cost three times as much).
+// count; :400's lanes traced are the last live count): the full and
+// direct surface forms add the shadow rays they set to a device scalar,
+// the path's scatter the lanes it leaves live, each warp once where its
+// sum is not 0 (a warp sum, then one atomic; a block barrier cost three
+// times as much).
 //
 // What bounds them on this card: bytes. Each live lane reads its state and
 // one 192-byte shading row (plus atlas texels, instance transforms, env
@@ -68,9 +74,8 @@
 // Constants are the plain version's Python doubles cast to float32.
 // sqrt, rsqrt, sin, cos, atan2, pow and floor are the CUDA math
 // functions torch's kernels call. So the kernels equal the plain version
-// bit for bit on every lane they write (the direct form's dead lanes read
-// a clamped row as torch's gather does), which the tests and
-// chip_smoke.py check.
+// bit for bit on every lane they write, which the tests and chip_smoke.py
+// check.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -697,8 +702,8 @@ struct Lanes {  // the surface kernel's per-lane inputs
   const float *u, *v;
   const int* inst;
   const float *o, *d;
-  bool* active;  // in place: the thin form clears it, the draw applies the
-                 // cut and the roulette
+  bool* active;  // in place: the thin form clears it, the full form's draw
+                 // applies the cut and the roulette
   float* throughput;  // in place: the roulette's scale
   float* radiance;  // in place: the emission added
   const float* last_pdf;
@@ -712,9 +717,9 @@ struct SurfaceOut {  // the decoded hit, on the lanes live at the hit
   float *color, *metal, *alpha, *ior;
 };
 
-struct Draw {  // the full form's light draw (integrator.hlsl:126-151)
+struct Draw {  // the light draw of the full and direct forms
   int env_samples, mesh_samples;
-  long long max_bounces;
+  long long max_bounces;  // the full form's cut and roulette
   int roulette;  // bounce > 3, decided on the host
   long long* rng;  // in place
   Env env;
@@ -738,21 +743,30 @@ __device__ __forceinline__ void count_into(long long* total, int v) {
               (unsigned long long)v);
 }
 
+// The PCG state k draws on (next_float's state update alone)
+__device__ __forceinline__ unsigned skip_floats(unsigned state, int k) {
+  for (int j = 0; j < k; ++j) state = state * 747796405u + 2891336453u;
+  return state;
+}
+
 // The surface kernel's lane i: decode the hit, pick the shading frame and
 // add the emission (integrator.hlsl:93-124); in the full form then the
 // max-bounce cut, the roulette and every NEE light sample with its shadow
-// ray (:126-151). A lane dead at the hit only clears its shadow lanes (the
-// direct form still decodes every lane, as its caller reads them all).
+// ray (:126-151); in the direct form every light sample with its shadow
+// ray as the direct integrator draws it (:199-247). A lane dead at the hit
+// only clears its shadow lanes; in the direct form it also advances its
+// PCG state past the draws, as the reference advances every lane's.
 // Returns the shadow rays it sets.
 template <int kMode, bool kTwoLevel>
 __device__ __forceinline__ int surface_lane(const Scene& sc, const Lanes& in,
                                             const SurfaceOut& out,
                                             const Draw& dr, long long n,
                                             long long i) {
-  const bool active = in.active[i];
-  const int n_samples = kMode == kFull ? dr.env_samples + dr.mesh_samples : 0;
-  if (kMode != kDirect && !active) {
+  const int n_samples = kMode == kThin ? 0 : dr.env_samples + dr.mesh_samples;
+  if (!in.active[i]) {
     for (int k = 0; k < n_samples; ++k) dr.sh_lane[k * n + i] = false;
+    if (kMode == kDirect && n_samples > 0)
+      dr.rng[i] = (long long)skip_floats((unsigned)dr.rng[i], 2 * n_samples);
     return 0;
   }
   long long tri = in.tri[i];
@@ -895,59 +909,62 @@ __device__ __forceinline__ int surface_lane(const Scene& sc, const Lanes& in,
     out.ior[i] = mrow[5];
   }
 
-  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  unsigned state;
   if (kMode == kDirect) {
-    store3(in.radiance, i, rad + (active ? emissive : zero));
-    return 0;
-  }
+    store3(in.radiance, i, rad + emissive);
+    state = (unsigned)dr.rng[i];
+  } else {
+    const V3 zero = v3(0.0f, 0.0f, 0.0f);
+    // the emissive term (integrator.hlsl:109-124)
+    V3 thr = load3(in.throughput, i);
+    const long long bounce = *in.bounce;
+    const bool emit_plain =
+        !sampled || in.last_delta[i] || bounce == 0 || sc.mesh_samples == 0;
+    const bool emit_front = dot(w_o, tri_n) > 0.0f;
+    rad = rad + (emit_plain && emit_front ? thr * emissive : zero);
+    if (sc.mesh_samples > 0) {
+      // area_to_solid_angle(position, o, d, tri_n) / max(weight_sum, 1e-20)
+      const V3 diff = position - load3(in.o, i);
+      const float r2 = dot(diff, diff);
+      const float light_cos = dot(w_o, tri_n);
+      const float a2s =
+          light_cos > 0.0f ? r2 / cmin(light_cos, 1e-20f) : 0.0f;
+      const float light_pdf = a2s * sc.inv_weight_sum;
+      const float w = power2(in.last_pdf[i] * 1.0f,
+                             light_pdf * (float)sc.mesh_samples);
+      rad = rad + (!emit_plain && light_pdf > 0.0f ? (thr * emissive) * w
+                                                   : zero);
+    }
+    store3(in.radiance, i, rad);
+    if (kMode == kThin) {  // the max-bounce cut kills every lane here
+      in.active[i] = false;
+      return 0;
+    }
 
-  // the emissive term (integrator.hlsl:109-124)
-  V3 thr = load3(in.throughput, i);
-  const long long bounce = *in.bounce;
-  const bool emit_plain =
-      !sampled || in.last_delta[i] || bounce == 0 || sc.mesh_samples == 0;
-  const bool emit_front = dot(w_o, tri_n) > 0.0f;
-  rad = rad + (emit_plain && emit_front ? thr * emissive : zero);
-  if (sc.mesh_samples > 0) {
-    // area_to_solid_angle(position, o, d, tri_n) / max(weight_sum, 1e-20)
-    const V3 diff = position - load3(in.o, i);
-    const float r2 = dot(diff, diff);
-    const float light_cos = dot(w_o, tri_n);
-    const float a2s = light_cos > 0.0f ? r2 / cmin(light_cos, 1e-20f) : 0.0f;
-    const float light_pdf = a2s * sc.inv_weight_sum;
-    const float w = power2(in.last_pdf[i] * 1.0f,
-                           light_pdf * (float)sc.mesh_samples);
-    rad = rad + (!emit_plain && light_pdf > 0.0f ? (thr * emissive) * w
-                                                 : zero);
-  }
-  store3(in.radiance, i, rad);
-  if (kMode == kThin) {  // the max-bounce cut kills every lane here
-    in.active[i] = false;
-    return 0;
-  }
-
-  // the termination (integrator.hlsl:126-135)
-  bool alive = bounce < dr.max_bounces + 1;
-  unsigned state = (unsigned)dr.rng[i];
-  const float rr = next_float(&state);
-  if (dr.roulette) {
-    // luminance, then clamp_max(., 0.95): NaN passes
-    const float lum = (0.2126f * thr.x + 0.7152f * thr.y) + 0.0722f * thr.z;
-    const float p = isnan(lum) ? lum : fminf(lum, 0.95f);
-    alive = alive && !(rr > p);
-    if (alive) {
-      thr = thr / cmin(p, 1e-20f);
-      store3(in.throughput, i, thr);
+    // the termination (integrator.hlsl:126-135)
+    bool alive = bounce < dr.max_bounces + 1;
+    state = (unsigned)dr.rng[i];
+    const float rr = next_float(&state);
+    if (dr.roulette) {
+      // luminance, then clamp_max(., 0.95): NaN passes
+      const float lum = (0.2126f * thr.x + 0.7152f * thr.y) + 0.0722f * thr.z;
+      const float p = isnan(lum) ? lum : fminf(lum, 0.95f);
+      alive = alive && !(rr > p);
+      if (alive) {
+        thr = thr / cmin(p, 1e-20f);
+        store3(in.throughput, i, thr);
+      }
+    }
+    if (!alive) {
+      in.active[i] = false;
+      for (int k = 0; k < n_samples; ++k) dr.sh_lane[k * n + i] = false;
+      return 0;
     }
   }
-  if (!alive) {
-    in.active[i] = false;
-    for (int k = 0; k < n_samples; ++k) dr.sh_lane[k * n + i] = false;
-    return 0;
-  }
 
-  // the NEE draws (integrator.hlsl:139-151): env samples, then mesh ones
-  const bool nee = !(type == kMirror || type == kGlass);
+  // the NEE draws (integrator.hlsl:139-151): env samples, then mesh ones;
+  // the direct integrator draws them on delta materials too
+  const bool nee = kMode == kDirect || !(type == kMirror || type == kGlass);
   int traced = 0;
   for (int k = 0; k < n_samples; ++k) {
     const float r0 = next_float(&state);
@@ -968,12 +985,16 @@ __device__ __forceinline__ int surface_lane(const Scene& sc, const Lanes& in,
       V3 l_pos, l_n;
       mesh_sample(sc, dr.em, position, r0, r1, &l_dir, &l_pos, &l_n, &l_rad,
                   &l_pdf);
-      // the two-ended shadow segment (light.hlsl:149-154)
       const V3 off_light = offset_along_normal(l_pos, l_n);
       s_o = offset_along_normal(position, face_forward(tri_n, l_dir));
-      const V3 seg = off_light - s_o;
-      s_t = norm(seg);
-      s_d = seg / cmin(s_t, 1e-20f);
+      if (kMode == kDirect) {  // one-ended: along l_dir from the hit
+        s_d = l_dir;
+        s_t = norm(off_light - position);
+      } else {  // the two-ended shadow segment (light.hlsl:149-154)
+        const V3 seg = off_light - s_o;
+        s_t = norm(seg);
+        s_d = seg / cmin(s_t, 1e-20f);
+      }
     }
     const bool lane = l_pdf > 0.0f;
     dr.sh_lane[j] = lane;
@@ -990,15 +1011,16 @@ __device__ __forceinline__ int surface_lane(const Scene& sc, const Lanes& in,
   return traced;
 }
 
-// The surface kernel, one thread a lane (surface_lane); the full form adds
-// the shadow rays its lanes set into *dr.rays where that is given.
+// The surface kernel, one thread a lane (surface_lane); the full and
+// direct forms add the shadow rays their lanes set into *dr.rays where that
+// is given.
 template <int kMode, bool kTwoLevel>
 __global__ void __launch_bounds__(kBlock)
     surface_kernel(Scene sc, Lanes in, SurfaceOut out, Draw dr, long long n) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   const int traced =
       i < n ? surface_lane<kMode, kTwoLevel>(sc, in, out, dr, n, i) : 0;
-  if (kMode == kFull && dr.rays != nullptr) count_into(dr.rays, traced);
+  if (kMode != kThin && dr.rays != nullptr) count_into(dr.rays, traced);
 }
 
 struct Lights {  // a bounce's NEE samples [S, n] and their shadow answers
@@ -1014,7 +1036,8 @@ struct ScatterIn {
   const bool* active;  // the lanes live after the cut and the roulette
 };
 
-struct State {  // the lane state, updated in place
+struct State {  // the lane state, updated in place (the weight-only form:
+                // its radiance alone)
   bool* active;
   float *o, *d, *throughput, *radiance, *last_pdf;
   bool* last_delta;
@@ -1026,13 +1049,17 @@ struct State {  // the lane state, updated in place
 // by the power heuristic and add it (integrator.hlsl:139-151), then draw
 // the BSDF sample and continue the path (:153-163). A lane dead before it
 // writes its mask alone; a lane whose path ends writes no ray or
-// throughput. Returns whether the lane is left live.
+// throughput. Returns whether the lane is left live. The weight-only form
+// (kWeigh, the direct integrator's, :199-247) adds the weighted samples
+// at unit throughput (x * 1 is x: the throughput is not read) and writes
+// the radiance alone; a lane dead before it writes nothing.
+template <bool kWeigh>
 __device__ __forceinline__ bool scatter_lane(const ScatterIn& in,
                                              const Lights& L,
                                              const State& st, long long n,
                                              long long i) {
   if (!in.active[i]) {
-    st.active[i] = false;
+    if (!kWeigh) st.active[i] = false;
     return false;
   }
   Mat m;
@@ -1043,7 +1070,7 @@ __device__ __forceinline__ bool scatter_lane(const ScatterIn& in,
   m.ior = in.ior[i];
   const Frame f{load3(in.fn, i), load3(in.fs, i), load3(in.ft, i)};
   const V3 wo = load3(in.w_o_ss, i);
-  const V3 thr = load3(st.throughput, i);
+  const V3 thr = kWeigh ? v3(1.0f, 1.0f, 1.0f) : load3(st.throughput, i);
   V3 rad = load3(st.radiance, i);
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
 
@@ -1065,9 +1092,14 @@ __device__ __forceinline__ bool scatter_lane(const ScatterIn& in,
       const V3 contrib = (load3(L.rad, j) * brdf) *
                          (fabsf(wi.z) * mis / cmin(l_pdf, 1e-30f));
       // x / n_samples: x * float32(1 / n_samples)
-      if (scatter_pdf > 0.0f) add = (thr * contrib) * (1.0f / n_k);
+      if (scatter_pdf > 0.0f)
+        add = (kWeigh ? contrib : thr * contrib) * (1.0f / n_k);
     }
     rad = rad + add;
+  }
+  if (kWeigh) {
+    store3(st.radiance, i, rad);
+    return false;
   }
 
   // the scatter (integrator.hlsl:153-163)
@@ -1096,13 +1128,14 @@ __device__ __forceinline__ bool scatter_lane(const ScatterIn& in,
   return go_on;
 }
 
-// The scatter kernel, one thread a lane (scatter_lane); it adds the lanes
-// it leaves live into *st.live where that is given.
+// The scatter kernel, one thread a lane (scatter_lane); the path's form
+// adds the lanes it leaves live into *st.live where that is given.
+template <bool kWeigh>
 __global__ void __launch_bounds__(kBlock)
     scatter_kernel(ScatterIn in, Lights L, State st, long long n) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n && scatter_lane(in, L, st, n, i);
-  if (st.live != nullptr) count_into(st.live, live ? 1 : 0);
+  const bool live = i < n && scatter_lane<kWeigh>(in, L, st, n, i);
+  if (!kWeigh && st.live != nullptr) count_into(st.live, live ? 1 : 0);
 }
 
 struct MissIn {
@@ -1160,19 +1193,6 @@ __global__ void __launch_bounds__(kBlock)
   active[i] = false;
 }
 
-__global__ void __launch_bounds__(kBlock)
-    env_draw_kernel(Env e, const float* rand2, float* dir, float* rad,
-                    float* pdf, long long n) {
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  V3 l_dir, l_rad;
-  float l_pdf;
-  env_sample(e, rand2[2 * i], rand2[2 * i + 1], &l_dir, &l_rad, &l_pdf);
-  store3(dir, i, l_dir);
-  store3(rad, i, l_rad);
-  pdf[i] = l_pdf;
-}
-
 unsigned blocks(long long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
 
 Env env_of(const float* rgbl, const float* select, const long long* alias,
@@ -1192,15 +1212,15 @@ extern "C" {
 // float32. Lanes: hit tri int32, u, v, inst int32; o, d [n, 3]; active
 // bool; throughput, radiance [n, 3]; last_pdf; last_delta bool; bounce an
 // int64 device scalar (the direct form reads none of o, throughput,
-// last_pdf, last_delta, bounce). In place: radiance (the emission added;
-// the direct form on every lane, the others on the lanes active at the
-// hit), active (the thin form clears it; the draw's cut and roulette),
-// throughput (the roulette). Outputs as SurfaceOut, on the lanes active
-// at the hit (every lane in the direct form; none in the thin form).
-// The draw (the full form's; the others ignore its arguments): env and
-// mesh sample counts, max_bounces, roulette, rng int64 [n] (in place);
-// the env map (rgbl float32 [S*S, 4],
-// 16-byte aligned, select, alias int64, S, 1 / max(integral, 1e-30)); the
+// last_pdf, last_delta, bounce). In place, on the lanes active at the
+// hit: radiance (the emission added), active (the thin form clears it;
+// the full form's cut and roulette), throughput (the roulette). Outputs
+// as SurfaceOut, on the same lanes (none in the thin form). The draw (the
+// full and direct forms'; the thin form ignores its arguments, the direct
+// form max_bounces and roulette): env and mesh sample counts,
+// max_bounces, roulette, rng int64 [n] (in place; the direct form
+// advances every lane's); the env map (rgbl float32 [S*S, 4], 16-byte
+// aligned, select, alias int64, S, 1 / max(integral, 1e-30)); the
 // emitters (rows float32 [R, 25], select, alias int64, max(count, 1),
 // whether there are none); outputs: the samples' dir, radiance [S, n, 3]
 // and pdf [S, n], the shadow rays' origin, direction [S * n, 3] and t_max
@@ -1252,7 +1272,7 @@ int msn_shade_surface(int mode, int two_level, const float* tri_shade,
   SurfaceOut out{position, tri_n, fn, fs, ft, w_o_ss, type, color, metal,
                  alpha, ior};
   Draw dr{};
-  if (mode == kFull) {
+  if (mode != kThin) {
     dr.env_samples = env_samples;
     dr.mesh_samples = mesh_samples;
     dr.max_bounces = max_bounces;
@@ -1317,8 +1337,33 @@ int msn_shade_scatter(const int* type, const float* color, const float* metal,
   Lights L{l_dir, l_rad, l_pdf, lane, occluded, env_samples, mesh_samples};
   State st{st_active, o, d, throughput, radiance, last_pdf, last_delta, rng,
            live};
-  scatter_kernel<<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, L, st, n);
+  scatter_kernel<false>
+      <<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(in, L, st,
+                                                                     n);
+  return (int)cudaGetLastError();
+}
+
+// The scatter kernel's weight-only form (the direct integrator's): the
+// material, frame and active as the scatter takes them, the light samples
+// likewise; radiance [n, 3] in place, written on the lanes active on entry
+// (the weighted samples added at unit throughput) and nowhere else.
+int msn_shade_weigh(const int* type, const float* color, const float* metal,
+                    const float* alpha, const float* ior, const float* fn,
+                    const float* fs, const float* ft, const float* w_o_ss,
+                    const bool* active, const float* l_dir,
+                    const float* l_rad, const float* l_pdf, const bool* lane,
+                    const bool* occluded, int env_samples, int mesh_samples,
+                    long long n, float* radiance, void* stream) {
+  if (env_samples < 0 || mesh_samples < 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  ScatterIn in{type, color, metal, alpha, ior, fn, fs, ft, w_o_ss,
+               nullptr, nullptr, active};
+  Lights L{l_dir, l_rad, l_pdf, lane, occluded, env_samples, mesh_samples};
+  State st{};
+  st.radiance = radiance;
+  scatter_kernel<true>
+      <<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(in, L, st,
+                                                                     n);
   return (int)cudaGetLastError();
 }
 
@@ -1339,19 +1384,6 @@ int msn_shade_env_miss(const float* rgbl, int size, float inv_integral,
   env_miss_kernel<<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       env_of(rgbl, nullptr, nullptr, size, inv_integral), env_samples, in,
       active, radiance, n);
-  return (int)cudaGetLastError();
-}
-
-// The draw: env rgbl, select float32 and alias int64 [S*S], S, 1 /
-// max(integral, 1e-30); rand2 float32 [n, 2] -> dir, radiance [n, 3], pdf.
-int msn_shade_env_draw(const float* rgbl, const float* select,
-                       const long long* alias, int size, float inv_integral,
-                       const float* rand2, long long n, float* dir,
-                       float* radiance, float* pdf, void* stream) {
-  if (n <= 0) return 0;
-  env_draw_kernel<<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      env_of(rgbl, select, alias, size, inv_integral), rand2, dir, radiance,
-      pdf, n);
   return (int)cudaGetLastError();
 }
 

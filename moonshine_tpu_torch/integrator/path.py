@@ -174,13 +174,13 @@ def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
 
 # the profiler ranges a sample opens around its stages, in order
 # (render/profile_frame.py splits a sample's kernel time by them): the
-# camera rays (render/renderer.py), a bounce's stages (a path draws its
-# light samples inside "surface", the direct integrator in "nee_draw"),
-# the copy of a bounce's outputs into the state's buffers (`_store`), the
-# resort with its moves, the ray and live counts, and the sample's
-# accumulation (renderer.py)
-STAGES = ("camera", "traversal", "env", "surface", "nee_draw", "any_hit",
-          "scatter", "store", "resort", "live_count", "accumulate")
+# camera rays (render/renderer.py), a bounce's stages (a path and the
+# direct integrator draw their light samples inside "surface"), the copy
+# of a bounce's outputs into the state's buffers (`_store`), the resort
+# with its moves, the ray and live counts, and the sample's accumulation
+# (renderer.py)
+STAGES = ("camera", "traversal", "env", "surface", "any_hit", "scatter",
+          "store", "resort", "live_count", "accumulate")
 
 
 def _bounce_body(scene, cfg: PathConfig, bounce, st: dict,

@@ -5,31 +5,35 @@ its gathers, moonshine_tpu/integrator/path.py:371-623, and the role of
 its core/gather.py: each per-hit table fetch next to the math that
 consumes it).
 
-`surface`, `scatter`, `env_miss` and `env_draw` launch their kernel for
-CUDA tensors, on the tensors' card and its current stream (so a CUDA
-graph captures them), reading the bounce index from device memory; for
-CPU tensors they run their plain version (`*_plain`), the integrator's
-torch code moved behind one function each with the kernel's inputs and
-outputs. There is no fallback: a failed build or launch raises. The
-kernels update the lane state in place and leave dead lanes, and equal
-the plain versions bit for bit on the card on every lane they write (the
-wrappers' docstrings say which). Each wrapper adds one to LAUNCHES[its
+`surface`, `scatter`, `weigh` (the scatter kernel's weight-only form)
+and `env_miss` launch their kernel for CUDA tensors, on the tensors'
+card and its current stream (so a CUDA graph captures them), reading
+the bounce index from device memory; for CPU tensors they run their
+plain version (`*_plain`), the integrator's torch code moved behind one
+function each with the kernel's inputs and outputs. There is no
+fallback: a failed build or launch raises. The kernels update the lane
+state in place and leave dead lanes, and equal the plain versions bit
+for bit on the card on every lane they write (the wrappers' docstrings
+say which). Each wrapper adds one to LAUNCHES[its
 name] where it launches (into a capture's tally while a graph is
 captured: accel/launch.py), and to LAUNCHES["counts"] where that launch
 also counts.
 
 The bounce loop's counts (the reference's jnp.sum at path.py:400, :580,
-:687) ride on these kernels: the full surface form adds the shadow rays
-it sets to `rays`, the scatter the lanes it leaves live to `live`, each
-an int64 device scalar (the plain versions add torch's sums of the same
-masks; integer sums, so both are exact).
+:687) ride on these kernels: the full and direct surface forms add the
+shadow rays they set to `rays`, the scatter the lanes it leaves live to
+`live`, each an int64 device scalar (the plain versions add torch's sums
+of the same masks; integer sums, so both are exact).
 
 The full surface form with a `DrawIn` also ends the bounce's termination
 and draws its NEE light samples (`_draw_plain`): the max-bounce cut, the
 roulette, each env and mesh-light sample (`Lights`) and its shadow ray
-into the any-hit batch (`Shadow`). The plain versions' helpers
-(`_decode_hit`, `_decode_material`, `_inst_world`, `_emissive_at`, ...)
-port the reference's of the same names.
+into the any-hit batch (`Shadow`). The direct form with a `DrawIn` draws
+the direct integrator's (`_draw_direct_plain`: no cut, no roulette, delta
+materials too, one-ended mesh-light shadow rays), which `weigh` then
+weighs. The plain versions' helpers (`_decode_hit`, `_decode_material`,
+`_inst_world`, `_emissive_at`, ...) port the reference's of the same
+names.
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ FULL, THIN, DIRECT = "full", "thin", "direct"
 _MODE_CODES = {FULL: 0, THIN: 1, DIRECT: 2}
 
 LAUNCHES = Counts({"surface": 0, "scatter": 0, "env_miss": 0,
-                   "env_draw": 0, "counts": 0})
+                   "counts": 0})
 
 
 def reset_launch_counts() -> None:
@@ -80,11 +84,12 @@ def reset_launch_counts() -> None:
 
 
 class DrawIn(NamedTuple):
-    """What the full form needs to draw a bounce's light samples."""
+    """What the full and direct forms need to draw their light samples
+    (the direct form ignores max_bounces and roulette)."""
 
     env: object  # lights.envmap.EnvMap
     env_samples: int  # env samples a bounce (drawn first)
-    max_bounces: int
+    max_bounces: int  # the full form's cut
     roulette: bool  # bounce > 3, decided on the host
     rng: torch.Tensor  # [N] int64 PCG states
 
@@ -120,10 +125,11 @@ class Surface(NamedTuple):
     """The decoded hit: position, the geometric normal, the shading
     frame, w_o in it, the material, the radiance with the hit's emission
     added, and the lanes live after the segment (the thin form: none; it
-    leaves the others None). The full form's also holds its draw's
-    throughput after the roulette, the advanced rng, the light samples
-    and their shadow rays (None when a bounce draws none); `active` is
-    then the lanes live after the cut and the roulette."""
+    leaves the others None). The full and direct forms' also hold their
+    draw's advanced rng, the light samples and their shadow rays (None
+    when they draw none); the full form's the throughput after the
+    roulette, and `active` is then the lanes live after the cut and the
+    roulette."""
 
     position: torch.Tensor | None  # [N, 3]
     tri_n: torch.Tensor | None  # [N, 3]
@@ -329,9 +335,11 @@ def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
     integrator's (integrator.hlsl:199-215): the normal-mapped frame
     always, picked without the front-face sign, and the emission of every
     hit lane; it reads none of o, throughput, last_pdf, last_delta and
-    bounce. `bounce` is an int or a device scalar. FULL then also draws
-    the bounce's light samples (`_draw_plain`; `draw` is required) and
-    adds the shadow rays it sets to `rays` where given."""
+    bounce, and then draws the integrator's light samples
+    (`_draw_direct_plain`). `bounce` is an int or a device scalar. FULL
+    then also draws the bounce's light samples (`_draw_plain`). FULL and
+    DIRECT need `draw` and add the shadow rays they set to `rays` where
+    given."""
     tri = torch.clamp(hit.tri.to(torch.int64), 0, scene.num_tris - 1)
     w_o_ws = -d
     frame = w_o_ss = mat = None
@@ -379,26 +387,29 @@ def surface_plain(scene, mesh_samples: int, bounce, hit, o, d, active,
 
     if mode == DIRECT:
         radiance = radiance + _masked(active, emissive)
-        return Surface(position, tri_n, frame, w_o_ss, mat, radiance, active)
-
-    # ---- emissive accumulation (integrator.hlsl:109-124)
-    emit_plain = (~tri_sampled | last_delta | (bounce == 0)
-                  | (mesh_samples == 0))
-    emit_front = dot(w_o_ws, tri_n, keepdims=False) > 0.0
-    radiance = radiance + _masked(active & emit_plain & emit_front,
-                                  throughput * emissive)
-    if mesh_samples > 0:
-        light_pdf = area_to_solid_angle(position, o, d, tri_n) / max(
-            scene.emitters.weight_sum, 1e-20)
-        w = power_heuristic(1.0, last_pdf, mesh_samples, light_pdf)
-        radiance = radiance + _masked(active & ~emit_plain & (light_pdf > 0.0),
-                                      throughput * emissive * w[..., None])
-    if mode == THIN:
-        # the max-bounce cut kills every lane here
-        return Surface(None, None, None, None, None, radiance,
-                       torch.zeros_like(active))
-    surf = Surface(position, tri_n, frame, w_o_ss, mat, radiance, active)
-    surf = _draw_plain(scene, mesh_samples, bounce, surf, throughput, draw)
+        surf = Surface(position, tri_n, frame, w_o_ss, mat, radiance, active)
+        surf = _draw_direct_plain(scene, mesh_samples, surf, draw)
+    else:
+        # ---- emissive accumulation (integrator.hlsl:109-124)
+        emit_plain = (~tri_sampled | last_delta | (bounce == 0)
+                      | (mesh_samples == 0))
+        emit_front = dot(w_o_ws, tri_n, keepdims=False) > 0.0
+        radiance = radiance + _masked(active & emit_plain & emit_front,
+                                      throughput * emissive)
+        if mesh_samples > 0:
+            light_pdf = area_to_solid_angle(position, o, d, tri_n) / max(
+                scene.emitters.weight_sum, 1e-20)
+            w = power_heuristic(1.0, last_pdf, mesh_samples, light_pdf)
+            radiance = radiance + _masked(
+                active & ~emit_plain & (light_pdf > 0.0),
+                throughput * emissive * w[..., None])
+        if mode == THIN:
+            # the max-bounce cut kills every lane here
+            return Surface(None, None, None, None, None, radiance,
+                           torch.zeros_like(active))
+        surf = Surface(position, tri_n, frame, w_o_ss, mat, radiance, active)
+        surf = _draw_plain(scene, mesh_samples, bounce, surf, throughput,
+                           draw)
     if rays is not None and surf.shadow is not None:
         rays += surf.shadow.lane.sum()
     return surf
@@ -408,9 +419,9 @@ def _draw_plain(scene, mesh_samples: int, bounce, surf: Surface,
                 throughput, draw: DrawIn) -> Surface:
     """The max-bounce cut and the roulette (integrator.hlsl:126-135),
     then every NEE light sample of the bounce with its shadow ray
-    (:139-151; reference path.py:503-573): env samples through
-    sample_envmap, mesh ones through sample_mesh_lights and _emissive_at
-    with the two-ended shadow segment (light.hlsl:149-154)."""
+    (:139-151; reference path.py:503-573), on the lanes live after them
+    and not on a delta material (`_light_samples`, with the two-ended
+    shadow segment to a mesh light, light.hlsl:149-154)."""
     active = surf.active & (bounce < draw.max_bounces + 1)
     rng, rr_rand = R.next_float(draw.rng)
     if draw.roulette:
@@ -420,8 +431,34 @@ def _draw_plain(scene, mesh_samples: int, bounce, surf: Surface,
             active[..., None],
             throughput / torch.clamp_min(p_survive, 1e-20)[..., None],
             throughput)
-
     nee_active = active & ~B.is_delta(surf.mat.type)
+    rng, lights, shadow = _light_samples(scene, mesh_samples, surf, draw,
+                                         rng, nee_active, one_ended=False)
+    return surf._replace(active=active, throughput=throughput, rng=rng,
+                         lights=lights, shadow=shadow)
+
+
+def _draw_direct_plain(scene, mesh_samples: int, surf: Surface,
+                       draw: DrawIn) -> Surface:
+    """The direct integrator's light samples (reference direct.py:79-86
+    with :103-124): every sample on every lane live at the hit, delta
+    materials too, each mesh light's shadow ray one-ended; every lane's
+    PCG state advances, as the reference advances the whole array."""
+    rng, lights, shadow = _light_samples(scene, mesh_samples, surf, draw,
+                                         draw.rng, surf.active,
+                                         one_ended=True)
+    return surf._replace(rng=rng, lights=lights, shadow=shadow)
+
+
+def _light_samples(scene, mesh_samples: int, surf: Surface, draw: DrawIn,
+                   rng, live, one_ended: bool):
+    """Each NEE light sample from the PCG states `rng` (one next_float2 a
+    sample, env samples first: sample_envmap; then mesh ones:
+    sample_mesh_lights and _emissive_at) and its shadow ray from the hit,
+    traced on the `live` lanes where its pdf is not 0. A mesh light's ray
+    is the two-ended segment between the offset points, or (`one_ended`)
+    l_dir to the light's offset point's distance from the hit. Returns
+    (rng, Lights, Shadow), both None when there is no sample."""
     position, tri_n = surf.position, surf.tri_n
     samples = []  # (shadow o, d, t_max, lane, light dir, radiance, pdf)
     for _ in range(draw.env_samples):
@@ -429,7 +466,7 @@ def _draw_plain(scene, mesh_samples: int, bounce, surf: Surface,
         l_dir, l_rad, l_pdf = sample_envmap(draw.env, r2)
         shadow_o = offset_along_normal(position, face_forward(tri_n, l_dir))
         samples.append((shadow_o, l_dir, torch.full_like(l_pdf, INF_T),
-                        nee_active & (l_pdf > 0.0), l_dir, l_rad, l_pdf))
+                        live & (l_pdf > 0.0), l_dir, l_rad, l_pdf))
     for _ in range(mesh_samples):
         rng, r2 = R.next_float2(rng)
         l_dir, l_pos, l_n, _tri, l_bary, l_pdf, l_row = (
@@ -437,46 +474,38 @@ def _draw_plain(scene, mesh_samples: int, bounce, surf: Surface,
         l_rad = _emissive_at(scene, l_row, l_bary)
         off_light = offset_along_normal(l_pos, l_n)
         off_shade = offset_along_normal(position, face_forward(tri_n, l_dir))
-        seg = off_light - off_shade
-        seg_len = norm(seg)[..., 0]
-        seg_dir = seg / torch.clamp_min(seg_len, 1e-20)[..., None]
-        samples.append((off_shade, seg_dir, seg_len,
-                        nee_active & (l_pdf > 0.0), l_dir, l_rad, l_pdf))
-    lights = shadow = None
-    if samples:
-        n = position.shape[0]
-        cat = lambda j: torch.cat([x[j] for x in samples])
-        stack = lambda j: torch.stack([x[j] for x in samples])
-        shadow = Shadow(cat(0), cat(1), cat(2), cat(3))
-        lights = Lights(stack(4), stack(5), stack(6),
-                        shadow.lane.view(len(samples), n), None,
-                        draw.env_samples, mesh_samples)
-    return surf._replace(active=active, throughput=throughput, rng=rng,
-                         lights=lights, shadow=shadow)
+        if one_ended:
+            seg_dir, seg_len = l_dir, norm(off_light - position)[..., 0]
+        else:
+            seg = off_light - off_shade
+            seg_len = norm(seg)[..., 0]
+            seg_dir = seg / torch.clamp_min(seg_len, 1e-20)[..., None]
+        samples.append((off_shade, seg_dir, seg_len, live & (l_pdf > 0.0),
+                        l_dir, l_rad, l_pdf))
+    if not samples:
+        return rng, None, None
+    n = position.shape[0]
+    cat = lambda j: torch.cat([x[j] for x in samples])
+    stack = lambda j: torch.stack([x[j] for x in samples])
+    shadow = Shadow(cat(0), cat(1), cat(2), cat(3))
+    lights = Lights(stack(4), stack(5), stack(6),
+                    shadow.lane.view(len(samples), n), None,
+                    draw.env_samples, mesh_samples)
+    return rng, lights, shadow
 
 
 def scatter_plain(surf: Surface, o, d, throughput, radiance, rng, active,
                   lights: Lights | None, state: dict, live=None) -> dict:
     """Weight each NEE sample (`lights`, in draw order; None: none) by the
-    power heuristic and add it (integrator.hlsl:139-151), then draw the
-    BSDF sample and continue the path (:153-163; reference
+    power heuristic and add it (integrator.hlsl:139-151; `weigh_plain`),
+    then draw the BSDF sample and continue the path (:153-163; reference
     path.py:518-623). Returns the lane state's new active, o, d,
     throughput, radiance, last_pdf, last_delta and rng (`state`, the
     kernel's buffers to write into, is not read here), and adds the lanes
     it leaves live to `live` where given."""
     mat, frame, w_o_ss = surf.mat, surf.frame, surf.w_o_ss
     is_delta = B.is_delta(mat.type)
-    for k in range(0 if lights is None else lights.pdf.shape[0]):
-        l_pdf = torch.where(lights.occluded[k], 0.0, lights.pdf[k])
-        w_i_ss = frame.world_to_frame(lights.dir[k])
-        brdf, scatter_pdf = B.eval_pdf_bsdf(mat, w_i_ss, w_o_ss)
-        n_samples = lights.n_samples(k)
-        mis = power_heuristic(n_samples, l_pdf, 1.0, scatter_pdf)
-        contrib = lights.radiance[k] * brdf * (
-            torch.abs(cos_theta(w_i_ss)) * mis
-            / torch.clamp_min(l_pdf, 1e-30))[..., None]
-        ok = lights.lane[k] & (l_pdf > 0.0) & (scatter_pdf > 0.0)
-        radiance = radiance + _masked(ok, throughput * contrib / n_samples)
+    radiance = weigh_plain(surf, radiance, active, lights, throughput)
 
     # ---- scatter (integrator.hlsl:153-163)
     rng, r2 = R.next_float2(rng)
@@ -503,6 +532,31 @@ def scatter_plain(surf: Surface, o, d, throughput, radiance, rng, active,
     )
 
 
+def weigh_plain(surf: Surface, radiance, active, lights: Lights | None,
+                throughput=None):
+    """The radiance with each traced, unoccluded NEE sample (`lights`, in
+    draw order, each weighed by its kind's count; None: none) weighted by
+    the power heuristic against the BSDF's pdf and added, times
+    `throughput` where given (the path's scatter; the direct integrator's
+    is 1, reference direct.py:89-100). `active` is the kernel's: a lane
+    that is not traces no sample."""
+    mat, frame, w_o_ss = surf.mat, surf.frame, surf.w_o_ss
+    for k in range(0 if lights is None else lights.pdf.shape[0]):
+        l_pdf = torch.where(lights.occluded[k], 0.0, lights.pdf[k])
+        w_i_ss = frame.world_to_frame(lights.dir[k])
+        brdf, scatter_pdf = B.eval_pdf_bsdf(mat, w_i_ss, w_o_ss)
+        n_samples = lights.n_samples(k)
+        mis = power_heuristic(n_samples, l_pdf, 1.0, scatter_pdf)
+        contrib = lights.radiance[k] * brdf * (
+            torch.abs(cos_theta(w_i_ss)) * mis
+            / torch.clamp_min(l_pdf, 1e-30))[..., None]
+        if throughput is not None:
+            contrib = throughput * contrib
+        ok = lights.lane[k] & (l_pdf > 0.0) & (scatter_pdf > 0.0)
+        radiance = radiance + _masked(ok, contrib / n_samples)
+    return radiance
+
+
 def env_miss_plain(env, env_samples: int, bounce, d, active, tri,
                    throughput, radiance, last_pdf, last_delta):
     """Environment radiance of the lanes that missed (`active` and no hit,
@@ -523,12 +577,6 @@ def env_miss_plain(env, env_samples: int, bounce, d, active, tri,
         env_rad = envmap_incoming_radiance(env, d)
     lit = lit + _masked(miss & env_plain, throughput * env_rad)
     return torch.where(miss[..., None], lit, radiance), active & ~miss
-
-
-def env_draw_plain(env, rand2):
-    """lights/envmap.py sample_envmap: (dir [N,3], radiance [N,3],
-    pdf [N])."""
-    return sample_envmap(env, rand2)
 
 
 # ---- the wrappers
@@ -581,19 +629,18 @@ def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
             rays=None) -> Surface:
     """surface_plain's result: the csrc/shade.cu surface kernel for CUDA
     tensors, the plain version for CPU tensors. On the card the kernel
-    works in place: it adds the emission into `radiance` (the thin and
-    full forms on the lanes active at the hit), the thin form clears
-    `active`, and the full form's draw (`draw`, required there) applies
-    the cut and the roulette to `active` and `throughput` and advances
-    `draw.rng`; the returned Surface holds
+    works in place: it adds the emission into `radiance` on the lanes
+    active at the hit, the thin form clears `active`, the full form's
+    draw applies the cut and the roulette to `active` and `throughput`,
+    and the full and direct forms' draw (`draw`, required there) advances
+    `draw.rng` (the direct form every lane's); the returned Surface holds
     those tensors. The decoded hit is written on the lanes active at the
-    hit (the direct form: every lane), a light sample and its shadow ray
-    where the ray is traced, the shadow lanes everywhere. The full form
-    adds the shadow rays it sets to `rays` (an int64 device scalar) where
-    given."""
-    if mode == FULL and draw is None:
-        raise ValueError("the full form draws the bounce's light samples: "
-                         "it needs a DrawIn")
+    hit, a light sample and its shadow ray where the ray is traced, the
+    shadow lanes everywhere. The full and direct forms add the shadow rays
+    they set to `rays` (an int64 device scalar) where given."""
+    if mode != THIN and draw is None:
+        raise ValueError(f"the {mode} form draws light samples: it needs a "
+                         "DrawIn")
     if _device_kind(d) == "cpu":
         return surface_plain(scene, mesh_samples, bounce, hit, o, d, active,
                              throughput, radiance, last_pdf, last_delta,
@@ -609,7 +656,7 @@ def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
     if mode != THIN:
         outs = [vec() for _ in range(6)] + [lane(torch.int32), vec(),
                                             lane(), lane(), lane()]
-    draw_on = mode == FULL
+    draw_on = mode != THIN
     counted = draw_on and rays is not None
     if scene.tri_shade.data_ptr() % 16:
         raise ValueError("the surface kernel reads material rows as float4: "
@@ -678,8 +725,6 @@ def surface(scene, mesh_samples: int, bounce, hit, o, d, active,
                           alpha=alpha, ior=ior)
     surf = Surface(position, tri_n, Frame(n=fn, s=fs, t=ft), w_o_ss, mat,
                    radiance, active)
-    if not draw_on:  # the direct form
-        return surf
     lights = shadow = None
     if n_samples:
         l_dir, l_rad, l_pdf, sh_o, sh_d, sh_t, sh_lane = samples
@@ -746,6 +791,34 @@ def scatter(surf: Surface, o, d, throughput, radiance, rng, active,
                 last_delta=state["last_delta"], rng=rng)
 
 
+def weigh(surf: Surface, radiance, active, lights: Lights | None):
+    """weigh_plain's radiance: the csrc/shade.cu scatter kernel's
+    weight-only form for CUDA tensors (in place on `radiance`, which it
+    returns: a lane active on entry adds its weighted samples, no other
+    lane is written; it reads no throughput, draws nothing and touches no
+    other state), the plain version for CPU tensors. Counted as a
+    scatter launch."""
+    if _device_kind(radiance) == "cpu":
+        return weigh_plain(surf, radiance, active, lights)
+    if lights is None:
+        return radiance
+    lib = native.shade_lib()
+    f32, b8, keep = torch.float32, torch.bool, []
+    mat, frame = surf.mat, surf.frame
+    _launch(
+        "scatter", lib.weigh, radiance.device,
+        _ptr(keep, mat.type, torch.int32), _ptr(keep, mat.color, f32),
+        _ptr(keep, mat.metalness, f32), _ptr(keep, mat.alpha, f32),
+        _ptr(keep, mat.ior, f32), _ptr(keep, frame.n, f32),
+        _ptr(keep, frame.s, f32), _ptr(keep, frame.t, f32),
+        _ptr(keep, surf.w_o_ss, f32), _ptr(keep, active, b8),
+        _ptr(keep, lights.dir, f32), _ptr(keep, lights.radiance, f32),
+        _ptr(keep, lights.pdf, f32), _ptr(keep, lights.lane, b8),
+        _ptr(keep, lights.occluded, b8), lights.env_samples,
+        lights.mesh_samples, radiance.shape[0], _inplace(radiance, f32))
+    return radiance
+
+
 def _env_args(keep, env):
     if env.rgbl.data_ptr() % 16:
         raise ValueError("the env kernels read rgbl rows as float4: it must "
@@ -773,22 +846,3 @@ def env_miss(env, env_samples: int, bounce, d, active, tri, throughput,
             _ptr(keep, _bounce_on(bounce, d.device), torch.int64),
             d.shape[0], _inplace(active, torch.bool), _inplace(radiance, f32))
     return radiance, active
-
-
-def env_draw(env, rand2):
-    """env_draw_plain's result: the csrc/shade.cu draw kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if _device_kind(rand2) == "cpu":
-        return env_draw_plain(env, rand2)
-    lib = native.shade_lib()
-    n, dev, keep = rand2.shape[0], rand2.device, []
-    f32 = torch.float32
-    out = (torch.empty((n, 3), dtype=f32, device=dev),
-           torch.empty((n, 3), dtype=f32, device=dev),
-           torch.empty(n, dtype=f32, device=dev))
-    rgbl, size, inv_integral = _env_args(keep, env)
-    _launch("env_draw", lib.env_draw, dev, rgbl,
-            _ptr(keep, env.select, f32), _ptr(keep, env.alias, torch.int64),
-            size, inv_integral, _ptr(keep, rand2, f32), n,
-            *(x.data_ptr() for x in out))
-    return out

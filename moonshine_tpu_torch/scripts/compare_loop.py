@@ -15,7 +15,9 @@ its defaults: max_bounces 1024, NEE off; a sensor reset before each
 frame), instanced_1080p (procedural.instanced_scene(), two-level) and
 treelet_1080p (room_1080p's frame on room_184k built 8-wide / 8-slot,
 MSN_WIDE=8 MSN_LEAF_CAP=8, dispatched with MSN_TREELETS=1: the treelet
-kernels).
+kernels); and direct_1080p (trace_direct, one env and one mesh-light
+sample, on room_1080p's scene and its sample-0 camera rays, made once:
+a "sample" is one call, eager, as trace_direct runs no graphs).
 For each cell, from a clear graph cache: the peak device memory
 (allocated and reserved) over a warm-up sample (the captures) and
 `--samples` timed ones, each timed on the host clock between
@@ -55,7 +57,7 @@ import time
 HERE = pathlib.Path(__file__).resolve()
 CHECKOUT = HERE.parents[2]
 CELLS = ("room_184k", "room_1080p", "offline_720p", "engine_720p",
-         "instanced_1080p", "treelet_1080p")
+         "instanced_1080p", "treelet_1080p", "direct_1080p")
 LOOPED = ("offline_720p", "engine_720p")
 
 
@@ -137,6 +139,18 @@ def cell(name: str, dev):
                    else procedural.room_scene(grid=6, subdivisions=4))
     scene, lens = world.build(dev), LensArrays.from_lens(lens, dev)
     h, w = (512, 512) if name == "room_184k" else (1080, 1920)
+    if name == "direct_1080p":
+        from moonshine_tpu_torch.integrator.direct import (
+            DirectConfig, trace_direct,
+        )
+        from moonshine_tpu_torch.render.renderer import _sample_rays
+
+        o, d, rng, unpack = _sample_rays(lens, h, w, 0, True, dev)
+
+        def direct(i):  # every call traces sample 0's rays
+            rad, _, rays = trace_direct(scene, o, d, rng, DirectConfig())
+            return unpack(rad), rays
+        return direct
     return lambda i: render_spp(scene, lens, h, w, i, 1, cfg)
 
 

@@ -52,7 +52,7 @@ REPS = 10
 # written before each timed launch to evict what a restore left in the
 # card's L2 (50 MB on an H100)
 L2_FLUSH_BYTES = 256 << 20
-NAMES = ("surface", "scatter", "env_miss", "env_draw")
+NAMES = ("surface", "scatter", "env_miss", "weigh")
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
 PEAK_FP32 = 67e12  # H100 SXM float32 outside the tensor cores
 # float operations of a lane that missed, counted from csrc/shade.cu's
@@ -99,12 +99,15 @@ def fresh(name, args) -> tuple:
     """A copy of a shading call's arguments to run it on: every tensor
     cloned but the scene's or env map's (the first argument of the
     surface and env wrappers), which no kernel writes."""
-    keep = 0 if name == "scatter" else 1
+    keep = 0 if name in ("scatter", "weigh") else 1
     return tuple(args[:keep]) + clone(tuple(args[keep:]))
 
 
 def key_of(name, args) -> str:
-    """A recorded call's key: the wrapper's name, with the surface's form."""
+    """A recorded call's key: the wrapper's name, with the surface's form;
+    the scatter's weight-only form (`weigh`) is "scatter/weight"."""
+    if name == "weigh":
+        return "scatter/weight"
     if name != "surface":
         return name
     return f"surface/{args[11] if len(args) > 11 else 'full'}"
@@ -165,26 +168,25 @@ def outputs(out) -> dict:
             got.update({f"shadow.{k}": getattr(out.shadow, k)
                         for k in out.shadow._fields})
         return {k: v for k, v in got.items() if v is not None}
-    if len(out) == 2:  # the env miss
-        return dict(zip(("radiance", "active"), out))
-    return dict(zip(("dir", "radiance", "pdf"), out))
+    return dict(zip(("radiance", "active"), out))  # the env miss
 
 
 def held(key, args, want) -> dict:
     """{output: the lanes on which the kernel writes it, None for all} of
     a recorded call: the surface's decoded hit on the lanes active at the
-    hit (the direct form: all), its PCG state on the lanes live after the
-    roulette, a light sample and shadow ray where the ray is traced; the
-    scatter's last_pdf, last_delta and rng on the lanes live on entry.
-    The radiance is written on these lanes too and kept elsewhere, so it
-    is held as a value on every lane (a masked add leaves no +0)."""
+    hit, its PCG state on the lanes live after the roulette (the direct
+    form: all), a light sample and shadow ray where the ray is traced; the
+    scatter's last_pdf, last_delta and rng on the lanes live on entry,
+    and its weight-only form's radiance on those lanes. The radiance is
+    written on these lanes too and kept elsewhere, so it is held as a
+    value on every lane (a masked add leaves no +0)."""
     names = outputs(want)
-    if key in ("surface/full", "surface/thin"):
+    if key.startswith("surface/"):
         at_hit = args[6]
         lanes = {k: at_hit for k in names}
         lanes.update(active=None, throughput=None)
         if "rng" in names:
-            lanes["rng"] = want.active
+            lanes["rng"] = None if key == "surface/direct" else want.active
         if "shadow.lane" in names:
             lanes.update({k: want.lights.lane for k in names
                           if k.startswith("lights.")})
@@ -196,6 +198,8 @@ def held(key, args, want) -> dict:
         live = args[6]
         return {k: (live if k in ("last_pdf", "last_delta", "rng", "radiance")
                     else None) for k in names}
+    if key == "scatter/weight":
+        return {"radiance": args[2]}
     return {k: None for k in names}
 
 
@@ -538,6 +542,23 @@ def cells(dev):
             scene = world.build(dev)
         out[name] = (scene, LensArrays.from_lens(lens, dev), cfg)
     return out
+
+
+def record_direct(scene, lens):
+    """The recorded shading calls of one eager trace_direct call on the
+    1080p camera rays (one env and one mesh-light sample, the direct_1080p
+    cell): "surface/direct", "scatter/weight" and "env_miss"."""
+    import torch
+
+    from moonshine_tpu_torch.integrator.direct import DirectConfig, \
+        trace_direct
+    from moonshine_tpu_torch.render.renderer import _sample_rays
+
+    o, d, rng, _ = _sample_rays(lens, HD[0], HD[1], 0, True, scene.device)
+    with recording() as rec:
+        trace_direct(scene, o, d, rng, DirectConfig())
+    torch.cuda.synchronize()
+    return rec
 
 
 def record_sample(scene, lens, cfg, sample: int = 7):

@@ -2,7 +2,7 @@
 tests/test_frontends.py:44-215 on the CPU: the direct-light integrator
 (trace_direct) on the same rays and RNG states as the JAX one, ray for
 ray (1e-5 absolute plus relative) on the JAX scene's arrays, on env and
-mesh-light NEE; the
+mesh-light NEE, with a mirror in view; the
 DisneyDiffuse lobe against the reference's functions; the viewer (keys,
 accumulation cap, tonemap, the web server's frame and key round trip,
 the edit panel, frames in flight); and encode_png read back by PIL.
@@ -44,9 +44,10 @@ from test_torch_incremental import port_mesh
 from test_torch_scene import jax_scene_arrays
 
 
-def lit_world(T, cls, mesh):
+def lit_world(T, cls, mesh, mirror=False):
     """A 0.6-albedo sphere, a red emissive quad above it (NEE-sampled)
-    and a sky with a bright band, in either package's types."""
+    and a sky with a bright band, in either package's types; `mirror`
+    adds a mirror sphere beside the grey one."""
     w = cls()
     sphere = w.add_mesh(mesh(icosphere(2, with_normals=False)))
     quad = w.add_mesh(T.Mesh(
@@ -62,6 +63,10 @@ def lit_world(T, cls, mesh):
     w.add_instance(T.Instance(transform=T.translate(0, 0, 2.5),
                               geometries=[T.Geometry(quad, light,
                                                      sampled=True)]))
+    if mirror:
+        chrome = w.add_material(T.MaterialInfo(variant=T.Mirror()))
+        w.add_instance(T.Instance(transform=T.translate(1.7, 0.5, 0),
+                                  geometries=[T.Geometry(sphere, chrome)]))
     sky = np.full((8, 16, 3), 0.3, np.float32)
     sky[2:4] = 3.0
     w.set_background(sky)
@@ -83,16 +88,27 @@ def jax_rays(n_side=16):
     return o, d, rng
 
 
-@pytest.mark.parametrize("env,mesh", [(1, 0), (0, 1), (2, 1)])
-def test_trace_direct_matches_reference(env, mesh):
+@pytest.mark.parametrize("env,mesh,mirror", [
+    (1, 0, False), (0, 1, False), (2, 1, False), (1, 1, True)],
+    ids=["1-0", "0-1", "2-1", "1-1-mirror"])
+def test_trace_direct_matches_reference(env, mesh, mirror):
     """On the JAX World's scene loaded through scene_from_arrays, ray for
     ray: both then sample the same env alias table. (Each package builds
     its own from texels that agree to 1e-6; where texels tie, as in this
     sky's flat regions, the two tables pair them differently, so the same
-    draw can land on another texel of the same distribution.)"""
-    js = JWorld.build(lit_world(JT, JWorld, lambda m: m))
+    draw can land on another texel of the same distribution.) With a
+    mirror in view, its hits trace their shadow rays and count them in
+    the rays, as the reference's do, though their weight is 0."""
+    js = JWorld.build(lit_world(JT, JWorld, lambda m: m, mirror))
     ps = scene_from_arrays(*jax_scene_arrays(js), "cpu")
     o, d, rng = jax_rays()
+    if mirror:
+        from moonshine_tpu_torch.integrator.path import _closest
+
+        hit = _closest(ps, torch.tensor(np.asarray(o)),
+                       torch.tensor(np.asarray(d)), 1e12, None)
+        mat_type = ps.tri_shade[hit.tri.clamp_min(0).long(), 32]
+        assert bool(((hit.tri >= 0) & (mat_type == 2)).any())
     want, want_rng, want_rays = jax_direct(js, o, d, rng, JDirectConfig(
         env_samples_per_bounce=env, mesh_samples_per_bounce=mesh))
     t = lambda x, dt=torch.float32: torch.tensor(np.asarray(x)).to(dt)

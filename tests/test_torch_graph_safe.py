@@ -377,8 +377,9 @@ def test_trace_paths_steps_read_nothing_on_the_host(guarded):
 @pytest.mark.parametrize("name", ["flagship", "two_level"])
 def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
     """The shading kernels' plain versions (integrator/shade.py: the env
-    miss and draw, the surface decode in its three forms, the full one
-    with the bounce's light draw, and the scatter), which stand in for
+    miss, the surface decode in its three forms, the full one with the
+    bounce's light draw and the direct one with the direct integrator's,
+    the scatter and its weight-only form), which stand in for
     the launches a graph captures, read nothing on the host: each runs
     inside a guarded step on a device bounce index, on the flagship (a
     textured atlas, every material) and a two-level scene, and gives what
@@ -393,7 +394,6 @@ def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
     bounce = torch.tensor(1)
     active = st["active"] & hit.is_hit
     rs = np.random.RandomState(5)
-    r2 = torch.from_numpy(rs.rand(n, 2).astype(np.float32))
     thr = torch.from_numpy(rs.rand(n, 3).astype(np.float32))
     last_delta = torch.from_numpy(rs.rand(n) < 0.3)
     steps = graphs.Steps("cpu")
@@ -405,15 +405,17 @@ def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
         surf = {mode: S.surface_plain(
             scene, 1, bounce, hit, o, d, active, thr, rad, st["last_pdf"],
             last_delta, mode,
-            S.DrawIn(scene.env, 2, 4, True, rng) if mode == S.FULL else None)
+            S.DrawIn(scene.env, 2, 4, True, rng) if mode != S.THIN else None)
             for mode in (S.FULL, S.THIN, S.DIRECT)}
-        full = surf[S.FULL]
+        full, direct = surf[S.FULL], surf[S.DIRECT]
         lights = full.lights._replace(occluded=full.lights.pdf > 1.0)
         out.update(rad=rad, after_miss=after_miss, surf=surf,
-                   env_draw=S.env_draw_plain(scene.env, r2),
                    scatter=S.scatter_plain(full, o, d, full.throughput,
                                            full.radiance, full.rng,
-                                           full.active, lights, {}))
+                                           full.active, lights, {}),
+                   weigh=S.weigh_plain(direct, direct.radiance, active,
+                                       direct.lights._replace(
+                                           occluded=direct.lights.pdf > 1.0)))
 
     guarded_out, free_out = {}, {}
     steps.run("shade", lambda: shading(guarded_out))
@@ -422,11 +424,18 @@ def test_shading_plain_versions_read_nothing_on_the_host(guarded, name):
     assert torch.equal(guarded_out["rad"], free_out["rad"])
     assert torch.equal(guarded_out["after_miss"], active)
     assert torch.equal(free_out["after_miss"], active)
-    for got, want in zip(guarded_out["env_draw"], free_out["env_draw"]):
-        assert torch.equal(got, want)
-    for k in ("o", "d", "t_max", "lane"):
-        assert torch.equal(getattr(guarded_out["surf"][S.FULL].shadow, k),
-                           getattr(free_out["surf"][S.FULL].shadow, k))
+    # the direct form's draw: its env samples (the first two) and the rest
+    got, want = guarded_out["surf"][S.DIRECT], free_out["surf"][S.DIRECT]
+    assert got.lights.env_samples == 2
+    for k in ("dir", "radiance", "pdf", "lane"):
+        assert torch.equal(getattr(got.lights, k), getattr(want.lights, k))
+    assert torch.equal(got.rng, want.rng)
+    assert bool(got.lights.lane[:2].any())
+    assert torch.equal(guarded_out["weigh"], free_out["weigh"])
+    for mode in (S.FULL, S.DIRECT):
+        for k in ("o", "d", "t_max", "lane"):
+            assert torch.equal(getattr(guarded_out["surf"][mode].shadow, k),
+                               getattr(free_out["surf"][mode].shadow, k))
     for k in guarded_out["scatter"]:
         assert torch.equal(guarded_out["scatter"][k], free_out["scatter"][k])
     assert int(guarded_out["scatter"]["active"].sum()) > 0

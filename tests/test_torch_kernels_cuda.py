@@ -684,9 +684,13 @@ def test_kernels_on_refit_rows(cuda, builder):
     assert float(rel.max()) <= 1e-5
 
 
-def test_engine_pick_and_direct_on_the_card(cuda):
+def test_engine_pick_and_direct_on_the_card(cuda, monkeypatch):
     """The Engine's pick on its own stream and trace_direct on the card
-    agree with the same calls on the CPU."""
+    agree with the same calls on the CPU; on the card trace_direct is one
+    closest-hit and one any-hit launch (the [S * N] shadow batch) and one
+    surface, scatter (its weight-only form) and env miss launch, one of
+    them counting, and equals, bit for bit (radiance, rng, rays), the
+    same call with every wrapper patched to its plain version."""
     from moonshine_tpu_torch.engine import Engine
     from moonshine_tpu_torch.integrator.direct import DirectConfig, \
         trace_direct
@@ -710,10 +714,24 @@ def test_engine_pick_and_direct_on_the_card(cuda):
 
         o, d, rng, _ = _sample_rays(LensArrays.from_lens(lens, dev), 64, 64,
                                     0, True, dev)
-        rad, _, rays = trace_direct(scene, o, d, rng, DirectConfig())
-        out.append((rad.cpu(), int(rays)))
-    assert out[0][1] == out[1][1]
+        packet.reset_launch_counts()
+        shade.reset_launch_counts()
+        rad, rng_out, rays = trace_direct(scene, o, d, rng, DirectConfig())
+        out.append((rad.cpu(), rng_out.cpu(), int(rays)))
+    assert dict(packet.LAUNCHES) == dict(closest_hit=1, any_hit=1)
+    assert dict(shade.LAUNCHES) == dict(surface=1, scatter=1, env_miss=1,
+                                        counts=1)
+    assert out[0][2] == out[1][2]
+    assert torch.equal(out[0][1], out[1][1])
     assert float((out[0][0] - out[1][0]).abs().max()) < 1e-4
+    for name in ("surface", "weigh", "env_miss"):
+        monkeypatch.setattr(shade, name, getattr(shade, f"{name}_plain"))
+    for name in ("closest_hit", "any_hit"):
+        monkeypatch.setattr(packet, f"{name}_packet",
+                            getattr(packet, f"{name}_plain"))
+    p_rad, p_rng, p_rays = trace_direct(scene, o, d, rng, DirectConfig())
+    _assert_bits(p_rad.cpu(), out[1][0], "trace_direct radiance")
+    assert torch.equal(p_rng.cpu(), out[1][1]) and int(p_rays) == out[1][2]
 
 
 def test_kernels_and_sharded_render_across_cards(cuda):
@@ -1491,9 +1509,9 @@ def test_shade_surface_matches_plain(cuda, kind, n):
     """The surface kernel in its three forms against surface_plain on the
     same lanes, bit for bit: the bounce's (bounce 0 and 3, mesh samples 1
     and 0, with a draw of one env sample and no roulette), the last
-    segment's and the direct integrator's; the decoded
-    hit on the lanes active at the hit (every lane in the direct form),
-    the radiance and the mask everywhere. One two-level lane is held
+    segment's and the direct integrator's (with the same draw); the
+    decoded hit on the lanes active at the hit, the radiance and the mask
+    everywhere. One two-level lane is held
     within 1e-5 instead: torch takes an einsum of a batch of one through
     an unbatched matrix product whose cuBLAS kernel rounds the instance
     transform otherwise than the batched one the kernel reproduces (4099
@@ -1510,10 +1528,9 @@ def test_shade_surface_matches_plain(cuda, kind, n):
                     lanes["d"], lanes["active"], lanes["throughput"],
                     lanes["radiance"], lanes["last_pdf"],
                     lanes["last_delta"], mode)
-            live = (torch.ones_like(lanes["active"]) if mode == shade.DIRECT
-                    else lanes["active"])
+            live = lanes["active"]
             draw = None
-            if mode == shade.FULL:
+            if mode != shade.THIN:
                 rng = torch.from_numpy(np.random.RandomState(bounce).randint(
                     0, 2**32, n, dtype=np.int64)).to(cuda)
                 draw = shade.DrawIn(scene.env, 1, 4, False, rng)
@@ -1601,6 +1618,8 @@ def _shade_lights(n, seed, device, counts, live):
     """Seeded NEE samples for the scatter kernel, `counts` (env, mesh)
     of them: env draws and random ones alternately, with lanes (among the
     `live` ones, as the draw traces them) and occlusion at random."""
+    from moonshine_tpu_torch.lights.envmap import sample_envmap
+
     rs = np.random.RandomState(seed)
     f32 = np.float32
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
@@ -1609,8 +1628,8 @@ def _shade_lights(n, seed, device, counts, live):
     s = sum(counts)
     for k in range(s):
         if k % 2 == 0:
-            l_dir, l_rad, l_pdf = shade.env_draw(env, put(rs.rand(n, 2)
-                                                          .astype(f32)))
+            l_dir, l_rad, l_pdf = sample_envmap(env, put(rs.rand(n, 2)
+                                                         .astype(f32)))
         else:
             d = rs.randn(n, 3).astype(f32)
             d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -1703,9 +1722,15 @@ def test_shade_env_kernels_match_plain(cuda, env_kind):
     2; bounce 0 and 2; live shares of 100%, 10% and 1%, a sixth of the
     lanes missed), in place on the radiance and the mask as the loop
     calls it: every lane's radiance and mask bit for bit, the lanes it
-    does not write too (their radiance as it was, -0.0 kept), and the
-    env draw kernel against env_draw_plain (rand 0, near 1 and seeded),
-    bit for bit, at env size 1 and 32."""
+    does not write too (their radiance as it was, -0.0 kept); and the
+    direct surface form's draw (two env samples, then one env and one
+    mesh sample) against surface_plain's, bit for bit, at env size 1 and
+    32, on one and two levels (the flagship: every material, delta ones
+    traced too; the instanced grid), with dead, missed and hit lanes:
+    the PCG state of every lane (a dead one advanced past the draws),
+    the decode and radiance where `_assert_surface` holds them, the
+    shadow lanes and the rays counted, each sample and shadow ray where
+    it is traced."""
     env = _env(env_kind, cuda)
     scene, _ = _shade_scene("room", cuda)
     n = 4099
@@ -1736,16 +1761,89 @@ def test_shade_env_kernels_match_plain(cuda, env_kind):
                              f"{what} radiance of the lanes left")
                 assert torch.equal(act, active & (lanes["hit"].tri >= 0))
     assert shade.LAUNCHES["env_miss"] == 18
-    rs = np.random.RandomState(19)
-    rand2 = rs.rand(n, 2).astype(np.float32)
-    rand2[:3] = [[0, 0], [np.float32(1 - 2**-24), 0.5],
-                 [0.5, np.float32(1 - 2**-24)]]
-    rand2 = torch.from_numpy(rand2).to(cuda)
-    for got, want, name in zip(shade.env_draw(env, rand2),
-                               shade.env_draw_plain(env, rand2),
-                               ("dir", "radiance", "pdf")):
-        _assert_bits(got, want.contiguous(), f"env_draw {name}")
-    assert shade.LAUNCHES["env_draw"] == 1
+    shade.reset_launch_counts()
+    for kind in ("flagship", "instanced"):
+        scene, two_level = _shade_scene(kind, cuda)
+        lanes = _shade_lanes(scene, two_level, n, 19, cuda)
+        rng = torch.from_numpy(np.random.RandomState(29).randint(
+            0, 2**32, n, dtype=np.int64)).to(cuda)
+        for counts in ((2, 0), (1, 1)):
+            what = f"direct draw {kind} {counts}"
+            args = (scene, counts[1], 0, lanes["hit"], None, lanes["d"],
+                    lanes["active"], None, lanes["radiance"], None, None,
+                    shade.DIRECT)
+            draw = shade.DrawIn(env, counts[0], 0, False, rng)
+            rays = [torch.zeros((), dtype=torch.int64, device=cuda)
+                    for _ in range(2)]
+            got = shade.surface(*args[:8], lanes["radiance"].clone(),
+                                *args[9:], draw=draw._replace(
+                                    rng=rng.clone()), rays=rays[0])
+            want = shade.surface_plain(*args, draw=draw, rays=rays[1])
+            _assert_surface(got, want, what, lanes["active"])
+            _assert_bits(got.rng, want.rng, f"{what} rng")
+            dead = ~lanes["active"]
+            assert bool((got.rng[dead] != rng[dead]).all())
+            _assert_bits(got.shadow.lane, want.shadow.lane,
+                         f"{what} shadow lanes")
+            assert int(rays[0]) == int(rays[1]) == int(
+                want.shadow.lane.sum())
+            traced = want.shadow.lane
+            for k in ("o", "d", "t_max"):
+                _assert_bits(getattr(got.shadow, k)[traced],
+                             getattr(want.shadow, k)[traced], f"{what} {k}")
+            traced = want.lights.lane
+            for k in ("dir", "radiance", "pdf"):
+                _assert_bits(getattr(got.lights, k)[traced],
+                             getattr(want.lights, k)[traced], f"{what} {k}")
+            if kind == "flagship":  # delta hits trace their samples too
+                delta = torch.isin(want.mat.type, torch.tensor(
+                    [0, 2], device=cuda)) & lanes["active"]
+                assert bool((traced[:, delta]).any())
+    assert shade.LAUNCHES["surface"] == 4 and shade.LAUNCHES["counts"] == 4
+
+
+@pytest.mark.parametrize("mat_type", [None, 0, 1, 2, 3])
+@pytest.mark.parametrize("counts", [(1, 1), (2, 1), (4, 6)])
+def test_shade_weigh_matches_plain(cuda, mat_type, counts):
+    """The scatter kernel's weight-only form against weigh_plain, bit for
+    bit, on the flagship's decoded lanes (every material, or every lane
+    set to one type) with one env and one mesh sample, sample counts of
+    2, and ten samples: the radiance on every lane as a value and, bit
+    for bit, on the lanes active on entry; a dead lane's as it was (not
+    written); nothing else written, no lane counted."""
+    scene, _ = _shade_scene("flagship", cuda)
+    n = 4099
+    lanes = _shade_lanes(scene, False, n, 11, cuda)
+    rng = torch.from_numpy(np.random.RandomState(7).randint(
+        0, 2**32, n, dtype=np.int64)).to(cuda)
+    surf = shade.surface(scene, 0, 0, lanes["hit"], None, lanes["d"],
+                         lanes["active"].clone(), None,
+                         lanes["radiance"].clone(), None, None, shade.DIRECT,
+                         shade.DrawIn(scene.env, 0, 0, False, rng))
+    if mat_type is not None:
+        surf = surf._replace(mat=surf.mat._replace(
+            type=torch.full_like(surf.mat.type, mat_type)))
+    live = lanes["active"]
+    lights = _shade_lights(n, 13, cuda, counts, live)
+    radiance = lanes["radiance"].clone()
+    radiance[torch.from_numpy(np.random.RandomState(3).rand(n) < 0.05)
+             .to(cuda)] = -0.0
+    kept = [x.clone() for x in (*surf.mat, surf.frame.n, surf.w_o_ss,
+                                lights.pdf, live)]
+    shade.reset_launch_counts()
+    got = radiance.clone()
+    assert shade.weigh(surf, got, live, lights) is got
+    want = shade.weigh_plain(surf, radiance, live, lights)
+    assert dict(shade.LAUNCHES) == dict(surface=0, scatter=1, env_miss=0,
+                                        counts=0)
+    assert bool((got == want).all())
+    _assert_bits(got[live], want[live], "weighted radiance")
+    _assert_bits(got[~live], radiance[~live], "radiance of dead lanes")
+    for a, b in zip(kept, (*surf.mat, surf.frame.n, surf.w_o_ss, lights.pdf,
+                           live)):
+        assert torch.equal(a, b)
+    if mat_type in (None, 1, 3):
+        assert bool((got[live] != radiance[live]).any())
 
 
 # --- the lane sort (csrc/sort.cu) ---

@@ -12,9 +12,15 @@ behind those functions.
   and an instanced scene built two-level (a mirroring instance);
 - scatter: the reference's light weighting and scatter (path.py:583-623:
   eval_pdf_bsdf, the power heuristic, sample_bsdf, eval_bsdf) for every
-  material type;
+  material type, and its weight-only form against the direct
+  integrator's weighting (direct.py:89-100: pdf_bsdf, eval_bsdf, the
+  power heuristic);
+- the light draws: the full form's against the path's (path.py:503-573)
+  and the direct form's against the direct integrator's (direct.py:79-86
+  with :103-124);
 - env: miss_radiance_and_pdf / envmap_incoming_radiance with the miss
-  weighting (path.py:404-419) and sample_envmap, at size 1 and 32.
+  weighting (path.py:404-419), and the direct form's env draw against
+  sample_envmap, at size 1 and 32.
 
 Tolerance rtol 1e-5, atol 1e-5 (positions and radiance of order 10:
 1e-6 relative): the frameworks' transcendental functions and fused
@@ -187,13 +193,16 @@ def _ref_surface(js, mesh_samples, bounce, lanes, mode):
 def _surface(ps, mesh_samples, bounce, lanes, mode):
     """The port's surface on `lanes`; the full form with a draw of no
     env sample, no roulette and no cut, which leaves the decode, the
-    emission and the mask as they are."""
+    emission and the mask as they are; the direct form with a draw of no
+    sample."""
     t = lambda k: torch.from_numpy(lanes[k])
     draw = None
-    if mode == shade.FULL:
+    if mode != shade.THIN:
         rng = np.random.RandomState(bounce).randint(0, 2**32, len(lanes["d"]))
         draw = shade.DrawIn(ps.env, 0, bounce + 1, False,
                             torch.from_numpy(rng.astype(np.int64)))
+    if mode == shade.DIRECT:
+        mesh_samples = 0
     return shade.surface(ps, mesh_samples, torch.tensor(bounce),
                          _port_hit(lanes), t("o"), t("d"), t("active"),
                          t("throughput"), t("radiance"), t("last_pdf"),
@@ -349,6 +358,49 @@ def test_scatter_matches_reference(mat_type):
     assert 0 < int(got["active"].sum()) < n
 
 
+@pytest.mark.parametrize("mat_type", [JB.GLASS, JB.LAMBERT, JB.MIRROR,
+                                      JB.STANDARD_PBR])
+def test_weigh_matches_reference(mat_type):
+    """The scatter's weight-only form (weigh_plain, the direct
+    integrator's) against the reference direct integrator's weighting
+    (direct.py:89-100: pdf_bsdf and eval_bsdf apart, the power heuristic,
+    contrib / n_samples at unit throughput) on scatter_case's lanes of one
+    material type, its samples traced only on live lanes: the radiance to
+    TOL; nothing else of the state is returned or changed."""
+    fields, (nrm, s, t), wo, lights, state = scatter_case(mat_type)
+    lights = [(l_dir, l_rad, pdf, lane & state["active"], occ, count)
+              for l_dir, l_rad, pdf, lane, occ, count in lights]
+    P, J = torch.from_numpy, jnp.asarray
+    surf = shade.Surface(
+        position=None, tri_n=None,
+        frame=PFrame(n=P(nrm), s=P(s), t=P(t)), w_o_ss=P(wo),
+        mat=PB.MaterialLanes(**{k: P(v) for k, v in fields.items()}),
+        radiance=P(state["rad"]), active=P(state["active"]))
+    stack = lambda j: P(np.stack([light[j] for light in lights]))
+    rad_in = state["rad"].copy()
+    got = shade.weigh(surf, surf.radiance, surf.active,
+                      shade.Lights(stack(0), stack(1), stack(2), stack(3),
+                                   stack(4), 1, 2))
+    np.testing.assert_array_equal(state["rad"], rad_in)
+    mat = JB.MaterialLanes(**{k: J(v) for k, v in fields.items()})
+    frame = JFrame(n=J(nrm), s=J(s), t=J(t))
+    want = J(state["rad"])
+    for l_dir, l_rad, l_pdf, lane, occluded, n_samples in lights:
+        l_pdf = jnp.where(J(occluded), 0.0, J(l_pdf))
+        w_i_ss = frame.world_to_frame(J(l_dir))
+        scatter_pdf = JB.pdf_bsdf(mat, w_i_ss, J(wo))
+        brdf = JB.eval_bsdf(mat, w_i_ss, J(wo))
+        mis = JP.power_heuristic(n_samples, l_pdf, 1.0, scatter_pdf)
+        contrib = J(l_rad) * brdf * (jnp.abs(j_cos_theta(w_i_ss)) * mis
+                                     / jnp.maximum(l_pdf, 1e-30))[..., None]
+        ok = J(lane) & (l_pdf > 0.0) & (scatter_pdf > 0.0)
+        want = want + jnp.where(ok[..., None], contrib / n_samples, 0.0)
+    _close(got, want, f"type {mat_type} weighted radiance")
+    added = (got.numpy() != state["rad"]).any(1)
+    assert not added[~state["active"]].any()
+    assert added.any() == (mat_type in (JB.LAMBERT, JB.STANDARD_PBR))
+
+
 def _close_glossy(got, want, alpha, what):
     """The sampled direction's pdf and throughput pass through the GGX
     density at the sampled half vector, whose relative condition is
@@ -487,6 +539,103 @@ def test_draw_matches_reference(light_scenes, name, roulette, counts):
         assert not bool(got.lights.pdf[env_samples:].any())
 
 
+def _ref_direct_draw(js, env_samples, mesh_samples, lanes):
+    """The reference direct integrator's draws (direct.py:79-86 with
+    :103-124) on numpy lanes: (rng, per sample (shadow o, d, t_max, lane,
+    light dir, radiance, pdf))."""
+    from moonshine_tpu.lights.mesh_lights import sample_mesh_lights
+
+    J = jnp.asarray
+    active = J(lanes["active"])
+    position, tri_n = J(lanes["position"]), J(lanes["tri_n"])
+    rng = J(lanes["rng"])
+    samples = []
+    for k in range(env_samples + mesh_samples):
+        rng, r2 = JR.next_float2(rng)
+        if k < env_samples:
+            l_dir, l_rad, l_pdf = JE.sample_envmap(js.env, r2)
+            tmax = jnp.full(l_pdf.shape, 1.0e12, jnp.float32)
+        else:
+            l_dir, l_pos, l_n, _, l_bary, l_pdf, l_row = sample_mesh_lights(
+                js, position, r2)
+            l_rad = JP._emissive_at(js, l_row, l_bary)
+            tmax = jnp.linalg.norm(j_offset(l_pos, l_n) - position, axis=-1)
+        shadow_o = j_offset(position, j_face_forward(tri_n, l_dir))
+        samples.append((shadow_o, l_dir, tmax, active & (l_pdf > 0.0), l_dir,
+                        l_rad, l_pdf))
+    return rng, samples
+
+
+@pytest.mark.parametrize("counts", [(1, 1), (2, 1), (0, 2), (2, 0)])
+@pytest.mark.parametrize("name", ["constant", "textured", "no_emitters"])
+def test_direct_draw_matches_reference(light_scenes, name, counts):
+    """The direct form's draw (_draw_direct_plain: every light sample and
+    its one-ended shadow ray, no cut, no roulette, delta materials too)
+    against the reference direct integrator's on seeded lanes of the
+    panels' scene: a third of the hit lanes dead and a sixth missed (both
+    not active), every material type; masks and PCG states (every lane's
+    advanced) exactly, the rest to TOL; the shadow batch in the samples'
+    order (env first)."""
+    js, ps = light_scenes[name]
+    env_samples, mesh_samples = counts
+    n = N
+    rs = np.random.RandomState(71)
+    f32 = np.float32
+    lanes = _lanes(ps.num_tris, 0, n, 73)
+    # shading points on the floor, below the panels, and random normals
+    position = np.stack([rs.rand(n) * 6 - 3, rs.rand(n) * 6 - 3,
+                         rs.rand(n) * 0.5], 1).astype(f32)
+    tri_n = rs.randn(n, 3).astype(f32)
+    tri_n /= np.linalg.norm(tri_n, axis=1, keepdims=True)
+    lanes.update(position=position, tri_n=tri_n,
+                 type=rs.randint(0, 4, n).astype(np.int32),
+                 rng=rs.randint(0, 2**32, n).astype(np.uint32))
+    missed = lanes["tri"] < 0
+    assert missed.any() and (~lanes["active"] & ~missed).any()
+    P = torch.from_numpy
+    surf = shade.Surface(P(position), P(tri_n), None, None,
+                         PB.MaterialLanes(P(lanes["type"]), None, None, None,
+                                          None), None, P(lanes["active"]))
+    got = shade._draw_direct_plain(
+        ps, mesh_samples, surf, shade.DrawIn(
+            ps.env, env_samples, 0, False, P(lanes["rng"].astype(np.int64))))
+    rng, samples = _ref_direct_draw(js, env_samples, mesh_samples, lanes)
+    what = f"{name} samples {counts}"
+    assert got.active is surf.active and got.throughput is None
+    _close(got.rng, np.asarray(rng).astype(np.int64), f"{what} rng")
+    assert [got.lights.n_samples(k) for k in range(len(samples))] == (
+        [env_samples] * env_samples + [mesh_samples] * mesh_samples)
+    for j, key in enumerate(("o", "d", "t_max", "lane")):
+        want = np.concatenate([np.asarray(x[j]) for x in samples])
+        _close(getattr(got.shadow, key), want, f"{what} shadow {key}")
+    for j, key in enumerate(("dir", "radiance", "pdf"), start=4):
+        want = np.stack([np.asarray(x[j]) for x in samples])
+        _close(getattr(got.lights, key), want, f"{what} light {key}")
+    assert torch.equal(got.lights.lane.reshape(-1), got.shadow.lane)
+    # delta materials trace their samples too; dead lanes none
+    delta = np.isin(lanes["type"], (JB.GLASS, JB.MIRROR))
+    traced = got.lights.lane.numpy()
+    assert traced[:, delta].any() == traced.any()
+    assert not traced[:, ~lanes["active"]].any()
+    assert bool(got.lights.lane[env_samples:].any()) == (
+        mesh_samples > 0 and name != "no_emitters")
+
+
+def _pcg_state_for(top24: int, skip: int = 0) -> int:
+    """A PCG state whose (skip + 1)-th next_float is top24 * 2^-24: the
+    output permutation and the LCG step inverted (core/rng.py)."""
+    mask = 2**32 - 1
+    b = top24 << 8
+    x = b ^ (b >> 22)  # (x >> 22) ^ x
+    y = (x * pow(277803737, -1, 2**32)) & mask
+    a, shift = y, (y >> 28) + 4  # (a >> ((a >> 28) + 4)) ^ a
+    for _ in range(8):
+        a = y ^ (a >> shift)
+    for _ in range(skip + 1):  # the LCG step
+        a = ((a - 2891336453) * pow(747796405, -1, 2**32)) & mask
+    return a
+
+
 def _envs():
     """(JAX EnvMap, the port's) at size 1 and 32, from one seeded sky."""
     rs = np.random.RandomState(3)
@@ -504,10 +653,12 @@ def _envs():
 
 
 @pytest.mark.parametrize("env_kind", ["constant", "map"])
-def test_env_matches_reference(env_kind):
+def test_env_matches_reference(env_kind, light_scenes):
     """env_miss_plain against the reference's miss (env samples 0 and 1,
-    bounce 0 and 2) and env_draw_plain against sample_envmap, at env size
-    1 and 32."""
+    bounce 0 and 2), and the direct surface form's env draw (two samples,
+    on the panels' scene's hits) against next_float2 and sample_envmap,
+    at env size 1 and 32, with lanes whose first or second uniform is 0
+    or 1 - 2^-24."""
     je, pe = _envs()[env_kind]
     assert pe.size == (1 if env_kind == "constant" else 32)
     lanes = _lanes(10, 0, N, 41)
@@ -539,13 +690,33 @@ def test_env_matches_reference(env_kind):
             want = want + jnp.where((miss & env_plain)[..., None],
                                     thr * env_rad, 0.0)
             _close(got, want, f"miss {env_samples} {bounce}")
-    rs = np.random.RandomState(43)
-    rand2 = rs.rand(N, 2).astype(np.float32)
-    rand2[0] = 0.0
-    for got, want, what in zip(shade.env_draw(pe, P(rand2)),
-                               JE.sample_envmap(je, J(rand2)),
-                               ("dir", "radiance", "pdf")):
-        _close(got, want, f"draw {what}")
+    _, ps = light_scenes["constant"]
+    lanes = _lanes(ps.num_tris, 0, N, 43)
+    rng = np.random.RandomState(43).randint(0, 2**32, N).astype(np.uint32)
+    edge = 2**24 - 1
+    rng[:4] = [_pcg_state_for(0), _pcg_state_for(edge),
+               _pcg_state_for(0, skip=1), _pcg_state_for(edge, skip=1)]
+    lanes["active"][:4] = True
+    t = lambda k: P(lanes[k])
+    got = shade.surface(ps, 0, 0, _port_hit(lanes), None, t("d"),
+                        t("active"), None, t("radiance"), None, None,
+                        shade.DIRECT, shade.DrawIn(
+                            pe, 2, 0, False, P(rng.astype(np.int64))))
+    want_rng, r2 = JR.next_float2(J(rng))
+    assert np.asarray(r2)[:4].tolist() == [
+        [0.0, np.asarray(r2)[0, 1]], [1 - 2**-24, np.asarray(r2)[1, 1]],
+        [np.asarray(r2)[2, 0], 0.0], [np.asarray(r2)[3, 0], 1 - 2**-24]]
+    for k in range(2):
+        if k:
+            want_rng, r2 = JR.next_float2(want_rng)
+        for got_x, want_x, what in zip(
+                (got.lights.dir[k], got.lights.radiance[k],
+                 got.lights.pdf[k]), JE.sample_envmap(je, r2),
+                ("dir", "radiance", "pdf")):
+            _close(got_x, want_x, f"draw {k} {what}")
+        _close(got.lights.lane[k], J(lanes["active"]) & (
+            JE.sample_envmap(je, r2)[2] > 0.0), f"draw {k} lane")
+    _close(got.rng, np.asarray(want_rng).astype(np.int64), "draw rng")
 
 
 @pytest.mark.parametrize("bounce", [0, 2])
