@@ -91,7 +91,12 @@ script exits non-zero without the result line. Phases:
                   (184,332 triangles) with a 2048x1024 ZIP skybox, its
                   glTF build against the source World's, then the CLI at
                   its defaults (1280x720, max_bounces 1024) with --spp 4,
-                  launches counted, against an in-process render
+                  launches counted, its bounce loop's form (the resort
+                  asserted on: looped, resorted, 921,600 lanes), segments
+                  a sample and the live-prefix widths one sample takes,
+                  against an in-process render, and bit for bit (image
+                  and rays) against an in-process render of the same
+                  samples with resort_bounces=False
   jpeg            every committed JPEG fixture (tests/torch_fixtures/:
                   baseline, progressive, restarts, CMYK, YCCK, lossless,
                   arithmetic-coded sequential and progressive, block
@@ -1455,13 +1460,15 @@ def offline_phase(dev):
     import torch
 
     from moonshine_tpu_torch.accel import packet
+    from moonshine_tpu_torch.integrator import graphs, path
     from moonshine_tpu_torch.integrator.path import PathConfig
     from moonshine_tpu_torch.io.exr import read_exr, write_exr
     from moonshine_tpu_torch.render import offline
     from moonshine_tpu_torch.render.camera import LensArrays
-    from moonshine_tpu_torch.render.renderer import render
+    from moonshine_tpu_torch.render.renderer import render, render_sample
     from moonshine_tpu_torch.scene import procedural
     from moonshine_tpu_torch.scene.gltf import lens_from_glb, world_from_glb
+    from moonshine_tpu_torch.scripts import compare_loop as CL
     from moonshine_tpu_torch.scripts import skybox
 
     WORK.mkdir(parents=True, exist_ok=True)
@@ -1526,13 +1533,17 @@ def offline_phase(dev):
         t1 = time.perf_counter()
         sensor, rays = render(*a, **k)
         torch.cuda.synchronize()
-        seen.update(rays=rays, seconds=time.perf_counter() - t1)
+        # the bounce loop's form, before the CLI's scene (and with it its
+        # cached run shape) is freed
+        seen.update(rays=rays, seconds=time.perf_counter() - t1,
+                    forms=CL.trace_forms())
         return sensor, rays
 
     args = [str(WORK / "room.glb"), str(WORK / "sky.exr"),
             str(WORK / "room.exr"), "--spp", str(OFFLINE_SPP)]
     opts = offline.parse_args(args)  # the CLI's defaults but for --spp
     offline.render = timed_render
+    graphs.clear()  # the CLI's run shape alone, as in its own process
     torch.cuda.reset_peak_memory_stats()
     packet.reset_launch_counts()
     buf = io.StringIO()
@@ -1560,14 +1571,41 @@ def offline_phase(dev):
     got = read_exr(WORK / "room.exr")[..., :3]
     src.set_background(read_exr(WORK / "sky.exr")[..., :3])
     scene = src.build(dev)
-    sensor, _ = render(scene, LensArrays.from_lens(glens, dev), opts.height,
-                       opts.width, spp=opts.spp, cfg=PathConfig(
-                           max_bounces=opts.max_bounces,
-                           env_samples_per_bounce=opts.env_samples,
-                           mesh_samples_per_bounce=opts.mesh_samples))
+    o_lens = LensArrays.from_lens(glens, dev)
+    cfg = PathConfig(max_bounces=opts.max_bounces,
+                     env_samples_per_bounce=opts.env_samples,
+                     mesh_samples_per_bounce=opts.mesh_samples)
+    sensor, _ = render(scene, o_lens, opts.height, opts.width,
+                       spp=opts.spp, cfg=cfg)
     same_image("room CLI vs in-process render of the source World",
                "offline", got, sensor.image.cpu().numpy())
-    return scene, LensArrays.from_lens(glens, dev), opts
+    # the CLI's form: the resort on at its 1280x720 (the reference's
+    # trace_paths turns it off above 600k lanes, its compiler's cliff)
+    widths = CL.widths_taken(lambda: render_sample(
+        scene, o_lens, opts.height, opts.width, 0, cfg))
+    lanes = opts.width * opts.height
+    say("offline", f"room CLI bounce loop {seen['forms']} (lanes, resort, "
+        f"unrolled); segments a sample {counts['closest_hit'] / opts.spp}; "
+        f"sample 0's resorted segments by live-prefix width {widths} of "
+        f"the widths {path._widths(lanes)}")
+    if seen["forms"] != [{"lanes": lanes, "resort": True, "unroll": False}]:
+        raise AssertionError(f"the CLI's bounce loop is not the resorted "
+                             f"looped form: {seen['forms']}")
+    off, off_rays = render(scene, o_lens, opts.height, opts.width,
+                           spp=opts.spp, cfg=PathConfig(
+                               max_bounces=opts.max_bounces,
+                               env_samples_per_bounce=opts.env_samples,
+                               mesh_samples_per_bounce=opts.mesh_samples,
+                               resort_bounces=False))
+    off = off.image.cpu().numpy()
+    exact = bool(np.array_equal(got.view(np.int32), off.view(np.int32)))
+    say("offline", f"room CLI vs an in-process render of the same "
+        f"{opts.spp} samples with resort_bounces=False: image bit for bit "
+        f"{exact}, rays {rays} vs {off_rays}")
+    if not exact or rays != off_rays:
+        raise AssertionError("the resorted CLI render differs from the "
+                             "render without the resort")
+    return scene, o_lens, opts
 
 
 # --- the progressive-engine slice: jpeg, engine, direct, sharded, viewer ---
@@ -1737,6 +1775,7 @@ def engine_phase(room_world, room_lens, dev, launches_out):
     from moonshine_tpu_torch.render.camera import LensArrays
     from moonshine_tpu_torch.scene.types import translate
     from moonshine_tpu_torch.scene.world import scene_from_arrays
+    from moonshine_tpu_torch.scripts import compare_loop as CL
     from moonshine_tpu_torch.scripts.compare_loop import engine_from_world
 
     h, w = ENGINE_HW
@@ -1754,7 +1793,12 @@ def engine_phase(room_world, room_lens, dev, launches_out):
         f"{scene.num_tris} triangles; full build {full_s:.3f} s; config "
         f"max_bounces {cfg.max_bounces}, NEE env {cfg.env_samples_per_bounce}"
         f" mesh {cfg.mesh_samples_per_bounce}")
-    e.render(sensor, lens)  # warm-up frame
+    t0 = time.perf_counter()
+    e.render(sensor, lens)  # warm-up frame: the captures
+    torch.cuda.synchronize()
+    say("engine", f"first frame {time.perf_counter() - t0:.2f} s (its "
+        f"captures); bounce loop {CL.trace_forms()} (lanes, resort, "
+        f"unrolled)")
     e.reset_sensor(sensor)
     packet.reset_launch_counts()
     for i in range(4):
@@ -3208,7 +3252,8 @@ def graphs_phase(cells, stage_profiles) -> dict:
     launches), with the device memory's peaks (allocated and reserved,
     from the warm-up on), the sample's conds (device-side choices read
     eagerly; IF nodes in the graphs), reads of the live count and
-    replays, and its segments (renderer._sample_sum's); as graph replays
+    replays, its segments (renderer._sample_sum's) and its bounce loop's
+    form (compare_loop.trace_forms); as graph replays
     the unrolled cells read the host 0 times, the looped ones (max
     bounces 1024) at most ceil(segments / LOOP_BLOCK) + 1 times. Then
     sample 2 timed and profiled (render/profile_frame.py `profile`):
@@ -3220,9 +3265,10 @@ def graphs_phase(cells, stage_profiles) -> dict:
     kernel time, their sum against the sample's (kept in
     `stage_profiles` by cell). As graph replays the set kernels
     (graphs.LAUNCHES "graph_if") a sample are at most 6 on room_1080p
-    (one SWITCH node a resorted segment) and at most one a block on the
-    looped cells (each block's first guard; the first block has none)
-    plus one for the resorted state's buffer set, and the looped cells
+    (one SWITCH node a resorted segment) and on the looped cells at most
+    one a block (each block's first guard; the first block has none)
+    plus, where the loop resorts, one SWITCH node a segment after the
+    first and one for the resorted state's buffer set, and the looped cells
     run one loop tail ("graph_tail") a segment, the unrolled ones none.
     Returns {"graph_if": room_1080p's set kernels a sample, "graph_tail":
     offline_720p's tails}."""
@@ -3231,6 +3277,7 @@ def graphs_phase(cells, stage_profiles) -> dict:
     from moonshine_tpu_torch.integrator import graphs, path
     from moonshine_tpu_torch.render import renderer
     from moonshine_tpu_torch.render.profile_frame import profile
+    from moonshine_tpu_torch.scripts.compare_loop import trace_forms
 
     segs = []
     sample_sum = renderer._sample_sum
@@ -3253,6 +3300,7 @@ def graphs_phase(cells, stage_profiles) -> dict:
                     torch.cuda.empty_cache()
                     torch.cuda.reset_peak_memory_stats()
                     sample(1)
+                    forms = trace_forms()
                     reset_counts()
                     graphs.reset_launch_counts()
                     graphs.reset_counts()
@@ -3290,7 +3338,7 @@ def graphs_phase(cells, stage_profiles) -> dict:
                     f"{prof['idle_share']:.1%}; peak device memory "
                     f"{peak[0]:.1f} MiB allocated, {peak[1]:.1f} MiB "
                     f"reserved, {held:.1f} MiB reserved after empty_cache; "
-                    f"launches a sample {counts}")
+                    f"launches a sample {counts}; bounce loop {forms}")
                 if mode == "graphs":
                     limit = (0 if name in ("room_184k", "room_1080p",
                                            "instanced_1080p")
@@ -3302,8 +3350,10 @@ def graphs_phase(cells, stage_profiles) -> dict:
                             f"{segments} segments (at most {limit} reads)")
                     looped = name in ("offline_720p", "engine_720p")
                     blocks = -(-segments // path.LOOP_BLOCK)
+                    resorted = any(f["resort"] for f in forms)
                     if ((name == "room_1080p" and not 0 < ifs <= 6)
-                            or (looped and (ifs > blocks or tails
+                            or (looped and (ifs > blocks + (segments - 1)
+                                            * resorted or tails
                                             != segments))
                             or (not looped and tails)):
                         raise AssertionError(
@@ -3343,7 +3393,7 @@ def graphs_phase(cells, stage_profiles) -> dict:
 # the shapes the frame phase holds the camera rays and the accumulation
 # at: (height, width, y0, bh, nbatch, the resort's pix)
 FRAME_SHAPES = {"room_1080p": (1080, 1920, 0, 1080, 1, True),
-                "offline_720p": (720, 1280, 0, 720, 1, False),
+                "offline_720p": (720, 1280, 0, 720, 1, True),
                 "band_540": (1080, 1920, 540, 540, 1, True),
                 "1024x576x3": (576, 1024, 0, 576, 3, True)}
 RAYGEN_LANE_BYTES = 70  # o 12, d 12, rng 8, active 1, throughput 12,
@@ -3425,8 +3475,9 @@ def frame_phase(scenes, offline_cell, stage_profiles, cfg, timings, errs):
     masks. Last, the eager stage split (`stage_profiles`, the graphs
     phase's) of room_1080p and offline_720p: the camera range holds one
     raygen launch a sample besides scalar fills, the accumulate range one
-    accumulation, the live_count range no reduction, the env range the
-    miss kernel alone."""
+    accumulation (and offline_720p's, whose looped trace resorts, the
+    parity of its segment count), the live_count range no reduction, the
+    env range the miss kernel alone."""
     import torch
 
     from moonshine_tpu_torch.integrator import path
@@ -3502,8 +3553,8 @@ def frame_phase(scenes, offline_cell, stage_profiles, cfg, timings, errs):
     del rad, order
 
     # the counts, at room_1080p's first full surface launch and scatter
-    # and at offline_720p's segment OFFLINE_SEGMENT (every lane launched,
-    # few live)
+    # and at offline_720p's segment OFFLINE_SEGMENT (its live prefix
+    # launched, few live)
     o_scene, o_lens, opts = offline_cell
     o_cfg = PathConfig(max_bounces=opts.max_bounces,
                        env_samples_per_bounce=opts.env_samples,
@@ -3579,10 +3630,14 @@ def frame_phase(scenes, offline_cell, stage_profiles, cfg, timings, errs):
         env_others = [k for k in prof["env"]["kernels"]
                       if "env_miss_kernel" not in k]
         # the accumulation with the frame's counts: one kernel a sample
+        # (a looped resorted trace's buffer set is the parity of its
+        # segment count, path._Trace.with_state: one remainder kernel)
         accum = prof["accumulate"]["kernels"]
         summed = sum(v for k, v in accum.items() if "accumulate_kernel" in k)
         accum_others = [k for k in accum if "accumulate_kernel" not in k
-                        and "FillFunctor" not in k]
+                        and "FillFunctor" not in k
+                        and not (cell == "offline_720p"
+                                 and "remainder" in k)]
         say("frame", f"{cell}: camera range kernels {camera}; live_count "
             f"range kernels {prof['live_count']['kernels']}; accumulate "
             f"range kernels {accum}; env range kernels "

@@ -70,8 +70,9 @@ class PathConfig:
     unroll: bool | None = None
     # re-sort the whole lane state by ray coherence once per bounce (and
     # run deep bounces over the live prefix); the image is unchanged.
-    # None = auto (_resolve_resort): on for HBM-class scenes up to 600k
-    # lanes, on for VMEM-class scenes that hold a mirror or glass
+    # None = auto (_resolve_resort): on for HBM-class scenes at any lane
+    # count, on for VMEM-class scenes that hold a mirror or glass; False
+    # forces it off
     resort_bounces: bool | None = None
 
 
@@ -151,25 +152,23 @@ def _any_hit(scene, o, d, t_max, active, presorted: bool = False):
     return traverse.any_hit(*_binary(scene), o, d, t_max, active_in=active)
 
 
-def _resolve_resort(scene, cfg: PathConfig, n_lanes: int | None = None
-                    ) -> bool:
-    """The reference's resort choice: as configured, else on for
-    HBM-class scenes (trace_paths: up to 600k lanes, which render_sample
-    and render exceed for frames above that; n_lanes=None, the staged
-    path: at any lane count) and for VMEM-class ones holding a mirror or
-    glass; treelet scenes sort inside each dispatch instead, and the
-    per-lane walk ('lanes') takes no resort. A scene without a wide tree
-    (a two-level one) takes none even when configured: its key is the
-    tree's bounds, and the reference's resort of such a scene moves no
-    lane."""
+def _resolve_resort(scene, cfg: PathConfig) -> bool:
+    """The resort choice of trace_paths and trace_paths_staged alike: as
+    configured, else on for HBM-class scenes at any lane count and for
+    VMEM-class ones holding a mirror or glass; treelet scenes sort inside
+    each dispatch instead, and the per-lane walk ('lanes') takes no
+    resort. A scene without a wide tree (a two-level one) takes none even
+    when configured: its key is the tree's bounds, and the reference's
+    resort of such a scene moves no lane. The reference's trace_paths
+    also turns it off above 600k lanes, a workaround for its compiler's
+    schedule of the unrolled graph (the sort stays cheap at any size);
+    the bounce loop here has no such graph, so it takes no lane count."""
     if scene.wide is None:
         return False
     if cfg.resort_bounces is not None:
         return cfg.resort_bounces
     mode = _hbm_mode(scene.wide)
-    if mode == "hbm":
-        return n_lanes is None or n_lanes <= 600_000
-    return mode == "vmem" and scene.has_delta
+    return mode == "hbm" or (mode == "vmem" and scene.has_delta)
 
 
 # the profiler ranges a sample opens around its stages, in order
@@ -327,7 +326,11 @@ def _prefix_width(n: int, live: int) -> int:
 
 
 def _widths(n: int) -> tuple:
-    """The live prefix's widths for n lanes, by index: n/4, n/2, n."""
+    """The live prefix's widths for n lanes, by index: n/4, n/2, n. A
+    ladder on down by quarters (n/16, n/64 while >= _SHRINK_MIN) ran the
+    offline CLI's 921,600-lane samples 0.8-2.5 ms faster on an H100, but
+    its first call, which captures the looped block's bodies (15 a
+    segment against 6), took about twice as long (PERF.md §6)."""
     return n // 4, n // 2, n
 
 
@@ -621,14 +624,14 @@ def _run_key(scene) -> tuple:
     return graphs.fingerprint(scene), mode, _shadow_compact()
 
 
-def _trace_form(scene, cfg: PathConfig, n: int, staged: bool):
+def _trace_form(scene, cfg: PathConfig, staged: bool):
     """(resort, unroll, sort_first) of trace_paths (staged=False) or
-    trace_paths_staged for n lanes."""
+    trace_paths_staged."""
     if staged:
         return _resolve_resort(scene, cfg), True, True
     unroll = (cfg.unroll if cfg.unroll is not None
               else cfg.max_bounces + 2 <= 10)
-    return _resolve_resort(scene, cfg, n), unroll, False
+    return _resolve_resort(scene, cfg), unroll, False
 
 
 def _new_trace(scene, cfg: PathConfig, n: int, staged: bool) -> _Trace:
@@ -637,7 +640,7 @@ def _new_trace(scene, cfg: PathConfig, n: int, staged: bool) -> _Trace:
     ('lanes'), whose loop reads its live lanes on the host at every
     step of the walk (accel/traverse.py): a graph cannot hold it."""
     key = _run_key(scene)
-    return _Trace(n, scene.device, cfg, *_trace_form(scene, cfg, n, staged),
+    return _Trace(n, scene.device, cfg, *_trace_form(scene, cfg, staged),
                   capture=key[1] != "lanes")
 
 
@@ -678,7 +681,8 @@ def trace_paths(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
     and segments is the number of bounce segments run (one closest-hit
     dispatch each). The unrolled form (auto for max_bounces + 2 <= 10)
     runs every segment; the looped one stops when no lane is live. The
-    resort follows `_resolve_resort` for this lane count. On a CUDA
+    resort follows `_resolve_resort` (at any lane count; the first
+    segment traces the camera rays in image order). On a CUDA
     device the rays are copied into the run shape's static buffers and
     each segment is a graph replay (graphs.py)."""
     return _trace_rays(scene, ray_o, ray_d, rng_state, cfg, staged=False)
@@ -686,8 +690,8 @@ def trace_paths(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
 
 def trace_paths_staged(scene, ray_o, ray_d, rng_state, cfg: PathConfig):
     """trace_paths for very large lane counts (the reference's staged
-    path): every segment runs, the resort stays on at any lane count
-    (`_resolve_resort`), and the first segment sorts inside traversal.
+    path): every segment runs, the resort follows `_resolve_resort` as
+    in trace_paths, and the first segment sorts inside traversal.
     Same per-lane RNG consumption as trace_paths, so the image matches it;
     returns what trace_paths returns."""
     return _trace_rays(scene, ray_o, ray_d, rng_state, cfg, staged=True)

@@ -216,8 +216,7 @@ def render_spp(scene, lens: LensArrays, height: int, width: int,
     acc, rays, segments = _sample_sum(scene, lens, height, width,
                                       start_index, spp, cfg, flip_image)
     if stats is not None:
-        stats.update(path="fused",
-                     resort=_resolve_resort(scene, cfg, height * width),
+        stats.update(path="fused", resort=_resolve_resort(scene, cfg),
                      segments=_segments(segments))
     return acc, rays
 

@@ -27,7 +27,7 @@ the byte bound (`accumulate_bytes`).
 The counts: room_1080p's first full surface launch and first scatter
 (compare_shade.record_sample) and offline_720p's at segment
 compare_shade.OFFLINE_SEGMENT (compare_sort.offline_cell, the looped
-form: every lane launched, few live), each kernel timed with its counter
+form: its live prefix launched, few live), each kernel timed with its counter
 and without (cold L2), the count held against the plain version's and
 the torch sum of the kernel's own mask, and against 0 with every lane
 dead. With `--count-forms`, each form of COUNT_FORMS whose body differs

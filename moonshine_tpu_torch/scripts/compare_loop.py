@@ -18,10 +18,15 @@ MSN_WIDE=8 MSN_LEAF_CAP=8, dispatched with MSN_TREELETS=1: the treelet
 kernels); and direct_1080p (trace_direct, one env and one mesh-light
 sample, on room_1080p's scene and its sample-0 camera rays, made once:
 a "sample" is one call, eager, as trace_direct runs no graphs).
-For each cell, from a clear graph cache: the peak device memory
-(allocated and reserved) over a warm-up sample (the captures) and
-`--samples` timed ones, each timed on the host clock between
-synchronisations (ms a sample); graphs.COUNTS over one sample (reads,
+For each cell, from a clear graph cache: the first call's seconds (the
+warm-up sample, which captures: a CLI's time to its first image, an
+Engine's to its first frame; the kernels are built before the first
+cell), the form of each bounce loop it made
+(`trace_forms`: lanes, resort, unrolled), the peak device memory
+(allocated and reserved) over the warm-up and `--samples` timed ones,
+each timed on the host clock between synchronisations (ms a sample);
+the live-prefix widths that one sample's resorted segments took
+(`widths_taken`, on the eager loop); graphs.COUNTS over one sample (reads,
 conds, replays) and the launches of csrc/graph_cond.cu's kernels in it
 (graphs.LAUNCHES: set kernels, loop tails); one more sample under torch.profiler
 (render/profile_frame.py `profile`: kernels, graph replays, host
@@ -177,6 +182,41 @@ def device_ops(fn) -> dict:
                                      for e in ops) / 1e3}
 
 
+def trace_forms() -> list:
+    """The form of each bounce loop in the graph cache: its lanes, resort
+    and unrolled form (integrator/path.py _Trace)."""
+    from moonshine_tpu_torch.integrator import graphs
+
+    out = []
+    for shape, _ in list(graphs._SHAPES.values()):
+        tr = getattr(shape, "trace", shape)  # a frame's or a trace's own
+        if hasattr(tr, "resort"):
+            out.append({"lanes": tr.n, "resort": tr.resort,
+                        "unroll": tr.unroll})
+    return out
+
+
+def widths_taken(fn) -> dict:
+    """fn() on the eager loop, which runs only the branch each choice
+    takes: {live-prefix width: resorted segments run over it}."""
+    from moonshine_tpu_torch.integrator import graphs, path
+
+    taken = {}
+    resorted = path._Trace._resorted
+
+    def seen(self, scene, src, prefix, width, *rest):
+        taken[width] = taken.get(width, 0) + 1
+        return resorted(self, scene, src, prefix, width, *rest)
+
+    path._Trace._resorted = seen
+    try:
+        with graphs.eager():
+            fn()
+    finally:
+        path._Trace._resorted = resorted
+    return dict(sorted(taken.items()))
+
+
 def measure(sample, samples: int) -> dict:
     """One cell's numbers from a clear graph cache (module docstring)."""
     import numpy as np
@@ -189,7 +229,11 @@ def measure(sample, samples: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     sample(1)  # the warm-up: the captures
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    forms = trace_forms()
     graphs.reset_counts()
     graphs.reset_launch_counts()
     img, rays = sample(0)
@@ -212,8 +256,10 @@ def measure(sample, samples: int) -> dict:
     ops = device_ops(lambda: sample(2))
     with graphs.eager():  # the eager loop's kernel ms by stage range
         eager = profile(lambda: sample(2), marks=path.STAGES)
+    widths = widths_taken(lambda: sample(2))
     graphs.clear()
-    return {"ms": ms, "reads": counts["reads"],
+    return {"ms": ms, "first_s": first_s, "forms": forms, "widths": widths,
+            "reads": counts["reads"],
             "conds": counts.get("conds", 0), "replays": counts["replays"],
             "captures": counts["captures"], "peak_mib": peak,
             "cond_launches": cond_launches,
@@ -234,6 +280,9 @@ def run_cells(names, samples: int) -> list:
     """This process's checkout: one JSON line a cell (`measure`)."""
     import torch
 
+    from moonshine_tpu_torch.accel import native
+
+    native.build_all()  # outside the first call's seconds
     dev = torch.device("cuda", 0)
     out = []
     for name in names:
@@ -330,6 +379,7 @@ def main(argv=None) -> int:
         summary[name] = {
             label: {"ms": [m for row in rows for m in row["ms"]],
                     **{k: [row[k] for row in rows] for k in (
+                        "first_s", "forms", "widths",
                         "reads", "conds", "replays", "dispatches",
                         "host_reads", "kernels", "kernel_ms", "ops",
                         "ops_ms", "ops_busy_ms", "idle_share",

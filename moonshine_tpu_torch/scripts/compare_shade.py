@@ -23,7 +23,7 @@ runs at live shares of 100%, 10% and 1% of its recorded launch's lanes
 (`thinned`), held bit for bit against its plain version on every lane
 (radiance and mask), beside its bound (`miss_bound`), and so does its
 launch at segment OFFLINE_SEGMENT of one offline_720p sample
-(compare_sort.offline_cell: every lane launched, few live); an earlier
+(compare_sort.offline_cell: the live prefix launched, few live); an earlier
 checkout's miss is the one that reads every lane and writes every
 lane's radiance into a fresh tensor (its radiance held to the plain
 version's). `--kernels` picks which of the three run (an earlier
@@ -61,7 +61,8 @@ PEAK_FP32 = 67e12  # H100 SXM float32 outside the tensor cores
 MISS_OPS, MISS_MIS_OPS = (63, 6), (20, 17)
 SHARES = (1.0, 0.1, 0.01)  # the env miss's live shares (`thinned`)
 # the offline_720p segment whose env miss is timed as recorded (mostly
-# dead: the resort is off past 600k lanes, so every lane is launched)
+# dead; since the resort runs at every lane count, launched over the
+# narrowest live prefix that holds its live lanes, path._widths)
 OFFLINE_SEGMENT = 30
 
 

@@ -40,17 +40,25 @@ def _flagship():
     return world.build("cpu"), LensArrays.from_lens(lens, "cpu")
 
 
-@pytest.mark.parametrize("n", [P._SHRINK_MIN, 4099, 65536])
+@pytest.mark.parametrize("n", [P._SHRINK_MIN, 4099, 65536, 65539, 921_600,
+                               2_073_600])
 def test_width_index_gives_prefix_width(n):
-    """The width chosen on the device from the live count is
-    `_prefix_width`'s at 0, n/4, n/4 + 1, n/2, n/2 + 1 and n live lanes
-    (n not a multiple of 4 too)."""
-    bounds = torch.tensor([n // 4, n // 2], dtype=torch.int64)
-    for live in (0, n // 4, n // 4 + 1, n // 2, n // 2 + 1, n - 1, n):
+    """The width chosen on the device from the live count, a bucketize
+    over the trace's bounds (`_widths(n)` but the last), is
+    `_prefix_width`'s at 0, 1, n - 1, n and at every width and one either
+    side of it (n not a multiple of 4 too), at the offline CLI's and a
+    1080p frame's lane counts too."""
+    widths = P._widths(n)
+    bounds = torch.tensor(widths[:-1], dtype=torch.int64)
+    lives = {0, 1, n - 1, n}
+    lives |= {w + e for w in widths for e in (-1, 0, 1) if 0 <= w + e <= n}
+    for live in sorted(lives):
         index = P._width_index(torch.tensor(live, dtype=torch.int64),
                                bounds)
         assert index.dtype == torch.int64 and index.dim() == 0
         assert P._widths(n)[int(index)] == P._prefix_width(n, live)
+        assert P._prefix_width(n, live) >= live
+        assert int(index) == 0 or widths[int(index) - 1] < live
 
 
 def test_below_shrink_min_every_segment_runs_every_lane(guarded):

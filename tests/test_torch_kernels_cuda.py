@@ -19,7 +19,8 @@ hidden instances and on a scene of exact equal-t ties
 (procedural.tie_scene), n = 0/1/4099; its counting build counts. The
 bounce loop as CUDA graph replays (integrator/graphs.py) equals the eager
 loop bit for bit (image, rays, launch counts): the fused flagship, a
-staged 1080p batch, the looped offline form, a two-level scene, and
+staged 1080p batch, the looped offline form (and at 1280x720 the
+resorted looped form equals it unresorted), a two-level scene, and
 Engine frames, which capture anew after each edit; its device-side
 control (graphs.cond / choose as IF nodes): nested bodies, a trace that
 takes all three live-prefix widths and reads nothing, looped blocks that
@@ -981,6 +982,38 @@ def test_graphs_looped_offline_form_equal_eager(cuda, monkeypatch):
         out = _eager_and_replayed(monkeypatch, lambda: render_sample(
             scene, la, 240, 320, 2, cfg))
         _assert_same_render(out)
+
+
+def test_looped_720p_resort_equals_no_resort(cuda):
+    """The offline CLI's and the Engine's form at their 1280x720 (921,600
+    lanes, max_bounces 1024): room_184k through render_sample's
+    `_sample_sum` as graph replays, the resort auto (on: HBM-class at any
+    lane count, deep segments over live prefixes) and off:
+    radiance, ray count and segments bit for bit."""
+    from moonshine_tpu_torch.integrator import graphs
+    from moonshine_tpu_torch.integrator.path import PathConfig
+    from moonshine_tpu_torch.render import renderer as RR
+    from moonshine_tpu_torch.scripts.compare_loop import trace_forms
+
+    scene, la = _room_cuda(cuda, grid=6, subdivisions=4)
+    out = {}
+    for resort in (None, False):
+        cfg = PathConfig(max_bounces=1024, resort_bounces=resort)
+        graphs.clear()
+        RR._sample_sum(scene, la, 720, 1280, 1, 1, cfg, True)  # captures
+        assert trace_forms() == [{"lanes": 921_600, "resort": resort is None,
+                                  "unroll": False}]
+        graphs.reset_counts()
+        img, rays, segments = RR._sample_sum(scene, la, 720, 1280, 0, 1, cfg,
+                                             True)
+        torch.cuda.synchronize()
+        assert graphs.COUNTS["replays"] > 0
+        assert graphs.COUNTS["captures"] == 0
+        out[resort] = (img, int(rays), int(segments))
+    graphs.clear()
+    (a, ra, sa), (b, rb, sb) = out[None], out[False]
+    assert torch.equal(a, b) and torch.isfinite(a).all()
+    assert ra == rb > 0 and sa == sb > 16
 
 
 def test_graphs_instanced_equal_eager(cuda, monkeypatch):

@@ -312,27 +312,44 @@ def test_treelet_mode_render(monkeypatch):
 
 
 def test_resolve_resort_rules(monkeypatch):
-    """The reference's resort choice: as configured, else on for VMEM-class
-    scenes with a mirror or glass, and for HBM-class ones up to 600k lanes
-    in trace_paths and at any lane count in the staged path; never for the
-    per-lane walk."""
+    """The resort choice: as configured, else on for VMEM-class scenes
+    with a mirror or glass, and for HBM-class ones at any lane count (in
+    trace_paths as in the staged path: the reference's 600k-lane cap was
+    its compiler's workaround, so the choice takes no lane count); never
+    for the per-lane walk or a scene without a wide tree (two-level)."""
     furnace, _ = _port(procedural.furnace_scene)
     room, _ = _port(_room)
     auto = PathConfig(**CFG)
+    off = PathConfig(**CFG, resort_bounces=False)
     assert room.has_delta and not furnace.has_delta
-    assert P._resolve_resort(room, auto, 4096)
-    assert not P._resolve_resort(furnace, auto, 4096)
-    assert not P._resolve_resort(room, PathConfig(**CFG, resort_bounces=False))
+    assert P._resolve_resort(room, auto)
+    assert not P._resolve_resort(furnace, auto)
+    assert not P._resolve_resort(room, off)
     monkeypatch.setattr(PP, "VMEM_SCENE_BUDGET_BYTES", 0)
-    assert P._resolve_resort(room, auto, 600_000)
-    assert not P._resolve_resort(room, auto, 600_001)
-    assert P._resolve_resort(room, auto)  # staged
-    assert P._resolve_resort(room, PathConfig(**CFG, resort_bounces=True),
-                             600_001)
+    assert P._hbm_mode(room.wide) == P._hbm_mode(furnace.wide) == "hbm"
+    assert P._resolve_resort(room, auto) and P._resolve_resort(furnace, auto)
+    assert not P._resolve_resort(room, off)
+    # a bounce loop of n lanes (on the meta device: no memory), fused
+    # and staged, resorts with its second set of buffers at any n
+    for n in (4096, 600_000, 600_001, 921_600, 2_073_600):
+        for cfg, staged in ((auto, False), (auto, True),
+                            (PathConfig(max_bounces=1024), False)):
+            tr = P._Trace(n, torch.device("meta"), cfg,
+                          *P._trace_form(room, cfg, staged), capture=False)
+            assert tr.resort and len(tr.bufs) == 2
+            assert tr.unroll is (cfg.max_bounces == 4)
+            off_tr = P._Trace(n, torch.device("meta"), off,
+                              *P._trace_form(room, off, staged),
+                              capture=False)
+            assert not off_tr.resort and len(off_tr.bufs) == 1
+    two_level = room._replace(wide=None)
+    assert not P._resolve_resort(two_level, auto)
+    assert not P._resolve_resort(two_level, PathConfig(**CFG,
+                                                       resort_bounces=True))
     monkeypatch.setattr(PP, "HBM_STACK_DEPTH", 1)  # the per-lane walk
     assert P._hbm_mode(room.wide) == "lanes"
-    assert not P._resolve_resort(room, auto, 4096)
     assert not P._resolve_resort(room, auto)
+    assert not P._trace_form(room, auto, True)[0]
 
 
 def test_shadow_compact_is_bit_equal(monkeypatch):
